@@ -1,0 +1,27 @@
+"""``repro_torch.fabric``: one data-plane API over the crossbar.
+
+A :class:`Fabric` binds a register file (or a live ``Shell``) to a
+plan-equivalent dispatch backend on a device
+
+    reference    plain PyTorch plan + shared scatter/gather
+    cuda         fused plan_multi kernel + shared scatter/gather
+                 (alias ``pallas``)
+    cuda_kernel  plan_multi, scatter and combine kernels
+
+and exposes ``plan`` / ``dispatch`` / ``combine`` / ``transfer``.
+"""
+from repro_torch.core.arbiter import DispatchPlan                  # noqa: F401
+from repro_torch.fabric.backends import (CudaBackend,              # noqa: F401
+                                         ReferenceBackend,
+                                         get_backend,
+                                         register_fabric_backend)
+from repro_torch.fabric.cache import PlanCache, plan_key           # noqa: F401
+from repro_torch.fabric.fabric import Fabric, fabric_for_shell     # noqa: F401
+from repro_torch.fabric.interface import (KernelMode,              # noqa: F401
+                                          resolve_kernel_mode)
+
+__all__ = [
+    "Fabric", "fabric_for_shell", "DispatchPlan", "PlanCache", "plan_key",
+    "KernelMode", "resolve_kernel_mode", "ReferenceBackend", "CudaBackend",
+    "get_backend", "register_fabric_backend",
+]

@@ -1,0 +1,83 @@
+"""Plain PyTorch versions of the crossbar-dispatch kernels.
+
+The CPU path of every wrapper in ``kernel.py``, and the reference the
+kernels are held against on the card (bit-equal: integer plans, pure row
+moves, and one product with one rounding in the combine).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.arbiter import _stream_ranks, bincount_i32
+from repro_torch.core.registers import ErrorCode
+
+I32 = torch.int32
+
+
+def plan_multi_ref(dst: torch.Tensor, src: torch.Tensor,
+                   allowed_sd: torch.Tensor, quota_sd: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """Fused multi-source grant sweep, capacity not applied.
+
+    ``dst``/``src`` [T] int32 (pad rows carry ``dst = -1``);
+    ``allowed_sd``/``quota_sd`` [S, S] indexed [src, dst] (reset folded
+    into ``allowed_sd``).  Returns (keep [T] i32: iso and quota,
+    rank [T] i32: exclusive rank among the iso-passing packets of the
+    packet's (src, dst) stream, 0 where isolation fails, err [T] i32:
+    INVALID_DEST over GRANT_TIMEOUT over OK, granted [S, S] i32: kept
+    packets per pair).  A quota of 0 means unlimited.
+    """
+    n = allowed_sd.shape[0]
+    dst = dst.to(I32)
+    src = src.to(I32)
+    valid = (dst >= 0) & (dst < n) & (src >= 0) & (src < n)
+    pair = src.clamp(0, n - 1) * n + dst.clamp(0, n - 1)
+    allowed = allowed_sd.reshape(-1).to(I32)
+    quota = quota_sd.reshape(-1).to(I32)
+    iso_ok = valid & (allowed[pair.long()] > 0)
+    rank = _stream_ranks(pair, iso_ok, n * n)
+    quota_t = quota[pair.long()]
+    quota_ok = (quota_t == 0) | (rank < quota_t)
+    keep = iso_ok & quota_ok
+    err = torch.where(~iso_ok, ErrorCode.INVALID_DEST,
+                      torch.where(~quota_ok, ErrorCode.GRANT_TIMEOUT,
+                                  ErrorCode.OK)).to(I32)
+    granted = bincount_i32(pair, keep, n * n).reshape(n, n)
+    return keep.to(I32), rank, err, granted
+
+
+def _row_ok(dst: torch.Tensor, keep: torch.Tensor, slot: torch.Tensor,
+            n_ports: int, capacity: int) -> torch.Tensor:
+    """Kept packets whose (dst, slot) address lies inside the slabs."""
+    return ((keep > 0) & (dst >= 0) & (dst < n_ports)
+            & (slot >= 0) & (slot < capacity))
+
+
+def scatter_ref(x: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
+                slot: torch.Tensor, n_ports: int,
+                capacity: int) -> torch.Tensor:
+    """Granted packets [T, D] into zeroed slabs [S, C, D] at row ``slot``
+    of slab ``dst``; out-of-range packets write nothing."""
+    T, D = x.shape
+    ok = _row_ok(dst, keep, slot, n_ports, capacity)
+    slabs = torch.zeros((n_ports * capacity, D), dtype=x.dtype,
+                        device=x.device)
+    addr = (dst.long() * capacity + slot.long())[ok]
+    slabs[addr] = x[ok]
+    return slabs.reshape(n_ports, capacity, D)
+
+
+def combine_ref(y: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
+                slot: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Slabs [S, C, D] back to packets [T, D]:
+    ``out[t] = (f32(w[t]) * f32(y[dst, slot])).to(y.dtype)`` for kept,
+    in-range packets, zeros for the rest."""
+    S, C, D = y.shape
+    ok = _row_ok(dst, keep, slot, S, C)
+    addr = torch.where(ok, dst.long() * C + slot.long(), 0)
+    rows = y.reshape(S * C, D).index_select(0, addr).float()
+    out = weights.float()[:, None] * rows
+    return torch.where(ok[:, None], out, 0.0).to(y.dtype)

@@ -1,0 +1,96 @@
+"""Shared model primitives: norms, rope, and a ``ParamDef``-driven init.
+
+Parameters are plain nested dicts of tensors with the JAX package's names
+and layouts, so converted JAX parameters drop straight in
+(``repro_torch.ckpt.convert``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Sequence, Tuple
+
+import torch
+
+Params = Any  # nested dict of tensors
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+# ----------------------------------------------------------------------
+# Initialisers: every parameter is drawn from one explicit torch.Generator
+# ----------------------------------------------------------------------
+def normal_init(gen: torch.Generator, shape: Sequence[int], dtype, scale: float,
+                device) -> torch.Tensor:
+    fan_in = shape[-2] if len(shape) > 1 else 1
+    std = scale / max(1.0, fan_in) ** 0.5
+    out = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                      device=device)
+    return out.mul_(std).to(dtype)
+
+
+def zeros_init(gen, shape, dtype, scale=0.0, device="cpu") -> torch.Tensor:
+    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
+def ones_init(gen, shape, dtype, scale=0.0, device="cpu") -> torch.Tensor:
+    return torch.ones(tuple(shape), dtype=dtype, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Declarative parameter definition: shape + init."""
+    shape: Tuple[int, ...]
+    init: Callable = normal_init
+    scale: float = 1.0
+
+
+def init_params(defs: Dict[str, Any], gen: torch.Generator, dtype,
+                device) -> Params:
+    """Materialise a nested dict (and lists) of ParamDefs, in key order."""
+    if isinstance(defs, ParamDef):
+        return defs.init(gen, defs.shape, dtype, defs.scale, device)
+    if isinstance(defs, list):
+        return [init_params(d, gen, dtype, device) for d in defs]
+    return {k: init_params(v, gen, dtype, device) for k, v in defs.items()}
+
+
+# ----------------------------------------------------------------------
+# Norms and rotary position embeddings
+# ----------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    scale = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * scale).to(x.dtype) * gamma
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: [..., seq]."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)                # [hd/2]
+    angles = positions[..., :, None].float() * freqs             # [..., S, hd/2]
+    angles = angles[..., :, None, :]                             # [..., S, 1, hd/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def silu_f32(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.silu(x.float())
+
+
+def gelu_f32(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return torch.nn.functional.gelu(x.float(), approximate="tanh")

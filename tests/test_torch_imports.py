@@ -1,0 +1,118 @@
+"""Rules of the port: ``repro_torch`` and ``chip_smoke.py`` import nothing of
+JAX or of the JAX package; entry points refuse to run quietly on the CPU;
+a CUDA-kernel wrapper refuses CPU tensors under ``KernelMode.CUDA``."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import pkgutil, importlib, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_without_device_raise_when_cuda_is_absent():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.configs import get_config
+    from repro_torch.core.elastic import Region
+    from repro_torch.core.registers import CrossbarRegisters
+    from repro_torch.fabric import Fabric
+    from repro_torch.shell import Shell
+    from repro_torch.shell.server import ElasticServer, ModelEngine
+    from repro_torch.ckpt.convert import params_from_numpy
+    from repro_torch.models.lm import DenseLM, build_model
+    regs = CrossbarRegisters.create(4)
+    cfg = get_config("tinyllama_1_1b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Fabric(regs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelEngine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DenseLM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_numpy({"layers": {}}, cfg)
+    shell = Shell([Region(rid=0, n_chips=1, hbm_bytes=1 << 30)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shell.fabric()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ElasticServer(shell)
+    Fabric(regs, device="cpu")                    # asked for: fine
+    assert build_model(cfg, device="cpu").device.type == "cpu"
+
+
+def test_cuda_mode_with_cpu_tensors_raises():
+    from repro_torch.fabric import Fabric, KernelMode
+    from repro_torch.core.registers import CrossbarRegisters
+    from repro_torch.kernels.crossbar_dispatch import kernel as K
+    dst = torch.zeros(4, dtype=torch.int32)
+    a = torch.ones((2, 2), dtype=torch.int32)
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        K.plan_multi(dst, dst, a, a, mode=KernelMode.CUDA)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.scatter(torch.ones(4, 8), dst, dst, dst, n_ports=2, capacity=4,
+                  mode="pallas")
+    with pytest.raises(ValueError, match="CUDA"):
+        K.combine(torch.ones(2, 4, 8), dst, dst, dst, torch.ones(4),
+                  mode=KernelMode.CUDA)
+    with pytest.raises(ValueError, match="CUDA"):
+        Fabric(CrossbarRegisters.create(2), backend="cuda_kernel",
+               device="cpu", kernel_mode="cuda")
+    assert K.launch_counts() == before            # refusals launch nothing
+
+
+@pytest.mark.parametrize("alias,mode", [
+    ("xla", "TORCH"), ("reference", "TORCH"), ("ref", "TORCH"),
+    ("pallas_interpret", "TORCH"), ("interpret", "TORCH"),
+    ("pallas", "CUDA"), ("mosaic", "CUDA"), ("auto", "AUTO")])
+def test_kernel_mode_aliases(alias, mode):
+    from repro_torch.fabric.interface import (KernelMode, parse_kernel_mode,
+                                              resolve_kernel_mode)
+    assert parse_kernel_mode(alias) is KernelMode[mode]
+    if mode != "CUDA":
+        assert resolve_kernel_mode(alias, "cpu") is KernelMode.TORCH
+    assert resolve_kernel_mode(alias, "cuda") is (
+        KernelMode.TORCH if mode == "TORCH" else KernelMode.CUDA)
