@@ -1,6 +1,6 @@
 """Architecture registry: one module per assigned architecture.
 
-Each ``src/repro/configs/<arch>.py`` defines ``FULL`` (the exact published
+Each ``src/repro_torch/configs/<arch>.py`` defines ``FULL`` (the exact published
 config) and ``SMOKE`` (a reduced same-family config for CPU tests). The
 registry resolves ``--arch <id>`` for the launcher, dry-run and benchmarks.
 """
@@ -41,7 +41,7 @@ def resolve(arch: str) -> str:
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    mod = importlib.import_module(f"repro.configs.{resolve(arch)}")
+    mod = importlib.import_module(f"repro_torch.configs.{resolve(arch)}")
     return mod.SMOKE if smoke else mod.FULL
 
 

@@ -15,9 +15,11 @@ in one shot over a batch of packets:
 Data moves by scatter: ``dispatch`` writes granted packets into the flat
 ``dst * capacity + slot`` row of the receive slab (dropped packets go to a
 trash row that is sliced off) and ``combine`` gathers them back.  The dense
-one-hot forms :func:`dispatch_dense` / :func:`combine_dense` are test
-oracles only.  Everything here is plain PyTorch on any device; it is also
-the oracle for the ``crossbar_dispatch`` kernels.
+one-hot forms :func:`dispatch_dense` / :func:`combine_dense` and the
+backward oracles ``*_at_bwd_ref`` are test oracles only; ``dispatch_at``
+and ``combine_at`` differentiate through PyTorch's autograd of
+``index_add_`` and ``index_select``.  Everything here is plain PyTorch on
+any device; it is also the oracle for the ``crossbar_dispatch`` kernels.
 """
 from __future__ import annotations
 
@@ -189,6 +191,33 @@ def combine_at(y: torch.Tensor, caddr: torch.Tensor, cmask: torch.Tensor,
     S, C, D = y.shape
     out = y.reshape(S * C, D).index_select(0, caddr.long())
     return out * (cmask.to(y.dtype) * weights)[:, None]
+
+
+def dispatch_at_bwd_ref(g: torch.Tensor, daddr: torch.Tensor, n_ports: int,
+                        capacity: int) -> torch.Tensor:
+    """Dense one-hot oracle for the gradient of :func:`dispatch_at` (an
+    explicit [T, S*C] routing matrix; test-only)."""
+    rows = n_ports * capacity
+    oh = (daddr.long()[:, None]
+          == torch.arange(rows, device=g.device)[None, :]).to(g.dtype)
+    return torch.einsum("tr,rd->td", oh, g.reshape(rows, -1))
+
+
+def combine_at_bwd_ref(g: torch.Tensor, y: torch.Tensor, caddr: torch.Tensor,
+                       cmask: torch.Tensor, weights: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense one-hot oracle for the gradient of :func:`combine_at`:
+    (d_y, d_weights) through an explicit [T, S*C] routing matrix
+    (test-only)."""
+    S, C, D = y.shape
+    rows = S * C
+    oh = (caddr.long()[:, None]
+          == torch.arange(rows, device=g.device)[None, :]).to(g.dtype)
+    oh = oh * cmask.to(g.dtype)[:, None]
+    d_y = torch.einsum("tr,td->rd", oh, g * weights[:, None].to(g.dtype))
+    d_w = torch.einsum("td,td->t", g,
+                       torch.einsum("tr,rd->td", oh, y.reshape(rows, D)))
+    return d_y.reshape(S, C, D).to(y.dtype), d_w.to(weights.dtype)
 
 
 def combine(y: torch.Tensor, plan: DispatchPlan,

@@ -83,3 +83,21 @@ def resolve_kernel_mode(mode: Optional[Union[str, KernelMode]],
     if mode is KernelMode.CUDA and dev.type != "cuda":
         raise ValueError(f"kernel mode CUDA needs a CUDA device, got {dev}")
     return mode
+
+
+def use_kernel(mode: Optional[Union[str, KernelMode]],
+               *tensors: torch.Tensor) -> bool:
+    """Kernel or plain version for one kernel call, decided by the mode and
+    the tensors' device: CUDA tensors launch the kernel unless ``TORCH``
+    is asked for; CPU tensors take the plain version, and raise under
+    ``CUDA``."""
+    mode = parse_kernel_mode(mode)
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    on_cuda = devices.pop().type == "cuda"
+    if mode is KernelMode.TORCH:
+        return False
+    if mode is KernelMode.CUDA and not on_cuda:
+        raise ValueError("KernelMode.CUDA needs CUDA tensors; got CPU tensors")
+    return on_cuda

@@ -7,6 +7,8 @@ a changed source builds anew and an unchanged one is loaded as it is.  A
 missing ``nvcc`` or a failed build raises.  ``load_count`` counts library
 loads per name: serving across register rewrites must keep it at 1, since
 registers are kernel arguments, never compile-time constants.
+
+Every launcher takes PyTorch's current stream (:func:`stream`).
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import subprocess
 import tempfile
 import time
 from typing import Dict, Sequence
+
+import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "repro_torch"
@@ -47,6 +51,45 @@ def library_path(name: str, sources: Sequence[pathlib.Path]) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _start_build(name: str, sources: Sequence[pathlib.Path]):
+    """Start ``nvcc`` for library ``name`` into a temporary file; returns
+    (process, temporary path, final path, start time)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, library_path(name, sources), time.perf_counter()
+
+
+def _finish_build(name: str, job) -> None:
+    proc, tmp, path, t0 = job
+    _, err = proc.communicate()
+    build_seconds[name] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}:\n{err}")
+    os.replace(tmp, path)
+
+
+def build_libraries(libs: Dict[str, Sequence[pathlib.Path]]) -> None:
+    """Build every library of ``libs`` (name -> sources) that is not built
+    yet, one ``nvcc`` per library, all started together."""
+    jobs = {name: _start_build(name, srcs) for name, srcs in libs.items()
+            if name not in _LIBS and not library_path(name, srcs).exists()}
+    try:
+        for name, job in jobs.items():
+            _finish_build(name, job)
+    finally:
+        for proc, tmp, _, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+
 def load_library(name: str, sources: Sequence[pathlib.Path]) -> ctypes.CDLL:
     """The loaded library ``name``, built from ``sources`` if needed."""
     lib = _LIBS.get(name)
@@ -54,17 +97,7 @@ def load_library(name: str, sources: Sequence[pathlib.Path]) -> ctypes.CDLL:
         return lib
     path = library_path(name, sources)
     if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-        os.replace(tmp, path)
+        _finish_build(name, _start_build(name, sources))
     lib = ctypes.CDLL(str(path))
     _LIBS[name] = lib
     load_count[name] = load_count.get(name, 0) + 1
@@ -75,3 +108,8 @@ def check(code: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as the launchers take it."""
+    return torch.cuda.current_stream(device).cuda_stream

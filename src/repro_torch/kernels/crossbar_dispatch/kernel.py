@@ -23,7 +23,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.fabric.interface import KernelMode, parse_kernel_mode
+from repro_torch.fabric.interface import KernelMode, use_kernel
 from repro_torch.kernels import build
 from repro_torch.kernels.crossbar_dispatch import ref
 
@@ -53,20 +53,6 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def use_kernel(mode, *tensors: torch.Tensor) -> bool:
-    """Kernel or plain version, decided by mode and the tensors' device."""
-    mode = parse_kernel_mode(mode)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    on_cuda = devices.pop().type == "cuda"
-    if mode is KernelMode.TORCH:
-        return False
-    if mode is KernelMode.CUDA and not on_cuda:
-        raise ValueError("KernelMode.CUDA needs CUDA tensors; got CPU tensors")
-    return on_cuda
-
-
 def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
@@ -84,10 +70,6 @@ def _rows(t: torch.Tensor, what: str) -> torch.Tensor:
     if t.data_ptr() % VEC_BYTES:
         t = t.clone()            # a view at an odd offset: fresh storage
     return t
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def plan_multi(dst: torch.Tensor, src: torch.Tensor, allowed_sd: torch.Tensor,
@@ -121,7 +103,7 @@ def plan_multi(dst: torch.Tensor, src: torch.Tensor, allowed_sd: torch.Tensor,
     code = library().crossbar_plan_multi(
         dst.data_ptr(), src.data_ptr(), allowed.data_ptr(), quota.data_ptr(),
         keep.data_ptr(), rank.data_ptr(), err.data_ptr(), granted.data_ptr(),
-        hist.data_ptr(), T, S, _stream(dev))
+        hist.data_ptr(), T, S, build.stream(dev))
     build.check(code, "crossbar_plan_multi")
     plan_multi.launches += 1
     return keep, rank, err, granted
@@ -143,7 +125,7 @@ def scatter(x: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
     code = library().crossbar_scatter(
         x.data_ptr(), dst.data_ptr(), keep.data_ptr(), slot.data_ptr(),
         slabs.data_ptr(), T, n_ports, capacity,
-        D * x.element_size() // VEC_BYTES, _stream(x.device))
+        D * x.element_size() // VEC_BYTES, build.stream(x.device))
     build.check(code, "crossbar_scatter")
     scatter.launches += 1
     return slabs
@@ -167,7 +149,7 @@ def combine(y: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
     code = library().crossbar_combine(
         y.data_ptr(), dst.data_ptr(), keep.data_ptr(), slot.data_ptr(),
         w.data_ptr(), out.data_ptr(), T, S, C, D, _DTYPE_CODE[y.dtype],
-        _stream(y.device))
+        build.stream(y.device))
     build.check(code, "crossbar_combine")
     combine.launches += 1
     return out

@@ -81,3 +81,43 @@ def combine_ref(y: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
     rows = y.reshape(S * C, D).index_select(0, addr).float()
     out = weights.float()[:, None] * rows
     return torch.where(ok[:, None], out, 0.0).to(y.dtype)
+
+
+# ----------------------------------------------------------------------
+# dense one-hot oracles of the backward rules in ``ops.py`` (test-only)
+# ----------------------------------------------------------------------
+def _plan_sel(dst: torch.Tensor, keep: torch.Tensor, slot: torch.Tensor,
+              n_ports: int, capacity: int, dtype) -> torch.Tensor:
+    """[T, S, C] plan-gated selection tensor shared by the bwd oracles."""
+    ok = _row_ok(dst, keep, slot, n_ports, capacity)
+    ports = torch.arange(n_ports, device=dst.device)
+    slots = torch.arange(capacity, device=dst.device)
+    dst_oh = (dst.long().clamp(0, n_ports - 1)[:, None] == ports).to(dtype)
+    slot_oh = (slot.long()[:, None] == slots).to(dtype)
+    return dst_oh[:, :, None] * slot_oh[:, None, :] * ok[:, None, None].to(
+        dtype)
+
+
+def dispatch_bwd_ref(g: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
+                     slot: torch.Tensor, n_ports: int,
+                     capacity: int) -> torch.Tensor:
+    """Oracle for the scatter's backward: ``d_x[t]`` reads the slab
+    cotangent row the packet scattered to (zero when dropped)."""
+    sel = _plan_sel(dst, keep, slot, n_ports, capacity, g.dtype)
+    return torch.einsum("tsc,scd->td", sel, g)
+
+
+def combine_bwd_ref(g: torch.Tensor, y: torch.Tensor, dst: torch.Tensor,
+                    keep: torch.Tensor, slot: torch.Tensor,
+                    weights: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle for the combine's backward: (d_y, d_weights) of the weighted
+    gather, the weighted cotangent scattered back along the same route and
+    a row dot for the weight cotangent."""
+    S, C, D = y.shape
+    sel = _plan_sel(dst, keep, slot, S, C, torch.float32)
+    gf = g.float()
+    d_y = torch.einsum("tsc,td->scd", sel, gf * weights.float()[:, None])
+    rows = torch.einsum("tsc,scd->td", sel, y.float())
+    d_w = torch.einsum("td,td->t", gf, rows)
+    return d_y.to(y.dtype), d_w.to(weights.dtype)

@@ -1,0 +1,156 @@
+"""Wrappers of the flash-attention CUDA kernels (``csrc/flash_attention.cu``).
+
+``flash_fwd`` and ``flash_bwd`` take the plain versions in ``ref.py`` for
+CPU tensors (or under ``KernelMode.TORCH``) and launch their kernels for
+CUDA tensors; under ``KernelMode.CUDA`` a CPU tensor raises.  There is no
+fallback from the kernel to the plain version: a kernel that does not
+build, does not take the inputs (head dims other than 64 and 128, types
+other than float32 and bfloat16) or does not launch raises.  The library
+is built on first launch (``kernels/build.py``), never at import.
+
+Each wrapper carries ``launches``, a plain int that counts calls that
+launched its kernels (``flash_bwd`` launches three: the row sums of
+``dO * O``, dK/dV, dQ); plain-version calls do not count.
+
+TPU kernel replaced: ``flash_attention_hm`` (``_attn_kernel``) of
+``repro/kernels/flash_attention/kernel.py``.  The source note of the
+``.cu`` file says what bounds it on the card and how the design answers
+it.
+"""
+from __future__ import annotations
+
+import ctypes
+import pathlib
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.fabric.interface import KernelMode, use_kernel
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ref
+
+SOURCES = (pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu",)
+LIB_NAME = "flash_attention"
+HEAD_DIMS = (64, 128)
+BLOCK_Q = BLOCK_K = 64           # tile sizes of the kernels
+VEC_BYTES = 16                   # tiles are loaded as 16-byte vectors
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def library() -> ctypes.CDLL:
+    """Build (first use only) and load the kernel library."""
+    fresh = LIB_NAME not in build.load_count
+    lib = build.load_library(LIB_NAME, SOURCES)
+    if fresh:
+        lib.flash_attention_fwd.argtypes = [_P] * 5 + [_I] * 11 + [_P]
+        lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 11 + [_P]
+        lib.flash_attention_fwd.restype = _I
+        lib.flash_attention_bwd.restype = _I
+    return lib
+
+
+def _inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more):
+    """Shapes, type and head dim checked; every tensor contiguous and
+    16-byte aligned (a view at an odd address is copied)."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be [B,Sq,H,D] and k, v [B,Sk,Kv,D]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, _, H, D = q.shape
+    Kv = k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or H % Kv:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         f"form grouped-query attention")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head dims {HEAD_DIMS}, got {D}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash kernel takes float32/bfloat16, got {q.dtype}")
+    out = []
+    for t in (q, k, v, *more):
+        if t.dtype != q.dtype:
+            raise TypeError(f"mixed dtypes {q.dtype} and {t.dtype}")
+        t = t.contiguous()
+        if t.data_ptr() % VEC_BYTES:
+            t = t.clone()
+        out.append(t)
+    return out
+
+
+def _ints(q, k, *, causal: bool, window: Optional[int], q_offset: int):
+    """The launchers' integer arguments; the kernels mask keys at or beyond
+    their ``true_k`` argument, which is ``Sk`` since nothing is padded."""
+    B, Sq, H, D = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    return (B, H, Kv, Sq, Sk, D, _DTYPE_CODE[q.dtype], int(causal),
+            0 if window is None else int(window), int(q_offset), Sk)
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0,
+              mode=KernelMode.AUTO) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q [B,Sq,H,D], k/v [B,Sk,Kv,D] -> (o [B,Sq,H,D] in q.dtype, row
+    log-sum-exp [B,H,Sq] float32); see ``ref.attention_fwd_ref``."""
+    if not use_kernel(mode, q, k, v):
+        return ref.attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    q, k, v = _inputs(q, k, v)
+    ints = _ints(q, k, causal=causal, window=window, q_offset=q_offset)
+    B, Sq, H, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    code = library().flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), *ints, build.stream(q.device))
+    build.check(code, "flash_attention_fwd")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0, mode=KernelMode.AUTO
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) for the output cotangent ``do``, recomputing the
+    probabilities from ``lse``; see ``ref.attention_bwd_ref``."""
+    if not use_kernel(mode, q, k, v, o, lse, do):
+        return ref.attention_bwd_ref(q, k, v, do, causal=causal,
+                                     window=window, q_offset=q_offset)
+    q, k, v, o, do = _inputs(q, k, v, o, do)
+    ints = _ints(q, k, causal=causal, window=window, q_offset=q_offset)
+    if lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError(f"lse must be [B,H,Sq], got {tuple(lse.shape)}")
+    lse = lse.float().contiguous()
+    delta = torch.empty_like(lse)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    code = library().flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *ints, build.stream(q.device))
+    build.check(code, "flash_attention_bwd")
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+KERNELS = (flash_fwd, flash_bwd)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+reset_launch_counts()

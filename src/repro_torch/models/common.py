@@ -57,6 +57,26 @@ def init_params(defs: Dict[str, Any], gen: torch.Generator, dtype,
     return {k: init_params(v, gen, dtype, device) for k, v in defs.items()}
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict/list tree, in key order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
 # ----------------------------------------------------------------------
 # Norms and rotary position embeddings
 # ----------------------------------------------------------------------

@@ -21,11 +21,6 @@ class MoEConfig:
     # routes groups through Fabric.transfer, sharing the shell's
     # interconnect implementation.
     dispatch: str = "dense"
-    # Kernel-lowering seam for the fabric-backed dispatch impls
-    # (repro.fabric.KernelMode aliases: "auto" | "xla" | "pallas" |
-    # "pallas_interpret").  Resolved once when the geometry's fabric is
-    # built; ignored by "dense"/"gather".  See docs/training.md.
-    kernel_mode: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +69,11 @@ class ModelConfig:
     encoder_len: int = 1500                  # whisper frame count (stubbed)
     n_vision_patches: int = 0                # vlm stub patch count
     dtype: str = "bfloat16"
+    # Kernel or plain path for every kernel the model runs: the flash
+    # attention of prefill and training, and the crossbar kernels of a
+    # fabric-backed MoE ("auto": the kernels on a CUDA device; "torch":
+    # the plain versions; JAX's aliases resolve, see fabric.interface).
+    kernel_mode: str = "auto"
     # ------------------------------------------------------------------
     remat: str = "dots"                      # nothing | dots | full
     scan_layers: bool = True

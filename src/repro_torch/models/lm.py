@@ -1,15 +1,20 @@
 """Decoder-only LM for the ``dense`` and ``moe`` families.
 
-The contract of the JAX package's ``DenseLM`` on its decode path:
+The contract of the JAX package's ``DenseLM``:
 
 - ``init(gen)``                          parameters from a torch.Generator
+- ``loss(params, batch)``                training objective (chunked vocab
+                                         xent + 0.01 * MoE aux loss)
+- ``prefill(params, batch)``             full-sequence forward -> last-token
+                                         logits
 - ``init_decode_state(batch, max_len)``  an empty KV cache
 - ``decode_step(params, state, batch)``  one token with cached state
 
 Layers are kept apart (``params["layers"]`` is a list of per-layer dicts)
 and run in a Python loop; the JAX package stacks them [L, ...] and scans.
 ``ckpt.convert.params_from_numpy`` unstacks JAX parameters into this
-layout.  The other families (ssm, hybrid, encdec, vlm) are not ported.
+layout.  Layer remat is not ported (every activation is kept for the
+backward).  The other families (ssm, hybrid, encdec, vlm) are not ported.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import dataclasses
 from typing import Any, Dict, List
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
@@ -57,6 +63,37 @@ def qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     q = attn.apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
     k = attn.apply_rope(k.reshape(B, S, Kv, hd), positions, cfg.rope_theta)
     return q, k, v.reshape(B, S, Kv, hd)
+
+
+def chunked_lm_loss(h: torch.Tensor, w_head: torch.Tensor,
+                    labels: torch.Tensor, true_vocab: int,
+                    chunk: int = 512) -> torch.Tensor:
+    """Sequence-chunked vocab xent, mean over tokens.  Each chunk's logits
+    are recomputed in the backward (``torch.utils.checkpoint``), so the
+    [B, S, V] logits never exist at once."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+
+    def body(hh, ll):
+        return _xent_per_token(hh @ w_head, ll, true_vocab).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):
+        tot = tot + torch.utils.checkpoint.checkpoint(
+            body, h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+            use_reentrant=False)
+    return tot / (B * S)
+
+
+def _xent_per_token(logits: torch.Tensor, labels: torch.Tensor,
+                    true_vocab: int) -> torch.Tensor:
+    logits = logits.float()
+    if logits.shape[-1] > true_vocab:
+        valid = torch.arange(logits.shape[-1], device=logits.device) < true_vocab
+        logits = torch.where(valid, logits, torch.finfo(torch.float32).min)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return logz - gold
 
 
 @dataclasses.dataclass
@@ -123,6 +160,60 @@ class DenseLM:
             return params["embed"].T
         return params["lm_head"]
 
+    # ---- forward ------------------------------------------------------
+    def _block(self, lp, x: torch.Tensor, positions: torch.Tensor,
+               moe_group: int):
+        cfg = self.cfg
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        q, k, v = qkv(lp["attn"], h, cfg, positions)
+        o = attn.attention_prefill(q, k, v, causal=True,
+                                   window=cfg.attn_window,
+                                   kernel_mode=cfg.kernel_mode)
+        x = x + o.reshape(o.shape[0], o.shape[1], -1) @ lp["attn"]["wo"]
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        if cfg.moe is not None:
+            y, stats = moe_mod.moe_apply(lp["moe"], h2, cfg.moe, cfg.mlp_act,
+                                         group_size=moe_group,
+                                         dispatch_impl=cfg.moe.dispatch,
+                                         kernel_mode=cfg.kernel_mode)
+            aux = stats["aux_loss"]
+        else:
+            y = mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + y, aux
+
+    def _backbone(self, params, x: torch.Tensor, positions: torch.Tensor,
+                  moe_group: int = 1024):
+        """Every layer, then the final norm; returns (h, summed aux loss)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lp in params["layers"]:
+            x, a = self._block(lp, x, positions, moe_group)
+            aux = aux + a
+        return rms_norm(x, params["final_norm"], self.cfg.norm_eps), aux
+
+    def _inputs_embed(self, params, batch) -> torch.Tensor:
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        return params["embed"][tokens.long()]
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """``batch["tokens"]``/``["labels"]`` [B, S] -> scalar float32."""
+        x = self._inputs_embed(params, batch)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device)[None, :]
+        h, aux = self._backbone(params, x, positions,
+                                moe_group=min(1024, B * S))
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        lm = chunked_lm_loss(h, self._head_weight(params), labels,
+                             self.cfg.vocab)
+        return lm + 0.01 * aux
+
+    def prefill(self, params, batch) -> torch.Tensor:
+        """``batch["tokens"]`` [B, S] -> last-token logits [B, V_padded]."""
+        x = self._inputs_embed(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        h, _ = self._backbone(params, x, positions)
+        return h[:, -1] @ self._head_weight(params)
+
     # ---- decode -------------------------------------------------------
     def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
         cfg = self.cfg
@@ -159,7 +250,7 @@ class DenseLM:
                 y, _ = moe_mod.moe_apply(lp["moe"], h2, cfg.moe, cfg.mlp_act,
                                          group_size=h2.shape[0],
                                          dispatch_impl=cfg.moe.dispatch,
-                                         kernel_mode=cfg.moe.kernel_mode)
+                                         kernel_mode=cfg.kernel_mode)
             else:
                 y = mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act)
             x = x + y

@@ -1,0 +1,152 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+The port's ``attention_prefill`` (plain chunked path), ``attention_ref``
+and ``flash_attention`` (whose CPU path is the kernels' plain versions)
+against JAX's ``attention_prefill`` and JAX's Pallas ``flash_attention``
+run with ``interpret=True``, as ``tests/test_kernels.py`` runs it, at that
+file's six shape cases.  Inputs are seeded numpy arrays handed to both.
+
+Tolerances are the JAX package's own for its kernel: 2e-5 in float32 and
+3e-2 in bfloat16 (absolute and relative).  Gradients (float32) are held
+against ``jax.grad`` of JAX's ``attention_prefill`` within 1e-5: the same
+arithmetic summed in another order (measured worst 1.2e-6).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.models.attention import attention_prefill as jax_prefill
+from repro_torch.fabric.interface import KernelMode
+from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.flash_attention import ref
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.attention import attention_prefill
+
+CASES = [
+    (2, 256, 256, 4, 2, 64, True, None),      # GQA causal
+    (1, 300, 300, 4, 4, 64, True, None),      # MHA, ragged
+    (2, 128, 512, 8, 2, 128, True, None),     # q suffix of k (q_offset)
+    (1, 256, 256, 2, 1, 64, True, 128),       # MQA + sliding window
+    (1, 200, 200, 4, 2, 64, False, None),     # non-causal (encoder)
+    (1, 512, 512, 2, 2, 128, True, 64),       # small window, banded skip
+]
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+GRAD_TOL = 1e-5
+
+
+def _inputs(case, seed=0):
+    B, Sq, Sk, H, Kv, D, _, _ = case
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, Sq, H, D), (B, Sk, Kv, D), (B, Sk, Kv, D),
+                      (B, Sq, H, D))]
+
+
+def _port_paths(q, k, v, causal, window, qo):
+    kw = dict(causal=causal, window=window, q_offset=qo)
+    return {
+        "attention_prefill": attention_prefill(q, k, v, **kw),
+        "attention_ref": ref.attention_ref(q, k, v, **kw),
+        "flash_attention": flash_attention(q, k, v, **kw),
+    }
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_forward_matches_jax_prefill_and_jax_flash_kernel(case, dtype):
+    _, Sq, Sk, _, _, _, causal, window = case
+    qo = Sk - Sq
+    q, k, v, _ = _inputs(case)
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in (q, k, v))
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    want = {
+        "jax attention_prefill": jax_prefill(jq, jk, jv, causal=causal,
+                                             window=window, q_offset=qo),
+        "jax flash_attention": jax_flash(jq, jk, jv, causal=causal,
+                                         window=window, q_offset=qo,
+                                         block_q=128, block_k=128,
+                                         interpret=True),
+    }
+    got = _port_paths(tq, tk, tv, causal, window, qo)
+    tol = TOL[dtype]
+    for name, out in got.items():
+        assert out.dtype == tdt and out.shape == tq.shape, name
+        for wname, w in want.items():
+            np.testing.assert_allclose(
+                out.float().numpy(), np.asarray(w, np.float32), atol=tol,
+                rtol=tol, err_msg=f"{name} vs {wname}")
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_gradients_match_jax_grad(case):
+    _, Sq, Sk, _, _, _, causal, window = case
+    qo = Sk - Sq
+    q, k, v, g = _inputs(case, seed=1)
+    kw = dict(causal=causal, window=window, q_offset=qo)
+    want = jax.grad(lambda a, b, c: jnp.sum(jax_prefill(a, b, c, **kw) * g),
+                    argnums=(0, 1, 2))(q, k, v)
+    for fn in (attention_prefill, flash_attention):
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+        out = fn(tq, tk, tv, **kw)
+        got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(g))
+        for name, a, b in zip("qkv", got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                       atol=GRAD_TOL, rtol=GRAD_TOL,
+                                       err_msg=f"{fn.__name__} d{name}")
+
+
+def test_plain_forward_gives_the_row_log_sum_exp():
+    """``flash_fwd``'s CPU path returns the lse the backward kernel reads:
+    log of the softmax denominator of the scaled, masked scores."""
+    q, k, v, _ = _inputs(CASES[3])
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    o, lse = K.flash_fwd(tq, tk, tv, causal=True, window=128)
+    assert lse.shape == (1, 2, 256) and lse.dtype == torch.float32
+    s = torch.einsum("bqhd,bkhd->bhqk", tq, tk.repeat_interleave(2, 2)) / 8.0
+    pos = torch.arange(256)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - 128)
+    want = torch.logsumexp(torch.where(mask, s, -torch.inf), dim=-1)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(o, ref.attention_ref(tq, tk, tv, window=128))
+
+
+def test_kernel_mode_cuda_refuses_cpu_tensors():
+    q, k, v, _ = _inputs(CASES[0])
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        K.flash_fwd(tq, tk, tv, mode=KernelMode.CUDA)
+    with pytest.raises(ValueError, match="CUDA"):
+        attention_prefill(tq, tk, tv, kernel_mode="cuda")
+    assert K.launch_counts() == before
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 8, 2, 96), torch.float32),          # head dim the kernel lacks
+    ((1, 8, 2, 64), torch.float16),          # type the kernel lacks
+])
+def test_kernel_input_checks_refuse_what_the_kernel_does_not_take(shape,
+                                                                  dtype):
+    q = torch.zeros(shape, dtype=dtype)
+    with pytest.raises((TypeError, ValueError)):
+        K._inputs(q, q, q)
+
+
+def test_init_cache_matches_jax():
+    from repro.models.attention import init_cache as jax_init_cache
+    from repro_torch.models.attention import init_cache
+    for window in (None, 6):
+        want = jax_init_cache(2, 3, 8, 2, 16, window=window,
+                              dtype=jnp.bfloat16)
+        got = init_cache(2, 3, 8, 2, 16, window=window, dtype=torch.bfloat16,
+                         device="cpu")
+        for f in ("k", "v", "positions", "length"):
+            a, b = np.asarray(getattr(want, f)), getattr(got, f)
+            assert a.shape == tuple(b.shape), f
+            assert np.array_equal(a.astype(np.float32), b.float().numpy()), f
+        assert got.k.dtype == torch.bfloat16
+        assert got.positions.dtype == torch.int32

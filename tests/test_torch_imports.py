@@ -15,13 +15,30 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 
 def _imported_roots(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+    yield from _roots_of(path.read_text(), str(path))
+
+
+def _roots_of(source, filename="<string>"):
+    """Top-level packages a source imports: ``import`` statements, and the
+    string (or f-string head) given to ``import_module``/``__import__``."""
+    tree = ast.parse(source, filename=filename)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield alias.name.split(".")[0]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and node.args:
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", None)
+            if name not in ("import_module", "__import__"):
+                continue
+            arg = node.args[0]
+            if isinstance(arg, ast.JoinedStr) and arg.values:
+                arg = arg.values[0]
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                yield arg.value.split(".")[0]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -31,24 +48,52 @@ def test_no_jax_or_reference_import(path):
     assert not roots & {"jax", "jaxlib", "repro"}, roots
 
 
+def test_static_check_sees_dynamic_imports():
+    roots = set(_roots_of(
+        'import importlib\n'
+        'importlib.import_module(f"repro.configs.{arch}")\n'
+        '__import__("jax.numpy")\n'))
+    assert {"repro", "jax"} <= roots
+
+
+_BLOCK_JAX = (
+    "import sys\n"
+    "class Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+    "            raise ImportError('blocked: ' + name)\n"
+    "sys.meta_path.insert(0, Block())\n")
+
+
+def _run_blocked(code):
+    out = subprocess.run([sys.executable, "-c", _BLOCK_JAX + code],
+                         capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip()
+
+
+def test_get_config_returns_the_ports_config_with_jax_blocked():
+    code = (
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "from repro_torch.models.config import ModelConfig\n"
+        "for arch in ARCH_IDS:\n"
+        "    for smoke in (False, True):\n"
+        "        cfg = get_config(arch, smoke=smoke)\n"
+        "        assert type(cfg) is ModelConfig, (arch, type(cfg))\n"
+        "print(len(ARCH_IDS))\n")
+    assert _run_blocked(code) == "10"
+
+
 def test_port_imports_with_jax_blocked():
     code = (
-        "import sys\n"
-        "class Block:\n"
-        "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
-        "            raise ImportError('blocked: ' + name)\n"
-        "sys.meta_path.insert(0, Block())\n"
         "import pkgutil, importlib, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "print('ok')\n")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
-                                         "PATH": "/usr/bin:/bin"},
-                         timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert _run_blocked(code) == "ok"
 
 
 def test_entry_points_without_device_raise_when_cuda_is_absent():
@@ -60,7 +105,9 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
     from repro_torch.fabric import Fabric
     from repro_torch.shell import Shell
     from repro_torch.shell.server import ElasticServer, ModelEngine
-    from repro_torch.ckpt.convert import params_from_numpy
+    from repro_torch.ckpt.convert import (opt_state_from_numpy,
+                                          params_from_numpy)
+    from repro_torch.models.attention import init_cache
     from repro_torch.models.lm import DenseLM, build_model
     regs = CrossbarRegisters.create(4)
     cfg = get_config("tinyllama_1_1b", smoke=True)
@@ -74,6 +121,10 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
         DenseLM(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy({"layers": {}}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        opt_state_from_numpy(0, {"layers": {}}, {"layers": {}}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(1, 1, 8, 1, 16)
     shell = Shell([Region(rid=0, n_chips=1, hbm_bytes=1 << 30)])
     with pytest.raises(RuntimeError, match="CUDA"):
         shell.fabric()

@@ -1,4 +1,6 @@
-"""The crossbar CUDA kernels against their plain versions on the card.
+"""The CUDA kernels against their plain versions on the card: the crossbar
+kernels, flash attention forward and backward, and the gradients of the
+MoE through the crossbar kernel data plane.
 
 Imports nothing of JAX, so it runs where only PyTorch and the CUDA toolkit
 are installed:
@@ -10,7 +12,20 @@ Every test is marked ``cuda`` and skips where there is no CUDA device
 holes and quotas, ``dst = -1`` padding and out-of-range ports; slots come
 from the plan, so (dst, slot) is unique as on the served path.  The row
 kernels take float32 and bfloat16 rows of a multiple of 16 bytes.
+
+Flash attention is held against autograd through ``ref.attention_ref``
+with the JAX package's forward tolerances (2e-5 in float32, 3e-2 in
+bfloat16); the backward within 1e-4 in float32 (the same arithmetic
+summed in another order) and 5e-2 in bfloat16 (the kernel takes
+``rowsum(dO * O)`` from the bfloat16 output, and its gradients are
+rounded to bfloat16), both absolute and relative.  Elementwise limits that
+loose would pass a wrong mask in bfloat16, so the output and each
+gradient are also held within a relative L2 distance (1e-5 in float32,
+1e-2 in bfloat16) and the float32 row log-sum-exp within 2e-5 (float32
+inputs) or 1e-3 (bfloat16 inputs) absolute, as ``chip_smoke.py`` holds
+them.
 """
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +35,8 @@ from repro_torch.fabric.interface import KernelMode
 from repro_torch.kernels.crossbar_dispatch import kernel as K
 from repro_torch.kernels.crossbar_dispatch import ref
 from repro_torch.core.registers import CrossbarRegisters
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ref as fref
 
 
 def _card():
@@ -112,3 +129,117 @@ def test_row_kernels_refuse_what_they_cannot_move_on_card(dtype, D):
     with pytest.raises((TypeError, ValueError)):
         K.combine(y, dst, keep, slot, w)
     assert K.launch_counts() == before
+
+
+FLASH_CASES = [   # B, Sq, Sk, H, Kv, D, causal, window, dtype
+    (1, 256, 256, 4, 2, 64, True, None, torch.float32),
+    (2, 300, 300, 8, 2, 128, True, None, torch.bfloat16),    # ragged
+    (1, 128, 512, 8, 2, 128, True, None, torch.bfloat16),    # q_offset
+    (1, 512, 512, 4, 1, 64, True, 128, torch.float32),       # window
+    (1, 1000, 1000, 4, 2, 128, True, 256, torch.bfloat16),   # window, ragged
+    (1, 200, 200, 4, 4, 64, False, None, torch.float32),     # non-causal
+]
+FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+LSE_ABS = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_flash_attention_forward_and_backward_on_card(case):
+    _card()
+    B, Sq, Sk, H, Kv, D, causal, window, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(Sq + D)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda"
+                                    ).to(dtype)
+    q, k, v, do = mk(B, Sq, H, D), mk(B, Sk, Kv, D), mk(B, Sk, Kv, D), \
+        mk(B, Sq, H, D)
+    kw = dict(causal=causal, window=window, q_offset=Sk - Sq)
+    before = FK.launch_counts()
+    o, lse = FK.flash_fwd(q, k, v, **kw)
+    grads = FK.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert FK.launch_counts() == {"flash_fwd": before["flash_fwd"] + 1,
+                                  "flash_bwd": before["flash_bwd"] + 1}
+    o_ref, lse_ref = fref.attention_fwd_ref(q, k, v, **kw)
+    tol = FWD_TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=tol)
+    assert _rel_l2(o, o_ref) <= REL_L2[dtype]
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_ABS[dtype], rtol=0)
+    want = fref.attention_bwd_ref(q, k, v, do, **kw)
+    tol = BWD_TOL[dtype]
+    for name, a, b in zip("qkv", grads, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                   msg=lambda m: f"d{name}: {m}")
+        assert _rel_l2(a, b) <= REL_L2[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype", [(96, torch.float32),
+                                     (64, torch.float16)])
+def test_flash_kernel_refuses_what_it_cannot_take_on_card(D, dtype):
+    _card()
+    q = torch.zeros((1, 64, 2, D), dtype=dtype, device="cuda")
+    before = FK.launch_counts()
+    with pytest.raises((TypeError, ValueError)):
+        FK.flash_fwd(q, q, q)
+    assert FK.launch_counts() == before
+
+
+GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gradients_cross_the_kernel_data_plane_on_card(dtype):
+    """The router and expert weights get their gradients through the
+    scatter and combine kernels, equal to the plain path on the card
+    (float32: within 1e-5 of each leaf's largest value, the weight
+    gradient's row dot sums in another order; bfloat16: within 2e-2, the
+    plain combine rounds ``w`` to bfloat16 before the product)."""
+    _card()
+    from repro_torch.models import moe
+    from repro_torch.models.config import MoEConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = MoEConfig(n_experts=8, top_k=2, capacity_factor=1.0)
+    rng = np.random.default_rng(0)
+    d, f, T = 256, 512, 1024
+    params = {k: torch.from_numpy(
+        (rng.standard_normal(p.shape) / np.sqrt(p.shape[-2])).astype(
+            np.float32)).cuda().to(dtype)
+        for k, p in moe.moe_defs(d, f, cfg, "swiglu").items()}
+    x = torch.from_numpy(rng.standard_normal((1, T, d)).astype(np.float32)
+                         ).cuda().to(dtype)
+    g = torch.from_numpy(rng.standard_normal((1, T, d)).astype(np.float32)
+                         ).cuda().to(dtype)
+    K.reset_launch_counts()
+    grads = {}
+    for mode in ("cuda", "torch"):
+        leaves = {k: p.detach().clone().requires_grad_()
+                  for k, p in params.items()}
+        y, stats = moe.moe_apply_fabric(leaves, x, cfg, "swiglu",
+                                        group_size=512,
+                                        backend="cuda_kernel",
+                                        kernel_mode=mode)
+        assert int(stats["dropped"]) > 0
+        grads[mode] = dict(zip(leaves, torch.autograd.grad(
+            (y.float() * g.float()).sum(), list(leaves.values()),
+            allow_unused=True)))
+    counts = K.launch_counts()
+    assert counts["scatter"] > 0 and counts["combine"] > 0
+    for name in params:
+        a, b = grads["cuda"][name], grads["torch"][name]
+        assert a is not None, f"no gradient reached {name}"
+        assert float(a.abs().max()) > 0, name
+        tol = GRAD_REL[dtype] * float(b.abs().max())
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0,
+                                   msg=lambda m: f"{name}: {m}")
