@@ -6,8 +6,9 @@ Phases, each printing one JSON line with its seconds:
 
 1. device   needs ``torch.cuda.is_available()``; prints the card's name and
             power limit (``nvidia-smi``).
-2. build    builds the crossbar and flash-attention kernel libraries from
-            ``src/repro_torch`` (one ``nvcc`` each, started together).
+2. build    builds the crossbar, flash-attention, SSD and RG-LRU kernel
+            libraries from ``src/repro_torch`` (one ``nvcc`` each, started
+            together).
 3. kernels  holds ``plan_multi``, ``scatter`` and ``combine`` bit-equal
             (``torch.equal``) to their plain versions at the served shapes
             and at large shapes, and times kernel, plain version and one
@@ -27,11 +28,36 @@ Phases, each printing one JSON line with its seconds:
             these steps; then the prefill logits of the kernel path against
             the plain path, and one float32 loss and backward of a 1-layer
             full-width model on the kernel path against the plain path.
+7. ssd, rglru, flash_d256
+            the recurrent families' kernels (built in phase 2 with the
+            others) against their plain versions: SSD at Mamba-2 780M's
+            widths (bf16 at S=4096 and 32768, float32 at S=1024 also
+            against the sequential oracle, S=200 below the chunk), RG-LRU
+            at RecurrentGemma-9B's width (S=32768, and float32 with an
+            initial state), the flash forward at head dim 256 at
+            RecurrentGemma's attention shape (S=32768, window 2048); each
+            timed against its plain version and its bound.
+8. serve_ssm, serve_hybrid
+            the full Mamba-2 780M (48 layers) and the full
+            RecurrentGemma-9B (38 layers), bf16, random weights from a
+            seed, behind ``ElasticServer`` with the serve phase's requests
+            and ``Shell.post(Grow)``, then ``prefill`` at S=32768, B=1,
+            counting launches over exactly the serve and the prefill; the
+            same on the plain path (token streams and port traffic equal;
+            every block of the prefill within 2e-2 relative L2 of the plain
+            path's on the same input; the end-to-end logits within 3 times
+            a rounding-sized control of the same run); then a float32 copy
+            cut to 2 layers (the hybrid to 3, one whole group): prefill
+            logits and loss against the plain path, and prefill's token
+            against ``ModelEngine``'s replay of
+            the same 512-token prompt through ``decode_step``.
 
 ``--profile`` adds a phase after serving and one after the train steps:
 ``torch.profiler`` over 8 warm decode steps of the served engine and over
-one more train step, device time by kernel, the device's idle share, and
-Chrome traces in ``build/profile/``.
+one more train step, and one over each recurrent model's S=32768 prefill;
+device time by kernel, the device's idle share, and Chrome traces in
+``build/profile/``.  ``--seed N`` (default 0) draws every input, weight and
+prompt from another seed.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it.  Imports nothing of JAX.
@@ -270,6 +296,16 @@ def flash_live_tiles(Sq, Sk, causal, window, q_offset) -> int:
     return n
 
 
+def flash_live_pairs(Sq, Sk, causal, window, q_offset) -> int:
+    """Unmasked (query, key) pairs per (batch, head): the work the function
+    needs, which the bounds count (the kernels also compute the masked part
+    of the diagonal and window-edge tiles they visit)."""
+    q_pos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(q_pos + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(q_pos - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
 def within(a: torch.Tensor, b: torch.Tensor, tol: float) -> bool:
     return bool(torch.isclose(a.double(), b.double(), rtol=tol,
                               atol=tol).all())
@@ -301,6 +337,8 @@ class FlashCase:
             mk(B, Sk, Kv, D)
         self.do = mk(B, Sq, H, D)
         self.tiles = B * H * flash_live_tiles(Sq, Sk, causal, window,
+                                              Sk - Sq)
+        self.pairs = B * H * flash_live_pairs(Sq, Sk, causal, window,
                                               Sk - Sq)
         self.shape = dict(B=B, Sq=Sq, Sk=Sk, H=H, Kv=Kv, D=D,
                           dtype=str(dtype).replace("torch.", ""),
@@ -349,7 +387,7 @@ class FlashCase:
                                for a, b in zip(grads, grads_r))
                and all(rel[f"d{n}"] <= rel_tol for n in "qkv")}
         emit("flash.check", case=self.name, **self.shape,
-             live_tiles=self.tiles, tol={"forward": f_tol, "backward": b_tol,
+             live_tiles=self.tiles, live_pairs=self.pairs, tol={"forward": f_tol, "backward": b_tol,
                                          "rel_l2": rel_tol, "lse": lse_tol},
              max_abs_err={"forward": err_f, "backward": err_b},
              rel_l2=rel, lse_abs_err=lse_err, **res)
@@ -372,7 +410,7 @@ class FlashCase:
         es = q.element_size()
         rate = BF16_OPS_PER_S if self.dtype == torch.bfloat16 \
             else F32_OPS_PER_S
-        fwd_ops = 4 * D * self.tiles * 64 * 64       # QK^T and PV
+        fwd_ops = 4 * D * self.pairs                 # QK^T and PV
         io = (2 * q.numel() + k.numel() + v.numel()) * es
         o, lse = FK.flash_fwd(q, k, v, mode=cuda, **self.kw)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -485,19 +523,27 @@ TRAIN_LR = 1e-3         # constant; AdamW's other settings are its defaults
 PREFILL_REL = 2e-2      # bf16 prefill logits: relative L2, kernel vs plain
 F32_SEQ = 1024
 F32_REL = 1e-4          # float32 loss and each gradient leaf, see f32_check
+TRAIN_KERNELS = ("plan_multi", "scatter", "combine", "flash_fwd",
+                 "flash_bwd")
+
+
+def _kernel_modules():
+    from repro_torch.kernels.crossbar_dispatch import kernel as K
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.ssd import kernel as SK
+    return FK, K, SK, RK
 
 
 def _counts():
-    from repro_torch.kernels.crossbar_dispatch import kernel as K
-    from repro_torch.kernels.flash_attention import kernel as FK
-    return {**FK.launch_counts(), **K.launch_counts()}
+    """Launches of every kernel since the last ``_reset_counts``."""
+    return {k: v for m in _kernel_modules()
+            for k, v in m.launch_counts().items()}
 
 
 def _reset_counts():
-    from repro_torch.kernels.crossbar_dispatch import kernel as K
-    from repro_torch.kernels.flash_attention import kernel as FK
-    K.reset_launch_counts()
-    FK.reset_launch_counts()
+    for m in _kernel_modules():
+        m.reset_launch_counts()
 
 
 def train_phase(engine, smi):
@@ -538,7 +584,7 @@ def train_phase(engine, smi):
         raise AssertionError(f"a training loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
-    if any(v <= 0 for v in launches.values()):
+    if any(launches[k] <= 0 for k in TRAIN_KERNELS):
         raise AssertionError(f"a kernel was not launched while training: "
                              f"{launches}")
     if any(n != 1 for n in loads.values()):
@@ -615,7 +661,7 @@ def f32_check(cfg):
         grads_nonzero=nonzero, kernel_launches=ck, plain_launches=cp,
         seconds=time.perf_counter() - t0)
     if not (abs(lk - lp) <= F32_REL * abs(lp) and max(rel) <= F32_REL
-            and nonzero and all(v > 0 for v in ck.values())
+            and nonzero and all(ck[k] > 0 for k in TRAIN_KERNELS)
             and not any(cp.values())):
         raise AssertionError("float32 loss or gradients disagree with the "
                              "plain path")
@@ -698,7 +744,458 @@ def serve_phase(cfg, smi):
     return engine, launches
 
 
+# ----------------------------------------------------------------------
+# the recurrent families: SSD, RG-LRU and flash attention at head dim 256
+# ----------------------------------------------------------------------
+# SSD is held to the plain chunked version (``ssd_chunked``) and, at a small
+# S, to the sequential oracle (``ssd_ref``): float32 within 2e-4 of the
+# chunked version (the same algebra summed in another order) and 5e-4 of
+# the oracle (the JAX package's tolerance for its kernel); bfloat16 within
+# 5e-2 element-wise and 1e-2 relative L2 (x, B, C rounded to bf16 and y
+# rounded once, in both).  The final state within 5e-4 absolute and 5e-3
+# relative in both types.
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+SSD_ORACLE_TOL = 5e-4
+SSD_REL_L2 = 1e-2
+# RG-LRU sums in the sequential order: within 1e-5 of the oracle, and 5e-5
+# of the doubling scan (the JAX package's tolerance for its kernel).
+RGLRU_TOL = 5e-5
+RGLRU_ORACLE_TOL = 1e-5
+PREFILL_SEQ = 32768          # prefill_32k's sequence length; batch 32 -> 1
+RECURRENT_F32_SEQ = 512      # the float32 check's prompt
+MAMBA = dict(H=48, P=64, N=128, chunk=256)
+RGEMMA = dict(L=4096, H=16, Kv=1, D=256, window=2048)
+# The end-to-end bf16 S=32768 last-token logits of a full-depth random model
+# are held within this many times a control measured in the same run: how
+# far the plain path's own logits move under a difference of rounding size
+# (``rounding_controls``).  Every block is held to ``PREFILL_REL`` besides.
+PREFILL_CONTROL_FACTOR = 3.0
+
+
+def ssd_inputs(B, S, H, P, N, dtype, gen):
+    """Model-layout inputs of the SSD scan: x [B,S,H,P], dt [B,S,H],
+    A [H], B and C [B,S,N]."""
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = rn(B, S, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, S, H) - 2.0)
+    A = -torch.exp(rn(H) * 0.5)
+    return x, dt, A, (rn(B, S, N) * 0.3).to(dtype), \
+        (rn(B, S, N) * 0.3).to(dtype)
+
+
+def ssd_check(name, S, dtype, gen, oracle=False):
+    """The kernel (``ssd_scan`` on CUDA) against ``ssd_chunked`` and, when
+    asked, ``ssd_ref``; returns the largest absolute error."""
+    from repro_torch.fabric.interface import KernelMode
+    from repro_torch.kernels.ssd import ref as sref
+    from repro_torch.kernels.ssd.ops import ssd_scan
+    from repro_torch.models.ssm import ssd_chunked
+    H, P, N, chunk = (MAMBA[k] for k in ("H", "P", "N", "chunk"))
+    x, dt, A, Bm, Cm = ssd_inputs(1, S, H, P, N, dtype, gen)
+    y, h = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, mode=KernelMode.CUDA)
+    yp, hp = ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    tol = SSD_TOL[dtype]
+    res = {"y": within(y, yp, tol), "h_last": bool(torch.isclose(
+        h.double(), hp.double(), atol=5e-4, rtol=5e-3).all())}
+    rel = rel_l2(y, yp)
+    if dtype == torch.bfloat16:
+        res["y_rel_l2"] = rel <= SSD_REL_L2
+    out = {"vs_chunked": max(max_abs_err(y, yp), max_abs_err(h, hp))}
+    if oracle:
+        dth = dt.transpose(1, 2)
+        yo, ho = sref.ssd_ref(x.transpose(1, 2), dth * A[None, :, None],
+                              dth, Bm, Cm)
+        yo = yo.transpose(1, 2)
+        torch.cuda.synchronize()
+        res["oracle"] = (within(y, yo, SSD_ORACLE_TOL)
+                         and within(h, ho, SSD_ORACLE_TOL))
+        out["vs_oracle"] = max(max_abs_err(y, yo), max_abs_err(h, ho))
+    emit("ssd.check", case=name, B=1, S=S, H=H, P=P, N=N, chunk=min(chunk, S),
+         dtype=str(dtype).replace("torch.", ""), max_abs_err=out,
+         rel_l2=rel, tol={"y": tol, "oracle": SSD_ORACLE_TOL,
+                          "rel_l2": SSD_REL_L2}, **res)
+    if not all(res.values()):
+        raise AssertionError(f"SSD kernel disagrees on {name}: {res}")
+    return max(out.values())
+
+
+def ssd_phase():
+    """SSD at Mamba-2 780M's widths: bf16 at S=4096 and 32768, float32 at
+    S=1024 (also against the oracle), and S=200, below the chunk; timings
+    at S=32768 bf16."""
+    from repro_torch.fabric.interface import KernelMode
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd import ref as sref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    err = max(ssd_check("mamba_4k", 4096, bf16, gen),
+              ssd_check("mamba_32k", PREFILL_SEQ, bf16, gen),
+              ssd_check("f32_1k", 1024, f32, gen, oracle=True),
+              ssd_check("below_chunk_200", 200, f32, gen, oracle=True))
+    H, P, N, Q = (MAMBA[k] for k in ("H", "P", "N", "chunk"))
+    S = PREFILL_SEQ
+    x, dt, A, Bm, Cm = ssd_inputs(1, S, H, P, N, bf16, gen)
+    xh = x.transpose(1, 2).contiguous()
+    dth = dt.transpose(1, 2).contiguous()
+    dAh = dth * A[None, :, None]
+    es = x.element_size()
+    n_bytes = (2 * x.numel() * es + 2 * dth.numel() * 4
+               + 2 * Bm.numel() * es + H * P * N * 4)
+    nc = S // Q
+    tri = Q * (Q + 1) // 2                     # causal half of a chunk
+    n_ops = nc * (2 * tri * N                  # C.B^T, once per chunk
+                  + H * (2 * tri * P           # G x
+                         + 2 * 2 * Q * P * N))  # C.h and the state update
+    b, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    t = dict(ms=time_ms(lambda: SK.ssd_call(xh, dAh, dth, Bm, Cm, chunk=Q,
+                                            mode=KernelMode.CUDA), reps=10),
+             plain_ms=time_ms(lambda: sref.ssd_call_ref(xh, dAh, dth, Bm, Cm,
+                                                        Q), reps=3),
+             library_ms=None, bound_ms=b, bound_by=by, bytes=n_bytes,
+             ops=n_ops)
+    emit("ssd.time", B=1, S=S, H=H, P=P, N=N, chunk=Q, dtype="bfloat16", **t)
+    return err, t
+
+
+def rglru_phase():
+    """RG-LRU at RecurrentGemma-9B's width: the kernel against the
+    doubling scan at B=1, S=32768, L=4096, against the oracle at S=4096,
+    and through ``rglru_scan_kernel`` with an initial state against
+    ``rglru_scan``; timings at S=32768."""
+    from repro_torch.fabric.interface import KernelMode
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru import ref as rref
+    from repro_torch.kernels.rglru.ops import rglru_scan_kernel
+    from repro_torch.models.rglru import rglru_scan
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    L, S = RGEMMA["L"], PREFILL_SEQ
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    a = torch.sigmoid(rn(1, S, L) + 2.0) * 0.98 + 0.01
+    b = rn(1, S, L) * 0.5
+    cuda = KernelMode.CUDA
+    h, hl = RK.rglru_call(a, b, mode=cuda)
+    hp, hlp = rref.rglru_call_ref(a, b)
+    ho, hlo = rref.rglru_ref(a[:, :4096], b[:, :4096])
+    h0 = rn(1, L) * 0.3
+    hk, hlk = rglru_scan_kernel(b, a, h0, mode=cuda)
+    hs, hls = rglru_scan(b, a, h0)
+    torch.cuda.synchronize()
+    res = {"vs_scan": within(h, hp, RGLRU_TOL) and within(hl, hlp, RGLRU_TOL),
+           "vs_oracle": within(h[:, :4096], ho, RGLRU_ORACLE_TOL),
+           "with_h0": within(hk, hs, RGLRU_TOL) and within(hlk, hls,
+                                                           RGLRU_TOL)}
+    errs = {"vs_scan": max(max_abs_err(h, hp), max_abs_err(hl, hlp)),
+            "vs_oracle": max_abs_err(h[:, :4096], ho),
+            "with_h0": max(max_abs_err(hk, hs), max_abs_err(hlk, hls))}
+    emit("rglru.check", B=1, S=S, L=L, dtype="float32", oracle_seq=4096,
+         max_abs_err=errs, tol={"scan": RGLRU_TOL,
+                                "oracle": RGLRU_ORACLE_TOL}, **res)
+    if not all(res.values()):
+        raise AssertionError(f"RG-LRU kernel disagrees: {res}")
+    n_bytes = 3 * a.numel() * 4 + L * 4
+    bnd, by = bound(n_bytes, 2 * a.numel(), F32_OPS_PER_S)
+    t = dict(ms=time_ms(lambda: RK.rglru_call(a, b, mode=cuda), reps=10),
+             plain_ms=time_ms(lambda: rref.rglru_call_ref(a, b), reps=3),
+             library_ms=None, bound_ms=bnd, bound_by=by, bytes=n_bytes)
+    emit("rglru.time", B=1, S=S, L=L, dtype="float32", **t)
+    return max(errs.values()), t
+
+
+def flash_d256_phase():
+    """The flash forward at RecurrentGemma's attention shape (B=1, S=32768,
+    H=16, Kv=1, D=256, window 2048, bf16) against the plain version, run
+    on query slices of 2048 rows with the keys they see (the whole [S, S]
+    score matrix would take 68 GB); timed against the slices and against
+    ``scaled_dot_product_attention`` with the window as a boolean mask
+    (memory-efficient backend, kv head repeated for the 16 query heads)."""
+    from repro_torch.fabric.interface import KernelMode
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    S, H, Kv, D, W = PREFILL_SEQ, *(RGEMMA[k] for k in ("H", "Kv", "D",
+                                                         "window"))
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = mk(1, S, H, D), mk(1, S, Kv, D), mk(1, S, Kv, D)
+    kw = dict(causal=True, window=W, q_offset=0)
+    o, lse = FK.flash_fwd(q, k, v, mode=KernelMode.CUDA, **kw)
+
+    def plain():
+        outs = []
+        for r0 in range(0, S, 2048):
+            k0 = max(0, r0 - W + 1)
+            outs.append(ref.attention_fwd_ref(
+                q[:, r0:r0 + 2048], k[:, k0:r0 + 2048], v[:, k0:r0 + 2048],
+                causal=True, window=W, q_offset=r0 - k0))
+        return (torch.cat([x[0] for x in outs], 1),
+                torch.cat([x[1] for x in outs], 2))
+
+    o_r, lse_r = plain()
+    torch.cuda.synchronize()
+    dt = torch.bfloat16
+    f_tol, rel_tol, lse_tol = (FLASH_TOL[dt][0], FLASH_REL_L2[dt],
+                               FLASH_LSE_ABS[dt])
+    rel, lse_err = rel_l2(o, o_r), lse_abs_err(lse, lse_r)
+    ok = (within(o, o_r, f_tol) and rel <= rel_tol and lse_err <= lse_tol)
+    err = max(max_abs_err(o, o_r), lse_err)
+    tiles = H * flash_live_tiles(S, S, True, W, 0)
+    pairs = H * flash_live_pairs(S, S, True, W, 0)
+    emit("flash_d256.check", B=1, S=S, H=H, Kv=Kv, D=D, window=W,
+         dtype="bfloat16", live_tiles=tiles, live_pairs=pairs,
+         max_abs_err=err, rel_l2=rel,
+         lse_abs_err=lse_err, tol={"forward": f_tol, "rel_l2": rel_tol,
+                                   "lse": lse_tol}, forward=ok)
+    if not ok:
+        raise AssertionError("flash forward at head dim 256 disagrees")
+    del o_r, lse_r
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + H * S * 4
+    b, by = bound(n_bytes, 4 * D * pairs, BF16_OPS_PER_S)
+    hm = [t.transpose(1, 2).expand(1, H, S, D) if t.shape[2] == 1
+          else t.transpose(1, 2) for t in (q, k, v)]
+    hm = [t.contiguous() for t in hm]
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def library():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(*hm, attn_mask=mask)
+
+    t = dict(ms=time_ms(lambda: FK.flash_fwd(q, k, v, mode=KernelMode.CUDA,
+                                             **kw), reps=5),
+             plain_ms=time_ms(plain, reps=2, warmup=1),
+             library_ms=time_ms(library, reps=5),
+             bound_ms=b, bound_by=by)
+    emit("flash_d256.time", B=1, S=S, H=H, Kv=Kv, D=D, window=W,
+         dtype="bfloat16", **t)
+    return err, t
+
+
+def recurrent_config(arch, **kw):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), **{"dtype": "bfloat16",
+                                                     **kw})
+
+
+# the kernels each recurrent phase must launch on its main path
+RECURRENT_KERNELS = {"mamba2_780m": ("plan_multi", "ssd"),
+                     "recurrentgemma_9b": ("plan_multi", "rglru",
+                                           "flash_fwd_d256")}
+
+
+def serve_recurrent_phase(arch, phase, smi):
+    """A full public model (every layer, bf16, random weights from the
+    seed) behind ``ElasticServer`` on the ``cuda`` fabric, the requests and
+    the ``Shell.post(Grow)`` of the Mixtral serve phase; then ``prefill``
+    at S=32768, B=1.  Launches are counted over exactly the serve and the
+    prefill.  Then the same requests and prefill on the plain path: token
+    streams and port traffic equal, and each block of the bf16 prefill
+    within ``PREFILL_REL`` of the plain path's on the same input
+    (``blockwise_rel_l2``), and the end-to-end last-token logits within
+    ``PREFILL_CONTROL_FACTOR`` times ``rounding_controls``: at full depth
+    the random model carries a rounding-sized difference to a distance of
+    the order of 1e-1 (PERF.md gives the readings), so a fixed limit would
+    not hold, while a gross divergence still fails.  Then the float32
+    check.  Returns the launches."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.shell.server import ModelEngine
+    cfg = recurrent_config(arch)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, PROMPT_LEN).astype(np.int32)
+               for _ in range(4)]
+    t0 = time.perf_counter()
+    engine = ModelEngine(cfg, max_len=PROMPT_LEN + MAX_NEW, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(engine.params))
+    emit(f"{phase}.model", name=cfg.name, family=cfg.family,
+         layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+         param_bytes=n_params * 2, init_seconds=time.perf_counter() - t0)
+    engine.prefill(prompts[0])               # warm-up (cuBLAS, allocator)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, PREFILL_SEQ)).astype(np.int32)).cuda()
+    model, params = engine.model, engine.params
+    with torch.no_grad():
+        model.prefill(params, {"tokens": tokens[:, :2048]})   # warm-up
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    server, shell, wall = serve(engine, "cuda", prompts)
+    serve_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        logits = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    prefill_peak = torch.cuda.max_memory_allocated()
+    launches = _counts()
+    comps = sorted(server.completions, key=lambda c: c.rid)
+    n_tok = sum(len(c.tokens) for c in comps)
+    emit(phase, smi=smi, model=cfg.name, requests=len(comps),
+         ticks=server.tick, wall_s=wall, tokens=n_tok,
+         tokens_per_s=n_tok / wall, serve_max_memory_allocated=serve_peak,
+         prefill_seq=PREFILL_SEQ, prefill_s=prefill_s,
+         prefill_tokens_per_s=PREFILL_SEQ / prefill_s,
+         prefill_max_memory_allocated=prefill_peak,
+         completions=[{"rid": c.rid, "entry_port": c.entry_port,
+                       "tokens": c.tokens} for c in comps],
+         port_traffic=server.port_traffic.tolist(), kernels=launches,
+         seconds=time.perf_counter() - t0)
+    if len(comps) != 4 or any(len(c.tokens) != MAX_NEW for c in comps):
+        raise AssertionError("not every request completed")
+    if sorted({c.entry_port for c in comps}) != [0, 1]:
+        raise AssertionError("the Grow did not re-route new admissions")
+    missing = [k for k in RECURRENT_KERNELS[arch] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{phase}: not launched: {missing}")
+
+    # the same requests and the same prefill on the plain path
+    t0 = time.perf_counter()
+    plain = ModelEngine(dataclasses.replace(cfg, kernel_mode="torch"),
+                        max_len=PROMPT_LEN + MAX_NEW, params=params)
+    ref_server, _, ref_wall = serve(plain, "reference", prompts)
+    ref_comps = sorted(ref_server.completions, key=lambda c: c.rid)
+    same_tokens = [c.tokens for c in comps] == [c.tokens for c in ref_comps]
+    same_traffic = (server.port_traffic.tolist()
+                    == ref_server.port_traffic.tolist())
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        ref_logits = plain.model.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        plain_prefill_s = time.perf_counter() - t1
+        control_name, control = rounding_controls(plain.model, params,
+                                                  tokens, ref_logits)
+        blocks = blockwise_rel_l2(model, plain.model, params, tokens)
+    rel = rel_l2(logits.float(), ref_logits.float())
+    finite = bool(torch.isfinite(logits).all())
+    ok = (same_tokens and same_traffic and finite
+          and max(blocks) <= PREFILL_REL
+          and rel <= PREFILL_CONTROL_FACTOR * control
+          and tuple(logits.shape) == (1, cfg.vocab_padded))
+    emit(f"{phase}.check", plain_wall_s=ref_wall, same_tokens=same_tokens,
+         same_port_traffic=same_traffic, prefill_finite=finite,
+         prefill_shape=list(logits.shape), prefill_rel_l2=rel,
+         control=control_name, control_rel_l2=control,
+         prefill_tol=PREFILL_CONTROL_FACTOR * control,
+         block_rel_l2_max=max(blocks),
+         block_rel_l2=blocks, block_tol=PREFILL_REL,
+         plain_prefill_s=plain_prefill_s, seconds=time.perf_counter() - t0)
+    if not ok:
+        raise AssertionError(f"{phase} disagrees with the plain path")
+    if "--profile" in sys.argv[1:]:
+        with torch.no_grad():
+            profile(f"{phase}.prefill_profile",
+                    lambda: model.prefill(params, {"tokens": tokens}), 1)
+    del engine, plain, model, params, server, ref_server, logits, ref_logits
+    torch.cuda.empty_cache()
+    recurrent_f32_check(arch, phase)
+    return launches
+
+
+def blockwise_rel_l2(model, plain_model, params, tokens):
+    """Every block of the backbone, on the kernel path and on the plain
+    path, fed the same input (the plain path's hidden state): the relative
+    L2 distance of the two blocks' contributions (output minus input), one
+    per block.  This holds every kernel call of the full-depth prefill at
+    its real shape without the divergence that the random model's depth
+    adds to the end-to-end logits (see ``rounding_controls``)."""
+    x = model._inputs_embed(params, {"tokens": tokens})
+    S = tokens.shape[1]
+    out = []
+    for blk, plain_blk in zip(model.blocks(params, S),
+                              plain_model.blocks(params, S)):
+        y, y_plain = blk(x), plain_blk(x)
+        out.append(rel_l2((y.float() - x.float()),
+                          (y_plain.float() - x.float())))
+        x = y_plain
+    return out
+
+
+def rounding_controls(plain_model, params, tokens, ref_logits):
+    """How far the plain path's own last-token logits move under a
+    difference of the size of bf16 rounding, the scale of divergence that
+    the random model's depth gives any two computations that round
+    differently.  Returns (name, relative L2): for the SSM ``other_chunk``,
+    the plain SSD scan at chunk 128 instead of 256 (the same function
+    summed in another order, as the kernel sums it); for the hybrid
+    ``one_ulp``, every element of the last token's embedding row moved by
+    one bf16 ulp (restored after)."""
+    cfg = plain_model.cfg
+    if cfg.ssm is not None:
+        other = type(plain_model)(dataclasses.replace(
+            cfg, ssm=dataclasses.replace(cfg.ssm, chunk=cfg.ssm.chunk // 2)),
+            device=plain_model.device)
+        return "other_chunk", rel_l2(
+            other.prefill(params, {"tokens": tokens}).float(),
+            ref_logits.float())
+    bits = params["embed"][int(tokens[0, -1])].view(torch.int16)
+    bits += 1
+    try:
+        nudged = plain_model.prefill(params, {"tokens": tokens})
+    finally:
+        bits -= 1
+    return "one_ulp", rel_l2(nudged.float(), ref_logits.float())
+
+
+def recurrent_f32_check(arch, phase):
+    """A float32 copy of the model at full width, cut to its first 2
+    layers (the hybrid to 3: one whole group, two recurrent blocks and the
+    local-attention block), TF32 off: ``prefill`` logits and the ``loss``
+    value on the kernel path against the plain path within 1e-4 relative
+    (the scans sum in other orders), and ``prefill``'s greedy token equal
+    to the token ``ModelEngine`` gets by replaying the same 512-token
+    prompt through ``decode_step`` (the scan against the recurrence)."""
+    from repro_torch.runtime.serve import greedy_tokens
+    from repro_torch.shell.server import ModelEngine
+    t0 = time.perf_counter()
+    layers = 3 if arch == "recurrentgemma_9b" else 2
+    cfg = recurrent_config(arch, n_layers=layers, dtype="float32")
+    engine = ModelEngine(cfg, max_len=RECURRENT_F32_SEQ, seed=SEED + 1)
+    model, params = engine.model, engine.params
+    plain = type(model)(dataclasses.replace(cfg, kernel_mode="torch"))
+    rng = np.random.default_rng(SEED + 1)
+    prompt = rng.integers(0, cfg.vocab, RECURRENT_F32_SEQ).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, RECURRENT_F32_SEQ).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(prompt[None]).cuda(),
+             "labels": torch.from_numpy(labels[None]).cuda()}
+    out = {}
+    with torch.no_grad():
+        for name, m in (("kernel", model), ("plain", plain)):
+            _reset_counts()
+            out[name] = (m.prefill(params, batch), float(m.loss(params, batch)),
+                         _counts())
+    replay_tok, _ = engine.prefill(prompt)
+    torch.cuda.synchronize()
+    (lk, loss_k, ck), (lp, loss_p, cp) = out["kernel"], out["plain"]
+    rel = rel_l2(lk, lp)
+    tok = int(greedy_tokens(lk, cfg.vocab)[0])
+    path = [k for k in RECURRENT_KERNELS[arch] if k != "plan_multi"]
+    ok = (rel <= F32_REL and abs(loss_k - loss_p) <= F32_REL * abs(loss_p)
+          and tok == replay_tok and all(ck[k] > 0 for k in path)
+          and not any(cp.values()))
+    emit(f"{phase}.f32_check", layers=layers, seq=RECURRENT_F32_SEQ,
+         prefill_rel_l2=rel, loss_kernel=loss_k, loss_plain=loss_p,
+         tol=F32_REL, prefill_token=tok, replay_token=replay_tok,
+         kernel_launches=ck, plain_launches=cp,
+         seconds=time.perf_counter() - t0)
+    if not ok:
+        raise AssertionError(f"{phase}: float32 prefill, loss or the "
+                             f"replayed token disagree")
+    del engine, model, params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
+    global SEED
+    if "--seed" in sys.argv[1:]:
+        SEED = int(sys.argv[sys.argv.index("--seed") + 1])
     # 1. device -------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -707,7 +1204,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     emit("device", name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda)
+         seed=SEED, torch=torch.__version__, cuda=torch.version.cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -716,11 +1213,14 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.crossbar_dispatch import kernel as K
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.ssd import kernel as SK
     t0 = time.perf_counter()
-    libs = {K.LIB_NAME: K.SOURCES, FK.LIB_NAME: FK.SOURCES}
+    libs = {K.LIB_NAME: K.SOURCES, FK.LIB_NAME: FK.SOURCES,
+            SK.LIB_NAME: SK.SOURCES, RK.LIB_NAME: RK.SOURCES}
     build.build_libraries(libs)
-    K.library()
-    FK.library()
+    for mod in (K, FK, SK, RK):
+        mod.library()
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=dict(build.build_seconds),
          libraries=[build.library_path(n, srcs).name
@@ -770,28 +1270,51 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_check(cfg)
 
-    # 7. summary ------------------------------------------------------
+    # 7. the recurrent families' kernels --------------------------------
+    t0 = time.perf_counter()
+    ssd_err, ssd_t = ssd_phase()
+    rglru_err, rglru_t = rglru_phase()
+    d256_err, d256_t = flash_d256_phase()
+    torch.cuda.empty_cache()
+    emit("recurrent_kernels", seconds=time.perf_counter() - t0)
+
+    # 8. serve and prefill the recurrent families ----------------------
+    ssm_launches = serve_recurrent_phase("mamba2_780m", "serve_ssm", smi)
+    hybrid_launches = serve_recurrent_phase("recurrentgemma_9b",
+                                            "serve_hybrid", smi)
+    loads = dict(build.load_count)
+    if any(n != 1 for n in loads.values()):
+        raise AssertionError(f"a kernel library was loaded twice: {loads}")
+
+    # 9. summary ------------------------------------------------------
+    paths = {"serve": serve_launches, "train": train_launches,
+             "serve_ssm": ssm_launches, "serve_hybrid": hybrid_launches}
+
+    def launch_keys(name):
+        by_path = {p: c.get(name, 0) for p, c in paths.items()}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
+
     replaces = {
         "plan_multi": "src/repro/kernels/crossbar_dispatch/kernel.py:196",
         "scatter": "src/repro/kernels/crossbar_dispatch/kernel.py:269",
         "combine": "src/repro/kernels/crossbar_dispatch/kernel.py:321",
         "flash_fwd": "src/repro/kernels/flash_attention/kernel.py:107",
         "flash_bwd": "src/repro/kernels/flash_attention/kernel.py:107",
+        "flash_fwd_d256": "src/repro/kernels/flash_attention/kernel.py:107",
+        "ssd": "src/repro/kernels/ssd/kernel.py:80",
+        "rglru": "src/repro/kernels/rglru/kernel.py:63",
     }
+    timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     src = "src/repro_torch/kernels/crossbar_dispatch/csrc/crossbar_dispatch.cu"
     rows = []
     for name in ("plan_multi", "scatter", "combine"):
         t, tl = decode_t[name], large_t[name]
         rows.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces[name],
-            "launches": serve_launches[name] + train_launches[name],
-            "launches_by_path": {"serve": serve_launches[name],
-                                 "train": train_launches[name]},
+            "replaces": replaces[name], **launch_keys(name),
             "max_abs_err": max(e[name] for e in errs.values()),
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            **{k: t[k] for k in timing_keys},
             "shape": "moe_decode T=2 S=8 C=8 D=4096 bf16",
             "large": {"shape": "T=8192 S=8 C=1280 D=4096 bf16", **tl},
         })
@@ -800,13 +1323,25 @@ def main() -> int:
         t = flash_t[name]
         rows.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces[name], "launches": train_launches[name],
-            "launches_by_path": {"serve": 0, "train": train_launches[name]},
+            "replaces": replaces[name], **launch_keys(name),
             "max_abs_err": flash_err[name],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            **{k: t[k] for k in timing_keys},
             "shape": "B=1 S=4096 H=32 Kv=8 D=128 bf16 causal window=4096",
+        })
+    new_rows = (
+        ("flash_fwd_d256", src, d256_err, d256_t,
+         "B=1 S=32768 H=16 Kv=1 D=256 bf16 causal window=2048"),
+        ("ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu", ssd_err, ssd_t,
+         "B=1 S=32768 H=48 P=64 N=128 chunk=256 bf16"),
+        ("rglru", "src/repro_torch/kernels/rglru/csrc/rglru.cu", rglru_err,
+         rglru_t, "B=1 S=32768 L=4096 float32"),
+    )
+    for name, source, err, t, shape in new_rows:
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces[name], **launch_keys(name),
+            "max_abs_err": err, **{k: t[k] for k in timing_keys},
+            "shape": shape,
         })
     emit("done", seconds=time.perf_counter() - t_start,
          train_step_ms=step_ms)

@@ -24,6 +24,12 @@
 // work follows the mask; (2) every block owns its outputs, so no atomics:
 // dK/dV are summed over the G query heads of a kv head inside one block.
 //
+// Head dim 256 (RecurrentGemma's local attention) has a forward only.  Its
+// tiles stay 64 x 64: Q, K and V in float32 with the probability tile take
+// 214,016 bytes of shared memory, under the 227 KB a block may have, so one
+// block of 256 threads runs per SM, and each thread keeps 4 x 16 output
+// accumulators in registers.
+//
 // Every `flash_*` function returns the `cudaError_t` of its launches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -589,7 +595,8 @@ Params make_params(int B, int H, int Kv, int Sq, int Sk, int D, int causal, int 
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; D: 64 or 128 (the wrapper refuses others).
+// dtype: 0 float32, 1 bfloat16; D: 64, 128 or 256 forward, 64 or 128 backward
+// (the wrapper refuses others).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int B, int H, int Kv, int Sq, int Sk, int D,
                                    int dtype, int causal, int window, int q_offset, int true_k,
@@ -600,6 +607,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (dtype == 0 && D == 128) return launch_fwd<float, 128>(q, k, v, o, lse, p, s);
   if (dtype == 1 && D == 64) return launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, p, s);
   if (dtype == 1 && D == 128) return launch_fwd<__nv_bfloat16, 128>(q, k, v, o, lse, p, s);
+  if (dtype == 0 && D == 256) return launch_fwd<float, 256>(q, k, v, o, lse, p, s);
+  if (dtype == 1 && D == 256) return launch_fwd<__nv_bfloat16, 256>(q, k, v, o, lse, p, s);
   return cudaErrorInvalidValue;
 }
 

@@ -4,13 +4,15 @@
 CPU tensors (or under ``KernelMode.TORCH``) and launch their kernels for
 CUDA tensors; under ``KernelMode.CUDA`` a CPU tensor raises.  There is no
 fallback from the kernel to the plain version: a kernel that does not
-build, does not take the inputs (head dims other than 64 and 128, types
-other than float32 and bfloat16) or does not launch raises.  The library
+build, does not take the inputs (head dims other than 64, 128 and 256
+forward and 64 and 128 backward, types other than float32 and bfloat16)
+or does not launch raises.  The library
 is built on first launch (``kernels/build.py``), never at import.
 
 Each wrapper carries ``launches``, a plain int that counts calls that
 launched its kernels (``flash_bwd`` launches three: the row sums of
-``dO * O``, dK/dV, dQ); plain-version calls do not count.
+``dO * O``, dK/dV, dQ); plain-version calls do not count.  The forward at
+head dim 256 counts apart, in ``flash_fwd.launches_d256``.
 
 TPU kernel replaced: ``flash_attention_hm`` (``_attn_kernel``) of
 ``repro/kernels/flash_attention/kernel.py``.  The source note of the
@@ -31,7 +33,8 @@ from repro_torch.kernels.flash_attention import ref
 
 SOURCES = (pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu",)
 LIB_NAME = "flash_attention"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)       # forward
+BWD_HEAD_DIMS = (64, 128)        # backward (ROADMAP B8 adds 256)
 BLOCK_Q = BLOCK_K = 64           # tile sizes of the kernels
 VEC_BYTES = 16                   # tiles are loaded as 16-byte vectors
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,7 +55,8 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more):
+def _inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more,
+            head_dims=HEAD_DIMS):
     """Shapes, type and head dim checked; every tensor contiguous and
     16-byte aligned (a view at an odd address is copied)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -63,8 +67,10 @@ def _inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more):
     if k.shape[0] != B or k.shape[3] != D or H % Kv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"form grouped-query attention")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head dims {HEAD_DIMS}, got {D}")
+    if D not in head_dims:
+        raise ValueError(f"flash kernel takes head dims {head_dims}, got {D}"
+                         + ("" if D not in HEAD_DIMS else
+                            "; the backward at head dim 256 is ROADMAP B8"))
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash kernel takes float32/bfloat16, got {q.dtype}")
     out = []
@@ -109,7 +115,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), *ints, build.stream(q.device))
     build.check(code, "flash_attention_fwd")
-    flash_fwd.launches += 1
+    if q.shape[3] == 256:
+        flash_fwd.launches_d256 += 1
+    else:
+        flash_fwd.launches += 1
     return o, lse
 
 
@@ -123,7 +132,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not use_kernel(mode, q, k, v, o, lse, do):
         return ref.attention_bwd_ref(q, k, v, do, causal=causal,
                                      window=window, q_offset=q_offset)
-    q, k, v, o, do = _inputs(q, k, v, o, do)
+    q, k, v, o, do = _inputs(q, k, v, o, do, head_dims=BWD_HEAD_DIMS)
     ints = _ints(q, k, causal=causal, window=window, q_offset=q_offset)
     if lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
         raise ValueError(f"lse must be [B,H,Sq], got {tuple(lse.shape)}")
@@ -147,10 +156,12 @@ KERNELS = (flash_fwd, flash_bwd)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    flash_fwd.launches_d256 = 0
 
 
 def launch_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    return {**{fn.__name__: fn.launches for fn in KERNELS},
+            "flash_fwd_d256": flash_fwd.launches_d256}
 
 
 reset_launch_counts()

@@ -1,0 +1,60 @@
+"""Plain PyTorch versions of the RG-LRU recurrence kernel,
+``h_t = a_t * h_{t-1} + b_t`` over [B, S, L] float32.
+
+- :func:`rglru_ref` is the oracle: the direct sequential recurrence, a
+  Python loop over the sequence.
+- :func:`rglru_call_ref` is the kernel's function in plain PyTorch as the
+  JAX model computes it: a Hillis-Steele doubling scan within chunks of
+  ``chunk`` steps and the state carried across chunks.  It is the CPU path
+  of ``kernel.rglru_call`` and the body of the model's ``rglru_scan``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def rglru_ref(a: torch.Tensor, b: torch.Tensor,
+              h0: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a, b: [B, S, L]; ``h0`` [B, L] or None.  Returns (h [B, S, L],
+    h_last [B, L]), float32."""
+    Bsz, S, L = a.shape
+    af, bf = a.float(), b.float()
+    h = (torch.zeros((Bsz, L), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    hs = []
+    for t in range(S):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def rglru_call_ref(a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None, chunk: int = 2048
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a, b: [B, S, L]; ``h0`` [B, L] or None (zeros).  S must be a
+    multiple of ``min(chunk, S)``.  Returns (h [B, S, L], h_last [B, L]),
+    float32."""
+    Bsz, S, L = a.shape
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"sequence {S} must divide the scan chunk {Q}")
+    carry = (torch.zeros((Bsz, L), dtype=torch.float32, device=a.device)
+             if h0 is None else h0.float())
+    out = []
+    for c0 in range(0, S, Q):
+        ac = a[:, c0:c0 + Q].float()
+        bc = b[:, c0:c0 + Q].float()
+        # after the rounds, bc = scan within the chunk from a zero state and
+        # ac = the running product of the decays
+        s = 1
+        while s < Q:
+            bc = torch.cat([bc[:, :s], bc[:, s:] + ac[:, s:] * bc[:, :-s]], 1)
+            ac = torch.cat([ac[:, :s], ac[:, s:] * ac[:, :-s]], 1)
+            s *= 2
+        hc = bc + ac * carry[:, None]                  # fold the carry in
+        carry = hc[:, -1]
+        out.append(hc)
+    return torch.cat(out, dim=1), carry

@@ -1,0 +1,60 @@
+"""Public entry point of the SSD chunk-scan kernel, in the model's layout.
+
+``ssd_scan`` is the drop-in for ``repro_torch.models.ssm.ssd_chunked``
+(as ``repro/kernels/ssd/ops.py:ssd_scan`` is for the JAX model's): it
+moves x and dt to head-major, forms ``dA = dt * A`` and calls
+``kernel.ssd_call``.  It is the one place that chooses between kernel and
+plain version.  On CUDA tensors that is the kernel, wrapped in a
+``torch.autograd.Function`` whose backward raises: the kernel has no
+backward yet, as the TPU kernel had none (ROADMAP B8, the recurrent
+families' backward kernels).  On CPU tensors, or under ``KernelMode.TORCH``,
+it is the plain version (``ref.ssd_call_ref``), through which autograd runs
+as usual.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.fabric.interface import KernelMode, use_kernel
+from repro_torch.kernels.ssd import kernel as _k
+from repro_torch.kernels.ssd import ref
+
+BACKWARD_ITEM = ("the SSD kernel has no backward yet (ROADMAP B8: the "
+                 "recurrent families' backward kernels)")
+
+
+class _SSDScan(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, dA, dt, Bm, Cm, h0, chunk, mode):
+        return _k.ssd_call(x, dA, dt, Bm, Cm, chunk=chunk, h0=h0, mode=mode)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        raise NotImplementedError(BACKWARD_ITEM)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
+             h0: Optional[torch.Tensor] = None,
+             mode=KernelMode.AUTO) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, H, P]; dt: [B, S, H]; A: [H] (< 0); Bm, Cm: [B, S, N];
+    ``h0`` [B, H, P, N] or None.  ``chunk`` is cut to S when S is shorter;
+    S must be a multiple of it.  Returns (y [B, S, H, P] in x.dtype,
+    h_last [B, H, P, N] float32)."""
+    S = x.shape[1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence {S} must divide the SSD chunk {chunk}")
+    xh = x.transpose(1, 2)                                  # [B, H, S, P]
+    dth = dt.transpose(1, 2).float()                        # [B, H, S]
+    dAh = dth * A.float()[None, :, None]
+    h0 = None if h0 is None else h0.float()
+    tensors = (x, dt, A, Bm, Cm) + (() if h0 is None else (h0,))
+    if use_kernel(mode, *tensors):
+        y, h_last = _SSDScan.apply(xh, dAh, dth, Bm, Cm, h0, chunk, mode)
+    else:
+        y, h_last = ref.ssd_call_ref(xh, dAh, dth, Bm, Cm, chunk, h0)
+    return y.transpose(1, 2), h_last

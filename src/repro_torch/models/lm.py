@@ -1,25 +1,30 @@
-"""Decoder-only LM for the ``dense`` and ``moe`` families.
+"""The LM families: ``DenseLM`` (``dense`` and ``moe``), ``SSMLM``
+(``ssm``, Mamba-2) and ``HybridLM`` (``hybrid``, RecurrentGemma).
 
-The contract of the JAX package's ``DenseLM``:
+The contract of the JAX package's models:
 
 - ``init(gen)``                          parameters from a torch.Generator
 - ``loss(params, batch)``                training objective (chunked vocab
-                                         xent + 0.01 * MoE aux loss)
+                                         xent, + 0.01 * MoE aux loss)
 - ``prefill(params, batch)``             full-sequence forward -> last-token
                                          logits
-- ``init_decode_state(batch, max_len)``  an empty KV cache
+- ``init_decode_state(batch, max_len)``  an empty decode state
 - ``decode_step(params, state, batch)``  one token with cached state
 
-Layers are kept apart (``params["layers"]`` is a list of per-layer dicts)
-and run in a Python loop; the JAX package stacks them [L, ...] and scans.
-``ckpt.convert.params_from_numpy`` unstacks JAX parameters into this
-layout.  Layer remat is not ported (every activation is kept for the
-backward).  The other families (ssm, hybrid, encdec, vlm) are not ported.
+Layers are kept apart (``params["layers"]`` is a list of per-layer dicts;
+the hybrid's ``params["groups"]`` a list of groups, each with a list of
+recurrent blocks, and ``params["trail"]`` a list) and run in a Python
+loop; the JAX package stacks them and scans.  ``ckpt.convert`` moves
+parameters between the two layouts.  Layer remat is not ported (every
+activation is kept for the backward).  The encdec and vlm families are not
+ported; the ssm and hybrid families serve (their scans have no backward
+kernel yet).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List
+import functools
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -28,8 +33,10 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamDef, dtype_of, init_params,
-                                       ones_init, rms_norm)
+                                       ones_init, rms_norm, tree_leaves)
 from repro_torch.models.config import ModelConfig
 
 Params = Any
@@ -98,27 +105,86 @@ def _xent_per_token(logits: torch.Tensor, labels: torch.Tensor,
 
 @dataclasses.dataclass
 class DecodeState:
-    pos: int                                  # next position
-    kv_k: List[torch.Tensor]                  # per layer [B, Sc, Kv, hd]
-    kv_v: List[torch.Tensor]
-    kv_pos: torch.Tensor                      # [B, Sc] int32, -1 = empty
+    """The decode state of every family; each family fills its fields and
+    leaves the others None.  Per-layer tensors are lists."""
+
+    pos: int                                          # next position
+    kv_k: Optional[List[torch.Tensor]] = None         # [B, Sc, Kv, hd]
+    kv_v: Optional[List[torch.Tensor]] = None
+    kv_pos: Optional[torch.Tensor] = None             # [B, Sc] int32, -1 empty
+    ssm_state: Optional[List[torch.Tensor]] = None    # [B, H, P, N] float32
+    conv_tail: Optional[List[torch.Tensor]] = None    # [B, W-1, conv_dim]
+    rec_h: Optional[List[torch.Tensor]] = None        # [B, lru] float32
+    rec_tail: Optional[List[torch.Tensor]] = None     # [B, 3, lru]
 
     def split(self) -> List["DecodeState"]:
-        """One B=1 state per batch row (copies: each slot owns its cache)."""
-        B = self.kv_pos.shape[0]
+        """One B=1 state per batch row (copies: each slot owns its state)."""
+        batched = {f.name: getattr(self, f.name)
+                   for f in dataclasses.fields(self)
+                   if f.name != "pos" and getattr(self, f.name) is not None}
+        B = tree_leaves(list(batched.values()))[0].shape[0]
+
+        def row(v, i):
+            if torch.is_tensor(v):
+                return v[i:i + 1].clone()
+            return [c[i:i + 1].clone() for c in v]
+
         return [DecodeState(pos=self.pos,
-                            kv_k=[c[i:i + 1].clone() for c in self.kv_k],
-                            kv_v=[c[i:i + 1].clone() for c in self.kv_v],
-                            kv_pos=self.kv_pos[i:i + 1].clone())
+                            **{k: row(v, i) for k, v in batched.items()})
                 for i in range(B)]
 
 
-class DenseLM:
+class LMBase:
+    """What the families share: the config, the device, the embedding and
+    the head, the parameter init, and the last-token logits."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        cfg.validate()
+        self.cfg = cfg
+        self.dtype = dtype_of(cfg.dtype)
+        self.device = resolve_device(device)
+
+    def _embed_defs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        out = {"embed": ParamDef((cfg.vocab_padded, cfg.d_model)),
+               "final_norm": ParamDef((cfg.d_model,), ones_init)}
+        if not cfg.tied_embeddings:
+            out["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_padded))
+        return out
+
+    def param_defs(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def init(self, gen: torch.Generator) -> Params:
+        return init_params(self.param_defs(), gen, self.dtype, self.device)
+
+    def _head_weight(self, params):
+        if self.cfg.tied_embeddings:
+            return params["embed"].T
+        return params["lm_head"]
+
+    def _inputs_embed(self, params, batch) -> torch.Tensor:
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        return params["embed"][tokens.long()]
+
+    def _last_logits(self, params, h: torch.Tensor) -> torch.Tensor:
+        """The final norm, then the head on the last position: [B, V]."""
+        h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        return h[:, -1] @ self._head_weight(params)
+
+    def _lm_loss(self, params, h: torch.Tensor, batch) -> torch.Tensor:
+        """The final norm, then the chunked vocab xent."""
+        h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        return chunked_lm_loss(h, self._head_weight(params), labels,
+                               self.cfg.vocab)
+
+
+class DenseLM(LMBase):
     """Decoder-only transformer: GQA (+ optional SWA window, qkv bias),
     with a per-layer MLP or a crossbar-dispatched MoE."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        cfg.validate()
         if cfg.moe is not None:
             from repro_torch.fabric.backends import is_fabric_backend
             if not is_fabric_backend(cfg.moe.dispatch):
@@ -126,9 +192,7 @@ class DenseLM:
                     f"MoE dispatch {cfg.moe.dispatch!r} is not ported; "
                     f"set moe.dispatch to a fabric backend such as "
                     f"'cuda_kernel'")
-        self.cfg = cfg
-        self.dtype = dtype_of(cfg.dtype)
-        self.device = resolve_device(device)
+        super().__init__(cfg, device)
 
     # ---- parameters ---------------------------------------------------
     def _layer_defs(self) -> Dict[str, Any]:
@@ -144,21 +208,9 @@ class DenseLM:
         return d
 
     def param_defs(self) -> Dict[str, Any]:
-        cfg = self.cfg
-        out = {"embed": ParamDef((cfg.vocab_padded, cfg.d_model)),
-               "final_norm": ParamDef((cfg.d_model,), ones_init)}
-        if not cfg.tied_embeddings:
-            out["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_padded))
-        out["layers"] = [self._layer_defs() for _ in range(cfg.n_layers)]
+        out = self._embed_defs()
+        out["layers"] = [self._layer_defs() for _ in range(self.cfg.n_layers)]
         return out
-
-    def init(self, gen: torch.Generator) -> Params:
-        return init_params(self.param_defs(), gen, self.dtype, self.device)
-
-    def _head_weight(self, params):
-        if self.cfg.tied_embeddings:
-            return params["embed"].T
-        return params["lm_head"]
 
     # ---- forward ------------------------------------------------------
     def _block(self, lp, x: torch.Tensor, positions: torch.Tensor,
@@ -184,16 +236,13 @@ class DenseLM:
 
     def _backbone(self, params, x: torch.Tensor, positions: torch.Tensor,
                   moe_group: int = 1024):
-        """Every layer, then the final norm; returns (h, summed aux loss)."""
+        """Every layer; returns (h before the final norm, summed aux
+        loss)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in params["layers"]:
             x, a = self._block(lp, x, positions, moe_group)
             aux = aux + a
-        return rms_norm(x, params["final_norm"], self.cfg.norm_eps), aux
-
-    def _inputs_embed(self, params, batch) -> torch.Tensor:
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        return params["embed"][tokens.long()]
+        return x, aux
 
     def loss(self, params, batch) -> torch.Tensor:
         """``batch["tokens"]``/``["labels"]`` [B, S] -> scalar float32."""
@@ -202,49 +251,34 @@ class DenseLM:
         positions = torch.arange(S, device=x.device)[None, :]
         h, aux = self._backbone(params, x, positions,
                                 moe_group=min(1024, B * S))
-        labels = torch.as_tensor(batch["labels"], device=self.device)
-        lm = chunked_lm_loss(h, self._head_weight(params), labels,
-                             self.cfg.vocab)
-        return lm + 0.01 * aux
+        return self._lm_loss(params, h, batch) + 0.01 * aux
 
     def prefill(self, params, batch) -> torch.Tensor:
         """``batch["tokens"]`` [B, S] -> last-token logits [B, V_padded]."""
         x = self._inputs_embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         h, _ = self._backbone(params, x, positions)
-        return h[:, -1] @ self._head_weight(params)
+        return self._last_logits(params, h)
 
     # ---- decode -------------------------------------------------------
     def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
         cfg = self.cfg
         slots = min(cfg.attn_window, max_len) if cfg.attn_window else max_len
-        shape = (batch, slots, cfg.n_kv_heads, cfg.hd)
-        z = lambda: torch.zeros(shape, dtype=self.dtype, device=self.device)
-        return DecodeState(
-            pos=0,
-            kv_k=[z() for _ in range(cfg.n_layers)],
-            kv_v=[z() for _ in range(cfg.n_layers)],
-            kv_pos=torch.full((batch, slots), -1, dtype=torch.int32,
-                              device=self.device))
+        return _kv_state(batch, slots, cfg.n_layers, cfg, self.dtype,
+                         self.device)
 
     def decode_step(self, params, state: DecodeState, batch):
         """One token for every row: ``batch["tokens"]`` [B, 1] ->
         (logits [B, V_padded], next state).  The caches are written in
         place (see ``attention.cache_write``)."""
         cfg = self.cfg
-        tok = batch["tokens"]                         # [B, 1]
-        x = params["embed"][tok.long()]               # [B, 1, d]
+        x = self._inputs_embed(params, batch)         # [B, 1, d]
         pos = state.pos
-        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                               device=x.device)
+        positions = _decode_positions(x, pos)
         kv_pos = state.kv_pos
         for lp, ck, cv in zip(params["layers"], state.kv_k, state.kv_v):
-            h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-            q, k, v = qkv(lp["attn"], h, cfg, positions)
-            ck, cv, kv_pos = attn.cache_write(ck, cv, state.kv_pos, k, v, pos)
-            o = attn.attention_decode(q, ck, cv, kv_pos, pos,
-                                      window=cfg.attn_window)
-            x = x + o.reshape(o.shape[0], 1, -1) @ lp["attn"]["wo"]
+            x, kv_pos = _attn_decode(lp, x, ck, cv, state.kv_pos, positions,
+                                     pos, cfg, cfg.attn_window)
             h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
             if cfg.moe is not None:
                 y, _ = moe_mod.moe_apply(lp["moe"], h2, cfg.moe, cfg.mlp_act,
@@ -254,17 +288,243 @@ class DenseLM:
             else:
                 y = mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act)
             x = x + y
-        h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits = h[:, -1] @ self._head_weight(params)
-        return logits, DecodeState(pos=pos + 1, kv_k=state.kv_k,
-                                   kv_v=state.kv_v, kv_pos=kv_pos)
+        return self._last_logits(params, x), dataclasses.replace(
+            state, pos=pos + 1, kv_pos=kv_pos)
 
 
-def build_model(cfg: ModelConfig, device=None) -> DenseLM:
+def _kv_state(batch: int, slots: int, n_layers: int, cfg: ModelConfig,
+              dtype, device, **more) -> DecodeState:
+    """An empty decode state with ``n_layers`` KV caches of ``slots``."""
+    shape = (batch, slots, cfg.n_kv_heads, cfg.hd)
+    z = lambda: torch.zeros(shape, dtype=dtype, device=device)
+    return DecodeState(
+        pos=0, kv_k=[z() for _ in range(n_layers)],
+        kv_v=[z() for _ in range(n_layers)],
+        kv_pos=torch.full((batch, slots), -1, dtype=torch.int32,
+                          device=device), **more)
+
+
+def _decode_positions(x: torch.Tensor, pos: int) -> torch.Tensor:
+    return torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                      device=x.device)
+
+
+def _attn_decode(lp, x, ck, cv, kv_pos, positions, pos: int,
+                 cfg: ModelConfig, window):
+    """The attention half of a decode block: norm, q/k/v, the cache write
+    (in place) and attention over the cache.  Returns (x + attention,
+    slot positions with this token)."""
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    q, k, v = qkv(lp["attn"], h, cfg, positions)
+    ck, cv, kv_pos = attn.cache_write(ck, cv, kv_pos, k, v, pos)
+    o = attn.attention_decode(q, ck, cv, kv_pos, pos, window=window)
+    return x + o.reshape(o.shape[0], 1, -1) @ lp["attn"]["wo"], kv_pos
+
+
+class SSMLM(LMBase):
+    """Mamba-2: attention-free, one SSD mixer per layer."""
+
+    def param_defs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        layer = lambda: {"norm": ParamDef((cfg.d_model,), ones_init),
+                         "mixer": ssm_mod.ssm_defs(cfg.d_model, cfg.ssm)}
+        out = self._embed_defs()
+        out["layers"] = [layer() for _ in range(cfg.n_layers)]
+        return out
+
+    def _block(self, lp, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = rms_norm(x, lp["norm"], cfg.norm_eps)
+        y, _, _ = ssm_mod.ssm_apply(lp["mixer"], h, cfg.ssm,
+                                    kernel_mode=cfg.kernel_mode)
+        return x + y
+
+    def blocks(self, params, seq_len: int) -> list:
+        """The backbone's full-sequence blocks in order, each x -> x."""
+        return [functools.partial(self._block, lp) for lp in params["layers"]]
+
+    def _backbone(self, params, x: torch.Tensor) -> torch.Tensor:
+        for block in self.blocks(params, x.shape[1]):
+            x = block(x)
+        return x
+
+    def loss(self, params, batch) -> torch.Tensor:
+        h = self._backbone(params, self._inputs_embed(params, batch))
+        return self._lm_loss(params, h, batch)
+
+    def prefill(self, params, batch) -> torch.Tensor:
+        h = self._backbone(params, self._inputs_embed(params, batch))
+        return self._last_logits(params, h)
+
+    def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
+        cfg, ssm = self.cfg, self.cfg.ssm
+        H = ssm.n_heads(cfg.d_model)
+        conv_dim = ssm.expand * cfg.d_model + 2 * ssm.d_state
+        dev = self.device
+        return DecodeState(
+            pos=0,
+            ssm_state=[torch.zeros((batch, H, ssm.head_dim, ssm.d_state),
+                                   dtype=torch.float32, device=dev)
+                       for _ in range(cfg.n_layers)],
+            conv_tail=[torch.zeros((batch, ssm.conv_width - 1, conv_dim),
+                                   dtype=self.dtype, device=dev)
+                       for _ in range(cfg.n_layers)])
+
+    def decode_step(self, params, state: DecodeState, batch):
+        cfg = self.cfg
+        x = self._inputs_embed(params, batch)
+        states, tails = [], []
+        for lp, st, tail in zip(params["layers"], state.ssm_state,
+                                state.conv_tail):
+            h = rms_norm(x, lp["norm"], cfg.norm_eps)
+            y, st, tail = ssm_mod.ssm_apply(lp["mixer"], h, cfg.ssm,
+                                            state=st, conv_tail=tail,
+                                            decode=True)
+            x = x + y
+            states.append(st)
+            tails.append(tail)
+        return self._last_logits(params, x), dataclasses.replace(
+            state, pos=state.pos + 1, ssm_state=states, conv_tail=tails)
+
+
+class HybridLM(LMBase):
+    """RecurrentGemma: groups of ``pattern_rec`` RG-LRU blocks and one
+    local-attention block; the layers left over after the last whole group
+    are recurrent blocks (``trail``)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        per = cfg.hybrid.pattern_rec + 1
+        self.n_groups = cfg.n_layers // per
+        self.n_trail = cfg.n_layers - self.n_groups * per
+        self.lru = cfg.hybrid.lru_width or cfg.d_model
+
+    def _rec_defs(self):
+        cfg = self.cfg
+        return {"norm1": ParamDef((cfg.d_model,), ones_init),
+                "rec": rglru_mod.rglru_defs(cfg.d_model, self.lru),
+                "norm2": ParamDef((cfg.d_model,), ones_init),
+                "mlp": mlp_mod.mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_act)}
+
+    def _attn_block_defs(self):
+        cfg = self.cfg
+        return {"norm1": ParamDef((cfg.d_model,), ones_init),
+                "attn": attn_defs(cfg),
+                "norm2": ParamDef((cfg.d_model,), ones_init),
+                "mlp": mlp_mod.mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_act)}
+
+    def param_defs(self) -> Dict[str, Any]:
+        pr = self.cfg.hybrid.pattern_rec
+        out = self._embed_defs()
+        out["groups"] = [{"rec": [self._rec_defs() for _ in range(pr)],
+                          "attn_blk": self._attn_block_defs()}
+                         for _ in range(self.n_groups)]
+        if self.n_trail:
+            out["trail"] = [self._rec_defs() for _ in range(self.n_trail)]
+        return out
+
+    # ---- blocks -------------------------------------------------------
+    def _rec_block(self, lp, x, h0=None, tail=None, decode=False):
+        cfg = self.cfg
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        y, h_last, tail = rglru_mod.rglru_block_apply(
+            lp["rec"], h, h0=h0, conv_tail=tail, decode=decode,
+            kernel_mode=cfg.kernel_mode)
+        x = x + y
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        return x + mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act), h_last, tail
+
+    def _attn_block(self, lp, x, positions):
+        cfg = self.cfg
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        q, k, v = qkv(lp["attn"], h, cfg, positions)
+        o = attn.attention_prefill(q, k, v, causal=True,
+                                   window=cfg.hybrid.attn_window,
+                                   kernel_mode=cfg.kernel_mode)
+        x = x + o.reshape(o.shape[0], o.shape[1], -1) @ lp["attn"]["wo"]
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        return x + mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act)
+
+    def blocks(self, params, seq_len: int) -> list:
+        """The backbone's full-sequence blocks in order, each x -> x."""
+        positions = torch.arange(seq_len, device=self.device)[None, :]
+        rec = lambda lp: lambda x: self._rec_block(lp, x)[0]
+        out = []
+        for g in params["groups"]:
+            out += [rec(lp) for lp in g["rec"]]
+            out.append(functools.partial(self._attn_block, g["attn_blk"],
+                                         positions=positions))
+        return out + [rec(lp) for lp in params.get("trail", [])]
+
+    def _backbone(self, params, x: torch.Tensor) -> torch.Tensor:
+        for block in self.blocks(params, x.shape[1]):
+            x = block(x)
+        return x
+
+    def loss(self, params, batch) -> torch.Tensor:
+        h = self._backbone(params, self._inputs_embed(params, batch))
+        return self._lm_loss(params, h, batch)
+
+    def prefill(self, params, batch) -> torch.Tensor:
+        h = self._backbone(params, self._inputs_embed(params, batch))
+        return self._last_logits(params, h)
+
+    # ---- decode -------------------------------------------------------
+    def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
+        cfg = self.cfg
+        n_rec = self.n_groups * cfg.hybrid.pattern_rec + self.n_trail
+        dev = self.device
+        return _kv_state(
+            batch, min(cfg.hybrid.attn_window, max_len), self.n_groups, cfg,
+            self.dtype, dev,
+            rec_h=[torch.zeros((batch, self.lru), dtype=torch.float32,
+                               device=dev) for _ in range(n_rec)],
+            rec_tail=[torch.zeros((batch, 3, self.lru), dtype=self.dtype,
+                                  device=dev) for _ in range(n_rec)])
+
+    def decode_step(self, params, state: DecodeState, batch):
+        cfg = self.cfg
+        x = self._inputs_embed(params, batch)
+        pos = state.pos
+        positions = _decode_positions(x, pos)
+        rec_h, rec_tail = [], []
+
+        def rec(lp, x):
+            i = len(rec_h)
+            x, h, tail = self._rec_block(lp, x, h0=state.rec_h[i],
+                                         tail=state.rec_tail[i], decode=True)
+            rec_h.append(h)
+            rec_tail.append(tail)
+            return x
+
+        kv_pos = state.kv_pos
+        for g, ck, cv in zip(params["groups"], state.kv_k, state.kv_v):
+            for lp in g["rec"]:
+                x = rec(lp, x)
+            lp = g["attn_blk"]
+            x, kv_pos = _attn_decode(lp, x, ck, cv, state.kv_pos, positions,
+                                     pos, cfg, cfg.hybrid.attn_window)
+            h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+            x = x + mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act)
+        for lp in params.get("trail", []):
+            x = rec(lp, x)
+        if not state.kv_k:              # no attention block: no cache write
+            kv_pos = state.kv_pos.clone()
+            kv_pos[:, pos % kv_pos.shape[1]] = pos
+        return self._last_logits(params, x), dataclasses.replace(
+            state, pos=pos + 1, kv_pos=kv_pos, rec_h=rec_h,
+            rec_tail=rec_tail)
+
+
+FAMILIES = {"dense": DenseLM, "moe": DenseLM, "ssm": SSMLM,
+            "hybrid": HybridLM}
+
+
+def build_model(cfg: ModelConfig, device=None) -> LMBase:
     """The model for ``cfg`` on ``device`` (the card unless ``"cpu"`` is
     asked for)."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (dense and moe "
-            f"are)")
-    return DenseLM(cfg, device=device)
+            f"model family {cfg.family!r} is not ported yet "
+            f"({', '.join(sorted(FAMILIES))} are)")
+    return FAMILIES[cfg.family](cfg, device=device)

@@ -4,7 +4,8 @@ The port's ``attention_prefill`` (plain chunked path), ``attention_ref``
 and ``flash_attention`` (whose CPU path is the kernels' plain versions)
 against JAX's ``attention_prefill`` and JAX's Pallas ``flash_attention``
 run with ``interpret=True``, as ``tests/test_kernels.py`` runs it, at that
-file's six shape cases.  Inputs are seeded numpy arrays handed to both.
+file's six shape cases and at RecurrentGemma's head dim 256 (MQA, a window).
+Inputs are seeded numpy arrays handed to both.
 
 Tolerances are the JAX package's own for its kernel: 2e-5 in float32 and
 3e-2 in bfloat16 (absolute and relative).  Gradients (float32) are held
@@ -32,6 +33,7 @@ CASES = [
     (1, 256, 256, 2, 1, 64, True, 128),       # MQA + sliding window
     (1, 200, 200, 4, 2, 64, False, None),     # non-causal (encoder)
     (1, 512, 512, 2, 2, 128, True, 64),       # small window, banded skip
+    (1, 256, 256, 4, 1, 256, True, 64),       # RecurrentGemma: MQA, D=256
 ]
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 GRAD_TOL = 1e-5

@@ -96,6 +96,35 @@ def test_port_imports_with_jax_blocked():
     assert _run_blocked(code) == "ok"
 
 
+RECURRENT_MODULES = ["kernels/ssd/kernel.py", "kernels/ssd/ops.py",
+                     "kernels/ssd/ref.py", "kernels/rglru/kernel.py",
+                     "kernels/rglru/ops.py", "kernels/rglru/ref.py",
+                     "models/ssm.py", "models/rglru.py"]
+
+
+def test_static_check_covers_the_recurrent_modules():
+    port = ROOT / "src" / "repro_torch"
+    assert {port / m for m in RECURRENT_MODULES} <= set(PORT_FILES)
+
+
+def test_recurrent_families_run_with_jax_blocked():
+    """The SSM and hybrid families import, build and run their full-sequence
+    and decode paths on the CPU with JAX and the JAX package blocked."""
+    code = (
+        "import torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models.lm import build_model\n"
+        "for arch in ('mamba2_780m', 'recurrentgemma_9b'):\n"
+        "    m = build_model(get_config(arch, smoke=True), device='cpu')\n"
+        "    p = m.init(torch.Generator().manual_seed(0))\n"
+        "    tok = torch.zeros((1, 16), dtype=torch.int32)\n"
+        "    assert m.prefill(p, {'tokens': tok}).shape[0] == 1\n"
+        "    st = m.init_decode_state(1, 8)\n"
+        "    m.decode_step(p, st, {'tokens': tok[:, :1]})\n"
+        "print('ok')\n")
+    assert _run_blocked(code) == "ok"
+
+
 def test_entry_points_without_device_raise_when_cuda_is_absent():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -119,6 +148,11 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         DenseLM(cfg)
+    for arch in ("mamba2_780m", "recurrentgemma_9b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_model(get_config(arch, smoke=True))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ModelEngine(get_config(arch, smoke=True))
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy({"layers": {}}, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on the card: the crossbar
-kernels, flash attention forward and backward, and the gradients of the
-MoE through the crossbar kernel data plane.
+kernels, flash attention forward and backward (and the forward at head
+dim 256), the gradients of the MoE through the crossbar kernel data plane,
+and the recurrent families' SSD and RG-LRU scans.
 
 Imports nothing of JAX, so it runs where only PyTorch and the CUDA toolkit
 are installed:
@@ -24,6 +25,14 @@ gradient are also held within a relative L2 distance (1e-5 in float32,
 1e-2 in bfloat16) and the float32 row log-sum-exp within 2e-5 (float32
 inputs) or 1e-3 (bfloat16 inputs) absolute, as ``chip_smoke.py`` holds
 them.
+
+The SSD kernel is held to the plain chunked version within 2e-4 (float32:
+the same algebra summed in another order) and to the sequential oracle
+within 5e-4 (the JAX package's tolerance for its kernel), absolute and
+relative; in bfloat16 within 5e-2 and a relative L2 distance of 1e-2.  The
+RG-LRU kernel sums in the sequential order, so it is held to the oracle
+within 1e-5 and to the doubling scan within 5e-5.  A backward through any
+of the three forward-only kernels raises and launches no plain version.
 """
 
 import numpy as np
@@ -166,7 +175,8 @@ def test_flash_attention_forward_and_backward_on_card(case):
     o, lse = FK.flash_fwd(q, k, v, **kw)
     grads = FK.flash_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    assert FK.launch_counts() == {"flash_fwd": before["flash_fwd"] + 1,
+    assert FK.launch_counts() == {**before,
+                                  "flash_fwd": before["flash_fwd"] + 1,
                                   "flash_bwd": before["flash_bwd"] + 1}
     o_ref, lse_ref = fref.attention_fwd_ref(q, k, v, **kw)
     tol = FWD_TOL[dtype]
@@ -243,3 +253,176 @@ def test_moe_gradients_cross_the_kernel_data_plane_on_card(dtype):
         tol = GRAD_REL[dtype] * float(b.abs().max())
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0,
                                    msg=lambda m: f"{name}: {m}")
+
+
+# ----------------------------------------------------------------------
+# SSD, RG-LRU and the flash forward at head dim 256
+# ----------------------------------------------------------------------
+from repro_torch.kernels.ssd import kernel as SK
+from repro_torch.kernels.ssd import ref as sref
+from repro_torch.kernels.ssd.ops import ssd_scan
+from repro_torch.kernels.rglru import kernel as RK
+from repro_torch.kernels.rglru import ref as rref
+from repro_torch.kernels.rglru.ops import rglru_scan_kernel
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+SSD_CASES = [                     # B, S, H, P, N, chunk, dtype, with h0
+    (1, 1024, 48, 64, 128, 256, torch.float32, False),   # Mamba-2 780M
+    (1, 2048, 48, 64, 128, 256, torch.bfloat16, False),
+    (2, 512, 4, 64, 128, 256, torch.bfloat16, True),
+    (1, 256, 8, 64, 128, 128, torch.float32, True),
+    (2, 384, 2, 64, 128, 128, torch.float32, False),     # 3 chunks
+    (1, 200, 4, 64, 128, 200, torch.float32, False),     # S below the chunk
+    (1, 96, 4, 64, 128, 32, torch.float32, False),       # a chunk below 64
+]
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, with_h0, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = rn(B, H, S, P).to(dtype)
+    dt = torch.nn.functional.softplus(rn(B, H, S))
+    A = -torch.exp(rn(H) * 0.5)
+    dA = dt * A[None, :, None]
+    Bm = (rn(B, S, N) * 0.3).to(dtype)
+    Cm = (rn(B, S, N) * 0.3).to(dtype)
+    h0 = rn(B, H, P, N) * 0.1 if with_h0 else None
+    return x, dA, dt, Bm, Cm, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_ssd_kernel_matches_plain_on_card(case):
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H, P, N, chunk, dtype, with_h0 = case
+    x, dA, dt, Bm, Cm, h0 = _ssd_inputs(B, S, H, P, N, dtype, with_h0)
+    before = SK.launch_counts()["ssd"]
+    y, h = SK.ssd_call(x, dA, dt, Bm, Cm, chunk=chunk, h0=h0,
+                       mode=KernelMode.CUDA)
+    torch.cuda.synchronize()
+    assert SK.launch_counts()["ssd"] == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    yp, hp = sref.ssd_call_ref(x, dA, dt, Bm, Cm, chunk, h0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, yp, atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(h, hp, atol=2e-4, rtol=2e-4)
+        if not with_h0 and S <= 1024:
+            yo, ho = sref.ssd_ref(x, dA, dt, Bm, Cm)
+            torch.testing.assert_close(y, yo, atol=5e-4, rtol=5e-4)
+            torch.testing.assert_close(h, ho, atol=5e-4, rtol=5e-4)
+    else:
+        torch.testing.assert_close(y.float(), yp.float(), atol=5e-2,
+                                   rtol=5e-2)
+        assert _rel_l2(y, yp) <= 1e-2
+        torch.testing.assert_close(h, hp, atol=5e-4, rtol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["dtype", "chunk", "widths", "bc_dtype"])
+def test_ssd_kernel_refuses_what_it_cannot_take_on_card(what):
+    _card()
+    x, dA, dt, Bm, Cm, _ = _ssd_inputs(1, 256, 2, 64, 128, torch.float32,
+                                       False)
+    chunk = 256
+    if what == "dtype":
+        x, Bm, Cm = x.half(), Bm.half(), Cm.half()
+    elif what == "chunk":
+        chunk = 96                        # 256 % 96 != 0
+    elif what == "widths":
+        x = x[..., :32].contiguous()      # P = 32 is not instantiated
+    else:
+        Bm = Bm.bfloat16()
+    before = SK.launch_counts()
+    with pytest.raises((TypeError, ValueError)):
+        SK.ssd_call(x, dA, dt, Bm, Cm, chunk=chunk, mode=KernelMode.CUDA)
+    assert SK.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,L", [(1, 4096, 4096), (2, 1001, 96)])
+def test_rglru_kernel_matches_plain_on_card(B, S, L):
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    a = torch.sigmoid(torch.randn((B, S, L), generator=gen,
+                                  device="cuda")) * 0.98 + 0.01
+    b = torch.randn((B, S, L), generator=gen, device="cuda") * 0.5
+    before = RK.launch_counts()["rglru"]
+    h, hl = RK.rglru_call(a, b, mode=KernelMode.CUDA)
+    torch.cuda.synchronize()
+    assert RK.launch_counts()["rglru"] == before + 1
+    ho, hlo = rref.rglru_ref(a, b)
+    torch.testing.assert_close(h, ho, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(hl, hlo, atol=1e-5, rtol=1e-5)
+    Q = 1001 if S == 1001 else 2048
+    hp, hlp = rref.rglru_call_ref(a, b, chunk=Q)
+    torch.testing.assert_close(h, hp, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(hl, hlp, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.cuda
+def test_rglru_kernel_refuses_what_it_cannot_take_on_card():
+    _card()
+    a = torch.rand((1, 64, 32), device="cuda")
+    before = RK.launch_counts()
+    with pytest.raises(TypeError):
+        RK.rglru_call(a.bfloat16(), a.bfloat16(), mode=KernelMode.CUDA)
+    with pytest.raises(ValueError):
+        RK.rglru_call(a, a[:, :32], mode=KernelMode.CUDA)
+    assert RK.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_at_head_dim_256_on_card(dtype):
+    """RecurrentGemma's local attention: MQA, 16 heads, head dim 256, a
+    sliding window; causal, ragged, the forward only."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(256)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)
+    q, k, v = mk(1, 1000, 16, 256), mk(1, 1000, 1, 256), mk(1, 1000, 1, 256)
+    kw = dict(causal=True, window=256, q_offset=0)
+    before = FK.launch_counts()
+    o, lse = FK.flash_fwd(q, k, v, mode=KernelMode.CUDA, **kw)
+    torch.cuda.synchronize()
+    assert FK.launch_counts() == {
+        **before, "flash_fwd_d256": before["flash_fwd_d256"] + 1}
+    o_ref, lse_ref = fref.attention_fwd_ref(q, k, v, **kw)
+    tol = FWD_TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    assert _rel_l2(o, o_ref) <= REL_L2[dtype]
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_ABS[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["ssd", "rglru", "flash_d256"])
+def test_backward_through_a_forward_only_kernel_raises_on_card(kernel):
+    """The forward launches the kernel; the backward raises, and nothing
+    falls back to the plain version (no plain backward runs, no kernel
+    launches)."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    if kernel == "ssd":
+        x = rn(1, 256, 2, 64).requires_grad_()
+        out, _ = ssd_scan(x, torch.rand((1, 256, 2), device="cuda"),
+                          -torch.ones(2, device="cuda"), rn(1, 256, 128),
+                          rn(1, 256, 128), chunk=256)
+        err = NotImplementedError
+    elif kernel == "rglru":
+        u = rn(1, 256, 64).requires_grad_()
+        out, _ = rglru_scan_kernel(u, torch.rand((1, 256, 64),
+                                                 device="cuda"))
+        err = NotImplementedError
+    else:
+        q = rn(1, 128, 2, 256).requires_grad_()
+        kv = rn(1, 128, 1, 256)
+        out = flash_attention(q, kv, kv, window=64)
+        err = ValueError
+    counts = {**SK.launch_counts(), **RK.launch_counts(),
+              **FK.launch_counts()}
+    with pytest.raises(err, match="ROADMAP B8"):
+        out.sum().backward()
+    assert {**SK.launch_counts(), **RK.launch_counts(),
+            **FK.launch_counts()} == counts

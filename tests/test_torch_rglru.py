@@ -1,0 +1,128 @@
+"""The port's RG-LRU scan against the JAX package's, on the CPU.
+
+The port's ``rglru_scan`` (the model's plain path: a doubling scan within
+chunks of 2048 and a carried state) and ``rglru_scan_kernel`` (whose CPU
+path is the kernel's plain version), with and without an initial state,
+against JAX's ``rglru_scan``, ``rglru_scan_kernel`` (its Pallas kernel run
+with ``interpret=True``, as ``tests/test_kernels.py`` runs it) and the
+sequential oracle ``rglru_ref``.  Also the recurrent block
+``rglru_block_apply`` on converted parameters.  Inputs are seeded numpy
+arrays handed to both.
+
+Tolerance: float32 5e-5, absolute and relative (the JAX package's own for
+its kernel): the scans sum the same products in other orders.  Shapes are
+those of ``test_kernels.py``, plus one sequence longer than the model's
+chunk, so that the carry across chunks is exercised.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.rglru.ops import rglru_scan_kernel as jax_scan_kernel
+from repro.kernels.rglru.ref import rglru_ref as jax_rglru_ref
+from repro.models import rglru as jax_rglru
+from repro_torch.fabric.interface import KernelMode
+from repro_torch.kernels.rglru import kernel as K
+from repro_torch.kernels.rglru.ops import rglru_scan_kernel
+from repro_torch.kernels.rglru.ref import rglru_ref
+from repro_torch.models import rglru as torch_rglru
+
+CASES = [                      # B, S, L, JAX kernel chunk, block_l
+    (2, 512, 512, 256, 256),
+    (1, 256, 1024, 128, 512),
+    (3, 384, 256, 128, 256),
+    (1, 4096, 64, 256, 64),    # two chunks of the model's 2048
+]
+TOL = 5e-5
+
+
+def _inputs(case, seed=0):
+    B, S, L = case[:3]
+    rng = np.random.default_rng(seed)
+    a = (1 / (1 + np.exp(-rng.standard_normal((B, S, L)))) * 0.98
+         + 0.01).astype(np.float32)
+    u = (rng.standard_normal((B, S, L)) * 0.5).astype(np.float32)
+    h0 = (rng.standard_normal((B, L)) * 0.3).astype(np.float32)
+    return a, u, h0
+
+
+def _close(a, b, tol=TOL):
+    np.testing.assert_allclose(np.asarray(a, np.float32),
+                               np.asarray(b, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_rglru_scans_match_jax_scans_and_oracle(case, with_h0):
+    a, u, h0 = _inputs(case)
+    _, _, _, chunk, block_l = case
+    h0 = h0 if with_h0 else None
+    ja, ju = jnp.asarray(a), jnp.asarray(u)
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    hr, hlr = jax_rglru_ref(ja, ju, jh0)
+    hk, hlk = jax_scan_kernel(ju, ja, jh0, chunk=chunk, block_l=block_l,
+                              interpret=True)
+    hm, hlm = jax_rglru.rglru_scan(ju, ja, jh0)
+    ta, tu = torch.from_numpy(a), torch.from_numpy(u)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    ports = {"rglru_scan": torch_rglru.rglru_scan(tu, ta, th0),
+             "rglru_scan_kernel": rglru_scan_kernel(tu, ta, th0),
+             "rglru_ref": rglru_ref(ta, tu, th0)}
+    for name, (h, hl) in ports.items():
+        assert h.dtype == torch.float32 and tuple(h.shape) == a.shape, name
+        for want, want_last in ((hr, hlr), (hk, hlk), (hm, hlm)):
+            _close(h, want)
+            _close(hl, want_last)
+
+
+def test_rglru_scan_kernel_keeps_the_input_dtype():
+    a, u, h0 = _inputs((1, 64, 32, 64, 32))
+    tu = torch.from_numpy(u).to(torch.bfloat16)
+    h, hl = rglru_scan_kernel(tu, torch.from_numpy(a), torch.from_numpy(h0))
+    assert h.dtype == torch.bfloat16 and hl.dtype == torch.float32
+    hj, hlj = jax_scan_kernel(jnp.asarray(tu.float().numpy(), jnp.bfloat16),
+                              jnp.asarray(a), jnp.asarray(h0), chunk=64,
+                              block_l=32, interpret=True)
+    _close(h.float(), np.asarray(hj, np.float32), 1e-2)
+    _close(hl, hlj)
+
+
+@pytest.mark.parametrize("decode", [False, True])
+def test_rglru_block_matches_jax(decode):
+    """The Griffin recurrent block on the same parameters: full sequence
+    (the scan) and one decode step (the O(1) update)."""
+    d, lru, S = 64, 64, 1 if decode else 96
+    rng = np.random.default_rng(4)
+    defs = jax_rglru.rglru_defs(d, lru)
+    params = {k: (rng.standard_normal(v.shape) * 0.2).astype(np.float32)
+              for k, v in defs.items()}
+    x = rng.standard_normal((2, S, d)).astype(np.float32)
+    h0 = rng.standard_normal((2, lru)).astype(np.float32) if decode else None
+    tail = (rng.standard_normal((2, 3, lru)).astype(np.float32) if decode
+            else None)
+    conv = lambda t, f: None if t is None else f(t)
+    yj, hj, tj = jax_rglru.rglru_block_apply(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x),
+        conv(h0, jnp.asarray), conv(tail, jnp.asarray), decode=decode)
+    yt, ht, tt = torch_rglru.rglru_block_apply(
+        {k: torch.from_numpy(v) for k, v in params.items()},
+        torch.from_numpy(x), conv(h0, torch.from_numpy),
+        conv(tail, torch.from_numpy), decode=decode)
+    scale = float(np.abs(np.asarray(yj)).max())
+    _close(yt.numpy() / scale, np.asarray(yj) / scale, 1e-5)
+    _close(ht, hj, 1e-5)
+    if decode:
+        _close(tt, tj, 0.0)
+
+
+def test_rglru_cuda_mode_refuses_cpu_tensors():
+    a, u, _ = _inputs((1, 64, 32, 64, 32))
+    ta, tu = torch.from_numpy(a), torch.from_numpy(u)
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan_kernel(tu, ta, mode=KernelMode.CUDA)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.rglru_call(ta, tu, mode="pallas")
+    assert K.launch_counts() == before
