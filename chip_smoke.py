@@ -6,9 +6,9 @@ Phases, each printing one JSON line with its seconds:
 
 1. device   needs ``torch.cuda.is_available()``; prints the card's name and
             power limit (``nvidia-smi``).
-2. build    builds the crossbar, flash-attention, SSD and RG-LRU kernel
-            libraries from ``src/repro_torch`` (one ``nvcc`` each, started
-            together).
+2. build    builds the crossbar, flash-attention, SSD, RG-LRU and Hamming
+            kernel libraries from ``src/repro_torch`` (one ``nvcc`` each,
+            started together).
 3. kernels  holds ``plan_multi``, ``scatter`` and ``combine`` bit-equal
             (``torch.equal``) to their plain versions at the served shapes
             and at large shapes, and times kernel, plain version and one
@@ -51,6 +51,24 @@ Phases, each printing one JSON line with its seconds:
             logits and loss against the plain path, and prefill's token
             against ``ModelEngine``'s replay of
             the same 512-token prompt through ``decode_step``.
+9. paper_usecase
+            the paper's experiments on the port's copy of the hardware
+            model (Fig 5, §V-D, §V-E, Fig 6, Table II; model milliseconds
+            and FPGA cycles, each beside the paper's value); the use case
+            (multiplier -> Hamming(31,26) encoder -> decoder, 16 KB) on a
+            ``Shell`` with 1, 2 and 3 free regions, placed modules on the
+            card's kernels and ``ON_SERVER`` ones on the CPU, each output
+            equal to ``ElasticUseCase.run_case(k).output``, then one tenant
+            grown from 1 region to 3 without a rebuild (launches counted
+            over exactly these runs); the three Hamming kernels bit-equal
+            to their plain versions at 16 KB, 2^28 and 2^28 - 3 words,
+            every single-bit error position, double-bit errors and several
+            constants, timed at 2^28 words; then the single-source plan
+            kernel through the deprecated ``crossbar_plan`` ->
+            ``crossbar_dispatch`` -> ``crossbar_combine`` shims at the four
+            shapes of ``tests/test_kernels.py``, the zero-packet round and
+            out-of-range ``dst`` (launches counted over exactly these
+            rounds), bit-equal to ``plan_ref``, timed at T = 2^20, S = 16.
 
 ``--profile`` adds a phase after serving and one after the train steps:
 ``torch.profiler`` over 8 warm decode steps of the served engine and over
@@ -523,16 +541,17 @@ TRAIN_LR = 1e-3         # constant; AdamW's other settings are its defaults
 PREFILL_REL = 2e-2      # bf16 prefill logits: relative L2, kernel vs plain
 F32_SEQ = 1024
 F32_REL = 1e-4          # float32 loss and each gradient leaf, see f32_check
-TRAIN_KERNELS = ("plan_multi", "scatter", "combine", "flash_fwd",
-                 "flash_bwd")
+SERVE_KERNELS = ("plan_multi", "scatter", "combine")
+TRAIN_KERNELS = SERVE_KERNELS + ("flash_fwd", "flash_bwd")
 
 
 def _kernel_modules():
     from repro_torch.kernels.crossbar_dispatch import kernel as K
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.hamming import kernel as HK
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.ssd import kernel as SK
-    return FK, K, SK, RK
+    return FK, K, SK, RK, HK
 
 
 def _counts():
@@ -708,7 +727,7 @@ def serve_phase(cfg, smi):
         raise AssertionError("not every request completed")
     if sorted({c.entry_port for c in comps}) != [0, 1]:
         raise AssertionError("the Grow did not re-route new admissions")
-    if any(v <= 0 for v in launches.values()):
+    if any(launches[k] <= 0 for k in SERVE_KERNELS):
         raise AssertionError(f"a kernel was not launched while serving: "
                              f"{launches}")
     if loads_before != 1 or loads_after != 1:
@@ -1192,6 +1211,369 @@ def recurrent_f32_check(arch, phase):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# the paper's use case: multiplier -> Hamming(31,26) encoder -> decoder
+# ----------------------------------------------------------------------
+BULK_WORDS = 1 << 28           # 1 GiB of words: a storage tenant's bulk ECC pass
+MUL_CONSTANTS = (3, 7, 2654435761, 2**32 - 1, -1, -3)
+PLAN_SHAPES = ((512, 4, 64, 128), (300, 8, 32, 64), (1024, 16, 128, 256),
+               (64, 4, 8, 128))        # (T, S, C, D): tests/test_kernels.py
+PLAN_TIMED = (1 << 20, 16, 1 << 16)    # (T, S, C) of the timed plan
+USECASE_KERNELS = ("mul_const", "hamming_encode", "hamming_decode")
+
+
+def paper_model_report():
+    """The paper's experiments on the port's copy of the hardware model,
+    each number beside the paper's, as ``examples/paper_usecase.py`` prints
+    them.  Milliseconds here are the model's (the FPGA at 250 MHz and the
+    server, calibrated to the paper), not times of the card."""
+    from repro_torch.core.hw.area import AreaModel
+    from repro_torch.core.hw.crossbar import (CrossbarSim, MasterRequest,
+                                              best_case_time_to_grant,
+                                              request_completion_cc,
+                                              worst_case_completion_cc,
+                                              worst_case_time_to_grant)
+    from repro_torch.core.hw.system import (ElasticUseCase, PAPER_CASE1_MS,
+                                            PAPER_CASE3_MS)
+    print("== Fig 5: elasticity use case (16 KB, 3 modules; model ms, not "
+          "card time) ==")
+    uc = ElasticUseCase()
+    fig5 = uc.figure5()
+    print(f"   case 1 (mult on FPGA):        {fig5[1]:6.2f} ms   "
+          f"(paper: {PAPER_CASE1_MS})")
+    print(f"   case 2 (+encoder):            {fig5[2]:6.2f} ms   "
+          f"(paper: between)")
+    print(f"   case 3 (all three on FPGA):   {fig5[3]:6.2f} ms   "
+          f"(paper: {PAPER_CASE3_MS})")
+    print("== §V-D: dynamic bandwidth allocation (quota 16 -> 128) ==")
+    bw = uc.bandwidth_table()
+    print(f"   1 accelerator: {100*bw[1]:.2f}%  (paper: 5.24%)")
+    print(f"   3 accelerators: {100*bw[3]:.2f}%  (paper: 6%)")
+    print(f"   calibration residuals: "
+          f"{ {k: round(v, 4) for k, v in uc.calibration_residuals.items()} }")
+    print("== §V-E: communication overhead (FPGA cycles) ==")
+    print(f"   best-case time-to-grant:      {best_case_time_to_grant()} cc "
+          f"(paper: 4)")
+    print(f"   completion, 8 packages:       {request_completion_cc(8)} cc "
+          f"(paper: 13)")
+    print(f"   worst-case grant, 3 masters:  {worst_case_time_to_grant(3)} cc"
+          f" (paper: 28)")
+    print(f"   worst-case completion:        {worst_case_completion_cc(3)} cc"
+          f" (paper: 37)")
+    sim = CrossbarSim()
+    for m in (0, 1, 2):
+        sim.submit(MasterRequest(cycle=0, master=m, dst_onehot=0b1000,
+                                 n_words=8))
+    results = sim.run()
+    grants = sorted(r.time_to_grant for r in results)
+    completions = sorted(r.completion_latency for r in results)
+    print(f"   cycle-sim check: grants={grants} completions={completions}")
+    print("== Fig 6: worst-case latency vs contending PR regions ==")
+    curve = AreaModel.worst_case_latency_curve(8)
+    print("   " + "  ".join(f"{n}:{cc}cc" for n, cc in curve.items()))
+    print("== Table II claims ==")
+    m = AreaModel()
+    print(f"   LUT saving vs NoC:  {100*m.lut_saving_vs_noc():.1f}% "
+          f"(paper: 61%)")
+    print(f"   FF saving vs NoC:   {100*m.ff_saving_vs_noc():.1f}% "
+          f"(paper: 95%)")
+    print(f"   power vs NoC:       {m.power_ratio_vs_noc():.0f}x "
+          f"(paper: 80x)")
+    print(f"   completion saving vs NoC (4-router path): "
+          f"{100*m.latency_saving_vs_noc(4):.1f}% (paper headline: 69%)")
+    emit("paper_model", model_ms={"fig5": fig5, "paper_case1": PAPER_CASE1_MS,
+                                  "paper_case3": PAPER_CASE3_MS},
+         bandwidth=bw, calibration_residuals=uc.calibration_residuals,
+         cycles={"best_grant": best_case_time_to_grant(),
+                 "completion_8": request_completion_cc(8),
+                 "worst_grant_3": worst_case_time_to_grant(3),
+                 "worst_completion_3": worst_case_completion_cc(3),
+                 "sim_grants": grants, "sim_completions": completions},
+         fig6=curve, table2={"lut_saving": m.lut_saving_vs_noc(),
+                             "ff_saving": m.ff_saving_vs_noc(),
+                             "power_ratio": m.power_ratio_vs_noc()})
+    if (grants[0] != 4 or grants[-1] != 28 or completions[0] != 13
+            or completions[-1] != 37 or abs(fig5[1] - PAPER_CASE1_MS) > 1e-6
+            or abs(fig5[3] - PAPER_CASE3_MS) > 1e-6):
+        raise AssertionError("the hardware model no longer reproduces the "
+                             "paper's calibrated numbers")
+    return uc
+
+
+def usecase_path(uc):
+    """The use case through the port's entry points: for k = 1, 2, 3 a
+    ``Shell`` with k free regions admits one tenant whose footprints come
+    from ``paper_chain``, and ``ModuleChain.apply`` runs the 16 KB on the
+    placement (placed modules on the card's kernels, ``ON_SERVER`` ones on
+    the CPU); then one tenant grows from 1 region to 3 without a rebuild.
+    Every output must equal ``run_case(k).output``.  Returns the launches
+    of exactly this path."""
+    from repro_torch.core.elastic import ON_SERVER, Region
+    from repro_torch.core.module import ModuleFootprint
+    from repro_torch.kernels import build
+    from repro_torch.kernels.hamming import kernel as HK
+    from repro_torch.kernels.hamming.ops import paper_chain
+    from repro_torch.shell import Shell
+    t0 = time.perf_counter()
+    data = np.random.default_rng(0).integers(0, 1 << 26, size=uc.n_words,
+                                             dtype=np.uint32)
+    x = torch.from_numpy(data.view(np.int32)).cuda().view(torch.uint32)
+    chain = paper_chain(uc.constant)
+    params = chain.init(torch.Generator().manual_seed(SEED))
+    regions = lambda n: [Region(rid=i, n_chips=1, hbm_bytes=80 * GB)  # noqa: E731
+                         for i in range(n)]
+    names = [m.name for m in chain.modules]
+
+    def run(placement, want):
+        before = HK.launch_counts()
+        out = chain.apply(params, x, placement)
+        torch.cuda.synchronize()
+        got = out.view(torch.int32).cpu().numpy().view(np.uint32)
+        after = HK.launch_counts()
+        on_card = {n: after[k] - before[k]
+                   for n, k in zip(names, USECASE_KERNELS)}
+        expect = {n: int(p != ON_SERVER) for n, p in zip(names, placement)}
+        return {"placement": list(placement), "on_card": on_card,
+                "equal": bool(np.array_equal(got, want)),
+                "as_placed": out.device.type == "cuda" and on_card == expect}
+
+    _reset_counts()
+    cases = {}
+    for k in (1, 2, 3):
+        shell = Shell(regions(k))
+        placement = shell.submit("usecase", chain)
+        cases[k] = run(placement, uc.run_case(k).output)
+        cases[k]["as_paper"] = placement == list(range(k)) + [ON_SERVER] * (
+            3 - k)
+    shell = Shell(regions(3))
+    fp = ModuleFootprint(0, 1.0, 4)
+    shell.submit("other", [fp, fp])
+    grow = []
+    for step in (lambda: shell.submit("usecase", chain),
+                 lambda: shell.shrink("usecase", 1),
+                 lambda: shell.release("other"),
+                 lambda: shell.grow("usecase")):
+        step()
+        grow.append(run(shell.placement_of("usecase"),
+                        uc.run_case(3).output))
+    launches = _counts()
+    loads = build.load_count[HK.LIB_NAME]
+    emit("paper_usecase.path", words=uc.n_words, cases=cases, grow=grow,
+         epoch=shell.epoch, hamming_library_loads=loads,
+         kernels={k: launches[k] for k in USECASE_KERNELS},
+         seconds=time.perf_counter() - t0)
+    ok = (all(c["equal"] and c["as_placed"] and c["as_paper"]
+              for c in cases.values())
+          and all(g["equal"] and g["as_placed"] for g in grow)
+          and grow[0]["placement"][1:] == [ON_SERVER, ON_SERVER]
+          and ON_SERVER not in grow[-1]["placement"] and loads == 1
+          and all(launches[k] > 0 for k in USECASE_KERNELS))
+    if not ok:
+        raise AssertionError("the use case disagrees with run_case, ran "
+                             "where its placement does not say, or rebuilt")
+    return launches
+
+
+def hamming_check(name, x, constants=(3,)):
+    """Each Hamming kernel against its plain version on ``x`` (int32);
+    returns the largest difference (0 when bit-equal)."""
+    from repro_torch.fabric.interface import KernelMode
+    from repro_torch.kernels.hamming import kernel as HK, ref as href
+    cuda = KernelMode.CUDA
+    pairs = {"hamming_encode": (HK.hamming_encode(x, mode=cuda),
+                                href.encode_ref(x))}
+    dk, ck = HK.hamming_decode(x, mode=cuda)
+    dr, cr = href.decode_ref(x)
+    pairs["hamming_decode"] = (torch.stack([dk, ck]), torch.stack([dr, cr]))
+    for c in constants:
+        pairs[f"mul_const({c})"] = (HK.mul_const(x, c, mode=cuda),
+                                    href.multiply_ref(x, c))
+    torch.cuda.synchronize()
+    res = {k: torch.equal(a, b) for k, (a, b) in pairs.items()}
+    errs = {k: max_abs_err(a, b) for k, (a, b) in pairs.items()}
+    emit("paper_usecase.check", case=name, words=x.numel(), **res)
+    del pairs
+    if not all(res.values()):
+        raise AssertionError(f"a Hamming kernel disagrees on {name}: {res}")
+    return {"hamming_encode": errs["hamming_encode"],
+            "hamming_decode": errs["hamming_decode"],
+            "mul_const": max(v for k, v in errs.items()
+                             if k.startswith("mul_const"))}
+
+
+def error_words(gen, n_per=4096):
+    """Codewords with bit p flipped in block p (p = 0..31, bit 31 outside
+    the codeword), then codewords with two distinct bits flipped."""
+    from repro_torch.kernels.hamming import ref as href
+    data = torch.randint(0, 1 << 26, (32 * n_per,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    code = href.encode_ref(data)
+    pos = torch.arange(32, device="cuda").repeat_interleave(n_per)
+    flip = (1 << pos) - ((pos == 31).long() << 32)         # bit 31 as int32
+    single = code ^ flip.to(torch.int32)
+    p1 = torch.randint(0, 31, code.shape, generator=gen, device="cuda")
+    p2 = (p1 + torch.randint(1, 31, code.shape, generator=gen,
+                             device="cuda")) % 31
+    double = code ^ ((1 << p1) | (1 << p2)).to(torch.int32)
+    return data, single, double, pos
+
+
+def hamming_kernels():
+    """The three kernels against their plain versions at the 16 KB of the
+    use case, at 2^28 words (1 GiB) and 2^28 - 3, at every single-bit error
+    position and at double-bit errors, and the multiplier at several
+    constants; timings at 2^28 words."""
+    from repro_torch.fabric.interface import KernelMode
+    from repro_torch.kernels.hamming import kernel as HK, ref as href
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    words = lambda n: torch.randint(  # noqa: E731
+        -(1 << 31), 1 << 31, (n,), generator=gen, device="cuda",
+        dtype=torch.int64).to(torch.int32)
+    errs = [hamming_check("16KB", words(4096), MUL_CONSTANTS)]
+    data, single, double, pos = error_words(gen)
+    errs.append(hamming_check("single_bit_errors", single))
+    dk, ck = HK.hamming_decode(single, mode=KernelMode.CUDA)
+    corrected = bool(torch.equal(dk, data)
+                     and torch.equal(ck, (pos < 31).to(torch.int32)))
+    errs.append(hamming_check("double_bit_errors", double))
+    emit("paper_usecase.errors", every_position_corrected=corrected)
+    if not corrected:
+        raise AssertionError("a single-bit error was not corrected")
+    errs.append(hamming_check("ragged_2^28-3", words(BULK_WORDS - 3)))
+    x = words(BULK_WORDS)
+    errs.append(hamming_check("bulk_2^28", x, MUL_CONSTANTS))
+    cuda = KernelMode.CUDA
+    n = x.numel()
+    c = MUL_CONSTANTS[2]
+    c32 = (c & 0xFFFFFFFF) - (1 << 32) * bool(c & (1 << 31))   # as int32
+    out = {}
+    for name, kernel, plain, n_bytes, library in (
+            ("hamming_encode", lambda: HK.hamming_encode(x, mode=cuda),
+             lambda: href.encode_ref(x), 8 * n, None),
+            ("hamming_decode", lambda: HK.hamming_decode(x, mode=cuda),
+             lambda: href.decode_ref(x), 12 * n, None),
+            ("mul_const", lambda: HK.mul_const(x, c, mode=cuda),
+             lambda: href.multiply_ref(x, c), 8 * n,
+             lambda: torch.mul(x, c32))):
+        b, by = bound(n_bytes, 0)
+        out[name] = dict(
+            ms=time_ms(kernel, reps=20), plain_ms=time_ms(plain, reps=3,
+                                                          warmup=1),
+            library_ms=None if library is None else time_ms(library, reps=20),
+            bound_ms=b, bound_by=by, bytes=n_bytes)
+    emit("paper_usecase.time", words=n, constant=c, **out)
+    del x
+    torch.cuda.empty_cache()
+    err = {k: max(e[k] for e in errs) for k in errs[0]}
+    return err, out
+
+
+def plan_inputs(T, S, C, gen, out_of_range=False):
+    """One source's packets and register rows: isolation holes (at least
+    one, and at least one open port), quota 0 = unlimited on every third
+    port and C // 2 elsewhere, capacity C; with ``out_of_range``, 15% of the
+    packets carry dst = -1, S or S + 3."""
+    dst = torch.randint(0, S, (T,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    if out_of_range:
+        bad = torch.rand((T,), generator=gen, device="cuda") < 0.15
+        pick = torch.tensor([-1, S, S + 3], dtype=torch.int32, device="cuda")
+        dst = torch.where(bad, pick[torch.randint(0, 3, (T,), generator=gen,
+                                                  device="cuda")], dst)
+    allowed = (torch.rand((S,), generator=gen, device="cuda") > 0.25).to(
+        torch.int32)
+    allowed[0], allowed[1] = 0, 1
+    quota = torch.where(torch.arange(S, device="cuda") % 3 == 0, 0,
+                        C // 2).to(torch.int32)
+    cap = torch.full((S,), C, dtype=torch.int32, device="cuda")
+    return dst, allowed, quota, cap
+
+
+def plan_path():
+    """The single-source plan kernel through the deprecated shims, one
+    round each: ``crossbar_plan`` -> ``crossbar_dispatch`` ->
+    ``crossbar_combine`` at the four shapes of ``tests/test_kernels.py``
+    (and out-of-range ``dst`` at the first), the zero-packet round, and the
+    timed shape.  Launches are counted over exactly these rounds; then each
+    round's plan is held bit-equal to ``plan_ref`` and its slabs and
+    combine to their plain versions, and the plan kernel is timed."""
+    import warnings
+    from repro_torch.fabric.interface import KernelMode
+    from repro_torch.kernels import (crossbar_combine, crossbar_dispatch,
+                                     crossbar_plan)
+    from repro_torch.kernels.crossbar_dispatch import kernel as K, ref
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    T, S, C = PLAN_TIMED
+    rounds = [("zero_packets", plan_inputs(0, 4, 8, gen), 8, 8)]
+    for t, s, c, d in PLAN_SHAPES:
+        rounds.append((f"T={t} S={s} C={c}", plan_inputs(t, s, c, gen), c, d))
+    rounds.append(("out_of_range_dst", plan_inputs(512, 4, 64, gen, True),
+                   64, 128))
+    rounds.append((f"timed T={T} S={S} C={C}", plan_inputs(T, S, C, gen), C,
+                   8))
+    xs = [(torch.randn((dst.shape[0], d), generator=gen, device="cuda"),
+           torch.rand((dst.shape[0],), generator=gen, device="cuda"))
+          for _, (dst, *_), _, d in rounds]
+    _reset_counts()
+    outs = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        for (name, (dst, allowed, quota, cap), c, d), (x, w) in zip(rounds,
+                                                                    xs):
+            p = crossbar_plan(dst, allowed, quota, cap)
+            slabs = crossbar_dispatch(x, dst, p[0], p[1],
+                                      n_ports=allowed.shape[0], capacity=c)
+            outs.append((p, slabs, crossbar_combine(slabs, dst, p[0], p[1],
+                                                    w)))
+    torch.cuda.synchronize()
+    launches = _counts()
+    checks = {}
+    err = 0.0
+    for (name, (dst, allowed, quota, cap), c, d), (x, w), (p, slabs, back) in \
+            zip(rounds, xs, outs):
+        pr = ref.plan_ref(dst, allowed, quota, cap)
+        sr = ref.scatter_ref(x, dst, pr[0], pr[1], allowed.shape[0], c)
+        cr = ref.combine_ref(sr, dst, pr[0], pr[1], w)
+        checks[name] = {
+            "plan": all(torch.equal(a, b) for a, b in zip(p, pr)),
+            "dispatch": torch.equal(slabs, sr),
+            "combine": torch.equal(back, cr),
+            "granted": int(p[0].sum()),
+            "invalid_dest": int((p[2] == 1).sum())}
+        err = max([err] + [max_abs_err(a, b) for a, b in zip(p, pr)])
+    b, by = bound(16 * T, 0)
+    dst, allowed, quota, cap = rounds[-1][1]
+    cuda = KernelMode.CUDA
+    t = dict(ms=time_ms(lambda: K.plan(dst, allowed, quota, cap, mode=cuda)),
+             plain_ms=time_ms(lambda: ref.plan_ref(dst, allowed, quota, cap),
+                              reps=5),
+             library_ms=None, bound_ms=b, bound_by=by, bytes=16 * T)
+    emit("paper_usecase.plan", checks=checks,
+         kernels={k: launches[k] for k in ("plan", "scatter", "combine")},
+         T=T, S=S, C=C, seconds=time.perf_counter() - t0, **t)
+    if not all(v["plan"] and v["dispatch"] and v["combine"]
+               for v in checks.values()):
+        raise AssertionError(f"the plan shims disagree with plan_ref: "
+                             f"{checks}")
+    if checks["out_of_range_dst"]["invalid_dest"] == 0 or launches["plan"] \
+            != len(rounds) - 1:
+        raise AssertionError("the plan path did not run as laid out")
+    return launches, err, t
+
+
+def paper_usecase_phase(smi):
+    t0 = time.perf_counter()
+    uc = paper_model_report()
+    usecase_launches = usecase_path(uc)
+    ham_err, ham_t = hamming_kernels()
+    plan_launches, plan_err, plan_t = plan_path()
+    emit("paper_usecase", smi=smi, seconds=time.perf_counter() - t0)
+    return usecase_launches, plan_launches, ham_err, ham_t, plan_err, plan_t
+
+
 def main() -> int:
     global SEED
     if "--seed" in sys.argv[1:]:
@@ -1204,7 +1586,8 @@ def main() -> int:
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     emit("device", name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
-         seed=SEED, torch=torch.__version__, cuda=torch.version.cuda)
+         seed=SEED, torch=torch.__version__, cuda=torch.version.cuda,
+         numpy=np.__version__)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1213,13 +1596,15 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.crossbar_dispatch import kernel as K
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.hamming import kernel as HK
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.ssd import kernel as SK
     t0 = time.perf_counter()
     libs = {K.LIB_NAME: K.SOURCES, FK.LIB_NAME: FK.SOURCES,
-            SK.LIB_NAME: SK.SOURCES, RK.LIB_NAME: RK.SOURCES}
+            SK.LIB_NAME: SK.SOURCES, RK.LIB_NAME: RK.SOURCES,
+            HK.LIB_NAME: HK.SOURCES}
     build.build_libraries(libs)
-    for mod in (K, FK, SK, RK):
+    for mod in (K, FK, SK, RK, HK):
         mod.library()
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=dict(build.build_seconds),
@@ -1282,13 +1667,18 @@ def main() -> int:
     ssm_launches = serve_recurrent_phase("mamba2_780m", "serve_ssm", smi)
     hybrid_launches = serve_recurrent_phase("recurrentgemma_9b",
                                             "serve_hybrid", smi)
+
+    # 9. the paper's use case and the single-source plan ---------------
+    (usecase_launches, plan_launches, ham_err, ham_t, plan_err,
+     plan_t) = paper_usecase_phase(smi)
     loads = dict(build.load_count)
     if any(n != 1 for n in loads.values()):
         raise AssertionError(f"a kernel library was loaded twice: {loads}")
 
-    # 9. summary ------------------------------------------------------
+    # 10. summary -----------------------------------------------------
     paths = {"serve": serve_launches, "train": train_launches,
-             "serve_ssm": ssm_launches, "serve_hybrid": hybrid_launches}
+             "serve_ssm": ssm_launches, "serve_hybrid": hybrid_launches,
+             "paper_usecase": usecase_launches, "plan_shims": plan_launches}
 
     def launch_keys(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}
@@ -1304,6 +1694,10 @@ def main() -> int:
         "flash_fwd_d256": "src/repro/kernels/flash_attention/kernel.py:107",
         "ssd": "src/repro/kernels/ssd/kernel.py:80",
         "rglru": "src/repro/kernels/rglru/kernel.py:63",
+        "plan": "src/repro/kernels/crossbar_dispatch/kernel.py:90",
+        "hamming_encode": "src/repro/kernels/hamming/kernel.py:109",
+        "hamming_decode": "src/repro/kernels/hamming/kernel.py:114",
+        "mul_const": "src/repro/kernels/hamming/kernel.py:119",
     }
     timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     src = "src/repro_torch/kernels/crossbar_dispatch/csrc/crossbar_dispatch.cu"
@@ -1335,7 +1729,16 @@ def main() -> int:
          "B=1 S=32768 H=48 P=64 N=128 chunk=256 bf16"),
         ("rglru", "src/repro_torch/kernels/rglru/csrc/rglru.cu", rglru_err,
          rglru_t, "B=1 S=32768 L=4096 float32"),
+        ("plan", "src/repro_torch/kernels/crossbar_dispatch/csrc/"
+         "crossbar_dispatch.cu", plan_err, plan_t,
+         f"T={PLAN_TIMED[0]} S={PLAN_TIMED[1]} C={PLAN_TIMED[2]} int32"),
     )
+    ham_src = "src/repro_torch/kernels/hamming/csrc/hamming.cu"
+    new_rows += tuple(
+        (name, ham_src, ham_err[name], ham_t[name],
+         f"{BULK_WORDS} words int32" + (
+             f" constant={MUL_CONSTANTS[2]}" if name == "mul_const" else ""))
+        for name in USECASE_KERNELS)
     for name, source, err, t, shape in new_rows:
         rows.append({
             "name": name, "route": "cuda", "source": source,
@@ -1343,6 +1746,8 @@ def main() -> int:
             "max_abs_err": err, **{k: t[k] for k in timing_keys},
             "shape": shape,
         })
+    if len(rows) != 12:
+        raise AssertionError(f"{len(rows)} kernel rows, not 12")
     emit("done", seconds=time.perf_counter() - t_start,
          train_step_ms=step_ms)
     print(smi, flush=True)

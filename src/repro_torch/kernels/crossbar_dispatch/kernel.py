@@ -11,9 +11,10 @@ Each wrapper carries ``launches``, a plain int that counts kernel launches
 (plain-version calls do not count); :func:`reset_launch_counts` zeroes them.
 
 TPU kernels replaced (``repro/kernels/crossbar_dispatch/kernel.py``):
-``plan_multi`` <- ``plan_multi_call``, ``scatter`` <- ``scatter_call``,
-``combine`` <- ``combine_call``.  What bounds each one on the card and how
-the design answers it is in the source note of the ``.cu`` file.
+``plan_multi`` <- ``plan_multi_call``, ``plan`` <- ``plan_call``,
+``scatter`` <- ``scatter_call``, ``combine`` <- ``combine_call``.  What
+bounds each one on the card and how the design answers it is in the
+source note of the ``.cu`` file.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ SOURCES = (pathlib.Path(__file__).parent / "csrc" / "crossbar_dispatch.cu",)
 LIB_NAME = "crossbar_dispatch"
 PLAN_BLOCK = 256                 # tokens per block of the plan kernels
 MAX_PORTS = 64                   # plan_rank_kernel keeps 9 * S^2 ints in smem
+PLAN_MAX_PORTS = MAX_PORTS ** 2  # ... and 9 * S ints for one source's plan
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VEC_BYTES = 16                   # scatter/combine move rows as uint4
 
@@ -44,11 +46,12 @@ def library() -> ctypes.CDLL:
     lib = build.load_library(LIB_NAME, SOURCES)
     if fresh:
         lib.crossbar_plan_multi.argtypes = [_P] * 9 + [_I, _I, _P]
+        lib.crossbar_plan.argtypes = [_P] * 9 + [_I, _I, _P]
         lib.crossbar_scatter.argtypes = [_P] * 5 + [_I, _I, _I,
                                                     ctypes.c_longlong, _P]
         lib.crossbar_combine.argtypes = [_P] * 6 + [_I] * 5 + [_P]
-        for fn in (lib.crossbar_plan_multi, lib.crossbar_scatter,
-                   lib.crossbar_combine):
+        for fn in (lib.crossbar_plan_multi, lib.crossbar_plan,
+                   lib.crossbar_scatter, lib.crossbar_combine):
             fn.restype = _I
     return lib
 
@@ -99,7 +102,7 @@ def plan_multi(dst: torch.Tensor, src: torch.Tensor, allowed_sd: torch.Tensor,
     err = torch.empty_like(keep)
     granted = torch.zeros((S, S), dtype=torch.int32, device=dev)
     n_blocks = -(-T // PLAN_BLOCK)
-    hist = torch.empty((n_blocks, S * S), dtype=torch.int32, device=dev)
+    hist = torch.empty((S * S, n_blocks), dtype=torch.int32, device=dev)
     code = library().crossbar_plan_multi(
         dst.data_ptr(), src.data_ptr(), allowed.data_ptr(), quota.data_ptr(),
         keep.data_ptr(), rank.data_ptr(), err.data_ptr(), granted.data_ptr(),
@@ -107,6 +110,39 @@ def plan_multi(dst: torch.Tensor, src: torch.Tensor, allowed_sd: torch.Tensor,
     build.check(code, "crossbar_plan_multi")
     plan_multi.launches += 1
     return keep, rank, err, granted
+
+
+def plan(dst: torch.Tensor, allowed_row: torch.Tensor,
+         quota_row: torch.Tensor, capacity: torch.Tensor, *,
+         mode=KernelMode.AUTO
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One source region's plan with capacity; see ``ref.plan_ref``."""
+    if not use_kernel(mode, dst, allowed_row, quota_row, capacity):
+        return ref.plan_ref(dst, allowed_row, quota_row, capacity)
+    S = allowed_row.shape[0]
+    T = dst.shape[0]
+    if dst.dim() != 1 or not (allowed_row.shape == quota_row.shape
+                              == capacity.shape == (S,)):
+        raise ValueError("dst must be [T] and the register rows [S]")
+    if not 0 < S <= PLAN_MAX_PORTS:
+        raise ValueError(f"plan kernel takes 1..{PLAN_MAX_PORTS} ports, "
+                         f"got {S}")
+    dev = dst.device
+    keep = torch.empty((T,), dtype=torch.int32, device=dev)
+    slot = torch.empty_like(keep)
+    err = torch.empty_like(keep)
+    counts = torch.zeros((S,), dtype=torch.int32, device=dev)
+    dst = _i32(dst)
+    allowed, quota, cap = _i32(allowed_row), _i32(quota_row), _i32(capacity)
+    hist = torch.empty((S, -(-T // PLAN_BLOCK)), dtype=torch.int32,
+                       device=dev)
+    code = library().crossbar_plan(
+        dst.data_ptr(), allowed.data_ptr(), quota.data_ptr(), cap.data_ptr(),
+        keep.data_ptr(), slot.data_ptr(), err.data_ptr(), counts.data_ptr(),
+        hist.data_ptr(), T, S, build.stream(dev))
+    build.check(code, "crossbar_plan")
+    plan.launches += 1
+    return keep, slot, err, counts
 
 
 def scatter(x: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
@@ -155,7 +191,7 @@ def combine(y: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
     return out
 
 
-KERNELS = (plan_multi, scatter, combine)
+KERNELS = (plan_multi, plan, scatter, combine)
 
 
 def reset_launch_counts() -> None:

@@ -1,5 +1,9 @@
-"""Entry points of the crossbar-dispatch kernels for the fabric's kernel
-backend: the zero-packet case, dtype normalisation and the kernel mode.
+"""Entry points of the crossbar-dispatch kernels: the private ``_plan``,
+``_plan_multi``, ``_dispatch`` and ``_combine`` of the fabric's kernel
+backend (the zero-packet case, dtype normalisation and the kernel mode),
+and the deprecated public shims ``crossbar_plan``, ``crossbar_dispatch``
+and ``crossbar_combine`` over them, which warn as the JAX package's do.
+The shims are the only callers of the single-source ``_plan``.
 
 The TPU entry points padded the token axis to the kernel block size with
 ``dst = -1`` rows and sliced the result back to ``T``.  The CUDA kernels
@@ -19,12 +23,36 @@ Oracles: ``ref.dispatch_bwd_ref`` and ``ref.combine_bwd_ref``.
 """
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from repro_torch.fabric.interface import KernelMode
 from repro_torch.kernels.crossbar_dispatch import kernel as _k
 
 I32 = torch.int32
+
+
+def _warn_deprecated(what: str) -> None:
+    warnings.warn(
+        f"DEPRECATED {what} — migrate to repro_torch.fabric.Fabric(regs, "
+        f'backend="cuda") (multi-source WRR composition, epoch tracking, '
+        f"oracle-equivalent plans; see docs/migration.md)",
+        DeprecationWarning, stacklevel=3)
+
+
+def _plan(dst: torch.Tensor, allowed_row: torch.Tensor,
+          quota_row: torch.Tensor, capacity: torch.Tensor, *,
+          mode=KernelMode.AUTO):
+    """Grant decisions for one source region's packets.
+
+    ``dst`` [T]; register rows [S].  Returns (keep, slot, err, counts)."""
+    n_ports = allowed_row.shape[0]
+    if dst.shape[0] == 0:              # zero-packet round: nothing granted
+        z = torch.zeros((0,), dtype=I32, device=dst.device)
+        return z, z, z, torch.zeros((n_ports,), dtype=I32, device=dst.device)
+    return _k.plan(dst.to(I32), allowed_row.to(I32), quota_row.to(I32),
+                   capacity.to(I32), mode=mode)
 
 
 def _plan_multi(dst: torch.Tensor, src: torch.Tensor,
@@ -116,3 +144,27 @@ def _combine(y: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
         return torch.zeros((0, y.shape[2]), dtype=y.dtype, device=y.device)
     return _CombineCore.apply(y, dst.to(I32), keep.to(I32), slot.to(I32),
                               weights.to(torch.float32), mode)
+
+
+# ----------------------------------------------------------------------
+# deprecated public entry points (thin warning shims over the impls)
+# ----------------------------------------------------------------------
+def crossbar_plan(dst, allowed_row, quota_row, capacity, *,
+                  mode=KernelMode.AUTO):
+    """Deprecated: single-source plan shim (see module docstring)."""
+    _warn_deprecated("kernels.crossbar_dispatch.crossbar_plan")
+    return _plan(dst, allowed_row, quota_row, capacity, mode=mode)
+
+
+def crossbar_dispatch(x, dst, keep, slot, *, n_ports: int, capacity: int,
+                      mode=KernelMode.AUTO):
+    """Deprecated: raw scatter shim (see module docstring)."""
+    _warn_deprecated("kernels.crossbar_dispatch.crossbar_dispatch")
+    return _dispatch(x, dst, keep, slot, n_ports=n_ports, capacity=capacity,
+                     mode=mode)
+
+
+def crossbar_combine(y, dst, keep, slot, weights, *, mode=KernelMode.AUTO):
+    """Deprecated: raw gather shim (see module docstring)."""
+    _warn_deprecated("kernels.crossbar_dispatch.crossbar_combine")
+    return _combine(y, dst, keep, slot, weights, mode=mode)

@@ -10,10 +10,43 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.core.arbiter import _stream_ranks, bincount_i32
+from repro_torch.core.arbiter import _error_codes, _stream_ranks, bincount_i32
 from repro_torch.core.registers import ErrorCode
 
 I32 = torch.int32
+
+
+def plan_ref(dst: torch.Tensor, allowed_row: torch.Tensor,
+             quota_row: torch.Tensor, capacity: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor]:
+    """One source region's plan, capacity applied.
+
+    ``dst`` [T] (pad rows carry ``dst = -1``; any ``dst`` outside
+    ``[0, S)`` fails isolation); ``allowed_row``, ``quota_row`` and
+    ``capacity`` [S], this source's register rows.  A packet's rank is the
+    number of earlier isolation-passing packets to its ``dst``, so a quota
+    or capacity drop still takes up a rank.  Returns (keep [T] i32,
+    slot [T] i32: the rank where kept, else 0, err [T] i32: INVALID_DEST
+    over GRANT_TIMEOUT over ACK_TIMEOUT over OK, counts [S] i32: kept
+    packets per ``dst``).  A quota of 0 means unlimited.
+    """
+    S = allowed_row.shape[0]
+    dst = dst.to(I32)
+    dstc = dst.clamp(0, S - 1).long()
+    iso_ok = (dst >= 0) & (dst < S) & (allowed_row.to(I32)[dstc] > 0)
+    dst_oh = torch.nn.functional.one_hot(dstc, S).to(I32)
+    live = dst_oh * iso_ok[:, None]
+    # the running count per dst, scanned along the contiguous axis of [S, T]
+    ahead = torch.cumsum(live.T.contiguous(), 1, dtype=I32).T - live
+    rank = ahead.gather(1, dstc[:, None])[:, 0]
+    quota = quota_row.to(I32)[dstc]
+    quota_ok = (quota == 0) | (rank < quota)
+    cap_ok = rank < capacity.to(I32)[dstc]
+    keep = iso_ok & quota_ok & cap_ok
+    err = _error_codes(iso_ok, quota_ok, cap_ok)
+    counts = (dst_oh * keep[:, None]).sum(0, dtype=I32)
+    return keep.to(I32), torch.where(keep, rank, 0), err, counts
 
 
 def plan_multi_ref(dst: torch.Tensor, src: torch.Tensor,

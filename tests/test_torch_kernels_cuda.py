@@ -44,8 +44,12 @@ from repro_torch.fabric.interface import KernelMode
 from repro_torch.kernels.crossbar_dispatch import kernel as K
 from repro_torch.kernels.crossbar_dispatch import ref
 from repro_torch.core.registers import CrossbarRegisters
+from repro_torch.kernels.crossbar_dispatch import crossbar_plan
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ref as fref
+from repro_torch.kernels.hamming import kernel as HK
+from repro_torch.kernels.hamming import ops as hamming_ops
+from repro_torch.kernels.hamming import ref as href
 
 
 def _card():
@@ -69,7 +73,8 @@ def _inputs(T, S, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,S", [(1, 2), (255, 4), (3000, 8), (20000, 16)])
+@pytest.mark.parametrize("T,S", [(1, 2), (255, 4), (3000, 8), (20000, 16),
+                                 (300000, 8)])
 def test_plan_multi_bit_equal_on_card(T, S):
     _card()
     dst, src, regs = _inputs(T, S, seed=T + S)
@@ -426,3 +431,117 @@ def test_backward_through_a_forward_only_kernel_raises_on_card(kernel):
         out.sum().backward()
     assert {**SK.launch_counts(), **RK.launch_counts(),
             **FK.launch_counts()} == counts
+
+
+# ----------------------------------------------------------------------
+# the paper's use-case modules and the single-source plan
+# ----------------------------------------------------------------------
+HAMMING_LENGTHS = [0, 1, 3, 4, 5, 1023, 2**20 + 1]
+MUL_CONSTANTS = [3, 7, 2654435761, 2**32 - 1, -1, -3]
+
+
+def _card_words(n, seed, bits=32):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lo = -(1 << 31) if bits == 32 else 0
+    return torch.randint(lo, lo + (1 << bits), (n,), generator=gen,
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", HAMMING_LENGTHS)
+def test_hamming_kernels_bit_equal_on_card(n):
+    _card()
+    x = _card_words(n, n)
+    before = HK.launch_counts()
+    enc = HK.hamming_encode(x, mode=KernelMode.CUDA)
+    dec, corr = HK.hamming_decode(x, mode=KernelMode.CUDA)
+    mul = HK.mul_const(x, 3, mode=KernelMode.CUDA)
+    torch.cuda.synchronize()
+    assert torch.equal(enc, href.encode_ref(x))
+    d_ref, c_ref = href.decode_ref(x)
+    assert torch.equal(dec, d_ref) and torch.equal(corr, c_ref)
+    assert torch.equal(mul, href.multiply_ref(x, 3))
+    launched = int(n > 0)                       # an empty stream launches nothing
+    assert HK.launch_counts() == {k: v + launched for k, v in before.items()}
+
+
+@pytest.mark.cuda
+def test_hamming_decode_corrects_every_position_on_card():
+    """Bit p flipped in block p of a stream of codewords, p = 0..31 (bit 31
+    lies outside the codeword), and seeded double-bit errors."""
+    _card()
+    n_per = 4096
+    data = _card_words(32 * n_per, 31, bits=26)
+    code = HK.hamming_encode(data, mode=KernelMode.CUDA)
+    pos = torch.arange(32, device="cuda").repeat_interleave(n_per)
+    flip = torch.bitwise_left_shift(torch.ones_like(pos), pos).to(torch.int64)
+    bad = code ^ torch.where(flip >= 1 << 31, flip - (1 << 32), flip).to(
+        torch.int32)
+    dec, corr = HK.hamming_decode(bad, mode=KernelMode.CUDA)
+    assert torch.equal(dec, data)
+    assert torch.equal(corr, (pos < 31).to(torch.int32))
+    d_ref, c_ref = href.decode_ref(bad)
+    assert torch.equal(dec, d_ref) and torch.equal(corr, c_ref)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    p1 = torch.randint(0, 31, code.shape, generator=gen, device="cuda")
+    p2 = (p1 + torch.randint(1, 31, code.shape, generator=gen,
+                             device="cuda")) % 31
+    double = code ^ ((1 << p1) | (1 << p2)).to(torch.int32)
+    dec, corr = HK.hamming_decode(double, mode=KernelMode.CUDA)
+    d_ref, c_ref = href.decode_ref(double)
+    assert torch.equal(dec, d_ref) and torch.equal(corr, c_ref)
+    assert bool((dec != data).any())                      # miscorrected
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("constant", MUL_CONSTANTS)
+def test_mul_const_bit_equal_on_card(constant):
+    _card()
+    x = _card_words(2**20 + 3, 40)
+    assert torch.equal(HK.mul_const(x, constant, mode=KernelMode.CUDA),
+                       href.multiply_ref(x, constant))
+
+
+@pytest.mark.cuda
+def test_hamming_stream_at_an_odd_offset_on_card():
+    """A word stream whose storage starts off a 16-byte boundary is copied
+    to aligned storage before the 16-byte kernels read it; the uint32 ops
+    give uint32 words."""
+    _card()
+    base = _card_words(4099, 41)
+    x = base[1:]
+    assert x.data_ptr() % 16
+    assert torch.equal(HK.hamming_encode(x), href.encode_ref(x))
+    out = hamming_ops.multiply_const(x.view(torch.uint32), 3)
+    assert out.dtype == torch.uint32 and out.device.type == "cuda"
+    assert torch.equal(out.view(torch.int32), href.multiply_ref(x, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S", [(0, 4), (1, 2), (300, 8), (1024, 16),
+                                 (70000, 16), (4096, 64), (300000, 4),
+                                 (70000, 2048), (70000, K.PLAN_MAX_PORTS)])
+def test_plan_bit_equal_on_card(T, S):
+    """One source's plan, with ``dst = -1`` padding and ``dst`` = S, S + 3
+    and -S - 1 among the packets, isolation holes, quotas and capacities.
+    T = 300000 scans more token blocks than one prefix block holds; from
+    S = 2048 on, the rank pass needs more than 48 KB of shared memory."""
+    _card()
+    rng = np.random.default_rng(T + S)
+    dst = rng.integers(0, S, T).astype(np.int32)
+    bad = rng.random(T) < 0.15
+    dst[bad] = rng.choice(np.array([-1, S, S + 3, -S - 1], np.int32),
+                          bad.sum())
+    allowed = (rng.random(S) > 0.2).astype(np.int32)
+    quota = np.where(rng.random(S) > 0.5, rng.integers(1, 40, S),
+                     0).astype(np.int32)
+    cap = rng.integers(1, 64, S).astype(np.int32)
+    cu = [torch.from_numpy(a).cuda() for a in (dst, allowed, quota, cap)]
+    before = K.launch_counts()["plan"]
+    pk = crossbar_plan(*cu, mode=KernelMode.CUDA)
+    pr = ref.plan_ref(*cu)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(pk, pr))
+    assert K.launch_counts()["plan"] == before + int(T > 0)
+    if T > 100:                                 # drops and grants both occur
+        assert int((pk[2] == 1).sum()) > 0 and int(pk[0].sum()) > 0
