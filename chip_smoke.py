@@ -15,8 +15,11 @@ Phases, each printing one JSON line with its seconds:
             library call with CUDA events (median of 20 after warm-up).
 4. flash    holds the flash-attention forward and backward kernels to
             their plain versions (autograd through ``attention_ref``) at
-            five shapes, and times kernel, plain version and
-            ``scaled_dot_product_attention`` at the train shape.
+            seven shapes (bfloat16 on the tensor-core kernels at head dims
+            128 and 64, a window of 48 keys; float32 on the FMA kernels),
+            and times kernel, plain version,
+            ``scaled_dot_product_attention`` and the FMA kernels on the
+            same bfloat16 inputs at the train shape.
 5. serve    a full-width Mixtral-8x7B (2 of 32 layers, bf16, random weights
             from a seed) behind ``ElasticServer`` on the ``cuda`` fabric,
             MoE on ``cuda_kernel``: 4 requests, one ``Shell.post(Grow)``
@@ -25,7 +28,8 @@ Phases, each printing one JSON line with its seconds:
             requires identical token streams and port traffic.
 6. train    3 AdamW steps of ``make_train_step`` on the served model's
             parameters (B=1, S=4096), counting kernel launches on exactly
-            these steps; then the prefill logits of the kernel path against
+            these steps (bfloat16 flash only on the tensor-core route);
+            then the prefill logits of the kernel path against
             the plain path, and one float32 loss and backward of a 1-layer
             full-width model on the kernel path against the plain path.
 7. ssd, rglru, flash_d256
@@ -85,6 +89,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -296,11 +301,12 @@ FLASH_LSE_ABS = {torch.float32: 2e-5, torch.bfloat16: 1e-3}
 PLAIN_KV_HEADS = 2     # kv heads per plain-version call: bounds its memory
 
 
-def flash_live_tiles(Sq, Sk, causal, window, q_offset) -> int:
-    """(q tile, k tile) pairs the kernels visit per (batch, head): the
-    kernels' own tile skip (none above the causal diagonal, none wholly
-    outside the window)."""
-    from repro_torch.kernels.flash_attention.kernel import BLOCK_K, BLOCK_Q
+def flash_live_tiles(Sq, Sk, causal, window, q_offset, dtype, D) -> int:
+    """(q tile, k tile) pairs the forward kernel of the route that takes
+    (dtype, D) visits per (batch, head): the kernels' own tile skip (none
+    above the causal diagonal, none wholly outside the window)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    BLOCK_Q, BLOCK_K = FK.TILES[FK.route(dtype, D)]
     n = 0
     for q0 in range(0, Sq, BLOCK_Q):
         q_last = q_offset + min(q0 + BLOCK_Q, Sq) - 1
@@ -355,7 +361,7 @@ class FlashCase:
             mk(B, Sk, Kv, D)
         self.do = mk(B, Sq, H, D)
         self.tiles = B * H * flash_live_tiles(Sq, Sk, causal, window,
-                                              Sk - Sq)
+                                              Sk - Sq, dtype, D)
         self.pairs = B * H * flash_live_pairs(Sq, Sk, causal, window,
                                               Sk - Sq)
         self.shape = dict(B=B, Sq=Sq, Sk=Sk, H=H, Kv=Kv, D=D,
@@ -417,7 +423,9 @@ class FlashCase:
     def timings(self):
         """(kernel, plain, library, bound) ms for forward and backward; the
         library call is ``scaled_dot_product_attention`` (causal, GQA) in
-        its head-major layout, the same function at the train shape."""
+        its head-major layout, the same function at the train shape.  For
+        bfloat16 also ``fma_ms``: the float32 FMA kernels, which bfloat16
+        took before the tensor-core kernels, on the same inputs."""
         from repro_torch.fabric.interface import KernelMode
         from repro_torch.kernels.flash_attention import kernel as FK
         from repro_torch.kernels.flash_attention import ref
@@ -450,6 +458,10 @@ class FlashCase:
                 *[t.detach() for t in hm], is_causal=True, enable_gqa=True),
                 reps=10),
             bound_ms=b, bound_by=by)
+        if self.dtype == torch.bfloat16:
+            out_f["flash_fwd"]["fma_ms"] = time_ms(
+                lambda: FK.launch_fwd(q, k, v, kernel="fma", **self.kw),
+                reps=3)
         # backward reads q, k, v, o, dO, lse and writes dq, dk, dv; it
         # needs S = QK^T, dP = dO V^T, dV, dK and dQ: 2.5x the forward
         b, by = bound(2 * io + B * H * Sq * 4, 2.5 * fwd_ops, rate)
@@ -461,6 +473,13 @@ class FlashCase:
             library_ms=time_ms(lambda: torch.autograd.grad(
                 lib_out, hm, do_hm, retain_graph=True), reps=10),
             bound_ms=b, bound_by=by)
+        if self.dtype == torch.bfloat16:
+            out_f["flash_bwd"]["fma_ms"] = time_ms(
+                lambda: FK.launch_bwd(q, k, v, o, lse, do, kernel="fma",
+                                      **self.kw), reps=3)
+        for t in out_f.values():
+            t["library_factor"] = t["ms"] / t["library_ms"]
+            t["bound_share"] = t["bound_ms"] / t["ms"]
         emit("flash.time", case=self.name, **self.shape, **out_f)
         return out_f
 
@@ -479,6 +498,9 @@ def flash_phase():
                   4096, gen),
         FlashCase("noncausal_f32", 1, 1024, 1024, 16, 4, 64, f32, False,
                   None, gen),
+        FlashCase("d64", 1, 2048, 2048, 16, 4, 64, bf16, True, None, gen),
+        FlashCase("small_window", 1, 2000, 2000, 32, 8, 128, bf16, True, 48,
+                  gen),
     ]
     errs = [c.check() for c in cases]
     times = cases[0].timings()
@@ -543,6 +565,18 @@ F32_SEQ = 1024
 F32_REL = 1e-4          # float32 loss and each gradient leaf, see f32_check
 SERVE_KERNELS = ("plan_multi", "scatter", "combine")
 TRAIN_KERNELS = SERVE_KERNELS + ("flash_fwd", "flash_bwd")
+# the flash route each type must take: bfloat16 on the tensor-core kernels,
+# float32 on the FMA ones, and no launch on the other route
+FLASH_ROUTE = {"bfloat16": "tc", "float32": "fma"}
+
+
+def check_flash_route(launches, dtype: str, what: str) -> None:
+    want = FLASH_ROUTE[dtype]
+    other = ({"tc", "fma"} - {want}).pop()
+    if not all(launches[f"flash_{d}_{want}"] > 0 for d in ("fwd", "bwd")) \
+            or any(launches[f"flash_{d}_{other}"] for d in ("fwd", "bwd")):
+        raise AssertionError(f"{what} ({dtype}) did not take only the "
+                             f"{want} flash kernels: {launches}")
 
 
 def _kernel_modules():
@@ -606,6 +640,7 @@ def train_phase(engine, smi):
     if any(launches[k] <= 0 for k in TRAIN_KERNELS):
         raise AssertionError(f"a kernel was not launched while training: "
                              f"{launches}")
+    check_flash_route(launches, cfg.dtype, "the train step")
     if any(n != 1 for n in loads.values()):
         raise AssertionError(f"a kernel library was loaded twice: {loads}")
     if "--profile" in sys.argv[1:]:
@@ -684,6 +719,7 @@ def f32_check(cfg):
             and not any(cp.values())):
         raise AssertionError("float32 loss or gradients disagree with the "
                              "plain path")
+    check_flash_route(ck, "float32", "the float32 loss and backward")
 
 
 def serve_phase(cfg, smi):
@@ -962,7 +998,7 @@ def flash_d256_phase():
     rel, lse_err = rel_l2(o, o_r), lse_abs_err(lse, lse_r)
     ok = (within(o, o_r, f_tol) and rel <= rel_tol and lse_err <= lse_tol)
     err = max(max_abs_err(o, o_r), lse_err)
-    tiles = H * flash_live_tiles(S, S, True, W, 0)
+    tiles = H * flash_live_tiles(S, S, True, W, 0, torch.bfloat16, D)
     pairs = H * flash_live_pairs(S, S, True, W, 0)
     emit("flash_d256.check", B=1, S=S, H=H, Kv=Kv, D=D, window=W,
          dtype="bfloat16", live_tiles=tiles, live_pairs=pairs,
@@ -1719,7 +1755,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces[name], **launch_keys(name),
             "max_abs_err": flash_err[name],
-            **{k: t[k] for k in timing_keys},
+            **{k: t[k] for k in timing_keys}, "fma_ms": t["fma_ms"],
+            "launches_by_route": {r: paths["train"][f"{name}_{r}"]
+                                  for r in ("tc", "fma")},
             "shape": "B=1 S=4096 H=32 Kv=8 D=128 bf16 causal window=4096",
         })
     new_rows = (
@@ -1785,7 +1823,32 @@ def profile(phase: str, fn, steps: int) -> None:
          device_idle_share=1 - device_us / 1e6 / wall,
          top=[{"name": e.key[:80], "calls": e.count,
                "device_ms_per_step": e.self_device_time_total / steps / 1e3}
-              for e in rows[:15]])
+              for e in rows[:15]],
+         # the port's own kernels, wherever they rank
+         port_kernels=[{"name": e.key[:120], "calls": e.count,
+                        "device_ms_per_step":
+                        e.self_device_time_total / steps / 1e3}
+                       for e in rows if is_port_kernel(e.key)])
+
+
+def is_port_kernel(name: str) -> bool:
+    """Is profiler row ``name`` one of the kernels of
+    ``src/repro_torch/kernels/*/csrc/*.cu`` (each kept in an anonymous
+    namespace there)?"""
+    if not hasattr(is_port_kernel, "names"):
+        src = os.path.join(HERE, "src", "repro_torch", "kernels")
+        found = set()
+        for d in os.listdir(src):
+            csrc = os.path.join(src, d, "csrc")
+            for f in os.listdir(csrc) if os.path.isdir(csrc) else ():
+                with open(os.path.join(csrc, f)) as fh:
+                    found |= set(re.findall(
+                        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                        r"(\w+)", fh.read()))
+        is_port_kernel.names = found
+    head = name.split("(anonymous namespace)::", 1)[-1].removeprefix("tc::")
+    return "(anonymous namespace)::" in name and "at::native" not in name \
+        and re.split(r"[<(]", head)[0] in is_port_kernel.names
 
 
 if __name__ == "__main__":

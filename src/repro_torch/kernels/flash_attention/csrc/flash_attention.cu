@@ -1,34 +1,70 @@
 // Flash attention, forward and backward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `flash_attention_hm` (`_attn_kernel`) of
-// src/repro/kernels/flash_attention/kernel.py: causal / sliding-window GQA
-// attention with an online softmax in float32, `q_offset` (the absolute
+// src/repro/kernels/flash_attention/kernel.py:107: causal / sliding-window
+// GQA attention with an online softmax in float32, `q_offset` (the absolute
 // position of query row 0) and `true_k` (keys at or beyond it are masked).
 // The TPU kernel has no backward (XLA differentiated the jnp path); the
-// three backward kernels here recompute the probabilities from the saved
-// row log-sum-exp.
+// backward here recomputes the probabilities from the saved row
+// log-sum-exp.  A row whose keys are all masked gets o = 0 and lse = -inf,
+// as the TPU kernel gives.
 //
 // Layout: q, o, dq [B, Sq, H, D]; k, v, dk, dv [B, Sk, Kv, D]; lse, delta
 // [B, H, Sq] float32.  The model's [B, S, heads, D] layout is read in place
 // through row strides, so nothing is transposed or padded: ragged tiles are
-// masked here.  Query head h reads kv head h / (H / Kv).
+// masked here.  Query head h reads kv head h / (H / Kv).  Every block owns
+// its outputs, so no atomics: dK/dV are summed over the G query heads of a
+// kv head inside one block, and the results do not depend on the order in
+// which blocks run.  Only live tiles are visited (none above the causal
+// diagonal, none wholly outside the window, none at or beyond `true_k`).
 //
-// What bounds it: at the train shape (S = 4096, D = 128, causal) the forward
-// does about 1,650 operations per byte of q, k, v and o, far above the
-// card's balance point of about 295, so the tensor-core rate bounds it, not
-// memory.  This first version is simple and exact instead of fast: tiles of
-// 64 x 64, float32 in shared memory, float32 FMA on the CUDA cores (no
-// tensor cores, no TMA), so it reaches a fraction of the float32 FMA rate.  Its design answers the two things that do not
-// depend on speed: (1) only live tiles are visited (none above the causal
-// diagonal, none wholly outside the window, none at or beyond `true_k`), so
-// work follows the mask; (2) every block owns its outputs, so no atomics:
-// dK/dV are summed over the G query heads of a kv head inside one block.
+// Two designs; the wrapper (`kernel.py::route`) picks one by type and head
+// dim, and neither gives way to the other.
 //
-// Head dim 256 (RecurrentGemma's local attention) has a forward only.  Its
-// tiles stay 64 x 64: Q, K and V in float32 with the probability tile take
-// 214,016 bytes of shared memory, under the 227 KB a block may have, so one
-// block of 256 threads runs per SM, and each thread keeps 4 x 16 output
-// accumulators in registers.
+// 1. bfloat16 at head dims 64 and 128, namespace `tc` (the train step and
+// the bf16 prefill).  What bounds it: at the train shape (S = 4096, D = 128,
+// causal) the forward does about 1,650 operations per byte of q, k, v and
+// o, far above the card's balance point of about 295, so the bf16
+// tensor-core rate bounds it, and the backward (2.5x the products) too.
+// What the design does about it:
+// - tiles stay bf16 in shared memory, their 16-byte chunks swizzled so the
+//   tensor-core loads (`ldmatrix`) are free of bank conflicts; no float32
+//   staging;
+// - a ring of two stages fed by `cp.async` loads the next key tile (forward,
+//   dQ) or query tile (dK/dV) while the current one is multiplied;
+// - every product runs on the tensor cores (`mma.sync.m16n8k16`, float32
+//   accumulators); each warp owns whole rows of the product (32 query rows
+//   a warp in the forward, where each K or V fragment then serves two
+//   16-row groups; 16 rows in the backward, whose two accumulators leave no
+//   registers for more), so scores, probabilities and score gradients stay
+//   in registers, are rounded to bf16 there and feed the next product as
+//   its A operand (P V, P^T dO, dS^T Q, dS K);
+// - the online softmax runs in exp2 with the scale folded into log2(e); the
+//   mask is applied only to tiles that hold a masked pair (the diagonal, the
+//   window's edge, the `true_k` edge); fully live tiles skip it;
+// - the query tiles with the most key tiles are scheduled first, which evens
+//   out the causal imbalance across the card;
+// - the backward keeps three launches: delta = rowsum(dO * O); dK/dV, one
+//   block per key tile, each warp computing S^T = K Q^T and dP^T = V dO^T
+//   for its 16 keys so that P^T and dS^T are already A operands; and dQ,
+//   which recomputes S and dP (two products more than accumulating dQ with
+//   atomics, but deterministic: two runs give the same gradients).
+// Why `mma.sync` and not `wgmma`: `wgmma` is the only way to the full bf16
+// rate, but it needs 64-row warpgroup tiles, shared-memory descriptors that
+// match a TMA swizzle mode, and warp specialisation with register
+// reallocation.  `mma.sync` keeps each warp's fragments fixed and simple,
+// which this first tensor-core version takes; `wgmma` with a TMA-fed ring
+// is the next step (ROADMAP A).
+//
+// 2. float32 at head dims 64 and 128, and the forward at head dim 256 in
+// both types: float32 FMA on the CUDA cores, 64 x 64 tiles widened to
+// float32 in shared memory, 256 threads each owning 4 x 4 of a tile.
+// Exact rather than fast: the float32 checks hold the loss and gradients
+// within 1e-4 with TF32 off, which these kernels meet.  At head dim 256
+// (RecurrentGemma's local attention, forward only) Q, K and V in float32
+// with the probability tile take 214,016 bytes of shared memory, under the
+// 227 KB a block may have, so one block runs per SM, and each thread keeps
+// 4 x 16 output accumulators in registers.
 //
 // Every `flash_*` function returns the `cudaError_t` of its launches.
 #include <cuda_bf16.h>
@@ -105,33 +141,37 @@ __device__ __forceinline__ bool live(const Params& p, int q_pos, int k_idx) {
   return true;
 }
 
-// Key tiles [lo, hi) that a query tile starting at row q0 must visit.
+// Key tiles [lo, hi) of TK rows that a query tile of TQ rows starting at
+// row q0 must visit.
+template <int TQ = BQ, int TK = BK>
 __device__ __forceinline__ void key_tiles(const Params& p, int q0, int* lo, int* hi) {
   const int q_first = p.q_offset + q0;
-  const int q_last = p.q_offset + min(q0 + BQ, p.Sq) - 1;
-  int end = (p.true_k + BK - 1) / BK;
-  if (p.causal) end = min(end, q_last / BK + 1);
+  const int q_last = p.q_offset + min(q0 + TQ, p.Sq) - 1;
+  int end = (p.true_k + TK - 1) / TK;
+  if (p.causal) end = min(end, q_last / TK + 1);
   int begin = 0;
   if (p.window > 0) {
     const int first_key = q_first - p.window + 1;
-    if (first_key > 0) begin = first_key / BK;
+    if (first_key > 0) begin = first_key / TK;
   }
   *lo = begin;
   *hi = end;
 }
 
-// Query tiles [lo, hi) that see a key tile starting at row k0.
+// Query tiles [lo, hi) of TQ rows that see a key tile of TK rows starting
+// at row k0.
+template <int TQ = BQ, int TK = BK>
 __device__ __forceinline__ void query_tiles(const Params& p, int k0, int* lo, int* hi) {
-  const int nq = (p.Sq + BQ - 1) / BQ;
-  const int k_last = min(k0 + BK, p.true_k) - 1;
+  const int nq = (p.Sq + TQ - 1) / TQ;
+  const int k_last = min(k0 + TK, p.true_k) - 1;
   int begin = 0, end = nq;
   if (p.causal) {
     const int first_q = k0 - p.q_offset;
-    if (first_q > 0) begin = first_q / BQ;
+    if (first_q > 0) begin = first_q / TQ;
   }
   if (p.window > 0) {
     const int last_q = k_last + p.window - 1 - p.q_offset;
-    end = last_q < 0 ? 0 : min(nq, last_q / BQ + 1);
+    end = last_q < 0 ? 0 : min(nq, last_q / TQ + 1);
   }
   *lo = begin;
   *hi = end;
@@ -584,6 +624,620 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// ===========================================================================
+// bfloat16 at head dims 64 and 128: tensor-core kernels (mma.sync m16n8k16)
+// ===========================================================================
+//
+// Tiles are bf16 in shared memory, rows of D values with their 16-byte
+// chunks swizzled (chunk c of row r sits at c ^ (r & 7)), so the eight rows
+// an `ldmatrix` reads fall in eight distinct bank groups.  `cp.async` with a
+// zero-filled tail brings them in; a ragged row past Sq or Sk reads zeros.
+// Every product is `mma.sync.m16n8k16` with float32 accumulators; each warp
+// owns 16 * MI rows of the product, so scores, probabilities and score
+// gradients stay in its registers and are fed back as the A operand of the
+// next product (the accumulator layout of m16n8 pairs is the A layout of
+// m16k16).
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int NT = 256;                 // 8 warps
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a * b for one 16 x 8 x 16 product (a: 4 registers, b: 2).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Element offset of 16-byte chunk `c` of row `r` in a swizzled [rows][D] tile.
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + ((c ^ (r & 7)) << 3);
+}
+
+// Rows [0, ROWS) of a tile, rows `pitch` elements apart from `g`, into the
+// swizzled tile `s`; rows at or beyond `n_valid` are zero.  Asynchronous:
+// the caller commits and waits.
+template <int ROWS, int D, int THREADS_ = NT>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, size_t pitch, int n_valid) {
+  constexpr int CH = D / 8;
+  static_assert(ROWS * CH % THREADS_ == 0, "a tile is whole 16-byte chunks a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / THREADS_; ++i) {
+    const int idx = threadIdx.x + i * THREADS_;
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = r < n_valid;
+    cp_async16(smem_u32(s + swz<D>(r, c)), ok ? g + r * pitch + c * 8 : g, ok);
+  }
+}
+
+// Operand fragments of one 16-deep step `kk` from a swizzled tile `s`
+// (`lane` is the thread's lane):
+// - a_frag: A rows [r0, r0 + 16), the product's depth along the tile's row;
+// - b_frag: B of two n-tiles [n0, n0 + 16), the tile's rows being n and its
+//   row the depth (K for Q K^T): b[0], b[1] for n0 and b[2], b[3] for n0 + 8;
+// - bt_frag: B of two n-tiles [n0, n0 + 16) of the tile's columns, its rows
+//   being the depth (V for P V).
+template <int D>
+__device__ __forceinline__ void a_frag(const bf16* s, int r0, int kk, int lane, uint32_t (&a)[4]) {
+  ldsm_x4(smem_u32(s + swz<D>(r0 + (lane & 15), 2 * kk + (lane >> 4))), a);
+}
+template <int D>
+__device__ __forceinline__ void b_frag(const bf16* s, int n0, int kk, int lane, uint32_t (&b)[4]) {
+  ldsm_x4(smem_u32(s + swz<D>(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1))),
+          b);
+}
+template <int D>
+__device__ __forceinline__ void bt_frag(const bf16* s, int n0, int kk, int lane,
+                                        uint32_t (&b)[4]) {
+  ldsm_x4_t(smem_u32(s + swz<D>(16 * kk + (lane & 15), (n0 >> 3) + (lane >> 4))), b);
+}
+
+// c[m][j] += A * B for the MI x 16 rows m of a warp and the n-tiles j: A
+// from registers (m16n8 accumulators x[m][2kk], x[m][2kk + 1] rounded to
+// bf16), B from a tile read with bt_frag; c: [MI][N / 8][4] of the warp's
+// (MI x 16) x N product.  Each B fragment serves the MI row groups.
+template <int D, int MI, int KSTEPS, int NTILES>
+__device__ __forceinline__ void acc_times_tile(float (&c)[MI][NTILES][4],
+                                               const float (&x)[MI][2 * KSTEPS][4],
+                                               const bf16* s, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    uint32_t a[MI][4];
+#pragma unroll
+    for (int m = 0; m < MI; ++m) {
+      a[m][0] = pack_bf16(x[m][2 * kk][0], x[m][2 * kk][1]);
+      a[m][1] = pack_bf16(x[m][2 * kk][2], x[m][2 * kk][3]);
+      a[m][2] = pack_bf16(x[m][2 * kk + 1][0], x[m][2 * kk + 1][1]);
+      a[m][3] = pack_bf16(x[m][2 * kk + 1][2], x[m][2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int n = 0; n < NTILES; n += 2) {
+      uint32_t b[4];
+      bt_frag<D>(s, n * 8, kk, lane, b);
+#pragma unroll
+      for (int m = 0; m < MI; ++m) {
+        mma(c[m][n], a[m], b[0], b[1]);
+        mma(c[m][n + 1], a[m], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// c[m][j] += A * B^T over the depth D: A rows [r0, r0 + 16 MI) of tile `sa`,
+// B rows [0, 8 * NTILES) of tile `sb` (both [rows][D]).
+template <int D, int MI, int NTILES>
+__device__ __forceinline__ void tile_times_tile_t(float (&c)[MI][NTILES][4], const bf16* sa,
+                                                  int r0, const bf16* sb, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[MI][4];
+#pragma unroll
+    for (int m = 0; m < MI; ++m) a_frag<D>(sa, r0 + 16 * m, kk, lane, a[m]);
+#pragma unroll
+    for (int n = 0; n < NTILES; n += 2) {
+      uint32_t b[4];
+      b_frag<D>(sb, n * 8, kk, lane, b);
+#pragma unroll
+      for (int m = 0; m < MI; ++m) {
+        mma(c[m][n], a[m], b[0], b[1]);
+        mma(c[m][n + 1], a[m], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// Does the (query tile [q0, q0 + tq), key tile [k0, k0 + tk)) pair hold a
+// masked pair?  Fully live tiles skip the mask.
+__device__ __forceinline__ bool needs_mask(const Params& p, int q0, int tq, int k0, int tk) {
+  const int q_first = p.q_offset + q0, q_last = q_first + tq - 1;
+  if (k0 + tk > p.true_k) return true;
+  if (p.causal && k0 + tk - 1 > q_first) return true;
+  if (p.window > 0 && k0 <= q_last - p.window) return true;
+  return false;
+}
+
+template <int MI, int NTILES>
+__device__ __forceinline__ void zero(float (&c)[MI][NTILES][4]) {
+#pragma unroll
+  for (int m = 0; m < MI; ++m)
+#pragma unroll
+    for (int j = 0; j < NTILES; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[m][j][e] = 0.f;
+}
+
+// Forward: query tile 128, each of 4 warps owning 32 rows (MI = 2 groups of
+// 16); key tile 64; K and V in a ring of two.
+constexpr int FWD_BQ = 128, FWD_MI = 2, FWD_BK = 64;
+constexpr int FWD_THREADS = 32 * FWD_BQ / (16 * FWD_MI);
+// dK/dV: key tile 128 (16 a warp), query tile 64, Q/dO ring of two.
+constexpr int DKDV_BQ = 64, DKDV_BK = 128;
+// dQ: query tile 128 (16 a warp), key tile 64, K/V ring of two.
+constexpr int DQ_BQ = 128, DQ_BK = 64;
+
+template <int D>
+constexpr size_t fwd_smem() { return (size_t)(FWD_BQ + 4 * FWD_BK) * D * sizeof(bf16); }
+template <int D>
+constexpr size_t dkdv_smem() {
+  return (size_t)(2 * DKDV_BK + 4 * DKDV_BQ) * D * sizeof(bf16) +
+         4 * DKDV_BQ * sizeof(float);
+}
+template <int D>
+constexpr size_t dq_smem() { return (size_t)(2 * DQ_BQ + 4 * DQ_BK) * D * sizeof(bf16); }
+
+// ---------------------------------------------------------------------------
+// forward: one block per (batch * head, query tile), the query tiles with the
+// most key tiles first
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           bf16* __restrict__ o, float* __restrict__ lse, Params p) {
+  constexpr int BQ_ = FWD_BQ, BK_ = FWD_BK, MI = FWD_MI, NTH = FWD_THREADS;
+  constexpr int NS = BK_ / 8;  // score n-tiles
+  constexpr int NO = D / 8;    // output n-tiles
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + BQ_ * D;       // [2][BK_][D]
+  bf16* sV = sK + 2 * BK_ * D;   // [2][BK_][D]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = ((p.Sq + BQ_ - 1) / BQ_ - 1 - (int)blockIdx.y) * BQ_;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.Kv);
+  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
+  const bf16* kb = k + ((size_t)b * p.Sk * p.Kv + kvh) * D;
+  const bf16* vb = v + ((size_t)b * p.Sk * p.Kv + kvh) * D;
+  const float sl2 = p.scale * LOG2E;
+
+  int kt0, kt1;
+  key_tiles<BQ_, BK_>(p, q0, &kt0, &kt1);
+  const int n = kt1 - kt0;
+  load_tile<BQ_, D, NTH>(sQ, q + ((size_t)b * p.Sq * p.H + h) * D + q0 * q_pitch, q_pitch,
+                         p.Sq - q0);
+  if (n > 0) {
+    load_tile<BK_, D, NTH>(sK, kb + (size_t)kt0 * BK_ * k_pitch, k_pitch, p.Sk - kt0 * BK_);
+    load_tile<BK_, D, NTH>(sV, vb + (size_t)kt0 * BK_ * k_pitch, k_pitch, p.Sk - kt0 * BK_);
+  }
+  cp_async_commit();
+
+  float acc[MI][NO][4];
+  zero(acc);
+  // running max (log2 units) and this thread's share of the row sum, for
+  // rows r0 + 16 m + g (index 2 m) and r0 + 16 m + g + 8 (2 m + 1)
+  float mrow[2 * MI], lrow[2 * MI];
+#pragma unroll
+  for (int i = 0; i < 2 * MI; ++i) {
+    mrow[i] = -INFINITY;
+    lrow[i] = 0.f;
+  }
+  const int r0 = warp * 16 * MI;
+  const int qpos0 = p.q_offset + q0 + r0 + g;
+
+  for (int it = 0; it < n; ++it) {
+    const int k0 = (kt0 + it) * BK_;
+    const int st = it & 1;
+    if (it + 1 < n) {
+      const int k1 = k0 + BK_;
+      load_tile<BK_, D, NTH>(sK + (st ^ 1) * BK_ * D, kb + (size_t)k1 * k_pitch, k_pitch,
+                             p.Sk - k1);
+      load_tile<BK_, D, NTH>(sV + (st ^ 1) * BK_ * D, vb + (size_t)k1 * k_pitch, k_pitch,
+                             p.Sk - k1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float s[MI][NS][4];
+    zero(s);
+    tile_times_tile_t<D, MI, NS>(s, sQ, r0, sK + st * BK_ * D, lane);
+
+    if (needs_mask(p, q0, BQ_, k0, BK_)) {
+#pragma unroll
+      for (int m = 0; m < MI; ++m)
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!live(p, qpos0 + 16 * m + (e >> 1) * 8, k0 + j * 8 + 2 * t + (e & 1)))
+              s[m][j][e] = -INFINITY;
+    }
+#pragma unroll
+    for (int m = 0; m < MI; ++m) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int i = 2 * m + hi;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(s[m][j][2 * hi], s[m][j][2 * hi + 1]));
+        const float mn = fmaxf(mrow[i], quad_max(mx) * sl2);
+        const float base = mn == -INFINITY ? 0.f : mn;
+        const float alpha = fast_exp2(mrow[i] - base);
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+#pragma unroll
+          for (int e = 2 * hi; e < 2 * hi + 2; ++e) {
+            s[m][j][e] = fast_exp2(fmaf(s[m][j][e], sl2, -base));
+            rs += s[m][j][e];
+          }
+        }
+        lrow[i] = alpha * lrow[i] + rs;  // summed over the quad at the end
+        mrow[i] = mn;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+          acc[m][j][2 * hi] *= alpha;
+          acc[m][j][2 * hi + 1] *= alpha;
+        }
+      }
+    }
+    acc_times_tile<D, MI, BK_ / 16, NO>(acc, s, sV + st * BK_ * D, lane);
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int m = 0; m < MI; ++m) {
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int i = 2 * m + hi;
+      const float l = quad_sum(lrow[i]);
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      const int row = q0 + r0 + 16 * m + 8 * hi + g;
+      if (row >= p.Sq) continue;
+      bf16* orow = o + ((size_t)b * p.Sq * p.H + (size_t)row * p.H + h) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        *reinterpret_cast<uint32_t*>(orow + j * 8) =
+            pack_bf16(acc[m][j][2 * hi] * inv, acc[m][j][2 * hi + 1] * inv);
+      if (t == 0)
+        lse[((size_t)b * p.H + h) * p.Sq + row] =
+            l > 0.f ? (mrow[i] + log2f(l)) * LN2 : -INFINITY;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, dK and dV: one block per (batch * kv head, key tile of 128 rows),
+// looping over the G query heads and the query tiles that see the key tile;
+// each warp owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T, so P^T
+// and dS^T are already the A operands of dV += P^T dO and dK += dS^T Q
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+            const bf16* __restrict__ dout, const float* __restrict__ lse,
+            const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+            Params p) {
+  constexpr int BQ_ = DKDV_BQ, BK_ = DKDV_BK;
+  constexpr int NS = BQ_ / 8;  // score n-tiles (queries)
+  constexpr int NO = D / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + BK_ * D;
+  bf16* sQ = sV + BK_ * D;        // [2][BQ_][D]
+  bf16* sG = sQ + 2 * BQ_ * D;    // dO, [2][BQ_][D]
+  float* sL = reinterpret_cast<float*>(sG + 2 * BQ_ * D);  // lse, [2][BQ_]
+  float* sDl = sL + 2 * BQ_;                               // delta, [2][BQ_]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.y * BK_;
+  const int b = blockIdx.x / p.Kv, kvh = blockIdx.x % p.Kv;
+  const int G = p.H / p.Kv;
+  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
+  const size_t k_off = ((size_t)b * p.Sk * p.Kv + kvh) * D + (size_t)k0 * k_pitch;
+  const float sl2 = p.scale * LOG2E;
+
+  int qt0 = 0, qt1 = 0;
+  if (k0 < p.true_k) query_tiles<BQ_, BK_>(p, k0, &qt0, &qt1);
+  const int nqt = max(qt1 - qt0, 0);
+  const int n = G * nqt;
+
+  // stage `st` <- query tile `i` of the flattened (head, query tile) loop
+  auto load_q = [&](int i, int st) {
+    const int h = kvh * G + i / nqt, q1 = (qt0 + i % nqt) * BQ_;
+    const size_t off = ((size_t)b * p.Sq * p.H + h) * D + (size_t)q1 * q_pitch;
+    load_tile<BQ_, D>(sQ + st * BQ_ * D, q + off, q_pitch, p.Sq - q1);
+    load_tile<BQ_, D>(sG + st * BQ_ * D, dout + off, q_pitch, p.Sq - q1);
+    const size_t r_off = ((size_t)b * p.H + h) * p.Sq + q1;
+    const int i_row = threadIdx.x & (BQ_ - 1);
+    const bool ok = q1 + i_row < p.Sq;
+    if (threadIdx.x < BQ_)
+      cp_async4(smem_u32(sL + st * BQ_ + i_row), ok ? lse + r_off + i_row : lse, ok);
+    else if (threadIdx.x < 2 * BQ_)
+      cp_async4(smem_u32(sDl + st * BQ_ + i_row), ok ? delta + r_off + i_row : delta, ok);
+  };
+
+  load_tile<BK_, D>(sK, k + k_off, k_pitch, p.Sk - k0);
+  load_tile<BK_, D>(sV, v + k_off, k_pitch, p.Sk - k0);
+  if (n > 0) load_q(0, 0);
+  cp_async_commit();
+
+  float gk[1][NO][4], gv[1][NO][4];
+  zero(gk);
+  zero(gv);
+  const int r0 = warp * 16;
+  const int key0 = k0 + r0 + g;  // this thread's keys: key0 and key0 + 8
+
+  for (int it = 0; it < n; ++it) {
+    const int st = it & 1;
+    const int q1 = (qt0 + it % nqt) * BQ_;
+    if (it + 1 < n) load_q(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const bf16* cQ = sQ + st * BQ_ * D;
+    const bf16* cG = sG + st * BQ_ * D;
+    float s[1][NS][4], dp[1][NS][4];
+    zero(s);
+    zero(dp);
+    tile_times_tile_t<D, 1, NS>(s, sK, r0, cQ, lane);
+    tile_times_tile_t<D, 1, NS>(dp, sV, r0, cG, lane);
+
+    const bool masked = needs_mask(p, q1, BQ_, k0, BK_);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * t + (e & 1);  // query row of the tile
+        float pe = fast_exp2(fmaf(s[0][j][e], sl2, -sL[st * BQ_ + col] * LOG2E));
+        if (masked && !live(p, p.q_offset + q1 + col, key0 + (e >> 1) * 8)) pe = 0.f;
+        s[0][j][e] = pe;
+        dp[0][j][e] = pe * (dp[0][j][e] - sDl[st * BQ_ + col]);
+      }
+    }
+    acc_times_tile<D, 1, BQ_ / 16, NO>(gv, s, cG, lane);
+    acc_times_tile<D, 1, BQ_ / 16, NO>(gk, dp, cQ, lane);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  const int row0 = key0, row1 = key0 + 8;
+  const size_t base = ((size_t)b * p.Sk * p.Kv + kvh) * D + 2 * t;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    if (row0 < p.Sk) {
+      const size_t off = base + (size_t)row0 * k_pitch + j * 8;
+      *reinterpret_cast<uint32_t*>(dk + off) =
+          pack_bf16(gk[0][j][0] * p.scale, gk[0][j][1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(gv[0][j][0], gv[0][j][1]);
+    }
+    if (row1 < p.Sk) {
+      const size_t off = base + (size_t)row1 * k_pitch + j * 8;
+      *reinterpret_cast<uint32_t*>(dk + off) =
+          pack_bf16(gk[0][j][2] * p.scale, gk[0][j][3] * p.scale);
+      *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(gv[0][j][2], gv[0][j][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward, dQ: one block per (batch * head, query tile of 128 rows), the
+// query tiles with the most key tiles first; recomputes S and dP, so no
+// atomics and the result does not depend on the order blocks run in
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const bf16* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, bf16* __restrict__ dq, Params p) {
+  constexpr int BQ_ = DQ_BQ, BK_ = DQ_BK;
+  constexpr int NS = BK_ / 8;
+  constexpr int NO = D / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sG = sQ + BQ_ * D;
+  bf16* sK = sG + BQ_ * D;       // [2][BK_][D]
+  bf16* sV = sK + 2 * BK_ * D;   // [2][BK_][D]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = ((p.Sq + BQ_ - 1) / BQ_ - 1 - (int)blockIdx.y) * BQ_;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.Kv);
+  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
+  const size_t q_off = ((size_t)b * p.Sq * p.H + h) * D + (size_t)q0 * q_pitch;
+  const bf16* kb = k + ((size_t)b * p.Sk * p.Kv + kvh) * D;
+  const bf16* vb = v + ((size_t)b * p.Sk * p.Kv + kvh) * D;
+  const float sl2 = p.scale * LOG2E;
+
+  int kt0, kt1;
+  key_tiles<BQ_, BK_>(p, q0, &kt0, &kt1);
+  const int n = kt1 - kt0;
+  load_tile<BQ_, D>(sQ, q + q_off, q_pitch, p.Sq - q0);
+  load_tile<BQ_, D>(sG, dout + q_off, q_pitch, p.Sq - q0);
+  if (n > 0) {
+    load_tile<BK_, D>(sK, kb + (size_t)kt0 * BK_ * k_pitch, k_pitch, p.Sk - kt0 * BK_);
+    load_tile<BK_, D>(sV, vb + (size_t)kt0 * BK_ * k_pitch, k_pitch, p.Sk - kt0 * BK_);
+  }
+  cp_async_commit();
+
+  const int r0 = warp * 16;
+  const int row0 = q0 + r0 + g, row1 = row0 + 8;
+  const size_t r_off = ((size_t)b * p.H + h) * p.Sq;
+  const float lse0 = row0 < p.Sq ? lse[r_off + row0] * LOG2E : 0.f;
+  const float lse1 = row1 < p.Sq ? lse[r_off + row1] * LOG2E : 0.f;
+  const float dl0 = row0 < p.Sq ? delta[r_off + row0] : 0.f;
+  const float dl1 = row1 < p.Sq ? delta[r_off + row1] : 0.f;
+  const int qpos0 = p.q_offset + row0;
+
+  float gq[1][NO][4];
+  zero(gq);
+  for (int it = 0; it < n; ++it) {
+    const int k0 = (kt0 + it) * BK_;
+    const int st = it & 1;
+    if (it + 1 < n) {
+      const int k1 = k0 + BK_;
+      load_tile<BK_, D>(sK + (st ^ 1) * BK_ * D, kb + (size_t)k1 * k_pitch, k_pitch, p.Sk - k1);
+      load_tile<BK_, D>(sV + (st ^ 1) * BK_ * D, vb + (size_t)k1 * k_pitch, k_pitch, p.Sk - k1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const bf16* cK = sK + st * BK_ * D;
+    float s[1][NS][4], dp[1][NS][4];
+    zero(s);
+    zero(dp);
+    tile_times_tile_t<D, 1, NS>(s, sQ, r0, cK, lane);
+    tile_times_tile_t<D, 1, NS>(dp, sG, r0, sV + st * BK_ * D, lane);
+
+    const bool masked = needs_mask(p, q0, BQ_, k0, BK_);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool hi = e >> 1;
+        float pe = fast_exp2(fmaf(s[0][j][e], sl2, -(hi ? lse1 : lse0)));
+        if (masked && !live(p, qpos0 + hi * 8, k0 + j * 8 + 2 * t + (e & 1))) pe = 0.f;
+        dp[0][j][e] = pe * (dp[0][j][e] - (hi ? dl1 : dl0));
+      }
+    }
+    acc_times_tile<D, 1, BK_ / 16, NO>(gq, dp, cK, lane);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  bf16* d0 = dq + q_off + ((size_t)(r0 + g)) * q_pitch + 2 * t;
+  bf16* d1 = d0 + 8 * q_pitch;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    if (row0 < p.Sq)
+      *reinterpret_cast<uint32_t*>(d0 + j * 8) =
+          pack_bf16(gq[0][j][0] * p.scale, gq[0][j][1] * p.scale);
+    if (row1 < p.Sq)
+      *reinterpret_cast<uint32_t*>(d1 + j * 8) =
+          pack_bf16(gq[0][j][2] * p.scale, gq[0][j][3] * p.scale);
+  }
+}
+
+template <typename K>
+cudaError_t set_smem(K kern, size_t bytes) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                       const Params& p, cudaStream_t stream) {
+  cudaError_t err = set_smem(fwd_kernel<D>, fwd_smem<D>());
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.B * p.H, (p.Sq + FWD_BQ - 1) / FWD_BQ);
+  fwd_kernel<D><<<grid, FWD_THREADS, fwd_smem<D>(), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), lse, p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                       void* dv, const Params& p, cudaStream_t stream) {
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* gt = static_cast<const bf16*>(dout);
+  const size_t n_rows = (size_t)p.B * p.Sq * p.H;
+  delta_kernel<bf16, D><<<(unsigned)((n_rows * 32 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      static_cast<const bf16*>(o), gt, delta, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = set_smem(dkdv_kernel<D>, dkdv_smem<D>());
+  if (err != cudaSuccess) return err;
+  dkdv_kernel<D><<<dim3(p.B * p.Kv, (p.Sk + DKDV_BK - 1) / DKDV_BK), NT, dkdv_smem<D>(),
+                   stream>>>(qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dk),
+                             static_cast<bf16*>(dv), p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = set_smem(dq_kernel<D>, dq_smem<D>());
+  if (err != cudaSuccess) return err;
+  dq_kernel<D><<<dim3(p.B * p.H, (p.Sq + DQ_BQ - 1) / DQ_BQ), NT, dq_smem<D>(), stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dq), p);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 Params make_params(int B, int H, int Kv, int Sq, int Sk, int D, int causal, int window,
                    int q_offset, int true_k) {
   Params p;
@@ -627,5 +1281,31 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     return launch_bwd<__nv_bfloat16, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   if (dtype == 1 && D == 128)
     return launch_bwd<__nv_bfloat16, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
+  return cudaErrorInvalidValue;
+}
+
+// bfloat16 only (dtype 1), D 64 or 128: the tensor-core kernels.
+extern "C" int flash_attention_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                                      float* lse, int B, int H, int Kv, int Sq, int Sk, int D,
+                                      int dtype, int causal, int window, int q_offset,
+                                      int true_k, void* stream) {
+  const Params p = make_params(B, H, Kv, Sq, Sk, D, causal, window, q_offset, true_k);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D == 64) return tc::launch_fwd<64>(q, k, v, o, lse, p, s);
+  if (dtype == 1 && D == 128) return tc::launch_fwd<128>(q, k, v, o, lse, p, s);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int flash_attention_bwd_tc(const void* q, const void* k, const void* v, const void* o,
+                                      const void* dout, const float* lse, float* delta, void* dq,
+                                      void* dk, void* dv, int B, int H, int Kv, int Sq, int Sk,
+                                      int D, int dtype, int causal, int window, int q_offset,
+                                      int true_k, void* stream) {
+  const Params p = make_params(B, H, Kv, Sq, Sk, D, causal, window, q_offset, true_k);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D == 64)
+    return tc::launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
+  if (dtype == 1 && D == 128)
+    return tc::launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   return cudaErrorInvalidValue;
 }

@@ -2,17 +2,24 @@
 
 ``flash_fwd`` and ``flash_bwd`` take the plain versions in ``ref.py`` for
 CPU tensors (or under ``KernelMode.TORCH``) and launch their kernels for
-CUDA tensors; under ``KernelMode.CUDA`` a CPU tensor raises.  There is no
-fallback from the kernel to the plain version: a kernel that does not
-build, does not take the inputs (head dims other than 64, 128 and 256
-forward and 64 and 128 backward, types other than float32 and bfloat16)
-or does not launch raises.  The library
-is built on first launch (``kernels/build.py``), never at import.
+CUDA tensors; under ``KernelMode.CUDA`` a CPU tensor raises.  :func:`route`
+picks the kernel by type and head dim:
+
+- bfloat16 at head dims 64 and 128: the tensor-core kernels (``"tc"``);
+- float32 at head dims 64 and 128, and the forward at head dim 256 in
+  either type: the float32 FMA kernels (``"fma"``);
+- anything else raises (the backward at head dim 256 is ROADMAP B8).
+
+There is no fallback from one kernel to another or to the plain version: a
+kernel that does not build, does not take the inputs or does not launch
+raises.  The library is built on first launch (``kernels/build.py``),
+never at import.
 
 Each wrapper carries ``launches``, a plain int that counts calls that
 launched its kernels (``flash_bwd`` launches three: the row sums of
-``dO * O``, dK/dV, dQ); plain-version calls do not count.  The forward at
-head dim 256 counts apart, in ``flash_fwd.launches_d256``.
+``dO * O``, dK/dV, dQ), and ``by_route``, the same split by route; the
+forward at head dim 256 counts apart, in ``flash_fwd.launches_d256``.
+Plain-version calls do not count.
 
 TPU kernel replaced: ``flash_attention_hm`` (``_attn_kernel``) of
 ``repro/kernels/flash_attention/kernel.py``.  The source note of the
@@ -35,7 +42,11 @@ SOURCES = (pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu",)
 LIB_NAME = "flash_attention"
 HEAD_DIMS = (64, 128, 256)       # forward
 BWD_HEAD_DIMS = (64, 128)        # backward (ROADMAP B8 adds 256)
-BLOCK_Q = BLOCK_K = 64           # tile sizes of the kernels
+TC_HEAD_DIMS = (64, 128)         # bfloat16 head dims of the tensor-core kernels
+ROUTES = ("tc", "fma")
+# (query, key) tile of each route's forward; the backward's tiles are in
+# the source (tc: dK/dV 64 queries x 128 keys, dQ 128 x 64)
+TILES = {"tc": (128, 64), "fma": (64, 64)}
 VEC_BYTES = 16                   # tiles are loaded as 16-byte vectors
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,17 +59,33 @@ def library() -> ctypes.CDLL:
     fresh = LIB_NAME not in build.load_count
     lib = build.load_library(LIB_NAME, SOURCES)
     if fresh:
-        lib.flash_attention_fwd.argtypes = [_P] * 5 + [_I] * 11 + [_P]
-        lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 11 + [_P]
-        lib.flash_attention_fwd.restype = _I
-        lib.flash_attention_bwd.restype = _I
+        for suffix in ("", "_tc"):
+            fwd = getattr(lib, "flash_attention_fwd" + suffix)
+            bwd = getattr(lib, "flash_attention_bwd" + suffix)
+            fwd.argtypes = [_P] * 5 + [_I] * 11 + [_P]
+            bwd.argtypes = [_P] * 10 + [_I] * 11 + [_P]
+            fwd.restype = bwd.restype = _I
     return lib
 
 
+def route(dtype: torch.dtype, D: int, backward: bool = False) -> str:
+    """The kernel that takes (dtype, head dim D) in the given direction:
+    ``"tc"`` or ``"fma"``; raises on what no kernel takes."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash kernel takes float32/bfloat16, got {dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head dims {HEAD_DIMS}, got {D}")
+    if backward and D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash backward takes head dims {BWD_HEAD_DIMS}, "
+                         f"got {D}; the backward at head dim 256 is "
+                         f"ROADMAP B8")
+    return "tc" if dtype == torch.bfloat16 and D in TC_HEAD_DIMS else "fma"
+
+
 def _inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more,
-            head_dims=HEAD_DIMS):
-    """Shapes, type and head dim checked; every tensor contiguous and
-    16-byte aligned (a view at an odd address is copied)."""
+            backward: bool = False):
+    """Shapes, type and head dim checked (:func:`route`); every tensor
+    contiguous and 16-byte aligned (a view at an odd address is copied)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be [B,Sq,H,D] and k, v [B,Sk,Kv,D]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -67,12 +94,7 @@ def _inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more,
     if k.shape[0] != B or k.shape[3] != D or H % Kv:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"form grouped-query attention")
-    if D not in head_dims:
-        raise ValueError(f"flash kernel takes head dims {head_dims}, got {D}"
-                         + ("" if D not in HEAD_DIMS else
-                            "; the backward at head dim 256 is ROADMAP B8"))
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash kernel takes float32/bfloat16, got {q.dtype}")
+    route(q.dtype, D, backward)
     out = []
     for t in (q, k, v, *more):
         if t.dtype != q.dtype:
@@ -97,6 +119,57 @@ def _ints(q, k, *, causal: bool, window: Optional[int], q_offset: int):
             0 if window is None else int(window), int(q_offset), Sk)
 
 
+def _entry(direction: str, kernel: str, q: torch.Tensor):
+    """The library's C function for ``direction`` ("fwd" or "bwd") on
+    route ``kernel``, for CUDA tensors only."""
+    if kernel not in ROUTES:
+        raise ValueError(f"flash kernel route must be one of {ROUTES}, "
+                         f"got {kernel!r}")
+    if not q.is_cuda:
+        raise ValueError("the flash kernels launch on CUDA tensors")
+    name = f"flash_attention_{direction}" + ("_tc" if kernel == "tc" else "")
+    return name, getattr(library(), name)
+
+
+def launch_fwd(q, k, v, *, kernel: str, causal: bool = True,
+               window: Optional[int] = None, q_offset: int = 0):
+    """Launch forward ``kernel`` (a route) on CUDA tensors, counting
+    nothing: :func:`flash_fwd` counts, and ``chip_smoke.py`` times the FMA
+    kernel on bfloat16 through this beside the tensor-core one."""
+    q, k, v = _inputs(q, k, v)
+    name, fn = _entry("fwd", kernel, q)
+    ints = _ints(q, k, causal=causal, window=window, q_offset=q_offset)
+    B, Sq, H, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              lse.data_ptr(), *ints, build.stream(q.device))
+    build.check(code, name)
+    return o, lse
+
+
+def launch_bwd(q, k, v, o, lse, do, *, kernel: str, causal: bool = True,
+               window: Optional[int] = None, q_offset: int = 0):
+    """Launch backward ``kernel`` (a route) on CUDA tensors, counting
+    nothing (see :func:`launch_fwd`)."""
+    q, k, v, o, do = _inputs(q, k, v, o, do, backward=True)
+    name, fn = _entry("bwd", kernel, q)
+    ints = _ints(q, k, causal=causal, window=window, q_offset=q_offset)
+    if lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError(f"lse must be [B,H,Sq], got {tuple(lse.shape)}")
+    lse = lse.float().contiguous()
+    delta = torch.empty_like(lse)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    code = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *ints, build.stream(q.device))
+    build.check(code, name)
+    return dq, dk, dv
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0,
@@ -106,20 +179,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not use_kernel(mode, q, k, v):
         return ref.attention_fwd_ref(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
-    q, k, v = _inputs(q, k, v)
-    ints = _ints(q, k, causal=causal, window=window, q_offset=q_offset)
-    B, Sq, H, _ = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    code = library().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), *ints, build.stream(q.device))
-    build.check(code, "flash_attention_fwd")
+    kernel = route(q.dtype, q.shape[-1])
+    out = launch_fwd(q, k, v, kernel=kernel, causal=causal, window=window,
+                     q_offset=q_offset)
     if q.shape[3] == 256:
         flash_fwd.launches_d256 += 1
     else:
         flash_fwd.launches += 1
-    return o, lse
+        flash_fwd.by_route[kernel] += 1
+    return out
 
 
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,22 +200,12 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not use_kernel(mode, q, k, v, o, lse, do):
         return ref.attention_bwd_ref(q, k, v, do, causal=causal,
                                      window=window, q_offset=q_offset)
-    q, k, v, o, do = _inputs(q, k, v, o, do, head_dims=BWD_HEAD_DIMS)
-    ints = _ints(q, k, causal=causal, window=window, q_offset=q_offset)
-    if lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
-        raise ValueError(f"lse must be [B,H,Sq], got {tuple(lse.shape)}")
-    lse = lse.float().contiguous()
-    delta = torch.empty_like(lse)
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    code = library().flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), *ints, build.stream(q.device))
-    build.check(code, "flash_attention_bwd")
+    kernel = route(q.dtype, q.shape[-1], backward=True)
+    out = launch_bwd(q, k, v, o, lse, do, kernel=kernel, causal=causal,
+                     window=window, q_offset=q_offset)
     flash_bwd.launches += 1
-    return dq, dk, dv
+    flash_bwd.by_route[kernel] += 1
+    return out
 
 
 KERNELS = (flash_fwd, flash_bwd)
@@ -156,12 +214,20 @@ KERNELS = (flash_fwd, flash_bwd)
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        fn.by_route = dict.fromkeys(ROUTES, 0)
     flash_fwd.launches_d256 = 0
 
 
 def launch_counts() -> dict:
-    return {**{fn.__name__: fn.launches for fn in KERNELS},
-            "flash_fwd_d256": flash_fwd.launches_d256}
+    """Totals per wrapper (``flash_fwd`` without head dim 256), the split by
+    route (``flash_fwd_tc``, ``flash_fwd_fma``, ...) and
+    ``flash_fwd_d256``."""
+    out = {}
+    for fn in KERNELS:
+        out[fn.__name__] = fn.launches
+        out.update({f"{fn.__name__}_{r}": n for r, n in fn.by_route.items()})
+    out["flash_fwd_d256"] = flash_fwd.launches_d256
+    return out
 
 
 reset_launch_counts()

@@ -138,6 +138,56 @@ def test_kernel_input_checks_refuse_what_the_kernel_does_not_take(shape,
         K._inputs(q, q, q)
 
 
+ROUTE_TABLE = [   # dtype, head dim, backward, kernel or the error raised
+    *[(torch.bfloat16, D, bwd, "tc") for D in (64, 128)
+      for bwd in (False, True)],
+    *[(torch.float32, D, bwd, "fma") for D in (64, 128)
+      for bwd in (False, True)],
+    (torch.bfloat16, 256, False, "fma"),
+    (torch.float32, 256, False, "fma"),
+    (torch.bfloat16, 256, True, ValueError),     # ROADMAP B8
+    (torch.float32, 256, True, ValueError),
+    *[(dt, 96, bwd, ValueError) for dt in (torch.bfloat16, torch.float32)
+      for bwd in (False, True)],
+    *[(torch.float16, D, bwd, TypeError) for D in (64, 128, 256)
+      for bwd in (False, True)],
+]
+
+
+@pytest.mark.parametrize("dtype,D,backward,want", ROUTE_TABLE,
+                         ids=lambda x: str(x).replace("torch.", ""))
+def test_route_picks_the_kernel_for_each_type_head_dim_and_direction(
+        dtype, D, backward, want):
+    """bfloat16 at head dims 64 and 128 takes the tensor-core kernels,
+    float32 and the forward at 256 the FMA ones; the rest raises, the
+    backward at 256 naming ROADMAP B8."""
+    if isinstance(want, str):
+        assert K.route(dtype, D, backward) == want
+        assert want in K.ROUTES and want in K.TILES
+    else:
+        names_b8 = want is ValueError and D == 256
+        with pytest.raises(want, match="B8" if names_b8 else None):
+            K.route(dtype, D, backward)
+
+
+@pytest.mark.parametrize("kernel", ["tc", "fma", "wgmma"])
+def test_launch_refuses_cpu_tensors_and_unknown_routes(kernel):
+    """The launchers never run a plain version: a CPU tensor or a route
+    that no kernel has raises before any library is built."""
+    q, k, v, _ = _inputs(CASES[0])
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    with pytest.raises(ValueError, match="route" if kernel == "wgmma"
+                       else "CUDA"):
+        K.launch_fwd(tq, tk, tv, kernel=kernel)
+
+
+def test_launch_counts_split_the_totals_by_route():
+    counts = K.launch_counts()
+    for fn in ("flash_fwd", "flash_bwd"):
+        assert {f"{fn}_{r}" for r in K.ROUTES} <= counts.keys()
+    assert "flash_fwd_d256" in counts
+
+
 def test_init_cache_matches_jax():
     from repro.models.attention import init_cache as jax_init_cache
     from repro_torch.models.attention import init_cache

@@ -15,6 +15,10 @@ from the plan, so (dst, slot) is unique as on the served path.  The row
 kernels take float32 and bfloat16 rows of a multiple of 16 bytes.
 
 Flash attention is held against autograd through ``ref.attention_ref``
+(bfloat16 on the tensor-core kernels, float32 on the FMA kernels, each
+call's route counted), including shapes cut to the tensor-core tiles
+(ragged ends, a query tile shorter than one tile, windows narrower than a
+tile, one and eight query heads per kv head) and rows with no live key,
 with the JAX package's forward tolerances (2e-5 in float32, 3e-2 in
 bfloat16); the backward within 1e-4 in float32 (the same arithmetic
 summed in another order) and 5e-2 in bfloat16 (the kernel takes
@@ -152,6 +156,15 @@ FLASH_CASES = [   # B, Sq, Sk, H, Kv, D, causal, window, dtype
     (1, 512, 512, 4, 1, 64, True, 128, torch.float32),       # window
     (1, 1000, 1000, 4, 2, 128, True, 256, torch.bfloat16),   # window, ragged
     (1, 200, 200, 4, 4, 64, False, None, torch.float32),     # non-causal
+    # the tensor-core kernels' tiles (forward and dQ 128 queries x 64 keys,
+    # dK/dV 128 keys x 32 or 64 queries):
+    (1, 512, 512, 4, 2, 64, True, None, torch.bfloat16),     # head dim 64
+    (1, 384, 384, 4, 4, 128, True, None, torch.bfloat16),    # G = 1
+    (1, 256, 256, 16, 2, 128, True, None, torch.bfloat16),   # G = 8
+    (2, 200, 457, 8, 2, 64, True, None, torch.bfloat16),     # ragged, q_offset
+    (1, 40, 700, 8, 2, 128, True, None, torch.bfloat16),     # Sq < one tile
+    (1, 600, 600, 8, 2, 128, True, 48, torch.bfloat16),      # window < a tile
+    (1, 333, 333, 4, 1, 64, False, 48, torch.bfloat16),      # window, non-causal
 ]
 FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -180,9 +193,8 @@ def test_flash_attention_forward_and_backward_on_card(case):
     o, lse = FK.flash_fwd(q, k, v, **kw)
     grads = FK.flash_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    assert FK.launch_counts() == {**before,
-                                  "flash_fwd": before["flash_fwd"] + 1,
-                                  "flash_bwd": before["flash_bwd"] + 1}
+    _assert_one_launch_each(before, "tc" if dtype == torch.bfloat16
+                            else "fma")
     o_ref, lse_ref = fref.attention_fwd_ref(q, k, v, **kw)
     tol = FWD_TOL[dtype]
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
@@ -196,6 +208,77 @@ def test_flash_attention_forward_and_backward_on_card(case):
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
                                    msg=lambda m: f"d{name}: {m}")
         assert _rel_l2(a, b) <= REL_L2[dtype], name
+
+
+def _assert_one_launch_each(before, route):
+    """One forward and one backward launched since ``before``, both on
+    ``route`` (bfloat16 on the tensor-core kernels, float32 on the FMA
+    ones)."""
+    keys = ("flash_fwd", "flash_bwd", f"flash_fwd_{route}",
+            f"flash_bwd_{route}")
+    assert FK.launch_counts() == {**before,
+                                  **{k: before[k] + 1 for k in keys}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_rows_with_no_live_key_on_card(dtype, causal):
+    """Query rows past the keys' reach (q_offset + a window of 48): rows
+    whose keys are all masked get o == 0 and lse == -inf, as the TPU kernel
+    gives them; the other rows, and every gradient, equal the plain version
+    run on the live rows alone (the plain version spreads a dead row's
+    softmax evenly over its masked keys, and the dead rows' o is constant
+    zero, so they add nothing to any gradient)."""
+    _card()
+    B, Sq, Sk, H, Kv, D, W, qo = 1, 96, 64, 4, 2, 128, 48, 40
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda"
+                                    ).to(dtype)
+    q, k, v, do = mk(B, Sq, H, D), mk(B, Sk, Kv, D), mk(B, Sk, Kv, D), \
+        mk(B, Sq, H, D)
+    kw = dict(causal=causal, window=W, q_offset=qo)
+    before = FK.launch_counts()
+    o, lse = FK.flash_fwd(q, k, v, **kw)
+    dq, dk, dv = FK.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    _assert_one_launch_each(before, "tc" if dtype == torch.bfloat16
+                            else "fma")
+    n = Sk - 1 + W - qo                  # rows [n, Sq) see no key
+    assert 0 < n < Sq
+    assert bool((lse[:, :, n:] == -torch.inf).all())
+    assert bool((o[:, n:] == 0).all()) and bool((dq[:, n:] == 0).all())
+    o_ref, lse_ref = fref.attention_fwd_ref(q[:, :n], k, v, **kw)
+    tol = FWD_TOL[dtype]
+    torch.testing.assert_close(o[:, :n].float(), o_ref.float(), atol=tol,
+                               rtol=tol)
+    assert _rel_l2(o[:, :n], o_ref) <= REL_L2[dtype]
+    torch.testing.assert_close(lse[:, :, :n], lse_ref, atol=LSE_ABS[dtype],
+                               rtol=0)
+    want = fref.attention_bwd_ref(q[:, :n], k, v, do[:, :n], **kw)
+    tol = BWD_TOL[dtype]
+    for name, a, b in zip("qkv", (dq[:, :n], dk, dv), want):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                   msg=lambda m: f"d{name}: {m}")
+        assert _rel_l2(a, b) <= REL_L2[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_tensor_core_backward_is_deterministic_on_card(D):
+    """dQ has its own kernel instead of atomics, so two backward runs on
+    the same inputs give the same bits."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(D)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda"
+                                    ).bfloat16()
+    q, k, v, do = mk(1, 1024, 8, D), mk(1, 1024, 2, D), mk(1, 1024, 2, D), \
+        mk(1, 1024, 8, D)
+    o, lse = FK.flash_fwd(q, k, v)
+    first = FK.flash_bwd(q, k, v, o, lse, do)
+    second = FK.flash_bwd(q, k, v, o, lse, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -204,3 +204,16 @@ def test_one_kernel_mode_switch_reaches_attention_and_moe():
         model.decode_step(params_t, model.init_decode_state(B, 4),
                           {"tokens": torch.zeros((B, 1), dtype=torch.int32)})
     assert {**K.launch_counts(), **FK.launch_counts()} == before
+
+
+def test_loss_seeds_runs_only_on_a_card():
+    """``python -m repro_torch.launch.loss_seeds`` measures the card's train
+    cell; without a CUDA device it stops instead of training on the CPU."""
+    from repro_torch.launch import loss_seeds
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="CUDA"):
+        loss_seeds.main(["--seeds", "0"])
+    cfg = loss_seeds.train_config()
+    assert (cfg.n_layers, cfg.dtype, cfg.moe.dispatch) == (
+        2, "bfloat16", "cuda_kernel")
