@@ -39,8 +39,15 @@ Phases, each printing one JSON line with its seconds:
             against the sequential oracle, S=200 below the chunk), RG-LRU
             at RecurrentGemma-9B's width (S=32768, and float32 with an
             initial state), the flash forward at head dim 256 at
-            RecurrentGemma's attention shape (S=32768, window 2048); each
-            timed against its plain version and its bound.
+            RecurrentGemma's attention shape (S=32768, window 2048; bf16 on
+            the tensor-core kernel, also timed on the FMA one); each timed
+            against its plain version and its bound.
+7b. smoke_widths
+            every ported family's smoke config (head dims 8, 12 and 16;
+            SSD at (P, N) = (16, 16), chunk 16) under ``kernel_mode="auto"``
+            (``repro_torch.launch.smoke_widths``): bf16 prefill, float32
+            loss and the dense and MoE gradients on the kernels against the
+            plain path; the SSM and hybrid backward raise, naming B8.
 8. serve_ssm, serve_hybrid
             the full Mamba-2 780M (48 layers) and the full
             RecurrentGemma-9B (38 layers), bf16, random weights from a
@@ -76,9 +83,11 @@ Phases, each printing one JSON line with its seconds:
 
 ``--profile`` adds a phase after serving and one after the train steps:
 ``torch.profiler`` over 8 warm decode steps of the served engine and over
-one more train step, and one over each recurrent model's S=32768 prefill;
-device time by kernel, the device's idle share, and Chrome traces in
-``build/profile/``.  ``--seed N`` (default 0) draws every input, weight and
+one more train step, one over each recurrent model's S=32768 prefill, and
+one over 20 calls each of the scatter and combine kernels and their
+library calls at the decode shape (the device time that the CUDA-event
+time of so short a call hides); device time by kernel, the device's idle
+share, and Chrome traces in ``build/profile/``.  ``--seed N`` (default 0) draws every input, weight and
 prompt from another seed.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
@@ -279,6 +288,15 @@ class Case:
             bound_ms=b, bound_by=by)
         emit("kernels.time", case=self.name, T=T, S=S, C=C, D=D,
              dtype=str(self.dtype).replace("torch.", ""), **out)
+        if "--profile" in sys.argv[1:]:
+            def calls():
+                K.scatter(self.x, self.dst, self.keep, self.slot, n_ports=S,
+                          capacity=C, mode=cuda)
+                flat.index_copy_(0, addr, self.x)
+                K.combine(self.y, self.dst, self.keep, self.slot, self.w,
+                          mode=cuda)
+                y_flat.index_select(0, cidx) * w_lib[:, None]
+            profile(f"kernels.{self.name}.profile", calls, 20)
         return out
 
 
@@ -306,7 +324,7 @@ def flash_live_tiles(Sq, Sk, causal, window, q_offset, dtype, D) -> int:
     (dtype, D) visits per (batch, head): the kernels' own tile skip (none
     above the causal diagonal, none wholly outside the window)."""
     from repro_torch.kernels.flash_attention import kernel as FK
-    BLOCK_Q, BLOCK_K = FK.TILES[FK.route(dtype, D)]
+    BLOCK_Q, BLOCK_K = FK.fwd_tile(dtype, D)
     n = 0
     for q0 in range(0, Sq, BLOCK_Q):
         q_last = q_offset + min(q0 + BLOCK_Q, Sq) - 1
@@ -570,11 +588,14 @@ TRAIN_KERNELS = SERVE_KERNELS + ("flash_fwd", "flash_bwd")
 FLASH_ROUTE = {"bfloat16": "tc", "float32": "fma"}
 
 
-def check_flash_route(launches, dtype: str, what: str) -> None:
+def check_flash_route(launches, dtype: str, what: str,
+                      kernels=("flash_fwd", "flash_bwd")) -> None:
+    """Each of ``kernels`` (the counts of ``FK.launch_counts``) ran on
+    ``dtype``'s route and never on the other."""
     want = FLASH_ROUTE[dtype]
     other = ({"tc", "fma"} - {want}).pop()
-    if not all(launches[f"flash_{d}_{want}"] > 0 for d in ("fwd", "bwd")) \
-            or any(launches[f"flash_{d}_{other}"] for d in ("fwd", "bwd")):
+    if not all(launches[f"{k}_{want}"] > 0 for k in kernels) \
+            or any(launches[f"{k}_{other}"] for k in kernels):
         raise AssertionError(f"{what} ({dtype}) did not take only the "
                              f"{want} flash kernels: {launches}")
 
@@ -961,11 +982,13 @@ def rglru_phase():
 
 def flash_d256_phase():
     """The flash forward at RecurrentGemma's attention shape (B=1, S=32768,
-    H=16, Kv=1, D=256, window 2048, bf16) against the plain version, run
-    on query slices of 2048 rows with the keys they see (the whole [S, S]
-    score matrix would take 68 GB); timed against the slices and against
-    ``scaled_dot_product_attention`` with the window as a boolean mask
-    (memory-efficient backend, kv head repeated for the 16 query heads)."""
+    H=16, Kv=1, D=256, window 2048, bf16, on the tensor-core kernel) against
+    the plain version, run on query slices of 2048 rows with the keys they
+    see (the whole [S, S] score matrix would take 68 GB); timed against the
+    slices, against ``scaled_dot_product_attention`` with the window as a
+    boolean mask (memory-efficient backend, kv head repeated for the 16
+    query heads) and against the FMA kernel on the same inputs
+    (``fma_ms``)."""
     from repro_torch.fabric.interface import KernelMode
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ref
@@ -1025,9 +1048,14 @@ def flash_d256_phase():
                                              **kw), reps=5),
              plain_ms=time_ms(plain, reps=2, warmup=1),
              library_ms=time_ms(library, reps=5),
-             bound_ms=b, bound_by=by)
+             bound_ms=b, bound_by=by,
+             fma_ms=time_ms(lambda: FK.launch_fwd(q, k, v, kernel="fma",
+                                                  **kw), reps=3, warmup=1))
+    t["library_factor"] = t["ms"] / t["library_ms"]
+    t["fma_factor"] = t["ms"] / t["fma_ms"]
+    t["bound_share"] = t["bound_ms"] / t["ms"]
     emit("flash_d256.time", B=1, S=S, H=H, Kv=Kv, D=D, window=W,
-         dtype="bfloat16", **t)
+         dtype="bfloat16", route=FK.route(torch.bfloat16, D), **t)
     return err, t
 
 
@@ -1035,6 +1063,30 @@ def recurrent_config(arch, **kw):
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config(arch), **{"dtype": "bfloat16",
                                                      **kw})
+
+
+def smoke_widths_phase():
+    """Every ported family's smoke config on the kernels against the plain
+    path (``repro_torch.launch.smoke_widths``): the narrow widths that the
+    full configs do not run.  Returns the launches of the kernel paths,
+    summed over the configs."""
+    from repro_torch.launch import smoke_widths
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(_counts(), 0)
+    bad = []
+    for arch in smoke_widths.ARCHS:
+        t1 = time.perf_counter()
+        res = smoke_widths.check(arch, SEED)
+        emit("smoke_widths.check", **res, seconds=time.perf_counter() - t1)
+        for k, n in res["kernels"].items():
+            launches[k] += n
+        if not res["ok"]:
+            bad.append(arch)
+    emit("smoke_widths", kernels=launches, seconds=time.perf_counter() - t0)
+    if bad:
+        raise AssertionError(f"smoke configs disagree on the kernels: {bad}")
+    _reset_counts()
+    return launches
 
 
 # the kernels each recurrent phase must launch on its main path
@@ -1110,6 +1162,8 @@ def serve_recurrent_phase(arch, phase, smi):
     missing = [k for k in RECURRENT_KERNELS[arch] if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{phase}: not launched: {missing}")
+    if "flash_fwd_d256" in RECURRENT_KERNELS[arch]:
+        check_flash_route(launches, cfg.dtype, phase, ("flash_fwd_d256",))
 
     # the same requests and the same prefill on the plain path
     t0 = time.perf_counter()
@@ -1243,6 +1297,9 @@ def recurrent_f32_check(arch, phase):
     if not ok:
         raise AssertionError(f"{phase}: float32 prefill, loss or the "
                              f"replayed token disagree")
+    if "flash_fwd_d256" in path:
+        check_flash_route(ck, "float32", f"{phase}.f32_check",
+                          ("flash_fwd_d256",))
     del engine, model, params
     torch.cuda.empty_cache()
 
@@ -1682,6 +1739,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("flash", seconds=time.perf_counter() - t0)
 
+    # 4b. every family's smoke config on the kernels -------------------
+    smoke_launches = smoke_widths_phase()
+    torch.cuda.empty_cache()
+
     # 5. serve --------------------------------------------------------
     engine, serve_launches = serve_phase(cfg, smi)
 
@@ -1714,7 +1775,8 @@ def main() -> int:
     # 10. summary -----------------------------------------------------
     paths = {"serve": serve_launches, "train": train_launches,
              "serve_ssm": ssm_launches, "serve_hybrid": hybrid_launches,
-             "paper_usecase": usecase_launches, "plan_shims": plan_launches}
+             "paper_usecase": usecase_launches, "plan_shims": plan_launches,
+             "smoke_widths": smoke_launches}
 
     def launch_keys(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}
@@ -1760,9 +1822,16 @@ def main() -> int:
                                   for r in ("tc", "fma")},
             "shape": "B=1 S=4096 H=32 Kv=8 D=128 bf16 causal window=4096",
         })
+    rows.append({
+        "name": "flash_fwd_d256", "route": "cuda", "source": src,
+        "replaces": replaces["flash_fwd_d256"], **launch_keys("flash_fwd_d256"),
+        "max_abs_err": d256_err, **{k: d256_t[k] for k in timing_keys},
+        "fma_ms": d256_t["fma_ms"],
+        "launches_by_route": {r: paths["serve_hybrid"][f"flash_fwd_d256_{r}"]
+                              for r in ("tc", "fma")},
+        "shape": "B=1 S=32768 H=16 Kv=1 D=256 bf16 causal window=2048",
+    })
     new_rows = (
-        ("flash_fwd_d256", src, d256_err, d256_t,
-         "B=1 S=32768 H=16 Kv=1 D=256 bf16 causal window=2048"),
         ("ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu", ssd_err, ssd_t,
          "B=1 S=32768 H=48 P=64 N=128 chunk=256 bf16"),
         ("rglru", "src/repro_torch/kernels/rglru/csrc/rglru.cu", rglru_err,

@@ -21,11 +21,14 @@
 // Two designs; the wrapper (`kernel.py::route`) picks one by type and head
 // dim, and neither gives way to the other.
 //
-// 1. bfloat16 at head dims 64 and 128, namespace `tc` (the train step and
-// the bf16 prefill).  What bounds it: at the train shape (S = 4096, D = 128,
+// 1. bfloat16 at head dims 64 and 128, and the forward at 256, namespace
+// `tc` (the train step, the bf16 prefill and RecurrentGemma's local
+// attention).  What bounds it: at the train shape (S = 4096, D = 128,
 // causal) the forward does about 1,650 operations per byte of q, k, v and
 // o, far above the card's balance point of about 295, so the bf16
-// tensor-core rate bounds it, and the backward (2.5x the products) too.
+// tensor-core rate bounds it, and the backward (2.5x the products) too; at
+// RecurrentGemma's (S = 32768, D = 256, a window of 2048) the forward does
+// some 4,000 per byte, bound by the tensor cores as well.
 // What the design does about it:
 // - tiles stay bf16 in shared memory, their 16-byte chunks swizzled so the
 //   tensor-core loads (`ldmatrix`) are free of bank conflicts; no float32
@@ -38,7 +41,10 @@
 //   16-row groups; 16 rows in the backward, whose two accumulators leave no
 //   registers for more), so scores, probabilities and score gradients stay
 //   in registers, are rounded to bf16 there and feed the next product as
-//   its A operand (P V, P^T dO, dS^T Q, dS K);
+//   its A operand (P V, P^T dO, dS^T Q, dS K); at head dim 256 the forward
+//   gives each warp 16 rows and takes 32-key tiles (see `Fwd`), and a
+//   sliding window of 2048 visits about 66 key tiles a query tile, masked
+//   only at the window's two edges;
 // - the online softmax runs in exp2 with the scale folded into log2(e); the
 //   mask is applied only to tiles that hold a masked pair (the diagonal, the
 //   window's edge, the `true_k` edge); fully live tiles skip it;
@@ -56,15 +62,19 @@
 // which this first tensor-core version takes; `wgmma` with a TMA-fed ring
 // is the next step (ROADMAP A).
 //
-// 2. float32 at head dims 64 and 128, and the forward at head dim 256 in
-// both types: float32 FMA on the CUDA cores, 64 x 64 tiles widened to
-// float32 in shared memory, 256 threads each owning 4 x 4 of a tile.
-// Exact rather than fast: the float32 checks hold the loss and gradients
-// within 1e-4 with TF32 off, which these kernels meet.  At head dim 256
-// (RecurrentGemma's local attention, forward only) Q, K and V in float32
-// with the probability tile take 214,016 bytes of shared memory, under the
-// 227 KB a block may have, so one block runs per SM, and each thread keeps
-// 4 x 16 output accumulators in registers.
+// 2. float32 at head dims 64 and 128 and the forward at 256, and both types
+// at the smoke configs' head dims 8, 12 and 16: float32 FMA on the CUDA
+// cores, 64 x 64 tiles widened to float32 in shared memory, 256 threads each
+// owning 4 x 4 of a tile.  Exact rather than fast: the float32 checks hold
+// the loss and gradients within 1e-4 with TF32 off, which these kernels
+// meet.  Head dims 8, 12 and 16 run on a tile 16 wide: the true head dim is
+// an argument, columns past it load as zero and are not stored, and the
+// scale is the true head dim's.  Their rows are loaded value by value (a
+// row of 12 bf16 values is 24 bytes, so a head's offset is not 16-byte
+// aligned); they need no speed.  At head dim 256 Q, K and V in float32 with
+// the probability tile take 214,016 bytes of shared memory, one block per
+// SM; bf16 at 256 keeps this kernel only to be timed beside the tensor-core
+// one (`kernel.launch_fwd(kernel="fma")`).
 //
 // Every `flash_*` function returns the `cudaError_t` of its launches.
 #include <cuda_bf16.h>
@@ -83,6 +93,7 @@ constexpr float NEG_INF = -1e30f;
 
 struct Params {
   int B, H, Kv, Sq, Sk;
+  int D;         // head dim; the FMA kernels' tile may be wider (zero-padded)
   int causal;    // 0 or 1
   int window;    // 0: no window; else keys in (q_pos - window, q_pos]
   int q_offset;  // absolute position of query row 0
@@ -112,10 +123,21 @@ __device__ __forceinline__ void unpack(const uint4& raw, float* out, __nv_bfloat
 
 // Rows [0, 64) of a tile into shared memory as float32 [64][D + 1], times
 // `mul`; rows at or beyond `n_valid` are zero.  `g` points at row 0, rows
-// are `pitch` elements apart and 16-byte aligned (the wrapper checks).
+// are `pitch` elements apart.  Tiles of 64 columns and more are loaded as
+// 16-byte vectors (the row and the head offset are 16-byte aligned: the
+// wrapper checks the base); the narrow tile (D = 16, head dims 8, 12 and 16)
+// value by value, since a head's row of 12 bf16 values is 24 bytes, and
+// columns at or beyond the true head dim `dt` read zero.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* s, const T* g, size_t pitch,
-                                          int n_valid, float mul) {
+                                          int n_valid, float mul, int dt) {
+  if constexpr (D < 64) {
+    for (int idx = threadIdx.x; idx < 64 * D; idx += THREADS) {
+      const int r = idx / D, c = idx % D;
+      s[r * (D + 1) + c] = r < n_valid && c < dt ? to_f(g[r * pitch + c]) * mul : 0.f;
+    }
+    return;
+  }
   constexpr int VEC = 16 / sizeof(T);
   constexpr int PER_ROW = D / VEC;
   constexpr int LD = D + 1;
@@ -234,12 +256,12 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const int kvh = h / (p.H / p.Kv);
-  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
-  const T* qb = q + ((size_t)b * p.Sq * p.H + h) * D;
-  const T* kb = k + ((size_t)b * p.Sk * p.Kv + kvh) * D;
-  const T* vb = v + ((size_t)b * p.Sk * p.Kv + kvh) * D;
+  const size_t q_pitch = (size_t)p.H * p.D, k_pitch = (size_t)p.Kv * p.D;
+  const T* qb = q + ((size_t)b * p.Sq * p.H + h) * p.D;
+  const T* kb = k + ((size_t)b * p.Sk * p.Kv + kvh) * p.D;
+  const T* vb = v + ((size_t)b * p.Sk * p.Kv + kvh) * p.D;
 
-  load_tile<T, D>(sQ, qb + q0 * q_pitch, q_pitch, p.Sq - q0, p.scale);
+  load_tile<T, D>(sQ, qb + q0 * q_pitch, q_pitch, p.Sq - q0, p.scale, p.D);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -255,8 +277,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(sK, kb + k0 * k_pitch, k_pitch, p.Sk - k0, 1.f);
-    load_tile<T, D>(sV, vb + k0 * k_pitch, k_pitch, p.Sk - k0, 1.f);
+    load_tile<T, D>(sK, kb + k0 * k_pitch, k_pitch, p.Sk - k0, 1.f, p.D);
+    load_tile<T, D>(sV, vb + k0 * k_pitch, k_pitch, p.Sk - k0, 1.f, p.D);
     __syncthreads();
 
     float s[4][4] = {};
@@ -320,9 +342,10 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const int row = q0 + ty * 4 + i;
     if (row >= p.Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);  // a fully masked row writes zeros
-    T* orow = o + ((size_t)b * p.Sq * p.H + (size_t)row * p.H + h) * D;
+    T* orow = o + ((size_t)b * p.Sq * p.H + (size_t)row * p.H + h) * p.D;
 #pragma unroll
-    for (int cc = 0; cc < NC; ++cc) orow[tx + 16 * cc] = from_f<T>(acc[i][cc] / denom);
+    for (int cc = 0; cc < NC; ++cc)
+      if (tx + 16 * cc < p.D) orow[tx + 16 * cc] = from_f<T>(acc[i][cc] / denom);
     if (tx == 0)
       lse[((size_t)b * p.H + h) * p.Sq + row] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
@@ -331,18 +354,17 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 // ---------------------------------------------------------------------------
 // backward 1: delta = rowsum(dO * O), one warp per (b, row, h)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T>
 __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                              float* __restrict__ delta, Params p) {
   const size_t row = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   const size_t n_rows = (size_t)p.B * p.Sq * p.H;
   if (row >= n_rows) return;  // warp-uniform
-  const T* orow = o + row * D;
-  const T* grow = dout + row * D;
+  const T* orow = o + row * p.D;
+  const T* grow = dout + row * p.D;
   float acc = 0.f;
-#pragma unroll
-  for (int d = lane; d < D; d += 32) acc = fmaf(to_f(orow[d]), to_f(grow[d]), acc);
+  for (int d = lane; d < p.D; d += 32) acc = fmaf(to_f(orow[d]), to_f(grow[d]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {
@@ -394,11 +416,11 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int k0 = blockIdx.x * BK;
   const int b = blockIdx.y / p.Kv, kvh = blockIdx.y % p.Kv;
   const int G = p.H / p.Kv;
-  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
-  const size_t k_off = ((size_t)b * p.Sk * p.Kv + kvh) * D + k0 * k_pitch;
+  const size_t q_pitch = (size_t)p.H * p.D, k_pitch = (size_t)p.Kv * p.D;
+  const size_t k_off = ((size_t)b * p.Sk * p.Kv + kvh) * p.D + k0 * k_pitch;
 
-  load_tile<T, D>(sK, k + k_off, k_pitch, p.Sk - k0, 1.f);
-  load_tile<T, D>(sV, v + k_off, k_pitch, p.Sk - k0, 1.f);
+  load_tile<T, D>(sK, k + k_off, k_pitch, p.Sk - k0, 1.f, p.D);
+  load_tile<T, D>(sV, v + k_off, k_pitch, p.Sk - k0, 1.f, p.D);
 
   float gk[4][NC], gv[4][NC];
 #pragma unroll
@@ -410,14 +432,14 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   if (k0 < p.true_k) query_tiles(p, k0, &qt0, &qt1);
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
-    const T* qb = q + ((size_t)b * p.Sq * p.H + h) * D;
-    const T* gb = dout + ((size_t)b * p.Sq * p.H + h) * D;
+    const T* qb = q + ((size_t)b * p.Sq * p.H + h) * p.D;
+    const T* gb = dout + ((size_t)b * p.Sq * p.H + h) * p.D;
     const size_t r_off = ((size_t)b * p.H + h) * p.Sq;
     for (int qt = qt0; qt < qt1; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();
-      load_tile<T, D>(sQ, qb + q0 * q_pitch, q_pitch, p.Sq - q0, p.scale);
-      load_tile<T, D>(sG, gb + q0 * q_pitch, q_pitch, p.Sq - q0, 1.f);
+      load_tile<T, D>(sQ, qb + q0 * q_pitch, q_pitch, p.Sq - q0, p.scale, p.D);
+      load_tile<T, D>(sG, gb + q0 * q_pitch, q_pitch, p.Sq - q0, 1.f, p.D);
       if (threadIdx.x < BQ) {
         const int row = q0 + threadIdx.x;
         sL[threadIdx.x] = row < p.Sq ? lse[r_off + row] : 0.f;
@@ -478,9 +500,10 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   for (int r = 0; r < 4; ++r) {
     const int row = k0 + ty * 4 + r;
     if (row >= p.Sk) continue;
-    const size_t off = ((size_t)b * p.Sk * p.Kv + (size_t)row * p.Kv + kvh) * D;
+    const size_t off = ((size_t)b * p.Sk * p.Kv + (size_t)row * p.Kv + kvh) * p.D;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
+      if (tx + 16 * cc >= p.D) continue;
       dk[off + tx + 16 * cc] = from_f<T>(gk[r][cc]);
       dv[off + tx + 16 * cc] = from_f<T>(gv[r][cc]);
     }
@@ -508,14 +531,14 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
   const int kvh = h / (p.H / p.Kv);
-  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
-  const size_t q_off = ((size_t)b * p.Sq * p.H + h) * D + q0 * q_pitch;
-  const T* kb = k + ((size_t)b * p.Sk * p.Kv + kvh) * D;
-  const T* vb = v + ((size_t)b * p.Sk * p.Kv + kvh) * D;
+  const size_t q_pitch = (size_t)p.H * p.D, k_pitch = (size_t)p.Kv * p.D;
+  const size_t q_off = ((size_t)b * p.Sq * p.H + h) * p.D + q0 * q_pitch;
+  const T* kb = k + ((size_t)b * p.Sk * p.Kv + kvh) * p.D;
+  const T* vb = v + ((size_t)b * p.Sk * p.Kv + kvh) * p.D;
   const size_t r_off = ((size_t)b * p.H + h) * p.Sq;
 
-  load_tile<T, D>(sQ, q + q_off, q_pitch, p.Sq - q0, p.scale);
-  load_tile<T, D>(sG, dout + q_off, q_pitch, p.Sq - q0, 1.f);
+  load_tile<T, D>(sQ, q + q_off, q_pitch, p.Sq - q0, p.scale, p.D);
+  load_tile<T, D>(sG, dout + q_off, q_pitch, p.Sq - q0, 1.f, p.D);
   float lr[4], dr[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -534,8 +557,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    load_tile<T, D>(sK, kb + k0 * k_pitch, k_pitch, p.Sk - k0, 1.f);
-    load_tile<T, D>(sV, vb + k0 * k_pitch, k_pitch, p.Sk - k0, 1.f);
+    load_tile<T, D>(sK, kb + k0 * k_pitch, k_pitch, p.Sk - k0, 1.f, p.D);
+    load_tile<T, D>(sV, vb + k0 * k_pitch, k_pitch, p.Sk - k0, 1.f, p.D);
     __syncthreads();
     float s[4][4] = {}, dp[4][4] = {};
     tile_dot2<D>(sQ, sK, s, sG, sV, dp, ty, tx);
@@ -564,9 +587,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= p.Sq) continue;
-    T* qrow = dq + ((size_t)b * p.Sq * p.H + (size_t)row * p.H + h) * D;
+    T* qrow = dq + ((size_t)b * p.Sq * p.H + (size_t)row * p.H + h) * p.D;
 #pragma unroll
-    for (int cc = 0; cc < NC; ++cc) qrow[tx + 16 * cc] = from_f<T>(gq[i][cc] * p.scale);
+    for (int cc = 0; cc < NC; ++cc)
+      if (tx + 16 * cc < p.D) qrow[tx + 16 * cc] = from_f<T>(gq[i][cc] * p.scale);
   }
 }
 
@@ -600,7 +624,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   const T* vt = static_cast<const T*>(v);
   const T* gt = static_cast<const T*>(dout);
   const size_t n_rows = (size_t)p.B * p.Sq * p.H;
-  delta_kernel<T, D><<<(unsigned)((n_rows * 32 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+  delta_kernel<T><<<(unsigned)((n_rows * 32 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
       static_cast<const T*>(o), gt, delta, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -822,17 +846,29 @@ __device__ __forceinline__ void zero(float (&c)[MI][NTILES][4]) {
       for (int e = 0; e < 4; ++e) c[m][j][e] = 0.f;
 }
 
-// Forward: query tile 128, each of 4 warps owning 32 rows (MI = 2 groups of
-// 16); key tile 64; K and V in a ring of two.
-constexpr int FWD_BQ = 128, FWD_MI = 2, FWD_BK = 64;
-constexpr int FWD_THREADS = 32 * FWD_BQ / (16 * FWD_MI);
+// Forward: 4 warps, each owning 16 MI query rows; K and V in a ring of two.
+// At head dims 64 and 128, MI = 2 (query tile 128), so one K or V fragment
+// serves two row groups, and the key tile is 64.  At 256, MI = 1 (query
+// tile 64): 32 rows a warp would take 256 float32 output accumulators a
+// thread, more than the 255 registers it may have; 16 rows take 128.  Its
+// key tile is 32: Q (32 KB) and the ring (64 KB) take 96 KB of shared
+// memory, so two blocks share an SM, and nothing spills; 64-key tiles took
+// 160 KB, one block per SM, spilled 152 bytes and ran 1.4x as long
+// (PERF.md, section 6).
+template <int D>
+struct Fwd {
+  static constexpr int MI = D >= 256 ? 1 : 2;
+  static constexpr int BK = D >= 256 ? 32 : 64;
+  static constexpr int THREADS = 128;
+  static constexpr int BQ = THREADS / 32 * 16 * MI;
+};
 // dK/dV: key tile 128 (16 a warp), query tile 64, Q/dO ring of two.
 constexpr int DKDV_BQ = 64, DKDV_BK = 128;
 // dQ: query tile 128 (16 a warp), key tile 64, K/V ring of two.
 constexpr int DQ_BQ = 128, DQ_BK = 64;
 
 template <int D>
-constexpr size_t fwd_smem() { return (size_t)(FWD_BQ + 4 * FWD_BK) * D * sizeof(bf16); }
+constexpr size_t fwd_smem() { return (size_t)(Fwd<D>::BQ + 4 * Fwd<D>::BK) * D * sizeof(bf16); }
 template <int D>
 constexpr size_t dkdv_smem() {
   return (size_t)(2 * DKDV_BK + 4 * DKDV_BQ) * D * sizeof(bf16) +
@@ -846,10 +882,10 @@ constexpr size_t dq_smem() { return (size_t)(2 * DQ_BQ + 4 * DQ_BK) * D * sizeof
 // most key tiles first
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(FWD_THREADS, 1)
+__global__ void __launch_bounds__(Fwd<D>::THREADS, 1)
 fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
            bf16* __restrict__ o, float* __restrict__ lse, Params p) {
-  constexpr int BQ_ = FWD_BQ, BK_ = FWD_BK, MI = FWD_MI, NTH = FWD_THREADS;
+  constexpr int BQ_ = Fwd<D>::BQ, BK_ = Fwd<D>::BK, MI = Fwd<D>::MI, NTH = Fwd<D>::THREADS;
   constexpr int NS = BK_ / 8;  // score n-tiles
   constexpr int NO = D / 8;    // output n-tiles
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -1200,8 +1236,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
                        const Params& p, cudaStream_t stream) {
   cudaError_t err = set_smem(fwd_kernel<D>, fwd_smem<D>());
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.B * p.H, (p.Sq + FWD_BQ - 1) / FWD_BQ);
-  fwd_kernel<D><<<grid, FWD_THREADS, fwd_smem<D>(), stream>>>(
+  const dim3 grid(p.B * p.H, (p.Sq + Fwd<D>::BQ - 1) / Fwd<D>::BQ);
+  fwd_kernel<D><<<grid, Fwd<D>::THREADS, fwd_smem<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, p);
   return cudaGetLastError();
@@ -1216,7 +1252,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   const bf16* vt = static_cast<const bf16*>(v);
   const bf16* gt = static_cast<const bf16*>(dout);
   const size_t n_rows = (size_t)p.B * p.Sq * p.H;
-  delta_kernel<bf16, D><<<(unsigned)((n_rows * 32 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+  delta_kernel<bf16><<<(unsigned)((n_rows * 32 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
       static_cast<const bf16*>(o), gt, delta, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1241,7 +1277,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 Params make_params(int B, int H, int Kv, int Sq, int Sk, int D, int causal, int window,
                    int q_offset, int true_k) {
   Params p;
-  p.B = B; p.H = H; p.Kv = Kv; p.Sq = Sq; p.Sk = Sk;
+  p.B = B; p.H = H; p.Kv = Kv; p.Sq = Sq; p.Sk = Sk; p.D = D;
   p.causal = causal; p.window = window; p.q_offset = q_offset; p.true_k = true_k;
   p.scale = 1.0f / sqrtf((float)D);
   return p;
@@ -1249,14 +1285,17 @@ Params make_params(int B, int H, int Kv, int Sq, int Sk, int D, int causal, int 
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; D: 64, 128 or 256 forward, 64 or 128 backward
-// (the wrapper refuses others).
+// The FMA kernels.  dtype: 0 float32, 1 bfloat16; D: 8, 12 or 16 (on the
+// zero-padded tile of 16), 64 or 128, and 256 forward only (the wrapper
+// refuses others).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int B, int H, int Kv, int Sq, int Sk, int D,
                                    int dtype, int causal, int window, int q_offset, int true_k,
                                    void* stream) {
   const Params p = make_params(B, H, Kv, Sq, Sk, D, causal, window, q_offset, true_k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D <= 16) return launch_fwd<float, 16>(q, k, v, o, lse, p, s);
+  if (dtype == 1 && D <= 16) return launch_fwd<__nv_bfloat16, 16>(q, k, v, o, lse, p, s);
   if (dtype == 0 && D == 64) return launch_fwd<float, 64>(q, k, v, o, lse, p, s);
   if (dtype == 0 && D == 128) return launch_fwd<float, 128>(q, k, v, o, lse, p, s);
   if (dtype == 1 && D == 64) return launch_fwd<__nv_bfloat16, 64>(q, k, v, o, lse, p, s);
@@ -1273,6 +1312,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    int true_k, void* stream) {
   const Params p = make_params(B, H, Kv, Sq, Sk, D, causal, window, q_offset, true_k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D <= 16)
+    return launch_bwd<float, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
+  if (dtype == 1 && D <= 16)
+    return launch_bwd<__nv_bfloat16, 16>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   if (dtype == 0 && D == 64)
     return launch_bwd<float, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   if (dtype == 0 && D == 128)
@@ -1284,7 +1327,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   return cudaErrorInvalidValue;
 }
 
-// bfloat16 only (dtype 1), D 64 or 128: the tensor-core kernels.
+// The tensor-core kernels: bfloat16 only (dtype 1), D 64, 128 or (forward
+// only) 256.
 extern "C" int flash_attention_fwd_tc(const void* q, const void* k, const void* v, void* o,
                                       float* lse, int B, int H, int Kv, int Sq, int Sk, int D,
                                       int dtype, int causal, int window, int q_offset,
@@ -1293,6 +1337,7 @@ extern "C" int flash_attention_fwd_tc(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 64) return tc::launch_fwd<64>(q, k, v, o, lse, p, s);
   if (dtype == 1 && D == 128) return tc::launch_fwd<128>(q, k, v, o, lse, p, s);
+  if (dtype == 1 && D == 256) return tc::launch_fwd<256>(q, k, v, o, lse, p, s);
   return cudaErrorInvalidValue;
 }
 

@@ -5,9 +5,11 @@ CPU tensors (or under ``KernelMode.TORCH``) and launch their kernels for
 CUDA tensors; under ``KernelMode.CUDA`` a CPU tensor raises.  :func:`route`
 picks the kernel by type and head dim:
 
-- bfloat16 at head dims 64 and 128: the tensor-core kernels (``"tc"``);
-- float32 at head dims 64 and 128, and the forward at head dim 256 in
-  either type: the float32 FMA kernels (``"fma"``);
+- bfloat16 at head dims 64 and 128, and the forward at 256: the
+  tensor-core kernels (``"tc"``);
+- float32 at head dims 64 and 128 and the forward at 256, and both types
+  at the smoke configs' head dims 8, 12 and 16: the float32 FMA kernels
+  (``"fma"``; the narrow dims on a tile 16 wide, zero-padded);
 - anything else raises (the backward at head dim 256 is ROADMAP B8).
 
 There is no fallback from one kernel to another or to the plain version: a
@@ -18,7 +20,8 @@ never at import.
 Each wrapper carries ``launches``, a plain int that counts calls that
 launched its kernels (``flash_bwd`` launches three: the row sums of
 ``dO * O``, dK/dV, dQ), and ``by_route``, the same split by route; the
-forward at head dim 256 counts apart, in ``flash_fwd.launches_d256``.
+forward at head dim 256 counts apart, in ``flash_fwd.launches_d256`` and
+its split ``flash_fwd.by_route_d256``.
 Plain-version calls do not count.
 
 TPU kernel replaced: ``flash_attention_hm`` (``_attn_kernel``) of
@@ -40,12 +43,15 @@ from repro_torch.kernels.flash_attention import ref
 
 SOURCES = (pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu",)
 LIB_NAME = "flash_attention"
-HEAD_DIMS = (64, 128, 256)       # forward
-BWD_HEAD_DIMS = (64, 128)        # backward (ROADMAP B8 adds 256)
-TC_HEAD_DIMS = (64, 128)         # bfloat16 head dims of the tensor-core kernels
+SMALL_HEAD_DIMS = (8, 12, 16)    # the smoke configs'; FMA, on a tile 16 wide
+HEAD_DIMS = SMALL_HEAD_DIMS + (64, 128, 256)    # forward
+BWD_HEAD_DIMS = SMALL_HEAD_DIMS + (64, 128)     # backward (ROADMAP B8 adds 256)
+TC_HEAD_DIMS = (64, 128, 256)    # bfloat16 forward on the tensor-core kernels
+TC_BWD_HEAD_DIMS = (64, 128)     # bfloat16 backward on the tensor-core kernels
 ROUTES = ("tc", "fma")
-# (query, key) tile of each route's forward; the backward's tiles are in
-# the source (tc: dK/dV 64 queries x 128 keys, dQ 128 x 64)
+# (query, key) tile of each route's forward (tc at head dim 256: 64 x 32, see
+# :func:`fwd_tile`); the backward's tiles are in the source (tc: dK/dV 64
+# queries x 128 keys, dQ 128 x 64)
 TILES = {"tc": (128, 64), "fma": (64, 64)}
 VEC_BYTES = 16                   # tiles are loaded as 16-byte vectors
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,7 +85,14 @@ def route(dtype: torch.dtype, D: int, backward: bool = False) -> str:
         raise ValueError(f"flash backward takes head dims {BWD_HEAD_DIMS}, "
                          f"got {D}; the backward at head dim 256 is "
                          f"ROADMAP B8")
-    return "tc" if dtype == torch.bfloat16 and D in TC_HEAD_DIMS else "fma"
+    tc = TC_BWD_HEAD_DIMS if backward else TC_HEAD_DIMS
+    return "tc" if dtype == torch.bfloat16 and D in tc else "fma"
+
+
+def fwd_tile(dtype: torch.dtype, D: int) -> Tuple[int, int]:
+    """(query, key) tile of the forward kernel that takes (dtype, D)."""
+    kernel = route(dtype, D)
+    return (64, 32) if kernel == "tc" and D == 256 else TILES[kernel]
 
 
 def _inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more,
@@ -184,6 +197,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      q_offset=q_offset)
     if q.shape[3] == 256:
         flash_fwd.launches_d256 += 1
+        flash_fwd.by_route_d256[kernel] += 1
     else:
         flash_fwd.launches += 1
         flash_fwd.by_route[kernel] += 1
@@ -216,17 +230,20 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         fn.by_route = dict.fromkeys(ROUTES, 0)
     flash_fwd.launches_d256 = 0
+    flash_fwd.by_route_d256 = dict.fromkeys(ROUTES, 0)
 
 
 def launch_counts() -> dict:
     """Totals per wrapper (``flash_fwd`` without head dim 256), the split by
-    route (``flash_fwd_tc``, ``flash_fwd_fma``, ...) and
-    ``flash_fwd_d256``."""
+    route (``flash_fwd_tc``, ``flash_fwd_fma``, ...), ``flash_fwd_d256`` and
+    its split (``flash_fwd_d256_tc``, ``flash_fwd_d256_fma``)."""
     out = {}
     for fn in KERNELS:
         out[fn.__name__] = fn.launches
         out.update({f"{fn.__name__}_{r}": n for r, n in fn.by_route.items()})
     out["flash_fwd_d256"] = flash_fwd.launches_d256
+    out.update({f"flash_fwd_d256_{r}": n
+                for r, n in flash_fwd.by_route_d256.items()})
     return out
 
 

@@ -10,59 +10,65 @@
 //
 // Layout (all contiguous): x, y [B, H, S, P]; dA, dt [B, H, S] float32;
 // B, C [B, S, N] (one group, shared by the heads) in x's type; h0, h_last
-// [B, H, P, N] float32.  Sums are float32 whatever the input type.
+// [B, H, P, N] float32.  Widths (P, N) = (64, 128) (Mamba-2 780M) and
+// (16, 16) (its smoke config); any chunk Q that divides S, up to 1024.
 //
-// What bounds it: at Mamba-2 780M's widths (H = 48, P = 64, N = 128, chunk
-// Q = 256) and S = 32768 the function moves about 432 MB (x and y in bf16,
-// B, C, dA, dt) and needs about 80 GFLOP (the causal half of the chunk
-// term, the carried-state term and the state update; C.B^T once per chunk),
-// so memory bounds it on this card: 0.13 ms at 3.35 TB/s.  This first
-// version is simple and exact instead of fast:
+// What bounds it: at Mamba-2 780M's widths (H = 48, chunk Q = 256) and
+// S = 32768 the function moves about 432 MB (x and y in bf16, B, C, dA, dt)
+// and needs about 80 GFLOP (the causal half of the chunk term, the
+// carried-state term and the state update; C.B^T once per chunk), so memory
+// bounds it on this card: 0.13 ms at 3.35 TB/s.  The TPU kernel walked the
+// chunks of a head in order ("arbitrary" grid axis) and carried h in VMEM;
+// on Hopper that is one block per head, 48 blocks on 132 SMs.  Here the
+// chunks run in parallel, in four passes (Mamba-2's own chunked
+// decomposition):
 //
-// - One block per (batch, head) walks the chunks in order and keeps h in
-//   shared memory, as the TPU grid carried it in scratch from one chunk to
-//   the next.  At B = 1 that is 48 blocks on 132 SMs: the card is
-//   underfilled (one block of 256 threads per SM, about 134 KB of shared
-//   memory each).
-// - The TPU kernel built the Q x Q chunk term whole in VMEM; 256 x 256
-//   float32 is 256 KB, more than a block's 227 KB of shared memory.  Here
-//   the chunk is cut into 64-row tiles: for each row tile I and each column
-//   tile J <= I, G = C_I B_J^T is formed in registers, decayed, masked and
-//   multiplied into x_J.  The state update runs during the last row tile,
-//   which visits every column tile.
-// - Masked before exp: above the diagonal cum_i - cum_j > 0 may overflow,
-//   and inf * 0 is NaN, so those entries are set to 0 without an exp.
-// - C.B^T is the same for every head of a (batch, chunk); each head's block
-//   recomputes it (the bound above counts it once).
-// - float32 FMA on the CUDA cores; no tensor cores, no TMA.
+// 1. cb:    C.B^T of each (batch, chunk), once for all heads, into a float32
+//           scratch [B, nc, QP, QP] (QP: Q rounded up to 64); only the
+//           64 x 64 tiles on or below the diagonal are formed.
+// 2. state: one block per (batch, chunk, head): the chunk's own state
+//           s_c = sum_j exp(cum_Q - cum_j) dt_j x_j B_j^T, a [P x Q].[Q x N]
+//           product, into a float32 scratch [B, H, nc, P, N], and cum_Q.
+// 3. pass:  the carry across chunks, h_c = exp(cum_Q,c) h_{c-1} + s_c,
+//           sequential over the chunks and parallel over B.H.P.N; it writes
+//           each chunk's incoming state (float32, or hi and lo bf16 planes
+//           for bf16 inputs) and h_last.  Memory bound: it reads and writes
+//           the scratch once.
+// 4. out:   one block per (batch, chunk, head, 64-row tile I):
+//           y_I = exp(cum_I) C_I . h_in^T + sum_{J <= I} G_IJ x_J with
+//           G_IJ = CB_IJ exp(cum_i - cum_j) dt_j on j <= i, read from pass 1.
 //
-// `ssd_fwd` returns the `cudaError_t` of its launch.
+// bfloat16 inputs run every product on the tensor cores
+// (`mma.sync.m16n8k16`, float32 accumulators) from bf16 tiles in swizzled
+// shared memory fed by `cp.async`; cumsum, decays and the carried state stay
+// float32, and only the operands fed to the tensor cores are bf16.  x, B
+// and C enter as they are; the operands formed in float32 (x.w with w the
+// decay times dt, G, and the incoming state) enter as the sum of two bf16
+// values, hi + lo, in two products.  So the passes keep the float32
+// algebra's accuracy (about 2^-17 relative a term) and y differs from the
+// plain version only where the two round it to bf16.  Rounding G and the
+// incoming state once instead moved y by 2.7e-3 relative L2 at S=32768 (50
+// times the float32 FMA kernel's 5.3e-5), and rounding x.w once put h_last
+// outside its limit in a CPU emulation.  The products are cheap beside the
+// loads, so the second one costs little.  float32
+// inputs run the same passes with float32 FMA on the CUDA cores (IEEE, no
+// TF32).  Masked before exp: above the diagonal cum_i - cum_j > 0 may
+// overflow, and inf * 0 is NaN, so those entries are selected to 0.
+//
+// `ssd_fwd` returns the `cudaError_t` of its launches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int QT = 64;        // rows of a chunk tile
-constexpr int THREADS = 256;  // 16 x 16 threads; each owns 4 rows of a tile
+using bf16 = __nv_bfloat16;
+constexpr int QT = 64;          // rows of a chunk tile
+constexpr int F32_THREADS = 256;  // float32 passes: 16 x 16 threads
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Rows [0, QT) of a [rows, W] row-major block into shared memory as float32
-// [QT][W + 1]; rows at or beyond `n_valid` are zero.
-template <typename T, int W>
-__device__ __forceinline__ void load_rows(float* s, const T* g, int n_valid) {
-  for (int idx = threadIdx.x; idx < QT * W; idx += THREADS) {
-    const int r = idx / W, c = idx % W;
-    s[r * (W + 1) + c] = r < n_valid ? to_f(g[(size_t)r * W + c]) : 0.f;
-  }
-}
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 // Inclusive prefix sum of a[0, n) in place, by one warp (lane = 0..31).
 __device__ __forceinline__ void warp_cumsum(float* a, int n, int lane) {
@@ -83,220 +89,748 @@ __device__ __forceinline__ void warp_cumsum(float* a, int n, int lane) {
   for (int i = lo; i < hi; ++i) a[i] += excl;
 }
 
-template <int P, int N>
-constexpr size_t smem_floats(int Q) {
-  return (size_t)2 * QT * (N + 1)   // C_I, B_J
-         + (size_t)P * (N + 1)      // h
-         + (size_t)QT * (P + 1)     // x_J
-         + (size_t)QT * (QT + 1)    // G
-         + QT                       // state-update weights of J's rows
-         + 2 * (size_t)Q;           // cum, dt of the chunk
+// The chunk's cum (inclusive cumsum of dA) and dt, [0, Q), into shared
+// memory.  Every pass forms cum over the whole chunk the same way, so they
+// agree on it bit for bit.  Ends with a barrier.
+__device__ __forceinline__ void chunk_cum(float* sCum, float* sDt, const float* dA,
+                                          const float* dt, int Q) {
+  for (int i = threadIdx.x; i < Q; i += blockDim.x) {
+    sCum[i] = dA[i];
+    sDt[i] = dt[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) warp_cumsum(sCum, Q, threadIdx.x);
+  __syncthreads();
 }
 
-// One block per (batch, head): blockIdx.x = b * H + h.
-template <typename T, int P, int N>
-__global__ void __launch_bounds__(THREADS)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dA,
-           const float* __restrict__ dt, const T* __restrict__ Bm,
-           const T* __restrict__ Cm, const float* __restrict__ h0,
-           T* __restrict__ y, float* __restrict__ h_last, int H, int S, int Q) {
-  constexpr int LDN = N + 1, LDX = P + 1, LDG = QT + 1;
-  constexpr int PR = P / 16;  // y columns per thread; rows of h per thread
-  constexpr int NR = N / 16;  // columns of h per thread
-  extern __shared__ float smem[];
-  float* sC = smem;
-  float* sB = sC + QT * LDN;
-  float* sH = sB + QT * LDN;
-  float* sX = sH + P * LDN;
-  float* sG = sX + QT * LDX;
-  float* sW = sG + QT * LDG;
-  float* sCum = sW + QT;
-  float* sDt = sCum + Q;
+// ===========================================================================
+// bfloat16: tensor-core helpers (mma.sync m16n8k16, ldmatrix, cp.async), as
+// in flash_attention.cu's `tc` namespace
+// ===========================================================================
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// c += a * b for one 16 x 8 x 16 product (a: 4 registers, b: 2).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// (a, b) as two bf16 pairs: hi = (a, b) rounded, lo = what hi missed.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&l);
+}
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t bh = blockIdx.x;
-  const int b = blockIdx.x / H;
-  const T* xb = x + bh * S * P;
-  T* yb = y + bh * S * P;
-  const float* dAb = dA + bh * S;
-  const float* dtb = dt + bh * S;
-  const T* Bb = Bm + (size_t)b * S * N;
-  const T* Cb = Cm + (size_t)b * S * N;
+// Element offset of 16-byte chunk `c` of row `r` in a [rows][W] bf16 tile.
+// Rows of at least eight chunks are swizzled (chunk c at c ^ (r & 7)) so the
+// eight rows an `ldmatrix` reads fall in eight bank groups; narrower rows
+// (W = 16, the smoke widths) are left in place.
+template <int W>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int CH = W / 8;
+  return r * W + ((CH >= 8 ? (c ^ (r & 7)) : c) << 3);
+}
 
-  for (int idx = tid; idx < P * N; idx += THREADS)
-    sH[(idx / N) * LDN + idx % N] = h0 ? h0[bh * P * N + idx] : 0.f;
+// Rows [0, ROWS) of a [rows][W] bf16 block, rows `pitch` elements apart from
+// `g`, into the tile `s`; rows at or beyond `n_valid` read zeros.
+// Asynchronous: the caller commits and waits.
+template <int ROWS, int W>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, size_t pitch, int n_valid) {
+  constexpr int CH = W / 8;
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = r < n_valid;
+    cp_async16(smem_u32(s + swz<W>(r, c)), ok ? g + r * pitch + c * 8 : g, ok);
+  }
+}
 
-  const int nI = (Q + QT - 1) / QT;
-  for (int t0 = 0; t0 < S; t0 += Q) {
-    __syncthreads();  // the previous chunk's readers of sCum / sDt are done
-    for (int i = tid; i < Q; i += THREADS) {
-      sCum[i] = dAb[t0 + i];
-      sDt[i] = dtb[t0 + i];
+// Fragments of one 16-deep step `kk` of a [rows][W] tile: a_frag, A rows
+// [r0, r0 + 16) with the depth along the row; b_frag, B of two n-tiles
+// [n0, n0 + 16) with the tile's rows being n (b[0], b[1] for n0; b[2], b[3]
+// for n0 + 8); bt_frag, B of two n-tiles [n0, n0 + 16) of the tile's
+// columns, its rows being the depth.
+template <int W>
+__device__ __forceinline__ void a_frag(const bf16* s, int r0, int kk, int lane, uint32_t (&a)[4]) {
+  ldsm_x4(smem_u32(s + swz<W>(r0 + (lane & 15), 2 * kk + (lane >> 4))), a);
+}
+template <int W>
+__device__ __forceinline__ void b_frag(const bf16* s, int n0, int kk, int lane, uint32_t (&b)[4]) {
+  ldsm_x4(smem_u32(s + swz<W>(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1))),
+          b);
+}
+template <int W>
+__device__ __forceinline__ void bt_frag(const bf16* s, int n0, int kk, int lane,
+                                        uint32_t (&b)[4]) {
+  ldsm_x4_t(smem_u32(s + swz<W>(16 * kk + (lane & 15), (n0 >> 3) + (lane >> 4))), b);
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&c)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+}
+
+// c += A B^T for a warp's 16 rows: A rows [r0, r0 + 16) of `sa`, B rows
+// [0, 8 NT) of `sb`, both [rows][W] with the depth W along the row.
+template <int W, int NT>
+__device__ __forceinline__ void rows_times_rows_t(float (&c)[NT][4], const bf16* sa, int r0,
+                                                  const bf16* sb, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    uint32_t a[4];
+    a_frag<W>(sa, r0, kk, lane, a);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t b[4];
+      b_frag<W>(sb, n * 8, kk, lane, b);
+      mma(c[n], a, b[0], b[1]);
+      mma(c[n + 1], a, b[2], b[3]);
     }
-    __syncthreads();
-    if (tid < 32) warp_cumsum(sCum, Q, tid);
-    __syncthreads();
-    const float cum_last = sCum[Q - 1];
+  }
+}
 
-    float hacc[PR][NR];
+// c += A B for a warp's 16 rows: A in registers as m16n8 accumulators
+// x[2 kk], x[2 kk + 1], entering as hi + lo bf16 (two products), B the
+// [KSTEPS * 16][W] tile `s`.
+template <int W, int KSTEPS, int NT>
+__device__ __forceinline__ void regs_times_tile(float (&c)[NT][4], const float (&x)[2 * KSTEPS][4],
+                                                const bf16* s, int lane) {
 #pragma unroll
-    for (int a = 0; a < PR; ++a)
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    uint32_t ah[4], al[4];
+    split_bf16(x[2 * kk][0], x[2 * kk][1], ah[0], al[0]);
+    split_bf16(x[2 * kk][2], x[2 * kk][3], ah[1], al[1]);
+    split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], ah[2], al[2]);
+    split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], ah[3], al[3]);
 #pragma unroll
-      for (int c = 0; c < NR; ++c) hacc[a][c] = 0.f;
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t b[4];
+      bt_frag<W>(s, n * 8, kk, lane, b);
+      mma(c[n], ah, b[0], b[1]);
+      mma(c[n + 1], ah, b[2], b[3]);
+      mma(c[n], al, b[0], b[1]);
+      mma(c[n + 1], al, b[2], b[3]);
+    }
+  }
+}
 
-    for (int I = 0; I < nI; ++I) {
-      const int i0 = I * QT;
-      __syncthreads();
-      load_rows<T, N>(sC, Cb + (size_t)(t0 + i0) * N, Q - i0);
-      __syncthreads();
+// ---------------------------------------------------------------------------
+// pass 1 (bf16): C.B^T of a (batch, chunk) for row tile I and every column
+// tile J <= I; 4 warps of 16 rows, B_J in a ring of two.
+// grid (nI * nc, B); block x = c * nI + I.
+// ---------------------------------------------------------------------------
+template <int N>
+__global__ void __launch_bounds__(128)
+cb_tc_kernel(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, float* __restrict__ cb,
+             int S, int Q, int nI) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sC = reinterpret_cast<bf16*>(smem_raw);  // [QT][N]
+  bf16* sB = sC + QT * N;                        // [2][QT][N]
+  const int I = blockIdx.x % nI, c = blockIdx.x / nI, b = blockIdx.y;
+  const int nc = S / Q, QP = nI * QT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const size_t t0 = (size_t)b * S + (size_t)c * Q;
+  const int i0 = I * QT;
+  float* out = cb + ((size_t)b * nc + c) * QP * QP;
 
-      // carried state: acc[i][c] = exp(cum_i) * C_i . h[p]
-      float acc[4][PR];
+  load_tile<QT, N>(sC, Cm + (t0 + i0) * N, N, Q - i0);
+  load_tile<QT, N>(sB, Bm + t0 * N, N, Q);
+  cp_async_commit();
+  for (int J = 0; J <= I; ++J) {
+    const int st = J & 1;
+    if (J < I)
+      load_tile<QT, N>(sB + (st ^ 1) * QT * N, Bm + (t0 + (J + 1) * QT) * N, N,
+                       Q - (J + 1) * QT);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    float s[QT / 8][4];
+    zero(s);
+    rows_times_rows_t<N, QT / 8>(s, sC, r0, sB + st * QT * N, lane);
+    float* o0 = out + (size_t)(i0 + r0 + g) * QP + J * QT + 2 * t;
+    float* o1 = o0 + 8 * QP;
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n) {
+      *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(s[n][0], s[n][1]);
+      *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(s[n][2], s[n][3]);
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// pass 2 (bf16): the chunk's own state s[P][N] = sum_j (x_j w_j)^T B_j with
+// w_j = exp(cum_Q - cum_j) dt_j; x w enters as hi + lo, both bf16.  Warps
+// split P into 16-row groups and N into groups of WN columns.
+// grid (nc * H, B); block x = c * H + h.
+// ---------------------------------------------------------------------------
+template <int P, int N>
+struct StateShape {
+  static constexpr int WN = N < 64 ? N : 64;          // columns a warp
+  static constexpr int WARPS = (P / 16) * (N / WN);
+  static constexpr int THREADS = 32 * WARPS;
+};
+
+template <int P, int N>
+__global__ void __launch_bounds__(StateShape<P, N>::THREADS)
+state_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
+                const float* __restrict__ dt, const bf16* __restrict__ Bm,
+                float* __restrict__ states, float* __restrict__ dAc, int H, int S, int Q) {
+  constexpr int WN = StateShape<P, N>::WN;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sXh = reinterpret_cast<bf16*>(smem_raw);  // [P][QT]: (x w)^T, hi
+  bf16* sXl = sXh + P * QT;                       // [P][QT]: (x w)^T, lo
+  bf16* sB = sXl + P * QT;                        // [QT][N]
+  float* sCum = reinterpret_cast<float*>(sB + QT * N);  // [Q]
+  float* sDt = sCum + Q;                          // [Q]
+
+  const int nc = S / Q;
+  const int h = blockIdx.x % H, c = blockIdx.x / H, b = blockIdx.y;
+  const size_t bh = (size_t)b * H + h;
+  const size_t t0 = (size_t)c * Q;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pr0 = (warp % (P / 16)) * 16, nc0 = (warp / (P / 16)) * WN;
+  const bf16* xb = x + (bh * S + t0) * P;
+  const bf16* Bb = Bm + ((size_t)b * S + t0) * N;
+
+  chunk_cum(sCum, sDt, dA + bh * S + t0, dt + bh * S + t0, Q);
+  const float cum_last = sCum[Q - 1];
+
+  float acc[WN / 8][4];
+  zero(acc);
+  for (int j0 = 0; j0 < Q; j0 += QT) {
+    const int nj = min(QT, Q - j0);
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<QT, N>(sB, Bb + (size_t)j0 * N, N, nj);
+    cp_async_commit();
+    // (x w)^T as hi + lo, w_j = exp(cum_Q - cum_j) dt_j
+    for (int idx = threadIdx.x; idx < QT * P; idx += blockDim.x) {
+      const int j = idx / P, p = idx % P;
+      const float v = j < nj ? to_f(xb[(size_t)(j0 + j) * P + p]) *
+                                   (expf(cum_last - sCum[j0 + j]) * sDt[j0 + j])
+                             : 0.f;
+      const bf16 hi = __float2bfloat16(v);
+      const int at = swz<QT>(p, j >> 3) + (j & 7);
+      sXh[at] = hi;
+      sXl[at] = __float2bfloat16(v - __bfloat162float(hi));
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      uint32_t ah[4], al[4];
+      a_frag<QT>(sXh, pr0, kk, lane, ah);
+      a_frag<QT>(sXl, pr0, kk, lane, al);
+#pragma unroll
+      for (int n = 0; n < WN / 8; n += 2) {
+        uint32_t bq[4];
+        bt_frag<N>(sB, nc0 + n * 8, kk, lane, bq);
+        mma(acc[n], ah, bq[0], bq[1]);
+        mma(acc[n + 1], ah, bq[2], bq[3]);
+        mma(acc[n], al, bq[0], bq[1]);
+        mma(acc[n + 1], al, bq[2], bq[3]);
+      }
+    }
+  }
+  float* o0 = states + (bh * nc + c) * P * N + (size_t)(pr0 + g) * N + nc0 + 2 * t;
+  float* o1 = o0 + 8 * N;
+#pragma unroll
+  for (int n = 0; n < WN / 8; ++n) {
+    *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[n][2], acc[n][3]);
+  }
+  if (threadIdx.x == 0) dAc[bh * nc + c] = cum_last;
+}
+
+// ---------------------------------------------------------------------------
+// pass 4 (bf16): y of 64 rows of a chunk for one head; 4 warps of 16 rows.
+// y_I = exp(cum_i) C_I . h_in^T + sum_{J <= I} G_IJ x_J.
+// grid (nc * H * nI, B); block x = (c * H + h) * nI + (nI - 1 - I): the
+// heads of a chunk run together (they read the same C.B^T), longest first.
+// ---------------------------------------------------------------------------
+template <int P, int N>
+__global__ void __launch_bounds__(128)
+out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
+              const float* __restrict__ dt, const bf16* __restrict__ Cm,
+              const float* __restrict__ cb, const bf16* __restrict__ hin, size_t lo_plane,
+              bf16* __restrict__ y, int H, int S, int Q, int nI) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sC = reinterpret_cast<bf16*>(smem_raw);   // [QT][N]
+  bf16* sHh = sC + QT * N;                        // [P][N], h_in hi
+  bf16* sHl = sHh + P * N;                        // [P][N], h_in lo
+  bf16* sX = sHl + P * N;                         // [2][QT][P]
+  float* sCum = reinterpret_cast<float*>(sX + 2 * QT * P);  // [Q]
+  float* sDt = sCum + Q;                          // [Q]
+
+  const int nc = S / Q, QP = nI * QT;
+  const int I = nI - 1 - (int)(blockIdx.x % nI);
+  const int h = (blockIdx.x / nI) % H, c = blockIdx.x / (nI * H), b = blockIdx.y;
+  const size_t bh = (size_t)b * H + h;
+  const size_t t0 = (size_t)c * Q;
+  const int i0 = I * QT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const bf16* xb = x + (bh * S + t0) * P;
+  const float* cbb = cb + ((size_t)b * nc + c) * QP * QP;
+
+  load_tile<QT, N>(sC, Cm + ((size_t)b * S + t0 + i0) * N, N, Q - i0);
+  load_tile<P, N>(sHh, hin + (bh * nc + c) * P * N, N, P);
+  load_tile<P, N>(sHl, hin + lo_plane + (bh * nc + c) * P * N, N, P);
+  load_tile<QT, P>(sX, xb, P, Q);
+  cp_async_commit();
+  chunk_cum(sCum, sDt, dA + bh * S + t0, dt + bh * S + t0, Q);
+
+  const int row0 = i0 + r0 + g, row1 = row0 + 8;  // this thread's two rows
+  const float cum0 = sCum[min(row0, Q - 1)], cum1 = sCum[min(row1, Q - 1)];
+  float acc[P / 8][4];
+  zero(acc);
+  const float* c0 = cbb + (size_t)row0 * QP + 2 * t;
+  const float* c1 = c0 + 8 * QP;
+  for (int J = 0; J <= I; ++J) {
+    const int st = J & 1, j0 = J * QT;
+    // this tile's C.B^T, loaded before the wait so the two overlap
+    float2 cv[QT / 8][2];
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n) {
+      cv[n][0] = *reinterpret_cast<const float2*>(c0 + j0 + 8 * n);
+      cv[n][1] = *reinterpret_cast<const float2*>(c1 + j0 + 8 * n);
+    }
+    if (J < I)
+      load_tile<QT, P>(sX + (st ^ 1) * QT * P, xb + (size_t)(j0 + QT) * P, P, Q - j0 - QT);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (J == 0) {
+      // the carried state: exp(cum_i) C_i . h_in, h_in as hi + lo
+      rows_times_rows_t<N, P / 8>(acc, sC, r0, sHh, lane);
+      rows_times_rows_t<N, P / 8>(acc, sC, r0, sHl, lane);
+      const float e0 = row0 < Q ? expf(cum0) : 0.f, e1 = row1 < Q ? expf(cum1) : 0.f;
+#pragma unroll
+      for (int n = 0; n < P / 8; ++n) {
+        acc[n][0] *= e0;
+        acc[n][1] *= e0;
+        acc[n][2] *= e1;
+        acc[n][3] *= e1;
+      }
+    }
+    // G = CB exp(cum_i - cum_j) dt_j on j <= i < Q, else 0
+    float gm[QT / 8][4];
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n) {
+      const float v[4] = {cv[n][0].x, cv[n][0].y, cv[n][1].x, cv[n][1].y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = (e >> 1) ? row1 : row0;
+        const int j = j0 + 8 * n + 2 * t + (e & 1);
+        const bool ok = j <= i && i < Q;
+        const int jj = ok ? j : 0;
+        gm[n][e] = ok ? v[e] * expf(((e >> 1) ? cum1 : cum0) - sCum[jj]) * sDt[jj] : 0.f;
+      }
+    }
+    regs_times_tile<P, QT / 16, P / 8>(acc, gm, sX + st * QT * P, lane);
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+  cp_async_wait<0>();
+
+  bf16* y0 = y + (bh * S + t0 + row0) * P + 2 * t;
+  bf16* y1 = y0 + 8 * P;
+#pragma unroll
+  for (int n = 0; n < P / 8; ++n) {
+    if (row0 < Q) *reinterpret_cast<uint32_t*>(y0 + 8 * n) = pack_bf16(acc[n][0], acc[n][1]);
+    if (row1 < Q) *reinterpret_cast<uint32_t*>(y1 + 8 * n) = pack_bf16(acc[n][2], acc[n][3]);
+  }
+}
+
+// ===========================================================================
+// float32: the same passes with float32 FMA; 16 x 16 threads, each owning
+// 4 rows of a 64-row tile and every 16th column
+// ===========================================================================
+
+// Rows [0, QT) of a [rows][W] row-major block into shared memory as float32
+// [QT][W + 1], times `mul[r]` when given; rows at or beyond `n_valid` are zero.
+template <typename T, int W>
+__device__ __forceinline__ void load_rows(float* s, const T* g, int n_valid,
+                                          const float* mul = nullptr) {
+  for (int idx = threadIdx.x; idx < QT * W; idx += blockDim.x) {
+    const int r = idx / W, c = idx % W;
+    s[r * (W + 1) + c] = r < n_valid ? to_f(g[(size_t)r * W + c]) * (mul ? mul[r] : 1.f) : 0.f;
+  }
+}
+
+// pass 1 (float32); grid (nI * nc, B) as cb_tc_kernel.
+template <int N>
+__global__ void __launch_bounds__(F32_THREADS)
+cb_f32_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm, float* __restrict__ cb,
+              int S, int Q, int nI) {
+  constexpr int LDN = N + 1;
+  extern __shared__ float smem[];
+  float* sC = smem;          // [QT][LDN]
+  float* sB = sC + QT * LDN; // [QT][LDN]
+  const int I = blockIdx.x % nI, c = blockIdx.x / nI, b = blockIdx.y;
+  const int nc = S / Q, QP = nI * QT;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const size_t t0 = (size_t)b * S + (size_t)c * Q;
+  const int i0 = I * QT;
+  float* out = cb + ((size_t)b * nc + c) * QP * QP;
+
+  load_rows<float, N>(sC, Cm + (t0 + i0) * N, Q - i0);
+  for (int J = 0; J <= I; ++J) {
+    __syncthreads();
+    load_rows<float, N>(sB, Bm + (t0 + J * QT) * N, Q - J * QT);
+    __syncthreads();
+    float s[4][4] = {};
+#pragma unroll 4
+    for (int n = 0; n < N; ++n) {
+      float cv[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        cv[i] = sC[(ty * 4 + i) * LDN + n];
+        bv[i] = sB[(tx + 16 * i) * LDN + n];
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int c = 0; c < PR; ++c) acc[i][c] = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float cv[4], hv[PR];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = sC[(ty * 4 + i) * LDN + n];
-#pragma unroll
-        for (int c = 0; c < PR; ++c) hv[c] = sH[(tx + 16 * c) * LDN + n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < PR; ++c) acc[i][c] = fmaf(cv[i], hv[c], acc[i][c]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = i0 + ty * 4 + i;
-        const float e = row < Q ? expf(sCum[row]) : 0.f;
-#pragma unroll
-        for (int c = 0; c < PR; ++c) acc[i][c] *= e;
-      }
-
-      for (int J = 0; J <= I; ++J) {
-        const int j0 = J * QT, nj = min(QT, Q - j0);
-        __syncthreads();  // readers of the previous sB / sX / sG are done
-        load_rows<T, N>(sB, Bb + (size_t)(t0 + j0) * N, nj);
-        load_rows<T, P>(sX, xb + (size_t)(t0 + j0) * P, nj);
-        if (tid < QT)
-          sW[tid] = tid < nj ? expf(cum_last - sCum[j0 + tid]) * sDt[j0 + tid] : 0.f;
-        __syncthreads();
-
-        // G[i][j] = (C_i . B_j) exp(cum_i - cum_j) dt_j on j <= i, else 0
-        float s[4][4] = {};
-#pragma unroll 4
-        for (int n = 0; n < N; ++n) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            cv[i] = sC[(ty * 4 + i) * LDN + n];
-            bv[i] = sB[(tx + 16 * i) * LDN + n];
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = fmaf(cv[i], bv[j], s[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int gi = i0 + ty * 4 + i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int gj = j0 + tx + 16 * j;
-            const bool ok = gi < Q && gj <= gi;
-            sG[(ty * 4 + i) * LDG + tx + 16 * j] =
-                ok ? s[i][j] * expf(sCum[gi] - sCum[gj]) * sDt[gj] : 0.f;
-          }
-        }
-        __syncthreads();
-
-        // y_I += G x_J
-#pragma unroll 4
-        for (int jj = 0; jj < QT; ++jj) {
-          float gv[4], xv[PR];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) gv[i] = sG[(ty * 4 + i) * LDG + jj];
-#pragma unroll
-          for (int c = 0; c < PR; ++c) xv[c] = sX[jj * LDX + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int c = 0; c < PR; ++c) acc[i][c] = fmaf(gv[i], xv[c], acc[i][c]);
-        }
-        // the last row tile visits every column tile: the state update
-        if (I == nI - 1) {
-          for (int jj = 0; jj < nj; ++jj) {
-            const float w = sW[jj];
-            float xv[PR], bv[NR];
-#pragma unroll
-            for (int a = 0; a < PR; ++a) xv[a] = sX[jj * LDX + ty * PR + a] * w;
-#pragma unroll
-            for (int c = 0; c < NR; ++c) bv[c] = sB[jj * LDN + tx + 16 * c];
-#pragma unroll
-            for (int a = 0; a < PR; ++a)
-#pragma unroll
-              for (int c = 0; c < NR; ++c) hacc[a][c] = fmaf(xv[a], bv[c], hacc[a][c]);
-          }
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = i0 + ty * 4 + i;
-        if (row >= Q) continue;
-        T* yrow = yb + (size_t)(t0 + row) * P;
-#pragma unroll
-        for (int c = 0; c < PR; ++c) yrow[tx + 16 * c] = from_f<T>(acc[i][c]);
-      }
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(cv[i], bv[j], s[i][j]);
     }
-
-    __syncthreads();  // every reader of the old h is done
-    const float chunk_decay = expf(cum_last);
 #pragma unroll
-    for (int a = 0; a < PR; ++a)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < NR; ++c) {
-        float* hp = sH + (ty * PR + a) * LDN + tx + 16 * c;
-        *hp = *hp * chunk_decay + hacc[a][c];
-      }
+      for (int j = 0; j < 4; ++j)
+        out[(size_t)(i0 + ty * 4 + i) * QP + J * QT + tx + 16 * j] = s[i][j];
   }
-
-  __syncthreads();
-  for (int idx = tid; idx < P * N; idx += THREADS)
-    h_last[bh * P * N + idx] = sH[(idx / N) * LDN + idx % N];
 }
 
-template <typename T, int P, int N>
-cudaError_t launch(const void* x, const float* dA, const float* dt, const void* Bm,
-                   const void* Cm, const float* h0, void* y, float* h_last, int B, int H,
-                   int S, int Q, cudaStream_t stream) {
-  auto kern = ssd_kernel<T, P, N>;
-  const size_t smem = smem_floats<P, N>(Q) * sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// pass 2 (float32); grid (nc * H, B) as state_tc_kernel.  Thread (ty, tx)
+// owns rows ty * PR + a of P and columns tx + 16 m of N.
+template <int P, int N>
+__global__ void __launch_bounds__(F32_THREADS)
+state_f32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
+                 const float* __restrict__ dt, const float* __restrict__ Bm,
+                 float* __restrict__ states, float* __restrict__ dAc, int H, int S, int Q) {
+  constexpr int LDX = P + 1, LDN = N + 1, PR = P / 16, NR = N / 16;
+  extern __shared__ float smem[];
+  float* sX = smem;             // [QT][LDX]: x w
+  float* sB = sX + QT * LDX;    // [QT][LDN]
+  float* sW = sB + QT * LDN;    // [QT]
+  float* sCum = sW + QT;        // [Q]
+  float* sDt = sCum + Q;        // [Q]
+  const int nc = S / Q;
+  const int h = blockIdx.x % H, c = blockIdx.x / H, b = blockIdx.y;
+  const size_t bh = (size_t)b * H + h;
+  const size_t t0 = (size_t)c * Q;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  chunk_cum(sCum, sDt, dA + bh * S + t0, dt + bh * S + t0, Q);
+  const float cum_last = sCum[Q - 1];
+  float acc[PR][NR];
+#pragma unroll
+  for (int a = 0; a < PR; ++a)
+#pragma unroll
+    for (int m = 0; m < NR; ++m) acc[a][m] = 0.f;
+  for (int j0 = 0; j0 < Q; j0 += QT) {
+    const int nj = min(QT, Q - j0);
+    __syncthreads();
+    for (int j = threadIdx.x; j < QT; j += blockDim.x)
+      sW[j] = j < nj ? expf(cum_last - sCum[j0 + j]) * sDt[j0 + j] : 0.f;
+    __syncthreads();
+    load_rows<float, P>(sX, x + (bh * S + t0 + j0) * P, nj, sW);
+    load_rows<float, N>(sB, Bm + ((size_t)b * S + t0 + j0) * N, nj);
+    __syncthreads();
+    for (int j = 0; j < nj; ++j) {
+      float xv[PR], bv[NR];
+#pragma unroll
+      for (int a = 0; a < PR; ++a) xv[a] = sX[j * LDX + ty * PR + a];
+#pragma unroll
+      for (int m = 0; m < NR; ++m) bv[m] = sB[j * LDN + tx + 16 * m];
+#pragma unroll
+      for (int a = 0; a < PR; ++a)
+#pragma unroll
+        for (int m = 0; m < NR; ++m) acc[a][m] = fmaf(xv[a], bv[m], acc[a][m]);
+    }
+  }
+  float* out = states + (bh * nc + c) * P * N;
+#pragma unroll
+  for (int a = 0; a < PR; ++a)
+#pragma unroll
+    for (int m = 0; m < NR; ++m) out[(ty * PR + a) * N + tx + 16 * m] = acc[a][m];
+  if (threadIdx.x == 0) dAc[bh * nc + c] = cum_last;
+}
+
+// pass 4 (float32); grid (nc * H * nI, B) as out_tc_kernel.  Thread (ty, tx)
+// owns rows ty * 4 + i of the tile and columns tx + 16 m of P.
+template <int P, int N>
+__global__ void __launch_bounds__(F32_THREADS)
+out_f32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
+               const float* __restrict__ dt, const float* __restrict__ Cm,
+               const float* __restrict__ cb, const float* __restrict__ hin,
+               float* __restrict__ y, int H, int S, int Q, int nI) {
+  constexpr int LDN = N + 1, LDX = P + 1, LDG = QT + 1, PR = P / 16;
+  extern __shared__ float smem[];
+  float* sC = smem;             // [QT][LDN]
+  float* sH = sC + QT * LDN;    // [P][LDN]
+  float* sX = sH + P * LDN;     // [QT][LDX]
+  float* sG = sX + QT * LDX;    // [QT][LDG]
+  float* sCum = sG + QT * LDG;  // [Q]
+  float* sDt = sCum + Q;        // [Q]
+  const int nc = S / Q, QP = nI * QT;
+  const int I = nI - 1 - (int)(blockIdx.x % nI);
+  const int h = (blockIdx.x / nI) % H, c = blockIdx.x / (nI * H), b = blockIdx.y;
+  const size_t bh = (size_t)b * H + h;
+  const size_t t0 = (size_t)c * Q;
+  const int i0 = I * QT;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* xb = x + (bh * S + t0) * P;
+  const float* cbb = cb + ((size_t)b * nc + c) * QP * QP;
+
+  chunk_cum(sCum, sDt, dA + bh * S + t0, dt + bh * S + t0, Q);
+  load_rows<float, N>(sC, Cm + ((size_t)b * S + t0 + i0) * N, Q - i0);
+  const float* hb = hin + (bh * nc + c) * P * N;
+  for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x)
+    sH[(idx / N) * LDN + idx % N] = hb[idx];
+  __syncthreads();
+
+  // the carried state: exp(cum_i) C_i . h_in
+  float acc[4][PR];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int m = 0; m < PR; ++m) acc[i][m] = 0.f;
+#pragma unroll 4
+  for (int n = 0; n < N; ++n) {
+    float cv[4], hv[PR];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) cv[i] = sC[(ty * 4 + i) * LDN + n];
+#pragma unroll
+    for (int m = 0; m < PR; ++m) hv[m] = sH[(tx + 16 * m) * LDN + n];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int m = 0; m < PR; ++m) acc[i][m] = fmaf(cv[i], hv[m], acc[i][m]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = i0 + ty * 4 + i;
+    const float e = row < Q ? expf(sCum[row]) : 0.f;
+#pragma unroll
+    for (int m = 0; m < PR; ++m) acc[i][m] *= e;
+  }
+
+  for (int J = 0; J <= I; ++J) {
+    const int j0 = J * QT;
+    __syncthreads();  // readers of the previous sX / sG are done
+    load_rows<float, P>(sX, xb + (size_t)j0 * P, Q - j0);
+    for (int idx = threadIdx.x; idx < QT * QT; idx += blockDim.x) {
+      const int r = idx / QT, jj = idx % QT;
+      const int i = i0 + r, j = j0 + jj;
+      const bool ok = j <= i && i < Q;
+      sG[r * LDG + jj] = ok ? cbb[(size_t)i * QP + j] * expf(sCum[i] - sCum[j]) * sDt[j] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int jj = 0; jj < QT; ++jj) {
+      float gv[4], xv[PR];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) gv[i] = sG[(ty * 4 + i) * LDG + jj];
+#pragma unroll
+      for (int m = 0; m < PR; ++m) xv[m] = sX[jj * LDX + tx + 16 * m];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int m = 0; m < PR; ++m) acc[i][m] = fmaf(gv[i], xv[m], acc[i][m]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = i0 + ty * 4 + i;
+    if (row >= Q) continue;
+    float* yrow = y + (bh * S + t0 + row) * P;
+#pragma unroll
+    for (int m = 0; m < PR; ++m) yrow[tx + 16 * m] = acc[i][m];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// pass 3 (both types): the carry across chunks, 4 state elements a thread.
+// hin[c] = h before chunk c (float32, or bf16 hi and lo planes), then
+// h = exp(cum_Q,c) h + s_c.
+// ---------------------------------------------------------------------------
+// The incoming state: float32 as it is; bf16 as hi at p and lo at p + lo_plane.
+__device__ __forceinline__ void store_h(float* p, size_t, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store_h(bf16* p, size_t lo_plane, float4 v) {
+  uint2 h, l;
+  split_bf16(v.x, v.y, h.x, l.x);
+  split_bf16(v.z, v.w, h.y, l.y);
+  *reinterpret_cast<uint2*>(p) = h;
+  *reinterpret_cast<uint2*>(p + lo_plane) = l;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+pass_kernel(const float* __restrict__ states, const float* __restrict__ dAc,
+            const float* __restrict__ h0, T* __restrict__ hin, size_t lo_plane,
+            float* __restrict__ h_last, int BH, int nc, int PN) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int per = PN / 4;
+  if (idx >= (size_t)BH * per) return;
+  const size_t bh = idx / per, e = (idx % per) * 4;
+  float4 h = h0 ? *reinterpret_cast<const float4*>(h0 + bh * PN + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* sp = states + bh * nc * PN + e;
+  T* hp = hin + bh * nc * PN + e;
+  const float* dp = dAc + bh * nc;
+#pragma unroll 4
+  for (int c = 0; c < nc; ++c) {
+    const float4 s = *reinterpret_cast<const float4*>(sp + (size_t)c * PN);
+    const float d = expf(dp[c]);
+    store_h(hp + (size_t)c * PN, lo_plane, h);
+    h.x = fmaf(d, h.x, s.x);
+    h.y = fmaf(d, h.y, s.y);
+    h.z = fmaf(d, h.z, s.z);
+    h.w = fmaf(d, h.w, s.w);
+  }
+  *reinterpret_cast<float4*>(h_last + bh * PN + e) = h;
+}
+
+template <typename K>
+cudaError_t set_smem(K kern, size_t bytes) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int P, int N>
+cudaError_t launch_tc(const bf16* x, const float* dA, const float* dt, const bf16* Bm,
+                      const bf16* Cm, const float* h0, bf16* y, float* h_last, float* cb,
+                      float* states, bf16* hin, float* dAc, int B, int H, int S, int Q,
+                      cudaStream_t stream) {
+  const int nc = S / Q, nI = (Q + QT - 1) / QT;
+  size_t smem = (size_t)3 * QT * N * sizeof(bf16);
+  cudaError_t err = set_smem(cb_tc_kernel<N>, smem);
   if (err != cudaSuccess) return err;
-  kern<<<B * H, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), dA, dt, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      h0, static_cast<T*>(y), h_last, H, S, Q);
+  cb_tc_kernel<N><<<dim3(nI * nc, B), 128, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  smem = (size_t)(2 * P * QT + QT * N) * sizeof(bf16) + 2 * (size_t)Q * sizeof(float);
+  if ((err = set_smem(state_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
+  state_tc_kernel<P, N><<<dim3(nc * H, B), StateShape<P, N>::THREADS, smem, stream>>>(
+      x, dA, dt, Bm, states, dAc, H, S, Q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const int per = B * H * (P * N / 4);
+  const size_t lo_plane = (size_t)B * H * nc * P * N;
+  pass_kernel<bf16><<<(per + 255) / 256, 256, 0, stream>>>(states, dAc, h0, hin, lo_plane, h_last,
+                                                           B * H, nc, P * N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  smem = (size_t)(QT * N + 2 * P * N + 2 * QT * P) * sizeof(bf16) + 2 * (size_t)Q * sizeof(float);
+  if ((err = set_smem(out_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
+  out_tc_kernel<P, N><<<dim3(nc * H * nI, B), 128, smem, stream>>>(x, dA, dt, Cm, cb, hin, lo_plane,
+                                                                   y, H, S, Q, nI);
   return cudaGetLastError();
+}
+
+template <int P, int N>
+cudaError_t launch_f32(const float* x, const float* dA, const float* dt, const float* Bm,
+                       const float* Cm, const float* h0, float* y, float* h_last, float* cb,
+                       float* states, float* hin, float* dAc, int B, int H, int S, int Q,
+                       cudaStream_t stream) {
+  const int nc = S / Q, nI = (Q + QT - 1) / QT;
+  size_t smem = (size_t)2 * QT * (N + 1) * sizeof(float);
+  cudaError_t err = set_smem(cb_f32_kernel<N>, smem);
+  if (err != cudaSuccess) return err;
+  cb_f32_kernel<N><<<dim3(nI * nc, B), F32_THREADS, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  smem = ((size_t)QT * (P + 1) + (size_t)QT * (N + 1) + QT + 2 * (size_t)Q) * sizeof(float);
+  if ((err = set_smem(state_f32_kernel<P, N>, smem)) != cudaSuccess) return err;
+  state_f32_kernel<P, N><<<dim3(nc * H, B), F32_THREADS, smem, stream>>>(x, dA, dt, Bm, states,
+                                                                         dAc, H, S, Q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const int per = B * H * (P * N / 4);
+  pass_kernel<float><<<(per + 255) / 256, 256, 0, stream>>>(states, dAc, h0, hin, 0, h_last,
+                                                            B * H, nc, P * N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  smem = ((size_t)QT * (N + 1) + (size_t)P * (N + 1) + (size_t)QT * (P + 1) +
+          (size_t)QT * (QT + 1) + 2 * (size_t)Q) * sizeof(float);
+  if ((err = set_smem(out_f32_kernel<P, N>, smem)) != cudaSuccess) return err;
+  out_f32_kernel<P, N><<<dim3(nc * H * nI, B), F32_THREADS, smem, stream>>>(x, dA, dt, Cm, cb,
+                                                                          hin, y, H, S, Q, nI);
+  return cudaGetLastError();
+}
+
+template <int P, int N>
+cudaError_t launch(const void* x, const float* dA, const float* dt, const void* Bm,
+                   const void* Cm, const float* h0, void* y, float* h_last, float* cb,
+                   float* states, void* hin, float* dAc, int B, int H, int S, int Q, int dtype,
+                   cudaStream_t s) {
+  if (dtype == 0)
+    return launch_f32<P, N>(static_cast<const float*>(x), dA, dt, static_cast<const float*>(Bm),
+                            static_cast<const float*>(Cm), h0, static_cast<float*>(y), h_last,
+                            cb, states, static_cast<float*>(hin), dAc, B, H, S, Q, s);
+  if (dtype == 1)
+    return launch_tc<P, N>(static_cast<const bf16*>(x), dA, dt, static_cast<const bf16*>(Bm),
+                           static_cast<const bf16*>(Cm), h0, static_cast<bf16*>(y), h_last, cb,
+                           states, static_cast<bf16*>(hin), dAc, B, H, S, Q, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (x, B, C and y); (P, N) = (64, 128), Mamba-2's
-// widths, the only ones built (two instantiations) and the only ones the
-// wrapper and this entry accept; S a multiple of Q; h0 may be null (zeros).
-// The wrapper checks all of it.
+// dtype: 0 float32, 1 bfloat16 (x, B, C and y); (P, N) = (64, 128) or
+// (16, 16); S a multiple of Q, Q at most 1024; h0 may be null (zeros).
+// Scratch, allocated by the caller: cb float32 [B, S / Q, QP, QP] with QP =
+// Q rounded up to 64; states float32 [B, H, S / Q, P, N]; hin the same,
+// float32 for float32 inputs and two bf16 planes (hi, lo) for bf16 inputs;
+// dAc float32 [B, H, S / Q].  The wrapper checks all of it.
 extern "C" int ssd_fwd(const void* x, const float* dA, const float* dt, const void* Bm,
-                       const void* Cm, const float* h0, void* y, float* h_last, int B, int H,
-                       int S, int P, int N, int Q, int dtype, void* stream) {
+                       const void* Cm, const float* h0, void* y, float* h_last, float* cb,
+                       float* states, void* hin, float* dAc, int B, int H, int S, int P, int N,
+                       int Q, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (P != 64 || N != 128) return cudaErrorInvalidValue;
-  if (dtype == 0) return launch<float, 64, 128>(x, dA, dt, Bm, Cm, h0, y, h_last, B, H, S, Q, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, 64, 128>(x, dA, dt, Bm, Cm, h0, y, h_last, B, H, S, Q, s);
+  if (Q < 1 || Q > 1024 || S % Q) return cudaErrorInvalidValue;
+  if (P == 64 && N == 128)
+    return launch<64, 128>(x, dA, dt, Bm, Cm, h0, y, h_last, cb, states, hin, dAc, B, H, S, Q,
+                           dtype, s);
+  if (P == 16 && N == 16)
+    return launch<16, 16>(x, dA, dt, Bm, Cm, h0, y, h_last, cb, states, hin, dAc, B, H, S, Q,
+                          dtype, s);
   return cudaErrorInvalidValue;
 }

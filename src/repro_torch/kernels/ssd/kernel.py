@@ -9,8 +9,10 @@ float32 and bfloat16, a chunk that does not divide the sequence) or does
 not launch raises.  The library is built on first launch
 (``kernels/build.py``), never at import.
 
-``ssd_call.launches`` counts calls that launched the kernel; plain-version
-calls do not count.
+``ssd_call.launches`` counts calls that launched the kernels (one a call,
+though a call launches the four passes of ``csrc/ssd.cu``); plain-version
+calls do not count.  The wrapper allocates the passes' scratch: C.B^T per
+chunk, each chunk's own state and its incoming state.
 
 TPU kernel replaced: ``ssd_call`` (``_ssd_kernel``) of
 ``repro/kernels/ssd/kernel.py``.  The source note of the ``.cu`` file
@@ -30,8 +32,10 @@ from repro_torch.kernels.ssd import ref
 
 SOURCES = (pathlib.Path(__file__).parent / "csrc" / "ssd.cu",)
 LIB_NAME = "ssd"
-WIDTHS = ((64, 128),)            # (P, N) instantiated: Mamba-2's widths
+# (P, N) instantiated: Mamba-2 780M's widths and its smoke config's
+WIDTHS = ((64, 128), (16, 16))
 MAX_CHUNK = 1024                              # the chunk's cum/dt in smem
+TILE = 64                                     # rows of a chunk tile
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -43,7 +47,7 @@ def library() -> ctypes.CDLL:
     fresh = LIB_NAME not in build.load_count
     lib = build.load_library(LIB_NAME, SOURCES)
     if fresh:
-        lib.ssd_fwd.argtypes = [_P] * 8 + [_I] * 7 + [_P]
+        lib.ssd_fwd.argtypes = [_P] * 12 + [_I] * 7 + [_P]
         lib.ssd_fwd.restype = _I
     return lib
 
@@ -95,12 +99,21 @@ def ssd_call(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     x, dA, dt, Bm, Cm = (t.contiguous() for t in (x, dA, dt, Bm, Cm))
     h0 = None if h0 is None else h0.contiguous()
     y = torch.empty_like(x)
-    h_last = torch.empty((Bsz, H, P, N), dtype=torch.float32,
-                         device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    h_last = torch.empty((Bsz, H, P, N), **f32)
+    nc, QP = S // chunk, -(-chunk // TILE) * TILE
+    cb = torch.empty((Bsz, nc, QP, QP), **f32)       # C.B^T of each chunk
+    states = torch.empty((Bsz, H, nc, P, N), **f32)  # each chunk's own state
+    # each chunk's incoming state: float32, or bf16 hi and lo planes
+    planes = 2 if x.dtype == torch.bfloat16 else 1
+    hin = torch.empty((planes, Bsz, H, nc, P, N), dtype=x.dtype,
+                      device=x.device)
+    dAc = torch.empty((Bsz, H, nc), **f32)           # each chunk's cum_Q
     code = library().ssd_fwd(
         x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h_last.data_ptr(), Bsz, H, S, P, N, chunk, _DTYPE_CODE[x.dtype],
+        h_last.data_ptr(), cb.data_ptr(), states.data_ptr(), hin.data_ptr(),
+        dAc.data_ptr(), Bsz, H, S, P, N, chunk, _DTYPE_CODE[x.dtype],
         build.stream(x.device))
     build.check(code, "ssd_fwd")
     ssd_call.launches += 1

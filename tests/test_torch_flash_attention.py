@@ -143,8 +143,11 @@ ROUTE_TABLE = [   # dtype, head dim, backward, kernel or the error raised
       for bwd in (False, True)],
     *[(torch.float32, D, bwd, "fma") for D in (64, 128)
       for bwd in (False, True)],
-    (torch.bfloat16, 256, False, "fma"),
+    (torch.bfloat16, 256, False, "tc"),
     (torch.float32, 256, False, "fma"),
+    # the smoke configs' head dims: the FMA kernels, either type, both ways
+    *[(dt, D, bwd, "fma") for D in (8, 12, 16)
+      for dt in (torch.bfloat16, torch.float32) for bwd in (False, True)],
     (torch.bfloat16, 256, True, ValueError),     # ROADMAP B8
     (torch.float32, 256, True, ValueError),
     *[(dt, 96, bwd, ValueError) for dt in (torch.bfloat16, torch.float32)
@@ -158,9 +161,9 @@ ROUTE_TABLE = [   # dtype, head dim, backward, kernel or the error raised
                          ids=lambda x: str(x).replace("torch.", ""))
 def test_route_picks_the_kernel_for_each_type_head_dim_and_direction(
         dtype, D, backward, want):
-    """bfloat16 at head dims 64 and 128 takes the tensor-core kernels,
-    float32 and the forward at 256 the FMA ones; the rest raises, the
-    backward at 256 naming ROADMAP B8."""
+    """bfloat16 at head dims 64 and 128, and its forward at 256, take the
+    tensor-core kernels; float32 and head dims 8, 12 and 16 the FMA ones;
+    the rest raises, the backward at 256 naming ROADMAP B8."""
     if isinstance(want, str):
         assert K.route(dtype, D, backward) == want
         assert want in K.ROUTES and want in K.TILES
@@ -183,9 +186,43 @@ def test_launch_refuses_cpu_tensors_and_unknown_routes(kernel):
 
 def test_launch_counts_split_the_totals_by_route():
     counts = K.launch_counts()
-    for fn in ("flash_fwd", "flash_bwd"):
+    for fn in ("flash_fwd", "flash_bwd", "flash_fwd_d256"):
         assert {f"{fn}_{r}" for r in K.ROUTES} <= counts.keys()
     assert "flash_fwd_d256" in counts
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, (128, 64)), (torch.bfloat16, 128, (128, 64)),
+    (torch.bfloat16, 256, (64, 32)), (torch.float32, 256, (64, 64)),
+    (torch.float32, 128, (64, 64)), (torch.bfloat16, 12, (64, 64)),
+])
+def test_forward_tile_follows_the_route(dtype, D, want):
+    """The tensor-core forward takes 128 x 64 tiles, 64 x 32 at head dim
+    256 (16 rows a warp); the FMA forward 64 x 64 at every head dim."""
+    assert K.fwd_tile(dtype, D) == want
+
+
+def _config_head_dims():
+    from repro_torch.configs import ARCH_IDS, get_config
+    out = []
+    for arch in ARCH_IDS:
+        for smoke in (False, True):
+            cfg = get_config(arch, smoke)
+            if cfg.family in ("dense", "moe", "hybrid"):
+                out.append((arch, smoke, cfg.family, cfg.hd))
+    return out
+
+
+@pytest.mark.parametrize("arch,smoke,family,D", _config_head_dims(),
+                         ids=lambda x: str(x))
+def test_every_configured_head_dim_has_a_kernel(arch, smoke, family, D):
+    """Every head dim a config of a ported family declares, full and smoke,
+    has a forward kernel in either type and, but for RecurrentGemma's 256
+    (ROADMAP B8), a backward one: the kernels take what the models run."""
+    for dtype in (torch.bfloat16, torch.float32):
+        assert K.route(dtype, D) in K.ROUTES
+        if D != 256:
+            assert K.route(dtype, D, backward=True) in K.ROUTES
 
 
 def test_init_cache_matches_jax():

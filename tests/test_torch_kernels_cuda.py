@@ -15,8 +15,10 @@ from the plan, so (dst, slot) is unique as on the served path.  The row
 kernels take float32 and bfloat16 rows of a multiple of 16 bytes.
 
 Flash attention is held against autograd through ``ref.attention_ref``
-(bfloat16 on the tensor-core kernels, float32 on the FMA kernels, each
-call's route counted), including shapes cut to the tensor-core tiles
+(bfloat16 on the tensor-core kernels, float32 and the smoke configs' head
+dims 8, 12 and 16 on the FMA kernels, each call's route counted; the bf16
+forward at head dim 256 on the tensor-core kernel also against the FMA
+one), including shapes cut to the tensor-core tiles
 (ragged ends, a query tile shorter than one tile, windows narrower than a
 tile, one and eight query heads per kv head) and rows with no live key,
 with the JAX package's forward tolerances (2e-5 in float32, 3e-2 in
@@ -33,7 +35,11 @@ them.
 The SSD kernel is held to the plain chunked version within 2e-4 (float32:
 the same algebra summed in another order) and to the sequential oracle
 within 5e-4 (the JAX package's tolerance for its kernel), absolute and
-relative; in bfloat16 within 5e-2 and a relative L2 distance of 1e-2.  The
+relative; in bfloat16 within 5e-2 and a relative L2 distance of 1e-2; at
+Mamba-2 780M's widths and its smoke config's, ragged chunks among them.
+Each smoke config of a ported family runs ``prefill`` and ``loss`` (and the
+dense and MoE backward) on the kernels against the plain path, within the
+limits of ``repro_torch.launch.smoke_widths``.  The
 RG-LRU kernel sums in the sequential order, so it is held to the oracle
 within 1e-5 and to the doubling scan within 5e-5.  A backward through any
 of the three forward-only kernels raises and launches no plain version.
@@ -165,6 +171,13 @@ FLASH_CASES = [   # B, Sq, Sk, H, Kv, D, causal, window, dtype
     (1, 40, 700, 8, 2, 128, True, None, torch.bfloat16),     # Sq < one tile
     (1, 600, 600, 8, 2, 128, True, 48, torch.bfloat16),      # window < a tile
     (1, 333, 333, 4, 1, 64, False, 48, torch.bfloat16),      # window, non-causal
+    # the smoke configs' head dims on the FMA kernels, a tile 16 wide:
+    (1, 256, 256, 8, 2, 8, True, 32, torch.bfloat16),        # GQA, window
+    (2, 300, 300, 8, 2, 12, True, 64, torch.float32),        # ragged, window
+    (1, 256, 256, 8, 2, 12, True, 32, torch.bfloat16),
+    (1, 200, 457, 6, 2, 16, True, None, torch.bfloat16),     # q_offset
+    (1, 333, 333, 4, 4, 16, False, 48, torch.float32),       # non-causal
+    (1, 128, 128, 4, 2, 8, True, None, torch.float32),
 ]
 FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -193,8 +206,7 @@ def test_flash_attention_forward_and_backward_on_card(case):
     o, lse = FK.flash_fwd(q, k, v, **kw)
     grads = FK.flash_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    _assert_one_launch_each(before, "tc" if dtype == torch.bfloat16
-                            else "fma")
+    _assert_one_launch_each(before, FK.route(dtype, D))
     o_ref, lse_ref = fref.attention_fwd_ref(q, k, v, **kw)
     tol = FWD_TOL[dtype]
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
@@ -212,8 +224,8 @@ def test_flash_attention_forward_and_backward_on_card(case):
 
 def _assert_one_launch_each(before, route):
     """One forward and one backward launched since ``before``, both on
-    ``route`` (bfloat16 on the tensor-core kernels, float32 on the FMA
-    ones)."""
+    ``route`` (``FK.route``: bfloat16 at head dims 64 and 128 on the
+    tensor-core kernels, the rest on the FMA ones)."""
     keys = ("flash_fwd", "flash_bwd", f"flash_fwd_{route}",
             f"flash_bwd_{route}")
     assert FK.launch_counts() == {**before,
@@ -362,6 +374,13 @@ SSD_CASES = [                     # B, S, H, P, N, chunk, dtype, with h0
     (2, 384, 2, 64, 128, 128, torch.float32, False),     # 3 chunks
     (1, 200, 4, 64, 128, 200, torch.float32, False),     # S below the chunk
     (1, 96, 4, 64, 128, 32, torch.float32, False),       # a chunk below 64
+    (1, 1000, 4, 64, 128, 200, torch.bfloat16, True),    # ragged chunks
+    (1, 200, 4, 64, 128, 200, torch.bfloat16, False),    # S below the chunk
+    (1, 32768, 48, 64, 128, 256, torch.bfloat16, False), # the prefill's S
+    (1, 256, 4, 16, 16, 16, torch.float32, True),        # smoke widths
+    (2, 96, 3, 16, 16, 16, torch.bfloat16, False),
+    (1, 600, 3, 16, 16, 200, torch.bfloat16, True),      # smoke, ragged
+    (1, 600, 3, 16, 16, 200, torch.float32, False),
 ]
 
 
@@ -465,7 +484,8 @@ def test_rglru_kernel_refuses_what_it_cannot_take_on_card():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_forward_at_head_dim_256_on_card(dtype):
     """RecurrentGemma's local attention: MQA, 16 heads, head dim 256, a
-    sliding window; causal, ragged, the forward only."""
+    sliding window; causal, ragged, the forward only (bfloat16 on the
+    tensor-core kernel, float32 on the FMA one)."""
     _card()
     gen = torch.Generator(device="cuda").manual_seed(256)
     mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dtype)
@@ -474,13 +494,60 @@ def test_flash_forward_at_head_dim_256_on_card(dtype):
     before = FK.launch_counts()
     o, lse = FK.flash_fwd(q, k, v, mode=KernelMode.CUDA, **kw)
     torch.cuda.synchronize()
+    split = f"flash_fwd_d256_{FK.route(dtype, 256)}"
     assert FK.launch_counts() == {
-        **before, "flash_fwd_d256": before["flash_fwd_d256"] + 1}
+        **before, "flash_fwd_d256": before["flash_fwd_d256"] + 1,
+        split: before[split] + 1}
     o_ref, lse_ref = fref.attention_fwd_ref(q, k, v, **kw)
     tol = FWD_TOL[dtype]
     torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
     assert _rel_l2(o, o_ref) <= REL_L2[dtype]
     torch.testing.assert_close(lse, lse_ref, atol=LSE_ABS[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Kv,causal,window", [
+    (1, 1000, 1000, 16, 1, True, 2048),     # RecurrentGemma: MQA, a window
+    (2, 100, 700, 4, 2, True, 64),          # q_offset, a ragged query tile
+    (1, 300, 300, 4, 4, False, None),       # non-causal, every key live
+])
+def test_flash_d256_tensor_core_forward_on_card(B, Sq, Sk, H, Kv, causal,
+                                                window):
+    """The bf16 forward at head dim 256 on the tensor-core kernel against
+    the plain version and against the FMA kernel on the same inputs."""
+    _card()
+    assert FK.route(torch.bfloat16, 256) == "tc"
+    gen = torch.Generator(device="cuda").manual_seed(Sq)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+    q, k, v = mk(B, Sq, H, 256), mk(B, Sk, Kv, 256), mk(B, Sk, Kv, 256)
+    kw = dict(causal=causal, window=window, q_offset=Sk - Sq)
+    o, lse = FK.launch_fwd(q, k, v, kernel="tc", **kw)
+    o_f, lse_f = FK.launch_fwd(q, k, v, kernel="fma", **kw)
+    o_ref, lse_ref = fref.attention_fwd_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    dt = torch.bfloat16
+    for name, a, la in (("tc", o, lse), ("fma", o_f, lse_f)):
+        torch.testing.assert_close(a.float(), o_ref.float(), atol=FWD_TOL[dt],
+                                   rtol=FWD_TOL[dt], msg=lambda m: f"{name}: {m}")
+        assert _rel_l2(a, o_ref) <= REL_L2[dt], name
+        torch.testing.assert_close(la, lse_ref, atol=LSE_ABS[dt], rtol=0)
+    assert _rel_l2(o, o_f) <= REL_L2[dt]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [
+    "mixtral_8x7b", "mixtral_8x22b", "command_r_plus_104b", "granite_3_2b",
+    "qwen2_5_3b", "tinyllama_1_1b", "mamba2_780m", "recurrentgemma_9b"])
+def test_smoke_config_runs_on_the_kernels_on_card(arch):
+    """The smoke config's narrow widths (head dims 8, 12, 16; SSD at
+    (16, 16), chunk 16) under ``kernel_mode="auto"``: bf16 prefill, float32
+    loss and the dense and MoE gradients on the kernels within the limits
+    of ``repro_torch.launch.smoke_widths`` of the plain path; the SSM and
+    hybrid backward raise, naming ROADMAP B8."""
+    _card()
+    from repro_torch.launch import smoke_widths
+    res = smoke_widths.check(arch)
+    assert res["ok"], res
 
 
 @pytest.mark.cuda

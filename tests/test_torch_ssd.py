@@ -12,6 +12,11 @@ oracle (the JAX package's own for its kernel; the chunked algebra sums in
 another order than the recurrence) and 2e-4 against the chunked path
 (``test_kernels.py``'s); bfloat16 5e-2 (x, B and C rounded to bfloat16,
 y rounded once).  The final state is held within 5e-4 in every case.
+
+``ssd_passes`` mirrors the CUDA kernel's four passes (``csrc/ssd.cu``: C.B^T
+once per chunk on 64-row tiles, each chunk's own state, the carry across
+chunks, the outputs tile by tile) in plain PyTorch, float64, so its algebra
+is held against JAX's kernel and oracle here; nothing on the card runs it.
 """
 import jax
 import jax.numpy as jnp
@@ -19,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.ssd.kernel import ssd_call as jax_ssd_call
 from repro.kernels.ssd.ops import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
@@ -110,6 +116,116 @@ def test_ssd_chunked_matches_jax_chunked(case):
         y_s, h_s = ssd_scan(*t_in, chunk=chunk, h0=t_h0)
         _close(y_s, y_j, CHUNKED_TOL)
         _close(h_s, h_j, CHUNKED_TOL)
+
+
+TILE = 64     # rows of a chunk tile in csrc/ssd.cu
+
+
+def ssd_passes(x, dA, dt, Bm, Cm, chunk, h0=None):
+    """The kernel's passes on head-major inputs (x [B, H, S, P]; dA, dt
+    [B, H, S]; Bm, Cm [B, S, N]; h0 [B, H, P, N] or None), in float64:
+    returns (y [B, H, S, P], h_last [B, H, P, N])."""
+    Bsz, H, S, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    nc, nI = S // Q, -(-Q // TILE)
+    QP = nI * TILE
+    x, dA, dt, Bm, Cm = (t.double() for t in (x, dA, dt, Bm, Cm))
+    cum = dA.reshape(Bsz, H, nc, Q).cumsum(-1)
+    dtc = dt.reshape(Bsz, H, nc, Q)
+    xc = x.reshape(Bsz, H, nc, Q, P)
+    rows = lambda t: torch.nn.functional.pad(
+        t.reshape(Bsz, nc, Q, N), (0, 0, 0, QP - Q))    # zero rows to QP
+    Cc, Bc = rows(Cm), rows(Bm)
+    tile = lambda i: slice(i * TILE, (i + 1) * TILE)
+    # 1. C.B^T of each (batch, chunk), tiles on or below the diagonal only
+    cb = torch.zeros((Bsz, nc, QP, QP), dtype=torch.float64)
+    for I in range(nI):
+        for J in range(I + 1):
+            cb[:, :, tile(I), tile(J)] = Cc[:, :, tile(I)] @ \
+                Bc[:, :, tile(J)].transpose(-1, -2)
+    # 2. each chunk's own state, sum_j exp(cum_Q - cum_j) dt_j x_j B_j^T
+    w = torch.exp(cum[..., -1:] - cum) * dtc
+    states = torch.einsum("bhcjp,bcjn->bhcpn", xc * w[..., None],
+                          Bm.reshape(Bsz, nc, Q, N))
+    # 3. the carry across chunks: each chunk's incoming state, and h_last
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float64) if h0 is None
+         else h0.double())
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(cum[:, :, c, -1])[..., None, None] * h + states[:, :, c]
+    h_in = torch.stack(h_in, dim=2)
+    # 4. the outputs of each 64-row tile I: the carried state, then G x_J
+    y = torch.empty((Bsz, H, nc, Q, P), dtype=torch.float64)
+    for I in range(nI):
+        r = slice(I * TILE, min((I + 1) * TILE, Q))
+        i = torch.arange(Q)[r]
+        acc = torch.exp(cum[..., r])[..., None] * torch.einsum(
+            "bcin,bhcpn->bhcip", Cc[:, :, r], h_in)
+        for J in range(I + 1):
+            cols = slice(J * TILE, min((J + 1) * TILE, Q))
+            live = torch.arange(Q)[cols][None, :] <= i[:, None]
+            li = cum[..., r, None] - cum[..., None, cols]
+            # masked before exp: above the diagonal li > 0 may overflow
+            decay = torch.where(live, torch.exp(torch.where(live, li, 0.0)),
+                                0.0)
+            G = cb[:, None, :, r, cols] * decay * dtc[..., None, cols]
+            acc = acc + G @ xc[:, :, :, cols]
+        y[:, :, :, r] = acc
+    return y.reshape(Bsz, H, S, P), h
+
+
+PASS_CASES = [                     # B, S, H, P, N, chunk, with h0
+    (1, 512, 2, 64, 128, 256, False),    # Mamba-2 780M's widths, 2 chunks
+    (1, 768, 2, 64, 128, 256, True),     # 3 chunks, an initial state
+    (1, 200, 2, 64, 128, 200, False),    # a ragged chunk of 200
+    (1, 48, 3, 16, 16, 16, True),        # the smoke widths, chunk 16
+    (2, 600, 2, 16, 16, 200, False),     # smoke widths, 3 ragged chunks
+]
+
+
+@pytest.mark.parametrize("case", PASS_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_kernel_passes_match_jax_kernel_and_oracle(case):
+    """The mirror of the kernel's passes against JAX's Pallas ``ssd_call``
+    (interpret) and ``ssd_ref`` without an initial state, JAX's
+    ``ssd_chunked`` with one, and the port's plain version always."""
+    B, S, H, P, N, chunk, with_h0 = case
+    x, dt, A, Bm, Cm = _inputs(case[:6], seed=4)
+    xh, dth = np.moveaxis(x, 2, 1), np.moveaxis(dt, 2, 1)
+    dA = dth * A[None, :, None]
+    h0 = (np.random.default_rng(5).standard_normal((B, H, P, N)) * 0.1
+          ).astype(np.float32) if with_h0 else None
+    t = lambda a: None if a is None else torch.from_numpy(
+        np.ascontiguousarray(a))
+    y, h = ssd_passes(t(xh), t(dA), t(dth), t(Bm), t(Cm), chunk, t(h0))
+    yp, hp = K.ref.ssd_call_ref(t(xh), t(dA), t(dth), t(Bm), t(Cm), chunk,
+                                t(h0))
+    _close(y, yp, CHUNKED_TOL)
+    _close(h, hp, CHUNKED_TOL)
+    if with_h0:
+        y_j, h_j = jax_ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)),
+                                   chunk, jnp.asarray(h0))
+        _close(y, jnp.moveaxis(y_j, 2, 1), CHUNKED_TOL)
+        _close(h, h_j, CHUNKED_TOL)
+        return
+    y_k, h_k = jax_ssd_call(*map(jnp.asarray, (xh, dA, dth, Bm, Cm)),
+                            chunk=chunk, interpret=True)
+    _close(y, y_k, CHUNKED_TOL)
+    _close(h, h_k, CHUNKED_TOL)
+    y_o, h_o = jax_ssd_ref(*map(jnp.asarray, (xh, dA, dth, Bm, Cm)))
+    _close(y, y_o, ORACLE_TOL["float32"])
+    _close(h, h_o, STATE_TOL)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_the_ssm_configs_widths_have_a_kernel(smoke):
+    """Mamba-2's (head dim, state) and chunk, full and smoke, are widths the
+    SSD kernel is built for."""
+    from repro_torch.configs import get_config
+    ssm = get_config("mamba2_780m", smoke).ssm
+    assert (ssm.head_dim, ssm.d_state) in K.WIDTHS
+    assert 0 < ssm.chunk <= K.MAX_CHUNK
 
 
 def test_ssd_scan_refuses_a_chunk_that_does_not_divide_the_sequence():

@@ -217,3 +217,20 @@ def test_loss_seeds_runs_only_on_a_card():
     cfg = loss_seeds.train_config()
     assert (cfg.n_layers, cfg.dtype, cfg.moe.dispatch) == (
         2, "bfloat16", "cuda_kernel")
+
+
+def test_smoke_widths_runs_only_on_a_card():
+    """``python -m repro_torch.launch.smoke_widths`` holds the smoke configs
+    on the card's kernels; without a CUDA device it stops at once, and its
+    MoE configs dispatch through the crossbar kernels."""
+    from repro_torch.launch import smoke_widths
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert smoke_widths.main([]) == 1
+    cfg = smoke_widths.smoke_config("mixtral_8x7b", "float32")
+    assert (cfg.dtype, cfg.kernel_mode, cfg.moe.dispatch) == (
+        "float32", "auto", "cuda_kernel")
+    assert set(smoke_widths.ARCHS) == {
+        a for a in smoke_widths.ARCHS
+        if smoke_widths.get_config(a, True).family
+        in smoke_widths.FAMILY_KERNELS}
