@@ -10,9 +10,16 @@ Phases, each printing one JSON line with its seconds:
             kernel libraries from ``src/repro_torch`` (one ``nvcc`` each,
             started together).
 3. kernels  holds ``plan_multi``, ``scatter`` and ``combine`` bit-equal
-            (``torch.equal``) to their plain versions at the served shapes
-            and at large shapes, and times kernel, plain version and one
-            library call with CUDA events (median of 20 after warm-up).
+            (``torch.equal``) to their plain versions at the served shapes,
+            the train step's (``moe_train``: T=2048, C=320) and large
+            shapes, and times kernel, plain version and one library call
+            with CUDA events (median of 20 after warm-up); at the decode,
+            train and large shapes scatter, combine and their library calls
+            also by device time (``torch.profiler``, 20 calls, with kernels
+            and memsets per call) and host time per call (1,000 calls
+            enqueued on a busy card; ``crossbar_dispatch/row_bench.py``),
+            and fails unless a scatter or combine call at the decode and
+            train shapes is one device kernel and no memset.
 4. flash    holds the flash-attention forward and backward kernels to
             their plain versions (autograd through ``attention_ref``) at
             seven shapes (bfloat16 on the tensor-core kernels at head dims
@@ -83,12 +90,10 @@ Phases, each printing one JSON line with its seconds:
 
 ``--profile`` adds a phase after serving and one after the train steps:
 ``torch.profiler`` over 8 warm decode steps of the served engine and over
-one more train step, one over each recurrent model's S=32768 prefill, and
-one over 20 calls each of the scatter and combine kernels and their
-library calls at the decode shape (the device time that the CUDA-event
-time of so short a call hides); device time by kernel, the device's idle
-share, and Chrome traces in ``build/profile/``.  ``--seed N`` (default 0) draws every input, weight and
-prompt from another seed.
+one more train step, and one over each recurrent model's S=32768
+prefill; device time by kernel, the device's idle share, and Chrome traces
+in ``build/profile/``.  ``--seed N`` (default 0) draws every input, weight
+and prompt from another seed.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
 exits non-zero before it.  Imports nothing of JAX.
@@ -244,9 +249,14 @@ class Case:
         return errs
 
     def timings(self):
-        """(kernel, plain, library, bound, bound_by) per kernel, in ms."""
+        """(kernel, plain, library, bound, bound_by) per kernel, in ms; for
+        scatter and combine also the device ms (``torch.profiler``, 20
+        calls, with kernels and memsets per call) and host us per call
+        (1,000 calls, card busy) of the kernel and of the library call."""
         from repro_torch.fabric.interface import KernelMode
         from repro_torch.kernels.crossbar_dispatch import kernel as K, ref
+        from repro_torch.kernels.crossbar_dispatch.row_bench import (
+            device_ms, host_us)
         T, S, C, D = self.T, self.S, self.C, self.D
         es = self.x.element_size()
         kept = int(self.keep.sum())
@@ -286,17 +296,25 @@ class Case:
             library_ms=time_ms(
                 lambda: y_flat.index_select(0, cidx) * w_lib[:, None]),
             bound_ms=b, bound_by=by)
+        calls = {
+            "scatter": (lambda: K.scatter(self.x, self.dst, self.keep,
+                                          self.slot, n_ports=S, capacity=C,
+                                          mode=cuda),
+                        lambda: flat.index_copy_(0, addr, self.x)),
+            "combine": (lambda: K.combine(self.y, self.dst, self.keep,
+                                          self.slot, self.w, mode=cuda),
+                        lambda: y_flat.index_select(0, cidx)
+                        * w_lib[:, None]),
+        }
+        for name, (kernel, library) in calls.items():
+            k, lib = device_ms(kernel), device_ms(library)
+            out[name].update(
+                device_ms=k["device_ms"], kernels_per_call=k["kernels"],
+                memsets_per_call=k["memsets"], host_us=host_us(kernel),
+                library_device_ms=lib["device_ms"],
+                library_host_us=host_us(library))
         emit("kernels.time", case=self.name, T=T, S=S, C=C, D=D,
              dtype=str(self.dtype).replace("torch.", ""), **out)
-        if "--profile" in sys.argv[1:]:
-            def calls():
-                K.scatter(self.x, self.dst, self.keep, self.slot, n_ports=S,
-                          capacity=C, mode=cuda)
-                flat.index_copy_(0, addr, self.x)
-                K.combine(self.y, self.dst, self.keep, self.slot, self.w,
-                          mode=cuda)
-                y_flat.index_select(0, cidx) * w_lib[:, None]
-            profile(f"kernels.{self.name}.profile", calls, 20)
         return out
 
 
@@ -1714,10 +1732,14 @@ def main() -> int:
     d, E = cfg.d_model, cfg.moe.n_experts
     cap1, cap2 = expert_capacity(1, cfg.moe), expert_capacity(2, cfg.moe)
     big_c = expert_capacity(4096, cfg.moe)
+    # the train step's groups: min(1024, B*S) tokens, top-2 (models/lm.py)
+    train_g = min(1024, TRAIN_SEQ)
     served = [
         Case("moe_decode", 2, E, cap1, d, bf16, 1, gen, holes=False),
         Case("moe_prefill", 4, E, cap2, d, bf16, 1, gen, holes=False),
         Case("server_tick", N_SLOTS, 3, 8, 4, f32, 3, gen),
+        Case("moe_train", train_g * cfg.moe.top_k, E,
+             expert_capacity(train_g, cfg.moe), d, bf16, 1, gen, holes=False),
     ]
     large = [
         Case("large_bf16", 8192, E, big_c, d, bf16, E, gen),
@@ -1729,7 +1751,15 @@ def main() -> int:
     for case in served + large:
         errs[case.name] = case.check()
     decode_t = served[0].timings()
+    train_t = served[3].timings()
+    train_shape = (f"T={served[3].T} S={served[3].S} C={served[3].C} "
+                   f"D={served[3].D} bf16")
     large_t = large[0].timings()
+    for case, t in (("moe_decode", decode_t), ("moe_train", train_t)):
+        for name in ("scatter", "combine"):
+            if t[name]["kernels_per_call"] != 1 or t[name]["memsets_per_call"]:
+                raise AssertionError(f"{name} at {case} is not one kernel "
+                                     f"and no memset a call: {t[name]}")
     del served, large
     emit("kernels", seconds=time.perf_counter() - t0)
 
@@ -1801,14 +1831,16 @@ def main() -> int:
     src = "src/repro_torch/kernels/crossbar_dispatch/csrc/crossbar_dispatch.cu"
     rows = []
     for name in ("plan_multi", "scatter", "combine"):
-        t, tl = decode_t[name], large_t[name]
+        t = decode_t[name]
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces[name], **launch_keys(name),
             "max_abs_err": max(e[name] for e in errs.values()),
-            **{k: t[k] for k in timing_keys},
+            **t,
             "shape": "moe_decode T=2 S=8 C=8 D=4096 bf16",
-            "large": {"shape": "T=8192 S=8 C=1280 D=4096 bf16", **tl},
+            "train": {"shape": train_shape, **train_t[name]},
+            "large": {"shape": "T=8192 S=8 C=1280 D=4096 bf16",
+                      **large_t[name]},
         })
     src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
     for name in ("flash_fwd", "flash_bwd"):

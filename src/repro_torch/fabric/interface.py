@@ -91,11 +91,14 @@ def use_kernel(mode: Optional[Union[str, KernelMode]],
     the tensors' device: CUDA tensors launch the kernel unless ``TORCH``
     is asked for; CPU tensors take the plain version, and raise under
     ``CUDA``."""
-    mode = parse_kernel_mode(mode)
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    on_cuda = devices.pop().type == "cuda"
+    if mode.__class__ is not KernelMode:
+        mode = parse_kernel_mode(mode)
+    device = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != device:
+            devices = sorted({str(t.device) for t in tensors})
+            raise ValueError(f"tensors on several devices: {devices}")
+    on_cuda = device.type == "cuda"
     if mode is KernelMode.TORCH:
         return False
     if mode is KernelMode.CUDA and not on_cuda:

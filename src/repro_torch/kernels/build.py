@@ -111,5 +111,9 @@ def check(code: int, what: str) -> None:
 
 
 def stream(device: torch.device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as the launchers take it."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current CUDA stream on ``device``, as the launchers take it:
+    the raw handle, without building a ``torch.cuda.Stream`` on every call."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

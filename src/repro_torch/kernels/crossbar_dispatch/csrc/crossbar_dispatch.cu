@@ -23,16 +23,49 @@
 //    (dst read, keep, slot and err written).
 //
 // 2. scatter     replaces kernel.py scatter_call / _scatter_kernel.  The
-//    TPU version builds a [bT, C] one-hot and runs it through the MXU; here
-//    a granted packet's row is copied straight to slab row dst*C+slot with
-//    16-byte vector loads.  Slots are unique, so no atomics.  The one-hot
-//    silently dropped packets with slot >= C or dst outside [0, S); the
-//    copy bounds-checks both.  Bound: bytes (read x, write the slabs).
+//    TPU version builds a [bT, C] one-hot and runs it through the MXU into
+//    zeroed slabs.  Here every byte of the [S*C, D] slabs is written once:
+//    a slab row holds the row of the granted packet that owns it, or
+//    zeros.  Bound: bytes (the granted rows read once, the slabs written
+//    once); at the served decode shape (64 rows of 8 KiB) launch latency,
+//    and the call's host path more than both.  The design:
+//    - no memset: the wrapper allocates the slabs with torch.empty, and a
+//      row that no packet owns is stored as zeros without a read;
+//    - below OWNER_PASS_T packets (kernel.py) a call is one launch,
+//      scan_scatter_kernel: each block scans dst, keep and slot of all T
+//      packets (12 bytes a packet, coalesced, from L2 after the first
+//      block) into a table of the owners of its rows in shared memory;
+//      slots are unique per dst, so no atomics.  The one-hot silently
+//      dropped packets with slot >= C or dst outside [0, S); the scan
+//      bounds-checks both.  So that few blocks scan, the grid is
+//      kBlocksPerSm blocks an SM, each taking every g-th slab row (a range
+//      would leave some blocks a slab's empty tail); where the slab is
+//      small the rows are also cut into column chunks, so the 64 decode
+//      rows run on 128 blocks instead of one SM writing 512 KiB;
+//    - the scan costs blocks x 12 T bytes of L2 reads, so from OWNER_PASS_T
+//      packets on the wrapper passes an int32 [S*C] scratch and a call
+//      takes two launches: owner_kernel writes owner[row] = t, then
+//      gather_kernel (below) copies each slab row from the packet its
+//      owner entry names, believing the entry only if that packet routes
+//      to the row, so the scratch needs no clearing;
+//    - rows move as 16-byte vectors: scan_scatter_kernel keeps kUnroll
+//      loads in flight a thread, issued before their stores, with no
+//      division per vector.
 //
 // 3. combine     replaces kernel.py combine_call / _combine_kernel: the
 //    weighted gather back to packet order, out[t] = (f32(w[t]) *
 //    f32(y[dst, slot])) rounded once to y's type, zeros for dropped
-//    packets.  One block per packet row, 16-byte vectors.  Bound: bytes.
+//    packets.  Bound: bytes (the granted slab rows read once, out written
+//    once); at decode, as scatter, launch latency and the host path.  One
+//    launch of gather_kernel: a block of 128 threads a packet row (in
+//    order, so many small blocks balance themselves), which looks its
+//    route up once, reads the slab row only for a granted packet and
+//    stores zeros for the rest, in a plain loop with few registers, so
+//    that 16 blocks fit an SM and the train step's 2048 rows run in one
+//    wave; few rows are cut into column chunks, rows narrower than 512
+//    vectors share a block.  A null ``weights`` is
+//    the unit-weight form, a plain copy: bit-equal to weight 1.0, since
+//    1.0f * v == v and rounding an exact bfloat16 value returns it.
 //
 // scatter and combine take float32 or bfloat16 rows that are a multiple of
 // 16 bytes at 16-byte aligned addresses (the served rows are 8 KiB); the
@@ -45,12 +78,21 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
 namespace {
 
 constexpr int kPlanBlock = 256;                 // tokens (= threads) per block
 constexpr int kPlanWarps = kPlanBlock / 32;
 constexpr int kScanThreads = 1024;            // most threads of the prefix pass
-constexpr int kRowThreads = 128;
+constexpr int kRowThreads = 256;                // threads of a scan_scatter block
+constexpr int kGatherThreads = 128;             // threads of a gather block
+constexpr int kUnroll = 4;                      // 16-byte loads in flight a thread
+constexpr int kScanUnroll = 4;                  // packets a thread loads at once
+constexpr int kBlocksPerSm = 4;                 // scan_scatter blocks an SM
+constexpr int kMinBlockVecs = 256;              // 16-byte vectors a block takes at least
+constexpr int kMaxBlockRows = 4096;             // rows of a block's owner table
 
 // Which stream a packet belongs to, and whether it passes isolation.  A
 // stream is a (src, dst) pair for plan_multi and a dst for plan, whose
@@ -230,26 +272,11 @@ cudaError_t launch_plan(Key key, const int32_t* quota, const int32_t* cap,
 __device__ __forceinline__ bool row_target(const int32_t* dst,
                                            const int32_t* keep,
                                            const int32_t* slot, int t, int S,
-                                           int C, int64_t* row) {
+                                           int C, int* row) {
   const int d = dst[t], s = slot[t];
   if (keep[t] <= 0 || d < 0 || d >= S || s < 0 || s >= C) return false;
-  *row = (int64_t)d * C + s;
+  *row = d * C + s;
   return true;
-}
-
-// One block per packet: copy x[t] to slabs[dst*C+slot] as uint4 vectors.
-__global__ void scatter_kernel(const uint4* __restrict__ x,
-                               const int32_t* __restrict__ dst,
-                               const int32_t* __restrict__ keep,
-                               const int32_t* __restrict__ slot,
-                               uint4* __restrict__ slabs, int S, int C,
-                               int64_t row_vecs) {
-  const int t = blockIdx.x;
-  int64_t row;
-  if (!row_target(dst, keep, slot, t, S, C, &row)) return;
-  const uint4* in = x + (int64_t)t * row_vecs;
-  uint4* out = slabs + row * row_vecs;
-  for (int64_t i = threadIdx.x; i < row_vecs; i += blockDim.x) out[i] = in[i];
 }
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
@@ -263,44 +290,282 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-// One block per packet: out[t] = (w * y[row]) rounded once, or zeros.
-// Rows are a multiple of 16 bytes and move as uint4.
-template <typename T>
-__global__ void combine_kernel(const T* __restrict__ y,
-                               const int32_t* __restrict__ dst,
-                               const int32_t* __restrict__ keep,
-                               const int32_t* __restrict__ slot,
-                               const float* __restrict__ weights,
-                               T* __restrict__ out, int S, int C, int D) {
-  const int t = blockIdx.x;
-  int64_t row;
-  const bool ok = row_target(dst, keep, slot, t, S, C, &row);
-  const float w = weights[t];
-  constexpr int kPer = 16 / sizeof(T);
-  const int n_vec = D / kPer;
-  const uint4* in = reinterpret_cast<const uint4*>(y + (ok ? row : 0) * D);
-  uint4* ov = reinterpret_cast<uint4*>(out + (int64_t)t * D);
-  for (int i = threadIdx.x; i < n_vec; i += blockDim.x) {
-    uint4 r = make_uint4(0u, 0u, 0u, 0u);
-    if (ok) {
-      uint4 v = in[i];
-      const T* e = reinterpret_cast<const T*>(&v);
-      T* re = reinterpret_cast<T*>(&r);
+// Where the owner of a slab row (scatter) or the slab row of a packet
+// (combine) comes from, outside the one-pass scatter's scan.
+enum class Source {
+  kOwner,   // scatter: owner_kernel's map, checked back
+  kRoute,   // combine: output row t reads slab row dst[t]*C + slot[t]
+};
+
+// The flat index i = r * nc + c of a thread's vectors, stepped by
+// kThreads at a time without a division: one at the start of the block.
+template <int kThreads>
+struct RowCol {
+  int r, c, step_r, step_c, nc;
+  __device__ __forceinline__ explicit RowCol(int nc_) : nc(nc_) {
+    r = threadIdx.x / nc;
+    c = threadIdx.x - r * nc;
+    step_r = kThreads / nc;
+    step_c = kThreads - step_r * nc;
+  }
+  __device__ __forceinline__ void next() {
+    r += step_r;
+    c += step_c;
+    if (c >= nc) { c -= nc; ++r; }
+  }
+};
+
+// One-pass scatter.  Block (bx, by) owns slab rows bx, bx + g, bx + 2g, ...
+// (g = gridDim.x) and vectors [c0, c0 + chunk_vecs) of each: few blocks,
+// since each scans all T packets, and every g-th row, since a range would
+// leave some blocks a slab's empty tail.  The scan fills a table of the
+// owners of its rows in shared memory; then the rows are copied with
+// kUnroll 16-byte loads in flight a thread, issued before the stores, and
+// rows that no packet owns are stored as zeros without a read.
+__global__ void __launch_bounds__(kRowThreads)
+scan_scatter_kernel(const uint4* __restrict__ x, uint4* __restrict__ slabs,
+                    const int32_t* __restrict__ dst,
+                    const int32_t* __restrict__ keep,
+                    const int32_t* __restrict__ slot, int T, int S, int C,
+                    int row_vecs, int chunk_vecs) {
+  extern __shared__ int32_t owner_of[];            // [nr]
+  const int g = gridDim.x, bx = blockIdx.x;
+  const int nr = (S * C - bx + g - 1) / g;
+  const int c0 = blockIdx.y * chunk_vecs;
+  const int nc = min(chunk_vecs, row_vecs - c0);
+  for (int i = threadIdx.x; i < nr; i += kRowThreads) owner_of[i] = -1;
+  __syncthreads();
+  // 12 bytes a packet, coalesced, kScanUnroll loads of each in flight;
+  // every block after the first reads them from L2.
+  for (int base = 0; base < T; base += kRowThreads * kScanUnroll) {
+    int d[kScanUnroll], k[kScanUnroll], s[kScanUnroll];
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) re[j] = from_f32<T>(w * to_f32<T>(e[j]));
+    for (int u = 0; u < kScanUnroll; ++u) {
+      const int t = base + u * kRowThreads + threadIdx.x;
+      d[u] = k[u] = s[u] = 0;
+      if (t < T) { d[u] = dst[t]; k[u] = keep[t]; s[u] = slot[t]; }
     }
-    ov[i] = r;
+#pragma unroll
+    for (int u = 0; u < kScanUnroll; ++u) {
+      if (k[u] > 0 && d[u] >= 0 && d[u] < S && s[u] >= 0 && s[u] < C) {
+        const int r = d[u] * C + s[u];
+        if (r % g == bx)
+          owner_of[r / g] = base + u * kRowThreads + threadIdx.x;
+      }
+    }
+  }
+  __syncthreads();
+
+  const int n = nr * nc;
+  RowCol<kRowThreads> rc(nc);
+  for (int base = 0; base < n; base += kRowThreads * kUnroll) {
+    uint4 v[kUnroll];
+    int r[kUnroll], c[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      r[u] = rc.r;
+      c[u] = c0 + rc.c;
+      rc.next();
+      v[u] = make_uint4(0u, 0u, 0u, 0u);
+      const int t = base + u * kRowThreads + threadIdx.x < n ? owner_of[r[u]]
+                                                             : -1;
+      if (t >= 0) v[u] = x[(int64_t)t * row_vecs + c[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (base + u * kRowThreads + threadIdx.x < n)
+        slabs[(int64_t)(bx + r[u] * g) * row_vecs + c[u]] = v[u];
   }
 }
 
-template <typename T>
-cudaError_t launch_combine(const void* y, const int32_t* dst,
-                           const int32_t* keep, const int32_t* slot,
-                           const float* w, void* out, int T_, int S, int C,
-                           int D, cudaStream_t stream) {
-  combine_kernel<T><<<T_, kRowThreads, 0, stream>>>(
-      static_cast<const T*>(y), dst, keep, slot, w, static_cast<T*>(out), S,
-      C, D);
+// The input row that output row r copies, or -1 (zeros), and its weight.
+template <Source kSource, bool kWeighted>
+__device__ __forceinline__ int row_source(
+    const int32_t* __restrict__ dst, const int32_t* __restrict__ keep,
+    const int32_t* __restrict__ slot, const int32_t* __restrict__ owner,
+    const float* __restrict__ weights, int T, int S, int C, int r,
+    float* w) {
+  int row;
+  if constexpr (kSource == Source::kOwner) {
+    // owner[] was never cleared: an entry is believed only if the packet it
+    // names routes to this row (slots are unique, so a true owner was
+    // written there by owner_kernel).
+    const int t = owner[r];
+    return t >= 0 && t < T && row_target(dst, keep, slot, t, S, C, &row) &&
+                   row == r
+               ? t
+               : -1;
+  } else {
+    if constexpr (kWeighted) *w = weights[r];
+    return row_target(dst, keep, slot, r, S, C, &row) ? row : -1;
+  }
+}
+
+// Output rows one after another, so the scheduler balances many small
+// blocks and the rows are written in order.  kOneRow: block (b, c) takes
+// vectors [c * chunk_vecs, ...) of row b, looks its source up once and
+// copies in a plain loop (few registers, so 16 blocks fit an SM and a
+// train-shape call runs in one wave).  Otherwise block b takes block_rows
+// narrow rows and each thread looks up the row of each of its kUnroll
+// vectors (the lanes of a warp share rows, so the loads hit L1), issuing
+// the loads before the stores.  ``Elem`` is void for a copy, else the
+// element type that combine weights in float32 and rounds once.
+template <Source kSource, typename Elem, bool kOneRow>
+__global__ void __launch_bounds__(kGatherThreads)
+gather_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
+              const int32_t* __restrict__ dst,
+              const int32_t* __restrict__ keep,
+              const int32_t* __restrict__ slot,
+              const int32_t* __restrict__ owner,
+              const float* __restrict__ weights, int T, int S, int C,
+              int n_rows, int row_vecs, int block_rows, int chunk_vecs) {
+  constexpr bool kWeighted = !std::is_void<Elem>::value;
+  if constexpr (kOneRow) {
+    const int r = blockIdx.x;
+    const int c0 = blockIdx.y * chunk_vecs;
+    const int nc = min(chunk_vecs, row_vecs - c0);
+    float w = 1.f;
+    const int src = row_source<kSource, kWeighted>(dst, keep, slot, owner,
+                                                   weights, T, S, C, r, &w);
+    const uint4* ip = in + (int64_t)(src < 0 ? 0 : src) * row_vecs + c0;
+    uint4* op = out + (int64_t)r * row_vecs + c0;
+    for (int i = threadIdx.x; i < nc; i += kGatherThreads) {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (src >= 0) {
+        v = ip[i];
+        if constexpr (kWeighted) {
+          Elem* e = reinterpret_cast<Elem*>(&v);
+#pragma unroll
+          for (int j = 0; j < 16 / (int)sizeof(Elem); ++j)
+            e[j] = from_f32<Elem>(w * to_f32<Elem>(e[j]));
+        }
+      }
+      op[i] = v;
+    }
+  } else {
+    const int row0 = blockIdx.x * block_rows;
+    const int n = min(block_rows, n_rows - row0) * row_vecs;
+    RowCol<kGatherThreads> rc(row_vecs);
+    for (int base = 0; base < n; base += kGatherThreads * kUnroll) {
+      uint4 v[kUnroll];
+      int src[kUnroll], r[kUnroll], c[kUnroll];
+      float w[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        r[u] = rc.r;
+        c[u] = rc.c;
+        rc.next();
+        v[u] = make_uint4(0u, 0u, 0u, 0u);
+        src[u] = -1;
+        w[u] = 1.f;
+        if (base + u * kGatherThreads + threadIdx.x >= n) continue;
+        src[u] = row_source<kSource, kWeighted>(dst, keep, slot, owner,
+                                                weights, T, S, C,
+                                                row0 + r[u], &w[u]);
+        if (src[u] >= 0) v[u] = in[(int64_t)src[u] * row_vecs + c[u]];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (base + u * kGatherThreads + threadIdx.x >= n) continue;
+        if constexpr (kWeighted) {
+          if (src[u] >= 0) {
+            Elem* e = reinterpret_cast<Elem*>(&v[u]);
+#pragma unroll
+            for (int j = 0; j < 16 / (int)sizeof(Elem); ++j)
+              e[j] = from_f32<Elem>(w[u] * to_f32<Elem>(e[j]));
+          }
+        }
+        out[(int64_t)(row0 + r[u]) * row_vecs + c[u]] = v[u];
+      }
+    }
+  }
+}
+
+// Pass 1 of the two-pass scatter: owner[dst*C + slot] = t for every
+// granted, in-range packet.  The rest of owner[] keeps whatever it held.
+__global__ void owner_kernel(const int32_t* __restrict__ dst,
+                             const int32_t* __restrict__ keep,
+                             const int32_t* __restrict__ slot,
+                             int32_t* __restrict__ owner, int T, int S,
+                             int C) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  int row;
+  if (t < T && row_target(dst, keep, slot, t, S, C, &row)) owner[row] = t;
+}
+
+int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (count[dev] == 0 &&
+      cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    return 132;
+  return count[dev];
+}
+
+// Blocks wanted for a copy of ``total`` vectors: kBlocksPerSm an SM, but
+// none of fewer than kMinBlockVecs vectors.
+long long blocks_wanted(long long total) {
+  return std::max<long long>(
+      1, std::min<long long>((long long)kBlocksPerSm * sm_count(),
+                             (total + kMinBlockVecs - 1) / kMinBlockVecs));
+}
+
+// The one-pass scatter over S*C rows: blocks_wanted() blocks of every g-th
+// row, split along the columns where the rows are fewer than the blocks,
+// and more blocks where a block's owner table would pass kMaxBlockRows.
+cudaError_t launch_scan_scatter(const void* x, void* slabs,
+                                const int32_t* dst, const int32_t* keep,
+                                const int32_t* slot, int T, int S, int C,
+                                int row_vecs, cudaStream_t stream) {
+  const int n_rows = S * C;
+  const long long blocks = blocks_wanted((long long)n_rows * row_vecs);
+  int g = n_rows, chunk_vecs = row_vecs;
+  if (blocks <= n_rows) {
+    g = (int)std::max<long long>(
+        blocks, (n_rows + kMaxBlockRows - 1) / kMaxBlockRows);
+  } else {
+    const long long chunks =
+        std::min<long long>((blocks + n_rows - 1) / n_rows, row_vecs);
+    chunk_vecs = (int)((row_vecs + chunks - 1) / chunks);
+  }
+  const dim3 grid(g, (row_vecs + chunk_vecs - 1) / chunk_vecs);
+  const size_t smem = (size_t)((n_rows + g - 1) / g) * sizeof(int32_t);
+  scan_scatter_kernel<<<grid, kRowThreads, smem, stream>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(slabs), dst, keep,
+      slot, T, S, C, row_vecs, chunk_vecs);
+  return cudaGetLastError();
+}
+
+// A gather over n_rows output rows: rows of kGatherThreads * kUnroll
+// vectors or more take a block each (split along the columns where they
+// are too few for blocks_wanted()), narrower rows share one.
+template <Source kSource, typename Elem>
+cudaError_t launch_gather(const void* in, void* out, const int32_t* dst,
+                          const int32_t* keep, const int32_t* slot,
+                          const int32_t* owner, const float* weights, int T,
+                          int S, int C, int n_rows, int row_vecs,
+                          cudaStream_t stream) {
+  constexpr int kPer = kGatherThreads * kUnroll;
+  const auto* x = static_cast<const uint4*>(in);
+  auto* o = static_cast<uint4*>(out);
+  if (row_vecs >= kPer) {
+    const long long blocks = blocks_wanted((long long)n_rows * row_vecs);
+    const int chunks = (int)std::max<long long>(
+        (blocks + n_rows - 1) / n_rows, (row_vecs + kPer - 1) / kPer);
+    const int chunk_vecs = (row_vecs + chunks - 1) / chunks;
+    const dim3 grid(n_rows, (row_vecs + chunk_vecs - 1) / chunk_vecs);
+    gather_kernel<kSource, Elem, true><<<grid, kGatherThreads, 0, stream>>>(
+        x, o, dst, keep, slot, owner, weights, T, S, C, n_rows, row_vecs, 1,
+        chunk_vecs);
+  } else {
+    const int block_rows = kPer / row_vecs;
+    gather_kernel<kSource, Elem, false>
+        <<<(n_rows + block_rows - 1) / block_rows, kGatherThreads, 0,
+           stream>>>(x, o, dst, keep, slot, owner, weights, T, S, C, n_rows,
+                     row_vecs, block_rows, row_vecs);
+  }
   return cudaGetLastError();
 }
 
@@ -341,32 +606,52 @@ int crossbar_plan(const void* dst, const void* allowed, const void* quota,
       static_cast<cudaStream_t>(stream_ptr));
 }
 
-// ``slabs`` must be zeroed by the caller; ``row_vecs`` = row bytes / 16.
+// Every byte of ``slabs`` [S*C, row_vecs x 16 bytes] written once, in one
+// launch; with ``owner`` (int32 [S*C] scratch, any contents) in two: the
+// owner map, then the rows.
 int crossbar_scatter(const void* x, const void* dst, const void* keep,
-                     const void* slot, void* slabs, int T, int S, int C,
-                     long long row_vecs, void* stream_ptr) {
+                     const void* slot, void* owner, void* slabs, int T, int S,
+                     int C, int row_vecs, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  scatter_kernel<<<T, kRowThreads, 0, stream>>>(
-      static_cast<const uint4*>(x), static_cast<const int32_t*>(dst),
-      static_cast<const int32_t*>(keep), static_cast<const int32_t*>(slot),
-      static_cast<uint4*>(slabs), S, C, row_vecs);
-  return (int)cudaGetLastError();
+  const auto* d = static_cast<const int32_t*>(dst);
+  const auto* k = static_cast<const int32_t*>(keep);
+  const auto* sl = static_cast<const int32_t*>(slot);
+  auto* own = static_cast<int32_t*>(owner);
+  if (S * C == 0 || row_vecs == 0) return (int)cudaSuccess;
+  if (own == nullptr)
+    return (int)launch_scan_scatter(x, slabs, d, k, sl, T, S, C, row_vecs,
+                                    stream);
+  if (T > 0) {
+    owner_kernel<<<(T + kRowThreads - 1) / kRowThreads, kRowThreads, 0,
+                   stream>>>(d, k, sl, own, T, S, C);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)launch_gather<Source::kOwner, void>(
+      x, slabs, d, k, sl, own, nullptr, T, S, C, S * C, row_vecs, stream);
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  ``weights`` is float32.
+// out [T, row_vecs x 16 bytes].  dtype: 0 = float32, 1 = bfloat16.
+// ``weights`` is float32 [T], or null for the unit-weight form, a copy.
 int crossbar_combine(const void* y, const void* dst, const void* keep,
                      const void* slot, const void* weights, void* out, int T,
-                     int S, int C, int D, int dtype, void* stream_ptr) {
+                     int S, int C, int row_vecs, int dtype,
+                     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const auto* d = static_cast<const int32_t*>(dst);
   const auto* k = static_cast<const int32_t*>(keep);
   const auto* sl = static_cast<const int32_t*>(slot);
   const auto* w = static_cast<const float*>(weights);
-  switch (dtype) {
-    case 0: return (int)launch_combine<float>(y, d, k, sl, w, out, T, S, C, D, stream);
-    case 1: return (int)launch_combine<__nv_bfloat16>(y, d, k, sl, w, out, T, S, C, D, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (T == 0 || row_vecs == 0) return (int)cudaSuccess;
+  if (w == nullptr)
+    return (int)launch_gather<Source::kRoute, void>(
+        y, out, d, k, sl, nullptr, nullptr, T, S, C, T, row_vecs, stream);
+  if (dtype == 0)
+    return (int)launch_gather<Source::kRoute, float>(
+        y, out, d, k, sl, nullptr, w, T, S, C, T, row_vecs, stream);
+  return (int)launch_gather<Source::kRoute, __nv_bfloat16>(
+      y, out, d, k, sl, nullptr, w, T, S, C, T, row_vecs, stream);
 }
 
 }  // extern "C"

@@ -10,6 +10,19 @@ at import.
 Each wrapper carries ``launches``, a plain int that counts kernel launches
 (plain-version calls do not count); :func:`reset_launch_counts` zeroes them.
 
+``scatter`` allocates its slabs with ``torch.empty``: the kernel writes
+every byte of them, a granted packet's row or zeros, so a call is one
+launch and no memset (two launches from ``OWNER_PASS_T`` packets on, see
+the source note).  ``combine`` with ``weights=None`` is the unit-weight
+form: the kernel copies the rows, bit-equal to weights of 1.0, and the
+backwards of ``ops.py`` use it instead of a tensor of ones.
+
+At the served decode shape a call is host time, so the CUDA path does no
+work it can skip: index tensors that are int32 and contiguous already
+(``ops.py`` hands them over so) are passed as they are, the stream is
+PyTorch's raw current stream, and the checks read shapes and types only,
+never values on the card.
+
 TPU kernels replaced (``repro/kernels/crossbar_dispatch/kernel.py``):
 ``plan_multi`` <- ``plan_multi_call``, ``plan`` <- ``plan_call``,
 ``scatter`` <- ``scatter_call``, ``combine`` <- ``combine_call``.  What
@@ -20,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import pathlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,28 +48,35 @@ MAX_PORTS = 64                   # plan_rank_kernel keeps 9 * S^2 ints in smem
 PLAN_MAX_PORTS = MAX_PORTS ** 2  # ... and 9 * S ints for one source's plan
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VEC_BYTES = 16                   # scatter/combine move rows as uint4
+OWNER_PASS_T = 4096              # packets from which scatter maps owners first
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+_LIB = None
+
+
 def library() -> ctypes.CDLL:
     """Build (first use only) and load the kernel library."""
-    fresh = LIB_NAME not in build.load_count
-    lib = build.load_library(LIB_NAME, SOURCES)
-    if fresh:
+    global _LIB
+    if _LIB is None:
+        lib = build.load_library(LIB_NAME, SOURCES)
         lib.crossbar_plan_multi.argtypes = [_P] * 9 + [_I, _I, _P]
         lib.crossbar_plan.argtypes = [_P] * 9 + [_I, _I, _P]
-        lib.crossbar_scatter.argtypes = [_P] * 5 + [_I, _I, _I,
-                                                    ctypes.c_longlong, _P]
+        lib.crossbar_scatter.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.crossbar_combine.argtypes = [_P] * 6 + [_I] * 5 + [_P]
         for fn in (lib.crossbar_plan_multi, lib.crossbar_plan,
                    lib.crossbar_scatter, lib.crossbar_combine):
             fn.restype = _I
-    return lib
+        _LIB = lib
+    return _LIB
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous int32 tensor; ``t`` itself when it is one."""
+    if t.dtype is torch.int32 and t.is_contiguous():
+        return t
     return t.to(torch.int32).contiguous()
 
 
@@ -69,7 +89,8 @@ def _rows(t: torch.Tensor, what: str) -> torch.Tensor:
         raise ValueError(f"{what} kernel needs rows of a multiple of "
                          f"{VEC_BYTES} bytes, got {t.shape[-1]} x "
                          f"{t.element_size()} bytes")
-    t = t.contiguous()
+    if not t.is_contiguous():
+        t = t.contiguous()
     if t.data_ptr() % VEC_BYTES:
         t = t.clone()            # a view at an odd offset: fresh storage
     return t
@@ -156,36 +177,55 @@ def scatter(x: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
     if not dst.shape == keep.shape == slot.shape == (T,):
         raise ValueError("dst, keep and slot must be [T]")
     x = _rows(x, "scatter")
-    slabs = torch.zeros((n_ports, capacity, D), dtype=x.dtype, device=x.device)
+    dev = x.device
+    slabs = torch.empty(n_ports, capacity, D, dtype=x.dtype, device=dev)
+    if n_ports * capacity * D == 0:
+        return slabs
     dst, keep, slot = _i32(dst), _i32(keep), _i32(slot)
+    owner = None                 # held until the launch is enqueued
+    if T >= OWNER_PASS_T:
+        owner = torch.empty((n_ports * capacity,), dtype=torch.int32,
+                            device=dev)
     code = library().crossbar_scatter(
         x.data_ptr(), dst.data_ptr(), keep.data_ptr(), slot.data_ptr(),
-        slabs.data_ptr(), T, n_ports, capacity,
-        D * x.element_size() // VEC_BYTES, build.stream(x.device))
+        None if owner is None else owner.data_ptr(), slabs.data_ptr(), T,
+        n_ports, capacity, D * x.element_size() // VEC_BYTES,
+        build.stream(dev))
     build.check(code, "crossbar_scatter")
     scatter.launches += 1
     return slabs
 
 
 def combine(y: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
-            slot: torch.Tensor, weights: torch.Tensor, *,
+            slot: torch.Tensor, weights: Optional[torch.Tensor], *,
             mode=KernelMode.AUTO) -> torch.Tensor:
     """Slabs [S, C, D] back to packets [T, D], weighted in float32 and
-    rounded once to ``y.dtype``; see ``ref.combine_ref``."""
-    if not use_kernel(mode, y, dst, keep, slot, weights):
+    rounded once to ``y.dtype``, or copied where ``weights`` is None; see
+    ``ref.combine_ref``."""
+    ts = (y, dst, keep, slot) if weights is None else (y, dst, keep, slot,
+                                                       weights)
+    if not use_kernel(mode, *ts):
         return ref.combine_ref(y, dst, keep, slot, weights)
     S, C, D = y.shape
     T = dst.shape[0]
-    if not keep.shape == slot.shape == weights.shape == (T,):
+    if not keep.shape == slot.shape == (T,) or (
+            weights is not None and weights.shape != (T,)):
         raise ValueError("dst, keep, slot and weights must be [T]")
     y = _rows(y, "combine")
-    out = torch.empty((T, D), dtype=y.dtype, device=y.device)
+    dev = y.device
+    out = torch.empty(T, D, dtype=y.dtype, device=dev)
+    if T * D == 0:
+        return out
     dst, keep, slot = _i32(dst), _i32(keep), _i32(slot)
-    w = weights.to(torch.float32).contiguous()
+    w = None
+    if weights is not None:
+        if weights.dtype is not torch.float32 or not weights.is_contiguous():
+            weights = weights.to(torch.float32).contiguous()
+        w = weights.data_ptr()
     code = library().crossbar_combine(
-        y.data_ptr(), dst.data_ptr(), keep.data_ptr(), slot.data_ptr(),
-        w.data_ptr(), out.data_ptr(), T, S, C, D, _DTYPE_CODE[y.dtype],
-        build.stream(y.device))
+        y.data_ptr(), dst.data_ptr(), keep.data_ptr(), slot.data_ptr(), w,
+        out.data_ptr(), T, S, C, D * y.element_size() // VEC_BYTES,
+        _DTYPE_CODE[y.dtype], build.stream(dev))
     build.check(code, "crossbar_combine")
     combine.launches += 1
     return out

@@ -16,14 +16,16 @@ The scatter and the combine carry their gradients as
 ``_dispatch_core``/``_combine_core`` custom VJPs: each backward replays the
 flat ``dst * C + slot`` route of its forward.  Where a backward is the
 same pure row move as a forward kernel it launches that kernel (the
-dispatch backward is a combine with unit weights; the combine's ``d_y`` is
-a scatter of the weighted cotangent, and its gathered rows for ``d_w`` are
-a combine with unit weights); the row dot of ``d_w`` is plain PyTorch.
-Oracles: ``ref.dispatch_bwd_ref`` and ``ref.combine_bwd_ref``.
+dispatch backward is the combine's unit-weight form, ``weights=None``; the
+combine's ``d_y`` is a scatter of the weighted cotangent, and its gathered
+rows for ``d_w`` are the unit-weight combine); the row dot of ``d_w`` is
+plain PyTorch.  Oracles: ``ref.dispatch_bwd_ref`` and
+``ref.combine_bwd_ref``.
 """
 from __future__ import annotations
 
 import warnings
+from typing import Optional
 
 import torch
 
@@ -88,17 +90,16 @@ class _DispatchCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         dst, keep, slot = ctx.saved_tensors
-        ones = torch.ones(dst.shape, dtype=torch.float32, device=g.device)
-        d_x = _k.combine(g, dst, keep, slot, ones, mode=ctx.mode)
+        d_x = _k.combine(g, dst, keep, slot, None, mode=ctx.mode)
         return d_x, None, None, None, None, None, None
 
 
 class _CombineCore(torch.autograd.Function):
     """Weighted gather with the backward of ``_combine_core``:
-    ``d_y`` scatters ``g * w`` (rounded in ``g``'s dtype) back along the
-    route, ``d_w`` is the row dot of ``g`` with the gathered rows.  The
-    scatter writes nothing for a dropped packet and the gather reads zeros
-    for it, so both are exactly zero there."""
+    ``d_y`` scatters ``g * w`` (rounded in ``g``'s dtype; ``g`` itself for
+    ``weights=None``) back along the route, ``d_w`` is the row dot of ``g``
+    with the gathered rows.  The scatter writes nothing for a dropped packet
+    and the gather reads zeros for it, so both are exactly zero there."""
 
     @staticmethod
     def forward(ctx, y, dst, keep, slot, weights, mode):
@@ -112,13 +113,11 @@ class _CombineCore(torch.autograd.Function):
         S, C, _ = y.shape
         d_y = d_w = None
         if ctx.needs_input_grad[0]:
-            gw = g * weights.to(g.dtype)[:, None]
+            gw = g if weights is None else g * weights.to(g.dtype)[:, None]
             d_y = _k.scatter(gw.to(y.dtype), dst, keep, slot, n_ports=S,
                              capacity=C, mode=ctx.mode)
         if ctx.needs_input_grad[4]:
-            ones = torch.ones(dst.shape, dtype=torch.float32,
-                              device=g.device)
-            rows = _k.combine(y, dst, keep, slot, ones, mode=ctx.mode)
+            rows = _k.combine(y, dst, keep, slot, None, mode=ctx.mode)
             d_w = (g.float() * rows.float()).sum(-1).to(weights.dtype)
         return d_y, None, None, None, d_w, None
 
@@ -136,14 +135,16 @@ def _dispatch(x: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
 
 
 def _combine(y: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
-             slot: torch.Tensor, weights: torch.Tensor, *,
+             slot: torch.Tensor, weights: Optional[torch.Tensor], *,
              mode=KernelMode.AUTO) -> torch.Tensor:
-    """Gather slabs [S, C, D] back to packets [T, D], weighted;
-    differentiable in ``y`` and ``weights``."""
+    """Gather slabs [S, C, D] back to packets [T, D], weighted (copied
+    where ``weights`` is None); differentiable in ``y`` and ``weights``."""
     if dst.shape[0] == 0:
         return torch.zeros((0, y.shape[2]), dtype=y.dtype, device=y.device)
+    if weights is not None:
+        weights = weights.to(torch.float32)
     return _CombineCore.apply(y, dst.to(I32), keep.to(I32), slot.to(I32),
-                              weights.to(torch.float32), mode)
+                              weights, mode)
 
 
 # ----------------------------------------------------------------------

@@ -6,7 +6,7 @@ moves, and one product with one rounding in the combine).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -104,15 +104,19 @@ def scatter_ref(x: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
 
 
 def combine_ref(y: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
-                slot: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+                slot: torch.Tensor,
+                weights: Optional[torch.Tensor]) -> torch.Tensor:
     """Slabs [S, C, D] back to packets [T, D]:
     ``out[t] = (f32(w[t]) * f32(y[dst, slot])).to(y.dtype)`` for kept,
-    in-range packets, zeros for the rest."""
+    in-range packets, zeros for the rest; ``weights=None`` copies the rows
+    (unit weights)."""
     S, C, D = y.shape
     ok = _row_ok(dst, keep, slot, S, C)
     addr = torch.where(ok, dst.long() * C + slot.long(), 0)
-    rows = y.reshape(S * C, D).index_select(0, addr).float()
-    out = weights.float()[:, None] * rows
+    rows = y.reshape(S * C, D).index_select(0, addr)
+    if weights is None:
+        return torch.where(ok[:, None], rows, 0)
+    out = weights.float()[:, None] * rows.float()
     return torch.where(ok[:, None], out, 0.0).to(y.dtype)
 
 

@@ -12,7 +12,11 @@ Every test is marked ``cuda`` and skips where there is no CUDA device
 (decided inside the test).  Inputs are seeded registers with isolation
 holes and quotas, ``dst = -1`` padding and out-of-range ports; slots come
 from the plan, so (dst, slot) is unique as on the served path.  The row
-kernels take float32 and bfloat16 rows of a multiple of 16 bytes.
+kernels take float32 and bfloat16 rows of a multiple of 16 bytes; they are
+held at the edge shapes (one packet, none or every slab row granted, the
+two-pass scatter at T = 65536, 16-byte rows, the decode shape), in the
+combine's unit-weight form, and counted by ``torch.profiler`` at one
+device kernel and no memset per scatter call.
 
 Flash attention is held against autograd through ``ref.attention_ref``
 (bfloat16 on the tensor-core kernels, float32 and the smoke configs' head
@@ -67,7 +71,7 @@ def _card():
         pytest.skip("needs a CUDA device")
 
 
-def _inputs(T, S, seed):
+def _inputs(T, S, seed, capacity=64):
     rng = np.random.default_rng(seed)
     dst = rng.integers(0, S, T).astype(np.int32)
     dst[rng.random(T) < 0.1] = -1
@@ -77,7 +81,8 @@ def _inputs(T, S, seed):
     quota = np.where(rng.random((S, S)) > 0.5,
                      rng.integers(1, 40, (S, S)), 0).astype(np.int32)
     cu = lambda a: torch.from_numpy(a).cuda()
-    regs = CrossbarRegisters.create(S, capacity=64, device="cuda").write(
+    regs = CrossbarRegisters.create(S, capacity=capacity,
+                                    device="cuda").write(
         allowed=cu(allowed), quota=cu(quota))
     return cu(dst), cu(src), regs
 
@@ -99,8 +104,8 @@ def test_plan_multi_bit_equal_on_card(T, S):
         assert torch.equal(getattr(plan_k, f), getattr(plan_r, f)), f
 
 
-def _row_inputs(T, S, C, D, dtype, seed):
-    dst, src, regs = _inputs(T, S, seed=seed)
+def _row_inputs(T, S, C, D, dtype, seed, capacity=64):
+    dst, src, regs = _inputs(T, S, seed=seed, capacity=capacity)
     plan = ReferenceBackend().plan(dst, src, regs)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((T, D), generator=gen, device="cuda").to(dtype)
@@ -153,6 +158,99 @@ def test_row_kernels_refuse_what_they_cannot_move_on_card(dtype, D):
     with pytest.raises((TypeError, ValueError)):
         K.combine(y, dst, keep, slot, w)
     assert K.launch_counts() == before
+
+
+def _granted_everywhere(S, C, D, dtype, seed):
+    """T = S * C packets that fill every slab row, in a shuffled order."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    perm = torch.randperm(S * C, generator=gen, device="cuda")
+    dst = (perm // C).to(torch.int32)
+    slot = (perm % C).to(torch.int32)
+    keep = torch.ones_like(dst)
+    x = torch.randn((S * C, D), generator=gen, device="cuda").to(dtype)
+    y = torch.randn((S, C, D), generator=gen, device="cuda").to(dtype)
+    w = torch.rand((S * C,), generator=gen, device="cuda")
+    return x, y, w, dst, keep, slot
+
+
+# name: T, S, C, D, dtype, how keep is made
+ROW_CASES = {
+    "T1": (1, 4, 8, 64, torch.bfloat16, "plan"),
+    "T1_f32": (1, 4, 8, 64, torch.float32, "plan"),
+    "none_granted": (500, 8, 64, 256, torch.bfloat16, "none"),
+    "every_row_granted": (None, 8, 96, 256, torch.bfloat16, "all"),
+    # 32768 slab rows: more than one block's table (kMaxBlockRows = 4096)
+    "many_row_blocks": (3000, 16, 2048, 8, torch.float32, "plan"),
+    "T8189_D8": (8189, 8, 1280, 8, torch.float32, "plan"),
+    "T65536_D8": (65536, 16, 4096, 8, torch.float32, "plan"),
+    "server_tick_D4": (4, 3, 8, 4, torch.float32, "plan"),
+    "moe_decode": (2, 8, 8, 4096, torch.bfloat16, "plan"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ROW_CASES))
+def test_scatter_and_combine_at_edge_shapes_on_card(name):
+    """Bit-equal to the plain versions at T = 1, with nothing granted, with
+    every slab row granted, with more slab rows than one block takes, at
+    T = 8189 and T = 65536 (the two-pass scatter) with 32-byte rows, with
+    16-byte rows, and at the served decode shape; the combine's unit-weight
+    form equals weights of one."""
+    _card()
+    T, S, C, D, dtype, how = ROW_CASES[name]
+    if how == "all":
+        x, y, w, dst, keep, slot = _granted_everywhere(S, C, D, dtype, 3)
+        T = S * C
+    else:
+        x, y, w, dst, keep, slot = _row_inputs(T, S, C, D, dtype, seed=T + C,
+                                               capacity=C)
+    if how == "none":
+        keep = torch.zeros_like(keep)
+    before = K.launch_counts()
+    slabs = K.scatter(x, dst, keep, slot, n_ports=S, capacity=C)
+    want = ref.scatter_ref(x, dst, keep, slot, S, C)
+    assert torch.equal(slabs, want)
+    if how == "all":
+        assert bool((slabs.reshape(S * C, D)[dst * C + slot] == x).all())
+    assert torch.equal(K.combine(y, dst, keep, slot, w),
+                       ref.combine_ref(y, dst, keep, slot, w))
+    ones = torch.ones((T,), dtype=torch.float32, device="cuda")
+    unit = K.combine(y, dst, keep, slot, None)
+    assert torch.equal(unit, ref.combine_ref(y, dst, keep, slot, ones))
+    assert torch.equal(unit, K.combine(y, dst, keep, slot, ones))
+    after = K.launch_counts()
+    assert after["scatter"] - before["scatter"] == 1
+    assert after["combine"] - before["combine"] == 3
+
+
+ONE_LAUNCH_SHAPES = {"moe_decode": (2, 8, 8), "moe_train": (2048, 8, 320)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(ONE_LAUNCH_SHAPES))
+def test_scatter_is_one_kernel_and_no_memset_on_card(shape):
+    """One scatter call at the decode and train shapes (D = 4096, bf16) is
+    one device kernel and no memset, counted by ``torch.profiler``; so is
+    one combine call."""
+    _card()
+    from torch.profiler import ProfilerActivity, profile
+    T, S, C = ONE_LAUNCH_SHAPES[shape]
+    x, y, w, dst, keep, slot = _row_inputs(T, S, C, 4096, torch.bfloat16,
+                                           seed=T, capacity=C)
+    assert all(t.dtype == torch.int32 for t in (dst, keep, slot))
+    for kernel, call in (
+            ("scan_scatter_kernel",
+             lambda: K.scatter(x, dst, keep, slot, n_ports=S, capacity=C)),
+            ("gather_kernel", lambda: K.combine(y, dst, keep, slot, w))):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 1 and kernel in names[0], names
 
 
 FLASH_CASES = [   # B, Sq, Sk, H, Kv, D, causal, window, dtype
