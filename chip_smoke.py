@@ -17,7 +17,7 @@ Phases, each printing one JSON line with its seconds:
             train and large shapes scatter, combine and their library calls
             also by device time (``torch.profiler``, 20 calls, with kernels
             and memsets per call) and host time per call (1,000 calls
-            enqueued on a busy card; ``crossbar_dispatch/row_bench.py``),
+            enqueued on a busy card; ``repro_torch/kernels/timing.py``),
             and fails unless a scatter or combine call at the decode and
             train shapes is one device kernel and no memset.
 4. flash    holds the flash-attention forward and backward kernels to
@@ -45,7 +45,10 @@ Phases, each printing one JSON line with its seconds:
             widths (bf16 at S=4096 and 32768, float32 at S=1024 also
             against the sequential oracle, S=200 below the chunk), RG-LRU
             at RecurrentGemma-9B's width (S=32768, and float32 with an
-            initial state), the flash forward at head dim 256 at
+            initial state; the model's entry on bf16 u and float32 a, with
+            and without an initial state, bit-equal to the float32 kernel
+            followed by the cast, and one kernel a call, timed as
+            ``entry_ms``), the flash forward at head dim 256 at
             RecurrentGemma's attention shape (S=32768, window 2048; bf16 on
             the tensor-core kernel, also timed on the FMA one); each timed
             against its plain version and its bound.
@@ -81,7 +84,10 @@ Phases, each printing one JSON line with its seconds:
             over exactly these runs); the three Hamming kernels bit-equal
             to their plain versions at 16 KB, 2^28 and 2^28 - 3 words,
             every single-bit error position, double-bit errors and several
-            constants, timed at 2^28 words; then the single-source plan
+            constants, timed at 2^28 words (the multiplier also in 10
+            rounds alternating with ``torch.mul``, ``mul_rounds``: each
+            side's quartiles and the rounds the multiplier won); then
+            the single-source plan
             kernel through the deprecated ``crossbar_plan`` ->
             ``crossbar_dispatch`` -> ``crossbar_combine`` shims at the four
             shapes of ``tests/test_kernels.py``, the zero-packet round and
@@ -132,19 +138,9 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` runs, CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+    """Median time of one call of ``fn`` over ``reps`` runs, CUDA events."""
+    from repro_torch.kernels.timing import event_ms
+    return event_ms(fn, reps=reps, warmup=warmup)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -255,8 +251,7 @@ class Case:
         (1,000 calls, card busy) of the kernel and of the library call."""
         from repro_torch.fabric.interface import KernelMode
         from repro_torch.kernels.crossbar_dispatch import kernel as K, ref
-        from repro_torch.kernels.crossbar_dispatch.row_bench import (
-            device_ms, host_us)
+        from repro_torch.kernels.timing import device_profile, host_us
         T, S, C, D = self.T, self.S, self.C, self.D
         es = self.x.element_size()
         kept = int(self.keep.sum())
@@ -307,7 +302,7 @@ class Case:
                         * w_lib[:, None]),
         }
         for name, (kernel, library) in calls.items():
-            k, lib = device_ms(kernel), device_ms(library)
+            k, lib = device_profile(kernel), device_profile(library)
             out[name].update(
                 device_ms=k["device_ms"], kernels_per_call=k["kernels"],
                 memsets_per_call=k["memsets"], host_us=host_us(kernel),
@@ -851,10 +846,13 @@ def serve_phase(cfg, smi):
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 SSD_ORACLE_TOL = 5e-4
 SSD_REL_L2 = 1e-2
-# RG-LRU sums in the sequential order: within 1e-5 of the oracle, and 5e-5
-# of the doubling scan (the JAX package's tolerance for its kernel).
+# RG-LRU sums sequentially within tiles and composes the tiles in order:
+# within 1e-5 of the oracle, and 5e-5 of the doubling scan (the JAX
+# package's tolerance for its kernel); h in bf16 also within one bf16 ulp
+# of |h| (2^-7 |h| bounds it) of the plain version's.
 RGLRU_TOL = 5e-5
 RGLRU_ORACLE_TOL = 1e-5
+BF16_ULP = 2.0 ** -7
 PREFILL_SEQ = 32768          # prefill_32k's sequence length; batch 32 -> 1
 RECURRENT_F32_SEQ = 512      # the float32 check's prompt
 MAMBA = dict(H=48, P=64, N=128, chunk=256)
@@ -957,11 +955,15 @@ def rglru_phase():
     """RG-LRU at RecurrentGemma-9B's width: the kernel against the
     doubling scan at B=1, S=32768, L=4096, against the oracle at S=4096,
     and through ``rglru_scan_kernel`` with an initial state against
-    ``rglru_scan``; timings at S=32768."""
+    ``rglru_scan``; the model's entry on bf16 u and float32 a bit-equal to
+    the float32 kernel on u.float() followed by the cast (with and without
+    an initial state folded in first) and against the plain version on
+    the same bf16 inputs, and one kernel a call; timings at S=32768."""
     from repro_torch.fabric.interface import KernelMode
     from repro_torch.kernels.rglru import kernel as RK
     from repro_torch.kernels.rglru import ref as rref
     from repro_torch.kernels.rglru.ops import rglru_scan_kernel
+    from repro_torch.kernels.timing import device_profile
     from repro_torch.models.rglru import rglru_scan
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 4)
@@ -984,17 +986,56 @@ def rglru_phase():
     errs = {"vs_scan": max(max_abs_err(h, hp), max_abs_err(hl, hlp)),
             "vs_oracle": max_abs_err(h[:, :4096], ho),
             "with_h0": max(max_abs_err(hk, hs), max_abs_err(hlk, hls))}
+    del hp, ho, hk, hs
+    # the model's entry: u in bf16, h0 folded and h cast inside the kernel
+    u = b.to(torch.bfloat16)
+    entry_errs = {}
+    for name, state in (("entry_bf16", None), ("entry_bf16_h0", h0)):
+        he, hle = rglru_scan_kernel(u, a, state, mode=cuda)
+        bf = u.float()
+        if state is not None:
+            bf = torch.cat([bf[:, :1] + a[:, :1] * state[:, None],
+                            bf[:, 1:]], dim=1)
+        hf, hlf = RK.rglru_call(a, bf, mode=cuda)
+        torch.cuda.synchronize()
+        res[name] = (torch.equal(he, hf.to(torch.bfloat16))
+                     and torch.equal(hle, hlf))
+        del hf, bf
+        hp, hlp = rglru_scan(u, a, state)        # plain, on the same inputs
+        torch.cuda.synchronize()
+        diff = (he.double() - hp.double()).abs()
+        res[name + "_vs_plain"] = (
+            bool((diff <= RGLRU_TOL + BF16_ULP * hp.double().abs()).all())
+            and within(hle, hlp, RGLRU_TOL))
+        entry_errs[name + "_vs_plain"] = max(float(diff.max()),
+                                             max_abs_err(hle, hlp))
+        del he, hp, diff
     emit("rglru.check", B=1, S=S, L=L, dtype="float32", oracle_seq=4096,
-         max_abs_err=errs, tol={"scan": RGLRU_TOL,
-                                "oracle": RGLRU_ORACLE_TOL}, **res)
+         entry_dtypes={"u": "bfloat16", "a": "float32", "h": "bfloat16"},
+         max_abs_err=errs, entry_max_abs_err=entry_errs,
+         tol={"scan": RGLRU_TOL, "oracle": RGLRU_ORACLE_TOL,
+              "entry": "bit-equal",
+              "entry_vs_plain": f"{RGLRU_TOL} + {BF16_ULP} |h|"}, **res)
     if not all(res.values()):
         raise AssertionError(f"RG-LRU kernel disagrees: {res}")
     n_bytes = 3 * a.numel() * 4 + L * 4
     bnd, by = bound(n_bytes, 2 * a.numel(), F32_OPS_PER_S)
+    entry = lambda: rglru_scan_kernel(u, a, mode=cuda)  # noqa: E731
+    # a, u and h once each (4 + 2 + 2 bytes an element) and h_last
+    entry_bound, _ = bound(8 * a.numel() + L * 4, 2 * a.numel(),
+                           F32_OPS_PER_S)
+    prof = device_profile(entry, calls=10, kernel="rglru_kernel")
     t = dict(ms=time_ms(lambda: RK.rglru_call(a, b, mode=cuda), reps=10),
              plain_ms=time_ms(lambda: rref.rglru_call_ref(a, b), reps=3),
-             library_ms=None, bound_ms=bnd, bound_by=by, bytes=n_bytes)
+             library_ms=None, bound_ms=bnd, bound_by=by, bytes=n_bytes,
+             entry_ms=time_ms(entry, reps=10), entry_bound_ms=entry_bound,
+             entry_device_ms=prof["device_ms"],
+             kernels_per_call=prof["kernels"] + prof["memsets"],
+             entry_kernels=prof["names"])
     emit("rglru.time", B=1, S=S, L=L, dtype="float32", **t)
+    if t["kernels_per_call"] != 1:
+        raise AssertionError(f"rglru_scan_kernel on bf16 u is not one "
+                             f"kernel a call: {prof}")
     return max(errs.values()), t
 
 
@@ -1327,6 +1368,7 @@ def recurrent_f32_check(arch, phase):
 # ----------------------------------------------------------------------
 BULK_WORDS = 1 << 28           # 1 GiB of words: a storage tenant's bulk ECC pass
 MUL_CONSTANTS = (3, 7, 2654435761, 2**32 - 1, -1, -3)
+MUL_ROUNDS = 10
 PLAN_SHAPES = ((512, 4, 64, 128), (300, 8, 32, 64), (1024, 16, 128, 256),
                (64, 4, 8, 128))        # (T, S, C, D): tests/test_kernels.py
 PLAN_TIMED = (1 << 20, 16, 1 << 16)    # (T, S, C) of the timed plan
@@ -1558,21 +1600,38 @@ def hamming_kernels():
     n = x.numel()
     c = MUL_CONSTANTS[2]
     c32 = (c & 0xFFFFFFFF) - (1 << 32) * bool(c & (1 << 31))   # as int32
+    mul = lambda: HK.mul_const(x, c, mode=cuda)  # noqa: E731
+    library_mul = lambda: torch.mul(x, c32)  # noqa: E731
     out = {}
     for name, kernel, plain, n_bytes, library in (
             ("hamming_encode", lambda: HK.hamming_encode(x, mode=cuda),
              lambda: href.encode_ref(x), 8 * n, None),
             ("hamming_decode", lambda: HK.hamming_decode(x, mode=cuda),
              lambda: href.decode_ref(x), 12 * n, None),
-            ("mul_const", lambda: HK.mul_const(x, c, mode=cuda),
-             lambda: href.multiply_ref(x, c), 8 * n,
-             lambda: torch.mul(x, c32))):
+            ("mul_const", mul, lambda: href.multiply_ref(x, c), 8 * n,
+             library_mul)):
         b, by = bound(n_bytes, 0)
         out[name] = dict(
             ms=time_ms(kernel, reps=20), plain_ms=time_ms(plain, reps=3,
                                                           warmup=1),
             library_ms=None if library is None else time_ms(library, reps=20),
             bound_ms=b, bound_by=by, bytes=n_bytes)
+    # mul_const against torch.mul in alternating rounds, each the median
+    # of 20 calls: the two are within 1% of each other, less than one
+    # timing moves
+    rounds = []
+    for r in range(MUL_ROUNDS):
+        pair = (("mul_const", mul), ("torch.mul", library_mul))
+        rounds.append({k: time_ms(fn, reps=20)
+                       for k, fn in (pair if r % 2 == 0 else pair[::-1])})
+    out["mul_const"]["mul_rounds"] = {
+        "rounds": rounds,
+        **{f"{k}_quartiles_ms": statistics.quantiles(
+            [r[k] for r in rounds], n=4) for k in ("mul_const", "torch.mul")},
+        **{f"{k}_median_ms": statistics.median(r[k] for r in rounds)
+           for k in ("mul_const", "torch.mul")},
+        "mul_const_won": sum(r["mul_const"] < r["torch.mul"] for r in rounds),
+        "torch.mul_won": sum(r["torch.mul"] < r["mul_const"] for r in rounds)}
     emit("paper_usecase.time", words=n, constant=c, **out)
     del x
     torch.cuda.empty_cache()
@@ -1885,6 +1944,12 @@ def main() -> int:
             "max_abs_err": err, **{k: t[k] for k in timing_keys},
             "shape": shape,
         })
+        if name == "rglru":
+            rows[-1].update({k: t[k] for k in (
+                "entry_ms", "entry_bound_ms", "kernels_per_call")},
+                entry_shape="B=1 S=32768 L=4096 u bf16, a float32, h bf16")
+        if name == "mul_const":
+            rows[-1]["mul_rounds"] = t["mul_rounds"]
     if len(rows) != 12:
         raise AssertionError(f"{len(rows)} kernel rows, not 12")
     emit("done", seconds=time.perf_counter() - t_start,

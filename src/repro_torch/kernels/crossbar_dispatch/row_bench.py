@@ -24,7 +24,9 @@ slots per expert and capacity drops) it prints one JSON line with, for
   memset or a fill kernel) per call;
 * ``host_us``: host microseconds per call over 1,000 calls enqueued while
   the card is busy (``torch.cuda._sleep`` ahead of each 100), so no call
-  waits for the card.
+  waits for the card
+
+(the helpers of ``kernels/timing.py``).
 
 Where the tree has the two-pass scatter (``kernel.OWNER_PASS_T``) it also
 prints ``decode_host_parts_us`` first (host us of a decode-shape scatter
@@ -35,9 +37,9 @@ T = 2048, 8192 and 65536.  The card's name and power limit come first.
 from __future__ import annotations
 
 import json
-import statistics
+import pathlib
 import subprocess
-import time
+import sys
 
 import torch
 
@@ -45,9 +47,12 @@ from repro_torch.fabric.interface import KernelMode
 from repro_torch.kernels import build
 from repro_torch.kernels.crossbar_dispatch import kernel as K
 
-HOST_CALLS, HOST_CHUNK = 1000, 100
-SLEEP_CYCLES = 20_000_000          # some 10 ms of a busy card per chunk
-PROFILE_TRIES = 3
+try:
+    from repro_torch.kernels.timing import device_profile, event_ms, host_us
+except ImportError:          # run as a file against a tree older than timing.py
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from timing import device_profile, event_ms, host_us
+
 # (name, T, S, C, D): chip_smoke.py's moe_decode, moe_train and large_bf16
 SHAPES = (("moe_decode", 2, 8, 8, 4096), ("moe_train", 2048, 8, 320, 4096),
           ("large_bf16", 8192, 8, 1280, 4096))
@@ -56,71 +61,9 @@ OWNER_SHAPES = ((2048, 8, 320, 4096, torch.bfloat16),
                 (65536, 16, 4096, 8, torch.float32))
 
 
-def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median time of one call between two CUDA events, the card idle
-    before each."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
-
-
-def device_ms(fn, calls: int = 20) -> dict:
-    """Device time per call of the kernels and memsets ``fn`` launches
-    (``torch.profiler``), and how many of each a call launches."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        # the profiler now and then drops a call's device events: a count
-        # that is not a whole number a call is taken again
-        if events and len(events) % calls == 0:
-            break
-    else:
-        raise RuntimeError(f"torch.profiler gave {len(events)} device "
-                           f"events for {calls} calls, {PROFILE_TRIES} times")
-    # a slab cleared by torch.zeros shows as a fill kernel, not a memset
-    memsets = [e for e in events
-               if "memset" in e.name.lower() or "FillFunctor" in e.name]
-    return {"device_ms": sum(e.device_time_total for e in events)
-            / calls / 1e3,
-            "kernels": (len(events) - len(memsets)) / calls,
-            "memsets": len(memsets) / calls,
-            "names": sorted({e.name[:60] for e in events})}
-
-
-def host_us(fn, calls: int = HOST_CALLS, chunk: int = HOST_CHUNK) -> float:
-    """Host microseconds per call, enqueued while the card is busy."""
-    fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(calls // chunk):
-        torch.cuda._sleep(SLEEP_CYCLES)
-        t0 = time.perf_counter()
-        for _ in range(chunk):
-            fn()
-        total += time.perf_counter() - t0
-        torch.cuda.synchronize()
-    return total / calls * 1e6
-
-
 def measure(fn) -> dict:
-    return {"event_ms": event_ms(fn), **device_ms(fn), "host_us": host_us(fn)}
+    return {"event_ms": event_ms(fn), **device_profile(fn),
+            "host_us": host_us(fn)}
 
 
 def plan(T: int, S: int, C: int, gen: torch.Generator):
@@ -189,7 +132,7 @@ def owner_pass(gen: torch.Generator) -> list:
             row = {"T": T, "S": S, "C": C, "D": D}
             for name, t in (("one_pass", 1 << 30), ("two_pass", 0)):
                 K.OWNER_PASS_T = t
-                row[name] = device_ms(fn)
+                row[name] = device_profile(fn)
             rows.append(row)
     finally:
         K.OWNER_PASS_T = keep_t

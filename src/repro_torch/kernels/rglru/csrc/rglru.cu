@@ -1,71 +1,183 @@
 // RG-LRU diagonal linear recurrence, forward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `rglru_call` (`_rglru_kernel`) of
-// src/repro/kernels/rglru/kernel.py:  h_t = a_t * h_{t-1} + b_t, with a, b,
-// h [B, S, L] float32 (contiguous) and h_last [B, L] float32.  The gated
-// input b is prefolded by the caller, and so is an initial state (as a
-// virtual first step).
+// src/repro/kernels/rglru/kernel.py:  h_t = a_t * h_{t-1} + b_t over
+// [B, S, L] (contiguous), h_last [B, L] float32.  Two entry points share
+// one kernel template:
 //
-// What bounds it: it reads a and b and writes h, 12 bytes per element and
-// one FMA, so memory bounds it on this card: at RecurrentGemma-9B's width
-// (L = 4096) and S = 32768, 1.61 GB, 0.48 ms at 3.35 TB/s.
+// - `rglru_fwd`: the TPU kernel's float32 contract.  a, b float32 in, h and
+//   h_last float32 out, from a zero state; the caller prefolds the gated
+//   input and any initial state.
+// - `rglru_scan`: the model's entry (ops.py `rglru_scan_kernel`).  a float32,
+//   the gated input u in its own type (bfloat16 or float32), an optional
+//   initial state h0 [B, L] float32, h written in u's type, h_last float32.
+//   h0 is folded into the first step as b_0 = a_0 * h0 + b_0 with two
+//   roundings (__fmul_rn, __fadd_rn), as the fold-then-scan route computes
+//   it, and h is the float32 carry rounded once to u's type, as
+//   `h.to(u.dtype)` rounds it; so the entry equals `rglru_fwd` on the
+//   folded float32 input followed by the cast, bit for bit.
 //
-// Design: one thread per (batch, channel) walks the sequence, so the carry
-// stays in a register and no chunk or second pass is needed; neighbouring
-// threads read neighbouring channels, so each warp's loads are 128-byte
-// coalesced rows.  The TPU kernel's Hillis-Steele doubling over a chunk
-// gave the VPU parallel work; here the channels give it, and the sum is
-// the exact sequential order (the TPU kernel summed in another order, so
-// the two agree within a float32 tolerance, not bit for bit).  Blocks are
-// one warp, so B * L / 32 blocks spread over the SMs, and each thread
-// issues the loads of UNROLL steps before it uses them, which keeps
-// UNROLL * 2 * 128 bytes per warp in flight.  B * L = 4096 threads still
-// underfill the card: 128 warps on 132 SMs, one warp per SM, far below the
-// memory parallelism the HBM rate needs; the design gives up rate for
-// simplicity here.
+// What bounds it: one FMA per element against 12 bytes moved for the float32
+// contract (a, b read, h written) and 8 for the model's types (a float32,
+// u and h bfloat16), so memory bounds it: at RecurrentGemma-9B's width
+// (L = 4096) and S = 32768, 1.61 GB or 0.481 ms at 3.35 TB/s, and 1.07 GB or
+// 0.320 ms.  The entry used to convert u to float32, fold h0 with a
+// `torch.cat` and convert h back: 24 bytes an element in three passes.
 //
-// `rglru_fwd` returns the `cudaError_t` of its launch.
+// Design: a block takes 32 channels (one per lane, so a warp reads a
+// 128-byte row of a) and the whole sequence, cut into tiles of kSteps steps.
+// Its kWarps warps take the tiles in turn (warp w: tiles w, w + kWarps,
+// ...), so each SM holds kWarps tiles of loads in flight: 32 warps x 16
+// steps x 2 rows, 128 KB at L = 4096, where the HBM rate needs some 20 KB.
+// A warp loads its tile into registers and, before it knows its carry,
+// reduces the tile to the affine map h -> A h + B (A the product of the
+// decays, B the tile's scan from a zero state).  The carry then passes
+// from warp to warp through shared memory: tile k waits for tile k - 1's
+// outgoing carry c_{k-1}, publishes c_k = A_k c_{k-1} + B_k (one FMA, so
+// the chain costs one shared-memory hop a tile), then runs its steps
+// sequentially from c_{k-1} and writes h.  Every carry is composed in the
+// order of the tiles, so two calls give the same bits; within a tile the
+// sum is the sequential order, and across tiles it differs from the
+// sequential oracle only by the rounding of the (A, B) composition.  One
+// block a channel group keeps the carry inside the SM: no workspace, no
+// flags in device memory, no memset, one launch a call; B * ceil(L / 32)
+// blocks of one per SM (128 at B = 1, L = 4096, on 132 SMs).  a, b and h
+// stream through once (evict-first loads and stores).
+//
+// On the card (NVIDIA H100 80GB HBM3, 700 W; kernels/rglru/scan_bench.py,
+// B = 1, S = 32768, L = 4096, device ms): `rglru_fwd` 0.576-0.589 (82-84% of
+// its bound; one thread per channel walking the whole sequence took 1.59),
+// the bfloat16 entry 0.407-0.416 (77-79%; with the conversions and the fold
+// around the float32 kernel it took 2.27, in three kernels).  Of the tile
+// shapes tried (8 to 64 steps, 8 to 32 warps), 16 steps x 32 warps was the
+// fastest for bfloat16 u and close to the fastest for float32, so it is
+// the one shape built.  Handing the carry on in per-lane 64-bit words
+// tagged with the tile, with no flag and no fence, was slower: each lane
+// spun on its own word, apart from its warp.
+//
+// Every entry returns the `cudaError_t` of its launch.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int THREADS = 32;
-constexpr int UNROLL = 16;
+constexpr int kSteps = 16;     // steps a tile
+constexpr int kWarps = 32;     // tiles in flight a block
+constexpr int kThreads = 32 * kWarps;
 
-__global__ void __launch_bounds__(THREADS)
-rglru_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ h,
+__device__ __forceinline__ float load(const float* p) { return __ldcs(p); }
+
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldcs(reinterpret_cast<const unsigned short*>(p))));
+}
+
+__device__ __forceinline__ void store(float* p, float v) { __stcs(p, v); }
+
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(p),
+         __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+
+// grid (ceil(L / 32), B); block kThreads.  b and h in TB and TH; h0 may be
+// null (a zero state).
+template <typename TB, typename TH>
+__global__ void __launch_bounds__(kThreads, 1)
+rglru_kernel(const float* __restrict__ a, const TB* __restrict__ b,
+             const float* __restrict__ h0, TH* __restrict__ h,
              float* __restrict__ h_last, int S, int L) {
-  const int l = blockIdx.x * THREADS + threadIdx.x;
-  if (l >= L) return;
-  const size_t base = (size_t)blockIdx.y * S * L + l;
-  float carry = 0.f;
-  int t = 0;
-  for (; t + UNROLL <= S; t += UNROLL) {
-    float av[UNROLL], bv[UNROLL];
+  __shared__ float carry_out[kWarps][32];   // c_k of each warp's last tile
+  __shared__ int published[kWarps];         // the tile whose c_k is there
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int l = blockIdx.x * 32 + lane;
+  const bool live = l < L;
+  const size_t batch_rows = (size_t)blockIdx.y * S;
+  const size_t state = (size_t)blockIdx.y * L + l;
+  if (lane == 0) published[warp] = -1;
+  __syncthreads();
+  volatile int* pub = published;
+  volatile float* carries = &carry_out[0][0];
+  const int prev = (warp + kWarps - 1) % kWarps;
+  const int n_tiles = (S + kSteps - 1) / kSteps;
+  if (S == 0 && warp == 0 && live) h_last[state] = h0 ? h0[state] : 0.f;
+
+  for (int k = warp; k < n_tiles; k += kWarps) {
+    const int n = min(kSteps, S - k * kSteps);
+    const size_t base = (batch_rows + (size_t)k * kSteps) * L + l;
+    float av[kSteps], bv[kSteps];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      av[u] = a[base + (size_t)(t + u) * L];
-      bv[u] = b[base + (size_t)(t + u) * L];
+    for (int t = 0; t < kSteps; ++t) {
+      const bool in = live && t < n;
+      av[t] = in ? load(a + base + (size_t)t * L) : 1.f;
+      bv[t] = in ? load(b + base + (size_t)t * L) : 0.f;
     }
+    if (k == 0 && h0 != nullptr && live)
+      bv[0] = __fadd_rn(__fmul_rn(av[0], h0[state]), bv[0]);
+    // the tile as an affine map of its incoming carry: h -> A h + B
+    float A = 1.f, B = 0.f;
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      carry = fmaf(av[u], carry, bv[u]);
-      h[base + (size_t)(t + u) * L] = carry;
+    for (int t = 0; t < kSteps; ++t) {
+      if (t < n) {
+        A = __fmul_rn(A, av[t]);
+        B = __fmaf_rn(av[t], B, bv[t]);
+      }
     }
+    float carry = 0.f;
+    if (k > 0) {
+      while (pub[prev] != k - 1) {
+      }
+      __threadfence_block();
+      carry = carries[prev * 32 + lane];
+    }
+    carries[warp * 32 + lane] = __fmaf_rn(A, carry, B);
+    __threadfence_block();
+    __syncwarp();
+    if (lane == 0) pub[warp] = k;
+
+    float hv = carry;
+#pragma unroll
+    for (int t = 0; t < kSteps; ++t) {
+      if (t < n) {
+        hv = __fmaf_rn(av[t], hv, bv[t]);
+        if (live) store(h + base + (size_t)t * L, hv);
+      }
+    }
+    if (k == n_tiles - 1 && live) h_last[state] = hv;
   }
-  for (; t < S; ++t) {
-    carry = fmaf(a[base + (size_t)t * L], carry, b[base + (size_t)t * L]);
-    h[base + (size_t)t * L] = carry;
-  }
-  h_last[(size_t)blockIdx.y * L + l] = carry;
+}
+
+template <typename TB, typename TH>
+int launch(const float* a, const TB* b, const float* h0, TH* h,
+           float* h_last, int B, int S, int L, void* stream) {
+  const dim3 grid((L + 31) / 32, B);
+  rglru_kernel<TB, TH><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, b, h0, h, h_last, S, L);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int rglru_fwd(const float* a, const float* b, float* h, float* h_last, int B, int S,
-                         int L, void* stream) {
-  const dim3 grid((L + THREADS - 1) / THREADS, B);
-  rglru_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, b, h, h_last, S, L);
-  return cudaGetLastError();
+extern "C" {
+
+// Steps a tile, for the tests that cut sequences at the tile edges.
+int rglru_tile_steps() { return kSteps; }
+
+int rglru_fwd(const float* a, const float* b, float* h, float* h_last, int B,
+              int S, int L, void* stream) {
+  return launch<float, float>(a, b, nullptr, h, h_last, B, S, L, stream);
 }
+
+// u and h are bfloat16 when `u_bf16` is 1, float32 when it is 0; h0 may be
+// null.
+int rglru_scan(const float* a, const void* u, const float* h0, void* h,
+               float* h_last, int B, int S, int L, int u_bf16, void* stream) {
+  if (u_bf16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        a, static_cast<const __nv_bfloat16*>(u), h0,
+        static_cast<__nv_bfloat16*>(h), h_last, B, S, L, stream);
+  return launch<float, float>(a, static_cast<const float*>(u), h0,
+                              static_cast<float*>(h), h_last, B, S, L, stream);
+}
+
+}  // extern "C"

@@ -4,12 +4,13 @@
 ``repro_torch.models.rglru.rglru_scan`` (as
 ``repro/kernels/rglru/ops.py:rglru_scan_kernel`` is for the JAX model's).
 It is the one place that chooses between kernel and plain version.  On CUDA
-tensors an initial state ``h0`` is folded in as a virtual first step,
-``b_0 += a_0 * h0``, exactly as the JAX entry point does, and
-``kernel.rglru_call`` launches the kernel inside a
+tensors ``kernel.rglru_scan`` launches the kernel once, inside a
 ``torch.autograd.Function`` whose backward raises: the kernel has no
 backward yet, as the TPU kernel had none (ROADMAP B8, the recurrent
-families' backward kernels).  On CPU tensors, or under
+families' backward kernels).  The kernel reads u in its own type, folds an
+initial state ``h0`` in as a virtual first step, ``b_0 = a_0 * h0 + u_0``,
+exactly as the JAX entry point does, and writes h in u's type: no
+conversion or concatenation runs around it.  On CPU tensors, or under
 ``KernelMode.TORCH``, it is the model's plain version (``rglru_scan``):
 the chunked doubling scan with ``h0`` as its carry, through which autograd
 runs as usual.
@@ -22,7 +23,6 @@ import torch
 
 from repro_torch.fabric.interface import KernelMode, use_kernel
 from repro_torch.kernels.rglru import kernel as _k
-from repro_torch.kernels.rglru import ref
 
 BACKWARD_ITEM = ("the RG-LRU kernel has no backward yet (ROADMAP B8: the "
                  "recurrent families' backward kernels)")
@@ -31,8 +31,8 @@ BACKWARD_ITEM = ("the RG-LRU kernel has no backward yet (ROADMAP B8: the "
 class _RGLRUScan(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, a, b, mode):
-        return _k.rglru_call(a, b, mode=mode)
+    def forward(ctx, u, a, h0, mode):
+        return _k.rglru_scan(u, a, h0, mode=mode)
 
     @staticmethod
     def backward(ctx, dh, dh_last):
@@ -46,14 +46,7 @@ def rglru_scan_kernel(u: torch.Tensor, a: torch.Tensor,
     """u: [B, S, L] gated inputs; a: [B, S, L] decays in (0, 1); ``h0``
     [B, L] or None.  Returns (h [B, S, L] in u.dtype, h_last [B, L]
     float32)."""
-    af = a.float()
-    b = u.float()
     tensors = (u, a) + (() if h0 is None else (h0,))
     if use_kernel(mode, *tensors):
-        if h0 is not None:
-            b = torch.cat([b[:, :1] + af[:, :1] * h0.float()[:, None],
-                           b[:, 1:]], dim=1)
-        h, h_last = _RGLRUScan.apply(af, b, mode)
-    else:
-        h, h_last = ref.rglru_call_ref(af, b, h0)
-    return h.to(u.dtype), h_last
+        return _RGLRUScan.apply(u, a.float(), h0, mode)
+    return _k.rglru_scan(u, a, h0, mode=KernelMode.TORCH)

@@ -7,6 +7,10 @@
   JAX model computes it: a Hillis-Steele doubling scan within chunks of
   ``chunk`` steps and the state carried across chunks.  It is the CPU path
   of ``kernel.rglru_call`` and the body of the model's ``rglru_scan``.
+- :func:`rglru_tiled_ref` computes the scan in the CUDA kernel's order
+  (tiles of ``steps`` steps, each reduced to an affine map, the maps
+  composed tile by tile); the tests use it to check the algebra that the
+  kernel relies on.
 """
 from __future__ import annotations
 
@@ -58,3 +62,43 @@ def rglru_call_ref(a: torch.Tensor, b: torch.Tensor,
         carry = hc[:, -1]
         out.append(hc)
     return torch.cat(out, dim=1), carry
+
+
+def _fma(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """x * y + z rounded once to float32 (the float64 product is exact),
+    as the kernel's FMA rounds it but for rare double roundings."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def rglru_tiled_ref(a: torch.Tensor, b: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None, *, steps: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence in the order of ``csrc/rglru.cu``, for tiles of
+    ``steps`` steps (the kernel's are ``kernel.tile_steps()``): ``h0`` folded into
+    the first step as ``b_0 = a_0 * h0 + b_0`` (two roundings); each tile
+    of ``steps`` steps reduced to ``h -> A h + B`` (A the product of its
+    decays, B its scan from a zero state); the carry into tile k composed
+    as ``c_k = A_k c_{k-1} + B_k`` from ``c_{-1} = 0``; and h sequential
+    within the tile from its carry.  a, b: [B, S, L]; ``h0`` [B, L] or
+    None.  Returns (h [B, S, L], h_last [B, L]), float32."""
+    Bsz, S, L = a.shape
+    af, bf = a.float(), b.float().clone()
+    if h0 is not None and S:
+        bf[:, 0] = af[:, 0] * h0.float() + bf[:, 0]
+    carry = torch.zeros((Bsz, L), dtype=torch.float32, device=a.device)
+    hs = []
+    for t0 in range(0, S, steps):
+        ac, bc = af[:, t0:t0 + steps], bf[:, t0:t0 + steps]
+        A = torch.ones_like(carry)
+        B = torch.zeros_like(carry)
+        h = carry
+        for t in range(ac.shape[1]):
+            A = A * ac[:, t]
+            B = _fma(ac[:, t], B, bc[:, t])
+            h = _fma(ac[:, t], h, bc[:, t])
+            hs.append(h)
+        carry = _fma(A, carry, B)
+    if not hs:
+        return (torch.empty((Bsz, 0, L), dtype=torch.float32, device=a.device),
+                carry if h0 is None else h0.float())
+    return torch.stack(hs, dim=1), hs[-1]

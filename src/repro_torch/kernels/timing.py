@@ -1,0 +1,108 @@
+"""Timing of kernel calls on the card, shared by ``chip_smoke.py``, the card
+tests and the kernels' bench scripts (``crossbar_dispatch/row_bench.py``,
+``rglru/scan_bench.py``, ``hamming/map_bench.py``).
+
+* :func:`event_ms`: the median time of one call between two CUDA events,
+  the card idle before each call, so the host's path to the launch counts.
+* :func:`device_profile`: the device time of what a call launches, with
+  the kernels and memsets a call, from ``torch.profiler``.
+* :func:`host_us`: host microseconds a call, enqueued while the card is
+  busy, so no call waits for the card.
+
+It imports nothing of ``repro_torch``, so a bench run as a file against
+another tree's package can load it from its own tree.
+"""
+from __future__ import annotations
+
+import statistics
+import time
+from typing import Optional
+
+import torch
+
+HOST_CALLS, HOST_CHUNK = 1000, 100
+SLEEP_CYCLES = 20_000_000          # some 10 ms of a busy card per chunk
+PROFILE_TRIES = 3
+
+
+def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median time of one call between two CUDA events, the card idle
+    before each call."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def device_profile(fn, calls: int = 20, kernel: Optional[str] = None
+                   ) -> dict:
+    """Device ms a call of the kernels and memsets ``fn`` launches, how many
+    of each a call launches (``kernels``, ``memsets``) and their ``names``.
+
+    The profiler drops device events at the start of its window (on the
+    card, all 10 calls of a 30 us kernel, or 4 of 20 calls of 0.07 ms), so
+    a warm-up step of ``calls`` calls runs first and only the second step
+    is read.  With ``kernel`` (part of a kernel's name) every count is taken
+    per event of that kernel, so a call that launches it once and nothing
+    else gives 1 even if an event is lost; without, the window is taken
+    again until its events are a whole number a call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        got = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: got.extend(p.events())) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # the step's own annotation shows on the device timeline too
+        events = [e for e in got
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep")]
+        if kernel is not None:
+            per = sum(kernel in e.name for e in events)
+            if per:
+                break
+        elif events and len(events) % calls == 0:
+            per = calls
+            break
+    else:
+        raise RuntimeError(
+            f"torch.profiler gave {len(events)} device events for {calls} "
+            f"calls{'' if kernel is None else ', none of ' + kernel}, "
+            f"{PROFILE_TRIES} times: {sorted({e.name for e in events})}")
+    # a buffer cleared by torch.zeros shows as a fill kernel, not a memset
+    memsets = [e for e in events
+               if "memset" in e.name.lower() or "FillFunctor" in e.name]
+    return {"device_ms": sum(e.device_time_total for e in events)
+            / per / 1e3,
+            "kernels": (len(events) - len(memsets)) / per,
+            "memsets": len(memsets) / per,
+            "names": sorted({e.name[:100] for e in events})}
+
+
+def host_us(fn, calls: int = HOST_CALLS, chunk: int = HOST_CHUNK) -> float:
+    """Host microseconds per call, enqueued while the card is busy."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(calls // chunk):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / calls * 1e6

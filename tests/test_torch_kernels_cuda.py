@@ -44,9 +44,14 @@ Mamba-2 780M's widths and its smoke config's, ragged chunks among them.
 Each smoke config of a ported family runs ``prefill`` and ``loss`` (and the
 dense and MoE backward) on the kernels against the plain path, within the
 limits of ``repro_torch.launch.smoke_widths``.  The
-RG-LRU kernel sums in the sequential order, so it is held to the oracle
-within 1e-5 and to the doubling scan within 5e-5.  A backward through any
-of the three forward-only kernels raises and launches no plain version.
+RG-LRU kernel sums sequentially within tiles and composes the tiles in
+order, so it is held to the oracle within 1e-5 and to the
+doubling scan within 5e-5, at the tile edges too; its model entry (bf16 or
+float32 u, an initial state folded in the kernel) is held bit-equal to the
+float32 kernel followed by the cast, two calls bit-equal, and a call to
+one kernel.  The word-stream kernels are held bit-equal around their
+launch's block.  A backward through any of the three forward-only kernels
+raises and launches no plain version.
 """
 
 import numpy as np
@@ -566,6 +571,135 @@ def test_rglru_kernel_matches_plain_on_card(B, S, L):
     torch.testing.assert_close(hl, hlp, atol=5e-5, rtol=5e-5)
 
 
+# (B, tiles, steps, L): S = tiles x the kernel's tile steps + steps
+RGLRU_EDGES = [(1, 0, 1, 32), (3, 1, -1, 33), (2, 1, 1, 1), (1, 5, 3, 4096),
+               (1, 0, 32768, 64)]
+
+
+def _rglru_inputs(B, S, L, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    a = torch.sigmoid(rn(B, S, L)) * 0.98 + 0.01
+    return a, rn(B, S, L) * 0.5, rn(B, L) * 0.3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,tiles,steps,L", RGLRU_EDGES)
+def test_rglru_kernel_at_tile_edges_on_card(B, tiles, steps, L):
+    """Ragged tiles and channel groups: one step, one step short of and past
+    a tile, one channel, 33 channels, and a long sequence at the smoke
+    width; both entries against the oracle and the doubling scan, and
+    against each other bit for bit on float32 inputs."""
+    _card()
+    S = tiles * RK.tile_steps() + steps
+    a, b, _ = _rglru_inputs(B, S, L, S + L)
+    h, hl = RK.rglru_call(a, b, mode=KernelMode.CUDA)
+    hs, hls = RK.rglru_scan(b, a, mode=KernelMode.CUDA)
+    torch.cuda.synchronize()
+    assert torch.equal(h, hs) and torch.equal(hl, hls)
+    ho, hlo = rref.rglru_ref(a, b)
+    torch.testing.assert_close(h, ho, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(hl, hlo, atol=1e-5, rtol=1e-5)
+    hp, hlp = rref.rglru_call_ref(a, b, chunk=S)
+    torch.testing.assert_close(h, hp, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(hl, hlp, atol=5e-5, rtol=5e-5)
+
+
+def _fold_then_call(u, a, h0):
+    """The route the entry replaced: u to float32, h0 folded into the first
+    step with ``torch.cat``, the float32 kernel, h cast to u's type."""
+    b = u.float()
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    h, h_last = RK.rglru_call(a, b, mode=KernelMode.CUDA)
+    return h.to(u.dtype), h_last
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,L", [(1, 4096, 4096), (2, 1001, 96),
+                                   (1, 1, 33)])
+def test_rglru_entry_equals_fold_then_call_on_card(B, S, L, dtype, with_h0):
+    """``rglru_scan_kernel`` reads u in its own type and folds h0 in the
+    kernel: the same bits as the float32 route with the fold and the cast
+    outside it; and against the plain version on the same inputs within
+    the doubling scan's 5e-5, plus one ulp of |h| for bf16."""
+    _card()
+    a, b, h0 = _rglru_inputs(B, S, L, 3 * S + L)
+    u = b.to(dtype)
+    h0 = h0 if with_h0 else None
+    before = RK.launch_counts()["rglru"]
+    h, hl = rglru_scan_kernel(u, a, h0, mode=KernelMode.CUDA)
+    torch.cuda.synchronize()
+    assert RK.launch_counts()["rglru"] == before + 1
+    assert h.dtype == dtype and hl.dtype == torch.float32
+    hf, hlf = _fold_then_call(u, a, h0)
+    hp, hlp = rglru_scan_kernel(u, a, h0, mode=KernelMode.TORCH)
+    torch.cuda.synchronize()
+    assert torch.equal(h, hf) and torch.equal(hl, hlf)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 5e-5   # a bf16 ulp
+    assert bool(((h.double() - hp.double()).abs()
+                 <= 5e-5 + rtol * hp.double().abs()).all())
+    torch.testing.assert_close(hl, hlp, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.cuda
+def test_rglru_kernel_is_deterministic_on_card():
+    _card()
+    a, b, h0 = _rglru_inputs(1, 32768, 4096, 11)
+    h1, hl1 = RK.rglru_call(a, b, mode=KernelMode.CUDA)
+    h2, hl2 = RK.rglru_call(a, b, mode=KernelMode.CUDA)
+    u = b.to(torch.bfloat16)
+    g1, gl1 = rglru_scan_kernel(u, a, h0, mode=KernelMode.CUDA)
+    g2, gl2 = rglru_scan_kernel(u, a, h0, mode=KernelMode.CUDA)
+    torch.cuda.synchronize()
+    assert torch.equal(h1, h2) and torch.equal(hl1, hl2)
+    assert torch.equal(g1, g2) and torch.equal(gl1, gl2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_entry_is_one_kernel_on_card(with_h0):
+    """One ``rglru_scan_kernel`` call on bfloat16 u launches the port's
+    kernel once and nothing else: no conversion copy, no concatenation
+    (``torch.profiler`` over 10 calls, counted per launch of the kernel)."""
+    _card()
+    from repro_torch.kernels.timing import device_profile
+    a, b, h0 = _rglru_inputs(1, 2048, 4096, 12)
+    u = b.to(torch.bfloat16)
+    h0 = h0 if with_h0 else None
+    n_calls = []
+
+    def call():
+        n_calls.append(1)
+        return rglru_scan_kernel(u, a, h0)
+    before = RK.launch_counts()["rglru"]
+    got = device_profile(call, calls=10, kernel="rglru_kernel")
+    assert RK.launch_counts()["rglru"] == before + len(n_calls)  # one a call
+    assert got["kernels"] == 1 and got["memsets"] == 0, got
+    assert all("rglru_kernel" in n for n in got["names"]), got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["u_dtype", "a_dtype", "shape", "h0_shape"])
+def test_rglru_entry_refuses_what_it_cannot_take_on_card(what):
+    _card()
+    a, u, h0 = _rglru_inputs(1, 64, 32, 5)
+    if what == "u_dtype":
+        u = u.half()
+    elif what == "a_dtype":
+        a = a.bfloat16()
+    elif what == "shape":
+        u = u[:, :32]
+    else:
+        h0 = h0[:, :16]
+    before = RK.launch_counts()
+    with pytest.raises(TypeError if what.endswith("dtype") else ValueError):
+        RK.rglru_scan(u, a, h0, mode=KernelMode.CUDA)
+    assert RK.launch_counts() == before
+
+
 @pytest.mark.cuda
 def test_rglru_kernel_refuses_what_it_cannot_take_on_card():
     _card()
@@ -711,6 +845,31 @@ def test_hamming_kernels_bit_equal_on_card(n):
     assert torch.equal(mul, href.multiply_ref(x, 3))
     launched = int(n > 0)                       # an empty stream launches nothing
     assert HK.launch_counts() == {k: v + launched for k, v in before.items()}
+
+
+# hamming.cu's launch: a block of 256 threads takes 256 vectors of 4 words,
+# one block per 1024 words and no loop; the first threads take the n % 4
+# words of the tail
+BLOCK_WORDS = 256 * 4
+TILING_LENGTHS = list(range(1, 10)) + [
+    k * BLOCK_WORDS + d for k in (1, 2, 8192) for d in (-1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", TILING_LENGTHS)
+def test_word_kernels_at_the_launch_tiling_on_card(n):
+    """The multiplier and the encoder (and the decoder, which shares the
+    launch) at lengths around the launch shape's block: the last block's
+    vectors and the masked tail of n % 4 words."""
+    _card()
+    x = _card_words(n, n + 7)
+    assert torch.equal(HK.mul_const(x, 2654435761, mode=KernelMode.CUDA),
+                       href.multiply_ref(x, 2654435761))
+    assert torch.equal(HK.hamming_encode(x, mode=KernelMode.CUDA),
+                       href.encode_ref(x))
+    dec, corr = HK.hamming_decode(x, mode=KernelMode.CUDA)
+    d_ref, c_ref = href.decode_ref(x)
+    assert torch.equal(dec, d_ref) and torch.equal(corr, c_ref)
 
 
 @pytest.mark.cuda

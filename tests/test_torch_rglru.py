@@ -26,7 +26,7 @@ from repro.models import rglru as jax_rglru
 from repro_torch.fabric.interface import KernelMode
 from repro_torch.kernels.rglru import kernel as K
 from repro_torch.kernels.rglru.ops import rglru_scan_kernel
-from repro_torch.kernels.rglru.ref import rglru_ref
+from repro_torch.kernels.rglru.ref import rglru_ref, rglru_tiled_ref
 from repro_torch.models import rglru as torch_rglru
 
 CASES = [                      # B, S, L, JAX kernel chunk, block_l
@@ -75,6 +75,30 @@ def test_rglru_scans_match_jax_scans_and_oracle(case, with_h0):
         for want, want_last in ((hr, hlr), (hk, hlk), (hm, hlm)):
             _close(h, want)
             _close(hl, want_last)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("L", [1, 33, 96])
+@pytest.mark.parametrize("S", [1, 7, 64, 1001])
+def test_rglru_tile_composition_matches_jax(S, L, with_h0):
+    """The CUDA kernel's order of summation (``rglru_tiled_ref``: tiles
+    reduced to affine maps and composed tile by tile, ``h0`` folded into
+    the first step) against JAX's kernel in interpret mode and the
+    sequential oracle, within 1e-5: ragged S and L, one tile and many, at
+    several tile sizes, since the algebra holds for any."""
+    a, u, h0 = _inputs((1, S, L), seed=S + L)
+    h0 = h0 if with_h0 else None
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    hk, hlk = jax_scan_kernel(jnp.asarray(u), jnp.asarray(a), jh0, chunk=S,
+                              block_l=L, interpret=True)
+    ta, tu = torch.from_numpy(a), torch.from_numpy(u)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    ho, hlo = rglru_ref(ta, tu, th0)
+    for steps in (5, 16, 64):
+        h, hl = rglru_tiled_ref(ta, tu, th0, steps=steps)
+        for want, want_last in ((hk, hlk), (ho, hlo)):
+            _close(h, want, 1e-5)
+            _close(hl, want_last, 1e-5)
 
 
 def test_rglru_scan_kernel_keeps_the_input_dtype():
