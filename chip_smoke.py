@@ -9,17 +9,21 @@ Phases, each printing one JSON line with its seconds:
 2. build    builds the crossbar, flash-attention, SSD, RG-LRU and Hamming
             kernel libraries from ``src/repro_torch`` (one ``nvcc`` each,
             started together).
-3. kernels  holds ``plan_multi``, ``scatter`` and ``combine`` bit-equal
-            (``torch.equal``) to their plain versions at the served shapes,
-            the train step's (``moe_train``: T=2048, C=320) and large
-            shapes, and times kernel, plain version and one library call
-            with CUDA events (median of 20 after warm-up); at the decode,
-            train and large shapes scatter, combine and their library calls
-            also by device time (``torch.profiler``, 20 calls, with kernels
-            and memsets per call) and host time per call (1,000 calls
-            enqueued on a busy card; ``repro_torch/kernels/timing.py``),
-            and fails unless a scatter or combine call at the decode and
-            train shapes is one device kernel and no memset.
+3. kernels  holds ``plan_multi``, the fabric's plan entry
+            (``plan_fabric``, and ``CudaBackend.plan`` around it),
+            ``scatter`` and ``combine`` bit-equal (``torch.equal``) to
+            their plain versions and the whole plan to
+            ``ReferenceBackend.plan`` at the served shapes, the train
+            step's (``moe_train``: T=2048, C=320) and large shapes, and
+            times kernel, plain version and one library call with CUDA
+            events (median of 20 after warm-up); at the decode, train and
+            large shapes the plans, scatter, combine and their library
+            calls also by device time (``torch.profiler``, 20 calls, with
+            kernels and memsets per call) and host time per call (1,000
+            calls enqueued on a busy card; ``repro_torch/kernels/timing.py``),
+            and fails unless a plan (``plan_multi``, ``plan_fabric``,
+            ``CudaBackend.plan``), scatter or combine call at the decode
+            and train shapes is one device kernel and no memset.
 4. flash    holds the flash-attention forward and backward kernels to
             their plain versions (autograd through ``attention_ref``) at
             seven shapes (bfloat16 on the tensor-core kernels at head dims
@@ -92,7 +96,9 @@ Phases, each printing one JSON line with its seconds:
             ``crossbar_dispatch`` -> ``crossbar_combine`` shims at the four
             shapes of ``tests/test_kernels.py``, the zero-packet round and
             out-of-range ``dst`` (launches counted over exactly these
-            rounds), bit-equal to ``plan_ref``, timed at T = 2^20, S = 16.
+            rounds), bit-equal to ``plan_ref``, timed at T = 2^20, S = 16
+            (also by device time, kernels and memsets a call, and host
+            time; it fails if that plan clears memory).
 
 ``--profile`` adds a phase after serving and one after the train steps:
 ``torch.profiler`` over 8 warm decode steps of the served engine and over
@@ -224,6 +230,9 @@ class Case:
         cr = ref.combine_ref(self.y, self.dst, self.keep, self.slot, self.w)
         be = CudaBackend(kernel_mode=KernelMode.CUDA)
         plan_k = be.plan(self.dst, self.src, self.regs)
+        plan_f = K.plan_fabric(self.dst, self.src, self.regs.allowed,
+                               self.regs.reset, self.regs.quota,
+                               self.regs.capacity, mode=KernelMode.CUDA)
         plan_r = ReferenceBackend().plan(self.dst, self.src, self.regs)
         torch.cuda.synchronize()
         errs = {"plan_multi": max(max_abs_err(a, b) for a, b in zip(pk, pr)),
@@ -235,6 +244,9 @@ class Case:
             "combine": torch.equal(ck, cr),
             "backend_plan": all(
                 torch.equal(getattr(plan_k, f.name), getattr(plan_r, f.name))
+                for f in dataclasses.fields(plan_r)),
+            "plan_fabric": all(
+                torch.equal(getattr(plan_f, f.name), getattr(plan_r, f.name))
                 for f in dataclasses.fields(plan_r)),
         }
         emit("kernels.check", case=self.name, T=self.T, S=self.S, C=self.C,
@@ -248,7 +260,11 @@ class Case:
         """(kernel, plain, library, bound, bound_by) per kernel, in ms; for
         scatter and combine also the device ms (``torch.profiler``, 20
         calls, with kernels and memsets per call) and host us per call
-        (1,000 calls, card busy) of the kernel and of the library call."""
+        (1,000 calls, card busy) of the kernel and of the library call;
+        for ``plan_multi`` the same of its call and, as ``plan_fabric`` and
+        ``backend_plan``, of the fabric's plan entry and of
+        ``CudaBackend.plan`` around it."""
+        from repro_torch.fabric.backends import CudaBackend
         from repro_torch.fabric.interface import KernelMode
         from repro_torch.kernels.crossbar_dispatch import kernel as K, ref
         from repro_torch.kernels.timing import device_profile, host_us
@@ -258,12 +274,29 @@ class Case:
         cuda = KernelMode.CUDA
         out = {}
         b, by = bound(5 * T * 4 + 3 * S * S * 4, 0)
+        plan_multi = lambda: K.plan_multi(self.dst, self.src, self.allowed,
+                                          self.quota_sd, mode=cuda)
         out["plan_multi"] = dict(
-            ms=time_ms(lambda: K.plan_multi(self.dst, self.src, self.allowed,
-                                            self.quota_sd, mode=cuda)),
+            ms=time_ms(plan_multi),
             plain_ms=time_ms(lambda: ref.plan_multi_ref(
                 self.dst, self.src, self.allowed, self.quota_sd)),
             library_ms=None, bound_ms=b, bound_by=by)
+        regs = self.regs
+        backend = CudaBackend(kernel_mode=cuda)
+        plans = {
+            "plan_multi": plan_multi,
+            "plan_fabric": lambda: K.plan_fabric(
+                self.dst, self.src, regs.allowed, regs.reset, regs.quota,
+                regs.capacity, mode=cuda),
+            "backend_plan": lambda: backend.plan(self.dst, self.src, regs),
+        }
+        for name, fn in plans.items():
+            prof = device_profile(fn)
+            out.setdefault(name, {}).update(
+                device_ms=prof["device_ms"], kernels_per_call=prof["kernels"],
+                memsets_per_call=prof["memsets"], host_us=host_us(fn))
+            if name != "plan_multi":
+                out[name]["ms"] = time_ms(fn)
 
         ok = ((self.keep > 0) & (self.dst >= 0) & (self.slot < C))
         trash = S * C
@@ -1673,6 +1706,7 @@ def plan_path():
     from repro_torch.kernels import (crossbar_combine, crossbar_dispatch,
                                      crossbar_plan)
     from repro_torch.kernels.crossbar_dispatch import kernel as K, ref
+    from repro_torch.kernels.timing import device_profile, host_us
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 6)
@@ -1717,10 +1751,14 @@ def plan_path():
     b, by = bound(16 * T, 0)
     dst, allowed, quota, cap = rounds[-1][1]
     cuda = KernelMode.CUDA
-    t = dict(ms=time_ms(lambda: K.plan(dst, allowed, quota, cap, mode=cuda)),
+    call = lambda: K.plan(dst, allowed, quota, cap, mode=cuda)
+    prof = device_profile(call)
+    t = dict(ms=time_ms(call),
              plain_ms=time_ms(lambda: ref.plan_ref(dst, allowed, quota, cap),
                               reps=5),
-             library_ms=None, bound_ms=b, bound_by=by, bytes=16 * T)
+             library_ms=None, bound_ms=b, bound_by=by, bytes=16 * T,
+             device_ms=prof["device_ms"], kernels_per_call=prof["kernels"],
+             memsets_per_call=prof["memsets"], host_us=host_us(call))
     emit("paper_usecase.plan", checks=checks,
          kernels={k: launches[k] for k in ("plan", "scatter", "combine")},
          T=T, S=S, C=C, seconds=time.perf_counter() - t0, **t)
@@ -1731,6 +1769,8 @@ def plan_path():
     if checks["out_of_range_dst"]["invalid_dest"] == 0 or launches["plan"] \
             != len(rounds) - 1:
         raise AssertionError("the plan path did not run as laid out")
+    if t["memsets_per_call"]:
+        raise AssertionError(f"the plan at T={T} clears memory: {t}")
     return launches, err, t
 
 
@@ -1815,7 +1855,8 @@ def main() -> int:
                    f"D={served[3].D} bf16")
     large_t = large[0].timings()
     for case, t in (("moe_decode", decode_t), ("moe_train", train_t)):
-        for name in ("scatter", "combine"):
+        for name in ("scatter", "combine", "plan_multi", "plan_fabric",
+                     "backend_plan"):
             if t[name]["kernels_per_call"] != 1 or t[name]["memsets_per_call"]:
                 raise AssertionError(f"{name} at {case} is not one kernel "
                                      f"and no memset a call: {t[name]}")
@@ -1901,6 +1942,12 @@ def main() -> int:
             "large": {"shape": "T=8192 S=8 C=1280 D=4096 bf16",
                       **large_t[name]},
         })
+        if name == "plan_multi":
+            # the fabric's plan entry, whose launches count as plan_multi's
+            for entry in ("plan_fabric", "backend_plan"):
+                rows[-1][entry] = {"decode": decode_t[entry],
+                                   "train": train_t[entry],
+                                   "large": large_t[entry]}
     src = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
     for name in ("flash_fwd", "flash_bwd"):
         t = flash_t[name]
@@ -1950,6 +1997,10 @@ def main() -> int:
                 entry_shape="B=1 S=32768 L=4096 u bf16, a float32, h bf16")
         if name == "mul_const":
             rows[-1]["mul_rounds"] = t["mul_rounds"]
+        if name == "plan":
+            rows[-1].update({k: t[k] for k in (
+                "device_ms", "kernels_per_call", "memsets_per_call",
+                "host_us")})
     if len(rows) != 12:
         raise AssertionError(f"{len(rows)} kernel rows, not 12")
     emit("done", seconds=time.perf_counter() - t_start,

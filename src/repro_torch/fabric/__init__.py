@@ -4,9 +4,9 @@ A :class:`Fabric` binds a register file (or a live ``Shell``) to a
 plan-equivalent dispatch backend on a device
 
     reference    plain PyTorch plan + shared scatter/gather
-    cuda         fused plan_multi kernel + shared scatter/gather
+    cuda         the fabric's plan kernel + shared scatter/gather
                  (alias ``pallas``)
-    cuda_kernel  plan_multi, scatter and combine kernels
+    cuda_kernel  the plan, scatter and combine kernels
 
 and exposes ``plan`` / ``dispatch`` / ``combine`` / ``transfer``.
 """

@@ -8,12 +8,14 @@ same packets and registers.
 
 - ``reference``: the plain plan (``arbiter.wrr_dispatch_plan``) and the
   shared flat-address scatter/gather of ``repro_torch.core.arbiter``.
-- ``cuda`` (alias ``pallas``): ONE fused multi-source plan kernel
-  (``ops._plan_multi``) computes every (src, dst) stream's ranks and
-  iso/quota verdicts; ranks compose into global WRR slots with the shared
-  closed form ``arbiter.wrr_slots``.  Data moves through the shared
-  scatter by default; ``data_plane="kernel"`` moves it with the scatter
-  and combine kernels instead.
+- ``cuda`` (alias ``pallas``): ONE launch of the fabric's plan kernel
+  (``kernel.plan_fabric``) computes the whole plan from the register file:
+  every (src, dst) stream's ranks and iso/quota verdicts, the global WRR
+  slots of the shared closed form ``arbiter.wrr_slots``, the capacity cut,
+  counts and drops (its plain version, ``ref.plan_fabric_ref``, on the CPU
+  and under ``KernelMode.TORCH``).  Data moves through the shared scatter
+  by default; ``data_plane="kernel"`` moves it with the scatter and
+  combine kernels instead.
 - ``cuda_kernel``: ``CudaBackend(data_plane="kernel")``, all three kernels.
 
 Registers are values (kernel arguments), so a register rewrite re-routes
@@ -26,11 +28,10 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.core import arbiter
-from repro_torch.core.arbiter import DispatchPlan, bincount_i32, wrr_slots
-from repro_torch.core.registers import CrossbarRegisters, ErrorCode
+from repro_torch.core.arbiter import DispatchPlan
+from repro_torch.core.registers import CrossbarRegisters
 from repro_torch.fabric.interface import KernelMode, parse_kernel_mode
 
-I32 = torch.int32
 
 
 class ReferenceBackend:
@@ -56,7 +57,7 @@ class ReferenceBackend:
 
 
 class CudaBackend:
-    """Fused multi-source plan kernel, closed-form WRR slots, and either
+    """The fabric's plan kernel (the whole plan in one launch), and either
     the shared scatter or the scatter/combine kernels as data plane.
 
     ``kernel_mode`` is bound by ``Fabric`` from its device (``AUTO``:
@@ -74,6 +75,9 @@ class CudaBackend:
                              f"got {data_plane!r}")
         self.data_plane = data_plane
         self.kernel_mode = parse_kernel_mode(kernel_mode)
+        # bound here: an import in ``plan`` costs host time on every call
+        from repro_torch.kernels.crossbar_dispatch.kernel import plan_fabric
+        self._plan_fabric = plan_fabric
 
     def apply_kernel_mode(self, mode: KernelMode) -> None:
         """Bind a resolved :class:`KernelMode` (``Fabric.__init__``)."""
@@ -86,31 +90,11 @@ class CudaBackend:
 
     def plan(self, dst: torch.Tensor, src: torch.Tensor,
              regs: CrossbarRegisters) -> DispatchPlan:
-        from repro_torch.kernels.crossbar_dispatch.ops import _plan_multi
-        n = regs.n_ports
         if dst.shape[0] == 0:
-            return arbiter.empty_plan(dst, n)
-        dst = dst.to(I32)
-        src = src.to(I32)
-        dstc = dst.clamp(0, n - 1).long()
-        srcc = src.clamp(0, n - 1).long()
-        # Fold reset into the isolation matrix the kernel takes; quota is
-        # stored [dst, src], the kernel indexes [src, dst].
-        allowed_eff = (regs.allowed & ~regs.reset[:, None]
-                       & ~regs.reset[None, :]).to(I32)
-        keep_pre, rank, err_pre, granted = _plan_multi(
-            dst, src, allowed_eff, regs.quota.T, mode=self.kernel_mode)
-        keep_pre = keep_pre > 0                              # iso & quota
-        slot = wrr_slots(rank, granted, dstc, srcc[None, :])
-        cap_ok = slot < regs.capacity[dstc]
-        keep = keep_pre & cap_ok
-        error = torch.where(err_pre != ErrorCode.OK, err_pre,
-                            torch.where(cap_ok, ErrorCode.OK,
-                                        ErrorCode.ACK_TIMEOUT)).to(I32)
-        counts = bincount_i32(dstc, keep, n)
-        drops = bincount_i32(error, None, 4)
-        return DispatchPlan(keep=keep, slot=torch.where(keep, slot, 0),
-                            dst=dst, error=error, counts=counts, drops=drops)
+            return arbiter.empty_plan(dst, regs.n_ports)
+        return self._plan_fabric(dst, src, regs.allowed, regs.reset,
+                                 regs.quota, regs.capacity,
+                                 mode=self.kernel_mode)
 
     def dispatch(self, x: torch.Tensor, plan: DispatchPlan,
                  regs: CrossbarRegisters, capacity: int) -> torch.Tensor:

@@ -1,26 +1,71 @@
 // Crossbar-dispatch kernels for Hopper (sm_90a), bound through a plain C
-// interface (ctypes).  Four kernels, one build:
+// interface (ctypes).  The four TPU kernels' counterparts and the fabric's
+// whole plan, one build:
 //
 // 1. plan_multi  replaces repro/kernels/crossbar_dispatch/kernel.py
 //    plan_multi_call / _plan_multi_kernel.  The TPU kernel walks token
 //    blocks in order and carries the [S*S] per-pair live counts in VMEM
-//    scratch.  Blocks on the GPU run in no order, so the carry becomes
-//    three passes: a per-block histogram of isolation-passing packets per
-//    pair, an exclusive prefix over blocks (one block per pair scans its
-//    row, with as many warps as the row needs), and a rank pass that adds
-//    each packet's in-block exclusive count (warp __match_any_sync +
-//    __popc of the lower lanes, then a prefix over the block's warps in
-//    shared memory).  Integer throughout, so bit-exact.  Bound: launch
-//    latency at the served shapes (a few hundred bytes); bytes at T = 64k.
+//    scratch.  Bound: at the served shapes (T = 2 at decode, 2,048 in the
+//    train step) a few hundred bytes, so launches, allocations, fills and
+//    host work, not bytes; bytes from some 10^5 packets on.  The design,
+//    plan_kernel: one block takes a tile of up to PLAN_BLOCK_T packets
+//    (kernel.py; 8 a thread, warps in order), so a served plan is one
+//    launch of one block, no memset, no copy:
+//    - a warp ranks each packet among its earlier packets of the same
+//      stream (__match_any_sync, __popc of the lower lanes) against its
+//      running count per stream in shared memory; a scan down the warps
+//      of each stream then gives every packet its rank in the tile;
+//    - shared memory is (warps + 2) x n_keys ints and the register entries
+//      read per stream (each stream's quota, the capacities), copied in
+//      while the packets load, so the warps shrink as the streams grow
+//      (n_keys = 4,096 at S = 64: 11 warps for plan_multi);
+//    - every output is written whole by the kernel: granted from each
+//      stream's final count in closed form (min(live, quota), or live
+//      where quota is 0), so no buffer is zeroed and nothing is added
+//      atomically to device memory;
+//    - registers are read in place: quota through strides, so the register
+//      file's [dst, src] quota passes as its transpose, and bool or int32
+//      isolation masks as they are;
+//    - the wrapper makes one allocation: keep, rank, err and granted are
+//      parts of one int32 buffer.
+//    Above PLAN_BLOCK_T packets a plan takes several blocks, still one
+//    launch: each takes a ticket (so blocks start in ticket order),
+//    publishes its per-stream counts with a flag, waits for the flags of
+//    every earlier block (a thread a flag, all at once; a block waits only
+//    on blocks that started before it) and adds their counts with loads
+//    that do not wait on each other (at 2^20 packets over 16 streams block
+//    127 reads 127 x 16 ints).  PLAN_BLOCK_T = 8192 won a sweep of 1,024
+//    to 8,192 at 2^20 packets by 1.5x or more, where each block's fixed
+//    cost and the blocks x n_keys reads of the last block weigh most; at
+//    16,384 to 65,536 packets a smaller limit gains at most a few us
+//    (plan_bench.py --sweep; PERF.md).
+//    The block that finishes last clears the
+//    ticket, the flags and the count of finished blocks, so the flags the
+//    wrapper keeps for each stream (in a buffer of their own, apart from
+//    the counts) are zeroed once, when they are made.
+//    Integer throughout, so bit-exact.
 //
 // 1b. plan       replaces kernel.py plan_call / _plan_kernel: one source's
 //    plan, whose [S] count vector the TPU kernel carried across token
-//    blocks.  The same three passes over S streams (one per dst), with
-//    capacity checked in the rank pass (ACK_TIMEOUT after GRANT_TIMEOUT),
-//    slot = keep ? rank : 0, and the granted counts [S].  A quota or
+//    blocks.  The same plan_kernel over S streams (one per dst), with
+//    capacity checked per packet (ACK_TIMEOUT after GRANT_TIMEOUT),
+//    slot = keep ? rank : 0, and counts [S] in closed form.  A quota or
 //    capacity drop still takes up a rank: ranks count isolation-passing
 //    packets, as the TPU kernel's carry did.  Bound: bytes, 16 per packet
 //    (dst read, keep, slot and err written).
+//
+// 1c. plan_fabric: the fabric's whole DispatchPlan, what the JAX
+//    package's PallasBackend.plan computes around plan_multi_call and XLA
+//    fuses into its step: plan_kernel over (src, dst) streams that reads
+//    the register file as stored (reset folded into isolation in the
+//    kernel), then, once every granted count is known, the closed-form
+//    WRR slot of arbiter.wrr_slots from g [src, dst] in shared memory, the
+//    capacity verdict, keep as bytes of a torch.bool tensor, the error
+//    code, and counts [S] and drops [4] in closed form (a dst's granted
+//    packets take WRR slots 0 .. sum_s g - 1, so min(that, capacity) are
+//    kept).  One launch where the plan fits one block; over several blocks
+//    the slots need every block's counts, so finish_kernel, a second
+//    launch, writes the packets there, and only there.
 //
 // 2. scatter     replaces kernel.py scatter_call / _scatter_kernel.  The
 //    TPU version builds a [bT, C] one-hot and runs it through the MXU into
@@ -79,13 +124,11 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 #include <type_traits>
 
 namespace {
 
-constexpr int kPlanBlock = 256;                 // tokens (= threads) per block
-constexpr int kPlanWarps = kPlanBlock / 32;
-constexpr int kScanThreads = 1024;            // most threads of the prefix pass
 constexpr int kRowThreads = 256;                // threads of a scan_scatter block
 constexpr int kGatherThreads = 128;             // threads of a gather block
 constexpr int kUnroll = 4;                      // 16-byte loads in flight a thread
@@ -94,179 +137,483 @@ constexpr int kBlocksPerSm = 4;                 // scan_scatter blocks an SM
 constexpr int kMinBlockVecs = 256;              // 16-byte vectors a block takes at least
 constexpr int kMaxBlockRows = 4096;             // rows of a block's owner table
 
-// Which stream a packet belongs to, and whether it passes isolation.  A
-// stream is a (src, dst) pair for plan_multi and a dst for plan, whose
-// packets all come from one source.
-struct PairKey {                                 // n_keys = S * S
+constexpr int kPlanItems = 8;                   // packets a plan thread takes
+constexpr int kPlanWarpT = kPlanItems * 32;     // packets a plan warp takes
+constexpr int kPlanMaxWarps = 32;
+constexpr int kPlanStaticSmem = 64;             // bytes of plan_kernel's __shared__
+constexpr int kPlanSmemInts = (232448 - kPlanStaticSmem) / 4;
+constexpr int kFinishThreads = 256;             // threads of a finish_kernel
+
+// A register read in place: int32 or bool (one byte) elements at
+// i * s0 + j * s1, so a transposed view needs no copy.
+struct Reg {
+  const void* p;
+  int s0, s1;
+  int bytes;                                     // 4: int32, 1: bool
+  __device__ __forceinline__ int at(int i, int j) const {
+    const long long o = (long long)i * s0 + (long long)j * s1;
+    return bytes == 1 ? (int)static_cast<const uint8_t*>(p)[o]
+                      : static_cast<const int32_t*>(p)[o];
+  }
+};
+
+__device__ __forceinline__ int clamp_port(int v, int S) {
+  return min(max(v, 0), S - 1);
+}
+
+// Packets of a stream that pass its quota (0 = unlimited) and capacity:
+// ranks 0 .. live - 1 are taken, and those below both limits are kept.
+__device__ __forceinline__ int kept_of(int live, int quota, int cap) {
+  return max(0, min(live, min(quota == 0 ? INT_MAX : quota, cap)));
+}
+
+// The three plans differ in what a stream is, what they read and what
+// they write.  Each gives:
+//   staged_ints(n_keys, S), stage(sm, n_keys): the register entries it
+//     reads per stream, copied into shared memory at the start of a block
+//     (q_s: each stream's quota, c_s: capacities), so that no later step
+//     waits on device memory for them;
+//   packet(t, &key) -> live: the packet's stream and its isolation verdict;
+//   write(t, key, live, rank): a packet's outputs, given its rank among the
+//     live packets of its stream;
+//   total(key, live): a stream's outputs, given its live count.
+// FabricPlan writes its packets after every stream's count is known
+// (pre(), finish()) and its totals in plan_kernel.
+
+// plan_multi: a stream is a (src, dst) pair; capacity is not applied.
+struct MultiPlan {
+  static constexpr bool kFabric = false;
   const int32_t* dst;
   const int32_t* src;
-  const int32_t* allowed;                        // [S * S], [src, dst]
+  Reg allowed;                                   // [src, dst], reset folded in
+  Reg quota;                                     // [src, dst]
   int S;
-  __device__ __forceinline__ bool operator()(int t, int* key) const {
+  int32_t* keep;
+  int32_t* rank;
+  int32_t* err;
+  int32_t* granted;                              // [src * S + dst]
+  const int32_t* q_s;                            // staged: quota [key]
+  static int staged_ints(int n_keys, int) { return n_keys; }
+  __device__ __forceinline__ void stage(int32_t* sm, int n_keys) {
+    for (int k = threadIdx.x; k < n_keys; k += blockDim.x) {
+      const int sc = k / S;
+      sm[k] = quota.at(sc, k - sc * S);
+    }
+    q_s = sm;
+  }
+  __device__ __forceinline__ bool packet(int t, int* key) const {
     const int d = dst[t], s = src[t];
-    const bool valid = d >= 0 && d < S && s >= 0 && s < S;
-    *key = min(max(s, 0), S - 1) * S + min(max(d, 0), S - 1);
-    return valid && allowed[*key] > 0;
+    const int sc = clamp_port(s, S), dc = clamp_port(d, S);
+    *key = sc * S + dc;
+    return d >= 0 && d < S && s >= 0 && s < S && allowed.at(sc, dc) > 0;
+  }
+  __device__ __forceinline__ void write(int t, int key, bool live,
+                                        int r) const {
+    const int q = live ? q_s[key] : 0;
+    const bool quota_ok = q == 0 || r < q;
+    keep[t] = live && quota_ok;
+    rank[t] = live ? r : 0;
+    err[t] = !live ? 1 : (quota_ok ? 0 : 2);   // INVALID_DEST, GRANT_TIMEOUT
+  }
+  __device__ __forceinline__ void total(int key, int live) const {
+    granted[key] = kept_of(live, q_s[key], INT_MAX);
   }
 };
 
-struct DstKey {                                  // n_keys = S
+// plan: one source's packets; a stream is a dst; capacity applied.
+struct SourcePlan {
+  static constexpr bool kFabric = false;
   const int32_t* dst;
-  const int32_t* allowed;                        // [S], this source's row
+  Reg allowed, quota, cap;                       // rows [S]: at(0, d)
   int S;
-  __device__ __forceinline__ bool operator()(int t, int* key) const {
+  int32_t* keep;
+  int32_t* slot;
+  int32_t* err;
+  int32_t* counts;
+  const int32_t* q_s;                            // staged: quota [S]
+  const int32_t* c_s;                            // staged: capacity [S]
+  static int staged_ints(int n_keys, int) { return 2 * n_keys; }
+  __device__ __forceinline__ void stage(int32_t* sm, int n_keys) {
+    for (int k = threadIdx.x; k < n_keys; k += blockDim.x) {
+      sm[k] = quota.at(0, k);
+      sm[n_keys + k] = cap.at(0, k);
+    }
+    q_s = sm;
+    c_s = sm + n_keys;
+  }
+  __device__ __forceinline__ bool packet(int t, int* key) const {
     const int d = dst[t];
-    *key = min(max(d, 0), S - 1);
-    return d >= 0 && d < S && allowed[*key] > 0;
+    *key = clamp_port(d, S);
+    return d >= 0 && d < S && allowed.at(0, *key) > 0;
+  }
+  __device__ __forceinline__ void write(int t, int key, bool live,
+                                        int r) const {
+    int code = 1;                                // INVALID_DEST
+    if (live) {
+      const int q = q_s[key];
+      code = (q == 0 || r < q) ? (r < c_s[key] ? 0 : 3) : 2;
+    }
+    keep[t] = code == 0;
+    slot[t] = code == 0 ? r : 0;
+    err[t] = code;
+  }
+  __device__ __forceinline__ void total(int key, int live) const {
+    counts[key] = kept_of(live, q_s[key], c_s[key]);
   }
 };
 
-// Pass 1: per-block count of isolation-passing packets for every stream,
-// into hist[key, block].
-template <typename Key>
-__global__ void plan_hist_kernel(Key key, int32_t* __restrict__ hist, int T,
-                                 int n_keys, int n_blocks) {
-  extern __shared__ int32_t sh[];
-  for (int i = threadIdx.x; i < n_keys; i += blockDim.x) sh[i] = 0;
-  __syncthreads();
-  int k;
-  const int t = blockIdx.x * kPlanBlock + threadIdx.x;
-  if (t < T && key(t, &k)) atomicAdd(&sh[k], 1);
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_keys; i += blockDim.x)
-    hist[(size_t)i * n_blocks + blockIdx.x] = sh[i];
-}
-
-// Pass 2: exclusive prefix over blocks, in place, one block per stream
-// scanning its contiguous row blockDim.x entries at a time (warp shuffles,
-// then a scan of the warps' sums).  The block has as many warps as the row
-// needs, up to kScanThreads threads (scan_threads), so a served decode
-// plan, one token block, scans with one warp per stream.
-__global__ void __launch_bounds__(kScanThreads)
-plan_prefix_kernel(int32_t* __restrict__ hist, int n_blocks) {
-  __shared__ int32_t warp_sum[kScanThreads / 32];
-  int32_t* row = hist + (size_t)blockIdx.x * n_blocks;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  int32_t carry = 0;
-  for (int base = 0; base < n_blocks; base += blockDim.x) {
-    const int b = base + threadIdx.x;
-    const int32_t v = b < n_blocks ? row[b] : 0;
-    int32_t incl = v;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int32_t up = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += up;
+// The fabric's whole DispatchPlan from the register file as it is stored:
+// allowed [src, dst] and reset [S] bool, quota [dst, src] and capacity [S]
+// int32.  A stream is a (src, dst) pair.
+struct FabricPlan {
+  static constexpr bool kFabric = true;
+  const int32_t* dst;
+  const int32_t* src;
+  const uint8_t* allowed;
+  const uint8_t* reset;
+  const int32_t* quota;
+  const int32_t* cap;
+  int S;
+  uint8_t* keep;                                 // torch.bool
+  int32_t* slot;
+  int32_t* err;
+  int32_t* counts;                               // [S]
+  int32_t* drops;                                // [4]
+  const int32_t* q_s;                            // staged: quota [src, dst]
+  const int32_t* c_s;                            // staged: capacity [S]
+  static int staged_ints(int n_keys, int S) { return n_keys + S; }
+  __device__ __forceinline__ void stage(int32_t* sm, int n_keys) {
+    for (int k = threadIdx.x; k < n_keys; k += blockDim.x) {
+      const int sc = k / S;
+      sm[k] = quota[(k - sc * S) * S + sc];
     }
-    if (lane == 31) warp_sum[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int32_t w = lane < n_warps ? warp_sum[lane] : 0;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int32_t up = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += up;
+    for (int d = threadIdx.x; d < S; d += blockDim.x) sm[n_keys + d] = cap[d];
+    q_s = sm;
+    c_s = sm + n_keys;
+  }
+  __device__ __forceinline__ bool packet(int t, int* key) const {
+    const int d = dst[t], s = src[t];
+    const int sc = clamp_port(s, S), dc = clamp_port(d, S);
+    *key = sc * S + dc;
+    return d >= 0 && d < S && s >= 0 && s < S && allowed[*key] &&
+           !reset[sc] && !reset[dc];
+  }
+  // INVALID_DEST, GRANT_TIMEOUT, or 0 for a packet that passes both.
+  __device__ __forceinline__ int pre(int key, bool live, int r) const {
+    if (!live) return 1;
+    const int q = q_s[key];
+    return (q == 0 || r < q) ? 0 : 2;
+  }
+  // The WRR slot of arbiter.wrr_slots from the granted counts g [src, dst]
+  // (shared memory), the capacity verdict and the packet's outputs.
+  __device__ __forceinline__ void finish(int t, int key, int code, int r,
+                                         const int32_t* g) const {
+    int sl = 0;
+    if (code == 0) {
+      const int sc = key / S, dc = key - sc * S;
+      for (int s = 0; s < S; ++s) {
+        const int gs = g[s * S + dc];
+        sl += min(r, gs) + (s < sc && gs > r);
       }
-      warp_sum[lane] = w;                        // inclusive over warps
+      if (sl >= c_s[dc]) code = 3;               // ACK_TIMEOUT
+    }
+    keep[t] = code == 0;
+    slot[t] = code == 0 ? sl : 0;
+    err[t] = code;
+  }
+};
+
+// Device memory of a plan taken by several blocks.  ``flags`` (ticket,
+// done, status [n_blocks]) is zeroed once, when it is made, and every
+// launch leaves it zeroed; ``data`` (granted [n_keys], agg [n_blocks,
+// n_keys]) is written before it is read.  Two buffers, so that no call's
+// data lands where a later call over more blocks looks for its flags.
+struct PlanScratch {
+  unsigned* ticket;
+  unsigned* done;
+  int* status;
+  int32_t* granted;
+  int32_t* agg;
+};
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" : : "l"(p), "r"(v)
+               : "memory");
+}
+
+// One tile of kPlanItems * blockDim.x packets a block.  Warp w takes
+// kPlanItems runs of 32 packets in order and ranks each packet among the
+// warp's earlier packets of its stream (__match_any_sync, __popc of the
+// lower lanes, and the warp's running count per stream in shared memory);
+// a scan down the warps of each stream turns the warps' counts into
+// exclusive prefixes.  With one block that is the whole plan.  With
+// several, a block takes a ticket (blocks start in ticket order), publishes
+// its per-stream counts, and adds those of every earlier block as they
+// appear: a block waits only on blocks that started before it.  The block
+// that finishes last clears the ticket, the flags and the count of
+// finished blocks, so the next call finds them zero without a memset.
+template <class P>
+__global__ void __launch_bounds__(kPlanMaxWarps * 32)
+plan_kernel(P p, PlanScratch sc, int T, int n_keys, int n_blocks) {
+  extern __shared__ int32_t sh[];
+  __shared__ int chunk;
+  __shared__ int acc[4];                         // FabricPlan's drops
+  const int W = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int32_t* cnt = sh;                             // [W, n_keys]
+  int32_t* tot = sh + W * n_keys;                // [n_keys] this block's
+  int32_t* ex = tot + n_keys;                    // [n_keys] earlier blocks'
+  int b = 0;
+  if (n_blocks > 1) {
+    if (threadIdx.x == 0) chunk = (int)atomicAdd(sc.ticket, 1u);
+    __syncthreads();
+    b = chunk;
+  }
+  const int t0 = b * kPlanItems * blockDim.x + warp * kPlanWarpT + lane;
+
+  int key[kPlanItems], rank[kPlanItems];
+  unsigned live = 0;
+#pragma unroll
+  for (int j = 0; j < kPlanItems; ++j) {         // loads first, all in flight
+    const int t = t0 + j * 32;
+    key[j] = rank[j] = 0;
+    if (t < T && p.packet(t, &key[j])) live |= 1u << j;
+  }
+  // while they are in flight: the staged registers and zeroed counts
+  p.stage(ex + n_keys, n_keys);
+  for (int i = threadIdx.x; i < (W + 2) * n_keys; i += blockDim.x) sh[i] = 0;
+  if (threadIdx.x < 4) acc[threadIdx.x] = 0;
+  __syncthreads();
+  const unsigned lower_lanes = (1u << lane) - 1u;
+#pragma unroll
+  for (int j = 0; j < kPlanItems; ++j) {
+    if (t0 - lane + j * 32 >= T) break;          // the warp's packets are done
+    const bool lv = (live >> j) & 1u;
+    // dead lanes take keys no live lane holds, so they match only themselves
+    const unsigned peers = __match_any_sync(
+        0xffffffffu, lv ? (unsigned)key[j] : (unsigned)(n_keys + lane));
+    int32_t* c = cnt + warp * n_keys + key[j];
+    const int before = lv ? *c : 0;
+    __syncwarp();
+    if (lv && (peers & lower_lanes) == 0u) *c = before + __popc(peers);
+    __syncwarp();
+    rank[j] = before + __popc(peers & lower_lanes);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < n_keys; k += blockDim.x) {
+    int run = 0;
+    for (int w = 0; w < W; ++w) {
+      const int v = cnt[w * n_keys + k];
+      cnt[w * n_keys + k] = run;
+      run += v;
+    }
+    tot[k] = run;
+  }
+  __syncthreads();
+
+  if (n_blocks > 1) {
+    for (int k = threadIdx.x; k < n_keys; k += blockDim.x)
+      sc.agg[(size_t)b * n_keys + k] = tot[k];
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) st_release(&sc.status[b], 1);
+    // Wait until every earlier block q < b has published (a thread a
+    // flag, all at once), then ex[k] = the sum of their agg[q, k], every
+    // load independent of the others: rows of threads over q when the
+    // streams are fewer than the threads, else a thread a stream.
+    for (int q = threadIdx.x; q < b; q += blockDim.x)
+      while (ld_acquire(&sc.status[q]) == 0) {}
+    __syncthreads();
+    if (n_keys <= (int)blockDim.x) {
+      const int rows = blockDim.x / n_keys;
+      const int k = threadIdx.x % n_keys, row = threadIdx.x / n_keys;
+      if (row < rows) {
+        int sum = 0;
+#pragma unroll 8
+        for (int q = row; q < b; q += rows)
+          sum += __ldcg(&sc.agg[(size_t)q * n_keys + k]);
+        if (sum) atomicAdd(&ex[k], sum);
+      }
+    } else {
+      for (int k = threadIdx.x; k < n_keys; k += blockDim.x) {
+        int sum = 0;
+#pragma unroll 8
+        for (int q = 0; q < b; ++q)
+          sum += __ldcg(&sc.agg[(size_t)q * n_keys + k]);
+        ex[k] = sum;
+      }
     }
     __syncthreads();
-    const int32_t before = warp == 0 ? 0 : warp_sum[warp - 1];
-    if (b < n_blocks) row[b] = carry + before + incl - v;
-    carry += warp_sum[n_warps - 1];
-    __syncthreads();                             // warp_sum is reused
+    if (threadIdx.x == 0) {
+      __threadfence();
+      if (atomicAdd(sc.done, 1u) == (unsigned)n_blocks - 1u) {
+        for (int q = 0; q < n_blocks; ++q) sc.status[q] = 0;
+        *sc.ticket = 0u;
+        *sc.done = 0u;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < kPlanItems; ++j)
+    if ((live >> j) & 1u)
+      rank[j] += ex[key[j]] + cnt[warp * n_keys + key[j]];
+  const bool last = b == n_blocks - 1;           // sees every block's counts
+
+  if constexpr (!P::kFabric) {
+#pragma unroll
+    for (int j = 0; j < kPlanItems; ++j) {
+      const int t = t0 + j * 32;
+      if (t < T) p.write(t, key[j], (live >> j) & 1u, rank[j]);
+    }
+    if (last)
+      for (int k = threadIdx.x; k < n_keys; k += blockDim.x)
+        p.total(k, ex[k] + tot[k]);
+  } else {
+    const int S = p.S;
+    __syncthreads();                             // cnt is reused for g
+    if (last) {
+      // g [src, dst]: granted before capacity; then per dst the capacity
+      // verdict in closed form (the WRR slots of a dst's granted packets
+      // are 0 .. sum_s g - 1), and the error histogram.
+      for (int k = threadIdx.x; k < n_keys; k += blockDim.x) {
+        const int n_live = ex[k] + tot[k];
+        const int g = kept_of(n_live, p.q_s[k], INT_MAX);
+        cnt[k] = g;
+        if (n_blocks > 1) sc.granted[k] = g;
+        if (n_live) atomicAdd(&acc[1], n_live);
+        if (n_live - g) atomicAdd(&acc[2], n_live - g);
+      }
+      __syncthreads();
+      for (int d = threadIdx.x; d < S; d += blockDim.x) {
+        int G = 0;
+        for (int s = 0; s < S; ++s) G += cnt[s * S + d];
+        const int c = max(0, min(G, p.c_s[d]));
+        p.counts[d] = c;
+        if (c) atomicAdd(&acc[0], c);
+        if (G - c) atomicAdd(&acc[3], G - c);
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        p.drops[0] = acc[0];                     // OK
+        p.drops[1] = T - acc[1];                 // INVALID_DEST
+        p.drops[2] = acc[2];                     // GRANT_TIMEOUT
+        p.drops[3] = acc[3];                     // ACK_TIMEOUT
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPlanItems; ++j) {
+      const int t = t0 + j * 32;
+      if (t >= T) continue;
+      const int code = p.pre(key[j], (live >> j) & 1u, rank[j]);
+      if (n_blocks == 1) {
+        p.finish(t, key[j], code, rank[j], cnt);
+      } else {                                   // finished by finish_kernel
+        p.slot[t] = rank[j];
+        p.err[t] = code;
+      }
+    }
   }
 }
 
-// Threads of the prefix pass for a row of n_blocks: whole warps covering
-// the row once, at most kScanThreads.
-inline int scan_threads(int n_blocks) {
-  const int warps = (n_blocks + 31) / 32;
-  if (warps >= kScanThreads / 32) return kScanThreads;
-  return (warps > 0 ? warps : 1) * 32;
+// The fabric plan's packets once every block's counts are known (several
+// blocks only): slot holds the stream rank and err the pre-capacity code.
+__global__ void __launch_bounds__(kFinishThreads)
+finish_kernel(FabricPlan p, const int32_t* __restrict__ granted, int T,
+              int n_keys) {
+  extern __shared__ int32_t g[];                 // [n_keys], then staged
+  p.stage(g + n_keys, n_keys);
+  for (int i = threadIdx.x; i < n_keys; i += blockDim.x) g[i] = granted[i];
+  __syncthreads();
+  const int t0 = blockIdx.x * kFinishThreads * kPlanItems + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < kPlanItems; ++j) {
+    const int t = t0 + j * kFinishThreads;
+    if (t >= T) continue;
+    int key;
+    p.packet(t, &key);
+    p.finish(t, key, p.err[t], p.slot[t], g);
+  }
 }
 
-// Pass 3: rank = carry from earlier blocks + in-block exclusive count of
-// the packet's stream; the quota verdict (0 = unlimited), the capacity
-// verdict where ``cap`` is given, the error code, and the granted count
-// per stream.  kSlot writes slot = keep ? rank : 0 (plan); otherwise
-// rank = live ? rank : 0 (plan_multi).
-template <typename Key, bool kSlot>
-__global__ void plan_rank_kernel(Key key, const int32_t* __restrict__ quota,
-                                 const int32_t* __restrict__ cap,
-                                 const int32_t* __restrict__ carry,
-                                 int32_t* __restrict__ keep_out,
-                                 int32_t* __restrict__ rank_out,
-                                 int32_t* __restrict__ err_out,
-                                 int32_t* __restrict__ granted, int T,
-                                 int n_keys, int n_blocks) {
-  extern __shared__ int32_t sh[];
-  int32_t* warp_cnt = sh;                            // [kPlanWarps, n_keys]
-  int32_t* block_granted = sh + kPlanWarps * n_keys; // [n_keys]
-  for (int i = threadIdx.x; i < (kPlanWarps + 1) * n_keys; i += blockDim.x)
-    sh[i] = 0;
-  __syncthreads();
+// Warps of a plan block, its blocks and its dynamic shared memory, for T
+// packets over n_keys streams with at most block_t packets a block.  The
+// warps shrink as n_keys grows, so (W + 2) * n_keys ints and the staged
+// register entries fit the SM.
+struct PlanGrid {
+  int warps, blocks;
+  size_t smem;
+};
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int t = blockIdx.x * kPlanBlock + threadIdx.x;
-  int k = 0;
-  const bool live = t < T && key(t, &k);
-  // Dead lanes take keys no live lane can hold, so they match only
-  // themselves.
-  const unsigned match = live ? (unsigned)k : (unsigned)(n_keys + lane);
-  const unsigned peers = __match_any_sync(0xffffffffu, match);
-  const unsigned lower = (1u << lane) - 1u;
-  int32_t rank = __popc(peers & lower);
-  if (live && (peers & lower) == 0u)             // lowest lane of its group
-    warp_cnt[warp * n_keys + k] = __popc(peers);
-  __syncthreads();
-
-  bool quota_ok = true, cap_ok = true;
-  if (live) {
-    for (int w = 0; w < warp; ++w) rank += warp_cnt[w * n_keys + k];
-    rank += carry[(size_t)k * n_blocks + blockIdx.x];
-    const int32_t q = quota[k];
-    quota_ok = (q == 0) || (rank < q);
-    cap_ok = cap == nullptr || rank < cap[k];
-    if (quota_ok && cap_ok) atomicAdd(&block_granted[k], 1);
+inline PlanGrid plan_grid(int T, int n_keys, int staged, int block_t) {
+  PlanGrid g{0, 0, 0};
+  const int w_max = std::min(
+      {kPlanMaxWarps, (kPlanSmemInts - staged) / n_keys - 2,
+       std::max(1, block_t / kPlanWarpT)});
+  if (w_max < 1) return g;
+  const int tile = w_max * kPlanWarpT;
+  if (T <= tile) {
+    g.blocks = 1;
+    g.warps = std::max(1, std::min(w_max, (T + kPlanWarpT - 1) / kPlanWarpT));
+  } else {
+    g.blocks = (T + tile - 1) / tile;
+    g.warps = w_max;
   }
-  const bool keep = live && quota_ok && cap_ok;
-  if (t < T) {
-    keep_out[t] = keep ? 1 : 0;
-    rank_out[t] = (kSlot ? keep : live) ? rank : 0;
-    // INVALID_DEST, GRANT_TIMEOUT, ACK_TIMEOUT, OK
-    err_out[t] = !live ? 1 : (!quota_ok ? 2 : (!cap_ok ? 3 : 0));
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_keys; i += blockDim.x)
-    if (block_granted[i]) atomicAdd(&granted[i], block_granted[i]);
+  g.smem = ((size_t)(g.warps + 2) * n_keys + staged) * sizeof(int32_t);
+  return g;
 }
 
-// The three passes of a plan; ``hist`` holds n_keys * ceil(T / 256) int32
-// and ``granted`` [n_keys] must be zeroed by the caller.
-template <typename Key, bool kSlot>
-cudaError_t launch_plan(Key key, const int32_t* quota, const int32_t* cap,
-                        int32_t* hist, int32_t* keep, int32_t* rank,
-                        int32_t* err, int32_t* granted, int T, int n_keys,
-                        cudaStream_t stream) {
-  const int n_blocks = (T + kPlanBlock - 1) / kPlanBlock;
-  plan_hist_kernel<Key><<<n_blocks, kPlanBlock, n_keys * sizeof(int32_t),
-                          stream>>>(key, hist, T, n_keys, n_blocks);
+// One launch of plan_kernel (and, for a fabric plan over several blocks,
+// one of finish_kernel).  Returns a cudaError_t, or minus the number of
+// blocks, having launched nothing, when a plan over several blocks finds
+// less scratch than they need: 2 + blocks flag ints and
+// (1 + blocks) * n_keys data ints.
+template <class P>
+int launch_plan(const P& p, int T, int n_keys, int block_t, void* flags,
+                long long flag_ints, void* data, long long data_ints,
+                cudaStream_t stream) {
+  if (n_keys < 1 || T < 0) return (int)cudaErrorInvalidValue;
+  const int staged = P::staged_ints(n_keys, p.S);
+  const PlanGrid g = plan_grid(T, n_keys, staged, block_t);
+  if (g.blocks == 0) return (int)cudaErrorInvalidValue;
+  PlanScratch sc{nullptr, nullptr, nullptr, nullptr, nullptr};
+  if (g.blocks > 1) {
+    if (flags == nullptr || data == nullptr || flag_ints < 2 + g.blocks ||
+        data_ints < (1 + (long long)g.blocks) * n_keys)
+      return -g.blocks;
+    auto* f = static_cast<int32_t*>(flags);
+    sc.ticket = reinterpret_cast<unsigned*>(f);
+    sc.done = reinterpret_cast<unsigned*>(f + 1);
+    sc.status = f + 2;
+    sc.granted = static_cast<int32_t*>(data);
+    sc.agg = sc.granted + n_keys;
+  }
+  if (g.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        plan_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)g.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  plan_kernel<P><<<g.blocks, g.warps * 32, g.smem, stream>>>(p, sc, T, n_keys,
+                                                             g.blocks);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  plan_prefix_kernel<<<n_keys, scan_threads(n_blocks), 0, stream>>>(
-      hist, n_blocks);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const size_t smem = (size_t)(kPlanWarps + 1) * n_keys * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(plan_rank_kernel<Key, kSlot>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return e;
+  if constexpr (P::kFabric) {
+    if (e == cudaSuccess && g.blocks > 1) {
+      const int per = kFinishThreads * kPlanItems;
+      finish_kernel<<<(T + per - 1) / per, kFinishThreads,
+                      (n_keys + staged) * sizeof(int32_t), stream>>>(
+          p, sc.granted, T, n_keys);
+      e = cudaGetLastError();
+    }
   }
-  plan_rank_kernel<Key, kSlot><<<n_blocks, kPlanBlock, smem, stream>>>(
-      key, quota, cap, hist, keep, rank, err, granted, T, n_keys, n_blocks);
-  return cudaGetLastError();
+  return (int)e;
 }
 
 __device__ __forceinline__ bool row_target(const int32_t* dst,
@@ -573,37 +920,74 @@ cudaError_t launch_gather(const void* in, void* out, const int32_t* dst,
 
 extern "C" {
 
-// Scratch ``hist`` holds ceil(T / 256) * S * S int32; ``granted`` must be
-// zeroed by the caller.
+// Every plan entry takes the plan scratch of its stream: ``flags`` (int32,
+// zeroed when it is made; every launch leaves it zeroed) and ``data``
+// (int32, any contents), with their lengths; both may be null where a plan
+// fits one block.  A plan over B blocks that finds fewer than 2 + B flag
+// ints or (1 + B) * n_keys data ints launches nothing and returns -B.  A
+// plan block takes at most ``block_t`` packets (kernel.PLAN_BLOCK_T).
+
+// plan_multi.  ``allowed`` [S, S] [src, dst] contiguous, int32
+// (``allowed_bytes`` 4) or bool (1); ``quota`` int32 [src, dst] at
+// element strides (qs0, qs1), so the register file's quota [dst, src]
+// passes as its transpose.  ``out`` int32 [3 T + S * S]: keep, rank and
+// err [T], then granted [S, S], each written whole.
 int crossbar_plan_multi(const void* dst, const void* src, const void* allowed,
-                        const void* quota, void* keep, void* rank, void* err,
-                        void* granted, void* hist, int T, int S,
+                        int allowed_bytes, const void* quota, int qs0,
+                        int qs1, void* out, void* flags,
+                        long long flag_ints, void* data, long long data_ints,
+                        int T, int S, int block_t,
                         void* stream_ptr) {
-  const PairKey key{static_cast<const int32_t*>(dst),
+  auto* o = static_cast<int32_t*>(out);
+  const MultiPlan p{static_cast<const int32_t*>(dst),
                     static_cast<const int32_t*>(src),
-                    static_cast<const int32_t*>(allowed), S};
-  return (int)launch_plan<PairKey, false>(
-      key, static_cast<const int32_t*>(quota), nullptr,
-      static_cast<int32_t*>(hist), static_cast<int32_t*>(keep),
-      static_cast<int32_t*>(rank), static_cast<int32_t*>(err),
-      static_cast<int32_t*>(granted), T, S * S,
-      static_cast<cudaStream_t>(stream_ptr));
+                    Reg{allowed, S, 1, allowed_bytes},
+                    Reg{quota, qs0, qs1, 4},
+                    S, o, o + T, o + 2 * (size_t)T, o + 3 * (size_t)T};
+  return launch_plan(p, T, S * S, block_t, flags, flag_ints,
+                     data, data_ints, static_cast<cudaStream_t>(stream_ptr));
 }
 
-// One source's plan: register rows ``allowed``, ``quota`` and ``capacity``
-// [S].  Scratch ``hist`` holds ceil(T / 256) * S int32; ``counts`` [S]
-// must be zeroed by the caller.
-int crossbar_plan(const void* dst, const void* allowed, const void* quota,
-                  const void* capacity, void* keep, void* slot, void* err,
-                  void* counts, void* hist, int T, int S, void* stream_ptr) {
-  const DstKey key{static_cast<const int32_t*>(dst),
-                   static_cast<const int32_t*>(allowed), S};
-  return (int)launch_plan<DstKey, true>(
-      key, static_cast<const int32_t*>(quota),
-      static_cast<const int32_t*>(capacity), static_cast<int32_t*>(hist),
-      static_cast<int32_t*>(keep), static_cast<int32_t*>(slot),
-      static_cast<int32_t*>(err), static_cast<int32_t*>(counts), T, S,
-      static_cast<cudaStream_t>(stream_ptr));
+// plan: one source's register rows ``allowed`` (int32 or bool,
+// ``allowed_bytes``), ``quota`` and ``capacity`` (int32), contiguous [S].
+// ``out`` int32 [3 T + S]: keep, slot and err [T], then counts [S].
+int crossbar_plan(const void* dst, const void* allowed, int allowed_bytes,
+                  const void* quota, const void* capacity, void* out,
+                  void* flags, long long flag_ints, void* data,
+                  long long data_ints, int T, int S,
+                  int block_t, void* stream_ptr) {
+  auto* o = static_cast<int32_t*>(out);
+  const SourcePlan p{static_cast<const int32_t*>(dst),
+                     Reg{allowed, 0, 1, allowed_bytes}, Reg{quota, 0, 1, 4},
+                     Reg{capacity, 0, 1, 4}, S, o, o + T, o + 2 * (size_t)T,
+                     o + 3 * (size_t)T};
+  return launch_plan(p, T, S, block_t, flags, flag_ints,
+                     data, data_ints, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The fabric's plan from its register file as stored, all contiguous:
+// ``allowed`` bool [src, dst], ``reset`` bool [S], ``quota`` int32
+// [dst, src], ``capacity`` int32 [S] (clamped to the slab depth by the
+// caller).  ``out`` holds int32 slot [T], err [T], counts [S] and drops [4],
+// then keep as T bytes (torch.bool).  One launch where the plan fits a
+// block; else two (plan_kernel, finish_kernel).
+int crossbar_plan_fabric(const void* dst, const void* src, const void* allowed,
+                         const void* reset, const void* quota,
+                         const void* capacity, void* out, void* flags,
+                         long long flag_ints, void* data,
+                         long long data_ints, int T, int S, int block_t,
+                         void* stream_ptr) {
+  auto* o = static_cast<int32_t*>(out);
+  const FabricPlan p{static_cast<const int32_t*>(dst),
+                     static_cast<const int32_t*>(src),
+                     static_cast<const uint8_t*>(allowed),
+                     static_cast<const uint8_t*>(reset),
+                     static_cast<const int32_t*>(quota),
+                     static_cast<const int32_t*>(capacity), S,
+                     reinterpret_cast<uint8_t*>(o + 2 * (size_t)T + S + 4),
+                     o, o + T, o + 2 * (size_t)T, o + 2 * (size_t)T + S};
+  return launch_plan(p, T, S * S, block_t, flags, flag_ints,
+                     data, data_ints, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // Every byte of ``slabs`` [S*C, row_vecs x 16 bytes] written once, in one

@@ -10,6 +10,14 @@ at import.
 Each wrapper carries ``launches``, a plain int that counts kernel launches
 (plain-version calls do not count); :func:`reset_launch_counts` zeroes them.
 
+The plans (``plan_multi``, ``plan``, and ``plan_fabric``, the fabric's
+whole ``DispatchPlan`` from its register file) are one launch and no
+memset up to ``PLAN_BLOCK_T`` packets, with every output part of one
+``torch.empty`` buffer that the kernel writes whole and every register
+read in place; above, the kernel spreads over several blocks (and
+``plan_fabric`` takes a second launch), with a scratch kept per stream
+that each launch leaves zeroed.
+
 ``scatter`` allocates its slabs with ``torch.empty``: the kernel writes
 every byte of them, a granted packet's row or zeros, so a call is one
 launch and no memset (two launches from ``OWNER_PASS_T`` packets on, see
@@ -24,7 +32,8 @@ PyTorch's raw current stream, and the checks read shapes and types only,
 never values on the card.
 
 TPU kernels replaced (``repro/kernels/crossbar_dispatch/kernel.py``):
-``plan_multi`` <- ``plan_multi_call``, ``plan`` <- ``plan_call``,
+``plan_multi`` and ``plan_fabric`` <- ``plan_multi_call`` (with
+``PallasBackend.plan``'s epilogue), ``plan`` <- ``plan_call``,
 ``scatter`` <- ``scatter_call``, ``combine`` <- ``combine_call``.  What
 bounds each one on the card and how the design answers it is in the
 source note of the ``.cu`` file.
@@ -37,24 +46,30 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.arbiter import DispatchPlan
 from repro_torch.fabric.interface import KernelMode, use_kernel
 from repro_torch.kernels import build
 from repro_torch.kernels.crossbar_dispatch import ref
 
 SOURCES = (pathlib.Path(__file__).parent / "csrc" / "crossbar_dispatch.cu",)
 LIB_NAME = "crossbar_dispatch"
-PLAN_BLOCK = 256                 # tokens per block of the plan kernels
-MAX_PORTS = 64                   # plan_rank_kernel keeps 9 * S^2 ints in smem
-PLAN_MAX_PORTS = MAX_PORTS ** 2  # ... and 9 * S ints for one source's plan
+PLAN_BLOCK_T = 8192              # packets one plan block takes at most
+MAX_PORTS = 64                   # plan_multi, plan_fabric: S * S streams
+PLAN_MAX_PORTS = MAX_PORTS ** 2  # plan: S streams
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MASK_BYTES = {torch.int32: 4, torch.bool: 1}
 VEC_BYTES = 16                   # scatter/combine move rows as uint4
 OWNER_PASS_T = 4096              # packets from which scatter maps owners first
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 _LIB = None
+# Per (device, stream): the int32 flags (zeroed once; every launch leaves
+# them zeroed) and data of plans over several blocks (see the source note).
+_SCRATCH = {}
 
 
 def library() -> ctypes.CDLL:
@@ -62,12 +77,16 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = build.load_library(LIB_NAME, SOURCES)
-        lib.crossbar_plan_multi.argtypes = [_P] * 9 + [_I, _I, _P]
-        lib.crossbar_plan.argtypes = [_P] * 9 + [_I, _I, _P]
+        scratch = [_P, _L, _P, _L, _I, _I, _I, _P]   # + T, S, block_t, stream
+        lib.crossbar_plan_multi.argtypes = [_P, _P, _P, _I, _P, _I, _I,
+                                            _P] + scratch
+        lib.crossbar_plan.argtypes = [_P, _P, _I, _P, _P, _P] + scratch
+        lib.crossbar_plan_fabric.argtypes = [_P] * 7 + scratch
         lib.crossbar_scatter.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.crossbar_combine.argtypes = [_P] * 6 + [_I] * 5 + [_P]
         for fn in (lib.crossbar_plan_multi, lib.crossbar_plan,
-                   lib.crossbar_scatter, lib.crossbar_combine):
+                   lib.crossbar_plan_fabric, lib.crossbar_scatter,
+                   lib.crossbar_combine):
             fn.restype = _I
         _LIB = lib
     return _LIB
@@ -96,15 +115,48 @@ def _rows(t: torch.Tensor, what: str) -> torch.Tensor:
     return t
 
 
+def _mask(t: torch.Tensor) -> torch.Tensor:
+    """An isolation mask as the plan kernels read it: int32 or bool as it
+    is, contiguous; any other type as int32."""
+    if t.dtype not in _MASK_BYTES:
+        t = t.to(torch.int32)
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _launch_plan(entry, name: str, dev: torch.device, T: int, S: int,
+                 n_keys: int, *args) -> None:
+    """Call a plan entry with the plan scratch of PyTorch's stream on
+    ``dev``.  A plan over B blocks that finds too little returns -B; then
+    make 2 + B flag ints (zeroed) and (1 + B) * n_keys data ints, or keep
+    what is larger, and call again."""
+    stream = build.stream(dev)
+    key = (dev.index, stream)
+    flags, data = _SCRATCH.get(key, (None, None))
+    scratch = (None, 0, None, 0) if flags is None else (
+        flags.data_ptr(), flags.numel(), data.data_ptr(), data.numel())
+    code = entry(*args, *scratch, T, S, PLAN_BLOCK_T, stream)
+    if code < 0:
+        n_flags, n_data = 2 - code, (1 - code) * n_keys
+        if flags is not None:
+            n_flags = max(n_flags, flags.numel())
+            n_data = max(n_data, data.numel())
+        flags = torch.zeros((n_flags,), dtype=torch.int32, device=dev)
+        data = torch.empty((n_data,), dtype=torch.int32, device=dev)
+        _SCRATCH[key] = flags, data
+        code = entry(*args, flags.data_ptr(), n_flags, data.data_ptr(),
+                     n_data, T, S, PLAN_BLOCK_T, stream)
+    build.check(code, name)
+
+
 def plan_multi(dst: torch.Tensor, src: torch.Tensor, allowed_sd: torch.Tensor,
                quota_sd: torch.Tensor, *, mode=KernelMode.AUTO
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """Fused multi-source grant sweep; see ``ref.plan_multi_ref``.
 
-    ``quota_sd`` is indexed [src, dst]: the register file stores quota
-    [dst, src], so callers pass ``regs.quota.T`` and the wrapper makes it
-    contiguous before its pointer is taken."""
+    ``allowed_sd`` (int32 or bool) and ``quota_sd`` (int32) are indexed
+    [src, dst].  The register file stores quota [dst, src], so callers pass
+    ``regs.quota.T``: the kernel reads it through its strides, no copy."""
     if not use_kernel(mode, dst, src, allowed_sd, quota_sd):
         return ref.plan_multi_ref(dst, src, allowed_sd, quota_sd)
     S = allowed_sd.shape[0]
@@ -116,21 +168,67 @@ def plan_multi(dst: torch.Tensor, src: torch.Tensor, allowed_sd: torch.Tensor,
     if src.shape != (T,):
         raise ValueError(f"src must be [{T}], got {tuple(src.shape)}")
     dev = dst.device
-    dst, src = _i32(dst), _i32(src)
-    allowed, quota = _i32(allowed_sd), _i32(quota_sd)
-    keep = torch.empty((T,), dtype=torch.int32, device=dev)
-    rank = torch.empty_like(keep)
-    err = torch.empty_like(keep)
-    granted = torch.zeros((S, S), dtype=torch.int32, device=dev)
-    n_blocks = -(-T // PLAN_BLOCK)
-    hist = torch.empty((S * S, n_blocks), dtype=torch.int32, device=dev)
-    code = library().crossbar_plan_multi(
-        dst.data_ptr(), src.data_ptr(), allowed.data_ptr(), quota.data_ptr(),
-        keep.data_ptr(), rank.data_ptr(), err.data_ptr(), granted.data_ptr(),
-        hist.data_ptr(), T, S, build.stream(dev))
-    build.check(code, "crossbar_plan_multi")
+    dst, src, allowed = _i32(dst), _i32(src), _mask(allowed_sd)
+    quota = quota_sd if quota_sd.dtype is torch.int32 else quota_sd.to(
+        torch.int32)
+    out = torch.empty((3 * T + S * S,), dtype=torch.int32, device=dev)
+    _launch_plan(library().crossbar_plan_multi, "crossbar_plan_multi", dev,
+                 T, S, S * S, dst.data_ptr(), src.data_ptr(),
+                 allowed.data_ptr(), _MASK_BYTES[allowed.dtype],
+                 quota.data_ptr(), quota.stride(0), quota.stride(1),
+                 out.data_ptr())
     plan_multi.launches += 1
-    return keep, rank, err, granted
+    keep, rank, err, granted = out.split_with_sizes((T, T, T, S * S))
+    return keep, rank, err, granted.view(S, S)
+
+
+def plan_fabric(dst: torch.Tensor, src: torch.Tensor, allowed: torch.Tensor,
+                reset: torch.Tensor, quota: torch.Tensor,
+                capacity: torch.Tensor, *, mode=KernelMode.AUTO
+                ) -> DispatchPlan:
+    """The fabric's whole plan from its register file as stored: what
+    ``CudaBackend.plan`` returns; see ``ref.plan_fabric_ref``.
+
+    ``allowed`` [src, dst] and ``reset`` [S] bool, ``quota`` [dst, src] and
+    ``capacity`` [S] (clamped to the slab depth) int32.  Registers are read
+    at call time, so a register rewrite needs no rebuild.  Its launches
+    count under ``plan_multi``, the TPU kernel whose place it takes on the
+    fabric's path."""
+    if not use_kernel(mode, dst, src, allowed, reset, quota, capacity):
+        return ref.plan_fabric_ref(dst, src, allowed, reset, quota, capacity)
+    S = allowed.shape[0]
+    T = dst.shape[0]
+    if not (allowed.dtype is reset.dtype is torch.bool
+            and quota.dtype is capacity.dtype is torch.int32):
+        raise TypeError("plan_fabric takes bool allowed and reset, int32 "
+                        "quota and capacity")
+    if not (allowed.shape == quota.shape == (S, S)
+            and reset.shape == capacity.shape == (S,)):
+        raise ValueError("allowed and quota must be [S, S], reset and "
+                         "capacity [S]")
+    if not 0 < S <= MAX_PORTS:
+        raise ValueError(f"plan_fabric kernel takes 1..{MAX_PORTS} ports, "
+                         f"got {S}")
+    if src.shape != (T,):
+        raise ValueError(f"src must be [{T}], got {tuple(src.shape)}")
+    dev = dst.device
+    dst, src = _i32(dst), _i32(src)
+    regs = [r if r.is_contiguous() else r.contiguous()
+            for r in (allowed, reset, quota, capacity)]
+    # int32 slot, error [T], counts [S], drops [4], then keep as T bytes
+    out = torch.empty((2 * T + S + 4 + (T + 3) // 4,), dtype=torch.int32,
+                      device=dev)
+    _launch_plan(library().crossbar_plan_fabric, "crossbar_plan_fabric", dev,
+                 T, S, S * S, dst.data_ptr(), src.data_ptr(),
+                 *[r.data_ptr() for r in regs], out.data_ptr())
+    plan_multi.launches += 1
+    slot, error, counts, drops, keep = out.split_with_sizes(
+        (T, T, S, 4, (T + 3) // 4))
+    keep = keep.view(torch.bool)
+    if T % 4:
+        keep = keep[:T]
+    return DispatchPlan(keep=keep, slot=slot, dst=dst, error=error,
+                        counts=counts, drops=drops)
 
 
 def plan(dst: torch.Tensor, allowed_row: torch.Tensor,
@@ -149,21 +247,15 @@ def plan(dst: torch.Tensor, allowed_row: torch.Tensor,
         raise ValueError(f"plan kernel takes 1..{PLAN_MAX_PORTS} ports, "
                          f"got {S}")
     dev = dst.device
-    keep = torch.empty((T,), dtype=torch.int32, device=dev)
-    slot = torch.empty_like(keep)
-    err = torch.empty_like(keep)
-    counts = torch.zeros((S,), dtype=torch.int32, device=dev)
-    dst = _i32(dst)
-    allowed, quota, cap = _i32(allowed_row), _i32(quota_row), _i32(capacity)
-    hist = torch.empty((S, -(-T // PLAN_BLOCK)), dtype=torch.int32,
-                       device=dev)
-    code = library().crossbar_plan(
-        dst.data_ptr(), allowed.data_ptr(), quota.data_ptr(), cap.data_ptr(),
-        keep.data_ptr(), slot.data_ptr(), err.data_ptr(), counts.data_ptr(),
-        hist.data_ptr(), T, S, build.stream(dev))
-    build.check(code, "crossbar_plan")
+    dst, allowed = _i32(dst), _mask(allowed_row)
+    quota, cap = _i32(quota_row), _i32(capacity)
+    out = torch.empty((3 * T + S,), dtype=torch.int32, device=dev)
+    _launch_plan(library().crossbar_plan, "crossbar_plan", dev, T, S, S,
+                 dst.data_ptr(), allowed.data_ptr(),
+                 _MASK_BYTES[allowed.dtype], quota.data_ptr(), cap.data_ptr(),
+                 out.data_ptr())
     plan.launches += 1
-    return keep, slot, err, counts
+    return out.split_with_sizes((T, T, T, S))
 
 
 def scatter(x: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,

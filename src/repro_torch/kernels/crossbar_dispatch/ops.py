@@ -1,9 +1,11 @@
 """Entry points of the crossbar-dispatch kernels: the private ``_plan``,
-``_plan_multi``, ``_dispatch`` and ``_combine`` of the fabric's kernel
-backend (the zero-packet case, dtype normalisation and the kernel mode),
+``_plan_multi``, ``_dispatch`` and ``_combine`` (the zero-packet case,
+dtype normalisation and the kernel mode), as the JAX package has them,
 and the deprecated public shims ``crossbar_plan``, ``crossbar_dispatch``
 and ``crossbar_combine`` over them, which warn as the JAX package's do.
-The shims are the only callers of the single-source ``_plan``.
+The fabric's kernel backend moves its data through ``_dispatch`` and
+``_combine`` and takes its whole plan from ``kernel.plan_fabric``; the
+shims are the only callers of the single-source ``_plan``.
 
 The TPU entry points padded the token axis to the kernel block size with
 ``dst = -1`` rows and sliced the result back to ``T``.  The CUDA kernels

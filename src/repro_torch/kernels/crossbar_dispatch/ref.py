@@ -10,7 +10,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.arbiter import _error_codes, _stream_ranks, bincount_i32
+from repro_torch.core.arbiter import (DispatchPlan, _error_codes,
+                                      _stream_ranks, bincount_i32, wrr_slots)
 from repro_torch.core.registers import ErrorCode
 
 I32 = torch.int32
@@ -80,6 +81,38 @@ def plan_multi_ref(dst: torch.Tensor, src: torch.Tensor,
                                   ErrorCode.OK)).to(I32)
     granted = bincount_i32(pair, keep, n * n).reshape(n, n)
     return keep.to(I32), rank, err, granted
+
+
+def plan_fabric_ref(dst: torch.Tensor, src: torch.Tensor,
+                    allowed: torch.Tensor, reset: torch.Tensor,
+                    quota: torch.Tensor, capacity: torch.Tensor
+                    ) -> DispatchPlan:
+    """The fabric's plan from its register file: reset folded into the
+    isolation matrix, the multi-source sweep, the closed-form WRR slots of
+    ``wrr_slots`` and the capacity cut.  ``allowed`` [src, dst] and
+    ``reset`` [S] bool, ``quota`` [dst, src] and ``capacity`` [S] int32
+    (clamped to the slab depth by the caller)."""
+    n = allowed.shape[0]
+    dst = dst.to(I32)
+    src = src.to(I32)
+    dstc = dst.clamp(0, n - 1).long()
+    srcc = src.clamp(0, n - 1).long()
+    # Fold reset into the isolation matrix the sweep takes; quota is
+    # stored [dst, src], the sweep indexes [src, dst].
+    allowed_eff = (allowed & ~reset[:, None] & ~reset[None, :]).to(I32)
+    keep_pre, rank, err_pre, granted = plan_multi_ref(dst, src, allowed_eff,
+                                                      quota.T)
+    keep_pre = keep_pre > 0                              # iso & quota
+    slot = wrr_slots(rank, granted, dstc, srcc[None, :])
+    cap_ok = slot < capacity[dstc]
+    keep = keep_pre & cap_ok
+    error = torch.where(err_pre != ErrorCode.OK, err_pre,
+                        torch.where(cap_ok, ErrorCode.OK,
+                                    ErrorCode.ACK_TIMEOUT)).to(I32)
+    counts = bincount_i32(dstc, keep, n)
+    drops = bincount_i32(error, None, 4)
+    return DispatchPlan(keep=keep, slot=torch.where(keep, slot, 0), dst=dst,
+                        error=error, counts=counts, drops=drops)
 
 
 def _row_ok(dst: torch.Tensor, keep: torch.Tensor, slot: torch.Tensor,

@@ -1,6 +1,7 @@
 """Timing of kernel calls on the card, shared by ``chip_smoke.py``, the card
 tests and the kernels' bench scripts (``crossbar_dispatch/row_bench.py``,
-``rglru/scan_bench.py``, ``hamming/map_bench.py``).
+``crossbar_dispatch/plan_bench.py``, ``rglru/scan_bench.py``,
+``hamming/map_bench.py``).
 
 * :func:`event_ms`: the median time of one call between two CUDA events,
   the card idle before each call, so the host's path to the launch counts.
@@ -22,7 +23,8 @@ import torch
 
 HOST_CALLS, HOST_CHUNK = 1000, 100
 SLEEP_CYCLES = 20_000_000          # some 10 ms of a busy card per chunk
-PROFILE_TRIES = 3
+PROFILE_TRIES = 5
+PROFILE_PAUSE_S = 0.5                # between windows that lost events
 
 
 def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -53,11 +55,16 @@ def device_profile(fn, calls: int = 20, kernel: Optional[str] = None
     is read.  With ``kernel`` (part of a kernel's name) every count is taken
     per event of that kernel, so a call that launches it once and nothing
     else gives 1 even if an event is lost; without, the window is taken
-    again until its events are a whole number a call."""
+    again until its events are a whole number a call.  A window that lost
+    events is followed by a pause before the next: on the card, windows
+    taken back to back could lose events three times in a row, where one
+    taken after a pause did not."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            time.sleep(PROFILE_PAUSE_S)
         got = []
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1),

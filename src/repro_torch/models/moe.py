@@ -115,8 +115,9 @@ def moe_apply_fabric(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
 
     Each group's packets are planned, scattered into expert slabs, run
     through the expert FFN and combined back with the router weights; on
-    ``cuda_kernel`` that is the ``plan_multi``, ``scatter`` and ``combine``
-    kernels.  The groups run in a loop (the JAX package vmaps them)."""
+    ``cuda_kernel`` that is the fabric's plan kernel (``plan_fabric``),
+    ``scatter`` and ``combine``.  The groups run in a loop (the JAX
+    package vmaps them)."""
     B, S, d = x.shape
     E, k = moe.n_experts, moe.top_k
     T = B * S

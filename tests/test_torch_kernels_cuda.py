@@ -16,7 +16,14 @@ kernels take float32 and bfloat16 rows of a multiple of 16 bytes; they are
 held at the edge shapes (one packet, none or every slab row granted, the
 two-pass scatter at T = 65536, 16-byte rows, the decode shape), in the
 combine's unit-weight form, and counted by ``torch.profiler`` at one
-device kernel and no memset per scatter call.
+device kernel and no memset per scatter call.  The plans (``plan_multi``,
+the fabric's ``plan_fabric`` and ``CudaBackend.plan`` around it, and the
+single-source ``plan``) are held bit-equal to their plain versions and to
+``ReferenceBackend.plan`` from one packet to 300,000 (several blocks, one
+after another on one stream, so the scratch they leave zeroed is used
+again), counted at one device kernel and no memset or fill a call up to
+``PLAN_BLOCK_T`` packets, and rerouted by a ``Shell.post`` without a
+second library load.
 
 Flash attention is held against autograd through ``ref.attention_ref``
 (bfloat16 on the tensor-core kernels, float32 and the smoke configs' head
@@ -107,6 +114,142 @@ def test_plan_multi_bit_equal_on_card(T, S):
     plan_r = ReferenceBackend().plan(dst, src, regs)
     for f in ("keep", "slot", "dst", "error", "counts", "drops"):
         assert torch.equal(getattr(plan_k, f), getattr(plan_r, f)), f
+
+
+def _fabric_registers(S, seed, capacity=64):
+    """Registers as ``Fabric._on_device`` hands them over: isolation holes,
+    quotas, a reset port and per-port capacities clamped to the slab."""
+    rng = np.random.default_rng(seed)
+    allowed = rng.random((S, S)) > 0.2
+    quota = np.where(rng.random((S, S)) > 0.5,
+                     rng.integers(1, 40, (S, S)), 0).astype(np.int32)
+    reset = np.zeros(S, bool)
+    reset[rng.integers(0, S)] = S > 2
+    cap = rng.integers(1, capacity + 1, S).astype(np.int32)
+    cu = lambda a: torch.from_numpy(a).cuda()
+    return CrossbarRegisters.create(S, capacity=capacity, device="cuda").write(
+        allowed=cu(allowed), quota=cu(quota), reset=cu(reset),
+        capacity=cu(cap))
+
+
+PLAN_FABRIC_SHAPES = [(1, 2), (2, 8), (255, 4), (2048, 8), (3000, 8),
+                      (20000, 16), (300000, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S", PLAN_FABRIC_SHAPES)
+def test_plan_fabric_bit_equal_on_card(T, S):
+    """The fabric's plan entry and ``CudaBackend.plan`` against
+    ``ReferenceBackend.plan`` (stable-sort ranks) and ``plan_fabric_ref``,
+    every field and its type, with reset ports, quota, capacity drops,
+    ``dst = -1`` padding and out-of-range ``dst``; one launch counted."""
+    _card()
+    dst, src, _ = _inputs(T, S, seed=T + S)
+    regs = _fabric_registers(S, seed=T * S)
+    args = (dst, src, regs.allowed, regs.reset, regs.quota, regs.capacity)
+    before = K.launch_counts()["plan_multi"]
+    pk = K.plan_fabric(*args, mode=KernelMode.CUDA)
+    pb = CudaBackend(kernel_mode=KernelMode.CUDA).plan(dst, src, regs)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["plan_multi"] == before + 2
+    pr = ReferenceBackend().plan(dst, src, regs)
+    pf = ref.plan_fabric_ref(*args)
+    for f in ("keep", "slot", "dst", "error", "counts", "drops"):
+        for plan in (pk, pb, pf):
+            got = getattr(plan, f)
+            assert got.dtype == getattr(pr, f).dtype, f
+            assert torch.equal(got, getattr(pr, f)), f
+    if T >= 2048:                       # every verdict occurs
+        assert all(int(n) > 0 for n in pr.drops), pr.drops
+
+
+def _plan_calls(T, S, seed):
+    """The three plan kernels at one shape, as the fabric and the shims
+    call them."""
+    dst, src, regs = _inputs(T, S, seed=seed)
+    allowed = regs.allowed.to(torch.int32)
+    one = torch.ones(S, dtype=torch.int32, device="cuda")
+    cuda = KernelMode.CUDA
+    return {
+        "plan_multi": lambda: K.plan_multi(dst, src, allowed, regs.quota.T,
+                                           mode=cuda),
+        "plan_fabric": lambda: K.plan_fabric(
+            dst, src, regs.allowed, regs.reset, regs.quota, regs.capacity,
+            mode=cuda),
+        "backend_plan": lambda: CudaBackend(kernel_mode=cuda).plan(
+            dst, src, regs),
+        "plan": lambda: K.plan(dst, one, regs.quota[0], regs.capacity,
+                               mode=cuda),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S", [(2, 8), (2048, 8), (K.PLAN_BLOCK_T, 8)])
+def test_plans_are_one_kernel_and_no_memset_on_card(T, S):
+    """Up to ``PLAN_BLOCK_T`` packets a plan call (``plan_multi``, the
+    fabric's entry, ``CudaBackend.plan``, ``plan``) is one device kernel and
+    no memset or fill, counted by ``torch.profiler``."""
+    _card()
+    from repro_torch.kernels.timing import device_profile
+    for name, call in _plan_calls(T, S, seed=T).items():
+        got = device_profile(call, calls=10, kernel="plan_kernel")
+        assert got["kernels"] == 1 and got["memsets"] == 0, (name, got)
+
+
+@pytest.mark.cuda
+def test_plans_over_several_blocks_leave_no_state_on_card():
+    """Plans over several blocks, one after another at other sizes on one
+    stream, each bit-equal: the scratch every launch leaves zeroed needs no
+    memset between calls."""
+    _card()
+    for T, S in ((20000, 16), (K.PLAN_BLOCK_T + 1, 8), (70000, 4),
+                 (20000, 16)):
+        dst, src, regs = _inputs(T, S, seed=T)
+        allowed = regs.allowed.to(torch.int32)
+        for _ in range(2):
+            pk = K.plan_multi(dst, src, allowed, regs.quota.T,
+                              mode=KernelMode.CUDA)
+            pr = ref.plan_multi_ref(dst, src, allowed, regs.quota.T)
+            assert all(torch.equal(a, b) for a, b in zip(pk, pr)), (T, S)
+            fk = K.plan_fabric(dst, src, regs.allowed, regs.reset,
+                               regs.quota, regs.capacity, mode=KernelMode.CUDA)
+            fr = ReferenceBackend().plan(dst, src, regs)
+            assert all(torch.equal(getattr(fk, f), getattr(fr, f))
+                       for f in ("keep", "slot", "error", "counts", "drops"))
+
+
+@pytest.mark.cuda
+def test_shell_post_between_plans_reroutes_without_a_rebuild_on_card():
+    """A ``Shell`` fabric on the card plans, a ``Shell.post`` rewrites the
+    registers, and the next plan follows the new registers (equal to the
+    reference backend's) through the kernels already loaded."""
+    _card()
+    from repro_torch.kernels import build
+    from repro_torch.core.elastic import Region
+    from repro_torch.core.module import ModuleFootprint
+    from repro_torch.shell import FailRegion, Shell, Submit
+    shell = Shell([Region(rid=i, n_chips=8, hbm_bytes=8 << 30)
+                   for i in range(3)])
+    fp = ModuleFootprint(1 << 30, 1e9, 4096)
+    shell.post(Submit("a", (fp, fp), app_id=0))
+    fab = shell.fabric(backend="cuda", device="cuda")
+    ref_fab = shell.fabric(backend="reference", device="cuda")
+    dst = torch.tensor([1, 2, 0, -1, 1], dtype=torch.int32, device="cuda")
+    src = torch.tensor([0, 0, 1, 0, 2], dtype=torch.int32, device="cuda")
+    K.library()
+    loads = build.load_count[K.LIB_NAME]
+    before = K.launch_counts()["plan_multi"]
+    plans = []
+    for step in range(2):
+        if step:
+            shell.post(FailRegion(0))
+        got, want = fab.plan(dst, src), ref_fab.plan(dst, src)
+        for f in ("keep", "slot", "error", "counts", "drops"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        plans.append(got)
+    assert not torch.equal(plans[0].keep, plans[1].keep)
+    assert K.launch_counts()["plan_multi"] == before + 2
+    assert build.load_count[K.LIB_NAME] == loads == 1
 
 
 def _row_inputs(T, S, C, D, dtype, seed, capacity=64):
