@@ -37,6 +37,18 @@ Phases, each printing one JSON line with its seconds:
             midway.  Counts kernel launches on exactly this run, then serves
             the same requests through the plain versions on the card and
             requires identical token streams and port traffic.
+5b. manager_mixtral
+            the paper's resource manager closing the loop over that
+            engine: one 4-module Mixtral tenant in a 4-region shell of
+            80 GB regions, started on 1 region, ``ElasticServer`` with
+            ``slots_per_region=1`` (a region buys a decode slot) on the
+            ``cuda`` fabric and a ``Manager(Hysteresis())`` ticking with
+            the server (deciding every second tick).  16 requests at tick
+            0, then quiet to tick 72: the manager must post a Grow and
+            later a Shrink, the placed regions must follow its decisions,
+            and token streams, decisions and placements must equal the same
+            loop on the plain path; the plan, scatter and combine kernels
+            launch, the crossbar library loads once.
 6. train    3 AdamW steps of ``make_train_step`` on the served model's
             parameters (B=1, S=4096), counting kernel launches on exactly
             these steps (bfloat16 flash only on the tensor-core route);
@@ -99,6 +111,29 @@ Phases, each printing one JSON line with its seconds:
             rounds), bit-equal to ``plan_ref``, timed at T = 2^20, S = 16
             (also by device time, kernels and memsets a call, and host
             time; it fails if that plan clears memory).
+
+10. serve_harness
+            ``ServeHarness`` + ``SeededEngine`` over an ``ElasticServer`` on
+            the ``cuda`` fabric at ``benchmarks/serve_bench.py``'s shapes
+            (read, not imported): 2,048 front-loaded streams through 1,024
+            slots, ``max_new=48``, with the plan cache on and off, and
+            2,048 heavy-tailed streams through 256 slots under a FailRegion
+            / heal / Shrink / Grow script with the cache on.  Each report's
+            integers and sha256 token digest, and the port traffic, equal
+            the same run on the ``reference`` backend on the CPU; the digest
+            is the same with the cache on and off; the storm's cache
+            invalidations equal its posts; one plan signature
+            (``fabric_retraces`` 1); one plan launch per cache miss, or per
+            tick with an active slot with the cache off; the crossbar
+            library loaded once.  Tick percentiles and tokens/s printed.
+11. manager_scenarios
+            ``run_scenario`` on the card (``fabric_backend="cuda"``):
+            ``bursty``, ``production`` on a ``ServerPool`` of 4 servers over
+            24 regions, ``adversarial`` under ``adversarial_policy()``,
+            seed 0, 48 ticks, each ``to_json()`` equal to the same call on
+            ``reference`` on the CPU; ``production`` recorded on the card
+            and replayed through ``RecordedWorkload`` to the same trace;
+            plan launches > 0 and the crossbar library loaded once.
 
 ``--profile`` adds a phase after serving and one after the train steps:
 ``torch.profiler`` over 8 warm decode steps of the served engine and over
@@ -864,6 +899,346 @@ def serve_phase(cfg, smi):
             tok, state = engine.decode(tok, state)
         profile("serve.profile", decode, 8)
     return engine, launches
+
+
+# ----------------------------------------------------------------------
+# the control plane: the seeded serve harness, the manager's scenarios and
+# the closed loop over the served Mixtral
+# ----------------------------------------------------------------------
+# ``benchmarks/serve_bench.py``'s two shapes (read, not imported): 2,048
+# front-loaded streams through 1,024 slots, and heavy-tailed arrivals
+# through 256 slots under a FailRegion / heal / Shrink / Grow script.
+HARNESS_SEED = 11
+STEADY_STREAMS, STEADY_SLOTS, STEADY_MAX_NEW = 2048, 1024, 48
+STORM_STREAMS, STORM_SLOTS, STORM_GAP = 2048, 256, 0.1
+STORM_TICKS = (20, 35, 50, 65)
+# every ``ServeReport`` field that is a function of the seed alone
+REPORT_INTS = ("n_streams", "n_slots", "ticks", "steady_ticks",
+               "completions", "tokens", "reconfigs", "admission_p50_ticks",
+               "admission_p99_ticks", "fabric_retraces", "plan_cache_hits",
+               "plan_cache_misses", "plan_cache_invalidations",
+               "token_digest")
+SCENARIO_TICKS = 48
+# the closed loop over the Mixtral tenant: a burst at tick 0, then quiet
+LOOP_REQUESTS = 16
+LOOP_TICKS = 72
+
+
+def crossbar_loads() -> int:
+    from repro_torch.kernels import build
+    from repro_torch.kernels.crossbar_dispatch import kernel as K
+    return build.load_count[K.LIB_NAME]
+
+
+def harness_run(arrivals, *, plan_cache: bool, n_slots: int, storm: bool,
+                backend: str, device):
+    """One ``ServeHarness`` run over a fresh ``ElasticServer``: a 4-region
+    shell with one 2-module tenant and a ``SeededEngine`` (serve_bench's
+    server)."""
+    from repro_torch.core.elastic import Region
+    from repro_torch.core.module import ModuleFootprint
+    from repro_torch.serve import ReconfigEvent, SeededEngine, ServeHarness
+    from repro_torch.shell import Shell
+    from repro_torch.shell.server import ElasticServer
+    shell = Shell([Region(rid=i, n_chips=8, hbm_bytes=8 * GB)
+                   for i in range(4)])
+    shell.submit("svc", [ModuleFootprint(GB, 1e9, 4096)] * 2, app_id=0)
+    server = ElasticServer(shell, n_slots=n_slots, plan_cache=plan_cache,
+                           fabric_backend=backend, device=device)
+    server.register_engine(0, SeededEngine(seed=HARNESS_SEED))
+    script = ()
+    if storm:
+        a, b, c, d = STORM_TICKS
+        script = [ReconfigEvent(a, lambda sh: sh.fail_region(2), "fail R2"),
+                  ReconfigEvent(b, lambda sh: sh.heal_region(2), "heal R2"),
+                  ReconfigEvent(c, lambda sh: sh.shrink("svc", 1), "shrink"),
+                  ReconfigEvent(d, lambda sh: sh.grow("svc", 1), "grow")]
+    return ServeHarness(server, arrivals, reconfigs=script).run(), server
+
+
+def active_ticks(server) -> int:
+    """Ticks on which some slot was active (a request decodes from its
+    admission tick to its finishing tick, both included)."""
+    return len({t for c in server.completions
+                for t in range(c.admitted_tick, c.finished_tick + 1)})
+
+
+def serve_harness_phase(smi):
+    """``ServeHarness`` + ``SeededEngine`` over an ``ElasticServer`` on the
+    ``cuda`` fabric on the card, at serve_bench's shapes: the steady state
+    with the plan cache on and off, the storm with it on.  Each run is held
+    to the same run on the ``reference`` backend on the CPU.  Returns the
+    launches of the card runs."""
+    from repro_torch.serve import front_loaded_arrivals, heavy_tailed_arrivals
+    t0 = time.perf_counter()
+    steady = front_loaded_arrivals(STEADY_STREAMS, seed=HARNESS_SEED,
+                                   max_new=STEADY_MAX_NEW)
+    bursty = heavy_tailed_arrivals(STORM_STREAMS, seed=HARNESS_SEED,
+                                   mean_gap_ticks=STORM_GAP)
+    runs = (("steady_cache_on", steady, True, STEADY_SLOTS, False),
+            ("steady_cache_off", steady, False, STEADY_SLOTS, False),
+            ("storm", bursty, True, STORM_SLOTS, True))
+    launches = {}
+    digests = {}
+    for name, arrivals, cache, slots, storm in runs:
+        kw = dict(plan_cache=cache, n_slots=slots, storm=storm)
+        torch.cuda.synchronize()
+        _reset_counts()
+        report, server = harness_run(arrivals, backend="cuda", device=None,
+                                     **kw)
+        torch.cuda.synchronize()
+        counts = _counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        ref, ref_server = harness_run(arrivals, backend="reference",
+                                      device="cpu", **kw)
+        plans = counts["plan_multi"]
+        want_plans = (report.plan_cache_misses if cache
+                      else active_ticks(server))
+        same = {f: getattr(report, f) == getattr(ref, f)
+                for f in REPORT_INTS}
+        same_traffic = (server.port_traffic.tolist()
+                        == ref_server.port_traffic.tolist()
+                        and (server.offered_packets, server.granted_packets)
+                        == (ref_server.offered_packets,
+                            ref_server.granted_packets))
+        digests[name] = report.token_digest
+        emit(f"serve_harness.{name}", smi=smi, streams=report.n_streams,
+             slots=report.n_slots, ticks=report.ticks,
+             steady_ticks=report.steady_ticks, tokens=report.tokens,
+             completions=report.completions, reconfigs=report.reconfigs,
+             wall_s=report.wall_s, tokens_per_s=report.tokens_per_s,
+             tick_p50_us=report.tick_p50_us, tick_p99_us=report.tick_p99_us,
+             steady_tick_p50_us=report.steady_tick_p50_us,
+             steady_tick_p99_us=report.steady_tick_p99_us,
+             admission_p50_ticks=report.admission_p50_ticks,
+             admission_p99_ticks=report.admission_p99_ticks,
+             plan_cache_hits=report.plan_cache_hits,
+             plan_cache_misses=report.plan_cache_misses,
+             plan_cache_invalidations=report.plan_cache_invalidations,
+             fabric_retraces=report.fabric_retraces,
+             trace_counts=server.fabric.trace_counts,
+             plan_launches=plans, expected_plan_launches=want_plans,
+             library_loads=crossbar_loads(),
+             token_digest=report.token_digest,
+             cpu_reference={"tokens_per_s": ref.tokens_per_s,
+                            "tick_p50_us": ref.tick_p50_us,
+                            "steady_tick_p50_us": ref.steady_tick_p50_us,
+                            "same_as_card": same,
+                            "same_port_traffic": same_traffic})
+        if not (all(same.values()) and same_traffic):
+            raise AssertionError(f"serve_harness {name} on the card "
+                                 f"disagrees with the CPU reference: {same}")
+        if report.completions != report.n_streams:
+            raise AssertionError(f"serve_harness {name}: not every stream "
+                                 f"completed")
+        if (report.fabric_retraces != 1
+                or server.fabric.trace_counts["plan"] != 1):
+            raise AssertionError(f"serve_harness {name}: the plan ran under "
+                                 f"{server.fabric.trace_counts} signatures")
+        if crossbar_loads() != 1:
+            raise AssertionError("the crossbar library was loaded twice")
+        if not 0 < plans == want_plans:
+            raise AssertionError(f"serve_harness {name}: {plans} plan "
+                                 f"launches, not {want_plans}")
+        if storm and not (report.reconfigs == len(STORM_TICKS)
+                          == report.plan_cache_invalidations):
+            raise AssertionError(f"serve_harness {name}: "
+                                 f"{report.plan_cache_invalidations} cache "
+                                 f"invalidations for {report.reconfigs} "
+                                 f"posts")
+    if digests["steady_cache_on"] != digests["steady_cache_off"]:
+        raise AssertionError("the plan cache changed the token digest")
+    emit("serve_harness", seconds=time.perf_counter() - t0,
+         kernels=launches)
+    return launches
+
+
+def manager_scenarios_phase(smi):
+    """``run_scenario`` on the card (``fabric_backend="cuda"``): bursty,
+    production on a ``ServerPool`` of 4 servers over 24 regions, and the
+    adversarial scenario under ``adversarial_policy``, each held row for
+    row to the same call on ``reference`` on the CPU; production is also
+    recorded on the card and replayed through ``RecordedWorkload``.
+    Returns the launches of the three card runs."""
+    from repro_torch.manager import scenarios
+    t0 = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "manager")
+    os.makedirs(out_dir, exist_ok=True)
+    runs = (("bursty", {}, None),
+            ("production", {"n_regions": 24, "n_servers": 4}, None),
+            ("adversarial", {}, "adversarial_policy"))
+    launches = {}
+    for kind, kw, policy in runs:
+        def policy_kw():
+            return ({} if policy is None
+                    else {"policy": getattr(scenarios, policy)()})
+        record = (os.path.join(out_dir, f"{kind}.jsonl")
+                  if kind == "production" else None)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t1 = time.perf_counter()
+        res = scenarios.run_scenario(kind, seed=SEED, ticks=SCENARIO_TICKS,
+                                     fabric_backend="cuda",
+                                     record_path=record, **kw, **policy_kw())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = _counts()
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        got = res.to_json()
+        t1 = time.perf_counter()
+        want = scenarios.run_scenario(kind, seed=SEED, ticks=SCENARIO_TICKS,
+                                      fabric_backend="reference",
+                                      device="cpu", **kw,
+                                      **policy_kw()).to_json()
+        cpu_wall = time.perf_counter() - t1
+        rows_equal = sum(a == b for a, b in zip(got["trace"], want["trace"]))
+        replay_equal = None
+        if record is not None:
+            replay = scenarios.run_scenario(
+                scenarios.RecordedWorkload.load(record),
+                fabric_backend="cuda", **policy_kw())
+            replay_equal = replay.to_json() == got
+        emit(f"manager_scenarios.{kind}", smi=smi, seed=SEED,
+             ticks=SCENARIO_TICKS, n_servers=res.n_servers,
+             wall_s=wall, cpu_reference_wall_s=cpu_wall,
+             decisions=len(res.decisions), events=res.event_counts,
+             rejected_events=res.rejected_events,
+             completions=res.completions, max_queue=res.max_queue,
+             final_utilization=res.final_utilization,
+             slo_violations=res.slo_violations,
+             fabric_retraces=res.fabric_retraces,
+             plan_launches=counts["plan_multi"],
+             library_loads=crossbar_loads(),
+             trace_rows_equal=rows_equal, same_as_cpu=got == want,
+             replay_equal=replay_equal)
+        if got != want:
+            raise AssertionError(f"manager_scenarios {kind} on the card "
+                                 f"disagrees with the CPU reference "
+                                 f"({rows_equal} of {len(want['trace'])} "
+                                 f"rows equal)")
+        if replay_equal is False:
+            raise AssertionError(f"the replayed {kind} trace differs")
+        if crossbar_loads() != 1:
+            raise AssertionError("the crossbar library was loaded twice")
+        if counts["plan_multi"] <= 0:
+            raise AssertionError(f"manager_scenarios {kind} launched no "
+                                 f"plan kernel")
+    emit("manager_scenarios", seconds=time.perf_counter() - t0,
+         kernels=launches)
+    return launches
+
+
+def closed_loop(engine, fabric_backend: str, prompts):
+    """The paper's resource manager over one served tenant: Mixtral with 4
+    modules in a 4-region shell of 80 GB regions, started on 1 region;
+    ``slots_per_region=1`` makes each region one decode slot, and a
+    ``Hysteresis`` manager ticks once per server tick (deciding every
+    second).  The burst at tick 0 grows the tenant; the quiet stretch after
+    it shrinks it again.  Returns (server, manager, placed regions per
+    tick, wall ms per tick, wall seconds)."""
+    from repro_torch.core.elastic import Region
+    from repro_torch.core.module import ModuleFootprint
+    from repro_torch.manager import Hysteresis, Manager
+    from repro_torch.shell import Shell, Shrink
+    from repro_torch.shell.server import ElasticServer, StreamRequest
+    shell = Shell([Region(rid=i, n_chips=8, hbm_bytes=80 * GB)
+                   for i in range(4)])
+    shell.submit("mixtral", [ModuleFootprint(7 * GB, 2 * 3.2e9, 8192)] * 4,
+                 app_id=0)
+    shell.post(Shrink("mixtral", 1))
+    server = ElasticServer(shell, n_slots=N_SLOTS, slots_per_region=1,
+                           fabric_backend=fabric_backend)
+    server.register_engine(0, engine)
+    manager = Manager(shell, Hysteresis(), probes=[server.probe()],
+                      interval=2)
+    for p in prompts:
+        server.submit(StreamRequest(app_id=0, prompt=p, max_new=MAX_NEW))
+    placed, tick_ms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LOOP_TICKS):
+        t1 = time.perf_counter()
+        server.step()
+        manager.step()
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t1) * 1e3)
+        placed.append(shell.state.find_tenant("mixtral").placed_count)
+    return server, manager, placed, tick_ms, time.perf_counter() - t0
+
+
+def loop_decisions(manager):
+    return [(d.tick, d.kinds(), [dataclasses.astuple(e) for e in d.events],
+             dataclasses.asdict(d.signals), len(d.rejected))
+            for d in manager.decisions]
+
+
+def manager_mixtral_phase(engine, smi):
+    """The closed loop on the served Mixtral (the serve phase's engine, MoE
+    on ``cuda_kernel``, server fabric on ``cuda``), then on the plain path
+    on the card: token streams and decisions equal, a Grow then a Shrink,
+    the placed region count following them, library loads 1.  Returns the
+    launches of the kernel run."""
+    from repro_torch.shell.server import ModelEngine
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, engine.cfg.vocab, PROMPT_LEN).astype(np.int32)
+               for _ in range(LOOP_REQUESTS)]
+    loads_before = crossbar_loads()
+    _reset_counts()
+    server, manager, placed, tick_ms, wall = closed_loop(engine, "cuda",
+                                                         prompts)
+    launches = _counts()
+    plain = ModelEngine(dataclasses.replace(engine.cfg, kernel_mode="torch"),
+                        max_len=engine.max_len, params=engine.params)
+    ref_server, ref_manager, ref_placed, _, ref_wall = closed_loop(
+        plain, "reference", prompts)
+    comps = sorted(server.completions, key=lambda c: c.rid)
+    ref_comps = sorted(ref_server.completions, key=lambda c: c.rid)
+    same_tokens = ([(c.tokens, c.entry_port) for c in comps]
+                   == [(c.tokens, c.entry_port) for c in ref_comps])
+    decisions = loop_decisions(manager)
+    same_decisions = decisions == loop_decisions(ref_manager)
+    acted = [(d.tick, d.kinds()) for d in manager.decisions if d.events]
+    kinds = [k for _, ks in acted for k in ks]
+    follows = all(placed[t] - (placed[t - 1] if t else 1)
+                  == ks.count("Grow") - ks.count("Shrink")
+                  for t, ks in acted)
+    # decode ticks: some slot active, nothing admitted on the tick
+    busy = {t for c in comps for t in range(c.admitted_tick + 1,
+                                            c.finished_tick + 1)}
+    admits = {c.admitted_tick for c in comps}
+    decode_ms = [tick_ms[t] for t in sorted(busy - admits)]
+    tokens = sum(len(c.tokens) for c in comps)
+    emit("manager_mixtral", smi=smi, model=engine.cfg.name,
+         layers=engine.cfg.n_layers, requests=len(comps), ticks=LOOP_TICKS,
+         tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+         decode_tick_ms_p50=statistics.median(decode_ms),
+         decode_tick_ms_max=max(decode_ms), decode_ticks=len(decode_ms),
+         decisions=acted, placed_regions=placed,
+         epoch=server.shell.epoch, same_tokens=same_tokens,
+         same_decisions=same_decisions, placed_follows=follows,
+         plain_wall_s=ref_wall, plain_placed_equal=placed == ref_placed,
+         fabric_retraces=server.fabric.trace_count, kernels=launches,
+         library_loads=crossbar_loads(), seconds=time.perf_counter() - t0)
+    if len(comps) != LOOP_REQUESTS or any(len(c.tokens) != MAX_NEW
+                                          for c in comps):
+        raise AssertionError("manager_mixtral: not every request completed")
+    if not (same_tokens and same_decisions and placed == ref_placed):
+        raise AssertionError("manager_mixtral disagrees with the plain path")
+    if not ("Grow" in kinds and "Shrink" in kinds[kinds.index("Grow"):]):
+        raise AssertionError(f"the manager did not grow and then shrink the "
+                             f"tenant: {acted}")
+    if not follows or max(placed) <= 1:
+        raise AssertionError(f"the placed regions do not follow the "
+                             f"decisions: {placed}")
+    if any(launches[k] <= 0 for k in SERVE_KERNELS):
+        raise AssertionError(f"a kernel was not launched in the closed "
+                             f"loop: {launches}")
+    if loads_before != 1 or crossbar_loads() != 1:
+        raise AssertionError("the crossbar library was loaded twice")
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -1873,8 +2248,9 @@ def main() -> int:
     smoke_launches = smoke_widths_phase()
     torch.cuda.empty_cache()
 
-    # 5. serve --------------------------------------------------------
+    # 5. serve, and the closed control loop over the served tenant ------
     engine, serve_launches = serve_phase(cfg, smi)
+    mixtral_launches = manager_mixtral_phase(engine, smi)
 
     # 6. train --------------------------------------------------------
     train_launches, step_ms = train_phase(engine, smi)
@@ -1898,15 +2274,22 @@ def main() -> int:
     # 9. the paper's use case and the single-source plan ---------------
     (usecase_launches, plan_launches, ham_err, ham_t, plan_err,
      plan_t) = paper_usecase_phase(smi)
+
+    # 10. the seeded serve harness and the manager's scenarios ----------
+    harness_launches = serve_harness_phase(smi)
+    scenario_launches = manager_scenarios_phase(smi)
     loads = dict(build.load_count)
     if any(n != 1 for n in loads.values()):
         raise AssertionError(f"a kernel library was loaded twice: {loads}")
 
-    # 10. summary -----------------------------------------------------
+    # 11. summary -----------------------------------------------------
     paths = {"serve": serve_launches, "train": train_launches,
              "serve_ssm": ssm_launches, "serve_hybrid": hybrid_launches,
              "paper_usecase": usecase_launches, "plan_shims": plan_launches,
-             "smoke_widths": smoke_launches}
+             "smoke_widths": smoke_launches,
+             "manager_mixtral": mixtral_launches,
+             "serve_harness": harness_launches,
+             "manager_scenarios": scenario_launches}
 
     def launch_keys(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}

@@ -18,13 +18,25 @@ reconfigurations.  The register file
 is moved to the fabric's device once per register object, i.e. once per
 epoch, never on every call.
 
+``trace_count`` is the JAX package's retrace counter in the port's terms.
+JAX traces an entry point once per new argument signature; the port does
+not trace, so it counts the distinct (entry point, argument shapes,
+dtypes) signatures its entry points have run, with 64-bit types counted
+as their 32-bit forms as JAX does by default.  Those are the keys under
+which ``jax.jit`` would have traced, so on the same calls the counts are
+the JAX package's.  A plan-cache hit runs no entry point and counts
+nothing, as in JAX.  On the card the zero-rebuild pin is the kernel
+library's load count; ``trace_count`` is the same integer on every
+backend and device.
+
 Entry points run on ``device`` (the card unless ``"cpu"`` is asked for).
-The sanitizer of the JAX package (``debug=``) and the telemetry probe are
-not ported: ``debug`` accepts only ``False``.
+The sanitizer of the JAX package (``debug=``) is not ported: ``debug``
+accepts only ``False``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -45,6 +57,48 @@ def _np(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return np.asarray(v)
+
+
+# JAX's default (x64 off) canonicalizes 64-bit arguments to 32 bits before
+# it looks for a trace, so such arguments share one signature.
+_CANONICAL = {torch.int64: torch.int32, torch.float64: torch.float32,
+              torch.complex128: torch.complex64}
+
+
+@functools.lru_cache(maxsize=None)
+def _np_dtype(dt: np.dtype):
+    """A numpy dtype as the (canonical) torch dtype a tensor of it has, so
+    a numpy array and a tensor of one shape and type share a signature."""
+    try:
+        out = torch.from_numpy(np.empty(0, dt)).dtype
+    except TypeError:
+        return dt.name
+    return _CANONICAL.get(out, out)
+
+
+@functools.lru_cache(maxsize=None)
+def _field_names(cls) -> Optional[Tuple[str, ...]]:
+    if not dataclasses.is_dataclass(cls):
+        return None
+    return tuple(f.name for f in dataclasses.fields(cls))
+
+
+def _signature(v):
+    """The abstract value ``jax.jit`` keys a trace on: shapes and
+    (canonical) dtypes of every array leaf, recursing into the register
+    file and plan records; other values (``apply_fn``) by identity."""
+    if isinstance(v, torch.Tensor):
+        return (v.shape, _CANONICAL.get(v.dtype, v.dtype))
+    if isinstance(v, np.ndarray):
+        return (torch.Size(v.shape), _np_dtype(v.dtype))
+    if v is None:
+        return None
+    if isinstance(v, (bool, int, float)):
+        return ((), type(v).__name__, "weak")
+    names = None if isinstance(v, type) else _field_names(type(v))
+    if names is not None:
+        return tuple(_signature(getattr(v, n)) for n in names)
+    return v
 
 
 class Fabric:
@@ -108,19 +162,33 @@ class Fabric:
             capacity = int(self.registers.capacity.max())
         self.capacity = int(capacity)
         n = self.registers.n_ports
-        # Host-side cumulative traffic counters, fed by ``account(plan)``.
+        # Host-side cumulative traffic counters, fed by ``account(plan)``
+        # and ``account_stats``; ``FabricProbe`` samples them.
         self.port_traffic = np.zeros(n, np.int64)
         self.offered_packets = 0
         self.granted_packets = 0
+        # Grants into another shard's ports vs the source's own, in total
+        # and per destination port (fed by ``account_stats``).
+        self.remote_packets = 0
+        self.local_packets = 0
+        self.remote_port_traffic = np.zeros(n, np.int64)
+        self.local_port_traffic = np.zeros(n, np.int64)
         # Per-source attribution of masked (INVALID_DEST) and non-granted
         # offers; filled only by ``account(plan, src)``.
         self.masked_by_src = np.zeros(n, np.int64)
         self.dropped_by_src = np.zeros(n, np.int64)
         self._shared_scatter = bool(getattr(self.backend,
                                             "uses_shared_scatter", False))
+        self._trace_counts = {"plan": 0, "dispatch": 0, "combine": 0,
+                              "transfer": 0}
+        self._signatures = set()
+        self._sig_regs: Optional[CrossbarRegisters] = None
+        self._regs_signature = None
         if plan_cache:
             size = 128 if plan_cache is True else int(plan_cache)
             self.plan_cache: Optional[PlanCache] = PlanCache(maxsize=size)
+            self._trace_counts.update(addrs=0, dispatch_cached=0,
+                                      combine_cached=0, transfer_cached=0)
         else:
             self.plan_cache = None
         self._dev_src: Optional[CrossbarRegisters] = None
@@ -140,6 +208,36 @@ class Fabric:
     @property
     def n_ports(self) -> int:
         return self.registers.n_ports
+
+    @property
+    def trace_count(self) -> int:
+        """Distinct call signatures run over every entry point (the JAX
+        package's retrace count on the same calls; reconfigurations must
+        not increase it)."""
+        return sum(self._trace_counts.values())
+
+    @property
+    def trace_counts(self):
+        return dict(self._trace_counts)
+
+    def _run(self, entry: str, regs: CrossbarRegisters, *args) -> None:
+        """Count ``entry``'s call on ``regs`` and ``args`` if its signature
+        is new (a register file's signature is taken once per object)."""
+        if regs is not None and regs is not self._sig_regs:
+            self._sig_regs = regs
+            self._regs_signature = _signature(regs)
+        key = (entry, None if regs is None else self._regs_signature) + \
+            tuple(_signature(a) for a in args)
+        if key not in self._signatures:
+            self._signatures.add(key)
+            self._trace_counts[entry] += 1
+
+    def probe(self):
+        """A ``repro_torch.manager`` telemetry probe over this fabric
+        (epoch, the signature counters and whatever traffic ``account``
+        and ``account_stats`` have accumulated)."""
+        from repro_torch.manager.telemetry import FabricProbe
+        return FabricProbe(self)
 
     def _on_device(self, regs: CrossbarRegisters) -> CrossbarRegisters:
         """``regs`` on this fabric's device with capacities clamped to the
@@ -163,10 +261,14 @@ class Fabric:
         """Zero every cumulative traffic counter (and the plan cache's
         stats; ``cold_cache=True`` also drops its entries)."""
         self.port_traffic = np.zeros_like(self.port_traffic)
+        self.remote_port_traffic = np.zeros_like(self.remote_port_traffic)
+        self.local_port_traffic = np.zeros_like(self.local_port_traffic)
         self.masked_by_src = np.zeros_like(self.masked_by_src)
         self.dropped_by_src = np.zeros_like(self.dropped_by_src)
         self.offered_packets = 0
         self.granted_packets = 0
+        self.remote_packets = 0
+        self.local_packets = 0
         if self.plan_cache is not None:
             if cold_cache:
                 self.plan_cache.reset()
@@ -199,6 +301,24 @@ class Fabric:
             self.masked_by_src[:masked.shape[0]] += masked
             self.dropped_by_src[:dropped.shape[0]] += dropped
 
+    def account_stats(self, stats) -> None:
+        """Fold a sharded-MoE ``stats`` mapping (``counts``,
+        ``offered_packets``, ``granted_packets``, ``remote_packets``,
+        ``local_packets`` and the per-port ``local_counts`` /
+        ``remote_counts``; any may be missing) into the same cumulative
+        counters ``account`` maintains."""
+        if "counts" in stats:
+            self._add_counts(_np(stats["counts"]).astype(np.int64))
+        self.offered_packets += int(stats.get("offered_packets", 0))
+        self.granted_packets += int(stats.get("granted_packets", 0))
+        self.remote_packets += int(stats.get("remote_packets", 0))
+        self.local_packets += int(stats.get("local_packets", 0))
+        if "local_counts" in stats or "remote_counts" in stats:
+            n = self.port_traffic.shape[0]
+            self._add_split_counts(
+                _np(stats.get("local_counts", np.zeros(n))).astype(np.int64),
+                _np(stats.get("remote_counts", np.zeros(n))).astype(np.int64))
+
     @staticmethod
     def _acct(plan: DispatchPlan, src):
         counts = _np(plan.counts).astype(np.int64)
@@ -226,6 +346,14 @@ class Fabric:
     def _add_counts(self, counts: np.ndarray) -> None:
         self.port_traffic = self._grow_to(self.port_traffic, counts.shape[0])
         self.port_traffic[:counts.shape[0]] += counts
+
+    def _add_split_counts(self, local_counts: np.ndarray,
+                          remote_counts: np.ndarray) -> None:
+        n = max(local_counts.shape[0], remote_counts.shape[0])
+        self.local_port_traffic = self._grow_to(self.local_port_traffic, n)
+        self.remote_port_traffic = self._grow_to(self.remote_port_traffic, n)
+        self.local_port_traffic[:local_counts.shape[0]] += local_counts
+        self.remote_port_traffic[:remote_counts.shape[0]] += remote_counts
 
     # ---- plan cache plumbing ------------------------------------------
     def _cache_lookup(self, dst, src):
@@ -262,15 +390,13 @@ class Fabric:
         entry = self._cache_lookup(dst, src)
         if entry is not None:
             return entry.plan
+        self._run("plan", self.registers, dst, src)
         plan, _, src_t = self._plan(dst, src)
         self._cache_store(dst, src, plan, src_t)
         return plan
 
-    def dispatch(self, x: torch.Tensor, dst, src
-                 ) -> Tuple[torch.Tensor, DispatchPlan]:
-        """Plan + scatter packets ``x`` [T, D] into destination receive
-        slabs [n_ports, C, D]; dropped packets land nowhere."""
-        entry = self._cache_lookup(dst, src)
+    def _dispatch(self, x: torch.Tensor, dst, src, entry
+                  ) -> Tuple[torch.Tensor, DispatchPlan]:
         if entry is not None:
             plan = entry.plan
             if self._shared_scatter:
@@ -287,13 +413,20 @@ class Fabric:
         self._cache_store(dst, src, plan, src_t)
         return slabs, plan
 
-    def combine(self, y: torch.Tensor, plan: DispatchPlan,
-                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Gather result slabs back to packet order ([T, D]), scaled by
-        ``weights``; dropped packets get zeros."""
-        if weights is None:
-            weights = torch.ones(plan.keep.shape, dtype=y.dtype,
-                                 device=y.device)
+    def dispatch(self, x: torch.Tensor, dst, src
+                 ) -> Tuple[torch.Tensor, DispatchPlan]:
+        """Plan + scatter packets ``x`` [T, D] into destination receive
+        slabs [n_ports, C, D]; dropped packets land nowhere."""
+        entry = self._cache_lookup(dst, src)
+        if entry is not None:
+            self._run("addrs", None, entry.plan)
+            self._run("dispatch_cached", self.registers, x, entry.plan, src)
+        else:
+            self._run("dispatch", self.registers, x, dst, src)
+        return self._dispatch(x, dst, src, entry)
+
+    def _combine(self, y: torch.Tensor, plan: DispatchPlan,
+                 weights: torch.Tensor) -> torch.Tensor:
         entry = None
         if self.plan_cache is not None:
             entry = self.plan_cache.entry_for_plan(self.epoch, plan)
@@ -304,15 +437,42 @@ class Fabric:
             return arbiter.combine_at(y, entry.caddr, entry.cmask, weights)
         return self.backend.combine(y, plan, weights)
 
+    def combine(self, y: torch.Tensor, plan: DispatchPlan,
+                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Gather result slabs back to packet order ([T, D]), scaled by
+        ``weights``; dropped packets get zeros."""
+        if weights is None:
+            weights = torch.ones(plan.keep.shape, dtype=y.dtype,
+                                 device=y.device)
+        if (self.plan_cache is not None and self.plan_cache.entry_for_plan(
+                self.epoch, plan) is not None):
+            self._run("addrs", None, plan)
+            self._run("combine_cached", self.registers, y, plan, weights)
+        else:
+            self._run("combine", self.registers, y, plan, weights)
+        return self._combine(y, plan, weights)
+
     def transfer(self, x: torch.Tensor, dst, src,
                  apply_fn: Optional[ApplyFn] = None,
                  weights: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, DispatchPlan]:
         """Round-trip: plan -> dispatch -> ``apply_fn`` on the slabs ->
-        combine."""
-        slabs, plan = self.dispatch(x, dst, src)
+        combine.  Each new ``apply_fn`` object is a new signature (as a
+        static argument of ``jax.jit`` is): pass a stable function."""
+        if weights is None:
+            weights = torch.ones(tuple(dst.shape), dtype=x.dtype,
+                                 device=x.device)
+        entry = self._cache_lookup(dst, src)
+        if entry is not None:
+            self._run("addrs", None, entry.plan)
+            self._run("transfer_cached", self.registers, x, entry.plan, src,
+                      weights, apply_fn)
+        else:
+            self._run("transfer", self.registers, x, dst, src, weights,
+                      apply_fn)
+        slabs, plan = self._dispatch(x, dst, src, entry)
         y = slabs if apply_fn is None else apply_fn(slabs)
-        return self.combine(y, plan, weights), plan
+        return self._combine(y, plan, weights), plan
 
 
 def fabric_for_shell(shell, *, backend="reference", capacity=None,

@@ -10,10 +10,10 @@ to reconfiguration events) as one coherent package:
   (``first_fit`` / ``best_fit`` / ``defrag``)
 - ``repro_torch.shell.regfile`` — full + delta register synthesis
 - ``repro_torch.shell.shell``   — the stateful ``Shell`` facade (``post`` seam)
-- ``repro_torch.shell.server``  — ``ElasticServer``, continuous-batching serving
+- ``repro_torch.shell.server``  — ``ElasticServer``, continuous-batching
+  serving, and ``ServerPool`` (several servers over one shell)
 
-Ported from the JAX package's ``repro.shell``; ``ServerPool`` is not
-ported yet.
+Ported from the JAX package's ``repro.shell``.
 """
 from repro_torch.shell.events import (Event, FailRegion, Grow, HealRegion,
                                 HeartbeatLost, Migrate, Release, Shrink,
@@ -40,10 +40,11 @@ __all__ = [
     "check_invariants",
     # lazily resolved (pulls model machinery): ElasticServer & friends
     "ElasticServer", "ModelEngine", "StreamRequest", "StreamCompletion",
+    "ServerPool",
 ]
 
 _SERVER_NAMES = {"ElasticServer", "ModelEngine", "StreamRequest",
-                 "StreamCompletion"}
+                 "StreamCompletion", "ServerPool"}
 
 
 def __getattr__(name):

@@ -31,7 +31,12 @@ Engines are pluggable: ``register_model`` builds a real model engine;
 tests inject lightweight fakes via ``register_engine`` (anything with
 ``prefill(prompt) -> (tok, state)`` and ``decode(tok, state) ->
 (next_tok, state)``; an optional ``prefill_batch(prompts) -> [(tok,
-state), ...]`` opts into fused admission).
+state), ...]`` opts into fused admission, and an optional
+``decode_batch(toks, states) -> (toks, states)`` opts into fused
+per-tick decode across slots — elementwise-identical to the loop).
+
+``ServerPool`` runs several servers over one shell on one clock, and
+``probe()``/``probes()`` feed ``repro_torch.manager``'s control loop.
 """
 from __future__ import annotations
 
@@ -153,15 +158,24 @@ class ElasticServer:
     under the live register file, and the granted counts accumulate in
     ``port_traffic`` — so a ``shell.post`` that resets or re-routes a port
     is visible in the served traffic on the very next tick, without any
-    kernel rebuilt (``repro_torch.kernels.build.load_count`` stays at 1).
-    Admission is first-come-first-served over the free slots.
+    kernel rebuilt (``repro_torch.kernels.build.load_count`` stays at 1,
+    and ``fabric.trace_count`` stays flat).
+
+    ``slots_per_region`` (off by default) couples admission to the control
+    plane's grants: a tenant may hold at most ``max(1, placed_regions *
+    slots_per_region)`` concurrent decode slots, so ``Grow``/``Shrink``
+    decisions change its *service rate*, not just its routing — the
+    capacity model the SLO-driven scenarios exercise.  Unset, admission is
+    first-come-first-served over the free slots.
     """
 
     def __init__(self, shell: Shell, *, n_slots: int = 4,
                  fabric_backend: str = "reference",
-                 plan_cache: bool = True, device=None):
+                 plan_cache: bool = True,
+                 slots_per_region: Optional[int] = None, device=None):
         self.shell = shell
         self.n_slots = n_slots
+        self.slots_per_region = slots_per_region
         # Decode ticks between reconfigurations offer byte-identical packet
         # vectors under an unchanged register epoch, so the fabric's
         # epoch-keyed plan cache (repro_torch.fabric.cache) is on by default —
@@ -228,7 +242,8 @@ class ElasticServer:
     def register_engine(self, app_id: int, engine: Any) -> None:
         """Duck-typed engine injection: anything with ``prefill(prompt) ->
         (tok, state)`` and ``decode(tok, state) -> (tok, state)`` (an
-        optional ``prefill_batch`` opts into fused admission).
+        optional ``prefill_batch`` opts into fused admission; an optional
+        ``decode_batch(toks, states)`` fuses each tick's decode pass).
 
         >>> import numpy as np
         >>> from repro_torch.core.elastic import Region
@@ -309,6 +324,14 @@ class ElasticServer:
         self._active = 0
         self.fabric.reset_accounting(cold_cache=cold_cache)
 
+    # ---- telemetry ----------------------------------------------------
+    def probe(self):
+        """A ``repro_torch.manager`` telemetry probe over this server:
+        per-app queue depth / wait / active slots, the per-port grant
+        counters, and the offered-vs-granted drop tally."""
+        from repro_torch.manager.telemetry import ServerProbe
+        return ServerProbe(self)
+
     # ---- the server tick ----------------------------------------------
     def _admit(self) -> int:
         """Fill free slots from the queue; shell-gated. Returns admissions.
@@ -322,6 +345,12 @@ class ElasticServer:
         free = [i for i, slot in enumerate(self.slots) if slot is None]
         picked: List[Tuple[int, StreamRequest, int]] = []
         blocked: List[StreamRequest] = []
+        holding: Dict[int, int] = {}
+        if self.slots_per_region is not None:
+            for slot in self.slots:
+                if slot is not None:
+                    app = slot.request.app_id
+                    holding[app] = holding.get(app, 0) + 1
         while free and self.queue:
             cand = self.queue.popleft()
             port = self.shell.route(cand.app_id)
@@ -330,6 +359,16 @@ class ElasticServer:
                 # the next request — the control plane gates entry.
                 blocked.append(cand)
                 continue
+            if self.slots_per_region is not None:
+                # Grant-coupled capacity: regions buy concurrency (every
+                # tenant keeps one on-server slot so nobody starves).
+                t = self.shell.state.tenant_by_app(cand.app_id)
+                placed = t.placed_count if t is not None else 0
+                limit = max(1, placed * self.slots_per_region)
+                if holding.get(cand.app_id, 0) >= limit:
+                    blocked.append(cand)
+                    continue
+                holding[cand.app_id] = holding.get(cand.app_id, 0) + 1
             picked.append((free.pop(0), cand, port))
         self.queue.extendleft(reversed(blocked))
 
@@ -395,6 +434,12 @@ class ElasticServer:
         if self.active_count:
             self._account_traffic()
         finished: List[StreamCompletion] = []
+        # Survivor grouping: per-app slot lists feed the fused decode pass.
+        # With a single registered engine (the high-QPS serving shape) the
+        # grouping collapses to one list append per slot — no dict hop.
+        one_app = len(self._engines) == 1
+        survivors: List[_Slot] = []
+        live: Dict[int, List[_Slot]] = {}
         for i, slot in enumerate(self.slots):
             if slot is None:
                 continue
@@ -412,9 +457,32 @@ class ElasticServer:
                 self._routes_dirty = True
                 self._active -= 1
                 continue
-            engine = self._engines[slot.request.app_id]
-            slot.next_tok, slot.state = engine.decode(slot.next_tok,
-                                                      slot.state)
+            if one_app:
+                survivors.append(slot)
+            else:
+                live.setdefault(slot.request.app_id, []).append(slot)
+        if one_app and survivors:
+            live[survivors[0].request.app_id] = survivors
+        # Decode pass: one fused ``decode_batch`` call per engine that
+        # offers it (1k slots advance in one call instead of 1k), per-slot
+        # ``decode`` otherwise.  ``decode_batch`` may return ``None`` for
+        # the states to mean "unchanged / managed in place".
+        for app_id, slots in live.items():
+            engine = self._engines[app_id]
+            batch_fn = getattr(engine, "decode_batch", None)
+            if batch_fn is not None and len(slots) > 1:
+                toks, states = batch_fn([s.next_tok for s in slots],
+                                        [s.state for s in slots])
+                if states is None:
+                    for slot, tok in zip(slots, toks):
+                        slot.next_tok = tok
+                else:
+                    for slot, tok, state in zip(slots, toks, states):
+                        slot.next_tok, slot.state = tok, state
+            else:
+                for slot in slots:
+                    slot.next_tok, slot.state = engine.decode(slot.next_tok,
+                                                              slot.state)
         self.tick += 1
         return finished
 
@@ -430,3 +498,130 @@ class ElasticServer:
             if self._stalled:
                 break
         return self.completions[start:]
+
+
+class ServerPool:
+    """Several ``ElasticServer`` frontends over one shell — the multi-server
+    pool shape production scenarios run.
+
+    One control plane, N serving processes: every server shares the pool's
+    register file (so a single ``Shell.post`` re-routes all of them), but
+    each owns its admission queue, decode slots, and shell-bound fabric on
+    ``device`` (the card unless ``"cpu"`` is asked for).  Apps are pinned to
+    a *home* server at engine registration (``app_id % n_servers`` unless
+    overridden), requests route there at ``submit``, and ``step()``
+    advances every server on one clock.
+
+    Telemetry composes by construction: ``probes()`` returns one
+    ``ServerProbe`` per server, and ``assemble_signals`` merges them into
+    one ``Signals`` (dict channels merge per app, counters sum).  The
+    signature pin is per fabric — ``fabric_traces`` reports the *max*
+    over servers, which stays 1 when every fabric ran one plan signature.
+    """
+
+    def __init__(self, shell: Shell, n_servers: int, *, n_slots: int = 4,
+                 fabric_backend: str = "reference", plan_cache: bool = True,
+                 slots_per_region: Optional[int] = None, device=None):
+        if n_servers < 1:
+            raise ValueError(f"n_servers must be >= 1, got {n_servers}")
+        self.shell = shell
+        self.servers: List[ElasticServer] = [
+            ElasticServer(shell, n_slots=n_slots,
+                          fabric_backend=fabric_backend,
+                          plan_cache=plan_cache,
+                          slots_per_region=slots_per_region, device=device)
+            for _ in range(n_servers)]
+        self.device = self.servers[0].device
+        self._home: Dict[int, ElasticServer] = {}
+
+    def __len__(self) -> int:
+        return len(self.servers)
+
+    # ---- engines / routing --------------------------------------------
+    def server_for(self, app_id: int) -> ElasticServer:
+        """The app's home server (defaults to ``app_id % n_servers``)."""
+        return self._home.get(app_id,
+                              self.servers[app_id % len(self.servers)])
+
+    def register_engine(self, app_id: int, engine: Any,
+                        *, server: Optional[int] = None) -> None:
+        home = self.servers[server if server is not None
+                            else app_id % len(self.servers)]
+        home.register_engine(app_id, engine)
+        self._home[app_id] = home
+
+    def submit(self, request: StreamRequest) -> int:
+        return self.server_for(request.app_id).submit(request)
+
+    def drop_queued(self, app_id: int) -> None:
+        """Remove an app's queued requests (a departed tenant takes its
+        pending work with it)."""
+        self.server_for(app_id).drop_queued(app_id)
+
+    # ---- one pool clock -----------------------------------------------
+    def step(self) -> List[StreamCompletion]:
+        finished: List[StreamCompletion] = []
+        for srv in self.servers:
+            finished.extend(srv.step())
+        return finished
+
+    def reset(self, *, cold_cache: bool = False) -> None:
+        for srv in self.servers:
+            srv.reset(cold_cache=cold_cache)
+
+    # ---- aggregate views ----------------------------------------------
+    @property
+    def queued_count(self) -> int:
+        return sum(s.queued_count for s in self.servers)
+
+    @property
+    def active_count(self) -> int:
+        return sum(s.active_count for s in self.servers)
+
+    @property
+    def idle(self) -> bool:
+        return all(s.idle for s in self.servers)
+
+    @property
+    def completions(self) -> List[StreamCompletion]:
+        out: List[StreamCompletion] = []
+        for srv in self.servers:
+            out.extend(srv.completions)
+        return out
+
+    def _summed(self, name: str) -> np.ndarray:
+        total = getattr(self.servers[0], name).copy()
+        for srv in self.servers[1:]:
+            total = total + getattr(srv, name)
+        return total
+
+    @property
+    def port_traffic(self) -> np.ndarray:
+        return self._summed("port_traffic")
+
+    @property
+    def offered_packets(self) -> int:
+        return sum(int(s.offered_packets) for s in self.servers)
+
+    @property
+    def granted_packets(self) -> int:
+        return sum(int(s.granted_packets) for s in self.servers)
+
+    @property
+    def masked_by_src(self) -> np.ndarray:
+        return self._summed("masked_by_src")
+
+    @property
+    def dropped_by_src(self) -> np.ndarray:
+        return self._summed("dropped_by_src")
+
+    @property
+    def fabric_traces(self) -> int:
+        """Worst per-fabric signature count (the pin: == 1)."""
+        return max(int(s.fabric.trace_count) for s in self.servers)
+
+    def probes(self):
+        """One ``ServerProbe`` per member server; feed the whole list to
+        ``Manager(probes=...)`` and the channels merge into one
+        ``Signals``."""
+        return [s.probe() for s in self.servers]

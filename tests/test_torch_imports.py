@@ -125,6 +125,65 @@ def test_recurrent_families_run_with_jax_blocked():
     assert _run_blocked(code) == "ok"
 
 
+CONTROL_MODULES = ["stats.py", "telemetry.py", "serve/__init__.py",
+                   "serve/harness.py", "shell/server.py", "fabric/fabric.py",
+                   "manager/__init__.py", "manager/telemetry.py",
+                   "manager/trackers.py", "manager/forecast.py",
+                   "manager/policies.py", "manager/slo.py",
+                   "manager/manager.py", "manager/adversary.py",
+                   "manager/scenarios.py"]
+
+
+def test_static_check_covers_the_control_plane_modules():
+    port = ROOT / "src" / "repro_torch"
+    assert {port / m for m in CONTROL_MODULES} <= set(PORT_FILES)
+
+
+def test_control_plane_runs_with_jax_blocked():
+    """The manager, its scenarios (on a ``ServerPool`` and under attack),
+    the serve harness and the fabric's probe import and run on the CPU
+    with JAX and the JAX package blocked."""
+    code = (
+        "import repro_torch.telemetry, repro_torch.stats\n"
+        "from repro_torch.manager import run_scenario, adversarial_policy\n"
+        "from repro_torch.serve import (ServeHarness, SeededEngine,\n"
+        "                               front_loaded_arrivals)\n"
+        "from repro_torch.core.elastic import Region\n"
+        "from repro_torch.core.module import ModuleFootprint\n"
+        "from repro_torch.shell import Shell\n"
+        "from repro_torch.shell.server import ElasticServer\n"
+        "r = run_scenario('adversarial', ticks=8, device='cpu',\n"
+        "                 fabric_backend='cuda', policy=adversarial_policy())\n"
+        "p = run_scenario('production', ticks=8, n_regions=8, n_servers=2,\n"
+        "                 device='cpu')\n"
+        "shell = Shell([Region(rid=i, n_chips=8, hbm_bytes=1 << 33)\n"
+        "               for i in range(2)])\n"
+        "shell.submit('svc', [ModuleFootprint(1 << 30, 1e9, 4096)], app_id=0)\n"
+        "srv = ElasticServer(shell, n_slots=4, device='cpu')\n"
+        "srv.register_engine(0, SeededEngine())\n"
+        "rep = ServeHarness(srv, front_loaded_arrivals(8, max_new=3)).run()\n"
+        "assert srv.fabric.probe().sample()['fabric_traces'] == 1\n"
+        "print(r.fabric_retraces, p.n_servers, rep.completions)\n")
+    assert _run_blocked(code) == "1 2 8"
+
+
+def test_control_plane_entry_points_without_device_raise_when_cuda_is_absent():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.core.elastic import Region
+    from repro_torch.manager import run_scenario
+    from repro_torch.shell import Shell
+    from repro_torch.shell.server import ElasticServer, ServerPool
+    shell = Shell([Region(rid=0, n_chips=1, hbm_bytes=1 << 30)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServerPool(shell, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ElasticServer(shell, slots_per_region=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_scenario("bursty", ticks=2)
+    assert ServerPool(shell, 2, device="cpu").device.type == "cpu"
+
+
 def test_entry_points_without_device_raise_when_cuda_is_absent():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
