@@ -24,6 +24,19 @@ Phases, each printing one JSON line with its seconds:
             and fails unless a plan (``plan_multi``, ``plan_fabric``,
             ``CudaBackend.plan``), scatter or combine call at the decode
             and train shapes is one device kernel and no memset.
+3b. fabric_debug
+            ``Fabric(backend="cuda_kernel", debug=...)`` at the decode and
+            train shapes on clean traffic: plans, slabs and outputs under
+            "sanitize" and "strict" bit-equal to ``debug=False``, the same
+            crossbar launches a call; under "strict" a sprayed invalid
+            destination and an over-capacity burst raise
+            ``FabricCheckError`` (under "sanitize" they drop); one library
+            load; each level's wall us a call of plan, dispatch, combine.
+3c. moe_impls
+            one Mixtral-8x7B MoE layer at its published widths at the
+            train shape (T=4096, groups of 1024, bf16): the ``dense`` and
+            ``gather`` impls against ``cuda_kernel``, outputs within 2e-2
+            relative L2, grant counts and drops equal; each impl's ms.
 4. flash    holds the flash-attention forward and backward kernels to
             their plain versions (autograd through ``attention_ref``) at
             seven shapes (bfloat16 on the tensor-core kernels at head dims
@@ -55,6 +68,19 @@ Phases, each printing one JSON line with its seconds:
             then the prefill logits of the kernel path against
             the plain path, and one float32 loss and backward of a 1-layer
             full-width model on the kernel path against the plain path.
+6b. train_loop
+            ``TrainLoop.run_loop()`` on Mixtral-8x7B at its published widths
+            cut to 1 layer (S=4096, batch 1, 4 steps, the MoE on the
+            crossbar kernels) with a one-tenant ``Shell``, ``region=0`` and
+            ``StragglerStats``: R keeps every activation; A runs remat
+            "dots", checkpoints at step 2 (some 17 GB, into a temporary
+            directory; it fails unless the disk holds twice that) and
+            crashes; B resumes from A's checkpoint.  A's and B's losses
+            equal R's bit for bit, B starts at step 2, its restored leaves
+            equal A's files, no ``WatchdogTimeout``, the crossbar and flash
+            kernels launch, one library load; step wall ms, peak memory
+            with and without remat, and the checkpoint's save and restore
+            seconds and GB/s.
 7. ssd, rglru, flash_d256
             the recurrent families' kernels (built in phase 2 with the
             others) against their plain versions: SSD at Mamba-2 780M's
@@ -148,6 +174,7 @@ exits non-zero before it.  Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -617,10 +644,13 @@ MAX_NEW = 8
 
 
 def serving_config():
+    """The served Mixtral: 2 of 32 layers, bf16, the MoE on the crossbar
+    kernels; the train phase on it keeps every activation (remat
+    "nothing"), as it has since it began, and ``train_loop`` runs remat."""
     from repro_torch.configs import get_config
     cfg = get_config("mixtral_8x7b")
     return dataclasses.replace(
-        cfg, n_layers=2, dtype="bfloat16",
+        cfg, n_layers=2, dtype="bfloat16", remat="nothing",
         moe=dataclasses.replace(cfg.moe, dispatch="cuda_kernel"))
 
 
@@ -822,6 +852,322 @@ def f32_check(cfg):
         raise AssertionError("float32 loss or gradients disagree with the "
                              "plain path")
     check_flash_route(ck, "float32", "the float32 loss and backward")
+
+
+# ----------------------------------------------------------------------
+# the training runtime: the fabric's sanitizer, the MoE's other impls and
+# TrainLoop with checkpoints and remat
+# ----------------------------------------------------------------------
+DEBUG_LEVELS = (False, "sanitize", "strict")
+DEBUG_CALLS = 200       # calls a level is timed over (each syncs when on)
+MOE_IMPL_REL = 2e-2     # bf16 MoE output of dense/gather vs cuda_kernel
+TRAIN_LOOP_STEPS = 4    # runs R and B; run A crashes after its step-2 save
+TRAIN_LOOP_CRASH = 2
+
+
+class _Crash(Exception):
+    """Run A's simulated crash, raised from its step-2 log."""
+
+
+def wall_us(fn, calls: int = DEBUG_CALLS) -> float:
+    """Wall microseconds per call of ``fn`` on an idle card, the calls'
+    device work included (a sanitized call waits for its checks)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def fabric_debug_phase():
+    """``Fabric(backend="cuda_kernel", debug=...)`` at the served decode and
+    train shapes: plans, slabs and outputs under "sanitize" and "strict"
+    bit-equal to ``debug=False`` on clean traffic, the same crossbar
+    launches a call, a sprayed invalid destination and an over-capacity
+    burst raising ``FabricCheckError`` under "strict" (masked, not raised,
+    under "sanitize"), one library load, and each level's wall us a call
+    of plan, dispatch and combine."""
+    from repro_torch.core.registers import CrossbarRegisters
+    from repro_torch.fabric import Fabric, FabricCheckError
+    from repro_torch.kernels import build
+    from repro_torch.kernels.crossbar_dispatch import kernel as K
+    from repro_torch.models.moe import expert_capacity
+    t0 = time.perf_counter()
+    cfg = serving_config()
+    E, d = cfg.moe.n_experts, cfg.d_model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    shapes = {"moe_decode": (2, expert_capacity(1, cfg.moe)),
+              "moe_train": (min(1024, TRAIN_SEQ) * cfg.moe.top_k,
+                            expert_capacity(min(1024, TRAIN_SEQ), cfg.moe))}
+    out = {}
+    for case, (T, C) in shapes.items():
+        regs = CrossbarRegisters.create(E, capacity=C, device="cuda")
+        # clean traffic: every expert offered the same number of packets
+        dst = (torch.randperm(T, generator=gen, device="cuda") % E).to(
+            torch.int32)
+        src = torch.zeros((T,), dtype=torch.int32, device="cuda")
+        x = torch.randn((T, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = torch.rand((T,), generator=gen, device="cuda").to(torch.bfloat16)
+        res, calls, us = {}, {}, {}
+        for level in DEBUG_LEVELS:
+            fab = Fabric(regs, backend="cuda_kernel", capacity=C,
+                         debug=level)
+            K.reset_launch_counts()
+            plan = fab.plan(dst, src)
+            slabs, plan2 = fab.dispatch(x, dst, src)
+            y = fab.combine(slabs, plan2, w)
+            torch.cuda.synchronize()
+            calls[str(level)] = K.launch_counts()
+            res[level] = (plan, slabs, plan2, y)
+            us[str(level)] = {
+                "plan": wall_us(lambda: fab.plan(dst, src)),
+                "dispatch": wall_us(lambda: fab.dispatch(x, dst, src)),
+                "combine": wall_us(lambda: fab.combine(slabs, plan2, w))}
+        base = res[False]
+        same = {}
+        for level in DEBUG_LEVELS[1:]:
+            plan, slabs, plan2, y = res[level]
+            same[level] = (all(torch.equal(getattr(p, f.name),
+                                           getattr(q, f.name))
+                               for p, q in ((plan, base[0]), (plan2, base[2]))
+                               for f in dataclasses.fields(p))
+                           and torch.equal(slabs, base[1])
+                           and torch.equal(y, base[3]))
+        strict = Fabric(regs, backend="cuda_kernel", capacity=C,
+                        debug="strict")
+        sanitize = Fabric(regs, backend="cuda_kernel", capacity=C,
+                          debug="sanitize")
+        spray = dst.clone()
+        spray[0] = E + 3                         # a port that does not exist
+        burst = torch.zeros((3 * C,), dtype=torch.int32, device="cuda")
+        hostile = {"spray": (spray, src), "burst": (burst, torch.zeros_like(
+            burst))}
+        raised, masked = {}, {}
+        for name, (hd, hs) in hostile.items():
+            try:
+                strict.plan(hd, hs)
+                raised[name] = False
+            except FabricCheckError:
+                raised[name] = True
+            masked[name] = int(sanitize.plan(hd, hs).keep.sum()) < hd.shape[0]
+        out[case] = dict(T=T, C=C, bit_equal=same, launches=calls,
+                         wall_us=us, strict_raises=raised,
+                         sanitize_masks=masked)
+        if not (all(same.values()) and all(raised.values())
+                and all(masked.values())
+                and all(c == calls["False"] for c in calls.values())):
+            raise AssertionError(f"the sanitizer at {case}: {out[case]}")
+    loads = dict(build.load_count)
+    emit("fabric_debug", **out, library_loads=loads,
+         seconds=time.perf_counter() - t0)
+    if any(n != 1 for n in loads.values()):
+        raise AssertionError(f"a kernel library was loaded twice: {loads}")
+    _reset_counts()
+
+
+def moe_impls_phase():
+    """One Mixtral-8x7B MoE layer at its published widths (d=4096,
+    d_ff=14336, E=8, top-2) at the train shape (T=4096 tokens, groups of
+    1024), bf16, random weights from the seed: the dense and gather impls
+    against ``cuda_kernel``, outputs within MOE_IMPL_REL relative L2 and
+    counts, drops and isolation drops equal; each impl's ms."""
+    from repro_torch.models.common import init_params
+    from repro_torch.models.moe import moe_apply, moe_defs
+    t0 = time.perf_counter()
+    cfg = serving_config()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    params = init_params(moe_defs(cfg.d_model, cfg.d_ff, cfg.moe,
+                                  cfg.mlp_act), gen, torch.bfloat16, "cuda")
+    x = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    group = min(1024, TRAIN_SEQ)
+
+    def run(impl):
+        return moe_apply(params, x, cfg.moe, cfg.mlp_act, group_size=group,
+                         dispatch_impl=impl)
+
+    out = {}
+    with torch.no_grad():
+        yk, sk = run("cuda_kernel")
+        for impl in ("cuda_kernel", "dense", "gather"):
+            y, s = run(impl)
+            torch.cuda.synchronize()
+            out[impl] = dict(
+                ms=time_ms(lambda: run(impl), reps=5, warmup=1),
+                rel_l2=rel_l2(y, yk), finite=bool(torch.isfinite(y).all()),
+                counts=s["counts"].tolist(), dropped=int(s["dropped"]),
+                iso_dropped=int(s["iso_dropped"]))
+    ints = ("counts", "dropped", "iso_dropped")
+    ok = all(o["finite"] and o["rel_l2"] <= MOE_IMPL_REL
+             and all(o[k] == out["cuda_kernel"][k] for k in ints)
+             for o in out.values())
+    emit("moe_impls", tokens=TRAIN_SEQ, group=group, d=cfg.d_model,
+         d_ff=cfg.d_ff, experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+         tol=MOE_IMPL_REL, **out, seconds=time.perf_counter() - t0)
+    if not ok:
+        raise AssertionError("the dense or gather MoE impl disagrees with "
+                             "cuda_kernel")
+    del params, x
+    torch.cuda.empty_cache()
+    _reset_counts()
+
+
+def train_loop_config():
+    """Mixtral-8x7B at its published widths cut to 1 of 32 layers (one
+    checkpoint of (params, OptState) is some 17 GB), bf16, the MoE on the
+    crossbar kernels."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mixtral_8x7b")
+    return dataclasses.replace(
+        cfg, n_layers=1, dtype="bfloat16",
+        moe=dataclasses.replace(cfg.moe, dispatch="cuda_kernel"))
+
+
+def train_loop_phase(smi):
+    """``TrainLoop.run_loop()`` on the 1-layer full-width Mixtral (S=4096,
+    batch 1, lr 1e-3, warmup 1, 4 steps), with a one-tenant ``Shell``,
+    ``region=0`` and ``StragglerStats``:
+
+    - R: remat "nothing", no checkpoint;
+    - A: remat "dots", checkpoints every 2 steps (keep 1) into a temporary
+      directory; it crashes after its step-2 checkpoint (an exception from
+      its step-2 log), as a failed node would.  A keeps R's 4-step config:
+      the cosine schedule's length is ``steps``, so a 2-step run would take
+      other learning rates than R's;
+    - B: remat "dots", ``resume=True`` on A's directory.
+
+    Every loss is finite; A's losses at steps 0-1 and B's at steps 2-3
+    equal R's bit for bit; B starts at step 2 with the pipeline at step 2;
+    B's restored leaves equal the files A wrote, bit for bit; no
+    WatchdogTimeout; the crossbar and flash kernels launch; one library
+    load.  Returns the launches of R, A and B together."""
+    import shutil
+    import tempfile
+    from repro_torch.ckpt.checkpoint import host_leaves
+    from repro_torch.core.elastic import Region
+    from repro_torch.core.module import ModuleFootprint
+    from repro_torch.kernels import build
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.runtime import StragglerStats, TrainLoop, TrainLoopConfig
+    from repro_torch.shell import Shell
+    t0 = time.perf_counter()
+    cfg = train_loop_config()
+    run = TrainLoopConfig(steps=TRAIN_LOOP_STEPS, global_batch=1,
+                          seq_len=TRAIN_SEQ, seed=SEED, lr=TRAIN_LR, warmup=1,
+                          ckpt_every=2, ckpt_keep=1, log_every=1)
+    shell = Shell([Region(rid=0, n_chips=1, hbm_bytes=80 * GB)])
+    shell.submit("trainer", [ModuleFootprint(20 * GB, 6 * 1.7e9, 1 << 20)],
+                 app_id=0)
+    stats = StragglerStats(shell=shell)
+
+    def loop(remat, **kw):
+        gc.collect()                  # the previous run's tensors
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return TrainLoop(dataclasses.replace(cfg, remat=remat), run,
+                         shell=shell, region=0, straggler_stats=stats, **kw)
+
+    def crash(rec):
+        if rec["step"] == TRAIN_LOOP_CRASH:
+            raise _Crash
+
+    _reset_counts()
+    runs = {}
+    r = loop("nothing")
+    runs["R"] = dict(hist=r.run_loop(),
+                     peak=torch.cuda.max_memory_allocated())
+    n_params = sum(p.numel() for p in tree_leaves(r.params))
+    ckpt_bytes = n_params * (2 + 4 + 4) + 4     # bf16 params, f32 m and v
+    del r
+    root = tempfile.mkdtemp(prefix="train_loop_")
+    try:
+        free = shutil.disk_usage(root).free
+        if free < 2 * ckpt_bytes:
+            raise AssertionError(
+                f"train_loop needs {2 * ckpt_bytes / 1e9:.1f} GB free for "
+                f"its checkpoint, {root} has {free / 1e9:.1f} GB")
+        a = loop("dots", ckpt_dir=root, on_log=crash)
+        try:
+            a.run_loop()
+            raise AssertionError("run A did not crash")
+        except _Crash:
+            pass
+        runs["A"] = dict(hist=a.history,
+                         peak=torch.cuda.max_memory_allocated(),
+                         snapshot_s=a.ckpt.last_snapshot_s,
+                         write_s=a.ckpt.last_write_s)
+        del a
+        b = loop("dots", ckpt_dir=root, resume=True)
+        restore_s = b.ckpt.last_restore_s
+        start = (b.start_step, b.pipeline.state().step, b.opt_state.step)
+        # B's leaves against the files A wrote, byte for byte
+        d = os.path.join(root, f"step_{TRAIN_LOOP_CRASH:08d}")
+        with open(os.path.join(d, "manifest.json")) as fh:
+            manifest = json.load(fh)
+        files = dict(zip(manifest["paths"], manifest["leaves"]))
+        same_leaves = True
+        for path, arr, _ in host_leaves((b.params, b.opt_state)):
+            disk = np.load(os.path.join(d, files[path]["file"]),
+                           mmap_mode="r")
+            same_leaves &= (disk.shape == arr.shape and np.array_equal(
+                disk.reshape(-1).view(np.uint8),
+                arr.reshape(-1).view(np.uint8)))
+        runs["B"] = dict(hist=b.run_loop(),
+                         peak=torch.cuda.max_memory_allocated())
+        del b
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = _counts()
+    loads = dict(build.load_count)
+    torch.cuda.empty_cache()
+    losses = {k: [h["loss"] for h in v["hist"]] for k, v in runs.items()}
+    steps = {k: [h["step"] for h in v["hist"]] for k, v in runs.items()}
+    timeouts = [e.event for e in shell.log
+                if type(e.event).__name__ == "WatchdogTimeout"]
+    gb = ckpt_bytes / 1e9
+    a_info = runs["A"]
+    emit("train_loop", smi=smi, model=cfg.name, layers=cfg.n_layers,
+         seq=TRAIN_SEQ, batch=1, lr=TRAIN_LR, steps=TRAIN_LOOP_STEPS,
+         params=n_params, losses=losses, logged_steps=steps,
+         step_wall_ms={k: [h["step_s"] * 1e3 for h in v["hist"]]
+                       for k, v in runs.items()},
+         max_memory_gb={"nothing": runs["R"]["peak"] / 1e9,
+                        "dots": runs["A"]["peak"] / 1e9,
+                        "dots_resumed": runs["B"]["peak"] / 1e9},
+         checkpoint_gb=gb, disk_free_gb=free / 1e9,
+         save_caller_s=a_info["snapshot_s"], save_background_s=a_info[
+             "write_s"], restore_s=restore_s,
+         save_caller_gb_per_s=gb / a_info["snapshot_s"],
+         save_background_gb_per_s=gb / a_info["write_s"],
+         restore_gb_per_s=gb / restore_s,
+         resume={"start_step": start[0], "pipeline_step": start[1],
+                 "opt_step": start[2]},
+         restored_leaves_equal_files=bool(same_leaves),
+         watchdog_timeouts=len(timeouts),
+         straggler_scores=stats.scores(), kernels=launches,
+         library_loads=loads, seconds=time.perf_counter() - t0)
+    crash_at = TRAIN_LOOP_CRASH
+    ok = {
+        "finite": all(np.isfinite(v).all() for v in losses.values()),
+        "A_equals_R": losses["A"] == losses["R"][:crash_at + 1],
+        "B_equals_R": losses["B"] == losses["R"][crash_at:],
+        "B_starts_at_the_checkpoint": start == (crash_at,) * 3
+        and steps["B"] == list(range(crash_at, TRAIN_LOOP_STEPS)),
+        "restored_leaves": bool(same_leaves),
+        "no_watchdog_timeout": not timeouts,
+        "kernels": all(launches[k] > 0 for k in TRAIN_KERNELS),
+        "one_load": all(n == 1 for n in loads.values()),
+    }
+    if not all(ok.values()):
+        raise AssertionError(f"train_loop: {ok}")
+    check_flash_route(launches, cfg.dtype, "the train loop")
+    _reset_counts()
+    return launches
 
 
 def serve_phase(cfg, smi):
@@ -2238,6 +2584,10 @@ def main() -> int:
     del served, large
     emit("kernels", seconds=time.perf_counter() - t0)
 
+    # 3b. the fabric's sanitizer, and the MoE's dense and gather impls --
+    fabric_debug_phase()
+    moe_impls_phase()
+
     # 4. flash attention ----------------------------------------------
     t0 = time.perf_counter()
     flash_err, flash_t = flash_phase()
@@ -2257,6 +2607,9 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     f32_check(cfg)
+
+    # 6b. the training runtime: TrainLoop, checkpoints, remat, resume ----
+    loop_launches = train_loop_phase(smi)
 
     # 7. the recurrent families' kernels --------------------------------
     t0 = time.perf_counter()
@@ -2284,6 +2637,7 @@ def main() -> int:
 
     # 11. summary -----------------------------------------------------
     paths = {"serve": serve_launches, "train": train_launches,
+             "train_loop": loop_launches,
              "serve_ssm": ssm_launches, "serve_hybrid": hybrid_launches,
              "paper_usecase": usecase_launches, "plan_shims": plan_launches,
              "smoke_widths": smoke_launches,

@@ -136,3 +136,22 @@ def _set_drop(t: torch.Tensor, index, values) -> None:
         ok &= (i >= 0) & (i < n)
     t[tuple(i[ok] for i in idx)] = vals[ok]
 
+
+
+def validate_registers(regs: CrossbarRegisters) -> None:
+    """Host-side invariant checks (used by tests and the shell's callers).
+
+    Raises ``AssertionError`` with the JAX package's messages, explicitly so
+    that ``python -O`` keeps the checks."""
+    n = regs.n_ports
+    checks = (
+        (tuple(regs.allowed.shape) == (n, n), None),
+        (tuple(regs.quota.shape) == (n, n), None),
+        (bool((regs.quota >= 0).all()), "quotas are non-negative"),
+        (bool((regs.capacity >= 0).all()), None),
+        (bool((regs.dest >= 0).all()), None),
+        (bool((regs.dest < n).all()), "destinations must be ports"),
+    )
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(*(() if msg is None else (msg,)))

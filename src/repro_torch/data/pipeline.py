@@ -1,14 +1,35 @@
-"""Deterministic synthetic token batches (the numpy-only part of the JAX
-package's ``data/pipeline.py``, copied so that the port imports nothing of
-that package): every batch is a pure function of (seed, step, shard), so
-the port and the JAX package train on the same tokens.  The prefetching
-``DataPipeline`` is not ported.
+"""Deterministic synthetic token pipeline with a prefetching host feed (the
+JAX package's ``data/pipeline.py``, copied so that the port imports nothing
+of that package).
+
+Every batch is a pure function of (seed, step, shard), so
+
+- any host can regenerate any shard of any step: restart and elastic
+  resize need no data checkpointing beyond the step counter, and the port
+  and the JAX package train on the same tokens;
+- shard re-balancing after a topology change is a pure re-indexing;
+- a background prefetch thread keeps ``depth`` batches ahead of the step
+  loop, so host-side generation overlaps device compute.  The thread makes
+  numpy arrays only; the train loop moves each batch to the device.
+
+The token stream is an order-3 LCG-mixed stream with a skewed unigram
+marginal, giving the LM a learnable (non-uniform) distribution.
 """
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import queue
+import threading
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineState:
+    """Checkpointable pipeline position."""
+    seed: int
+    step: int
 
 
 def _mix(x: np.ndarray) -> np.ndarray:
@@ -52,3 +73,95 @@ def synthetic_batch(seed: int, step: int, shard: int, n_shards: int,
     if kind == "train":
         out["labels"] = ids[:, 1:seq_len + 1]
     return out
+
+
+class DataPipeline:
+    """Host-sharded, prefetching iterator over synthetic batches."""
+
+    def __init__(self, *, seed: int, global_batch: int, seq_len: int,
+                 vocab: int, shard: int = 0, n_shards: int = 1,
+                 kind: str = "train", prefetch_depth: int = 2,
+                 start_step: int = 0):
+        self.seed = seed
+        self.global_batch = global_batch
+        self.seq_len = seq_len
+        self.vocab = vocab
+        self.shard = shard
+        self.n_shards = n_shards
+        self.kind = kind
+        self.depth = prefetch_depth
+        self._step = start_step
+        self._q: "queue.Queue[Tuple[int, Dict[str, np.ndarray]]]" = \
+            queue.Queue(maxsize=max(1, prefetch_depth))
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    # ------------------------------------------------------------------
+    def state(self) -> PipelineState:
+        return PipelineState(seed=self.seed, step=self._step)
+
+    def restore(self, st: PipelineState) -> None:
+        self.stop()
+        self.seed, self._step = st.seed, st.step
+
+    def rebalance(self, shard: int, n_shards: int) -> None:
+        """Elastic resize / straggler reassignment: new shard coordinates,
+        same deterministic stream (no data loss/duplication within a step)."""
+        assert self.global_batch % n_shards == 0
+        self.stop()
+        self.shard, self.n_shards = shard, n_shards
+
+    # ------------------------------------------------------------------
+    def _make(self, step: int) -> Dict[str, np.ndarray]:
+        return synthetic_batch(self.seed, step, self.shard, self.n_shards,
+                               self.global_batch, self.seq_len, self.vocab,
+                               self.kind)
+
+    def _worker(self, from_step: int) -> None:
+        step = from_step
+        while not self._stop.is_set():
+            batch = self._make(step)
+            while not self._stop.is_set():
+                try:
+                    self._q.put((step, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._worker, args=(self._step,), daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        if self._thread is None:
+            return
+        self._stop.set()
+        # Join before draining: a worker blocked in ``put`` may still land
+        # one batch after a drain, which the next ``start`` would read as
+        # its first (the JAX package drains first).
+        self._thread.join(timeout=5)
+        while not self._q.empty():
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._thread = None
+
+    # ------------------------------------------------------------------
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        if self._thread is None:
+            batch = self._make(self._step)     # synchronous fallback
+            self._step += 1
+            return batch
+        step, batch = self._q.get()
+        assert step == self._step, f"pipeline desync: {step} != {self._step}"
+        self._step += 1
+        return batch

@@ -8,7 +8,8 @@ plan-equivalent dispatch backend on a device
                  (alias ``pallas``)
     cuda_kernel  the plan, scatter and combine kernels
 
-and exposes ``plan`` / ``dispatch`` / ``combine`` / ``transfer``.
+and exposes ``plan`` / ``dispatch`` / ``combine`` / ``transfer``, with the
+sanitizer (``debug=``, ``REPRO_FABRIC_DEBUG``) raising ``FabricCheckError``.
 """
 from repro_torch.core.arbiter import DispatchPlan                  # noqa: F401
 from repro_torch.fabric.backends import (CudaBackend,              # noqa: F401
@@ -16,12 +17,15 @@ from repro_torch.fabric.backends import (CudaBackend,              # noqa: F401
                                          get_backend,
                                          register_fabric_backend)
 from repro_torch.fabric.cache import PlanCache, plan_key           # noqa: F401
-from repro_torch.fabric.fabric import Fabric, fabric_for_shell     # noqa: F401
+from repro_torch.fabric.fabric import (DEBUG_ENV_VAR, Fabric,      # noqa: F401
+                                       fabric_for_shell)
 from repro_torch.fabric.interface import (KernelMode,              # noqa: F401
                                           resolve_kernel_mode)
+from repro_torch.fabric.sanitize import FabricCheckError           # noqa: F401
 
 __all__ = [
     "Fabric", "fabric_for_shell", "DispatchPlan", "PlanCache", "plan_key",
     "KernelMode", "resolve_kernel_mode", "ReferenceBackend", "CudaBackend",
-    "get_backend", "register_fabric_backend",
+    "get_backend", "register_fabric_backend", "DEBUG_ENV_VAR",
+    "FabricCheckError",
 ]

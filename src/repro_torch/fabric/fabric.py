@@ -30,13 +30,18 @@ library's load count; ``trace_count`` is the same integer on every
 backend and device.
 
 Entry points run on ``device`` (the card unless ``"cpu"`` is asked for).
-The sanitizer of the JAX package (``debug=``) is not ported: ``debug``
-accepts only ``False``.
+
+``debug=`` turns on the sanitizer (:mod:`repro_torch.fabric.sanitize`):
+each host-level call checks its plan, slabs and combine against the
+register file and raises ``FabricCheckError``.  A check reads its verdict
+back from the device, so it costs one host sync; with debug off no check
+runs and a call launches and syncs exactly what it would without them.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Any, Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -46,11 +51,38 @@ from repro_torch.core import arbiter
 from repro_torch.core.arbiter import DispatchPlan
 from repro_torch.core.device import resolve_device
 from repro_torch.core.registers import CrossbarRegisters, ErrorCode
+from repro_torch.fabric import sanitize
 from repro_torch.fabric.backends import get_backend
 from repro_torch.fabric.cache import PlanCache, plan_key
 from repro_torch.fabric.interface import KernelMode, resolve_kernel_mode
 
 ApplyFn = Callable[[torch.Tensor], torch.Tensor]
+
+#: env hook: ``REPRO_FABRIC_DEBUG=1`` (or ``sanitize``/``strict``) turns the
+#: sanitizer on for every fabric constructed without an explicit ``debug=``;
+#: the JAX package reads the same variable.
+DEBUG_ENV_VAR = "REPRO_FABRIC_DEBUG"
+
+
+def _resolve_debug(debug) -> Union[bool, str]:
+    """Normalize the ``debug`` constructor argument (or, when it is None,
+    the ``REPRO_FABRIC_DEBUG`` environment variable) to one of
+    ``False | "sanitize" | "strict"``."""
+    if debug is None:
+        env = os.environ.get(DEBUG_ENV_VAR, "").strip().lower()
+        if env in ("1", "true", "on", "sanitize"):
+            return "sanitize"
+        if env == "strict":
+            return "strict"
+        return False
+    if debug is True:
+        return "strict"
+    if debug in (False, "off", "none", ""):
+        return False
+    if debug in sanitize.LEVELS:
+        return debug
+    raise ValueError(
+        f"debug must be True/False, 'sanitize' or 'strict'; got {debug!r}")
 
 
 def _np(v) -> np.ndarray:
@@ -116,6 +148,12 @@ class Fabric:
     capacity:
         Receive-slab depth.  Grants use ``min(registers.capacity,
         capacity)``.  Defaults to the bound file's largest capacity.
+    debug:
+        The sanitizer: ``False`` (no check), ``"sanitize"`` (structural
+        invariants that only a data-plane bug or NaN traffic can fail),
+        ``"strict"``/``True`` (also raise on masked faults: invalid
+        destinations and over-capacity ACK_TIMEOUT bursts).  ``None`` (the
+        default) reads ``REPRO_FABRIC_DEBUG`` (``1``/``sanitize``/``strict``).
     plan_cache:
         ``True`` (a default-sized LRU), an int (its size), or ``False``.
         Memoizes plans and scatter addresses per (register epoch, offered
@@ -128,13 +166,12 @@ class Fabric:
     """
 
     def __init__(self, registers, *, backend: Union[str, Any] = "reference",
-                 capacity: Optional[int] = None, debug=False,
+                 capacity: Optional[int] = None,
+                 debug: Optional[Union[bool, str]] = None,
                  plan_cache: Union[bool, int, None] = False,
                  kernel_mode: Union[str, KernelMode, None] = None,
                  device=None, **backend_kw):
-        if debug not in (False, None):
-            raise NotImplementedError(
-                "the fabric sanitizer is not ported; debug must be False")
+        self.debug = _resolve_debug(debug)
         self.device = resolve_device(device)
         if isinstance(registers, CrossbarRegisters):
             regs0 = registers
@@ -391,7 +428,9 @@ class Fabric:
         if entry is not None:
             return entry.plan
         self._run("plan", self.registers, dst, src)
-        plan, _, src_t = self._plan(dst, src)
+        plan, regs, src_t = self._plan(dst, src)
+        if self.debug:
+            sanitize.check_plan(plan, regs, src_t, self.backend, self.debug)
         self._cache_store(dst, src, plan, src_t)
         return plan
 
@@ -423,7 +462,17 @@ class Fabric:
             self._run("dispatch_cached", self.registers, x, entry.plan, src)
         else:
             self._run("dispatch", self.registers, x, dst, src)
-        return self._dispatch(x, dst, src, entry)
+        slabs, plan = self._dispatch(x, dst, src, entry)
+        if self.debug:
+            self._check_dispatch(plan, src if entry is None else entry.src,
+                                 slabs)
+        return slabs, plan
+
+    def _check_dispatch(self, plan: DispatchPlan, src,
+                        slabs: torch.Tensor) -> None:
+        sanitize.check_plan(plan, self._on_device(self.registers),
+                            self._tensor(src), self.backend, self.debug)
+        sanitize.check_slabs(slabs, self.debug)
 
     def _combine(self, y: torch.Tensor, plan: DispatchPlan,
                  weights: torch.Tensor) -> torch.Tensor:
@@ -450,6 +499,8 @@ class Fabric:
             self._run("combine_cached", self.registers, y, plan, weights)
         else:
             self._run("combine", self.registers, y, plan, weights)
+        if self.debug:
+            sanitize.check_combine(plan, y.shape[-2], self.debug)
         return self._combine(y, plan, weights)
 
     def transfer(self, x: torch.Tensor, dst, src,
@@ -471,7 +522,12 @@ class Fabric:
             self._run("transfer", self.registers, x, dst, src, weights,
                       apply_fn)
         slabs, plan = self._dispatch(x, dst, src, entry)
+        if self.debug:
+            self._check_dispatch(plan, src if entry is None else entry.src,
+                                 slabs)
         y = slabs if apply_fn is None else apply_fn(slabs)
+        if self.debug:
+            sanitize.check_slabs(y, self.debug)
         return self._combine(y, plan, weights), plan
 
 

@@ -15,10 +15,15 @@ Layers are kept apart (``params["layers"]`` is a list of per-layer dicts;
 the hybrid's ``params["groups"]`` a list of groups, each with a list of
 recurrent blocks, and ``params["trail"]`` a list) and run in a Python
 loop; the JAX package stacks them and scans.  ``ckpt.convert`` moves
-parameters between the two layouts.  Layer remat is not ported (every
-activation is kept for the backward).  The encdec and vlm families are not
-ported; the ssm and hybrid families serve (their scans have no backward
-kernel yet).
+parameters between the two layouts.
+
+``cfg.remat`` (``remat_wrap``) applies on the training path (``loss``)
+only, as in the JAX package: ``"nothing"`` keeps every activation,
+``"full"`` recomputes each layer body in the backward (non-reentrant
+``torch.utils.checkpoint``), and ``"dots"`` (the default) saves only the
+outputs of plain 2-D products and recomputes the rest, the hand-written
+kernels included.  The encdec and vlm families are not ported; the ssm and
+hybrid families serve (their scans have no backward kernel yet).
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
@@ -101,6 +108,47 @@ def _xent_per_token(logits: torch.Tensor, labels: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     return logz - gold
+
+
+# The products ``dots_with_no_batch_dims_saveable`` saves in the JAX
+# package: dots without batch dimensions, which reach aten as 2-D products
+# (``x @ w`` on [B, S, d] folds to ``mm``).  ``bmm`` (the experts, the
+# plain attention) has a batch dimension and is recomputed.
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
+                         torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat_wrap(fn, policy: str):
+    """``fn`` with the activation policy ``policy`` for its backward:
+    ``"nothing"`` keeps every activation (``fn`` itself), ``"dots"`` saves
+    the 2-D products' outputs and recomputes the rest, anything else
+    (``"full"``) saves only ``fn``'s inputs.  Recompute runs ``fn`` again,
+    kernels and all, so ``fn`` must compute the same values twice; the
+    layers draw no random numbers, so no RNG state is kept."""
+    if policy == "nothing":
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy == "dots":
+        kw["context_fn"] = _dots_context
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn, **kw)
+
+
+def _chain(fns):
+    """The blocks ``fns`` run one after the other, as one x -> x."""
+    def run(x):
+        for fn in fns:
+            x = fn(x)
+        return x
+    return run
 
 
 @dataclasses.dataclass
@@ -184,16 +232,6 @@ class DenseLM(LMBase):
     """Decoder-only transformer: GQA (+ optional SWA window, qkv bias),
     with a per-layer MLP or a crossbar-dispatched MoE."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.moe is not None:
-            from repro_torch.fabric.backends import is_fabric_backend
-            if not is_fabric_backend(cfg.moe.dispatch):
-                raise NotImplementedError(
-                    f"MoE dispatch {cfg.moe.dispatch!r} is not ported; "
-                    f"set moe.dispatch to a fabric backend such as "
-                    f"'cuda_kernel'")
-        super().__init__(cfg, device)
-
     # ---- parameters ---------------------------------------------------
     def _layer_defs(self) -> Dict[str, Any]:
         cfg = self.cfg
@@ -235,12 +273,13 @@ class DenseLM(LMBase):
         return x + y, aux
 
     def _backbone(self, params, x: torch.Tensor, positions: torch.Tensor,
-                  moe_group: int = 1024):
-        """Every layer; returns (h before the final norm, summed aux
-        loss)."""
+                  moe_group: int = 1024, *, train: bool = False):
+        """Every layer (under ``cfg.remat`` when ``train``); returns (h
+        before the final norm, summed aux loss)."""
+        block = remat_wrap(self._block, self.cfg.remat if train else "nothing")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in params["layers"]:
-            x, a = self._block(lp, x, positions, moe_group)
+            x, a = block(lp, x, positions, moe_group)
             aux = aux + a
         return x, aux
 
@@ -250,7 +289,7 @@ class DenseLM(LMBase):
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None, :]
         h, aux = self._backbone(params, x, positions,
-                                moe_group=min(1024, B * S))
+                                moe_group=min(1024, B * S), train=True)
         return self._lm_loss(params, h, batch) + 0.01 * aux
 
     def prefill(self, params, batch) -> torch.Tensor:
@@ -343,13 +382,16 @@ class SSMLM(LMBase):
         """The backbone's full-sequence blocks in order, each x -> x."""
         return [functools.partial(self._block, lp) for lp in params["layers"]]
 
-    def _backbone(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _backbone(self, params, x: torch.Tensor, *,
+                  train: bool = False) -> torch.Tensor:
+        policy = self.cfg.remat if train else "nothing"
         for block in self.blocks(params, x.shape[1]):
-            x = block(x)
+            x = remat_wrap(block, policy)(x)
         return x
 
     def loss(self, params, batch) -> torch.Tensor:
-        h = self._backbone(params, self._inputs_embed(params, batch))
+        h = self._backbone(params, self._inputs_embed(params, batch),
+                           train=True)
         return self._lm_loss(params, h, batch)
 
     def prefill(self, params, batch) -> torch.Tensor:
@@ -456,13 +498,23 @@ class HybridLM(LMBase):
                                          positions=positions))
         return out + [rec(lp) for lp in params.get("trail", [])]
 
-    def _backbone(self, params, x: torch.Tensor) -> torch.Tensor:
-        for block in self.blocks(params, x.shape[1]):
-            x = block(x)
+    def _backbone(self, params, x: torch.Tensor, *,
+                  train: bool = False) -> torch.Tensor:
+        """Every block; under ``cfg.remat`` when ``train``, each group (its
+        recurrent blocks and its attention block) as one unit and the
+        trailing blocks kept whole, as the JAX package does."""
+        blocks = self.blocks(params, x.shape[1])
+        policy = self.cfg.remat if train else "nothing"
+        per = self.cfg.hybrid.pattern_rec + 1
+        n = self.n_groups * per
+        for fn in [remat_wrap(_chain(blocks[i:i + per]), policy)
+                   for i in range(0, n, per)] + blocks[n:]:
+            x = fn(x)
         return x
 
     def loss(self, params, batch) -> torch.Tensor:
-        h = self._backbone(params, self._inputs_embed(params, batch))
+        h = self._backbone(params, self._inputs_embed(params, batch),
+                           train=True)
         return self._lm_loss(params, h, batch)
 
     def prefill(self, params, batch) -> torch.Tensor:

@@ -5,11 +5,23 @@ ports), the expert capacity is the receive-slab depth, and ``expert_mask``
 is the tenant's isolation row.  Over-capacity and masked packets drop with
 the paper's error codes, which surface as the router's drop statistics.
 
-``moe_apply`` dispatches on ``dispatch_impl``: any name registered as a
-fabric backend (``"reference"``, ``"cuda"``, ``"cuda_kernel"``) routes every
-group through one ``Fabric`` round-trip (:func:`moe_apply_fabric`).  The
-JAX package's ``"dense"``, ``"gather"`` and ``"sharded"`` impls are not
-ported.
+``moe_apply`` dispatches on ``dispatch_impl``, as the JAX package's does:
+
+- ``"dense"`` (the default, as in the JAX package): the Mesh-TF one-hot
+  formulation, dispatch and combine as ``torch.einsum`` over a
+  [G, g*k, E, C] selection tensor;
+- ``"gather"`` (:func:`moe_apply_gather`): the same grants by indexed
+  scatter and gather, no selection tensor;
+- any name registered as a fabric backend (``"reference"``, ``"cuda"``,
+  ``"cuda_kernel"``): every group through one ``Fabric`` round-trip
+  (:func:`moe_apply_fabric`); ``cuda_kernel`` runs the crossbar kernels.
+
+All three give the fabric's packet semantics: a packet's slot is its rank
+among its group's packets to the same expert (the WRR package counter), it
+is dropped at rank >= capacity, and it is dropped when ``expert_mask``
+forbids its expert.  The stats carry the JAX package's keys plus
+``counts``, the grants per expert.  The JAX package's ``"sharded"`` impl
+(mesh expert parallelism) is not ported (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -46,18 +58,123 @@ def expert_capacity(group_tokens: int, moe: MoEConfig,
 def moe_apply(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
               group_size: int = 1024,
               expert_mask: Optional[torch.Tensor] = None,
-              dispatch_impl: str = "cuda_kernel",
+              dispatch_impl: str = "dense",
               kernel_mode: Optional[str] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: [B, S, d] -> (y [B, S, d], stats), through a fabric backend."""
-    from repro_torch.fabric.backends import is_fabric_backend
-    if not is_fabric_backend(dispatch_impl):
+    """x: [B, S, d] -> (y [B, S, d], stats).
+
+    ``expert_mask``: optional [E] bool, the tenant's allowed-destinations
+    register; packets to a disallowed expert drop (``stats["iso_dropped"]``).
+    ``dispatch_impl``: ``"dense"``, ``"gather"`` or a fabric backend's name
+    (see the module docstring).  ``kernel_mode`` selects the fabric's
+    lowering; the dense and gather impls run no crossbar kernel and ignore
+    it."""
+    if dispatch_impl == "gather":
+        return moe_apply_gather(params, x, moe, act, group_size=group_size,
+                                expert_mask=expert_mask)
+    if dispatch_impl == "sharded":
         raise NotImplementedError(
-            f"MoE dispatch {dispatch_impl!r} is not ported; use a fabric "
-            f"backend ('reference', 'cuda', 'cuda_kernel')")
-    return moe_apply_fabric(params, x, moe, act, group_size=group_size,
-                            expert_mask=expert_mask, backend=dispatch_impl,
-                            kernel_mode=kernel_mode)
+            "MoE dispatch 'sharded' (mesh expert parallelism) is not ported "
+            "(ROADMAP A6); use 'dense', 'gather' or a fabric backend")
+    if dispatch_impl != "dense":
+        return moe_apply_fabric(params, x, moe, act, group_size=group_size,
+                                expert_mask=expert_mask,
+                                backend=dispatch_impl,
+                                kernel_mode=kernel_mode)
+    B, S, d = x.shape
+    E, k = moe.n_experts, moe.top_k
+    G, g, dst, w, probs, cap, keep, rank, iso_dropped = _grouped_grants(
+        params, x, moe, group_size, expert_mask)
+    sel = (torch.nn.functional.one_hot(dst.long(), E).to(x.dtype)
+           * keep[..., None].to(x.dtype))                  # [G, gk, E]
+    slot = torch.where(keep, rank, 0)
+    slot_oh = torch.nn.functional.one_hot(slot.long(), cap).to(x.dtype)
+    disp = sel[..., :, None] * slot_oh[..., None, :]       # [G, gk, E, C]
+
+    xk = x.reshape(G, g, d).repeat_interleave(k, dim=1)    # [G, gk, d]
+    xe = torch.einsum("gtec,gtd->gecd", disp, xk)          # [G, E, C, d]
+    ye = torch.stack([_expert_ffn(xe[i], params["w_in"], params["w_out"],
+                                  act) for i in range(G)])
+    comb = disp * w[..., None, None]
+    y = torch.einsum("gtec,gecd->gtd", comb, ye)           # [G, gk, d]
+    y = y.reshape(G, g, k, d).sum(dim=2).reshape(B, S, d)
+    return y, _stats(keep, dst, probs, E, iso_dropped, cap)
+
+
+def moe_apply_gather(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
+                     group_size: int = 1024,
+                     expert_mask: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Gather/scatter MoE dispatch: the dense impl's grants with no
+    selection tensor.  Each packet goes to the flat slab address
+    ``dst * cap + rank`` (``index_add`` onto zeros: every granted address
+    is written once, dropped packets add into a trash row that is sliced
+    off) and its result comes back with ``index_select``.  FLOPs: experts
+    only; bytes O(T*k*d)."""
+    B, S, d = x.shape
+    E, k = moe.n_experts, moe.top_k
+    G, g, dst, w, probs, cap, keep, rank, iso_dropped = _grouped_grants(
+        params, x, moe, group_size, expert_mask)
+    rows = E * cap + 1                                     # + the trash row
+    slot_addr = torch.where(keep, dst * cap + torch.where(keep, rank, 0),
+                            E * cap)                       # [G, gk]
+    flat = (slot_addr + rows * torch.arange(
+        G, dtype=slot_addr.dtype, device=x.device)[:, None]).reshape(-1)
+    xk = x.reshape(G, g, d).repeat_interleave(k, dim=1)    # [G, gk, d]
+    slabs = x.new_zeros((G * rows, d)).index_add(0, flat, xk.reshape(-1, d))
+    xe = slabs.reshape(G, rows, d)[:, :E * cap].reshape(G, E, cap, d)
+    ye = torch.stack([_expert_ffn(xe[i], params["w_in"], params["w_out"],
+                                  act) for i in range(G)])
+    ye_flat = torch.cat([ye.reshape(G, E * cap, d),
+                         ye.new_zeros((G, 1, d))], dim=1).reshape(-1, d)
+    back = ye_flat.index_select(0, flat).reshape(G, g * k, d)
+    back = back * (w * keep.to(w.dtype))[..., None]
+    y = back.reshape(G, g, k, d).sum(dim=2).reshape(B, S, d)
+    return y, _stats(keep, dst, probs, E, iso_dropped, cap)
+
+
+def _grouped_grants(params, x: torch.Tensor, moe: MoEConfig,
+                    group_size: int, expert_mask: Optional[torch.Tensor]):
+    """The dense and gather impls' routing and grants: the shared router,
+    then each packet's rank among its group's packets to the same expert
+    (``cumsum`` of one-hots), kept under the capacity and the mask.
+
+    Returns (G, g, dst [G, gk], w [G, gk], probs [T, E], cap, keep [G, gk]
+    bool, rank [G, gk] int32, iso_dropped)."""
+    B, S, d = x.shape
+    E, k = moe.n_experts, moe.top_k
+    T = B * S
+    g = min(group_size, T)
+    G = T // g
+    assert G * g == T, f"tokens {T} not divisible by group size {g}"
+    dst, w, probs = _moe_router(params, x.reshape(T, d), moe, expert_mask)
+    dst = dst.reshape(G, g * k)
+    w = w.reshape(G, g * k)
+    cap = expert_capacity(g, moe)
+    e_oh = torch.nn.functional.one_hot(dst.long(), E).to(torch.int32)
+    rank = (e_oh.cumsum(dim=1, dtype=torch.int32) - e_oh).gather(
+        2, dst.long()[..., None])[..., 0]
+    keep = rank < cap                                      # WRR quota
+    if expert_mask is not None:
+        iso_ok = expert_mask[dst.long()]
+        keep &= iso_ok
+        iso_dropped = (~iso_ok).sum()
+    else:
+        iso_dropped = torch.zeros((), dtype=torch.int64, device=x.device)
+    return G, g, dst, w, probs, cap, keep, rank, iso_dropped
+
+
+def _stats(keep, dst, probs, n_experts: int, iso_dropped, cap: int):
+    """The dense and gather impls' stats: grants per expert, the
+    load-balance aux loss (granted fraction x mean router probability per
+    expert, as the fabric impl computes it) and the drop read-back."""
+    counts = torch.zeros((n_experts,), dtype=torch.int32, device=keep.device)
+    counts.index_add_(0, dst.reshape(-1).long(),
+                      keep.reshape(-1).to(torch.int32))
+    frac_tokens = (counts / keep.numel()).float()
+    return {"aux_loss": n_experts * torch.sum(frac_tokens * probs.mean(0)),
+            "dropped": (~keep).sum(), "iso_dropped": iso_dropped,
+            "capacity": torch.tensor(cap), "counts": counts}
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,9 +190,21 @@ def _group_fabric(n_experts: int, capacity: int, backend: str,
     from repro_torch.fabric import Fabric
     cell = {"regs": CrossbarRegisters.create(n_experts, capacity=capacity,
                                              device=device)}
+    # debug off: the JAX package's MoE calls its fabric inside a trace,
+    # where an environment-sourced sanitizer does not run
     fabric = Fabric(lambda: cell["regs"], backend=backend, capacity=capacity,
-                    kernel_mode=kernel_mode, device=device)
+                    kernel_mode=kernel_mode, device=device, debug=False)
     return fabric, cell
+
+
+def moe_fabric(n_experts: int, capacity: int, backend: str,
+               kernel_mode: Optional[str] = None, device=None):
+    """The cached ``Fabric`` a given MoE geometry dispatches through on
+    ``device`` (the card unless ``"cpu"`` is asked for), so that tests and
+    telemetry can read its ``trace_count`` or attach its ``probe()``."""
+    from repro_torch.core.device import resolve_device
+    return _group_fabric(n_experts, capacity, backend,
+                         _mode_key(kernel_mode), resolve_device(device))[0]
 
 
 def _mode_key(kernel_mode: Optional[str]) -> Optional[str]:
@@ -160,6 +289,7 @@ def moe_apply_fabric(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
         "dropped": sum((~p.keep).sum() for p in plans),
         "iso_dropped": sum(p.drops[ErrorCode.INVALID_DEST] for p in plans),
         "capacity": torch.tensor(cap),
+        "counts": counts.sum(0),
         "plans": plans,
     }
     return y, stats

@@ -167,6 +167,56 @@ def test_control_plane_runs_with_jax_blocked():
     assert _run_blocked(code) == "1 2 8"
 
 
+TRAINING_MODULES = ["core/registers.py", "core/__init__.py",
+                    "fabric/sanitize.py", "fabric/fabric.py",
+                    "models/moe.py", "models/lm.py", "optim/compress.py",
+                    "optim/__init__.py", "data/pipeline.py",
+                    "ckpt/checkpoint.py", "runtime/ft.py",
+                    "runtime/train.py", "runtime/__init__.py"]
+
+
+def test_static_check_covers_the_training_runtime_modules():
+    port = ROOT / "src" / "repro_torch"
+    assert {port / m for m in TRAINING_MODULES} <= set(PORT_FILES)
+
+
+def test_training_runtime_runs_with_jax_blocked(tmp_path):
+    """The training runtime, its checkpoints, the sanitizer and the MoE's
+    dense impl import and run on the CPU with JAX, the JAX package and
+    ``ml_dtypes`` blocked: a published MoE config builds as it is and a
+    ``TrainLoop`` crashes after a checkpoint and resumes from it."""
+    code = (
+        "import torch\n"
+        "sys.modules['ml_dtypes'] = None        # import ml_dtypes raises\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.core import validate_registers\n"
+        "from repro_torch.core.registers import CrossbarRegisters\n"
+        "from repro_torch.fabric import Fabric, FabricCheckError\n"
+        "from repro_torch.models.lm import DenseLM\n"
+        "from repro_torch.optim import compress_int8\n"
+        "from repro_torch.runtime import TrainLoop, TrainLoopConfig\n"
+        "DenseLM(get_config('mixtral_8x7b', smoke=True), device='cpu')\n"
+        "regs = CrossbarRegisters.create(2, capacity=1)\n"
+        "validate_registers(regs)\n"
+        "try:\n"
+        "    Fabric(regs, debug='strict', device='cpu').plan(\n"
+        "        torch.zeros(3, dtype=torch.int32),\n"
+        "        torch.zeros(3, dtype=torch.int32))\n"
+        "    raise SystemExit('no raise')\n"
+        "except FabricCheckError:\n"
+        "    pass\n"
+        "compress_int8(torch.ones(3))\n"
+        "cfg = get_config('mixtral_8x7b', smoke=True)\n"
+        "run = TrainLoopConfig(steps=3, global_batch=1, seq_len=16,\n"
+        "                      ckpt_every=1, log_every=1)\n"
+        f"root = {str(tmp_path)!r}\n"
+        "TrainLoop(cfg, run, ckpt_dir=root, device='cpu').run_loop()\n"
+        "loop = TrainLoop(cfg, run, ckpt_dir=root, resume=True, device='cpu')\n"
+        "assert sys.modules['ml_dtypes'] is None\n"
+        "print(loop.start_step)\n")
+    assert _run_blocked(code) == "3"
+
+
 def test_control_plane_entry_points_without_device_raise_when_cuda_is_absent():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -218,6 +268,9 @@ def test_entry_points_without_device_raise_when_cuda_is_absent():
         opt_state_from_numpy(0, {"layers": {}}, {"layers": {}}, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_cache(1, 1, 8, 1, 16)
+    from repro_torch.runtime import TrainLoop, TrainLoopConfig
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainLoop(cfg, TrainLoopConfig(steps=1))
     shell = Shell([Region(rid=0, n_chips=1, hbm_bytes=1 << 30)])
     with pytest.raises(RuntimeError, match="CUDA"):
         shell.fabric()

@@ -84,10 +84,16 @@ def test_moe_fabric_kernel_path_matches_jax(seed, mask):
 
 
 def test_moe_apply_names_fabric_backends_only():
+    """Besides the ported "dense" and "gather" impls, ``moe_apply`` routes
+    only through fabric backends: the unported "sharded" impl and unknown
+    names raise; the fabric backends are plan-equivalent."""
     _, _, moe_t, params_t, x = _inputs(0)
     with pytest.raises(NotImplementedError):
         tmoe.moe_apply(params_t, torch.from_numpy(x), moe_t, "swiglu",
-                       dispatch_impl="dense")
+                       dispatch_impl="sharded")
+    with pytest.raises(ValueError):
+        tmoe.moe_apply(params_t, torch.from_numpy(x), moe_t, "swiglu",
+                       dispatch_impl="no_such_backend")
     y, _ = tmoe.moe_apply(params_t, torch.from_numpy(x), moe_t, "swiglu",
                           group_size=GROUP, dispatch_impl="reference")
     y2, _ = tmoe.moe_apply(params_t, torch.from_numpy(x), moe_t, "swiglu",
