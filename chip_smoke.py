@@ -98,8 +98,21 @@ Phases, each printing one JSON line with its seconds:
             every ported family's smoke config (head dims 8, 12 and 16;
             SSD at (P, N) = (16, 16), chunk 16) under ``kernel_mode="auto"``
             (``repro_torch.launch.smoke_widths``): bf16 prefill, float32
-            loss and the dense and MoE gradients on the kernels against the
-            plain path; the SSM and hybrid backward raise, naming B8.
+            loss and every family's gradients on the kernels (the SSM's and
+            the hybrid's through the SSD and RG-LRU backward kernels)
+            against the plain path.
+7c. ssd_bwd, rglru_bwd, flash_d256_bwd
+            the three backward kernels at the train shapes (S=4096): the
+            SSD backward at Mamba-2 780M's widths and the RG-LRU backward at
+            RecurrentGemma-9B's (each in bf16 and float32, with an initial
+            state and a cotangent of the last state), the flash backward at
+            head dim 256 at RecurrentGemma's attention (window 2048; bf16 on
+            the tensor-core kernels, float32 on the FMA ones): every gradient
+            against the plain version and against autograd through the plain
+            forward within 1e-2 relative L2 in bf16 and 1e-5 in float32, two
+            calls bit-equal; timed in bf16 against the plain version, the
+            bound and, for flash, ``scaled_dot_product_attention``'s backward
+            and the FMA kernels (``fma_ms``).
 8. serve_ssm, serve_hybrid
             the full Mamba-2 780M (48 layers) and the full
             RecurrentGemma-9B (38 layers), bf16, random weights from a
@@ -114,6 +127,18 @@ Phases, each printing one JSON line with its seconds:
             logits and loss against the plain path, and prefill's token
             against ``ModelEngine``'s replay of
             the same 512-token prompt through ``decode_step``.
+8b. train_ssm, train_hybrid
+            ``make_train_step`` with AdamW on the full Mamba-2 780M (48
+            layers) and on RecurrentGemma-9B cut to 2 of its 12 groups (6
+            blocks), bf16, remat "dots", one ``train_4k`` batch cut to B=1
+            (S=4096): step 1's loss and every gradient leaf under remat
+            "nothing" equal "dots"'s bit for bit; 3 steps, losses finite
+            and falling, the forward and backward kernels launched over
+            exactly these steps (each block's backward once a step, the
+            hybrid's flash on the tensor-core route); then a float32 copy cut
+            to 2 layers (the hybrid to one group) at S=4096: loss and every
+            gradient leaf on the kernels within 1e-4 of the leaf's largest
+            value of the plain path.
 9. paper_usecase
             the paper's experiments on the port's copy of the hardware
             model (Fig 5, §V-D, §V-E, Fig 6, Table II; model milliseconds
@@ -163,9 +188,9 @@ Phases, each printing one JSON line with its seconds:
 
 ``--profile`` adds a phase after serving and one after the train steps:
 ``torch.profiler`` over 8 warm decode steps of the served engine and over
-one more train step, and one over each recurrent model's S=32768
-prefill; device time by kernel, the device's idle share, and Chrome traces
-in ``build/profile/``.  ``--seed N`` (default 0) draws every input, weight
+one more train step, one over each recurrent model's S=32768 prefill and
+one over one more step of each recurrent train cell; device time by
+kernel, the device's idle share, and Chrome traces in ``build/profile/``.  ``--seed N`` (default 0) draws every input, weight
 and prompt from another seed.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises and
@@ -2118,6 +2143,384 @@ def recurrent_f32_check(arch, phase):
 
 
 # ----------------------------------------------------------------------
+# the recurrent families' backward kernels, and training them
+# ----------------------------------------------------------------------
+# Each backward kernel against its plain version (``ssd_bwd_ref``,
+# ``rglru_bwd_ref``, ``attention_bwd_ref``) and against autograd through the
+# plain forward, on the same inputs: every gradient within BWD_REL_L2 (the
+# forward's ``SSD_REL_L2`` and ``FLASH_REL_L2`` in bf16), dh0 with an
+# initial state; two calls bit-equal.
+BWD_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# train cells: the layers kept at published widths, and the float32 check's
+TRAIN_LAYERS = {"mamba2_780m": 48, "recurrentgemma_9b": 6}   # hybrid: 2 groups
+TRAIN_F32_LAYERS = {"mamba2_780m": 2, "recurrentgemma_9b": 3}
+# the forward and backward kernels each train cell must launch
+TRAIN_RECURRENT_KERNELS = {
+    "mamba2_780m": ("ssd", "ssd_bwd"),
+    "recurrentgemma_9b": ("rglru", "rglru_bwd", "flash_fwd_d256",
+                          "flash_bwd_d256")}
+
+
+def _grad_check(name, dtype, got, again, plain, autograd, names, **shape):
+    """The kernel's gradients ``got`` (and a second call's ``again``)
+    against the plain version's and autograd's; returns the largest
+    absolute error against the plain version."""
+    tol = BWD_REL_L2[dtype]
+    rel = {n: rel_l2(a, b) for n, a, b in zip(names, got, plain)}
+    rel_ag = {n: rel_l2(a, b) for n, a, b in zip(names, got, autograd)}
+    same_types = all(a.dtype == b.dtype and a.shape == b.shape
+                     for a, b in zip(got, plain))
+    bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    err = max(max_abs_err(a, b) for a, b in zip(got, plain))
+    res = {"vs_plain": max(rel.values()) <= tol,
+           "vs_autograd": max(rel_ag.values()) <= tol,
+           "types": same_types, "bit_equal": bits}
+    emit(f"{name}.check", dtype=str(dtype).replace("torch.", ""), **shape,
+         rel_l2=rel, rel_l2_autograd=rel_ag, tol=tol, max_abs_err=err, **res)
+    if not all(res.values()):
+        raise AssertionError(f"{name} disagrees: {res}")
+    return err
+
+
+def _autograd(fn, inputs, cots):
+    """Gradients of ``fn(*inputs)`` for ``cots`` by autograd."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    with torch.enable_grad():
+        return torch.autograd.grad(fn(*leaves), leaves, cots)
+
+
+def ssd_bwd_phase(gen):
+    """The SSD backward at Mamba-2 780M's train shape (B=1, S=4096, H=48,
+    P=64, N=128, chunk 256), bf16 and float32, with an initial state and a
+    cotangent of h_last; timed in bf16."""
+    from repro_torch.fabric.interface import KernelMode
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd import ref as sref
+    H, P, N, Q = (MAMBA[k] for k in ("H", "P", "N", "chunk"))
+    S = TRAIN_SEQ
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    names = ("dx", "ddA", "ddt", "dB", "dC", "dh0")
+    err, t = 0.0, None
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dt, A, Bm, Cm = ssd_inputs(1, S, H, P, N, dtype, gen)
+        xh = x.transpose(1, 2).contiguous()
+        dth = dt.transpose(1, 2).contiguous()
+        dAh = dth * A[None, :, None]
+        h0, dhl = rn(1, H, P, N) * 0.3, rn(1, H, P, N)
+        dy = rn(1, H, S, P).to(dtype)
+        args = (xh, dAh, dth, Bm, Cm, dy)
+        kw = dict(chunk=Q, h0=h0, dh_last=dhl)
+
+        def kernel():
+            return SK.ssd_call_bwd(*args, mode=KernelMode.CUDA, **kw)
+
+        got, again = kernel(), kernel()
+        plain = sref.ssd_bwd_ref(*args, Q, h0, dhl)
+        ag = _autograd(lambda *a: sref.ssd_call_ref(*a[:5], Q, a[5]),
+                       (xh, dAh, dth, Bm, Cm, h0), (dy, dhl))
+        torch.cuda.synchronize()
+        err = max(err, _grad_check("ssd_bwd", dtype, got, again, plain, ag,
+                                   names, B=1, S=S, H=H, P=P, N=N, chunk=Q))
+        del got, again, plain, ag
+        if dtype != torch.bfloat16:
+            continue
+        es = x.element_size()
+        # x, dy, dx; B, C, dB, dC; dA, dt, ddA, ddt; h0, dh_last, dh0
+        n_bytes = (3 * x.numel() * es + 4 * Bm.numel() * es
+                   + 4 * dth.numel() * 4 + 3 * H * P * N * 4)
+        nc, tri = S // Q, Q * (Q + 1) // 2
+        n_ops = nc * (2 * tri * N                       # C.B^T
+                      + H * (4 * tri * P                # G dy, dy.x
+                             + 4 * tri * N              # D C, D B
+                             + 10 * Q * P * N))         # states, g B, x g,
+        #                                                 dy h_in, dual states
+        b, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        t = dict(ms=time_ms(kernel, reps=10),
+                 plain_ms=time_ms(lambda: sref.ssd_bwd_ref(*args, Q, h0, dhl),
+                                  reps=3),
+                 library_ms=None, bound_ms=b, bound_by=by, bytes=n_bytes,
+                 ops=n_ops)
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        emit("ssd_bwd.time", B=1, S=S, H=H, P=P, N=N, chunk=Q,
+             dtype="bfloat16", **t)
+    return err, t
+
+
+def rglru_bwd_phase(gen):
+    """The RG-LRU backward at RecurrentGemma-9B's train shape (B=1,
+    S=4096, L=4096): bf16 u (the model's) and float32, with an initial
+    state and a cotangent of h_last, from the forward kernel's saved
+    carries; timed in bf16."""
+    from repro_torch.fabric.interface import KernelMode
+    from repro_torch.kernels.rglru import kernel as RK
+    from repro_torch.kernels.rglru import ref as rref
+    L, S = RGEMMA["L"], TRAIN_SEQ
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    cuda = KernelMode.CUDA
+    err, t = 0.0, None
+    for dtype in (torch.bfloat16, torch.float32):
+        a = torch.sigmoid(rn(1, S, L) + 2.0) * 0.98 + 0.01
+        u = (rn(1, S, L) * 0.5).to(dtype)
+        h0, dhl = rn(1, L) * 0.3, rn(1, L)
+        dh = rn(1, S, L).to(dtype)
+        _, _, carries = RK.rglru_scan(u, a, h0, mode=cuda, save_carries=True)
+
+        def kernel():
+            return RK.rglru_scan_bwd(u, a, h0, dh, dhl, carries, mode=cuda)
+
+        def scan(uu, aa, hh):
+            h, h_last = rref.rglru_call_ref(aa, uu.float(), hh)
+            return h.to(uu.dtype), h_last
+
+        got, again = kernel(), kernel()
+        plain = rref.rglru_bwd_ref(u, a, h0, dh, dhl)
+        ag = _autograd(scan, (u, a, h0), (dh, dhl))
+        torch.cuda.synchronize()
+        err = max(err, _grad_check("rglru_bwd", dtype, got, again, plain, ag,
+                                   ("du", "da", "dh0"), B=1, S=S, L=L))
+        del got, again, plain, ag
+        if dtype != torch.bfloat16:
+            continue
+        # a, u, dh read; du, da written; the carries; h0, dh_last, dh0
+        n_bytes = (a.numel() * (4 + 2 + 2 + 2 + 4) + carries.numel() * 4
+                   + 3 * L * 4)
+        b, by = bound(n_bytes, 4 * a.numel(), F32_OPS_PER_S)
+        t = dict(ms=time_ms(kernel, reps=10),
+                 plain_ms=time_ms(lambda: rref.rglru_bwd_ref(u, a, h0, dh,
+                                                             dhl), reps=3),
+                 library_ms=None, bound_ms=b, bound_by=by, bytes=n_bytes)
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        emit("rglru_bwd.time", B=1, S=S, L=L, dtype="bfloat16", **t)
+    return err, t
+
+
+def flash_d256_bwd_phase(gen):
+    """The flash backward at head dim 256 at RecurrentGemma's train shape
+    (B=1, S=4096, H=16, Kv=1, window 2048): bf16 on the tensor-core
+    kernels and float32 on the FMA ones, each against autograd through
+    ``attention_ref`` (``FlashCase.check``) and bit-equal twice; timed in
+    bf16 against the plain version, ``scaled_dot_product_attention``'s
+    backward with the window as a boolean mask (memory-efficient backend,
+    the kv head repeated for the 16 query heads) and the FMA kernels on the
+    same inputs (``fma_ms``)."""
+    from repro_torch.fabric.interface import KernelMode
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    cuda = KernelMode.CUDA
+    S, H, Kv, D, W = TRAIN_SEQ, *(RGEMMA[k] for k in ("H", "Kv", "D",
+                                                       "window"))
+    err, t = 0.0, None
+    for dtype in (torch.bfloat16, torch.float32):
+        case = FlashCase(f"d256_train_{str(dtype)[6:]}", 1, S, S, H, Kv, D,
+                         dtype, True, W, gen)
+        err = max(err, case.check()[1])
+        q, k, v, do = case.q, case.k, case.v, case.do
+        o, lse = FK.flash_fwd(q, k, v, mode=cuda, **case.kw)
+
+        def kernel():
+            return FK.flash_bwd(q, k, v, o, lse, do, mode=cuda, **case.kw)
+
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        route = FK.route(dtype, D, backward=True)
+        emit("flash_d256_bwd.check", dtype=str(dtype)[6:], route=route,
+             bit_equal=bits)
+        if not bits:
+            raise AssertionError("the flash backward at head dim 256 is not "
+                                 "deterministic")
+        del got, again
+        if dtype != torch.bfloat16:
+            continue
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = ref.attention_ref(*leaves, **case.kw)
+        hm = [x.transpose(1, 2).expand(1, H, S, D).contiguous()
+              .requires_grad_() for x in (q, k, v)]
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                                 > pos[:, None] - W)
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            lib_out = F.scaled_dot_product_attention(*hm, attn_mask=mask)
+        do_hm = do.transpose(1, 2).contiguous()
+        io = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b, by = bound(2 * io + H * S * 4, 2.5 * 4 * D * case.pairs,
+                      BF16_OPS_PER_S)
+        t = dict(ms=time_ms(kernel, reps=10),
+                 plain_ms=time_ms(lambda: torch.autograd.grad(
+                     out, leaves, do, retain_graph=True), reps=3),
+                 library_ms=time_ms(lambda: torch.autograd.grad(
+                     lib_out, hm, do_hm, retain_graph=True), reps=5),
+                 bound_ms=b, bound_by=by,
+                 fma_ms=time_ms(lambda: FK.launch_bwd(
+                     q, k, v, o, lse, do, kernel="fma", **case.kw), reps=3,
+                     warmup=1))
+        t["library_factor"] = t["ms"] / t["library_ms"]
+        t["fma_factor"] = t["ms"] / t["fma_ms"]
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        emit("flash_d256_bwd.time", B=1, S=S, H=H, Kv=Kv, D=D, window=W,
+             dtype="bfloat16", route=route, live_pairs=case.pairs, **t)
+        del out, lib_out, leaves, hm
+    return err, t
+
+
+def recurrent_bwd_phase():
+    """The three backward kernels of the recurrent families (built in phase
+    2 with the others)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    out = {"ssd_bwd": ssd_bwd_phase(gen), "rglru_bwd": rglru_bwd_phase(gen),
+           "flash_bwd_d256": flash_d256_bwd_phase(gen)}
+    torch.cuda.empty_cache()
+    emit("recurrent_bwd", seconds=time.perf_counter() - t0)
+    return out
+
+
+def recurrent_train_phase(arch, phase, smi):
+    """``make_train_step`` with AdamW on a recurrent model at its published
+    widths (Mamba-2 780M whole; RecurrentGemma-9B cut to 2 of its 12 groups,
+    its 38-block model and AdamW's moments exceeding the card), bf16, random
+    weights from the seed, remat "dots", on one batch of ``train_4k`` cut to
+    B=1 (S=4096; the hybrid's window of 2048 binds).  Step 1's loss and
+    every gradient leaf under remat "nothing" equal "dots"'s bit for bit;
+    then 3 steps: losses finite, the 3rd below the 1st, the forward and
+    backward kernels launched over exactly these steps, each block's
+    backward once a step on its kernel (so no plain backward ran).  Then
+    the float32 check.  Returns the steps' launches."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.steps import _value_and_grad, make_train_step
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adamw import AdamW
+    t0 = time.perf_counter()
+    cfg = recurrent_config(arch, n_layers=TRAIN_LAYERS[arch])
+    if cfg.remat != "dots":
+        raise AssertionError(f"{arch} does not default to remat dots")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        SEED, 0, 0, 1, 1, TRAIN_SEQ, cfg.vocab).items()}
+    # step 1's gradients, remat "dots" against "nothing"
+    nothing = type(model)(dataclasses.replace(cfg, remat="nothing"))
+    peaks, grads = {}, {}
+    for name, m in (("dots", model), ("nothing", nothing)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        grads[name] = _value_and_grad(m, params, batch)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+    (ld, gd), (ln, gn) = grads["dots"], grads["nothing"]
+    remat_equal = (torch.equal(ld, ln) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(gd), tree_leaves(gn))))
+    del grads, gd, gn, nothing
+    if cfg.family == "ssm":
+        blocks = cfg.n_layers
+    else:
+        blocks = {"rec": model.n_groups * cfg.hybrid.pattern_rec
+                  + model.n_trail, "attn": model.n_groups}
+    # three AdamW steps
+    opt = AdamW(lr=TRAIN_LR)
+    step = make_train_step(model, opt)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss))
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    if cfg.family == "ssm":
+        want = {"ssd_bwd": blocks * TRAIN_STEPS}
+    else:
+        want = {"rglru_bwd": blocks["rec"] * TRAIN_STEPS,
+                "flash_bwd_d256": blocks["attn"] * TRAIN_STEPS}
+    emit(phase, smi=smi, model=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, params=n_params, batch=1, seq=TRAIN_SEQ,
+         remat=cfg.remat, lr=TRAIN_LR, losses=losses, step_wall_ms=walls,
+         max_memory_allocated=peak, max_memory_gb=peak / 1e9,
+         step1_peak_gb={k: v / 1e9 for k, v in peaks.items()},
+         remat_nothing_equal=remat_equal, kernels=launches,
+         backward_launches_expected=want, seconds=time.perf_counter() - t0)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{phase}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
+    if not remat_equal:
+        raise AssertionError(f"{phase}: remat dots and nothing disagree")
+    missing = [k for k in TRAIN_RECURRENT_KERNELS[arch] if launches[k] <= 0]
+    if missing or any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{phase}: kernels {launches}, backward "
+                             f"launches wanted {want}")
+    if cfg.family == "hybrid":
+        check_flash_route(launches, cfg.dtype, phase,
+                          ("flash_fwd_d256", "flash_bwd_d256"))
+    if "--profile" in sys.argv[1:]:
+        profile(f"{phase}.profile", lambda: step(params, state, batch), 1)
+    del state, params, model, step
+    torch.cuda.empty_cache()
+    recurrent_train_f32_check(arch, phase)
+    return launches
+
+
+def recurrent_train_f32_check(arch, phase):
+    """A float32 copy cut to 2 layers (the hybrid to one group, 3 blocks)
+    at S=4096, TF32 off: the loss and every gradient leaf on the kernels
+    within ``F32_REL`` of the leaf's largest value of the plain path (the
+    same arithmetic summed in other orders), every leaf nonzero."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.lm import build_model
+    t0 = time.perf_counter()
+    cfg = recurrent_config(arch, n_layers=TRAIN_F32_LAYERS[arch],
+                           dtype="float32")
+    model = build_model(cfg)
+    plain = type(model)(dataclasses.replace(cfg, kernel_mode="torch"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    params = model.init(gen)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        SEED, 1, 0, 1, 1, TRAIN_SEQ, cfg.vocab).items()}
+    out = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        _reset_counts()
+        loss = m.loss(params, batch)
+        out[name] = (float(loss.detach()), torch.autograd.grad(loss, leaves),
+                     _counts())
+        del loss
+    torch.cuda.synchronize()
+    (lk, gk, ck), (lp, gp, cp) = out["kernel"], out["plain"]
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(gk, gp)]
+    nonzero = all(float(a.abs().max()) > 0 for a in gk)
+    path = TRAIN_RECURRENT_KERNELS[arch]
+    emit(f"{phase}.f32_check", layers=cfg.n_layers, seq=TRAIN_SEQ,
+         params=sum(p.numel() for p in leaves), loss_kernel=lk,
+         loss_plain=lp, grad_leaves=len(rel), grad_rel_max=max(rel),
+         tol=F32_REL, grads_nonzero=nonzero, kernel_launches=ck,
+         plain_launches=cp, seconds=time.perf_counter() - t0)
+    if not (abs(lk - lp) <= F32_REL * abs(lp) and max(rel) <= F32_REL
+            and nonzero and all(ck[k] > 0 for k in path)
+            and not any(cp.values())):
+        raise AssertionError(f"{phase}: float32 loss or gradients disagree "
+                             f"with the plain path")
+    if cfg.family == "hybrid":
+        check_flash_route(ck, "float32", f"{phase}.f32_check",
+                          ("flash_fwd_d256", "flash_bwd_d256"))
+    del out, gk, gp, params, leaves, model, plain
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
 # the paper's use case: multiplier -> Hamming(31,26) encoder -> decoder
 # ----------------------------------------------------------------------
 BULK_WORDS = 1 << 28           # 1 GiB of words: a storage tenant's bulk ECC pass
@@ -2619,10 +3022,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("recurrent_kernels", seconds=time.perf_counter() - t0)
 
+    # 7c. the recurrent families' backward kernels ----------------------
+    bwd = recurrent_bwd_phase()
+
     # 8. serve and prefill the recurrent families ----------------------
     ssm_launches = serve_recurrent_phase("mamba2_780m", "serve_ssm", smi)
     hybrid_launches = serve_recurrent_phase("recurrentgemma_9b",
                                             "serve_hybrid", smi)
+
+    # 8b. train the recurrent families ----------------------------------
+    ssm_train_launches = recurrent_train_phase("mamba2_780m", "train_ssm",
+                                               smi)
+    hybrid_train_launches = recurrent_train_phase("recurrentgemma_9b",
+                                                  "train_hybrid", smi)
 
     # 9. the paper's use case and the single-source plan ---------------
     (usecase_launches, plan_launches, ham_err, ham_t, plan_err,
@@ -2639,6 +3051,8 @@ def main() -> int:
     paths = {"serve": serve_launches, "train": train_launches,
              "train_loop": loop_launches,
              "serve_ssm": ssm_launches, "serve_hybrid": hybrid_launches,
+             "train_ssm": ssm_train_launches,
+             "train_hybrid": hybrid_train_launches,
              "paper_usecase": usecase_launches, "plan_shims": plan_launches,
              "smoke_widths": smoke_launches,
              "manager_mixtral": mixtral_launches,
@@ -2659,6 +3073,10 @@ def main() -> int:
         "flash_fwd_d256": "src/repro/kernels/flash_attention/kernel.py:107",
         "ssd": "src/repro/kernels/ssd/kernel.py:80",
         "rglru": "src/repro/kernels/rglru/kernel.py:63",
+        # the TPU kernels have no backward: the line of the forward
+        "ssd_bwd": "src/repro/kernels/ssd/kernel.py:80",
+        "rglru_bwd": "src/repro/kernels/rglru/kernel.py:63",
+        "flash_bwd_d256": "src/repro/kernels/flash_attention/kernel.py:107",
         "plan": "src/repro/kernels/crossbar_dispatch/kernel.py:90",
         "hamming_encode": "src/repro/kernels/hamming/kernel.py:109",
         "hamming_decode": "src/repro/kernels/hamming/kernel.py:114",
@@ -2706,9 +3124,24 @@ def main() -> int:
                               for r in ("tc", "fma")},
         "shape": "B=1 S=32768 H=16 Kv=1 D=256 bf16 causal window=2048",
     })
+    d256_bwd_err, d256_bwd_t = bwd["flash_bwd_d256"]
+    rows.append({
+        "name": "flash_bwd_d256", "route": "cuda", "source": src,
+        "replaces": replaces["flash_bwd_d256"],
+        **launch_keys("flash_bwd_d256"), "max_abs_err": d256_bwd_err,
+        **{k: d256_bwd_t[k] for k in timing_keys},
+        "fma_ms": d256_bwd_t["fma_ms"],
+        "launches_by_route": {r: paths["train_hybrid"][f"flash_bwd_d256_{r}"]
+                              for r in ("tc", "fma")},
+        "shape": "B=1 S=4096 H=16 Kv=1 D=256 bf16 causal window=2048",
+    })
     new_rows = (
         ("ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu", ssd_err, ssd_t,
          "B=1 S=32768 H=48 P=64 N=128 chunk=256 bf16"),
+        ("ssd_bwd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+         *bwd["ssd_bwd"], "B=1 S=4096 H=48 P=64 N=128 chunk=256 bf16"),
+        ("rglru_bwd", "src/repro_torch/kernels/rglru/csrc/rglru.cu",
+         *bwd["rglru_bwd"], "B=1 S=4096 L=4096 u bf16, a float32"),
         ("rglru", "src/repro_torch/kernels/rglru/csrc/rglru.cu", rglru_err,
          rglru_t, "B=1 S=32768 L=4096 float32"),
         ("plan", "src/repro_torch/kernels/crossbar_dispatch/csrc/"
@@ -2738,8 +3171,8 @@ def main() -> int:
             rows[-1].update({k: t[k] for k in (
                 "device_ms", "kernels_per_call", "memsets_per_call",
                 "host_us")})
-    if len(rows) != 12:
-        raise AssertionError(f"{len(rows)} kernel rows, not 12")
+    if len(rows) != 15:
+        raise AssertionError(f"{len(rows)} kernel rows, not 15")
     emit("done", seconds=time.perf_counter() - t_start,
          train_step_ms=step_ms)
     print(smi, flush=True)

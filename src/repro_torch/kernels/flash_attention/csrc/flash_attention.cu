@@ -21,9 +21,8 @@
 // Two designs; the wrapper (`kernel.py::route`) picks one by type and head
 // dim, and neither gives way to the other.
 //
-// 1. bfloat16 at head dims 64 and 128, and the forward at 256, namespace
-// `tc` (the train step, the bf16 prefill and RecurrentGemma's local
-// attention).  What bounds it: at the train shape (S = 4096, D = 128,
+// 1. bfloat16 at head dims 64, 128 and 256, namespace `tc` (the train
+// step, the bf16 prefill and RecurrentGemma's local attention).  What bounds it: at the train shape (S = 4096, D = 128,
 // causal) the forward does about 1,650 operations per byte of q, k, v and
 // o, far above the card's balance point of about 295, so the bf16
 // tensor-core rate bounds it, and the backward (2.5x the products) too; at
@@ -54,7 +53,11 @@
 //   block per key tile, each warp computing S^T = K Q^T and dP^T = V dO^T
 //   for its 16 keys so that P^T and dS^T are already A operands; and dQ,
 //   which recomputes S and dP (two products more than accumulating dQ with
-//   atomics, but deterministic: two runs give the same gradients).
+//   atomics, but deterministic: two runs give the same gradients).  At head
+//   dim 256 (RecurrentGemma's train step: 16 query heads on one kv head,
+//   a window of 2048) each dK/dV block owns half the columns of dK and dV
+//   and recomputes S^T and dP^T over the whole head dim (see `Dkdv`), and
+//   dQ takes 32-key tiles (see `Dq`).
 // Why `mma.sync` and not `wgmma`: `wgmma` is the only way to the full bf16
 // rate, but it needs 64-row warpgroup tiles, shared-memory descriptors that
 // match a TMA swizzle mode, and warp specialisation with register
@@ -62,9 +65,8 @@
 // which this first tensor-core version takes; `wgmma` with a TMA-fed ring
 // is the next step (ROADMAP A).
 //
-// 2. float32 at head dims 64 and 128 and the forward at 256, and both types
-// at the smoke configs' head dims 8, 12 and 16: float32 FMA on the CUDA
-// cores, 64 x 64 tiles widened to float32 in shared memory, 256 threads each
+// 2. float32 at head dims 64, 128 and 256, and both types at the smoke
+// configs' head dims 8, 12 and 16: float32 FMA on the CUDA cores, 64 x 64 tiles widened to float32 in shared memory, 256 threads each
 // owning 4 x 4 of a tile.  Exact rather than fast: the float32 checks hold
 // the loss and gradients within 1e-4 with TF32 off, which these kernels
 // meet.  Head dims 8, 12 and 16 run on a tile 16 wide: the true head dim is
@@ -73,8 +75,10 @@
 // row of 12 bf16 values is 24 bytes, so a head's offset is not 16-byte
 // aligned); they need no speed.  At head dim 256 Q, K and V in float32 with
 // the probability tile take 214,016 bytes of shared memory, one block per
-// SM; bf16 at 256 keeps this kernel only to be timed beside the tensor-core
-// one (`kernel.launch_fwd(kernel="fma")`).
+// SM; its backward takes the head dim in chunks of 64 columns
+// (`dkdv_wide_kernel`, `dq_wide_kernel`).  bf16 at 256 keeps these kernels
+// only to be timed beside the tensor-core ones (`kernel.launch_fwd(kernel=
+// "fma")`, `launch_bwd`).
 //
 // Every `flash_*` function returns the `cudaError_t` of its launches.
 #include <cuda_bf16.h>
@@ -594,6 +598,250 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward at head dim 256 (float32, and bf16 beside the tensor-core
+// kernels): the tiles of 64 x 256 float32 would take 280 KB, so the head
+// dim runs in chunks of WC = 64 columns.  S and dP are summed chunk by chunk
+// (Q, K, dO and V chunks into four [64][65] tiles); dV, dK and dQ then take
+// the chunks of dO, Q and K in turn against P or dS in shared memory.  Each
+// thread keeps its 4 rows x 16 columns of both gradients in registers.
+// ---------------------------------------------------------------------------
+constexpr int WC = 64;                 // head-dim columns of a chunk
+constexpr int WIDE_D = 256;
+
+// S and dP of a (query tile, key tile) pair, accumulated over the head dim
+// a chunk at a time.  qb, gb: the query tile's rows of q and dO; kb, vb:
+// the key tile's rows of k and v.
+template <typename T>
+__device__ __forceinline__ void wide_scores(const T* qb, const T* gb, const T* kb, const T* vb,
+                                            size_t q_pitch, size_t k_pitch, int nq, int nk,
+                                            float scale, float* sQ, float* sG, float* sK,
+                                            float* sV, float (*s)[4], float (*dp)[4], int ty,
+                                            int tx) {
+  for (int d0 = 0; d0 < WIDE_D; d0 += WC) {
+    __syncthreads();  // the previous chunk's (or tile's) readers are done
+    load_tile<T, WC>(sQ, qb + d0, q_pitch, nq, scale, WC);
+    load_tile<T, WC>(sG, gb + d0, q_pitch, nq, 1.f, WC);
+    load_tile<T, WC>(sK, kb + d0, k_pitch, nk, 1.f, WC);
+    load_tile<T, WC>(sV, vb + d0, k_pitch, nk, 1.f, WC);
+    __syncthreads();
+    tile_dot2<WC>(sQ, sK, s, sG, sV, dp, ty, tx);
+  }
+}
+
+// acc[r][c * 4 + cc] += sum_i sP[i][ty * 4 + r] * chunk c of `g`, column
+// tx + 16 cc, for each chunk c loaded into `sW` in turn (times `mul`):
+// the products P^T dO and dS^T Q of the dK/dV kernel.
+template <typename T>
+__device__ __forceinline__ void wide_pt_times(float (*acc)[WIDE_D / 16], const float* sP,
+                                              float* sW, const T* g, size_t pitch, int n_valid,
+                                              float mul, int ty, int tx) {
+  constexpr int LDW = WC + 1;
+#pragma unroll
+  for (int c = 0; c < WIDE_D / WC; ++c) {
+    __syncthreads();
+    load_tile<T, WC>(sW, g + c * WC, pitch, n_valid, mul, WC);
+    __syncthreads();
+#pragma unroll 4
+    for (int i = 0; i < BQ; ++i) {
+      float pr[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pr[r] = sP[i * LDP + ty * 4 + r];
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float w = sW[i * LDW + tx + 16 * cc];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[r][c * 4 + cc] = fmaf(pr[r], w, acc[r][c * 4 + cc]);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+dkdv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                 Params p) {
+  constexpr int D = WIDE_D, LDW = WC + 1, NC = D / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sG = sQ + 64 * LDW;
+  float* sK = sG + 64 * LDW;
+  float* sV = sK + 64 * LDW;
+  float* sP = sV + 64 * LDW;   // P, then dS, [BQ][LDP]
+
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int k0 = blockIdx.x * BK;
+  const int b = blockIdx.y / p.Kv, kvh = blockIdx.y % p.Kv;
+  const int G = p.H / p.Kv;
+  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
+  const size_t k_off = ((size_t)b * p.Sk * p.Kv + kvh) * D + k0 * k_pitch;
+
+  float gk[4][NC], gv[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) gk[i][c] = gv[i][c] = 0.f;
+
+  int qt0 = 0, qt1 = 0;
+  if (k0 < p.true_k) query_tiles(p, k0, &qt0, &qt1);
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const T* qb = q + ((size_t)b * p.Sq * p.H + h) * D;
+    const T* gb = dout + ((size_t)b * p.Sq * p.H + h) * D;
+    const size_t r_off = ((size_t)b * p.H + h) * p.Sq;
+    for (int qt = qt0; qt < qt1; ++qt) {
+      const int q0 = qt * BQ;
+      float s[4][4] = {}, dp[4][4] = {};
+      wide_scores<T>(qb + q0 * q_pitch, gb + q0 * q_pitch, k + k_off, v + k_off, q_pitch,
+                     k_pitch, p.Sq - q0, p.Sk - k0, p.scale, sQ, sG, sK, sV, s, dp, ty, tx);
+      float lr[4], dr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty * 4 + i;
+        lr[i] = row < p.Sq ? lse[r_off + row] : 0.f;
+        dr[i] = row < p.Sq ? delta[r_off + row] : 0.f;
+      }
+      probs_and_dscores(p, s, dp, lr, dr, q0, k0, ty, tx);
+      __syncthreads();  // the previous tile's readers of sP are done
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sP[(ty * 4 + i) * LDP + tx + 16 * j] = s[i][j];
+      // dV[key r] += sum_i P[i][r] dO[i]
+      wide_pt_times<T>(gv, sP, sG, gb + q0 * q_pitch, q_pitch, p.Sq - q0, 1.f, ty, tx);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sP[(ty * 4 + i) * LDP + tx + 16 * j] = dp[i][j];
+      // dK[key r] += sum_i dS[i][r] (scale Q)[i]
+      wide_pt_times<T>(gk, sP, sQ, qb + q0 * q_pitch, q_pitch, p.Sq - q0, p.scale, ty, tx);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = k0 + ty * 4 + r;
+    if (row >= p.Sk) continue;
+    const size_t off = ((size_t)b * p.Sk * p.Kv + (size_t)row * p.Kv + kvh) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      dk[off + tx + 16 * c] = from_f<T>(gk[r][c]);
+      dv[off + tx + 16 * c] = from_f<T>(gv[r][c]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const T* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dq, Params p) {
+  constexpr int D = WIDE_D, LDW = WC + 1, NC = D / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sG = sQ + 64 * LDW;
+  float* sK = sG + 64 * LDW;
+  float* sV = sK + 64 * LDW;
+  float* sP = sV + 64 * LDW;   // dS, [BQ][LDP]
+
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+  const int kvh = h / (p.H / p.Kv);
+  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
+  const size_t q_off = ((size_t)b * p.Sq * p.H + h) * D + q0 * q_pitch;
+  const T* kb = k + ((size_t)b * p.Sk * p.Kv + kvh) * D;
+  const T* vb = v + ((size_t)b * p.Sk * p.Kv + kvh) * D;
+  const size_t r_off = ((size_t)b * p.H + h) * p.Sq;
+  float lr[4], dr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    lr[i] = row < p.Sq ? lse[r_off + row] : 0.f;
+    dr[i] = row < p.Sq ? delta[r_off + row] : 0.f;
+  }
+  float gq[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) gq[i][c] = 0.f;
+
+  int kt0, kt1;
+  key_tiles(p, q0, &kt0, &kt1);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * BK;
+    float s[4][4] = {}, dp[4][4] = {};
+    wide_scores<T>(q + q_off, dout + q_off, kb + k0 * k_pitch, vb + k0 * k_pitch, q_pitch,
+                   k_pitch, p.Sq - q0, p.Sk - k0, p.scale, sQ, sG, sK, sV, s, dp, ty, tx);
+    probs_and_dscores(p, s, dp, lr, dr, q0, k0, ty, tx);
+    __syncthreads();  // the previous tile's readers of sP are done
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sP[(ty * 4 + i) * LDP + tx + 16 * j] = dp[i][j];
+    // dQ[i] += sum_j dS[i][j] K[j], a chunk of K at a time
+#pragma unroll
+    for (int c = 0; c < D / WC; ++c) {
+      __syncthreads();
+      load_tile<T, WC>(sK, kb + k0 * k_pitch + c * WC, k_pitch, p.Sk - k0, 1.f, WC);
+      __syncthreads();
+#pragma unroll 4
+      for (int j = 0; j < BK; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ds[i] = sP[(ty * 4 + i) * LDP + j];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const float kk = sK[j * LDW + tx + 16 * cc];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) gq[i][c * 4 + cc] = fmaf(ds[i], kk, gq[i][c * 4 + cc]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty * 4 + i;
+    if (row >= p.Sq) continue;
+    T* qrow = dq + ((size_t)b * p.Sq * p.H + (size_t)row * p.H + h) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) qrow[tx + 16 * c] = from_f<T>(gq[i][c] * p.scale);
+  }
+}
+
+constexpr size_t wide_smem() { return (size_t)(4 * 64 * (WC + 1) + BQ * LDP) * sizeof(float); }
+
+template <typename T>
+cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                            void* dv, const Params& p, cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(dout);
+  const size_t n_rows = (size_t)p.B * p.Sq * p.H;
+  delta_kernel<T><<<(unsigned)((n_rows * 32 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      static_cast<const T*>(o), gt, delta, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dkdv_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wide_smem());
+  if (err != cudaSuccess) return err;
+  dkdv_wide_kernel<T><<<dim3((p.Sk + BK - 1) / BK, p.B * p.Kv), THREADS, wide_smem(), stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dq_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wide_smem());
+  if (err != cudaSuccess) return err;
+  dq_wide_kernel<T><<<dim3((p.Sq + BQ - 1) / BQ, p.B * p.H), THREADS, wide_smem(), stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), p);
+  return cudaGetLastError();
+}
+
 template <int D>
 constexpr size_t fwd_smem() { return (size_t)(3 * 64 * (D + 1) + BQ * LDP) * sizeof(float); }
 template <int D>
@@ -774,12 +1022,13 @@ __device__ __forceinline__ void bt_frag(const bf16* s, int n0, int kk, int lane,
 
 // c[m][j] += A * B for the MI x 16 rows m of a warp and the n-tiles j: A
 // from registers (m16n8 accumulators x[m][2kk], x[m][2kk + 1] rounded to
-// bf16), B from a tile read with bt_frag; c: [MI][N / 8][4] of the warp's
-// (MI x 16) x N product.  Each B fragment serves the MI row groups.
+// bf16), B from a tile read with bt_frag, its columns from `col0`; c:
+// [MI][N / 8][4] of the warp's (MI x 16) x N product.  Each B fragment
+// serves the MI row groups.
 template <int D, int MI, int KSTEPS, int NTILES>
 __device__ __forceinline__ void acc_times_tile(float (&c)[MI][NTILES][4],
                                                const float (&x)[MI][2 * KSTEPS][4],
-                                               const bf16* s, int lane) {
+                                               const bf16* s, int lane, int col0 = 0) {
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk) {
     uint32_t a[MI][4];
@@ -793,7 +1042,7 @@ __device__ __forceinline__ void acc_times_tile(float (&c)[MI][NTILES][4],
 #pragma unroll
     for (int n = 0; n < NTILES; n += 2) {
       uint32_t b[4];
-      bt_frag<D>(s, n * 8, kk, lane, b);
+      bt_frag<D>(s, col0 + n * 8, kk, lane, b);
 #pragma unroll
       for (int m = 0; m < MI; ++m) {
         mma(c[m][n], a[m], b[0], b[1]);
@@ -862,20 +1111,39 @@ struct Fwd {
   static constexpr int THREADS = 128;
   static constexpr int BQ = THREADS / 32 * 16 * MI;
 };
-// dK/dV: key tile 128 (16 a warp), query tile 64, Q/dO ring of two.
-constexpr int DKDV_BQ = 64, DKDV_BK = 128;
-// dQ: query tile 128 (16 a warp), key tile 64, K/V ring of two.
-constexpr int DQ_BQ = 128, DQ_BK = 64;
+// dK/dV: 16 keys a warp, a ring of two query tiles.  At head dims 64 and
+// 128, 8 warps (key tile 128), query tile 64, every output column a block.
+// At 256 the two float32 accumulators of 16 rows x 256 columns would take
+// 256 registers a thread, more than a thread may have: a block owns DO =
+// 128 of the 256 columns of dK and dV (blockIdx.z picks which) and
+// recomputes S^T and dP^T over the whole head dim, 4 warps (key tile 64)
+// and query tile 32, so K, V and the ring take 128 KB of shared memory.
+template <int D>
+struct Dkdv {
+  static constexpr bool WIDE = D >= 256;
+  static constexpr int THREADS = WIDE ? 128 : NT;
+  static constexpr int BK = THREADS / 32 * 16;
+  static constexpr int BQ = WIDE ? 32 : 64;
+  static constexpr int DO = WIDE ? 128 : D;
+};
+// dQ: query tile 128 (16 a warp), a ring of two key tiles of 64 (32 at head
+// dim 256, where the accumulator takes 128 registers a thread, as in the
+// forward).
+template <int D>
+struct Dq {
+  static constexpr int BQ = 128;
+  static constexpr int BK = D >= 256 ? 32 : 64;
+};
 
 template <int D>
 constexpr size_t fwd_smem() { return (size_t)(Fwd<D>::BQ + 4 * Fwd<D>::BK) * D * sizeof(bf16); }
 template <int D>
 constexpr size_t dkdv_smem() {
-  return (size_t)(2 * DKDV_BK + 4 * DKDV_BQ) * D * sizeof(bf16) +
-         4 * DKDV_BQ * sizeof(float);
+  return (size_t)(2 * Dkdv<D>::BK + 4 * Dkdv<D>::BQ) * D * sizeof(bf16) +
+         4 * Dkdv<D>::BQ * sizeof(float);
 }
 template <int D>
-constexpr size_t dq_smem() { return (size_t)(2 * DQ_BQ + 4 * DQ_BK) * D * sizeof(bf16); }
+constexpr size_t dq_smem() { return (size_t)(2 * Dq<D>::BQ + 4 * Dq<D>::BK) * D * sizeof(bf16); }
 
 // ---------------------------------------------------------------------------
 // forward: one block per (batch * head, query tile), the query tiles with the
@@ -1017,14 +1285,14 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
 // and dS^T are already the A operands of dV += P^T dO and dK += dS^T Q
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(NT, 1)
+__global__ void __launch_bounds__(Dkdv<D>::THREADS, 1)
 dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
             const bf16* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
             Params p) {
-  constexpr int BQ_ = DKDV_BQ, BK_ = DKDV_BK;
-  constexpr int NS = BQ_ / 8;  // score n-tiles (queries)
-  constexpr int NO = D / 8;
+  constexpr int BQ_ = Dkdv<D>::BQ, BK_ = Dkdv<D>::BK, NTH = Dkdv<D>::THREADS;
+  constexpr int NS = BQ_ / 8;           // score n-tiles (queries)
+  constexpr int NO = Dkdv<D>::DO / 8;   // output n-tiles of this block's columns
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
   bf16* sV = sK + BK_ * D;
@@ -1037,6 +1305,7 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.y * BK_;
   const int b = blockIdx.x / p.Kv, kvh = blockIdx.x % p.Kv;
+  const int col0 = blockIdx.z * Dkdv<D>::DO;   // this block's columns of dK and dV
   const int G = p.H / p.Kv;
   const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
   const size_t k_off = ((size_t)b * p.Sk * p.Kv + kvh) * D + (size_t)k0 * k_pitch;
@@ -1051,8 +1320,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   auto load_q = [&](int i, int st) {
     const int h = kvh * G + i / nqt, q1 = (qt0 + i % nqt) * BQ_;
     const size_t off = ((size_t)b * p.Sq * p.H + h) * D + (size_t)q1 * q_pitch;
-    load_tile<BQ_, D>(sQ + st * BQ_ * D, q + off, q_pitch, p.Sq - q1);
-    load_tile<BQ_, D>(sG + st * BQ_ * D, dout + off, q_pitch, p.Sq - q1);
+    load_tile<BQ_, D, NTH>(sQ + st * BQ_ * D, q + off, q_pitch, p.Sq - q1);
+    load_tile<BQ_, D, NTH>(sG + st * BQ_ * D, dout + off, q_pitch, p.Sq - q1);
     const size_t r_off = ((size_t)b * p.H + h) * p.Sq + q1;
     const int i_row = threadIdx.x & (BQ_ - 1);
     const bool ok = q1 + i_row < p.Sq;
@@ -1062,8 +1331,8 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
       cp_async4(smem_u32(sDl + st * BQ_ + i_row), ok ? delta + r_off + i_row : delta, ok);
   };
 
-  load_tile<BK_, D>(sK, k + k_off, k_pitch, p.Sk - k0);
-  load_tile<BK_, D>(sV, v + k_off, k_pitch, p.Sk - k0);
+  load_tile<BK_, D, NTH>(sK, k + k_off, k_pitch, p.Sk - k0);
+  load_tile<BK_, D, NTH>(sV, v + k_off, k_pitch, p.Sk - k0);
   if (n > 0) load_q(0, 0);
   cp_async_commit();
 
@@ -1101,14 +1370,14 @@ dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
         dp[0][j][e] = pe * (dp[0][j][e] - sDl[st * BQ_ + col]);
       }
     }
-    acc_times_tile<D, 1, BQ_ / 16, NO>(gv, s, cG, lane);
-    acc_times_tile<D, 1, BQ_ / 16, NO>(gk, dp, cQ, lane);
+    acc_times_tile<D, 1, BQ_ / 16, NO>(gv, s, cG, lane, col0);
+    acc_times_tile<D, 1, BQ_ / 16, NO>(gk, dp, cQ, lane, col0);
     __syncthreads();
   }
   cp_async_wait<0>();
 
   const int row0 = key0, row1 = key0 + 8;
-  const size_t base = ((size_t)b * p.Sk * p.Kv + kvh) * D + 2 * t;
+  const size_t base = ((size_t)b * p.Sk * p.Kv + kvh) * D + col0 + 2 * t;
 #pragma unroll
   for (int j = 0; j < NO; ++j) {
     if (row0 < p.Sk) {
@@ -1136,7 +1405,7 @@ __global__ void __launch_bounds__(NT, 1)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
           const bf16* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, bf16* __restrict__ dq, Params p) {
-  constexpr int BQ_ = DQ_BQ, BK_ = DQ_BK;
+  constexpr int BQ_ = Dq<D>::BQ, BK_ = Dq<D>::BK;
   constexpr int NS = BK_ / 8;
   constexpr int NO = D / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -1257,17 +1526,18 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
+  using KV = Dkdv<D>;
   err = set_smem(dkdv_kernel<D>, dkdv_smem<D>());
   if (err != cudaSuccess) return err;
-  dkdv_kernel<D><<<dim3(p.B * p.Kv, (p.Sk + DKDV_BK - 1) / DKDV_BK), NT, dkdv_smem<D>(),
-                   stream>>>(qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dk),
-                             static_cast<bf16*>(dv), p);
+  dkdv_kernel<D><<<dim3(p.B * p.Kv, (p.Sk + KV::BK - 1) / KV::BK, D / KV::DO), KV::THREADS,
+                   dkdv_smem<D>(), stream>>>(qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dk),
+                                             static_cast<bf16*>(dv), p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   err = set_smem(dq_kernel<D>, dq_smem<D>());
   if (err != cudaSuccess) return err;
-  dq_kernel<D><<<dim3(p.B * p.H, (p.Sq + DQ_BQ - 1) / DQ_BQ), NT, dq_smem<D>(), stream>>>(
+  dq_kernel<D><<<dim3(p.B * p.H, (p.Sq + Dq<D>::BQ - 1) / Dq<D>::BQ), NT, dq_smem<D>(), stream>>>(
       qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dq), p);
   return cudaGetLastError();
 }
@@ -1286,8 +1556,8 @@ Params make_params(int B, int H, int Kv, int Sq, int Sk, int D, int causal, int 
 }  // namespace
 
 // The FMA kernels.  dtype: 0 float32, 1 bfloat16; D: 8, 12 or 16 (on the
-// zero-padded tile of 16), 64 or 128, and 256 forward only (the wrapper
-// refuses others).
+// zero-padded tile of 16), 64, 128 or 256 (the backward at 256 on the
+// chunked kernels; the wrapper refuses others).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int B, int H, int Kv, int Sq, int Sk, int D,
                                    int dtype, int causal, int window, int q_offset, int true_k,
@@ -1324,11 +1594,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     return launch_bwd<__nv_bfloat16, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   if (dtype == 1 && D == 128)
     return launch_bwd<__nv_bfloat16, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
+  if (dtype == 0 && D == 256)
+    return launch_bwd_wide<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
+  if (dtype == 1 && D == 256)
+    return launch_bwd_wide<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   return cudaErrorInvalidValue;
 }
 
-// The tensor-core kernels: bfloat16 only (dtype 1), D 64, 128 or (forward
-// only) 256.
+// The tensor-core kernels: bfloat16 only (dtype 1), D 64, 128 or 256.
 extern "C" int flash_attention_fwd_tc(const void* q, const void* k, const void* v, void* o,
                                       float* lse, int B, int H, int Kv, int Sq, int Sk, int D,
                                       int dtype, int causal, int window, int q_offset,
@@ -1352,5 +1625,7 @@ extern "C" int flash_attention_bwd_tc(const void* q, const void* k, const void* 
     return tc::launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   if (dtype == 1 && D == 128)
     return tc::launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
+  if (dtype == 1 && D == 256)
+    return tc::launch_bwd<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   return cudaErrorInvalidValue;
 }

@@ -5,12 +5,13 @@ CPU tensors (or under ``KernelMode.TORCH``) and launch their kernels for
 CUDA tensors; under ``KernelMode.CUDA`` a CPU tensor raises.  :func:`route`
 picks the kernel by type and head dim:
 
-- bfloat16 at head dims 64 and 128, and the forward at 256: the
-  tensor-core kernels (``"tc"``);
-- float32 at head dims 64 and 128 and the forward at 256, and both types
-  at the smoke configs' head dims 8, 12 and 16: the float32 FMA kernels
-  (``"fma"``; the narrow dims on a tile 16 wide, zero-padded);
-- anything else raises (the backward at head dim 256 is ROADMAP B8).
+- bfloat16 at head dims 64, 128 and 256: the tensor-core kernels
+  (``"tc"``);
+- float32 at head dims 64, 128 and 256, and both types at the smoke
+  configs' head dims 8, 12 and 16: the float32 FMA kernels (``"fma"``;
+  the narrow dims on a tile 16 wide, zero-padded; the backward at 256 on
+  64-column chunks of the head dim);
+- anything else raises.
 
 There is no fallback from one kernel to another or to the plain version: a
 kernel that does not build, does not take the inputs or does not launch
@@ -19,9 +20,9 @@ never at import.
 
 Each wrapper carries ``launches``, a plain int that counts calls that
 launched its kernels (``flash_bwd`` launches three: the row sums of
-``dO * O``, dK/dV, dQ), and ``by_route``, the same split by route; the
-forward at head dim 256 counts apart, in ``flash_fwd.launches_d256`` and
-its split ``flash_fwd.by_route_d256``.
+``dO * O``, dK/dV, dQ), and ``by_route``, the same split by route; head
+dim 256 counts apart, in ``launches_d256`` and its split
+``by_route_d256`` of each wrapper.
 Plain-version calls do not count.
 
 TPU kernel replaced: ``flash_attention_hm`` (``_attn_kernel``) of
@@ -45,13 +46,13 @@ SOURCES = (pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu",)
 LIB_NAME = "flash_attention"
 SMALL_HEAD_DIMS = (8, 12, 16)    # the smoke configs'; FMA, on a tile 16 wide
 HEAD_DIMS = SMALL_HEAD_DIMS + (64, 128, 256)    # forward
-BWD_HEAD_DIMS = SMALL_HEAD_DIMS + (64, 128)     # backward (ROADMAP B8 adds 256)
+BWD_HEAD_DIMS = HEAD_DIMS                       # backward
 TC_HEAD_DIMS = (64, 128, 256)    # bfloat16 forward on the tensor-core kernels
-TC_BWD_HEAD_DIMS = (64, 128)     # bfloat16 backward on the tensor-core kernels
+TC_BWD_HEAD_DIMS = TC_HEAD_DIMS  # bfloat16 backward on the tensor-core kernels
 ROUTES = ("tc", "fma")
 # (query, key) tile of each route's forward (tc at head dim 256: 64 x 32, see
 # :func:`fwd_tile`); the backward's tiles are in the source (tc: dK/dV 64
-# queries x 128 keys, dQ 128 x 64)
+# queries x 128 keys, dQ 128 x 64; at head dim 256 32 x 64 and 128 x 32)
 TILES = {"tc": (128, 64), "fma": (64, 64)}
 VEC_BYTES = 16                   # tiles are loaded as 16-byte vectors
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,8 +84,7 @@ def route(dtype: torch.dtype, D: int, backward: bool = False) -> str:
         raise ValueError(f"flash kernel takes head dims {HEAD_DIMS}, got {D}")
     if backward and D not in BWD_HEAD_DIMS:
         raise ValueError(f"flash backward takes head dims {BWD_HEAD_DIMS}, "
-                         f"got {D}; the backward at head dim 256 is "
-                         f"ROADMAP B8")
+                         f"got {D}")
     tc = TC_BWD_HEAD_DIMS if backward else TC_HEAD_DIMS
     return "tc" if dtype == torch.bfloat16 and D in tc else "fma"
 
@@ -183,6 +183,17 @@ def launch_bwd(q, k, v, o, lse, do, *, kernel: str, causal: bool = True,
     return dq, dk, dv
 
 
+def _count(fn, kernel: str, D: int) -> None:
+    """One launch of wrapper ``fn`` on route ``kernel``; head dim 256
+    apart."""
+    if D == 256:
+        fn.launches_d256 += 1
+        fn.by_route_d256[kernel] += 1
+    else:
+        fn.launches += 1
+        fn.by_route[kernel] += 1
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               q_offset: int = 0,
@@ -195,12 +206,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel = route(q.dtype, q.shape[-1])
     out = launch_fwd(q, k, v, kernel=kernel, causal=causal, window=window,
                      q_offset=q_offset)
-    if q.shape[3] == 256:
-        flash_fwd.launches_d256 += 1
-        flash_fwd.by_route_d256[kernel] += 1
-    else:
-        flash_fwd.launches += 1
-        flash_fwd.by_route[kernel] += 1
+    _count(flash_fwd, kernel, q.shape[3])
     return out
 
 
@@ -217,8 +223,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel = route(q.dtype, q.shape[-1], backward=True)
     out = launch_bwd(q, k, v, o, lse, do, kernel=kernel, causal=causal,
                      window=window, q_offset=q_offset)
-    flash_bwd.launches += 1
-    flash_bwd.by_route[kernel] += 1
+    _count(flash_bwd, kernel, q.shape[3])
     return out
 
 
@@ -227,23 +232,24 @@ KERNELS = (flash_fwd, flash_bwd)
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
-        fn.launches = 0
+        fn.launches = fn.launches_d256 = 0
         fn.by_route = dict.fromkeys(ROUTES, 0)
-    flash_fwd.launches_d256 = 0
-    flash_fwd.by_route_d256 = dict.fromkeys(ROUTES, 0)
+        fn.by_route_d256 = dict.fromkeys(ROUTES, 0)
 
 
 def launch_counts() -> dict:
-    """Totals per wrapper (``flash_fwd`` without head dim 256), the split by
-    route (``flash_fwd_tc``, ``flash_fwd_fma``, ...), ``flash_fwd_d256`` and
-    its split (``flash_fwd_d256_tc``, ``flash_fwd_d256_fma``)."""
+    """Totals per wrapper without head dim 256 (``flash_fwd``,
+    ``flash_bwd``), their split by route (``flash_fwd_tc``,
+    ``flash_fwd_fma``, ...), and the same at head dim 256
+    (``flash_fwd_d256``, ``flash_bwd_d256``, ``flash_bwd_d256_tc``, ...)."""
     out = {}
     for fn in KERNELS:
-        out[fn.__name__] = fn.launches
-        out.update({f"{fn.__name__}_{r}": n for r, n in fn.by_route.items()})
-    out["flash_fwd_d256"] = flash_fwd.launches_d256
-    out.update({f"flash_fwd_d256_{r}": n
-                for r, n in flash_fwd.by_route_d256.items()})
+        name = fn.__name__
+        out[name] = fn.launches
+        out.update({f"{name}_{r}": n for r, n in fn.by_route.items()})
+        out[f"{name}_d256"] = fn.launches_d256
+        out.update({f"{name}_d256_{r}": n
+                    for r, n in fn.by_route_d256.items()})
     return out
 
 

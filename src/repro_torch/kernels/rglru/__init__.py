@@ -1,2 +1,2 @@
-"""RG-LRU linear recurrence: a hand-written CUDA kernel (forward only) for
-the hybrid family's prefill and loss forward."""
+"""RG-LRU linear recurrence: hand-written CUDA kernels, forward and
+backward, for the hybrid family's prefill and training."""

@@ -11,6 +11,9 @@
   (tiles of ``steps`` steps, each reduced to an affine map, the maps
   composed tile by tile); the tests use it to check the algebra that the
   kernel relies on.
+- :func:`rglru_bwd_ref` is the gradient of the model's entry (``h0``
+  folded into the first step) in explicit formulas: the CPU path of
+  ``kernel.rglru_scan_bwd`` and the yardstick of its CUDA kernel.
 """
 from __future__ import annotations
 
@@ -102,3 +105,34 @@ def rglru_tiled_ref(a: torch.Tensor, b: torch.Tensor,
         return (torch.empty((Bsz, 0, L), dtype=torch.float32, device=a.device),
                 carry if h0 is None else h0.float())
     return torch.stack(hs, dim=1), hs[-1]
+
+
+def rglru_bwd_ref(u: torch.Tensor, a: torch.Tensor,
+                  h0: Optional[torch.Tensor], dh: torch.Tensor,
+                  dh_last: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                             Optional[torch.Tensor]]:
+    """The gradient of ``h_t = a_t h_{t-1} + u_t`` (h_{-1} = ``h0``, or 0)
+    for the cotangents ``dh`` [B, S, L] of h and ``dh_last`` [B, L] (or
+    None) of h_last:
+
+        g_t   = dh_t + a_{t+1} g_{t+1}   (g_{S-1} = dh_{S-1} + dh_last)
+        du_t  = g_t                       (in u's type)
+        da_t  = g_t h_{t-1}               (float32, with the float32 h)
+        dh0   = a_0 g_0                   (None without ``h0``)
+
+    The float32 h is recomputed by :func:`rglru_call_ref`, and g is the
+    same doubling scan run backward in time.  Returns (du, da, dh0)."""
+    Bsz, S, L = a.shape
+    af = a.float()
+    h, _ = rglru_call_ref(af, u.float(), h0)
+    h_prev = torch.cat([(torch.zeros_like(h[:, :1]) if h0 is None
+                         else h0.float()[:, None]), h[:, :-1]], dim=1)
+    # backward in time: G_s = g_{S-1-s} = dh_{S-1-s} + a_{S-s} G_{s-1}
+    a_rev = torch.cat([torch.ones_like(af[:, :1]),
+                       torch.flip(af, (1,))[:, :-1]], dim=1)
+    carry = None if dh_last is None else dh_last.float()
+    g_rev, _ = rglru_call_ref(a_rev, torch.flip(dh.float(), (1,)), carry)
+    g = torch.flip(g_rev, (1,))
+    dh0 = None if h0 is None else af[:, 0] * g[:, 0]
+    return g.to(u.dtype), g * h_prev, dh0

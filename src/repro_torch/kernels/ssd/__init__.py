@@ -1,2 +1,2 @@
-"""Mamba-2 SSD chunk scan: a hand-written CUDA kernel (forward only) for the
-SSM family's prefill and loss forward."""
+"""Mamba-2 SSD chunk scan: hand-written CUDA kernels, forward and backward,
+for the SSM family's prefill and training."""

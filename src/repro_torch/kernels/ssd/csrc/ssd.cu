@@ -1,7 +1,10 @@
-// Mamba-2 SSD chunk scan (state-space duality), forward, for Hopper (sm_90a).
+// Mamba-2 SSD chunk scan (state-space duality), forward and backward, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel `ssd_call` (`_ssd_kernel`) of
-// src/repro/kernels/ssd/kernel.py.  Per head, with the state h [P, N]:
+// src/repro/kernels/ssd/kernel.py (forward; the TPU kernel has no backward,
+// XLA differentiated the jnp scan; the backward's passes are described
+// where its section begins, below).  Per head, with the state h [P, N]:
 //
 //   cum_t  = cumsum(dA_t) within the chunk                  (log decay, <= 0)
 //   y_i    = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
@@ -55,7 +58,7 @@
 // TF32).  Masked before exp: above the diagonal cum_i - cum_j > 0 may
 // overflow, and inf * 0 is NaN, so those entries are selected to 0.
 //
-// `ssd_fwd` returns the `cudaError_t` of its launches.
+// `ssd_fwd` and `ssd_bwd` return the `cudaError_t` of their launches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -494,10 +497,11 @@ __device__ __forceinline__ void load_rows(float* s, const T* g, int n_valid,
   }
 }
 
-// pass 1 (float32); grid (nI * nc, B) as cb_tc_kernel.
-template <int N>
+// pass 1 (float32 FMA on inputs of type T: the float32 forward, and the
+// backward's recompute for both types); grid (nI * nc, B) as cb_tc_kernel.
+template <typename T, int N>
 __global__ void __launch_bounds__(F32_THREADS)
-cb_f32_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm, float* __restrict__ cb,
+cb_f32_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ cb,
               int S, int Q, int nI) {
   constexpr int LDN = N + 1;
   extern __shared__ float smem[];
@@ -510,10 +514,10 @@ cb_f32_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm, float*
   const int i0 = I * QT;
   float* out = cb + ((size_t)b * nc + c) * QP * QP;
 
-  load_rows<float, N>(sC, Cm + (t0 + i0) * N, Q - i0);
+  load_rows<T, N>(sC, Cm + (t0 + i0) * N, Q - i0);
   for (int J = 0; J <= I; ++J) {
     __syncthreads();
-    load_rows<float, N>(sB, Bm + (t0 + J * QT) * N, Q - J * QT);
+    load_rows<T, N>(sB, Bm + (t0 + J * QT) * N, Q - J * QT);
     __syncthreads();
     float s[4][4] = {};
 #pragma unroll 4
@@ -537,12 +541,15 @@ cb_f32_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm, float*
   }
 }
 
-// pass 2 (float32); grid (nc * H, B) as state_tc_kernel.  Thread (ty, tx)
-// owns rows ty * PR + a of P and columns tx + 16 m of N.
-template <int P, int N>
+// pass 2 (float32 FMA on inputs of type T); grid (nc * H, B) as
+// state_tc_kernel.  Thread (ty, tx) owns rows ty * PR + a of P and columns
+// tx + 16 m of N.  DUAL (the backward): the chunk's dual state
+// sum_i exp(cum_i) dy_i^T C_i, called with dy for x and C for B; it writes
+// no dAc.
+template <typename T, int P, int N, bool DUAL = false>
 __global__ void __launch_bounds__(F32_THREADS)
-state_f32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
-                 const float* __restrict__ dt, const float* __restrict__ Bm,
+state_f32_kernel(const T* __restrict__ x, const float* __restrict__ dA,
+                 const float* __restrict__ dt, const T* __restrict__ Bm,
                  float* __restrict__ states, float* __restrict__ dAc, int H, int S, int Q) {
   constexpr int LDX = P + 1, LDN = N + 1, PR = P / 16, NR = N / 16;
   extern __shared__ float smem[];
@@ -568,10 +575,12 @@ state_f32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
     const int nj = min(QT, Q - j0);
     __syncthreads();
     for (int j = threadIdx.x; j < QT; j += blockDim.x)
-      sW[j] = j < nj ? expf(cum_last - sCum[j0 + j]) * sDt[j0 + j] : 0.f;
+      sW[j] = j >= nj ? 0.f
+              : DUAL  ? expf(sCum[j0 + j])
+                      : expf(cum_last - sCum[j0 + j]) * sDt[j0 + j];
     __syncthreads();
-    load_rows<float, P>(sX, x + (bh * S + t0 + j0) * P, nj, sW);
-    load_rows<float, N>(sB, Bm + ((size_t)b * S + t0 + j0) * N, nj);
+    load_rows<T, P>(sX, x + (bh * S + t0 + j0) * P, nj, sW);
+    load_rows<T, N>(sB, Bm + ((size_t)b * S + t0 + j0) * N, nj);
     __syncthreads();
     for (int j = 0; j < nj; ++j) {
       float xv[PR], bv[NR];
@@ -590,7 +599,7 @@ state_f32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
   for (int a = 0; a < PR; ++a)
 #pragma unroll
     for (int m = 0; m < NR; ++m) out[(ty * PR + a) * N + tx + 16 * m] = acc[a][m];
-  if (threadIdx.x == 0) dAc[bh * nc + c] = cum_last;
+  if (!DUAL && threadIdx.x == 0) dAc[bh * nc + c] = cum_last;
 }
 
 // pass 4 (float32); grid (nc * H * nI, B) as out_tc_kernel.  Thread (ty, tx)
@@ -772,15 +781,15 @@ cudaError_t launch_f32(const float* x, const float* dA, const float* dt, const f
                        cudaStream_t stream) {
   const int nc = S / Q, nI = (Q + QT - 1) / QT;
   size_t smem = (size_t)2 * QT * (N + 1) * sizeof(float);
-  cudaError_t err = set_smem(cb_f32_kernel<N>, smem);
+  cudaError_t err = set_smem(cb_f32_kernel<float, N>, smem);
   if (err != cudaSuccess) return err;
-  cb_f32_kernel<N><<<dim3(nI * nc, B), F32_THREADS, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
+  cb_f32_kernel<float, N><<<dim3(nI * nc, B), F32_THREADS, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   smem = ((size_t)QT * (P + 1) + (size_t)QT * (N + 1) + QT + 2 * (size_t)Q) * sizeof(float);
-  if ((err = set_smem(state_f32_kernel<P, N>, smem)) != cudaSuccess) return err;
-  state_f32_kernel<P, N><<<dim3(nc * H, B), F32_THREADS, smem, stream>>>(x, dA, dt, Bm, states,
-                                                                         dAc, H, S, Q);
+  if ((err = set_smem(state_f32_kernel<float, P, N>, smem)) != cudaSuccess) return err;
+  state_f32_kernel<float, P, N><<<dim3(nc * H, B), F32_THREADS, smem, stream>>>(
+      x, dA, dt, Bm, states, dAc, H, S, Q);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const int per = B * H * (P * N / 4);
@@ -812,6 +821,560 @@ cudaError_t launch(const void* x, const float* dA, const float* dt, const void* 
   return cudaErrorInvalidValue;
 }
 
+// ===========================================================================
+// backward: float32 FMA for both types (inputs read in their own type)
+// ===========================================================================
+//
+// For the cotangents dy (and dh_last), per head, with cum the chunk's
+// cumsum, g the gradient reaching the chunk's end from later chunks, h_in
+// the chunk's incoming state and, in the chunk, D[s, t] = (dy_s . x_t)
+// exp(cum_s - cum_t) dt_t for s >= t:
+//
+//   z_t   = sum_{s>=t} (C_s . B_t) exp(cum_s - cum_t) dy_s + exp(cum_Q - cum_t) g B_t
+//   dx_t  = dt_t z_t,   ddt_t = x_t . z_t
+//   dB_t  = sum_h [sum_{s>=t} D[s, t] C_s + dt_t exp(cum_Q - cum_t) x_t^T g]
+//   dC_s  = sum_h [sum_{t<=s} D[s, t] B_t + exp(cum_s) dy_s^T h_in]
+//   ddA_u = sum_{t>=u} (rowsum M + m1 - colsum M)_t + sum_{r<u} m2_r + m3
+//
+// with M = D (C.B^T), m1_s = exp(cum_s) dy_s . (h_in C_s), m2_t = dt_t x_t
+// . (exp(cum_Q - cum_t) g B_t) and m3 = exp(cum_Q) <g, h_in> (ref.py's
+// `ssd_bwd_ref` states the same terms).  dx is itself an SSD scan run
+// backward in time with B and C exchanged.  The passes:
+//
+// 1-3. the forward's C.B^T, chunk states and carry again (cb_f32_kernel,
+//      state_f32_kernel, pass_kernel<float>), so h_in is float32;
+// 4.   each chunk's dual state sum_i exp(cum_i) dy_i^T C_i
+//      (state_f32_kernel<DUAL>);
+// 5.   rpass_kernel: g carried backward across the chunks; dh0;
+// 6.   dxdb_kernel, one block per (batch, chunk, head, 64-row tile t):
+//      dx, ddt, the head's dB, colsum M and m2, over the tiles s >= t;
+// 7.   dc_kernel, one block per (batch, chunk, head, 64-row tile s): the
+//      head's dC and rowsum M + m1, over the tiles t <= s;
+// 8.   dda_kernel, one block per (batch, head, chunk): m3 and the two
+//      scans of ddA;
+// 9.   head_sum_kernel: dB and dC summed over the heads in order.
+//
+// No atomics: every block owns its outputs and the head sums run in a
+// fixed order, so two calls give the same bits.  Masked before exp, as the
+// forward.  What bounds it: at Mamba-2 780M's widths (H = 48, chunk 256)
+// and S = 4096 the function reads x, dy (bf16), B, C, dA, dt and writes dx,
+// dB, dC, ddA, ddt, some 88 MB, and needs some 36 GFLOP: 0.036 ms at the
+// bf16 tensor-core rate, so operations bound it.  This first version
+// computes in float32 on the CUDA cores (passes 6 and 7 are most of its
+// time), keeps two row-tile blocks on an SM by reusing their first phase's
+// shared memory for the tile loop (`TileSmem`), and round-trips the
+// per-head dB and dC (2 x 100 MB at that shape) through device memory; the
+// tensor cores are the next step (ROADMAP B18).
+
+template <typename T>
+__device__ __forceinline__ T to_t(float v);
+template <>
+__device__ __forceinline__ float to_t<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 to_t<bf16>(float v) { return __float2bfloat16(v); }
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// pass 5: g_c (the gradient reaching the end of chunk c) for every chunk,
+// from g = dh_last after the last one: g_{c-1} = exp(cum_Q,c) g_c + sdy_c.
+__global__ void __launch_bounds__(256)
+rpass_kernel(const float* __restrict__ sdy, const float* __restrict__ dAc,
+             const float* __restrict__ dh_last, float* __restrict__ gend, float* __restrict__ dh0,
+             int BH, int nc, int PN) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int per = PN / 4;
+  if (idx >= (size_t)BH * per) return;
+  const size_t bh = idx / per, e = (idx % per) * 4;
+  float4 g = dh_last ? *reinterpret_cast<const float4*>(dh_last + bh * PN + e)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* sp = sdy + bh * nc * PN + e;
+  float* gp = gend + bh * nc * PN + e;
+  const float* dp = dAc + bh * nc;
+  for (int c = nc - 1; c >= 0; --c) {
+    *reinterpret_cast<float4*>(gp + (size_t)c * PN) = g;
+    const float4 s = *reinterpret_cast<const float4*>(sp + (size_t)c * PN);
+    const float d = expf(dp[c]);
+    g.x = fmaf(d, g.x, s.x);
+    g.y = fmaf(d, g.y, s.y);
+    g.z = fmaf(d, g.z, s.z);
+    g.w = fmaf(d, g.w, s.w);
+  }
+  *reinterpret_cast<float4*>(dh0 + bh * PN + e) = g;
+}
+
+// A [P][N] float32 state into shared memory as [P][N + 1].
+template <int P, int N>
+__device__ __forceinline__ void load_state(float* s, const float* g) {
+  for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x)
+    s[(idx / N) * (N + 1) + idx % N] = g[idx];
+}
+
+// Shared memory of a row-tile block (dxdb_kernel, dc_kernel): a [QT][P + 1]
+// tile kept throughout; region 1, a [QT][N + 1] tile, and region 2, a
+// [P][N + 1] state, in the first phase; in the tile loop region 1 holds the
+// other [QT][N + 1] tile and region 2 a [QT][P + 1] tile and the [QT][QT + 1]
+// tile sT; then sU [QT][QT + 1] and the chunk's cum and dt.  About 101 KB at
+// (P, N) = (64, 128), chunk 256, so two blocks share an SM.
+template <int P, int N>
+struct TileSmem {
+  static constexpr size_t KEEP = (size_t)QT * (P + 1);
+  static constexpr size_t R1 = (size_t)QT * (N + 1);
+  static constexpr size_t R2 = (size_t)P * (N + 1) > KEEP + (size_t)QT * (QT + 1)
+                                   ? (size_t)P * (N + 1)
+                                   : KEEP + (size_t)QT * (QT + 1);
+  static constexpr size_t U = (size_t)QT * (QT + 1);
+  static constexpr size_t bytes(int Q) {
+    return (KEEP + R1 + R2 + U + 2 * (size_t)Q) * sizeof(float);
+  }
+};
+
+// pass 6: rows t of tile I of a (batch, chunk, head); grid (nc * H * nI, B),
+// block x = (c * H + h) * nI + I (I = 0, the most tiles s >= t, first).
+// Thread (ty, tx) owns rows ty * 4 + i and columns tx + 16 m.
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(F32_THREADS, 2)
+dxdb_kernel(const T* __restrict__ x, const float* __restrict__ dA, const float* __restrict__ dt,
+            const T* __restrict__ Bm, const T* __restrict__ Cm, const T* __restrict__ dy,
+            const float* __restrict__ cb, const float* __restrict__ gend, T* __restrict__ dx,
+            float* __restrict__ ddt, float* __restrict__ dBp, float* __restrict__ colsum,
+            float* __restrict__ m2, int H, int S, int Q, int nI) {
+  constexpr int LDX = P + 1, LDN = N + 1, LDG = QT + 1, PR = P / 16, NR = N / 16;
+  using L = TileSmem<P, N>;
+  extern __shared__ float smem[];
+  float* sX = smem;               // [QT][LDX]: x of the rows t
+  float* r1 = sX + L::KEEP;
+  float* r2 = r1 + L::R1;
+  float* sB = r1;                 // first phase: [QT][LDN], B of the rows t
+  float* sG = r2;                 //              [P][LDN], g
+  float* sC = r1;                 // tile loop: [QT][LDN], C of the rows s
+  float* sDy = r2;                //            [QT][LDX], dy of the rows s
+  float* sT = r2 + L::KEEP;       //            [QT][LDG], (C_s . B_t) exp(cum_s - cum_t), s >= t
+  float* sU = r2 + L::R2;         // [QT][LDG]: D[s, t]
+  float* sCum = sU + L::U;        // [Q]
+  float* sDt = sCum + Q;          // [Q]
+  const int nc = S / Q, QP = nI * QT;
+  const int I = blockIdx.x % nI;
+  const int h = (blockIdx.x / nI) % H, c = blockIdx.x / (nI * H), b = blockIdx.y;
+  const size_t bh = (size_t)b * H + h;
+  const size_t t0 = (size_t)c * Q;
+  const int i0 = I * QT;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const T* xb = x + (bh * S + t0) * P;
+  const T* dyb = dy + (bh * S + t0) * P;
+  const float* cbb = cb + ((size_t)b * nc + c) * QP * QP;
+
+  chunk_cum(sCum, sDt, dA + bh * S + t0, dt + bh * S + t0, Q);
+  const float cum_last = sCum[Q - 1];
+  load_rows<T, P>(sX, xb + (size_t)i0 * P, Q - i0);
+  load_rows<T, N>(sB, Bm + ((size_t)b * S + t0 + i0) * N, Q - i0);
+  load_state<P, N>(sG, gend + (bh * nc + c) * P * N);
+  __syncthreads();
+
+  // g B_t and x_t^T g, scaled by exp(cum_Q - cum_t) (and dt_t for dB)
+  float z[4][PR], db[4][NR];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int m = 0; m < PR; ++m) z[i][m] = 0.f;
+#pragma unroll
+    for (int m = 0; m < NR; ++m) db[i][m] = 0.f;
+  }
+#pragma unroll 4
+  for (int n = 0; n < N; ++n) {
+    float bv[4], gv[PR];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) bv[i] = sB[(ty * 4 + i) * LDN + n];
+#pragma unroll
+    for (int m = 0; m < PR; ++m) gv[m] = sG[(tx + 16 * m) * LDN + n];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int m = 0; m < PR; ++m) z[i][m] = fmaf(bv[i], gv[m], z[i][m]);
+  }
+#pragma unroll 4
+  for (int p = 0; p < P; ++p) {
+    float xv[4], gv[NR];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) xv[i] = sX[(ty * 4 + i) * LDX + p];
+#pragma unroll
+    for (int m = 0; m < NR; ++m) gv[m] = sG[p * LDN + tx + 16 * m];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int m = 0; m < NR; ++m) db[i][m] = fmaf(xv[i], gv[m], db[i][m]);
+  }
+  float m2v[4], cs[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = i0 + ty * 4 + i;
+    const float e = t < Q ? expf(cum_last - sCum[t]) : 0.f;
+    const float dtt = t < Q ? sDt[t] : 0.f;
+    float part = 0.f;
+#pragma unroll
+    for (int m = 0; m < PR; ++m) {
+      z[i][m] *= e;
+      part = fmaf(sX[(ty * 4 + i) * LDX + tx + 16 * m], z[i][m], part);
+    }
+#pragma unroll
+    for (int m = 0; m < NR; ++m) db[i][m] *= e * dtt;
+    m2v[i] = dtt * half_warp_sum(part);
+    cs[i] = 0.f;
+  }
+
+  for (int J = I; J < nI; ++J) {
+    const int j0 = J * QT;
+    __syncthreads();  // the previous tile's readers are done
+    load_rows<T, P>(sDy, dyb + (size_t)j0 * P, Q - j0);
+    load_rows<T, N>(sC, Cm + ((size_t)b * S + t0 + j0) * N, Q - j0);
+    for (int idx = threadIdx.x; idx < QT * QT; idx += blockDim.x) {
+      const int r = idx % QT, jj = idx / QT;   // consecutive threads, consecutive t
+      const int t = i0 + r, s_ = j0 + jj;
+      const bool ok = s_ >= t && s_ < Q;
+      sT[r * LDG + jj] = ok ? cbb[(size_t)s_ * QP + t] * expf(sCum[s_] - sCum[t]) : 0.f;
+    }
+    __syncthreads();
+    // (x_t . dy_s) for this thread's 4 x 4
+    float raw[4][4] = {};
+#pragma unroll 4
+    for (int p = 0; p < P; ++p) {
+      float xv[4], yv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        xv[i] = sX[(ty * 4 + i) * LDX + p];
+        yv[i] = sDy[(tx + 16 * i) * LDX + p];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) raw[i][j] = fmaf(xv[i], yv[j], raw[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, t = i0 + r;
+      const float dtt = t < Q ? sDt[t] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int jj = tx + 16 * j, s_ = j0 + jj;
+        const bool ok = s_ >= t && s_ < Q;
+        const float d = ok ? raw[i][j] * expf(sCum[s_] - sCum[t]) * dtt : 0.f;
+        sU[r * LDG + jj] = d;
+        cs[i] = fmaf(raw[i][j] * dtt, sT[r * LDG + jj], cs[i]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int jj = 0; jj < QT; ++jj) {
+      float tv[4], uv[4], yv[PR], cv[NR];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        tv[i] = sT[(ty * 4 + i) * LDG + jj];
+        uv[i] = sU[(ty * 4 + i) * LDG + jj];
+      }
+#pragma unroll
+      for (int m = 0; m < PR; ++m) yv[m] = sDy[jj * LDX + tx + 16 * m];
+#pragma unroll
+      for (int m = 0; m < NR; ++m) cv[m] = sC[jj * LDN + tx + 16 * m];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int m = 0; m < PR; ++m) z[i][m] = fmaf(tv[i], yv[m], z[i][m]);
+#pragma unroll
+        for (int m = 0; m < NR; ++m) db[i][m] = fmaf(uv[i], cv[m], db[i][m]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = i0 + ty * 4 + i;
+    float part = 0.f;
+#pragma unroll
+    for (int m = 0; m < PR; ++m) part = fmaf(sX[(ty * 4 + i) * LDX + tx + 16 * m], z[i][m], part);
+    const float dd = half_warp_sum(part);
+    const float col = half_warp_sum(cs[i]);
+    if (t >= Q) continue;
+    const size_t row = bh * S + t0 + t;
+    const float dtt = sDt[t];
+#pragma unroll
+    for (int m = 0; m < PR; ++m) dx[row * P + tx + 16 * m] = to_t<T>(dtt * z[i][m]);
+#pragma unroll
+    for (int m = 0; m < NR; ++m) dBp[row * N + tx + 16 * m] = db[i][m];
+    if (tx == 0) {
+      ddt[row] = dd;
+      colsum[row] = col;
+      m2[row] = m2v[i];
+    }
+  }
+}
+
+// pass 7: rows s of tile I of a (batch, chunk, head); grid (nc * H * nI, B),
+// block x = (c * H + h) * nI + (nI - 1 - I) (the most tiles t <= s first).
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(F32_THREADS, 2)
+dc_kernel(const T* __restrict__ x, const float* __restrict__ dA, const float* __restrict__ dt,
+          const T* __restrict__ Bm, const T* __restrict__ Cm, const T* __restrict__ dy,
+          const float* __restrict__ cb, const float* __restrict__ hin, float* __restrict__ dCp,
+          float* __restrict__ rowm1, int H, int S, int Q, int nI) {
+  constexpr int LDX = P + 1, LDN = N + 1, LDG = QT + 1, NR = N / 16;
+  using L = TileSmem<P, N>;
+  extern __shared__ float smem[];
+  float* sDy = smem;              // [QT][LDX]: dy of the rows s
+  float* r1 = sDy + L::KEEP;
+  float* r2 = r1 + L::R1;
+  float* sC = r1;                 // first phase: [QT][LDN], C of the rows s
+  float* sH = r2;                 //              [P][LDN], h_in
+  float* sB = r1;                 // tile loop: [QT][LDN], B of the rows t
+  float* sX = r2;                 //            [QT][LDX], x of the rows t
+  float* sT = r2 + L::KEEP;       //            [QT][LDG], (C_s . B_t) exp(cum_s - cum_t), t <= s
+  float* sU = r2 + L::R2;         // [QT][LDG]: D[s, t]
+  float* sCum = sU + L::U;        // [Q]
+  float* sDt = sCum + Q;          // [Q]
+  const int nc = S / Q, QP = nI * QT;
+  const int I = nI - 1 - (int)(blockIdx.x % nI);
+  const int h = (blockIdx.x / nI) % H, c = blockIdx.x / (nI * H), b = blockIdx.y;
+  const size_t bh = (size_t)b * H + h;
+  const size_t t0 = (size_t)c * Q;
+  const int i0 = I * QT;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const T* xb = x + (bh * S + t0) * P;
+  const float* cbb = cb + ((size_t)b * nc + c) * QP * QP;
+
+  chunk_cum(sCum, sDt, dA + bh * S + t0, dt + bh * S + t0, Q);
+  load_rows<T, P>(sDy, dy + (bh * S + t0 + i0) * P, Q - i0);
+  load_rows<T, N>(sC, Cm + ((size_t)b * S + t0 + i0) * N, Q - i0);
+  load_state<P, N>(sH, hin + (bh * nc + c) * P * N);
+  __syncthreads();
+
+  // exp(cum_s) dy_s^T h_in, and m1_s = C_s . that
+  float dc[4][NR];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int m = 0; m < NR; ++m) dc[i][m] = 0.f;
+#pragma unroll 4
+  for (int p = 0; p < P; ++p) {
+    float yv[4], hv[NR];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) yv[i] = sDy[(ty * 4 + i) * LDX + p];
+#pragma unroll
+    for (int m = 0; m < NR; ++m) hv[m] = sH[p * LDN + tx + 16 * m];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int m = 0; m < NR; ++m) dc[i][m] = fmaf(yv[i], hv[m], dc[i][m]);
+  }
+  float m1v[4], rs[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s_ = i0 + ty * 4 + i;
+    const float e = s_ < Q ? expf(sCum[s_]) : 0.f;
+    float part = 0.f;
+#pragma unroll
+    for (int m = 0; m < NR; ++m) {
+      dc[i][m] *= e;
+      part = fmaf(sC[(ty * 4 + i) * LDN + tx + 16 * m], dc[i][m], part);
+    }
+    m1v[i] = half_warp_sum(part);
+    rs[i] = 0.f;
+  }
+
+  for (int J = 0; J <= I; ++J) {
+    const int j0 = J * QT;
+    __syncthreads();
+    load_rows<T, P>(sX, xb + (size_t)j0 * P, Q - j0);
+    load_rows<T, N>(sB, Bm + ((size_t)b * S + t0 + j0) * N, Q - j0);
+    for (int idx = threadIdx.x; idx < QT * QT; idx += blockDim.x) {
+      const int r = idx / QT, jj = idx % QT;   // consecutive threads, consecutive t
+      const int s_ = i0 + r, t = j0 + jj;
+      const bool ok = t <= s_ && s_ < Q;
+      sT[r * LDG + jj] = ok ? cbb[(size_t)s_ * QP + t] * expf(sCum[s_] - sCum[t]) : 0.f;
+    }
+    __syncthreads();
+    float raw[4][4] = {};
+#pragma unroll 4
+    for (int p = 0; p < P; ++p) {
+      float yv[4], xv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        yv[i] = sDy[(ty * 4 + i) * LDX + p];
+        xv[i] = sX[(tx + 16 * i) * LDX + p];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) raw[i][j] = fmaf(yv[i], xv[j], raw[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty * 4 + i, s_ = i0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int jj = tx + 16 * j, t = j0 + jj;
+        const bool ok = t <= s_ && s_ < Q;
+        const float dtt = ok ? sDt[t] : 0.f;
+        sU[r * LDG + jj] = ok ? raw[i][j] * expf(sCum[s_] - sCum[t]) * dtt : 0.f;
+        rs[i] = fmaf(raw[i][j] * dtt, sT[r * LDG + jj], rs[i]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int jj = 0; jj < QT; ++jj) {
+      float uv[4], bv[NR];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) uv[i] = sU[(ty * 4 + i) * LDG + jj];
+#pragma unroll
+      for (int m = 0; m < NR; ++m) bv[m] = sB[jj * LDN + tx + 16 * m];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int m = 0; m < NR; ++m) dc[i][m] = fmaf(uv[i], bv[m], dc[i][m]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s_ = i0 + ty * 4 + i;
+    const float row_sum = half_warp_sum(rs[i]);
+    if (s_ >= Q) continue;
+    const size_t row = bh * S + t0 + s_;
+#pragma unroll
+    for (int m = 0; m < NR; ++m) dCp[row * N + tx + 16 * m] = dc[i][m];
+    if (tx == 0) rowm1[row] = row_sum + m1v[i];
+  }
+}
+
+// pass 8: ddA of a (batch, head, chunk): m3 = exp(cum_Q) <g, h_in>, then
+// ddA_u = sum_{t>=u} (rowm1 - colsum)_t + sum_{r<u} m2_r + m3, the suffix
+// and prefix sums in order; grid (nc * H, B), block 256.
+template <int P, int N>
+__global__ void __launch_bounds__(256)
+dda_kernel(const float* __restrict__ gend, const float* __restrict__ hin,
+           const float* __restrict__ dAc, const float* __restrict__ rowm1,
+           const float* __restrict__ colsum, const float* __restrict__ m2,
+           float* __restrict__ ddA, int H, int S, int Q) {
+  __shared__ float sA[1024], sM[1024], sW[8];
+  const int nc = S / Q;
+  const int h = blockIdx.x % H, c = blockIdx.x / H, b = blockIdx.y;
+  const size_t bh = (size_t)b * H + h;
+  const size_t t0 = (size_t)c * Q;
+  const float* g = gend + (bh * nc + c) * P * N;
+  const float* hs = hin + (bh * nc + c) * P * N;
+  float part = 0.f;
+  for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x) part = fmaf(g[idx], hs[idx], part);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+  if ((threadIdx.x & 31) == 0) sW[threadIdx.x >> 5] = part;
+  const float* rb = rowm1 + bh * S + t0;
+  const float* cb_ = colsum + bh * S + t0;
+  const float* mb = m2 + bh * S + t0;
+  for (int i = threadIdx.x; i < Q; i += blockDim.x) {
+    sA[i] = rb[Q - 1 - i] - cb_[Q - 1 - i];  // reversed: its cumsum is the suffix sum
+    sM[i] = i > 0 ? mb[i - 1] : 0.f;          // shifted: its cumsum is the exclusive prefix
+  }
+  __syncthreads();
+  if (threadIdx.x < 32)
+    warp_cumsum(sA, Q, threadIdx.x);
+  else if (threadIdx.x < 64)
+    warp_cumsum(sM, Q, threadIdx.x - 32);
+  __syncthreads();
+  float dot = 0.f;
+  for (int w = 0; w < 8; ++w) dot += sW[w];
+  const float m3 = expf(dAc[bh * nc + c]) * dot;
+  for (int u = threadIdx.x; u < Q; u += blockDim.x)
+    ddA[bh * S + t0 + u] = sA[Q - 1 - u] + sM[u] + m3;
+}
+
+// pass 9: dB and dC, [B, S, N], each the sum over the heads in order of
+// the per-head [B, H, S, N]; grid (ceil(B S N / 256), 2).
+template <typename T>
+__global__ void __launch_bounds__(256)
+head_sum_kernel(const float* __restrict__ dBp, const float* __restrict__ dCp, T* __restrict__ dB,
+                T* __restrict__ dC, int H, size_t SN, size_t total) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const float* p = (blockIdx.y ? dCp : dBp) + (idx / SN) * H * SN + idx % SN;
+  float acc = 0.f;
+  for (int h = 0; h < H; ++h) acc += p[(size_t)h * SN];
+  (blockIdx.y ? dC : dB)[idx] = to_t<T>(acc);
+}
+
+template <typename T, int P, int N>
+cudaError_t launch_bwd(const T* x, const float* dA, const float* dt, const T* Bm, const T* Cm,
+                       const float* h0, const T* dy, const float* dh_last, T* dx, float* ddA,
+                       float* ddt, T* dB, T* dC, float* dh0, float* cb, float* states,
+                       float* hin, float* gend, float* dAc, float* h_last, float* dBp,
+                       float* dCp, float* colsum, float* rowm1, float* m2, int B, int H, int S,
+                       int Q, cudaStream_t stream) {
+  const int nc = S / Q, nI = (Q + QT - 1) / QT;
+  const int per = B * H * (P * N / 4);
+  // 1-3: C.B^T, the chunk states and the carry, h_in in float32
+  size_t smem = (size_t)2 * QT * (N + 1) * sizeof(float);
+  cudaError_t err = set_smem(cb_f32_kernel<T, N>, smem);
+  if (err != cudaSuccess) return err;
+  cb_f32_kernel<T, N><<<dim3(nI * nc, B), F32_THREADS, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  smem = ((size_t)QT * (P + 1) + (size_t)QT * (N + 1) + QT + 2 * (size_t)Q) * sizeof(float);
+  if ((err = set_smem(state_f32_kernel<T, P, N>, smem)) != cudaSuccess) return err;
+  state_f32_kernel<T, P, N><<<dim3(nc * H, B), F32_THREADS, smem, stream>>>(x, dA, dt, Bm, states,
+                                                                           dAc, H, S, Q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  pass_kernel<float><<<(per + 255) / 256, 256, 0, stream>>>(states, dAc, h0, hin, 0, h_last,
+                                                            B * H, nc, P * N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 4-5: the dual states (into `states`, no longer needed) and g
+  if ((err = set_smem(state_f32_kernel<T, P, N, true>, smem)) != cudaSuccess) return err;
+  state_f32_kernel<T, P, N, true><<<dim3(nc * H, B), F32_THREADS, smem, stream>>>(
+      dy, dA, dt, Cm, states, nullptr, H, S, Q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  rpass_kernel<<<(per + 255) / 256, 256, 0, stream>>>(states, dAc, dh_last, gend, dh0, B * H, nc,
+                                                      P * N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 6-7: the row tiles
+  smem = TileSmem<P, N>::bytes(Q);
+  if ((err = set_smem(dxdb_kernel<T, P, N>, smem)) != cudaSuccess) return err;
+  dxdb_kernel<T, P, N><<<dim3(nc * H * nI, B), F32_THREADS, smem, stream>>>(
+      x, dA, dt, Bm, Cm, dy, cb, gend, dx, ddt, dBp, colsum, m2, H, S, Q, nI);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = set_smem(dc_kernel<T, P, N>, smem)) != cudaSuccess) return err;
+  dc_kernel<T, P, N><<<dim3(nc * H * nI, B), F32_THREADS, smem, stream>>>(
+      x, dA, dt, Bm, Cm, dy, cb, hin, dCp, rowm1, H, S, Q, nI);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 8-9: ddA; dB and dC over the heads
+  dda_kernel<P, N><<<dim3(nc * H, B), 256, 0, stream>>>(gend, hin, dAc, rowm1, colsum, m2, ddA,
+                                                        H, S, Q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t SN = (size_t)S * N, total = (size_t)B * SN;
+  head_sum_kernel<T><<<dim3((unsigned)((total + 255) / 256), 2), 256, 0, stream>>>(
+      dBp, dCp, dB, dC, H, SN, total);
+  return cudaGetLastError();
+}
+
+template <int P, int N>
+cudaError_t launch_bwd_any(const void* x, const float* dA, const float* dt, const void* Bm,
+                           const void* Cm, const float* h0, const void* dy, const float* dh_last,
+                           void* dx, float* ddA, float* ddt, void* dB, void* dC, float* dh0,
+                           float* cb, float* states, float* hin, float* gend, float* dAc,
+                           float* h_last, float* dBp, float* dCp, float* colsum, float* rowm1,
+                           float* m2, int B, int H, int S, int Q, int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    return launch_bwd<float, P, N>(
+        static_cast<const float*>(x), dA, dt, static_cast<const float*>(Bm),
+        static_cast<const float*>(Cm), h0, static_cast<const float*>(dy), dh_last,
+        static_cast<float*>(dx), ddA, ddt, static_cast<float*>(dB), static_cast<float*>(dC), dh0,
+        cb, states, hin, gend, dAc, h_last, dBp, dCp, colsum, rowm1, m2, B, H, S, Q, s);
+  if (dtype == 1)
+    return launch_bwd<bf16, P, N>(
+        static_cast<const bf16*>(x), dA, dt, static_cast<const bf16*>(Bm),
+        static_cast<const bf16*>(Cm), h0, static_cast<const bf16*>(dy), dh_last,
+        static_cast<bf16*>(dx), ddA, ddt, static_cast<bf16*>(dB), static_cast<bf16*>(dC), dh0,
+        cb, states, hin, gend, dAc, h_last, dBp, dCp, colsum, rowm1, m2, B, H, S, Q, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (x, B, C and y); (P, N) = (64, 128) or
@@ -832,5 +1395,31 @@ extern "C" int ssd_fwd(const void* x, const float* dA, const float* dt, const vo
   if (P == 16 && N == 16)
     return launch<16, 16>(x, dA, dt, Bm, Cm, h0, y, h_last, cb, states, hin, dAc, B, H, S, Q,
                           dtype, s);
+  return cudaErrorInvalidValue;
+}
+
+// The gradient of `ssd_fwd` for dy (x's type) and dh_last (float32 [B, H,
+// P, N], or null): dx (x's type), ddA and ddt (float32 [B, H, S]), dB and
+// dC (B's type [B, S, N]), dh0 (float32 [B, H, P, N]).  h0 may be null.
+// Scratch, float32, allocated by the caller: cb [B, S / Q, QP, QP]; states,
+// hin and gend [B, H, S / Q, P, N]; dAc [B, H, S / Q]; h_last [B, H, P, N];
+// dBp and dCp [B, H, S, N]; colsum, rowm1 and m2 [B, H, S].
+extern "C" int ssd_bwd(const void* x, const float* dA, const float* dt, const void* Bm,
+                       const void* Cm, const float* h0, const void* dy, const float* dh_last,
+                       void* dx, float* ddA, float* ddt, void* dB, void* dC, float* dh0,
+                       float* cb, float* states, float* hin, float* gend, float* dAc,
+                       float* h_last, float* dBp, float* dCp, float* colsum, float* rowm1,
+                       float* m2, int B, int H, int S, int P, int N, int Q, int dtype,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Q < 1 || Q > 1024 || S % Q) return cudaErrorInvalidValue;
+  if (P == 64 && N == 128)
+    return launch_bwd_any<64, 128>(x, dA, dt, Bm, Cm, h0, dy, dh_last, dx, ddA, ddt, dB, dC, dh0,
+                                   cb, states, hin, gend, dAc, h_last, dBp, dCp, colsum, rowm1,
+                                   m2, B, H, S, Q, dtype, s);
+  if (P == 16 && N == 16)
+    return launch_bwd_any<16, 16>(x, dA, dt, Bm, Cm, h0, dy, dh_last, dx, ddA, ddt, dB, dC, dh0,
+                                  cb, states, hin, gend, dAc, h_last, dBp, dCp, colsum, rowm1,
+                                  m2, B, H, S, Q, dtype, s);
   return cudaErrorInvalidValue;
 }

@@ -14,6 +14,12 @@ though a call launches the four passes of ``csrc/ssd.cu``); plain-version
 calls do not count.  The wrapper allocates the passes' scratch: C.B^T per
 chunk, each chunk's own state and its incoming state.
 
+``ssd_call_bwd`` is the gradient of ``ssd_call`` (``ref.ssd_bwd_ref`` on
+the CPU): one call launches the backward's passes of ``csrc/ssd.cu`` and
+counts once in ``ssd_call_bwd.launches``; it allocates their float32
+scratch (the recomputed chunk states, the gradients reaching each chunk's
+end, the per-head dB and dC before their sum over heads in a fixed order).
+
 TPU kernel replaced: ``ssd_call`` (``_ssd_kernel``) of
 ``repro/kernels/ssd/kernel.py``.  The source note of the ``.cu`` file
 says what bounds it on the card and how the design answers it.
@@ -48,7 +54,8 @@ def library() -> ctypes.CDLL:
     lib = build.load_library(LIB_NAME, SOURCES)
     if fresh:
         lib.ssd_fwd.argtypes = [_P] * 12 + [_I] * 7 + [_P]
-        lib.ssd_fwd.restype = _I
+        lib.ssd_bwd.argtypes = [_P] * 25 + [_I] * 7 + [_P]
+        lib.ssd_fwd.restype = lib.ssd_bwd.restype = _I
     return lib
 
 
@@ -120,15 +127,74 @@ def ssd_call(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     return y, h_last
 
 
-KERNELS = (ssd_call,)
+def ssd_call_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int = 256, h0: Optional[torch.Tensor] = None,
+                 dh_last: Optional[torch.Tensor] = None,
+                 mode=KernelMode.AUTO):
+    """The gradient of :func:`ssd_call` for the cotangents ``dy`` [B, H, S,
+    P] (x's type) of y and ``dh_last`` [B, H, P, N] float32 (or None) of
+    h_last: (dx in x's type, ddA and ddt float32, dB and dC in B's type,
+    dh0 float32, or None without ``h0``); see ``ref.ssd_bwd_ref``."""
+    tensors = (x, dA, dt, Bm, Cm, dy) + tuple(
+        t for t in (h0, dh_last) if t is not None)
+    if not use_kernel(mode, *tensors):
+        out = ref.ssd_bwd_ref(x, dA, dt, Bm, Cm, dy, chunk, h0, dh_last)
+        return out[:5] + (None if h0 is None else out[5],)
+    _check(x, dA, dt, Bm, Cm, chunk, h0)
+    Bsz, H, S, P = x.shape
+    N = Bm.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise TypeError(f"dy must be x's shape and type, got "
+                        f"{tuple(dy.shape)} {dy.dtype}")
+    if dh_last is not None and (dh_last.shape != (Bsz, H, P, N)
+                                or dh_last.dtype != torch.float32):
+        raise TypeError("dh_last must be float32 [B, H, P, N]")
+    x, dA, dt, Bm, Cm, dy = (t.contiguous()
+                             for t in (x, dA, dt, Bm, Cm, dy))
+    h0, dh_last = (None if t is None else t.contiguous()
+                   for t in (h0, dh_last))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    ddA = torch.empty((Bsz, H, S), **f32)
+    ddt = torch.empty((Bsz, H, S), **f32)
+    dB = torch.empty_like(Bm)
+    dC = torch.empty_like(Cm)
+    dh0 = torch.empty((Bsz, H, P, N), **f32)
+    nc, QP = S // chunk, -(-chunk // TILE) * TILE
+    state = lambda: torch.empty((Bsz, H, nc, P, N), **f32)  # noqa: E731
+    cb = torch.empty((Bsz, nc, QP, QP), **f32)
+    states, hin, gend = state(), state(), state()
+    dAc = torch.empty((Bsz, H, nc), **f32)
+    h_last = torch.empty((Bsz, H, P, N), **f32)
+    dBp = torch.empty((Bsz, H, S, N), **f32)     # per head, then summed
+    dCp = torch.empty((Bsz, H, S, N), **f32)
+    rows = torch.empty((3, Bsz, H, S), **f32)    # colsum, rowsum + m1, m2
+    code = library().ssd_bwd(
+        x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), None if h0 is None else h0.data_ptr(), dy.data_ptr(),
+        None if dh_last is None else dh_last.data_ptr(), dx.data_ptr(),
+        ddA.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dh0.data_ptr(), cb.data_ptr(), states.data_ptr(), hin.data_ptr(),
+        gend.data_ptr(), dAc.data_ptr(), h_last.data_ptr(), dBp.data_ptr(),
+        dCp.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
+        rows[2].data_ptr(), Bsz, H, S, P, N, chunk, _DTYPE_CODE[x.dtype],
+        build.stream(x.device))
+    build.check(code, "ssd_bwd")
+    ssd_call_bwd.launches += 1
+    return dx, ddA, ddt, dB, dC, None if h0 is None else dh0
+
+
+KERNELS = (ssd_call, ssd_call_bwd)
 
 
 def reset_launch_counts() -> None:
-    ssd_call.launches = 0
+    for fn in KERNELS:
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"ssd": ssd_call.launches}
+    return {"ssd": ssd_call.launches, "ssd_bwd": ssd_call_bwd.launches}
 
 
 reset_launch_counts()

@@ -3,13 +3,13 @@
 ``ssd_scan`` is the drop-in for ``repro_torch.models.ssm.ssd_chunked``
 (as ``repro/kernels/ssd/ops.py:ssd_scan`` is for the JAX model's): it
 moves x and dt to head-major, forms ``dA = dt * A`` and calls
-``kernel.ssd_call``.  It is the one place that chooses between kernel and
-plain version.  On CUDA tensors that is the kernel, wrapped in a
-``torch.autograd.Function`` whose backward raises: the kernel has no
-backward yet, as the TPU kernel had none (ROADMAP B8, the recurrent
-families' backward kernels).  On CPU tensors, or under ``KernelMode.TORCH``,
-it is the plain version (``ref.ssd_call_ref``), through which autograd runs
-as usual.
+``kernel.ssd_call`` inside a ``torch.autograd.Function`` whose backward
+is ``kernel.ssd_call_bwd``.  Each wrapper launches its kernel for CUDA
+tensors and runs its plain version (``ref.ssd_call_ref``,
+``ref.ssd_bwd_ref``) for CPU tensors or under ``KernelMode.TORCH``;
+neither gives way to the other.  The Function returns gradients for x, dA,
+dt, B, C and h0; autograd carries ``dA = dt * A`` back to dt and A and the
+transposes back to the model layout.
 """
 from __future__ import annotations
 
@@ -17,23 +17,24 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.fabric.interface import KernelMode, use_kernel
+from repro_torch.fabric.interface import KernelMode
 from repro_torch.kernels.ssd import kernel as _k
-from repro_torch.kernels.ssd import ref
-
-BACKWARD_ITEM = ("the SSD kernel has no backward yet (ROADMAP B8: the "
-                 "recurrent families' backward kernels)")
 
 
 class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dA, dt, Bm, Cm, h0, chunk, mode):
+        ctx.save_for_backward(x, dA, dt, Bm, Cm, h0)
+        ctx.chunk, ctx.mode = chunk, mode
         return _k.ssd_call(x, dA, dt, Bm, Cm, chunk=chunk, h0=h0, mode=mode)
 
     @staticmethod
-    def backward(ctx, dy, dh):
-        raise NotImplementedError(BACKWARD_ITEM)
+    def backward(ctx, dy, dh_last):
+        x, dA, dt, Bm, Cm, h0 = ctx.saved_tensors
+        grads = _k.ssd_call_bwd(x, dA, dt, Bm, Cm, dy, chunk=ctx.chunk,
+                                h0=h0, dh_last=dh_last, mode=ctx.mode)
+        return (*grads, None, None)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -52,9 +53,5 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dth = dt.transpose(1, 2).float()                        # [B, H, S]
     dAh = dth * A.float()[None, :, None]
     h0 = None if h0 is None else h0.float()
-    tensors = (x, dt, A, Bm, Cm) + (() if h0 is None else (h0,))
-    if use_kernel(mode, *tensors):
-        y, h_last = _SSDScan.apply(xh, dAh, dth, Bm, Cm, h0, chunk, mode)
-    else:
-        y, h_last = ref.ssd_call_ref(xh, dAh, dth, Bm, Cm, chunk, h0)
+    y, h_last = _SSDScan.apply(xh, dAh, dth, Bm, Cm, h0, chunk, mode)
     return y.transpose(1, 2), h_last

@@ -11,12 +11,11 @@ config runs ``prefill`` and ``loss`` on the kernels and on the plain path
 
 - bf16 ``prefill``: last-token logits within relative L2 2e-2 (bf16 rounds
   at other places in the two attentions);
-- float32 ``loss`` and, for the dense and MoE families, every gradient leaf
-  within 1e-4 of the leaf's largest value (the same arithmetic summed in
-  another order; TF32 off);
+- float32 ``loss`` and every gradient leaf within 1e-4 of the leaf's
+  largest value (the same arithmetic summed in another order; TF32 off);
+  the SSM and hybrid gradients run the SSD and RG-LRU backward kernels;
 - float32 ``prefill`` logits of the SSM and hybrid families within 1e-4
-  relative, and their backward raises, naming ROADMAP B8 (the SSD and
-  RG-LRU kernels have no backward yet).
+  relative.
 
 The MoE configs dispatch through the crossbar kernels (``cuda_kernel``).
 Each check counts the launches of the kernel path only and requires the
@@ -52,8 +51,8 @@ F32_REL = 1e-4       # float32 loss, gradient leaves, SSM/hybrid logits
 FAMILY_KERNELS = {
     "dense": ("flash_fwd", "flash_bwd"),
     "moe": ("flash_fwd", "flash_bwd", "plan_multi", "scatter", "combine"),
-    "ssm": ("ssd",),
-    "hybrid": ("rglru", "flash_fwd"),
+    "ssm": ("ssd", "ssd_bwd"),
+    "hybrid": ("rglru", "rglru_bwd", "flash_fwd", "flash_bwd"),
 }
 _MODULES = (FK, K, SK, RK)
 
@@ -122,7 +121,7 @@ def check(arch: str, seed: int = 0) -> dict:
     ok = {"bf16_prefill": bool(torch.isfinite(lk).all())
           and out["bf16_prefill_rel_l2"] <= PREFILL_REL}
 
-    # float32 loss, and gradients or the backward's refusal
+    # float32 loss and gradients
     kern, plain, params, batch = _pair(arch, "float32", seed + 1)
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
     loss_p = plain.loss(params, batch)
@@ -130,20 +129,12 @@ def check(arch: str, seed: int = 0) -> dict:
     lk32, lp32 = float(loss_k.detach()), float(loss_p.detach())
     out["f32_loss_kernel"], out["f32_loss_plain"] = lk32, lp32
     ok["f32_loss"] = abs(lk32 - lp32) <= F32_REL * abs(lp32)
-    if family in ("dense", "moe"):
-        gp = torch.autograd.grad(loss_p, leaves)
-        gk = on_kernels(lambda: torch.autograd.grad(loss_k, leaves))
-        rel = [float((a - b).abs().max() / b.abs().max())
-               for a, b in zip(gk, gp)]
-        out["f32_grad_leaves"], out["f32_grad_rel_max"] = len(rel), max(rel)
-        ok["f32_grads"] = max(rel) <= F32_REL
-    else:
-        try:
-            on_kernels(lambda: torch.autograd.grad(loss_k, leaves))
-            out["f32_backward"] = "ran"
-        except (NotImplementedError, ValueError) as e:
-            out["f32_backward"] = f"raised: {e}"
-        ok["f32_backward_raises_b8"] = "ROADMAP B8" in out["f32_backward"]
+    gp = torch.autograd.grad(loss_p, leaves)
+    gk = on_kernels(lambda: torch.autograd.grad(loss_k, leaves))
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(gk, gp)]
+    out["f32_grad_leaves"], out["f32_grad_rel_max"] = len(rel), max(rel)
+    ok["f32_grads"] = max(rel) <= F32_REL
+    if family in ("ssm", "hybrid"):
         with torch.no_grad():
             pk = on_kernels(lambda: kern.prefill(params, batch))
             pp = plain.prefill(params, batch)

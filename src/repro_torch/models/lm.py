@@ -22,8 +22,10 @@ only, as in the JAX package: ``"nothing"`` keeps every activation,
 ``"full"`` recomputes each layer body in the backward (non-reentrant
 ``torch.utils.checkpoint``), and ``"dots"`` (the default) saves only the
 outputs of plain 2-D products and recomputes the rest, the hand-written
-kernels included.  The encdec and vlm families are not ported; the ssm and
-hybrid families serve (their scans have no backward kernel yet).
+kernels included.  Every ported family trains on the kernels: the SSD
+and RG-LRU scans and the attention at each head dim have backward
+kernels, and remat recomputes their forwards.  The encdec and vlm
+families are not ported.
 """
 from __future__ import annotations
 

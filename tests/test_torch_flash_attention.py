@@ -143,13 +143,11 @@ ROUTE_TABLE = [   # dtype, head dim, backward, kernel or the error raised
       for bwd in (False, True)],
     *[(torch.float32, D, bwd, "fma") for D in (64, 128)
       for bwd in (False, True)],
-    (torch.bfloat16, 256, False, "tc"),
-    (torch.float32, 256, False, "fma"),
+    *[(torch.bfloat16, 256, bwd, "tc") for bwd in (False, True)],
+    *[(torch.float32, 256, bwd, "fma") for bwd in (False, True)],
     # the smoke configs' head dims: the FMA kernels, either type, both ways
     *[(dt, D, bwd, "fma") for D in (8, 12, 16)
       for dt in (torch.bfloat16, torch.float32) for bwd in (False, True)],
-    (torch.bfloat16, 256, True, ValueError),     # ROADMAP B8
-    (torch.float32, 256, True, ValueError),
     *[(dt, 96, bwd, ValueError) for dt in (torch.bfloat16, torch.float32)
       for bwd in (False, True)],
     *[(torch.float16, D, bwd, TypeError) for D in (64, 128, 256)
@@ -161,15 +159,14 @@ ROUTE_TABLE = [   # dtype, head dim, backward, kernel or the error raised
                          ids=lambda x: str(x).replace("torch.", ""))
 def test_route_picks_the_kernel_for_each_type_head_dim_and_direction(
         dtype, D, backward, want):
-    """bfloat16 at head dims 64 and 128, and its forward at 256, take the
-    tensor-core kernels; float32 and head dims 8, 12 and 16 the FMA ones;
-    the rest raises, the backward at 256 naming ROADMAP B8."""
+    """bfloat16 at head dims 64, 128 and 256 takes the tensor-core kernels,
+    both ways; float32 and head dims 8, 12 and 16 the FMA ones; the rest
+    raises."""
     if isinstance(want, str):
         assert K.route(dtype, D, backward) == want
         assert want in K.ROUTES and want in K.TILES
     else:
-        names_b8 = want is ValueError and D == 256
-        with pytest.raises(want, match="B8" if names_b8 else None):
+        with pytest.raises(want):
             K.route(dtype, D, backward)
 
 
@@ -186,9 +183,9 @@ def test_launch_refuses_cpu_tensors_and_unknown_routes(kernel):
 
 def test_launch_counts_split_the_totals_by_route():
     counts = K.launch_counts()
-    for fn in ("flash_fwd", "flash_bwd", "flash_fwd_d256"):
+    for fn in ("flash_fwd", "flash_bwd", "flash_fwd_d256", "flash_bwd_d256"):
         assert {f"{fn}_{r}" for r in K.ROUTES} <= counts.keys()
-    assert "flash_fwd_d256" in counts
+        assert fn in counts
 
 
 @pytest.mark.parametrize("dtype,D,want", [
@@ -217,12 +214,11 @@ def _config_head_dims():
                          ids=lambda x: str(x))
 def test_every_configured_head_dim_has_a_kernel(arch, smoke, family, D):
     """Every head dim a config of a ported family declares, full and smoke,
-    has a forward kernel in either type and, but for RecurrentGemma's 256
-    (ROADMAP B8), a backward one: the kernels take what the models run."""
+    has a forward and a backward kernel in either type: the kernels take
+    what the models run and train."""
     for dtype in (torch.bfloat16, torch.float32):
         assert K.route(dtype, D) in K.ROUTES
-        if D != 256:
-            assert K.route(dtype, D, backward=True) in K.ROUTES
+        assert K.route(dtype, D, backward=True) in K.ROUTES
 
 
 def test_init_cache_matches_jax():
@@ -239,3 +235,25 @@ def test_init_cache_matches_jax():
             assert np.array_equal(a.astype(np.float32), b.float().numpy()), f
         assert got.k.dtype == torch.bfloat16
         assert got.positions.dtype == torch.int32
+
+
+@pytest.mark.parametrize("case", [
+    (1, 256, 256, 4, 1, 256, True, 64),      # RecurrentGemma: MQA, a window
+    (2, 96, 320, 4, 2, 256, True, 100),      # q_offset, GQA, a ragged window
+], ids=lambda c: "-".join(map(str, c)))
+def test_head_dim_256_backward_plain_version_matches_jax_vjp(case):
+    """``attention_bwd_ref`` (the plain version of the backward kernels,
+    the CPU path of ``flash_bwd``) at head dim 256 with a window against
+    ``jax.vjp`` of JAX's ``attention_ref``, within 1e-5 (GRAD_TOL)."""
+    from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+    _, Sq, Sk, _, _, _, causal, window = case
+    kw = dict(causal=causal, window=window, q_offset=Sk - Sq)
+    q, k, v, g = _inputs(case, seed=2)
+    _, vjp = jax.vjp(lambda a, b, c: jax_ref(a, b, c, **kw), q, k, v)
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    o, lse = K.flash_fwd(tq, tk, tv, **kw)
+    got = K.flash_bwd(tq, tk, tv, o, lse, tg, **kw)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=f"d{name}")

@@ -57,8 +57,9 @@ doubling scan within 5e-5, at the tile edges too; its model entry (bf16 or
 float32 u, an initial state folded in the kernel) is held bit-equal to the
 float32 kernel followed by the cast, two calls bit-equal, and a call to
 one kernel.  The word-stream kernels are held bit-equal around their
-launch's block.  A backward through any of the three forward-only kernels
-raises and launches no plain version.
+launch's block.  A backward through SSD, RG-LRU or the head-dim-256 flash
+attention launches its backward kernel and no plain backward, gives the
+same bits twice, and matches the plain backward.
 """
 
 import numpy as np
@@ -916,46 +917,96 @@ def test_flash_d256_tensor_core_forward_on_card(B, Sq, Sk, H, Kv, causal,
 def test_smoke_config_runs_on_the_kernels_on_card(arch):
     """The smoke config's narrow widths (head dims 8, 12, 16; SSD at
     (16, 16), chunk 16) under ``kernel_mode="auto"``: bf16 prefill, float32
-    loss and the dense and MoE gradients on the kernels within the limits
-    of ``repro_torch.launch.smoke_widths`` of the plain path; the SSM and
-    hybrid backward raise, naming ROADMAP B8."""
+    loss and every family's gradients on the kernels (the SSM's and the
+    hybrid's through the SSD and RG-LRU backward kernels) within the limits
+    of ``repro_torch.launch.smoke_widths`` of the plain path."""
     _card()
     from repro_torch.launch import smoke_widths
     res = smoke_widths.check(arch)
     assert res["ok"], res
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["ssd", "rglru", "flash_d256"])
-def test_backward_through_a_forward_only_kernel_raises_on_card(kernel):
-    """The forward launches the kernel; the backward raises, and nothing
-    falls back to the plain version (no plain backward runs, no kernel
-    launches)."""
-    _card()
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+BACKWARD_KERNELS = {   # wrapper module, launch count, plain backward
+    "ssd": ("ssd_bwd", "repro_torch.kernels.ssd.ref", "ssd_bwd_ref"),
+    "rglru": ("rglru_bwd", "repro_torch.kernels.rglru.ref", "rglru_bwd_ref"),
+    "flash_d256": ("flash_bwd_d256", "repro_torch.kernels.flash_attention.ref",
+                   "attention_bwd_ref"),
+}
+
+
+def _backward_case(kernel, dtype, mode):
+    """Seeded inputs (fresh leaves), the op's outputs and their cotangents,
+    through the model-layout entry point of ``kernel``."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
     if kernel == "ssd":
-        x = rn(1, 256, 2, 64).requires_grad_()
-        out, _ = ssd_scan(x, torch.rand((1, 256, 2), device="cuda"),
-                          -torch.ones(2, device="cuda"), rn(1, 256, 128),
-                          rn(1, 256, 128), chunk=256)
-        err = NotImplementedError
+        x, dt = rn(1, 512, 4, 64).to(dtype), torch.rand(
+            (1, 512, 4), generator=gen, device="cuda") * 0.5
+        A, Bm, Cm = -torch.exp(rn(4) * 0.5), (rn(1, 512, 128) * 0.3).to(
+            dtype), (rn(1, 512, 128) * 0.3).to(dtype)
+        h0 = rn(1, 4, 64, 128) * 0.3
+        leaves = [t.requires_grad_() for t in (x, dt, A, Bm, Cm, h0)]
+        outs = ssd_scan(*leaves[:5], chunk=256, h0=h0, mode=mode)
     elif kernel == "rglru":
-        u = rn(1, 256, 64).requires_grad_()
-        out, _ = rglru_scan_kernel(u, torch.rand((1, 256, 64),
-                                                 device="cuda"))
-        err = NotImplementedError
+        u = (rn(1, 300, 96) * 0.5).to(dtype)
+        a = torch.sigmoid(rn(1, 300, 96) + 2.0) * 0.98 + 0.01
+        leaves = [t.requires_grad_() for t in (u, a, rn(1, 96) * 0.3)]
+        outs = rglru_scan_kernel(*leaves, mode=mode)
     else:
-        q = rn(1, 128, 2, 256).requires_grad_()
-        kv = rn(1, 128, 1, 256)
-        out = flash_attention(q, kv, kv, window=64)
-        err = ValueError
-    counts = {**SK.launch_counts(), **RK.launch_counts(),
-              **FK.launch_counts()}
-    with pytest.raises(err, match="ROADMAP B8"):
-        out.sum().backward()
-    assert {**SK.launch_counts(), **RK.launch_counts(),
-            **FK.launch_counts()} == counts
+        q, kv = rn(1, 300, 16, 256).to(dtype), rn(1, 300, 1, 256).to(dtype)
+        leaves = [t.requires_grad_() for t in (q, kv, rn(1, 300, 1, 256)
+                                               .to(dtype))]
+        outs = (flash_attention(*leaves, window=64, mode=mode),)
+    gen.manual_seed(12)
+    cots = tuple(rn(*o.shape).to(o.dtype) for o in outs)
+    return leaves, outs, cots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["ssd", "rglru", "flash_d256"])
+def test_backward_kernel_runs_and_matches_the_plain_backward_on_card(
+        kernel, dtype, monkeypatch):
+    """A backward through SSD, RG-LRU or the head-dim-256 flash attention
+    on CUDA tensors launches its backward kernel, once a backward, and no
+    plain backward (the plain version is made to raise while it runs);
+    two backwards give the same bits; the gradients equal the plain
+    backward's (``KernelMode.TORCH``, the same Function on the same card)
+    within a relative L2 distance of 1e-5 in float32 and 1e-2 in bfloat16
+    (dx, dB, dC and du rounded to bf16 in both)."""
+    _card()
+    import importlib
+    count, module, plain_name = BACKWARD_KERNELS[kernel]
+    counts = lambda: {**SK.launch_counts(), **RK.launch_counts(),  # noqa
+                      **FK.launch_counts()}
+    plain_mod = importlib.import_module(module)
+    plain_fn = getattr(plain_mod, plain_name)
+    leaves, outs, cots = _backward_case(kernel, dtype, KernelMode.TORCH)
+    want = torch.autograd.grad(outs, leaves, cots)
+
+    def refuse(*a, **k):
+        raise AssertionError(f"{plain_name} ran on the kernel path")
+
+    monkeypatch.setattr(plain_mod, plain_name, refuse)
+    got = []
+    for _ in range(2):
+        leaves, outs, cots = _backward_case(kernel, dtype, KernelMode.AUTO)
+        before = counts()
+        got.append(torch.autograd.grad(outs, leaves, cots))
+        after = counts()
+        assert after[count] == before[count] + 1
+        if kernel == "flash_d256":
+            route = FK.route(dtype, 256, backward=True)
+            assert after[f"flash_bwd_d256_{route}"] == \
+                before[f"flash_bwd_d256_{route}"] + 1
+    monkeypatch.setattr(plain_mod, plain_name, plain_fn)
+    torch.cuda.synchronize()
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+    tol = REL_L2[dtype]
+    for i, (a, b) in enumerate(zip(got[0], want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert _rel_l2(a, b) <= tol, (i, _rel_l2(a, b))
 
 
 # ----------------------------------------------------------------------

@@ -150,3 +150,60 @@ def test_rglru_cuda_mode_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         K.rglru_call(ta, tu, mode="pallas")
     assert K.launch_counts() == before
+
+
+# ----------------------------------------------------------------------
+# the backward: ``rglru_bwd_ref`` (the plain version of the backward
+# kernel) and the gradients of ``rglru_scan_kernel`` (its autograd
+# Function) against ``jax.vjp`` of JAX's ``rglru_scan``, with an initial
+# state and a cotangent of h_last.  float32, within 5e-5 (TOL): the doubling
+# scans of both packages, summed in other orders.
+# ----------------------------------------------------------------------
+GRAD_CASES = [(2, 64, 32), (1, 100, 48), (1, 4096, 16)]   # B, S, L
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("path", ["rglru_bwd_ref", "rglru_scan_kernel"])
+@pytest.mark.parametrize("case", GRAD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_rglru_backward_matches_jax_vjp(case, path, with_h0):
+    a, u, h0 = _inputs(case, seed=sum(case))
+    rng = np.random.default_rng(9)
+    dh = rng.standard_normal(a.shape).astype(np.float32)
+    dh_last = rng.standard_normal(h0.shape).astype(np.float32)
+    h0 = h0 if with_h0 else None
+    if h0 is None:
+        fn = lambda uu, aa: jax_rglru.rglru_scan(uu, aa, None)  # noqa: E731
+        args = (jnp.asarray(u), jnp.asarray(a))
+    else:
+        fn = jax_rglru.rglru_scan
+        args = (jnp.asarray(u), jnp.asarray(a), jnp.asarray(h0))
+    _, vjp = jax.vjp(fn, *args)
+    want = vjp((jnp.asarray(dh), jnp.asarray(dh_last)))
+    tu, ta = torch.from_numpy(u), torch.from_numpy(a)
+    th0 = None if h0 is None else torch.from_numpy(h0)
+    tdh, tdl = torch.from_numpy(dh), torch.from_numpy(dh_last)
+    if path == "rglru_bwd_ref":
+        du, da, dh0 = K.rglru_scan_bwd(tu, ta, th0, tdh, tdl)
+        assert (dh0 is None) == (h0 is None)
+        got = (du, da) if h0 is None else (du, da, dh0)
+    else:
+        leaves = [t.requires_grad_() for t in (tu, ta, th0) if t is not None]
+        h, h_last = rglru_scan_kernel(tu, ta, th0)
+        got = torch.autograd.grad((h, h_last), leaves, (tdh, tdl))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _close(g.detach(), w)
+
+
+def test_rglru_backward_keeps_the_types():
+    """bf16 u: du in bf16, da and dh0 in float32, as the kernel writes
+    them; the plain forward saves no carries (the kernel's alone)."""
+    a, u, h0 = _inputs((1, 64, 32))
+    ta, th0 = torch.from_numpy(a), torch.from_numpy(h0)
+    tu = torch.from_numpy(u).bfloat16()
+    h, h_last, carries = K.rglru_scan(tu, ta, th0, save_carries=True)
+    assert carries is None and h.dtype == torch.bfloat16
+    du, da, dh0 = K.rglru_scan_bwd(tu, ta, th0, h, h_last)
+    assert (du.dtype, da.dtype, dh0.dtype) == (torch.bfloat16, torch.float32,
+                                               torch.float32)

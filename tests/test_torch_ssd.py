@@ -261,3 +261,112 @@ def test_ssd_scan_is_differentiable_on_the_cpu():
     for a, b in zip(*grads):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b)
+
+
+# ----------------------------------------------------------------------
+# the backward: ``ssd_bwd_ref`` (the plain version of the backward kernel,
+# explicit formulas) and the gradients of ``ssd_scan`` (its autograd
+# Function, whose CPU backward is ``ssd_bwd_ref``) against ``jax.vjp`` of
+# JAX's ``ssd_chunked``.  float32; each gradient within GRAD_REL of its
+# largest value: the same sums in other orders.  Against a float64 run of
+# the same formulas, the port's gradients and JAX's both lie within 7.5e-6
+# of their largest value (and within 6.3e-6 of each other), but for A's:
+# a sum over every position and batch row with cancellation, which both
+# packages miss by up to 3.2e-5 (2.9e-5 apart), so it is held within 1e-4.
+# ----------------------------------------------------------------------
+GRAD_REL = 2e-5
+SUM_REL = 1e-4      # dA: summed over batch and sequence
+GRAD_CASES = [                  # B, S, H, P, N, chunk
+    (1, 512, 3, 64, 128, 256),  # Mamba-2 780M's widths, two chunks
+    (2, 200, 2, 64, 128, 256),  # S below the chunk: one chunk of 200
+    (1, 64, 3, 16, 16, 16),     # the smoke widths, four chunks
+    (2, 48, 2, 16, 16, 16),     # smoke widths, three chunks, B = 2
+]
+
+
+def _grad_inputs(case, with_h0, seed=3):
+    B, S, H, P, N, _ = case
+    x, dt, A, Bm, Cm = _inputs(case, seed)
+    rng = np.random.default_rng(seed + 1)
+    h0 = (rng.standard_normal((B, H, P, N)) * 0.3).astype(np.float32) \
+        if with_h0 else None
+    dy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dh_last = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    return (x, dt, A, Bm, Cm, h0), (dy, dh_last)
+
+
+def _jax_vjp(ins, cots, chunk):
+    x, dt, A, Bm, Cm, h0 = ins
+    args = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm)]
+    if h0 is None:
+        fn = lambda *a: jax_ssd_chunked(*a, chunk)   # noqa: E731
+    else:
+        fn = lambda *a: jax_ssd_chunked(*a[:5], chunk, a[5])  # noqa: E731
+        args.append(jnp.asarray(h0))
+    _, vjp = jax.vjp(fn, *args)
+    return vjp(tuple(jnp.asarray(c) for c in cots))
+
+
+def _close_scaled(got, want, what):
+    got, want = _np(got), np.asarray(want, np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    tol = SUM_REL if what == "dA" else GRAD_REL
+    assert err <= tol * scale, (what, err, scale)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("path", ["ssd_bwd_ref", "ssd_scan"])
+@pytest.mark.parametrize("case", GRAD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_backward_matches_jax_vjp(case, path, with_h0):
+    """dx, dt, A, B, C and h0 for cotangents of y and h_last, from the
+    plain backward (composed by hand from its d(dA) and d(dt) as autograd
+    composes it through dA = dt A) and through ``ssd_scan``'s autograd
+    Function, against JAX's."""
+    ins, cots = _grad_inputs(case, with_h0)
+    chunk = case[-1]
+    want = _jax_vjp(ins, cots, chunk)
+    x, dt, A, Bm, Cm, h0 = (None if a is None else torch.from_numpy(a)
+                            for a in ins)
+    dy, dh_last = (torch.from_numpy(c) for c in cots)
+    Q = min(chunk, case[1])
+    if path == "ssd_bwd_ref":
+        dth = dt.transpose(1, 2)
+        dx, ddA, ddt, dB, dC, dh0 = K.ssd_call_bwd(
+            x.transpose(1, 2), dth * A[None, :, None], dth, Bm, Cm,
+            dy.transpose(1, 2), chunk=Q, h0=h0, dh_last=dh_last)
+        got = [dx.transpose(1, 2), (ddt + ddA * A[None, :, None]
+                                    ).transpose(1, 2),
+               (ddA * dth).sum((0, 2)), dB, dC] + ([dh0] if with_h0 else [])
+        assert (dh0 is None) == (not with_h0)
+    else:
+        leaves = [t.requires_grad_() for t in (x, dt, A, Bm, Cm, h0)
+                  if t is not None]
+        y, h_last = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, h0=h0)
+        got = torch.autograd.grad((y, h_last), leaves, (dy, dh_last))
+    names = ["dx", "ddt", "dA", "dB", "dC", "dh0"]
+    assert len(got) == len(want)
+    for name, g, w in zip(names, got, want):
+        _close_scaled(g, w, name)
+
+
+def test_ssd_backward_plain_version_keeps_the_types():
+    """bf16 x, B and C: dx, dB and dC come back in bf16, d(dA), d(dt) and
+    dh0 in float32; the plain version is deterministic."""
+    case = GRAD_CASES[2]
+    ins, cots = _grad_inputs(case, True)
+    x, dt, A, Bm, Cm, h0 = (torch.from_numpy(a) for a in ins)
+    bf = lambda t: t.transpose(1, 2).to(torch.bfloat16)  # noqa: E731
+    dth = dt.transpose(1, 2)
+    args = (bf(x), dth * A[None, :, None], dth, Bm.bfloat16(), Cm.bfloat16(),
+            bf(torch.from_numpy(cots[0])))
+    out = K.ssd_call_bwd(*args, chunk=16, h0=h0,
+                         dh_last=torch.from_numpy(cots[1]))
+    assert [t.dtype for t in out] == [torch.bfloat16, torch.float32,
+                                      torch.float32, torch.bfloat16,
+                                      torch.bfloat16, torch.float32]
+    again = K.ssd_call_bwd(*args, chunk=16, h0=h0,
+                           dh_last=torch.from_numpy(cots[1]))
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
