@@ -112,7 +112,9 @@ Phases, each printing one JSON line with its seconds:
             forward within 1e-2 relative L2 in bf16 and 1e-5 in float32, two
             calls bit-equal; timed in bf16 against the plain version, the
             bound and, for flash, ``scaled_dot_product_attention``'s backward
-            and the FMA kernels (``fma_ms``).
+            and the FMA kernels (``fma_ms``); the SSD backward's passes'
+            device ms from one profiled window (``ssd_bwd.passes``; bf16 at
+            Mamba-2's widths runs the tensor-core route, ``bwd_route``).
 8. serve_ssm, serve_hybrid
             the full Mamba-2 780M (48 layers) and the full
             RecurrentGemma-9B (38 layers), bf16, random weights from a
@@ -2189,10 +2191,41 @@ def _autograd(fn, inputs, cots):
         return torch.autograd.grad(fn(*leaves), leaves, cots)
 
 
+def pass_split(fn, calls: int = 5) -> list:
+    """Device ms a call of each kernel ``fn`` launches, by kernel name
+    (``torch.profiler``, kernel rows only), read from a second window of
+    ``calls`` calls after a warm-up one, as ``device_profile`` reads it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    got = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: got.extend(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # the step's own annotation shows on the device timeline too
+    rows = [e for e in got
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    short = lambda k: re.split(r"\(", k.replace(  # noqa: E731
+        "(anonymous namespace)::", "").removeprefix("void "))[0]
+    return [{"name": short(e.key), "launches_per_call": e.count / calls,
+             "device_ms": e.self_device_time_total / calls / 1e3}
+            for e in rows]
+
+
 def ssd_bwd_phase(gen):
     """The SSD backward at Mamba-2 780M's train shape (B=1, S=4096, H=48,
     P=64, N=128, chunk 256), bf16 and float32, with an initial state and a
-    cotangent of h_last; timed in bf16."""
+    cotangent of h_last; timed in bf16, and its passes' device ms from one
+    profiled window (``ssd_bwd.passes``)."""
     from repro_torch.fabric.interface import KernelMode
     from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.kernels.ssd import ref as sref
@@ -2241,8 +2274,13 @@ def ssd_bwd_phase(gen):
                  library_ms=None, bound_ms=b, bound_by=by, bytes=n_bytes,
                  ops=n_ops)
         t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["passes"] = pass_split(kernel)
+        t["device_ms"] = sum(r["device_ms"] for r in t["passes"])
+        emit("ssd_bwd.passes", route=SK.bwd_route(dtype, P, N),
+             device_ms=t["device_ms"], passes=t["passes"])
         emit("ssd_bwd.time", B=1, S=S, H=H, P=P, N=N, chunk=Q,
-             dtype="bfloat16", **t)
+             dtype="bfloat16", route=SK.bwd_route(dtype, P, N),
+             **{k: v for k, v in t.items() if k != "passes"})
     return err, t
 
 
@@ -3161,6 +3199,8 @@ def main() -> int:
             "max_abs_err": err, **{k: t[k] for k in timing_keys},
             "shape": shape,
         })
+        if name == "ssd_bwd":
+            rows[-1].update({k: t[k] for k in ("device_ms", "passes")})
         if name == "rglru":
             rows[-1].update({k: t[k] for k in (
                 "entry_ms", "entry_bound_ms", "kernels_per_call")},

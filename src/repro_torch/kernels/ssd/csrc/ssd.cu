@@ -251,12 +251,40 @@ __device__ __forceinline__ void regs_times_tile(float (&c)[NT][4], const float (
   }
 }
 
+// A warp's 16 x 8 NT accumulators to rows r0 + g and r0 + g + 8 of the
+// row-major float32 block `o` (rows `ld` apart); `keep` 0 stores them all,
+// 1 only column <= row, 2 only column > row (rows and columns of the tile).
+template <int NT>
+__device__ __forceinline__ void store_acc(float* o, size_t ld, const float (&s)[NT][4], int r0,
+                                          int lane, int keep) {
+  const int g = lane >> 2, t = lane & 3;
+  float* o0 = o + (size_t)(r0 + g) * ld + 2 * t;
+  float* o1 = o0 + 8 * ld;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (keep == 0) {
+      *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(s[n][0], s[n][1]);
+      *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(s[n][2], s[n][3]);
+      continue;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + 8 * (e >> 1), col = 8 * n + 2 * t + (e & 1);
+      if (keep == 1 ? col <= row : col > row) ((e >> 1) ? o1 : o0)[8 * n + (e & 1)] = s[n][e];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // pass 1 (bf16): C.B^T of a (batch, chunk) for row tile I and every column
-// tile J <= I; 4 warps of 16 rows, B_J in a ring of two.
+// tile J <= I; 4 warps of 16 rows, B_J in a ring of two.  FULL (the
+// backward) also forms B_J.C_I^T into the tile (J, I), so that the whole
+// [QP][QP] block holds C_max(a,b) . B_min(a,b) at (a, b): the tiles t <= s
+// read by rows s and the tiles s >= t read by rows t are both row-major
+// (on the diagonal tile, C.B^T fills column <= row and B.C^T the rest).
 // grid (nI * nc, B); block x = c * nI + I.
 // ---------------------------------------------------------------------------
-template <int N>
+template <int N, bool FULL>
 __global__ void __launch_bounds__(128)
 cb_tc_kernel(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, float* __restrict__ cb,
              int S, int Q, int nI) {
@@ -265,8 +293,7 @@ cb_tc_kernel(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, float* __
   bf16* sB = sC + QT * N;                        // [2][QT][N]
   const int I = blockIdx.x % nI, c = blockIdx.x / nI, b = blockIdx.y;
   const int nc = S / Q, QP = nI * QT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, r0 = warp * 16;
   const size_t t0 = (size_t)b * S + (size_t)c * Q;
   const int i0 = I * QT;
   float* out = cb + ((size_t)b * nc + c) * QP * QP;
@@ -285,12 +312,12 @@ cb_tc_kernel(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, float* __
     float s[QT / 8][4];
     zero(s);
     rows_times_rows_t<N, QT / 8>(s, sC, r0, sB + st * QT * N, lane);
-    float* o0 = out + (size_t)(i0 + r0 + g) * QP + J * QT + 2 * t;
-    float* o1 = o0 + 8 * QP;
-#pragma unroll
-    for (int n = 0; n < QT / 8; ++n) {
-      *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(s[n][0], s[n][1]);
-      *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(s[n][2], s[n][3]);
+    const bool diag = FULL && J == I;
+    store_acc(out + (size_t)i0 * QP + J * QT, QP, s, r0, lane, diag ? 1 : 0);
+    if (FULL) {
+      zero(s);
+      rows_times_rows_t<N, QT / 8>(s, sB + st * QT * N, r0, sC, lane);
+      store_acc(out + (size_t)J * QT * QP + i0, QP, s, r0, lane, diag ? 2 : 0);
     }
     __syncthreads();  // every warp is done with stage st before it is refilled
   }
@@ -300,7 +327,9 @@ cb_tc_kernel(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, float* __
 // ---------------------------------------------------------------------------
 // pass 2 (bf16): the chunk's own state s[P][N] = sum_j (x_j w_j)^T B_j with
 // w_j = exp(cum_Q - cum_j) dt_j; x w enters as hi + lo, both bf16.  Warps
-// split P into 16-row groups and N into groups of WN columns.
+// split P into 16-row groups and N into groups of WN columns.  DUAL (the
+// backward): the chunk's dual state sum_i exp(cum_i) dy_i^T C_i, called with
+// dy for x and C for B; it writes no dAc.
 // grid (nc * H, B); block x = c * H + h.
 // ---------------------------------------------------------------------------
 template <int P, int N>
@@ -310,7 +339,7 @@ struct StateShape {
   static constexpr int THREADS = 32 * WARPS;
 };
 
-template <int P, int N>
+template <int P, int N, bool DUAL = false>
 __global__ void __launch_bounds__(StateShape<P, N>::THREADS)
 state_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
                 const float* __restrict__ dt, const bf16* __restrict__ Bm,
@@ -347,7 +376,8 @@ state_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
     for (int idx = threadIdx.x; idx < QT * P; idx += blockDim.x) {
       const int j = idx / P, p = idx % P;
       const float v = j < nj ? to_f(xb[(size_t)(j0 + j) * P + p]) *
-                                   (expf(cum_last - sCum[j0 + j]) * sDt[j0 + j])
+                                   (DUAL ? expf(sCum[j0 + j])
+                                         : expf(cum_last - sCum[j0 + j]) * sDt[j0 + j])
                              : 0.f;
       const bf16 hi = __float2bfloat16(v);
       const int at = swz<QT>(p, j >> 3) + (j & 7);
@@ -379,7 +409,7 @@ state_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
     *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[n][0], acc[n][1]);
     *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[n][2], acc[n][3]);
   }
-  if (threadIdx.x == 0) dAc[bh * nc + c] = cum_last;
+  if (!DUAL && threadIdx.x == 0) dAc[bh * nc + c] = cum_last;
 }
 
 // ---------------------------------------------------------------------------
@@ -750,9 +780,9 @@ cudaError_t launch_tc(const bf16* x, const float* dA, const float* dt, const bf1
                       cudaStream_t stream) {
   const int nc = S / Q, nI = (Q + QT - 1) / QT;
   size_t smem = (size_t)3 * QT * N * sizeof(bf16);
-  cudaError_t err = set_smem(cb_tc_kernel<N>, smem);
+  cudaError_t err = set_smem(cb_tc_kernel<N, false>, smem);
   if (err != cudaSuccess) return err;
-  cb_tc_kernel<N><<<dim3(nI * nc, B), 128, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
+  cb_tc_kernel<N, false><<<dim3(nI * nc, B), 128, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   smem = (size_t)(2 * P * QT + QT * N) * sizeof(bf16) + 2 * (size_t)Q * sizeof(float);
@@ -822,7 +852,8 @@ cudaError_t launch(const void* x, const float* dA, const float* dt, const void* 
 }
 
 // ===========================================================================
-// backward: float32 FMA for both types (inputs read in their own type)
+// backward: the tensor cores for bf16 at (P, N) = (64, 128), float32 FMA
+// for float32 and for bf16 at the smoke widths (16, 16)
 // ===========================================================================
 //
 // For the cotangents dy (and dh_last), per head, with cum the chunk's
@@ -839,32 +870,80 @@ cudaError_t launch(const void* x, const float* dA, const float* dt, const void* 
 // with M = D (C.B^T), m1_s = exp(cum_s) dy_s . (h_in C_s), m2_t = dt_t x_t
 // . (exp(cum_Q - cum_t) g B_t) and m3 = exp(cum_Q) <g, h_in> (ref.py's
 // `ssd_bwd_ref` states the same terms).  dx is itself an SSD scan run
-// backward in time with B and C exchanged.  The passes:
+// backward in time with B and C exchanged.
 //
-// 1-3. the forward's C.B^T, chunk states and carry again (cb_f32_kernel,
-//      state_f32_kernel, pass_kernel<float>), so h_in is float32;
-// 4.   each chunk's dual state sum_i exp(cum_i) dy_i^T C_i
-//      (state_f32_kernel<DUAL>);
-// 5.   rpass_kernel: g carried backward across the chunks; dh0;
-// 6.   dxdb_kernel, one block per (batch, chunk, head, 64-row tile t):
-//      dx, ddt, the head's dB, colsum M and m2, over the tiles s >= t;
+// What bounds it: at Mamba-2 780M's widths (H = 48, chunk 256) and S = 4096
+// the function reads x, dy (bf16), B, C, dA, dt and writes dx, dB, dC, ddA,
+// ddt, some 88 MB, and needs some 36 GFLOP: 0.036 ms at the bf16
+// tensor-core rate against 0.026 ms for the bytes, so operations bound it.
+//
+// bf16 at (64, 128), the tensor-core route (`launch_bwd_tc`), ten launches:
+//
+// 1-3. C.B^T of each chunk in full (`cb_tc_kernel<N, true>`: the tiles
+//      t <= s that rows s read and the tiles s >= t that rows t read, both
+//      row-major), the chunk states (`state_tc_kernel`) and the carry
+//      (`pass_kernel<bf16>`): h_in as hi and lo bf16 planes, as the
+//      forward leaves it;
+// 4-5. each chunk's dual state sum_i exp(cum_i) dy_i^T C_i
+//      (`state_tc_kernel<DUAL>`: dy for x, C for B), and `rpass_kernel`,
+//      g carried backward across the chunks, stored as hi and lo planes;
+//      dh0;
+// 6.   `dx_tc_kernel`, one block per (batch, chunk, head, 64-row tile t),
+//      the forward's output pass run backward: z from g B_t, then T dy_J
+//      over the tiles J >= t; dx, ddt, m2;
+// 7.   `db_tc_kernel`, one block per (batch, chunk, group of HEAD_GROUP
+//      heads, tile t): x_t^T g of each head, then for each tile J >= t the
+//      group's D^T summed over its heads in order, in registers, before
+//      one product with C_J; colsum M of each head; the group's dB;
+// 8.   `dc_tc_kernel`, the same for the rows s over the tiles J <= s: dy_s^T
+//      h_in of each head, the group's D summed before one product with B_J;
+//      rowsum M + m1 of each head; the group's dC;
+// 9.   `dda_kernel`: m3 and the two scans of ddA;
+// 10.  `head_sum_kernel`: the groups' dB and dC summed in order.
+//
+// Every product runs on `mma.sync.m16n8k16` (float32 accumulators) from the
+// forward's swizzled bf16 tiles, fed by `cp.async` with the next tile in
+// flight.  x, dy, B and C enter as the bf16 they are; the operands formed
+// in float32 (T = C.B^T exp(cum_s - cum_t), the summed D, x w and dy
+// exp(cum) of the states, g and h_in) enter as hi + lo bf16 in two
+// products, so the gradients keep the float32 algebra's accuracy (about
+// 2^-17 relative a term).  Masked before exp, as the forward.  The row sums
+// ddA needs (colsum, rowsum, m1, m2) stay float32: each thread sums its
+// columns in order, then its quad in a fixed order.  No atomics: every
+// block owns its outputs and the groups are summed in a fixed order, so
+// two calls give the same bits.
+//
+// Summing D over a group before the product with C or B cuts that product,
+// the largest, by the group's size, and loads the group's B and C tiles
+// once; each group block writes one float32 partial [B, H / G, S, N] of dB
+// and of dC instead of one a head.  HEAD_GROUP = 4: at H = 48, chunk 256
+// and S = 4096 it leaves 768 group blocks (12 groups x 16 chunks x 4 tiles)
+// for 132 SMs at two blocks an SM (88 and 104 KB of shared memory), some
+// three waves, where 8 would leave under one and a half with an uneven
+// tail; and four heads are the block's four warps when the block takes
+// their cumsums, one a warp.  dx keeps one head a block (3,072 blocks),
+// since its z is a head's own.
+//
+// What it still leaves: hi + lo doubles the tensor-core work of every
+// product with an operand formed in float32; the products are `mma.sync`
+// from shared memory through `ldmatrix`, not `wgmma`; the blocks of a group
+// are 4 warps of 16 rows, two to an SM, with no warp specialisation.
+//
+// float32 inputs, and bf16 at (16, 16), run the float32 FMA route
+// (`launch_bwd`), nine launches, inputs read in their own type:
+//
+// 1-3. cb_f32_kernel, state_f32_kernel, pass_kernel<float> (h_in float32);
+// 4-5. state_f32_kernel<DUAL>, rpass_kernel<float>;
+// 6.   dxdb_kernel, one block per (batch, chunk, head, 64-row tile t): dx,
+//      ddt, the head's dB, colsum M and m2, over the tiles s >= t;
 // 7.   dc_kernel, one block per (batch, chunk, head, 64-row tile s): the
 //      head's dC and rowsum M + m1, over the tiles t <= s;
-// 8.   dda_kernel, one block per (batch, head, chunk): m3 and the two
-//      scans of ddA;
-// 9.   head_sum_kernel: dB and dC summed over the heads in order.
+// 8-9. dda_kernel; head_sum_kernel over the heads in order.
 //
-// No atomics: every block owns its outputs and the head sums run in a
-// fixed order, so two calls give the same bits.  Masked before exp, as the
-// forward.  What bounds it: at Mamba-2 780M's widths (H = 48, chunk 256)
-// and S = 4096 the function reads x, dy (bf16), B, C, dA, dt and writes dx,
-// dB, dC, ddA, ddt, some 88 MB, and needs some 36 GFLOP: 0.036 ms at the
-// bf16 tensor-core rate, so operations bound it.  This first version
-// computes in float32 on the CUDA cores (passes 6 and 7 are most of its
-// time), keeps two row-tile blocks on an SM by reusing their first phase's
-// shared memory for the tile loop (`TileSmem`), and round-trips the
-// per-head dB and dC (2 x 100 MB at that shape) through device memory; the
-// tensor cores are the next step (ROADMAP B18).
+// It keeps two row-tile blocks on an SM by reusing their first phase's
+// shared memory for the tile loop (`TileSmem`).
+
+constexpr int HEAD_GROUP = 4;   // heads a tensor-core row-tile block sums dB, dC over
 
 template <typename T>
 __device__ __forceinline__ T to_t(float v);
@@ -879,12 +958,26 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+// The sum over a quad (the four threads that share an accumulator row).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// A stored state: float32 as it is; bf16 as hi at p and lo at p + lo_plane.
+__device__ __forceinline__ float load_h(const float* p, size_t, size_t i) { return p[i]; }
+__device__ __forceinline__ float load_h(const bf16* p, size_t lo_plane, size_t i) {
+  return __bfloat162float(p[i]) + __bfloat162float(p[i + lo_plane]);
+}
+
 // pass 5: g_c (the gradient reaching the end of chunk c) for every chunk,
-// from g = dh_last after the last one: g_{c-1} = exp(cum_Q,c) g_c + sdy_c.
+// from g = dh_last after the last one: g_{c-1} = exp(cum_Q,c) g_c + sdy_c;
+// g_c stored as the incoming state is (float32, or bf16 hi and lo planes).
+template <typename T>
 __global__ void __launch_bounds__(256)
 rpass_kernel(const float* __restrict__ sdy, const float* __restrict__ dAc,
-             const float* __restrict__ dh_last, float* __restrict__ gend, float* __restrict__ dh0,
-             int BH, int nc, int PN) {
+             const float* __restrict__ dh_last, T* __restrict__ gend, size_t lo_plane,
+             float* __restrict__ dh0, int BH, int nc, int PN) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int per = PN / 4;
   if (idx >= (size_t)BH * per) return;
@@ -892,10 +985,10 @@ rpass_kernel(const float* __restrict__ sdy, const float* __restrict__ dAc,
   float4 g = dh_last ? *reinterpret_cast<const float4*>(dh_last + bh * PN + e)
                      : make_float4(0.f, 0.f, 0.f, 0.f);
   const float* sp = sdy + bh * nc * PN + e;
-  float* gp = gend + bh * nc * PN + e;
+  T* gp = gend + bh * nc * PN + e;
   const float* dp = dAc + bh * nc;
   for (int c = nc - 1; c >= 0; --c) {
-    *reinterpret_cast<float4*>(gp + (size_t)c * PN) = g;
+    store_h(gp + (size_t)c * PN, lo_plane, g);
     const float4 s = *reinterpret_cast<const float4*>(sp + (size_t)c * PN);
     const float d = expf(dp[c]);
     g.x = fmaf(d, g.x, s.x);
@@ -1247,12 +1340,543 @@ dc_kernel(const T* __restrict__ x, const float* __restrict__ dA, const float* __
   }
 }
 
-// pass 8: ddA of a (batch, head, chunk): m3 = exp(cum_Q) <g, h_in>, then
-// ddA_u = sum_{t>=u} (rowm1 - colsum)_t + sum_{r<u} m2_r + m3, the suffix
-// and prefix sums in order; grid (nc * H, B), block 256.
+// ---------------------------------------------------------------------------
+// the tensor-core route's row tiles (bf16, passes 6-8): 4 warps of 16 rows
+// of a 64-row tile, each thread holding rows r0 + g and r0 + g + 8 of its
+// warp's m16n8 accumulators.
+// ---------------------------------------------------------------------------
+
+// Elements (col, col + 1) of row r of a [rows][W] bf16 tile, col even.
+template <int W>
+__device__ __forceinline__ float2 tile_pair(const bf16* s, int r, int col) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(s + swz<W>(r, col >> 3) + (col & 7)));
+}
+
+// This thread's part of row r of the [rows][W] tile `s` dotted with its
+// accumulators a[n][2 half], a[n][2 half + 1] (the tile's columns 8 n + 2 t
+// and the next); the quad's four parts make the whole dot.
+template <int W, int NT>
+__device__ __forceinline__ float row_dot(const bf16* s, int r, const float (&a)[NT][4], int half,
+                                         int t) {
+  float part = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float2 v = tile_pair<W>(s, r, 8 * n + 2 * t);
+    part = fmaf(v.x, a[n][2 * half], part);
+    part = fmaf(v.y, a[n][2 * half + 1], part);
+  }
+  return part;
+}
+
+// The chunk's cum and dt of `ng` heads, `stride` floats apart in dA and dt,
+// into sCum[k Q + i] and sDt[k Q + i]; one warp takes a head's cumsum, as
+// `chunk_cum` does, so every pass agrees on it bit for bit.  Ends with a
+// barrier.
+__device__ __forceinline__ void group_cum(float* sCum, float* sDt, const float* dA,
+                                          const float* dt, size_t stride, int Q, int ng) {
+  for (int idx = threadIdx.x; idx < ng * Q; idx += blockDim.x) {
+    const int k = idx / Q, i = idx % Q;
+    sCum[idx] = dA[k * stride + i];
+    sDt[idx] = dt[k * stride + i];
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  if (warp < ng) warp_cumsum(sCum + warp * Q, Q, threadIdx.x & 31);
+  __syncthreads();
+}
+
+// c = A S for a warp's 16 rows and the 32 columns [n0, n0 + 32) of a [P][N]
+// float32 state S given as its hi and lo bf16 tiles (two products), A in
+// the fragments a[kk] of its depth steps.
 template <int P, int N>
+__device__ __forceinline__ void frags_times_state(float (&c)[4][4], const uint32_t (&a)[P / 16][4],
+                                                  const bf16* sh, const bf16* sl, int n0,
+                                                  int lane) {
+  zero(c);
+#pragma unroll
+  for (int kk = 0; kk < P / 16; ++kk)
+#pragma unroll
+    for (int n = 0; n < 4; n += 2) {
+      uint32_t bq[4];
+      bt_frag<N>(sh, n0 + n * 8, kk, lane, bq);
+      mma(c[n], a[kk], bq[0], bq[1]);
+      mma(c[n + 1], a[kk], bq[2], bq[3]);
+      bt_frag<N>(sl, n0 + n * 8, kk, lane, bq);
+      mma(c[n], a[kk], bq[0], bq[1]);
+      mma(c[n + 1], a[kk], bq[2], bq[3]);
+    }
+}
+
+// Shared memory of the three kernels (bf16 tiles, then float32 cum and dt).
+// A group block's first phase (a head's g or h_in, hi and lo [P][N]) and its
+// tile loop (rings of two [QT][N] and two [QT][P] tiles) share one region.
+template <int P, int N>
+struct BwdSmem {
+  static constexpr int G = HEAD_GROUP;
+  static constexpr int REGION = 2 * P * N > 2 * QT * (N + P) ? 2 * P * N : 2 * QT * (N + P);
+  static constexpr size_t dx(int Q) {
+    return (size_t)(QT * N + 2 * P * N + 3 * QT * P) * sizeof(bf16) + 2 * (size_t)Q * sizeof(float);
+  }
+  static constexpr size_t db(int Q) {
+    return (size_t)(G * QT * P + REGION) * sizeof(bf16) + 2 * (size_t)G * Q * sizeof(float);
+  }
+  static constexpr size_t dc(int Q) {
+    return (size_t)(G * QT * P + QT * N + REGION) * sizeof(bf16) +
+           2 * (size_t)G * Q * sizeof(float);
+  }
+};
+
+// pass 6 (bf16): dx, ddt and m2 of the rows t of tile I of a (batch, chunk,
+// head): z = exp(cum_Q - cum_t) g B_t (g as hi + lo), then z += T_IJ dy_J
+// for J >= I with T[t, s] = (C_s . B_t) exp(cum_s - cum_t) on s >= t, from
+// pass 1's tiles s >= t, entering as hi + lo; dy_J in a ring of two.
+// grid (nc * H * nI, B); block x = (c * H + h) * nI + I (the most tiles first).
+template <int P, int N>
+__global__ void __launch_bounds__(128)
+dx_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
+             const float* __restrict__ dt, const bf16* __restrict__ Bm,
+             const bf16* __restrict__ dy, const float* __restrict__ cb,
+             const bf16* __restrict__ gend, size_t lo_plane, bf16* __restrict__ dx,
+             float* __restrict__ ddt, float* __restrict__ m2, int H, int S, int Q, int nI) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sB = reinterpret_cast<bf16*>(smem_raw);   // [QT][N]: B of the rows t
+  bf16* sGh = sB + QT * N;                        // [P][N]: g, hi
+  bf16* sGl = sGh + P * N;                        // [P][N]: g, lo
+  bf16* sX = sGl + P * N;                         // [QT][P]: x of the rows t
+  bf16* sDy = sX + QT * P;                        // [2][QT][P]: dy of the rows s
+  float* sCum = reinterpret_cast<float*>(sDy + 2 * QT * P);  // [Q]
+  float* sDt = sCum + Q;                          // [Q]
+
+  const int nc = S / Q, QP = nI * QT;
+  const int I = blockIdx.x % nI;
+  const int h = (blockIdx.x / nI) % H, c = blockIdx.x / (nI * H), b = blockIdx.y;
+  const size_t bh = (size_t)b * H + h;
+  const size_t t0 = (size_t)c * Q;
+  const int i0 = I * QT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const bf16* dyb = dy + (bh * S + t0) * P;
+  const size_t gofs = (bh * nc + c) * P * N;
+
+  load_tile<QT, N>(sB, Bm + ((size_t)b * S + t0 + i0) * N, N, Q - i0);
+  load_tile<P, N>(sGh, gend + gofs, N, P);
+  load_tile<P, N>(sGl, gend + lo_plane + gofs, N, P);
+  load_tile<QT, P>(sX, x + (bh * S + t0 + i0) * P, P, Q - i0);
+  load_tile<QT, P>(sDy, dyb + (size_t)i0 * P, P, Q - i0);
+  cp_async_commit();
+  chunk_cum(sCum, sDt, dA + bh * S + t0, dt + bh * S + t0, Q);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int row0 = r0 + g, row1 = row0 + 8;           // in the tile
+  const int ta = i0 + row0, tb = i0 + row1;           // in the chunk
+  const float cum0 = sCum[min(ta, Q - 1)], cum1 = sCum[min(tb, Q - 1)];
+  const float dt0 = ta < Q ? sDt[ta] : 0.f, dt1 = tb < Q ? sDt[tb] : 0.f;
+  const float cum_last = sCum[Q - 1];
+  float z[P / 8][4];
+  zero(z);
+  rows_times_rows_t<N, P / 8>(z, sB, r0, sGh, lane);
+  rows_times_rows_t<N, P / 8>(z, sB, r0, sGl, lane);
+  const float e0 = ta < Q ? expf(cum_last - cum0) : 0.f, e1 = tb < Q ? expf(cum_last - cum1) : 0.f;
+#pragma unroll
+  for (int n = 0; n < P / 8; ++n) {
+    z[n][0] *= e0;
+    z[n][1] *= e0;
+    z[n][2] *= e1;
+    z[n][3] *= e1;
+  }
+  const float m2a = dt0 * quad_sum(row_dot<P>(sX, row0, z, 0, t));
+  const float m2b = dt1 * quad_sum(row_dot<P>(sX, row1, z, 1, t));
+
+  const float* cr0 = cb + ((size_t)b * nc + c) * QP * QP + (size_t)ta * QP + 2 * t;
+  const float* cr1 = cr0 + 8 * QP;
+  for (int J = I; J < nI; ++J) {
+    const int st = (J - I) & 1, j0 = J * QT;
+    // this tile's C.B^T, loaded before the wait so the two overlap
+    float2 cv[QT / 8][2];
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n) {
+      cv[n][0] = *reinterpret_cast<const float2*>(cr0 + j0 + 8 * n);
+      cv[n][1] = *reinterpret_cast<const float2*>(cr1 + j0 + 8 * n);
+    }
+    if (J + 1 < nI)
+      load_tile<QT, P>(sDy + (st ^ 1) * QT * P, dyb + (size_t)(j0 + QT) * P, P, Q - j0 - QT);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    // T = C.B^T exp(cum_s - cum_t) on t <= s < Q, else 0
+    float tm[QT / 8][4];
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n) {
+      const float v[4] = {cv[n][0].x, cv[n][0].y, cv[n][1].x, cv[n][1].y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = (e >> 1) ? tb : ta;
+        const int j = j0 + 8 * n + 2 * t + (e & 1);
+        const bool ok = j >= i && j < Q;
+        tm[n][e] = ok ? v[e] * expf(sCum[ok ? j : 0] - ((e >> 1) ? cum1 : cum0)) : 0.f;
+      }
+    }
+    regs_times_tile<P, QT / 16, P / 8>(z, tm, sDy + st * QT * P, lane);
+    __syncthreads();  // every warp is done with stage st before it is refilled
+  }
+  cp_async_wait<0>();
+
+  const float dda = quad_sum(row_dot<P>(sX, row0, z, 0, t));
+  const float ddb = quad_sum(row_dot<P>(sX, row1, z, 1, t));
+  bf16* d0 = dx + (bh * S + t0 + ta) * P + 2 * t;
+  bf16* d1 = d0 + 8 * P;
+#pragma unroll
+  for (int n = 0; n < P / 8; ++n) {
+    if (ta < Q) *reinterpret_cast<uint32_t*>(d0 + 8 * n) = pack_bf16(dt0 * z[n][0], dt0 * z[n][1]);
+    if (tb < Q) *reinterpret_cast<uint32_t*>(d1 + 8 * n) = pack_bf16(dt1 * z[n][2], dt1 * z[n][3]);
+  }
+  if (t == 0) {
+    if (ta < Q) {
+      ddt[bh * S + t0 + ta] = dda;
+      m2[bh * S + t0 + ta] = m2a;
+    }
+    if (tb < Q) {
+      ddt[bh * S + t0 + tb] = ddb;
+      m2[bh * S + t0 + tb] = m2b;
+    }
+  }
+}
+
+// pass 7 (bf16): the group's dB and each head's colsum M for the rows t of
+// tile I of a (batch, chunk, group of HEAD_GROUP heads).  First each head's
+// dt_t exp(cum_Q - cum_t) x_t^T g (g as hi + lo), then for each tile J >= I
+// and each head in order D^T[t, s] = (x_t . dy_s) exp(cum_s - cum_t) dt_t,
+// summed over the heads in float32 before one product with C_J (hi + lo).
+// dy of each (J, head) in a ring of two, C_J in another.
+// grid (nc * HG * nI, B), HG = ceil(H / HEAD_GROUP); block x = (c * HG +
+// group) * nI + I (the most tiles first).
+template <int P, int N>
+__global__ void __launch_bounds__(128)
+db_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
+             const float* __restrict__ dt, const bf16* __restrict__ Cm,
+             const bf16* __restrict__ dy, const float* __restrict__ cb,
+             const bf16* __restrict__ gend, size_t lo_plane, float* __restrict__ dBp,
+             float* __restrict__ colsum, int H, int S, int Q, int nI) {
+  constexpr int G = HEAD_GROUP;
+  using L = BwdSmem<P, N>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sX = reinterpret_cast<bf16*>(smem_raw);   // [G][QT][P]: x of the rows t, each head
+  bf16* sR = sX + G * QT * P;
+  bf16* sGh = sR;                                 // first phase: [P][N], g hi
+  bf16* sGl = sR + P * N;                         //              [P][N], g lo
+  bf16* sC = sR;                                  // tile loop: [2][QT][N], C of the rows s
+  bf16* sDy = sR + 2 * QT * N;                    //            [2][QT][P], dy of the rows s
+  float* sCum = reinterpret_cast<float*>(sR + L::REGION);  // [G][Q]
+  float* sDt = sCum + G * Q;                      // [G][Q]
+
+  const int nc = S / Q, QP = nI * QT, HG = (H + G - 1) / G;
+  const int I = blockIdx.x % nI;
+  const int hg = (blockIdx.x / nI) % HG, c = blockIdx.x / (nI * HG), b = blockIdx.y;
+  const int ng = min(G, H - hg * G);
+  const size_t bh0 = (size_t)b * H + hg * G;
+  const size_t t0 = (size_t)c * Q;
+  const int i0 = I * QT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int ta = i0 + r0 + g, tb = ta + 8;         // this thread's rows in the chunk
+
+#pragma unroll
+  for (int k = 0; k < G; ++k)
+    if (k < ng) load_tile<QT, P>(sX + k * QT * P, x + ((bh0 + k) * S + t0 + i0) * P, P, Q - i0);
+  cp_async_commit();
+  group_cum(sCum, sDt, dA + bh0 * S + t0, dt + bh0 * S + t0, S, Q, ng);
+
+  float acc[N / 8][4];
+  zero(acc);
+  // dt_t exp(cum_Q - cum_t) x_t^T g of each head, 32 columns at a time
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    if (k >= ng) continue;
+    __syncthreads();  // the previous head's readers of g are done
+    const size_t gofs = ((bh0 + k) * nc + c) * P * N;
+    load_tile<P, N>(sGh, gend + gofs, N, P);
+    load_tile<P, N>(sGl, gend + lo_plane + gofs, N, P);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const float* cum = sCum + k * Q;
+    const float* dtk = sDt + k * Q;
+    const float wa = ta < Q ? dtk[ta] * expf(cum[Q - 1] - cum[ta]) : 0.f;
+    const float wb = tb < Q ? dtk[tb] * expf(cum[Q - 1] - cum[tb]) : 0.f;
+    uint32_t ax[P / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < P / 16; ++kk) a_frag<P>(sX + k * QT * P, r0, kk, lane, ax[kk]);
+#pragma unroll
+    for (int nb = 0; nb < N / 32; ++nb) {
+      float tmp[4][4];
+      frags_times_state<P, N>(tmp, ax, sGh, sGl, nb * 32, lane);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        acc[nb * 4 + n][0] = fmaf(wa, tmp[n][0], acc[nb * 4 + n][0]);
+        acc[nb * 4 + n][1] = fmaf(wa, tmp[n][1], acc[nb * 4 + n][1]);
+        acc[nb * 4 + n][2] = fmaf(wb, tmp[n][2], acc[nb * 4 + n][2]);
+        acc[nb * 4 + n][3] = fmaf(wb, tmp[n][3], acc[nb * 4 + n][3]);
+      }
+    }
+  }
+
+  __syncthreads();  // the readers of g are done: the rings take its region
+  load_tile<QT, N>(sC, Cm + ((size_t)b * S + t0 + i0) * N, N, Q - i0);
+  load_tile<QT, P>(sDy, dy + (bh0 * S + t0 + i0) * P, P, Q - i0);
+  cp_async_commit();
+  float cs[G][2];
+#pragma unroll
+  for (int k = 0; k < G; ++k) cs[k][0] = cs[k][1] = 0.f;
+  const float* cr0 = cb + ((size_t)b * nc + c) * QP * QP + (size_t)ta * QP + 2 * t;
+  const float* cr1 = cr0 + 8 * QP;
+  int step = 0;
+  for (int J = I; J < nI; ++J) {
+    const int j0 = J * QT, cst = (J - I) & 1;
+    float2 cv[QT / 8][2];
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n) {
+      cv[n][0] = *reinterpret_cast<const float2*>(cr0 + j0 + 8 * n);
+      cv[n][1] = *reinterpret_cast<const float2*>(cr1 + j0 + 8 * n);
+    }
+    float ub[QT / 8][4];
+    zero(ub);
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      if (k >= ng) continue;
+      const int st = step & 1;
+      if (k + 1 < ng) {
+        load_tile<QT, P>(sDy + (st ^ 1) * QT * P, dy + ((bh0 + k + 1) * S + t0 + j0) * P, P,
+                         Q - j0);
+      } else if (J + 1 < nI) {
+        load_tile<QT, P>(sDy + (st ^ 1) * QT * P, dy + (bh0 * S + t0 + j0 + QT) * P, P,
+                         Q - j0 - QT);
+        load_tile<QT, N>(sC + (cst ^ 1) * QT * N, Cm + ((size_t)b * S + t0 + j0 + QT) * N, N,
+                         Q - j0 - QT);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      float raw[QT / 8][4];
+      zero(raw);
+      rows_times_rows_t<P, QT / 8>(raw, sX + k * QT * P, r0, sDy + st * QT * P, lane);
+      const float* cum = sCum + k * Q;
+      const float* dtk = sDt + k * Q;
+      const float ca = cum[min(ta, Q - 1)], cbv = cum[min(tb, Q - 1)];
+      const float da = ta < Q ? dtk[ta] : 0.f, db = tb < Q ? dtk[tb] : 0.f;
+#pragma unroll
+      for (int n = 0; n < QT / 8; ++n) {
+        const float v[4] = {cv[n][0].x, cv[n][0].y, cv[n][1].x, cv[n][1].y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = (e >> 1) ? tb : ta;
+          const int j = j0 + 8 * n + 2 * t + (e & 1);
+          const bool ok = j >= i && j < Q;
+          const float u = ok ? raw[n][e] * expf(cum[ok ? j : 0] - ((e >> 1) ? cbv : ca)) *
+                                   ((e >> 1) ? db : da)
+                             : 0.f;
+          cs[k][e >> 1] = fmaf(u, v[e], cs[k][e >> 1]);
+          ub[n][e] += u;
+        }
+      }
+      __syncthreads();  // every warp is done with dy stage st before it is refilled
+      ++step;
+    }
+    regs_times_tile<N, QT / 16, N / 8>(acc, ub, sC + cst * QT * N, lane);
+    __syncthreads();  // every warp is done with C stage cst before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const float a = quad_sum(cs[k][0]), bsum = quad_sum(cs[k][1]);
+    if (k < ng && t == 0) {
+      if (ta < Q) colsum[(bh0 + k) * S + t0 + ta] = a;
+      if (tb < Q) colsum[(bh0 + k) * S + t0 + tb] = bsum;
+    }
+  }
+  float* o0 = dBp + (((size_t)b * HG + hg) * S + t0 + ta) * N + 2 * t;
+  float* o1 = o0 + 8 * N;
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    if (ta < Q) *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[n][0], acc[n][1]);
+    if (tb < Q) *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// pass 8 (bf16): the group's dC and each head's rowsum M + m1 for the rows
+// s of tile I of a (batch, chunk, group of heads).  First each head's
+// exp(cum_s) dy_s^T h_in (h_in as hi + lo) and m1_s = C_s . that, then for
+// each tile J <= I and each head in order D[s, t] = (dy_s . x_t) exp(cum_s -
+// cum_t) dt_t, summed over the heads in float32 before one product with B_J
+// (hi + lo).  x of each (J, head) in a ring of two, B_J in another.
+// grid (nc * HG * nI, B); block x = (c * HG + group) * nI + (nI - 1 - I)
+// (the most tiles first).
+template <int P, int N>
+__global__ void __launch_bounds__(128)
+dc_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
+             const float* __restrict__ dt, const bf16* __restrict__ Bm,
+             const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+             const float* __restrict__ cb, const bf16* __restrict__ hin, size_t lo_plane,
+             float* __restrict__ dCp, float* __restrict__ rowm1, int H, int S, int Q, int nI) {
+  constexpr int G = HEAD_GROUP;
+  using L = BwdSmem<P, N>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sDy = reinterpret_cast<bf16*>(smem_raw);  // [G][QT][P]: dy of the rows s, each head
+  bf16* sC = sDy + G * QT * P;                    // [QT][N]: C of the rows s
+  bf16* sR = sC + QT * N;
+  bf16* sHh = sR;                                 // first phase: [P][N], h_in hi
+  bf16* sHl = sR + P * N;                         //              [P][N], h_in lo
+  bf16* sB = sR;                                  // tile loop: [2][QT][N], B of the rows t
+  bf16* sX = sR + 2 * QT * N;                     //            [2][QT][P], x of the rows t
+  float* sCum = reinterpret_cast<float*>(sR + L::REGION);  // [G][Q]
+  float* sDt = sCum + G * Q;                      // [G][Q]
+
+  const int nc = S / Q, QP = nI * QT, HG = (H + G - 1) / G;
+  const int I = nI - 1 - (int)(blockIdx.x % nI);
+  const int hg = (blockIdx.x / nI) % HG, c = blockIdx.x / (nI * HG), b = blockIdx.y;
+  const int ng = min(G, H - hg * G);
+  const size_t bh0 = (size_t)b * H + hg * G;
+  const size_t t0 = (size_t)c * Q;
+  const int i0 = I * QT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+  const int row0 = r0 + g, row1 = row0 + 8;         // in the tile
+  const int sa = i0 + row0, sb = i0 + row1;         // in the chunk
+
+#pragma unroll
+  for (int k = 0; k < G; ++k)
+    if (k < ng) load_tile<QT, P>(sDy + k * QT * P, dy + ((bh0 + k) * S + t0 + i0) * P, P, Q - i0);
+  load_tile<QT, N>(sC, Cm + ((size_t)b * S + t0 + i0) * N, N, Q - i0);
+  cp_async_commit();
+  group_cum(sCum, sDt, dA + bh0 * S + t0, dt + bh0 * S + t0, S, Q, ng);
+
+  float acc[N / 8][4];
+  zero(acc);
+  float rs[G][2], m1[G][2];
+#pragma unroll
+  for (int k = 0; k < G; ++k) rs[k][0] = rs[k][1] = m1[k][0] = m1[k][1] = 0.f;
+  // exp(cum_s) dy_s^T h_in of each head and m1_s, 32 columns at a time
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    if (k >= ng) continue;
+    __syncthreads();  // the previous head's readers of h_in are done
+    const size_t hofs = ((bh0 + k) * nc + c) * P * N;
+    load_tile<P, N>(sHh, hin + hofs, N, P);
+    load_tile<P, N>(sHl, hin + lo_plane + hofs, N, P);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const float* cum = sCum + k * Q;
+    const float ea = sa < Q ? expf(cum[sa]) : 0.f, eb = sb < Q ? expf(cum[sb]) : 0.f;
+    uint32_t ay[P / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < P / 16; ++kk) a_frag<P>(sDy + k * QT * P, r0, kk, lane, ay[kk]);
+#pragma unroll
+    for (int nb = 0; nb < N / 32; ++nb) {
+      float tmp[4][4];
+      frags_times_state<P, N>(tmp, ay, sHh, sHl, nb * 32, lane);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = nb * 32 + n * 8 + 2 * t;
+        const float2 ca = tile_pair<N>(sC, row0, col), cbb = tile_pair<N>(sC, row1, col);
+        const float v[4] = {ea * tmp[n][0], ea * tmp[n][1], eb * tmp[n][2], eb * tmp[n][3]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nb * 4 + n][e] += v[e];
+        m1[k][0] = fmaf(v[1], ca.y, fmaf(v[0], ca.x, m1[k][0]));
+        m1[k][1] = fmaf(v[3], cbb.y, fmaf(v[2], cbb.x, m1[k][1]));
+      }
+    }
+  }
+
+  __syncthreads();  // the readers of h_in are done: the rings take its region
+  load_tile<QT, N>(sB, Bm + ((size_t)b * S + t0) * N, N, Q);
+  load_tile<QT, P>(sX, x + (bh0 * S + t0) * P, P, Q);
+  cp_async_commit();
+  const float* cr0 = cb + ((size_t)b * nc + c) * QP * QP + (size_t)sa * QP + 2 * t;
+  const float* cr1 = cr0 + 8 * QP;
+  int step = 0;
+  for (int J = 0; J <= I; ++J) {
+    const int j0 = J * QT, cst = J & 1;
+    float2 cv[QT / 8][2];
+#pragma unroll
+    for (int n = 0; n < QT / 8; ++n) {
+      cv[n][0] = *reinterpret_cast<const float2*>(cr0 + j0 + 8 * n);
+      cv[n][1] = *reinterpret_cast<const float2*>(cr1 + j0 + 8 * n);
+    }
+    float dbar[QT / 8][4];
+    zero(dbar);
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      if (k >= ng) continue;
+      const int st = step & 1;
+      if (k + 1 < ng) {
+        load_tile<QT, P>(sX + (st ^ 1) * QT * P, x + ((bh0 + k + 1) * S + t0 + j0) * P, P,
+                         Q - j0);
+      } else if (J < I) {
+        load_tile<QT, P>(sX + (st ^ 1) * QT * P, x + (bh0 * S + t0 + j0 + QT) * P, P,
+                         Q - j0 - QT);
+        load_tile<QT, N>(sB + (cst ^ 1) * QT * N, Bm + ((size_t)b * S + t0 + j0 + QT) * N, N,
+                         Q - j0 - QT);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      float raw[QT / 8][4];
+      zero(raw);
+      rows_times_rows_t<P, QT / 8>(raw, sDy + k * QT * P, r0, sX + st * QT * P, lane);
+      const float* cum = sCum + k * Q;
+      const float* dtk = sDt + k * Q;
+      const float ca = cum[min(sa, Q - 1)], cbv = cum[min(sb, Q - 1)];
+#pragma unroll
+      for (int n = 0; n < QT / 8; ++n) {
+        const float v[4] = {cv[n][0].x, cv[n][0].y, cv[n][1].x, cv[n][1].y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = (e >> 1) ? sb : sa;
+          const int j = j0 + 8 * n + 2 * t + (e & 1);
+          const bool ok = j <= i && i < Q;
+          const int jj = ok ? j : 0;
+          const float d = ok ? raw[n][e] * expf(((e >> 1) ? cbv : ca) - cum[jj]) * dtk[jj] : 0.f;
+          rs[k][e >> 1] = fmaf(d, v[e], rs[k][e >> 1]);
+          dbar[n][e] += d;
+        }
+      }
+      __syncthreads();  // every warp is done with x stage st before it is refilled
+      ++step;
+    }
+    regs_times_tile<N, QT / 16, N / 8>(acc, dbar, sB + cst * QT * N, lane);
+    __syncthreads();  // every warp is done with B stage cst before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const float a = quad_sum(rs[k][0]) + quad_sum(m1[k][0]);
+    const float bsum = quad_sum(rs[k][1]) + quad_sum(m1[k][1]);
+    if (k < ng && t == 0) {
+      if (sa < Q) rowm1[(bh0 + k) * S + t0 + sa] = a;
+      if (sb < Q) rowm1[(bh0 + k) * S + t0 + sb] = bsum;
+    }
+  }
+  float* o0 = dCp + (((size_t)b * HG + hg) * S + t0 + sa) * N + 2 * t;
+  float* o1 = o0 + 8 * N;
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    if (sa < Q) *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[n][0], acc[n][1]);
+    if (sb < Q) *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// pass 8 of the FMA route, 9 of the tensor-core route: ddA of a (batch,
+// head, chunk): m3 = exp(cum_Q) <g, h_in>, then ddA_u = sum_{t>=u} (rowm1 -
+// colsum)_t + sum_{r<u} m2_r + m3, the suffix and prefix sums in order; g
+// and h_in stored as T (float32, or bf16 hi and lo planes); grid (nc * H,
+// B), block 256.
+template <int P, int N, typename T>
 __global__ void __launch_bounds__(256)
-dda_kernel(const float* __restrict__ gend, const float* __restrict__ hin,
+dda_kernel(const T* __restrict__ gend, const T* __restrict__ hin, size_t lo_plane,
            const float* __restrict__ dAc, const float* __restrict__ rowm1,
            const float* __restrict__ colsum, const float* __restrict__ m2,
            float* __restrict__ ddA, int H, int S, int Q) {
@@ -1261,10 +1885,10 @@ dda_kernel(const float* __restrict__ gend, const float* __restrict__ hin,
   const int h = blockIdx.x % H, c = blockIdx.x / H, b = blockIdx.y;
   const size_t bh = (size_t)b * H + h;
   const size_t t0 = (size_t)c * Q;
-  const float* g = gend + (bh * nc + c) * P * N;
-  const float* hs = hin + (bh * nc + c) * P * N;
+  const size_t ofs = (bh * nc + c) * P * N;
   float part = 0.f;
-  for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x) part = fmaf(g[idx], hs[idx], part);
+  for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x)
+    part = fmaf(load_h(gend, lo_plane, ofs + idx), load_h(hin, lo_plane, ofs + idx), part);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
   if ((threadIdx.x & 31) == 0) sW[threadIdx.x >> 5] = part;
@@ -1288,20 +1912,22 @@ dda_kernel(const float* __restrict__ gend, const float* __restrict__ hin,
     ddA[bh * S + t0 + u] = sA[Q - 1 - u] + sM[u] + m3;
 }
 
-// pass 9: dB and dC, [B, S, N], each the sum over the heads in order of
-// the per-head [B, H, S, N]; grid (ceil(B S N / 256), 2).
+// the last pass: dB and dC, [B, S, N], each the sum in order of the
+// `planes` partials [B, planes, S, N] (one a head on the FMA route, one a
+// group of heads on the tensor-core route); grid (ceil(B S N / 256), 2).
 template <typename T>
 __global__ void __launch_bounds__(256)
 head_sum_kernel(const float* __restrict__ dBp, const float* __restrict__ dCp, T* __restrict__ dB,
-                T* __restrict__ dC, int H, size_t SN, size_t total) {
+                T* __restrict__ dC, int planes, size_t SN, size_t total) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const float* p = (blockIdx.y ? dCp : dBp) + (idx / SN) * H * SN + idx % SN;
+  const float* p = (blockIdx.y ? dCp : dBp) + (idx / SN) * planes * SN + idx % SN;
   float acc = 0.f;
-  for (int h = 0; h < H; ++h) acc += p[(size_t)h * SN];
+  for (int h = 0; h < planes; ++h) acc += p[(size_t)h * SN];
   (blockIdx.y ? dC : dB)[idx] = to_t<T>(acc);
 }
 
+// The FMA route: float32 inputs, and bf16 at the smoke widths.
 template <typename T, int P, int N>
 cudaError_t launch_bwd(const T* x, const float* dA, const float* dt, const T* Bm, const T* Cm,
                        const float* h0, const T* dy, const float* dh_last, T* dx, float* ddA,
@@ -1330,8 +1956,8 @@ cudaError_t launch_bwd(const T* x, const float* dA, const float* dt, const T* Bm
   state_f32_kernel<T, P, N, true><<<dim3(nc * H, B), F32_THREADS, smem, stream>>>(
       dy, dA, dt, Cm, states, nullptr, H, S, Q);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  rpass_kernel<<<(per + 255) / 256, 256, 0, stream>>>(states, dAc, dh_last, gend, dh0, B * H, nc,
-                                                      P * N);
+  rpass_kernel<float><<<(per + 255) / 256, 256, 0, stream>>>(states, dAc, dh_last, gend, 0, dh0,
+                                                             B * H, nc, P * N);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // 6-7: the row tiles
   smem = TileSmem<P, N>::bytes(Q);
@@ -1344,12 +1970,75 @@ cudaError_t launch_bwd(const T* x, const float* dA, const float* dt, const T* Bm
       x, dA, dt, Bm, Cm, dy, cb, hin, dCp, rowm1, H, S, Q, nI);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // 8-9: ddA; dB and dC over the heads
-  dda_kernel<P, N><<<dim3(nc * H, B), 256, 0, stream>>>(gend, hin, dAc, rowm1, colsum, m2, ddA,
-                                                        H, S, Q);
+  dda_kernel<P, N, float><<<dim3(nc * H, B), 256, 0, stream>>>(gend, hin, 0, dAc, rowm1, colsum,
+                                                               m2, ddA, H, S, Q);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t SN = (size_t)S * N, total = (size_t)B * SN;
   head_sum_kernel<T><<<dim3((unsigned)((total + 255) / 256), 2), 256, 0, stream>>>(
       dBp, dCp, dB, dC, H, SN, total);
+  return cudaGetLastError();
+}
+
+// The tensor-core route: bf16 at (P, N) = (64, 128).  hin and gend hold two
+// bf16 planes each (hi, then lo `lo_plane` elements on) in the float32
+// scratch the caller sizes for one float32 plane; dBp and dCp hold
+// ceil(H / HEAD_GROUP) partials.
+template <int P, int N>
+cudaError_t launch_bwd_tc(const bf16* x, const float* dA, const float* dt, const bf16* Bm,
+                          const bf16* Cm, const float* h0, const bf16* dy, const float* dh_last,
+                          bf16* dx, float* ddA, float* ddt, bf16* dB, bf16* dC, float* dh0,
+                          float* cb, float* states, bf16* hin, bf16* gend, float* dAc,
+                          float* h_last, float* dBp, float* dCp, float* colsum, float* rowm1,
+                          float* m2, int B, int H, int S, int Q, cudaStream_t stream) {
+  using L = BwdSmem<P, N>;
+  const int nc = S / Q, nI = (Q + QT - 1) / QT, HG = (H + HEAD_GROUP - 1) / HEAD_GROUP;
+  const int per = B * H * (P * N / 4);
+  const size_t lo_plane = (size_t)B * H * nc * P * N;
+  // 1-3: C.B^T in full, the chunk states and the carry, h_in as hi + lo
+  size_t smem = (size_t)3 * QT * N * sizeof(bf16);
+  cudaError_t err = set_smem(cb_tc_kernel<N, true>, smem);
+  if (err != cudaSuccess) return err;
+  cb_tc_kernel<N, true><<<dim3(nI * nc, B), 128, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  smem = (size_t)(2 * P * QT + QT * N) * sizeof(bf16) + 2 * (size_t)Q * sizeof(float);
+  if ((err = set_smem(state_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
+  state_tc_kernel<P, N><<<dim3(nc * H, B), StateShape<P, N>::THREADS, smem, stream>>>(
+      x, dA, dt, Bm, states, dAc, H, S, Q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  pass_kernel<bf16><<<(per + 255) / 256, 256, 0, stream>>>(states, dAc, h0, hin, lo_plane, h_last,
+                                                           B * H, nc, P * N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 4-5: the dual states (into `states`, no longer needed) and g as hi + lo
+  if ((err = set_smem(state_tc_kernel<P, N, true>, smem)) != cudaSuccess) return err;
+  state_tc_kernel<P, N, true><<<dim3(nc * H, B), StateShape<P, N>::THREADS, smem, stream>>>(
+      dy, dA, dt, Cm, states, nullptr, H, S, Q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  rpass_kernel<bf16><<<(per + 255) / 256, 256, 0, stream>>>(states, dAc, dh_last, gend, lo_plane,
+                                                            dh0, B * H, nc, P * N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 6-8: the row tiles
+  smem = L::dx(Q);
+  if ((err = set_smem(dx_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
+  dx_tc_kernel<P, N><<<dim3(nc * H * nI, B), 128, smem, stream>>>(
+      x, dA, dt, Bm, dy, cb, gend, lo_plane, dx, ddt, m2, H, S, Q, nI);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  smem = L::db(Q);
+  if ((err = set_smem(db_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
+  db_tc_kernel<P, N><<<dim3(nc * HG * nI, B), 128, smem, stream>>>(
+      x, dA, dt, Cm, dy, cb, gend, lo_plane, dBp, colsum, H, S, Q, nI);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  smem = L::dc(Q);
+  if ((err = set_smem(dc_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
+  dc_tc_kernel<P, N><<<dim3(nc * HG * nI, B), 128, smem, stream>>>(
+      x, dA, dt, Bm, Cm, dy, cb, hin, lo_plane, dCp, rowm1, H, S, Q, nI);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 9-10: ddA; dB and dC over the groups
+  dda_kernel<P, N, bf16><<<dim3(nc * H, B), 256, 0, stream>>>(gend, hin, lo_plane, dAc, rowm1,
+                                                              colsum, m2, ddA, H, S, Q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t SN = (size_t)S * N, total = (size_t)B * SN;
+  head_sum_kernel<bf16><<<dim3((unsigned)((total + 255) / 256), 2), 256, 0, stream>>>(
+      dBp, dCp, dB, dC, HG, SN, total);
   return cudaGetLastError();
 }
 
@@ -1366,13 +2055,20 @@ cudaError_t launch_bwd_any(const void* x, const float* dA, const float* dt, cons
         static_cast<const float*>(Cm), h0, static_cast<const float*>(dy), dh_last,
         static_cast<float*>(dx), ddA, ddt, static_cast<float*>(dB), static_cast<float*>(dC), dh0,
         cb, states, hin, gend, dAc, h_last, dBp, dCp, colsum, rowm1, m2, B, H, S, Q, s);
-  if (dtype == 1)
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if constexpr (P == 64 && N == 128)
+    return launch_bwd_tc<P, N>(
+        static_cast<const bf16*>(x), dA, dt, static_cast<const bf16*>(Bm),
+        static_cast<const bf16*>(Cm), h0, static_cast<const bf16*>(dy), dh_last,
+        static_cast<bf16*>(dx), ddA, ddt, static_cast<bf16*>(dB), static_cast<bf16*>(dC), dh0,
+        cb, states, reinterpret_cast<bf16*>(hin), reinterpret_cast<bf16*>(gend), dAc, h_last,
+        dBp, dCp, colsum, rowm1, m2, B, H, S, Q, s);
+  else
     return launch_bwd<bf16, P, N>(
         static_cast<const bf16*>(x), dA, dt, static_cast<const bf16*>(Bm),
         static_cast<const bf16*>(Cm), h0, static_cast<const bf16*>(dy), dh_last,
         static_cast<bf16*>(dx), ddA, ddt, static_cast<bf16*>(dB), static_cast<bf16*>(dC), dh0,
         cb, states, hin, gend, dAc, h_last, dBp, dCp, colsum, rowm1, m2, B, H, S, Q, s);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1402,8 +2098,11 @@ extern "C" int ssd_fwd(const void* x, const float* dA, const float* dt, const vo
 // P, N], or null): dx (x's type), ddA and ddt (float32 [B, H, S]), dB and
 // dC (B's type [B, S, N]), dh0 (float32 [B, H, P, N]).  h0 may be null.
 // Scratch, float32, allocated by the caller: cb [B, S / Q, QP, QP]; states,
-// hin and gend [B, H, S / Q, P, N]; dAc [B, H, S / Q]; h_last [B, H, P, N];
-// dBp and dCp [B, H, S, N]; colsum, rowm1 and m2 [B, H, S].
+// hin and gend [B, H, S / Q, P, N] (on the tensor-core route, bf16 at (64,
+// 128), hin and gend each hold two bf16 planes there); dAc [B, H, S / Q];
+// h_last [B, H, P, N]; dBp and dCp [B, planes, S, N] with planes = ceil(H /
+// HEAD_GROUP) on the tensor-core route and H on the FMA route; colsum,
+// rowm1 and m2 [B, H, S].
 extern "C" int ssd_bwd(const void* x, const float* dA, const float* dt, const void* Bm,
                        const void* Cm, const float* h0, const void* dy, const float* dh_last,
                        void* dx, float* ddA, float* ddt, void* dB, void* dC, float* dh0,

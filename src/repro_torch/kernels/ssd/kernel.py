@@ -18,7 +18,12 @@ chunk, each chunk's own state and its incoming state.
 the CPU): one call launches the backward's passes of ``csrc/ssd.cu`` and
 counts once in ``ssd_call_bwd.launches``; it allocates their float32
 scratch (the recomputed chunk states, the gradients reaching each chunk's
-end, the per-head dB and dC before their sum over heads in a fixed order).
+end, the partial dB and dC before their sum over heads in a fixed order).
+``bwd_route`` says which passes take a call: bf16 at Mamba-2 780M's widths
+runs the tensor-core passes, which sum dB and dC over ``HEAD_GROUP`` heads
+in registers and leave ``ceil(H / HEAD_GROUP)`` partials; float32, and
+bf16 at the smoke widths, the float32 FMA passes, which leave one partial
+a head (``bwd_partials``).
 
 TPU kernel replaced: ``ssd_call`` (``_ssd_kernel``) of
 ``repro/kernels/ssd/kernel.py``.  The source note of the ``.cu`` file
@@ -42,6 +47,7 @@ LIB_NAME = "ssd"
 WIDTHS = ((64, 128), (16, 16))
 MAX_CHUNK = 1024                              # the chunk's cum/dt in smem
 TILE = 64                                     # rows of a chunk tile
+HEAD_GROUP = 4          # heads a backward row-tile block sums dB, dC over
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -86,6 +92,20 @@ def _check(x, dA, dt, Bm, Cm, chunk, h0):
                            or h0.dtype != torch.float32):
         raise ValueError(f"h0 must be float32 [B,H,P,N], got "
                          f"{tuple(h0.shape)} {h0.dtype}")
+
+
+def bwd_route(dtype: torch.dtype, P: int, N: int) -> str:
+    """The backward's passes for x of ``dtype`` at widths (P, N): "tc"
+    (bf16 on the tensor cores, at Mamba-2 780M's widths) or "fma" (float32
+    FMA on the CUDA cores: float32 inputs, and bf16 at the smoke widths)."""
+    return "tc" if dtype == torch.bfloat16 and (P, N) == (64, 128) else "fma"
+
+
+def bwd_partials(H: int, dtype: torch.dtype, P: int, N: int) -> int:
+    """The planes of the backward's partial dB and dC: one for each group
+    of ``HEAD_GROUP`` heads on the tensor-core route, one a head on the
+    FMA route."""
+    return -(-H // HEAD_GROUP) if bwd_route(dtype, P, N) == "tc" else H
 
 
 def ssd_call(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
@@ -162,13 +182,15 @@ def ssd_call_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     dC = torch.empty_like(Cm)
     dh0 = torch.empty((Bsz, H, P, N), **f32)
     nc, QP = S // chunk, -(-chunk // TILE) * TILE
+    # hin and gend: float32, or (route "tc") two bf16 planes, hi and lo
     state = lambda: torch.empty((Bsz, H, nc, P, N), **f32)  # noqa: E731
     cb = torch.empty((Bsz, nc, QP, QP), **f32)
     states, hin, gend = state(), state(), state()
     dAc = torch.empty((Bsz, H, nc), **f32)
     h_last = torch.empty((Bsz, H, P, N), **f32)
-    dBp = torch.empty((Bsz, H, S, N), **f32)     # per head, then summed
-    dCp = torch.empty((Bsz, H, S, N), **f32)
+    planes = bwd_partials(H, x.dtype, P, N)      # summed over heads after
+    dBp = torch.empty((Bsz, planes, S, N), **f32)
+    dCp = torch.empty((Bsz, planes, S, N), **f32)
     rows = torch.empty((3, Bsz, H, S), **f32)    # colsum, rowsum + m1, m2
     code = library().ssd_bwd(
         x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),

@@ -1009,6 +1009,61 @@ def test_backward_kernel_runs_and_matches_the_plain_backward_on_card(
         assert _rel_l2(a, b) <= tol, (i, _rel_l2(a, b))
 
 
+SSD_BWD_CASES = [                 # B, S, H, P, N, chunk, dtype, with h0
+    (1, 600, 6, 64, 128, 200, torch.bfloat16, True),   # ragged; groups 4 + 2
+    (2, 512, 48, 64, 128, 256, torch.bfloat16, False),  # Mamba-2's 48 heads
+    (1, 256, 3, 64, 128, 32, torch.bfloat16, True),    # a chunk below a tile
+    (1, 600, 6, 64, 128, 200, torch.float32, True),    # the FMA route
+    (1, 96, 3, 16, 16, 16, torch.bfloat16, True),      # smoke widths (FMA)
+    (1, 600, 3, 16, 16, 200, torch.bfloat16, False),   # smoke, ragged
+]
+# On the tensor-core route every operand formed in float32 enters as hi +
+# lo, so the bf16 gradients differ from the plain version's (float32 sums of
+# the same bf16 inputs, rounded once) by roundings of nearly equal values:
+# some 6e-5 relative L2 on the FMA route at the train shape.  An operand
+# rounded once to bf16 instead moves them by 2e-3 or more (the CPU mirror in
+# tests/test_torch_ssd.py), so the route is also held within SPLIT_REL_L2.
+SPLIT_REL_L2 = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_BWD_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_ssd_backward_kernel_matches_plain_on_card(case):
+    """The SSD backward kernel on its route (``bwd_route``: bf16 at Mamba-2
+    780M's widths on the tensor cores, with the heads in groups of
+    ``HEAD_GROUP``, a last group cut short among them) against
+    ``ssd_bwd_ref``: every gradient within 1e-2 relative L2 in bf16 (and
+    ``SPLIT_REL_L2`` on the tensor cores), 1e-5 in float32; two calls
+    bit-equal; one ``ssd_bwd`` launch a call."""
+    _card()
+    B, S, H, P, N, chunk, dtype, with_h0 = case
+    x, dA, dt, Bm, Cm, h0 = _ssd_inputs(B, S, H, P, N, dtype, with_h0,
+                                        seed=S + H)
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    dhl = torch.randn((B, H, P, N), generator=gen, device="cuda")
+    got = []
+    for _ in range(2):
+        before = SK.launch_counts()["ssd_bwd"]
+        got.append(SK.ssd_call_bwd(x, dA, dt, Bm, Cm, dy, chunk=chunk, h0=h0,
+                                   dh_last=dhl, mode=KernelMode.CUDA))
+        assert SK.launch_counts()["ssd_bwd"] == before + 1
+    torch.cuda.synchronize()
+    want = sref.ssd_bwd_ref(x, dA, dt, Bm, Cm, dy, chunk, h0, dhl)
+    tol = REL_L2[dtype]
+    if SK.bwd_route(dtype, P, N) == "tc":
+        tol = min(tol, SPLIT_REL_L2)
+    names = ("dx", "ddA", "ddt", "dB", "dC", "dh0")
+    for name, a, again, w in zip(names, got[0], got[1], want):
+        if name == "dh0" and not with_h0:
+            assert a is None
+            continue
+        assert torch.equal(a, again), name
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert _rel_l2(a, w) <= tol, (name, _rel_l2(a, w))
+
+
 # ----------------------------------------------------------------------
 # the paper's use-case modules and the single-source plan
 # ----------------------------------------------------------------------

@@ -17,6 +17,10 @@ y rounded once).  The final state is held within 5e-4 in every case.
 once per chunk on 64-row tiles, each chunk's own state, the carry across
 chunks, the outputs tile by tile) in plain PyTorch, float64, so its algebra
 is held against JAX's kernel and oracle here; nothing on the card runs it.
+``ssd_bwd_passes`` does the same for the backward's tensor-core passes
+(bf16 at Mamba-2 780M's widths), with and without an emulation of the
+kernel's bf16 hi + lo operands, against ``jax.vjp`` of JAX's
+``ssd_chunked`` and the port's ``ssd_bwd_ref``.
 """
 import jax
 import jax.numpy as jnp
@@ -307,12 +311,15 @@ def _jax_vjp(ins, cots, chunk):
     return vjp(tuple(jnp.asarray(c) for c in cots))
 
 
-def _close_scaled(got, want, what):
+def _close_scaled(got, want, what, tol=None):
+    """Within ``tol`` of the largest value; by default GRAD_REL, SUM_REL for
+    dA."""
     got, want = _np(got), np.asarray(want, np.float32)
     assert got.shape == want.shape, (what, got.shape, want.shape)
     scale = float(np.abs(want).max())
     err = float(np.abs(got - want).max())
-    tol = SUM_REL if what == "dA" else GRAD_REL
+    if tol is None:
+        tol = SUM_REL if what == "dA" else GRAD_REL
     assert err <= tol * scale, (what, err, scale)
 
 
@@ -370,3 +377,260 @@ def test_ssd_backward_plain_version_keeps_the_types():
     again = K.ssd_call_bwd(*args, chunk=16, h0=h0,
                            dh_last=torch.from_numpy(cots[1]))
     assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+# ----------------------------------------------------------------------
+# the backward's passes: ``ssd_bwd_passes`` mirrors the tensor-core route
+# of the backward in ``csrc/ssd.cu`` (bf16 at Mamba-2 780M's widths) in
+# plain PyTorch, float64, so its algebra is held against ``jax.vjp`` of
+# JAX's ``ssd_chunked`` and against ``ssd_bwd_ref`` here; nothing on the
+# card runs it.  With ``bf16=True`` it feeds every operand the kernel forms
+# in float32 to its products as the kernel does, rounded to float32 and
+# split into hi + lo bf16 values (``split_bf16``), and takes x, dy, B and C
+# as the bf16 values they are; the outputs are left unrounded (the kernel
+# rounds dx, dB and dC once, as the plain version does).
+# ----------------------------------------------------------------------
+def _split(v, bf16):
+    """An operand formed in float32 as the tensor cores take it: hi + lo,
+    each a bf16 value (with ``bf16``), else as it is."""
+    if not bf16:
+        return v
+    v32 = v.float()
+    hi = v32.bfloat16().float()
+    return hi.double() + (v32 - hi).bfloat16().double()
+
+
+def ssd_bwd_passes(x, dA, dt, Bm, Cm, dy, chunk, h0=None, dh_last=None, *,
+                   bf16=False, group=K.HEAD_GROUP):
+    """The tensor-core backward's passes on head-major inputs (as
+    ``ssd_bwd_ref`` takes them), in float64: returns (dx, ddA, ddt, dB, dC,
+    dh0).  1: C.B^T in full (C_s . B_t at (s, t) and (t, s), s >= t);
+    2-3: the chunk states and the carry, h_in as hi + lo planes; 4-5: the
+    dual states and g carried backward, g as hi + lo planes; 6: dx, ddt and
+    m2 of each head's 64-row tiles t; 7: dB and colsum of a group of
+    ``group`` heads, the tiles s >= t in turn, the group's D^T summed over
+    its heads (in order) before one product with C; 8: dC and rowsum + m1
+    likewise over the tiles t <= s; 9: ddA's scans; 10: the groups' dB and
+    dC summed in order."""
+    Bsz, H, S, P = x.shape
+    N, Q = Bm.shape[-1], chunk
+    nc, nI = S // Q, -(-Q // TILE)
+    QP = nI * TILE
+    sp = lambda v: _split(v, bf16)                       # noqa: E731
+    x, dA, dt, Bm, Cm, dy = (t.double() for t in (x, dA, dt, Bm, Cm, dy))
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, QP - Q))  # noqa
+    xc, dyc = (pad(t.reshape(Bsz, H, nc, Q, P)) for t in (x, dy))
+    Bc, Cc = (pad(t.reshape(Bsz, nc, Q, N)) for t in (Bm, Cm))
+    cum = dA.reshape(Bsz, H, nc, Q).cumsum(-1)
+    dtc = dt.reshape(Bsz, H, nc, Q)
+    cum_p = torch.nn.functional.pad(cum, (0, QP - Q))
+    dt_p = torch.nn.functional.pad(dtc, (0, QP - Q))
+    pos = torch.arange(QP)
+    valid = pos < Q
+    e_end = torch.where(valid, torch.exp(cum[..., -1:] - cum_p), 0.0)
+    e_cum = torch.where(valid, torch.exp(cum_p), 0.0)
+    # 1. C.B^T in full
+    CB = Cc @ Bc.transpose(-1, -2)                   # [a, b] = C_a . B_b
+    full = torch.tril(CB) + torch.triu(CB.transpose(-1, -2), 1)
+    # 2-3. the chunk states (x w as hi + lo) and the carry
+    w = torch.exp(cum[..., -1:] - cum) * dtc
+    states = torch.einsum("bhcjp,bcjn->bhcpn",
+                          sp(x.reshape(Bsz, H, nc, Q, P) * w[..., None]),
+                          Bm.reshape(Bsz, nc, Q, N))
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float64) if h0 is None
+         else h0.double())
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(cum[:, :, c, -1])[..., None, None] * h + states[:, :, c]
+    h_in = sp(torch.stack(h_in, dim=2))
+    # 4-5. the dual states (dy exp(cum) as hi + lo) and g carried backward
+    sdy = torch.einsum("bhcip,bcin->bhcpn",
+                       sp(dy.reshape(Bsz, H, nc, Q, P)
+                          * torch.exp(cum)[..., None]),
+                       Cm.reshape(Bsz, nc, Q, N))
+    g = (torch.zeros((Bsz, H, P, N), dtype=torch.float64) if dh_last is None
+         else dh_last.double())
+    g_end = [None] * nc
+    for c in reversed(range(nc)):
+        g_end[c] = g
+        g = torch.exp(cum[:, :, c, -1])[..., None, None] * g + sdy[:, :, c]
+    dh0, g_end = g, sp(torch.stack(g_end, dim=2))
+
+    tile = lambda i: slice(i * TILE, (i + 1) * TILE)     # noqa: E731
+
+    def decay(h, rows, cols, upper):
+        """exp(cum_s - cum_t) of head(s) ``h`` on the tile's live pairs
+        (s >= t, both in the chunk), masked before exp; rows t and columns
+        s when ``upper``, else rows s and columns t."""
+        r, q = pos[rows], pos[cols]
+        if upper:
+            live = (q[None, :] >= r[:, None]) & (q[None, :] < Q)
+            li = cum_p[:, h, :, None, cols] - cum_p[:, h, :, rows, None]
+        else:
+            live = (q[None, :] <= r[:, None]) & (r[:, None] < Q)
+            li = cum_p[:, h, :, rows, None] - cum_p[:, h, :, None, cols]
+        return torch.where(live, torch.exp(torch.where(live, li, 0.0)), 0.0)
+
+    dx = torch.zeros((Bsz, H, nc, QP, P), dtype=torch.float64)
+    ddt, m2, colsum, rowm1 = (torch.zeros((Bsz, H, nc, QP),
+                                          dtype=torch.float64)
+                              for _ in range(4))
+    groups = [range(h, min(h + group, H)) for h in range(0, H, group)]
+    dBp, dCp = (torch.zeros((Bsz, len(groups), nc, QP, N),
+                            dtype=torch.float64) for _ in range(2))
+    for I in range(nI):
+        r = tile(I)
+        # 6. dx, ddt and m2 of the rows t, one head at a time
+        z = e_end[..., r, None] * torch.einsum("bcin,bhcpn->bhcip",
+                                               Bc[:, :, r], g_end)
+        m2[..., r] = dt_p[..., r] * (xc[..., r, :] * z).sum(-1)
+        for J in range(I, nI):
+            s = tile(J)
+            T = full[:, None, :, r, s] * decay(slice(None), r, s, True)
+            z = z + sp(T) @ dyc[..., s, :]
+        dx[..., r, :] = dt_p[..., r, None] * z
+        ddt[..., r] = (xc[..., r, :] * z).sum(-1)
+        for gi, hs in enumerate(groups):
+            # 7. dB and colsum of the rows t for the group's heads
+            acc = 0.0
+            for h in hs:
+                acc = acc + (xc[:, h, :, r] @ g_end[:, h]) * (
+                    dt_p[:, h, :, r] * e_end[:, h, :, r])[..., None]
+            for J in range(I, nI):
+                s = tile(J)
+                ubar = 0.0
+                for h in hs:
+                    raw = xc[:, h, :, r] @ dyc[:, h, :, s].transpose(-1, -2)
+                    u = raw * decay(h, r, s, True) * dt_p[:, h, :, r, None]
+                    colsum[:, h, :, r] += (u * full[:, :, r, s]).sum(-1)
+                    ubar = ubar + u
+                acc = acc + sp(ubar) @ Cc[:, :, s]
+            dBp[:, gi, :, r] = acc
+            # 8. dC and rowsum + m1 of the rows s for the group's heads
+            acc = 0.0
+            for h in hs:
+                part = e_cum[:, h, :, r, None] * (dyc[:, h, :, r] @ h_in[:, h])
+                acc = acc + part
+                rowm1[:, h, :, r] += (part * Cc[:, :, r]).sum(-1)
+            for J in range(I + 1):
+                t = tile(J)
+                dbar = 0.0
+                for h in hs:
+                    raw = dyc[:, h, :, r] @ xc[:, h, :, t].transpose(-1, -2)
+                    d = raw * decay(h, r, t, False) * dt_p[:, h, :, None, t]
+                    rowm1[:, h, :, r] += (d * full[:, :, r, t]).sum(-1)
+                    dbar = dbar + d
+                acc = acc + sp(dbar) @ Bc[:, :, t]
+            dCp[:, gi, :, r] = acc
+    # 9. ddA: the suffix sums of rowsum + m1 - colsum, the exclusive prefix
+    # sums of m2 and m3 = exp(cum_Q) <g, h_in>
+    inner = (rowm1 - colsum)[..., :Q]
+    suffix = torch.flip(torch.cumsum(torch.flip(inner, (-1,)), -1), (-1,))
+    before = torch.cumsum(m2[..., :Q], -1) - m2[..., :Q]
+    m3 = torch.exp(cum[..., -1]) * (g_end * h_in).sum((-1, -2))
+    ddA = suffix + before + m3[..., None]
+    # 10. the groups' partials summed in order
+    dB, dC = dBp[:, 0], dCp[:, 0]
+    for gi in range(1, len(groups)):
+        dB, dC = dB + dBp[:, gi], dC + dCp[:, gi]
+    cut = lambda t, w: t[..., :Q, :].reshape(Bsz, S, w)  # noqa: E731
+    return (dx[..., :Q, :].reshape(Bsz, H, S, P), ddA.reshape(Bsz, H, S),
+            ddt[..., :Q].reshape(Bsz, H, S), cut(dB, N), cut(dC, N), dh0)
+
+
+# Against JAX's float32 gradients, the bf16 emulation adds the hi + lo
+# splits: each operand formed in float32 is carried to about 2^-17 of
+# itself (hi to 8 bits, lo to 8 more).  At the cases below the gradients
+# then lie within 3.2e-5 of their largest value (within 2e-5 without the
+# emulation), so BF16_SPLIT_REL leaves a margin of 3; feeding each of those
+# operands rounded once to bf16 instead puts them 1.7e-3 to 2.9e-3 off,
+# 17 times the limit or more.
+BF16_SPLIT_REL = 1e-4
+
+
+def _bf16_values(a):
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f64", "bf16_split"])
+@pytest.mark.parametrize("case", PASS_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_backward_passes_match_jax_vjp_and_plain(case, bf16):
+    """The mirror of the backward's passes against ``jax.vjp`` of JAX's
+    ``ssd_chunked`` (dx, dt, A, B, C and h0, composed as autograd composes
+    them through dA = dt A) and against the port's ``ssd_bwd_ref``; with the
+    bf16 emulation, on inputs that are bf16 values."""
+    B, S, H, P, N, chunk, with_h0 = case
+    ins, cots = _grad_inputs(case[:6], with_h0, seed=7)
+    if bf16:
+        ins = tuple(_bf16_values(a) if i in (0, 3, 4) else a
+                    for i, a in enumerate(ins))
+        cots = (_bf16_values(cots[0]), cots[1])
+    want = _jax_vjp(ins, cots, chunk)
+    x, dt, A, Bm, Cm, h0 = (None if a is None else torch.from_numpy(a)
+                            for a in ins)
+    dy, dh_last = (torch.from_numpy(c) for c in cots)
+    dth = dt.transpose(1, 2)
+    args = (x.transpose(1, 2), dth * A[None, :, None], dth, Bm, Cm,
+            dy.transpose(1, 2))
+    got = ssd_bwd_passes(*args, chunk, h0, dh_last, bf16=bf16)
+    plain = K.ref.ssd_bwd_ref(*args, chunk, h0, dh_last)
+    names = ["dx", "ddA", "ddt", "dB", "dC", "dh0"]
+    tol = BF16_SPLIT_REL if bf16 else None
+    for name, g, p in zip(names, got, plain):
+        if name == "dh0" and not with_h0:
+            continue
+        _close_scaled(g, p, name, tol)
+    dx, ddA, ddt, dB, dC, dh0 = got
+    composed = [dx.transpose(1, 2),
+                (ddt + ddA * A[None, :, None]).transpose(1, 2),
+                (ddA * dth).sum((0, 2)), dB, dC] + ([dh0] if with_h0 else [])
+    for name, g, w in zip(["dx", "ddt", "dA", "dB", "dC", "dh0"], composed,
+                          want):
+        _close_scaled(g, w, name, tol)
+
+
+
+@pytest.mark.parametrize("group", [1, 2, 3])
+def test_backward_passes_sum_head_groups_to_one_gradient(group):
+    """The mirror with head groups of 1, 2 and 3 (a last group cut short:
+    5 heads) against ``ssd_bwd_ref``: the groups' partial dB and dC summed
+    in order give the one gradient whatever the group."""
+    case = (1, 384, 5, 64, 128, 128)
+    ins, cots = _grad_inputs(case, True, seed=9)
+    x, dt, A, Bm, Cm, h0 = (torch.from_numpy(a) for a in ins)
+    dy, dh_last = (torch.from_numpy(c) for c in cots)
+    dth = dt.transpose(1, 2)
+    args = (x.transpose(1, 2), dth * A[None, :, None], dth, Bm, Cm,
+            dy.transpose(1, 2))
+    got = ssd_bwd_passes(*args, 128, h0, dh_last, group=group)
+    plain = K.ref.ssd_bwd_ref(*args, 128, h0, dh_last)
+    for name, g, p in zip(["dx", "ddA", "ddt", "dB", "dC", "dh0"], got,
+                          plain):
+        _close_scaled(g, p, name)
+
+
+@pytest.mark.parametrize("dtype,P,N,route,planes", [
+    (torch.bfloat16, 64, 128, "tc", 12),
+    (torch.bfloat16, 16, 16, "fma", 48),
+    (torch.float32, 64, 128, "fma", 48),
+])
+def test_backward_route_and_partials(dtype, P, N, route, planes):
+    """bf16 at Mamba-2 780M's widths takes the tensor-core passes, which
+    leave one partial dB and dC for each group of heads (48 heads: 12);
+    float32 and the smoke widths take the FMA passes, one partial a
+    head."""
+    assert K.bwd_route(dtype, P, N) == route
+    assert K.bwd_partials(48, dtype, P, N) == planes
+    if route == "tc":
+        assert K.bwd_partials(6, dtype, P, N) == 2     # a last group of 2
+
+
+def test_backward_head_group_agrees_with_the_kernel_source():
+    """The wrapper sizes the partials by ``HEAD_GROUP``; the kernel's
+    source names the same group."""
+    import re
+    src = K.SOURCES[0].read_text()
+    found = re.findall(r"constexpr int HEAD_GROUP = (\d+);", src)
+    assert found == [str(K.HEAD_GROUP)]
