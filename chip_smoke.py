@@ -112,9 +112,13 @@ Phases, each printing one JSON line with its seconds:
             forward within 1e-2 relative L2 in bf16 and 1e-5 in float32, two
             calls bit-equal; timed in bf16 against the plain version, the
             bound and, for flash, ``scaled_dot_product_attention``'s backward
-            and the FMA kernels (``fma_ms``); the SSD backward's passes'
-            device ms from one profiled window (``ssd_bwd.passes``; bf16 at
-            Mamba-2's widths runs the tensor-core route, ``bwd_route``).
+            and the FMA kernels (``fma_ms``); each backward's passes' device
+            ms and kernels a call from one profiled window
+            (``ssd_bwd.passes``, ``rglru_bwd.passes``,
+            ``flash_d256_bwd.passes``; bf16 at Mamba-2's widths runs the
+            SSD tensor-core route, ``bwd_route``; the bf16 flash backward
+            at 256 four passes: delta, the dK/dV partials and dQ on wgmma,
+            the partials' sum; the RG-LRU backward one kernel).
 8. serve_ssm, serve_hybrid
             the full Mamba-2 780M (48 layers) and the full
             RecurrentGemma-9B (38 layers), bf16, random weights from a
@@ -2191,34 +2195,16 @@ def _autograd(fn, inputs, cots):
         return torch.autograd.grad(fn(*leaves), leaves, cots)
 
 
-def pass_split(fn, calls: int = 5) -> list:
-    """Device ms a call of each kernel ``fn`` launches, by kernel name
-    (``torch.profiler``, kernel rows only), read from a second window of
-    ``calls`` calls after a warm-up one, as ``device_profile`` reads it."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    fn()
-    torch.cuda.synchronize()
-    got = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: got.extend(p.key_averages())
-                 ) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    # the step's own annotation shows on the device timeline too
-    rows = [e for e in got
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0
-            and not e.key.startswith("ProfilerStep")]
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    short = lambda k: re.split(r"\(", k.replace(  # noqa: E731
-        "(anonymous namespace)::", "").removeprefix("void "))[0]
-    return [{"name": short(e.key), "launches_per_call": e.count / calls,
-             "device_ms": e.self_device_time_total / calls / 1e3}
-            for e in rows]
+def _passes(name, t, fn, **kw) -> None:
+    """Add the device ms of each kernel a call of ``fn`` launches
+    (``passes``), their sum (``device_ms``) and the kernels a call to the
+    timings ``t``, and emit them as ``<name>.passes``."""
+    from repro_torch.kernels.timing import kernel_split
+    t["passes"] = kernel_split(fn)
+    t["device_ms"] = sum(r["device_ms"] for r in t["passes"])
+    t["kernels_per_call"] = sum(r["launches_per_call"] for r in t["passes"])
+    emit(f"{name}.passes", device_ms=t["device_ms"],
+         kernels_per_call=t["kernels_per_call"], passes=t["passes"], **kw)
 
 
 def ssd_bwd_phase(gen):
@@ -2274,10 +2260,7 @@ def ssd_bwd_phase(gen):
                  library_ms=None, bound_ms=b, bound_by=by, bytes=n_bytes,
                  ops=n_ops)
         t["bound_share"] = t["bound_ms"] / t["ms"]
-        t["passes"] = pass_split(kernel)
-        t["device_ms"] = sum(r["device_ms"] for r in t["passes"])
-        emit("ssd_bwd.passes", route=SK.bwd_route(dtype, P, N),
-             device_ms=t["device_ms"], passes=t["passes"])
+        _passes("ssd_bwd", t, kernel, route=SK.bwd_route(dtype, P, N))
         emit("ssd_bwd.time", B=1, S=S, H=H, P=P, N=N, chunk=Q,
              dtype="bfloat16", route=SK.bwd_route(dtype, P, N),
              **{k: v for k, v in t.items() if k != "passes"})
@@ -2328,7 +2311,9 @@ def rglru_bwd_phase(gen):
                                                              dhl), reps=3),
                  library_ms=None, bound_ms=b, bound_by=by, bytes=n_bytes)
         t["bound_share"] = t["bound_ms"] / t["ms"]
-        emit("rglru_bwd.time", B=1, S=S, L=L, dtype="bfloat16", **t)
+        _passes("rglru_bwd", t, kernel, chunk_tiles=RK.BWD_CHUNK_TILES)
+        emit("rglru_bwd.time", B=1, S=S, L=L, dtype="bfloat16",
+             **{k: v for k, v in t.items() if k != "passes"})
     return err, t
 
 
@@ -2397,8 +2382,11 @@ def flash_d256_bwd_phase(gen):
         t["library_factor"] = t["ms"] / t["library_ms"]
         t["fma_factor"] = t["ms"] / t["fma_ms"]
         t["bound_share"] = t["bound_ms"] / t["ms"]
+        _passes("flash_d256_bwd", t, kernel, route=route,
+                head_groups=len(FK.head_groups(H // Kv)))
         emit("flash_d256_bwd.time", B=1, S=S, H=H, Kv=Kv, D=D, window=W,
-             dtype="bfloat16", route=route, live_pairs=case.pairs, **t)
+             dtype="bfloat16", route=route, live_pairs=case.pairs,
+             **{k: v for k, v in t.items() if k != "passes"})
         del out, lib_out, leaves, hm
     return err, t
 
@@ -3169,6 +3157,8 @@ def main() -> int:
         **launch_keys("flash_bwd_d256"), "max_abs_err": d256_bwd_err,
         **{k: d256_bwd_t[k] for k in timing_keys},
         "fma_ms": d256_bwd_t["fma_ms"],
+        **{k: d256_bwd_t[k] for k in ("device_ms", "kernels_per_call",
+                                      "passes")},
         "launches_by_route": {r: paths["train_hybrid"][f"flash_bwd_d256_{r}"]
                               for r in ("tc", "fma")},
         "shape": "B=1 S=4096 H=16 Kv=1 D=256 bf16 causal window=2048",
@@ -3199,8 +3189,9 @@ def main() -> int:
             "max_abs_err": err, **{k: t[k] for k in timing_keys},
             "shape": shape,
         })
-        if name == "ssd_bwd":
-            rows[-1].update({k: t[k] for k in ("device_ms", "passes")})
+        if name in ("ssd_bwd", "rglru_bwd"):
+            rows[-1].update({k: t[k] for k in (
+                "device_ms", "kernels_per_call", "passes")})
         if name == "rglru":
             rows[-1].update({k: t[k] for k in (
                 "entry_ms", "entry_bound_ms", "kernels_per_call")},

@@ -49,22 +49,36 @@
 //   window's edge, the `true_k` edge); fully live tiles skip it;
 // - the query tiles with the most key tiles are scheduled first, which evens
 //   out the causal imbalance across the card;
-// - the backward keeps three launches: delta = rowsum(dO * O); dK/dV, one
-//   block per key tile, each warp computing S^T = K Q^T and dP^T = V dO^T
-//   for its 16 keys so that P^T and dS^T are already A operands; and dQ,
-//   which recomputes S and dP (two products more than accumulating dQ with
-//   atomics, but deterministic: two runs give the same gradients).  At head
-//   dim 256 (RecurrentGemma's train step: 16 query heads on one kv head,
-//   a window of 2048) each dK/dV block owns half the columns of dK and dV
-//   and recomputes S^T and dP^T over the whole head dim (see `Dkdv`), and
-//   dQ takes 32-key tiles (see `Dq`).
-// Why `mma.sync` and not `wgmma`: `wgmma` is the only way to the full bf16
-// rate, but it needs 64-row warpgroup tiles, shared-memory descriptors that
-// match a TMA swizzle mode, and warp specialisation with register
-// reallocation.  `mma.sync` keeps each warp's fragments fixed and simple,
-// which this first tensor-core version takes; `wgmma` with a TMA-fed ring
-// is the next step (ROADMAP A).
-//
+// - the backward at head dims 64 and 128 keeps three launches: delta =
+//   rowsum(dO * O); dK/dV, one block per key tile, each warp computing
+//   S^T = K Q^T and dP^T = V dO^T for its 16 keys so that P^T and dS^T are
+//   already A operands; and dQ, which recomputes S and dP (two products
+//   more than accumulating dQ with atomics, but deterministic: two runs
+//   give the same gradients).
+// The backward at head dim 256 (RecurrentGemma's train step: 16 query heads
+// on one kv head, a window of 2048) runs on wgmma in four launches (see
+// "the backward on wgmma" below): delta; dK/dV, one block per (key tile of
+// 64, group of query heads), which computes S^T and dP^T once a (key tile,
+// query tile, head) and writes its group's float32 partial sums; their sum,
+// in the groups' order, scaled and rounded once; and dQ, recomputing S and
+// dP.  7 products of 2 D operations a live pair, against the bound's 5
+// (the mma.sync kernels they replace did 9: each dK/dV block owned half the
+// columns and recomputed S^T and dP^T).  What bounds it on this card: the tensor
+// cores, but 227 KB of shared memory holds only K, V and two 64-row stages
+// of Q and dO (or Q, dO and two 32-key stages of K and V), so one block of
+// two warpgroups fills an SM, the warpgroups move in step, and the tensor
+// cores idle while they form P and dS; the m64n32 score products also read
+// 3 KB of shared memory a 16-deep step.  Splitting the 16 heads into 8
+// groups makes 512 dK/dV blocks where 64 key tiles give 64, heaviest first
+// (1, 2, 4 and 16 groups were slower: PERF.md).  On the card
+// (bwd_bench.py, H100, 700 W): 1.10-1.23 ms a call at the train shape, of
+// which 1.03-1.05 on the device, against a 0.261 ms bound and 2.66-2.79 ms
+// for the mma.sync kernels.
+// Why mma.sync at head dims 64 and 128: `wgmma` needs 64-row warpgroup
+// tiles, shared-memory descriptors that match the 128-byte swizzle and
+// warpgroup-wide synchronisation; a `wgmma` version at head dim 128 was
+// not kept, for its seed-0 train loss (ROADMAP B12).
+
 // 2. float32 at head dims 64, 128 and 256, and both types at the smoke
 // configs' head dims 8, 12 and 16: float32 FMA on the CUDA cores, 64 x 64 tiles widened to float32 in shared memory, 256 threads each
 // owning 4 x 4 of a tile.  Exact rather than fast: the float32 checks hold
@@ -1111,28 +1125,21 @@ struct Fwd {
   static constexpr int THREADS = 128;
   static constexpr int BQ = THREADS / 32 * 16 * MI;
 };
-// dK/dV: 16 keys a warp, a ring of two query tiles.  At head dims 64 and
-// 128, 8 warps (key tile 128), query tile 64, every output column a block.
-// At 256 the two float32 accumulators of 16 rows x 256 columns would take
-// 256 registers a thread, more than a thread may have: a block owns DO =
-// 128 of the 256 columns of dK and dV (blockIdx.z picks which) and
-// recomputes S^T and dP^T over the whole head dim, 4 warps (key tile 64)
-// and query tile 32, so K, V and the ring take 128 KB of shared memory.
+// dK/dV (head dims 64 and 128): 16 keys a warp, 8 warps (key tile 128), a
+// ring of two query tiles of 64, every output column a block.
 template <int D>
 struct Dkdv {
-  static constexpr bool WIDE = D >= 256;
-  static constexpr int THREADS = WIDE ? 128 : NT;
+  static constexpr int THREADS = NT;
   static constexpr int BK = THREADS / 32 * 16;
-  static constexpr int BQ = WIDE ? 32 : 64;
-  static constexpr int DO = WIDE ? 128 : D;
+  static constexpr int BQ = 64;
+  static constexpr int DO = D;   // output columns a block
 };
-// dQ: query tile 128 (16 a warp), a ring of two key tiles of 64 (32 at head
-// dim 256, where the accumulator takes 128 registers a thread, as in the
-// forward).
+// dQ (head dims 64 and 128): query tile 128 (16 a warp), a ring of two key
+// tiles of 64.
 template <int D>
 struct Dq {
   static constexpr int BQ = 128;
-  static constexpr int BK = D >= 256 ? 32 : 64;
+  static constexpr int BK = 64;
 };
 
 template <int D>
@@ -1542,6 +1549,525 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// ===========================================================================
+// bfloat16 at head dim 256: the backward on wgmma (warpgroup products)
+// ===========================================================================
+//
+// Three products a (key tile, query tile, head) pair in dK/dV (S^T and dP^T
+// once, then dV and dK), three in dQ (S and dP again, then dQ): 7 units of
+// 2 D operations a live pair against the bound's 5 (the mma.sync kernels
+// took 9).  Tiles are bf16 in shared memory as D / 64 panels of [rows][64], each
+// row 128 bytes with its 16-byte chunks at c ^ (row & 7), the panels 1024
+// bytes aligned: the layout of wgmma's 128-byte swizzle (descriptor layout
+// type 1).  A K-major operand (the depth along the tile's row) starts 32
+// bytes further a 16-deep step, LBO 16, SBO 1024 (8 rows); an MN-major B
+// (the depth down the tile's rows, the transpose bit set) starts 16 rows
+// further a step, LBO = the panel's bytes (the next 64 columns), SBO 1024.
+// `cp.async` fills the tiles (zero rows past Sq or Sk), and
+// `fence.proxy.async` makes its writes, and the probabilities the threads
+// store, visible to wgmma's reads.
+//
+// Two warpgroups a block (256 threads).  An m64nN accumulator is, in each
+// warp of the warpgroup, the m16n8 layout of its 16 rows, which is also the
+// A fragment a register-sourced wgmma takes, so dS feeds dQ += dS K from
+// registers.
+
+__device__ __forceinline__ uint64_t wg_desc(const void* ptr, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = smem_u32(ptr);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the wgmma that owns it (the asm statements alone order only themselves).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void zero_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// d[16] += A (shared, K-major) * B (shared, K-major): m64n32k16
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64] += A (shared, K-major) * B (shared, MN-major): m64n128k16
+__device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[128] += A (registers, the m16n8k16 A fragment of each warp's 16 rows) *
+// B (shared, MN-major): m64n256k16
+__device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+namespace w256 {
+constexpr int D = 256;
+constexpr int NTH = 256;       // two warpgroups
+constexpr int KV_BK = 64;      // dK/dV: keys a block
+constexpr int KV_BQ = 64;      // dK/dV: queries a stage
+constexpr int Q_BQ = 128;      // dQ: queries a block, 64 a warpgroup
+constexpr int Q_BK = 32;       // dQ: keys a stage
+constexpr size_t ALIGN = 1024;
+constexpr size_t DKDV_SMEM = (2 * KV_BK + 4 * KV_BQ) * D * sizeof(bf16) +   // K, V, 2 x (Q, dO)
+                             2 * KV_BK * KV_BQ * sizeof(bf16) +             // P^T, dS^T
+                             4 * KV_BQ * sizeof(float) + ALIGN;             // 2 x (lse, delta)
+constexpr size_t DQ_SMEM = (2 * Q_BQ + 4 * Q_BK) * D * sizeof(bf16) + ALIGN;  // Q, dO, 2 x (K, V)
+}  // namespace w256
+
+// Element offset of 16-byte chunk c (of 32) of row r in a [ROWS][256] tile
+// stored as 4 swizzled panels of [ROWS][64].
+template <int ROWS>
+__device__ __forceinline__ int pswz(int r, int c) {
+  return (c >> 3) * ROWS * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
+}
+
+// Rows [0, ROWS) of a head-dim-256 tile into its panels; rows at or beyond
+// n_valid are zero.  Asynchronous: the caller commits and waits.
+template <int ROWS>
+__device__ __forceinline__ void load_panels(bf16* s, const bf16* g, size_t pitch, int n_valid) {
+  constexpr int CH = w256::D / 8;
+  static_assert(ROWS * CH % w256::NTH == 0, "a tile is whole 16-byte chunks a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / w256::NTH; ++i) {
+    const int idx = threadIdx.x + i * w256::NTH;
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = r < n_valid;
+    cp_async16(smem_u32(s + pswz<ROWS>(r, c)), ok ? g + r * pitch + c * 8 : g, ok);
+  }
+}
+
+// Descriptor of a K-major operand: rows from r0 of a [ROWS][256] panel tile,
+// 16-deep step kk.
+template <int ROWS>
+__device__ __forceinline__ uint64_t kmajor(const bf16* s, int r0, int kk) {
+  return wg_desc(s + (kk >> 2) * ROWS * 64 + r0 * 64 + (kk & 3) * 16, 16, 1024);
+}
+// Descriptor of an MN-major B: columns from panel p0 of a [ROWS][256] panel
+// tile, its rows [16 kk, 16 kk + 16) the depth.
+template <int ROWS>
+__device__ __forceinline__ uint64_t mnmajor(const bf16* s, int p0, int kk) {
+  return wg_desc(s + p0 * ROWS * 64 + kk * 16 * 64, ROWS * 128, 1024);
+}
+
+__device__ __forceinline__ bf16* align_smem(unsigned char* raw) {
+  return reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(raw) + w256::ALIGN - 1) &
+                                 ~(uintptr_t)(w256::ALIGN - 1));
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV at head dim 256: one block per (schedule entry = key tile of 64 and
+// group of query heads, batch * kv head).  For each (head, query tile of 64)
+// the block computes S^T = K Q^T and dP^T = V dO^T once (warpgroup w takes
+// the tile's queries [32 w, 32 w + 32)), forms P^T and dS^T in float32,
+// stores them as bf16 into shared memory and, behind one barrier, each
+// warpgroup accumulates its 128 columns of dV += P^T dO and dK += dS^T Q.
+// Q, dO, lse and delta come through a ring of two stages.  The block writes
+// float32 partial sums of its head group; `dkdv_sum_kernel` adds the groups.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(w256::NTH, 1)
+dkdv_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+               const bf16* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ part,
+               const int* __restrict__ sched, int n_groups, Params p) {
+  using namespace w256;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* sK = align_smem(smem_raw);          // [4][64][64]
+  bf16* sV = sK + KV_BK * D;
+  bf16* sQ = sV + KV_BK * D;                // [2][4][64][64]
+  bf16* sG = sQ + 2 * KV_BQ * D;            // dO, [2][4][64][64]
+  bf16* sP = sG + 2 * KV_BQ * D;            // P^T [64 keys][64 queries], one panel
+  bf16* sS = sP + KV_BK * KV_BQ;            // dS^T
+  float* sL = reinterpret_cast<float*>(sS + KV_BK * KV_BQ);  // lse, [2][64]
+  float* sDl = sL + 2 * KV_BQ;                                // delta, [2][64]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int entry = sched[blockIdx.x];
+  const int kt = entry / n_groups, grp = entry % n_groups;
+  const int k0 = kt * KV_BK;
+  const int b = blockIdx.y / p.Kv, kvh = blockIdx.y % p.Kv;
+  const int G = p.H / p.Kv;
+  const int h_lo = grp * G / n_groups, h_hi = (grp + 1) * G / n_groups;
+  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
+  const size_t k_off = ((size_t)b * p.Sk * p.Kv + kvh) * D + (size_t)k0 * k_pitch;
+  const float sl2 = p.scale * LOG2E;
+
+  int qt0 = 0, qt1 = 0;
+  if (k0 < p.true_k) query_tiles<KV_BQ, KV_BK>(p, k0, &qt0, &qt1);
+  const int nqt = max(qt1 - qt0, 0);
+  const int n = (h_hi - h_lo) * nqt;
+
+  // stage `st` <- query tile `i` of the flattened (head, query tile) loop
+  auto load_q = [&](int i, int st) {
+    const int h = kvh * G + h_lo + i / nqt, q1 = (qt0 + i % nqt) * KV_BQ;
+    const size_t off = ((size_t)b * p.Sq * p.H + h) * D + (size_t)q1 * q_pitch;
+    load_panels<KV_BQ>(sQ + st * KV_BQ * D, q + off, q_pitch, p.Sq - q1);
+    load_panels<KV_BQ>(sG + st * KV_BQ * D, dout + off, q_pitch, p.Sq - q1);
+    const size_t r_off = ((size_t)b * p.H + h) * p.Sq + q1;
+    const int i_row = threadIdx.x & (KV_BQ - 1);
+    const bool ok = q1 + i_row < p.Sq;
+    if (threadIdx.x < KV_BQ)
+      cp_async4(smem_u32(sL + st * KV_BQ + i_row), ok ? lse + r_off + i_row : lse, ok);
+    else if (threadIdx.x < 2 * KV_BQ)
+      cp_async4(smem_u32(sDl + st * KV_BQ + i_row), ok ? delta + r_off + i_row : delta, ok);
+  };
+
+  load_panels<KV_BK>(sK, k + k_off, k_pitch, p.Sk - k0);
+  load_panels<KV_BK>(sV, v + k_off, k_pitch, p.Sk - k0);
+  if (n > 0) load_q(0, 0);
+  cp_async_commit();
+
+  float gk[64], gv[64];
+  zero_regs(gk);
+  zero_regs(gv);
+  const int kr = 16 * wi + g;         // this thread's key rows kr and kr + 8
+  const int key0 = k0 + kr;
+
+  for (int it = 0; it < n; ++it) {
+    const int st = it & 1;
+    const int q1 = (qt0 + it % nqt) * KV_BQ;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();   // stage st is in; every warp is done with stage st ^ 1
+    if (it + 1 < n) load_q(it + 1, st ^ 1);
+    cp_async_commit();
+
+    const bf16* cQ = sQ + st * KV_BQ * D;
+    const bf16* cG = sG + st * KV_BQ * D;
+    float s[16], dp[16];
+    zero_regs(s);
+    zero_regs(dp);
+    fence_regs(s);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_n32(s, kmajor<KV_BK>(sK, 0, kk), kmajor<KV_BQ>(cQ, 32 * wg, kk));
+      wgmma_ss_n32(dp, kmajor<KV_BK>(sV, 0, kk), kmajor<KV_BQ>(cG, 32 * wg, kk));
+    }
+    wg_commit();
+    wg_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool masked = needs_mask(p, q1, KV_BQ, k0, KV_BK);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 32 * wg + 8 * j + 2 * t + (e & 1);   // query row of the tile
+        float pe = fast_exp2(fmaf(s[4 * j + e], sl2, -sL[st * KV_BQ + col] * LOG2E));
+        if (masked && !live(p, p.q_offset + q1 + col, key0 + (e >> 1) * 8)) pe = 0.f;
+        s[4 * j + e] = pe;
+        dp[4 * j + e] = pe * (dp[4 * j + e] - sDl[st * KV_BQ + col]);
+      }
+    }
+    // P^T and dS^T as bf16 [key][query] into their swizzled panels
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int r = kr + 8 * hi, c = 32 * wg + 8 * j + 2 * t;
+        const int off = r * 64 + (((c >> 3) ^ (r & 7)) << 3) + (c & 7);
+        *reinterpret_cast<uint32_t*>(sP + off) = pack_bf16(s[4 * j + 2 * hi], s[4 * j + 2 * hi + 1]);
+        *reinterpret_cast<uint32_t*>(sS + off) =
+            pack_bf16(dp[4 * j + 2 * hi], dp[4 * j + 2 * hi + 1]);
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // dV[:, 128 wg + ...] += P^T dO, dK[:, 128 wg + ...] += dS^T Q
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KV_BQ / 16; ++kk) {
+      wgmma_ss_n128_tb(gv, wg_desc(sP + kk * 16, 16, 1024), mnmajor<KV_BQ>(cG, 2 * wg, kk));
+      wgmma_ss_n128_tb(gk, wg_desc(sS + kk * 16, 16, 1024), mnmajor<KV_BQ>(cQ, 2 * wg, kk));
+    }
+    wg_commit();
+    wg_wait0();
+  }
+  fence_regs(gk);
+  fence_regs(gv);
+
+  const size_t n_elems = (size_t)p.B * p.Sk * p.Kv * D;
+  float* pk = part + (size_t)(2 * grp) * n_elems;
+  float* pv = pk + n_elems;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = key0 + 8 * hi;
+    if (row >= p.Sk) continue;
+    const size_t off = (((size_t)b * p.Sk + row) * p.Kv + kvh) * D + 128 * wg + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      *reinterpret_cast<float2*>(pk + off + 8 * j) =
+          make_float2(gk[4 * j + 2 * hi], gk[4 * j + 2 * hi + 1]);
+      *reinterpret_cast<float2*>(pv + off + 8 * j) =
+          make_float2(gv[4 * j + 2 * hi], gv[4 * j + 2 * hi + 1]);
+    }
+  }
+}
+
+// dK = scale * (sum of the groups' partials), dV = sum, in the groups'
+// order 0, 1, ..., rounded once to bf16; 4 elements a thread.
+__global__ void dkdv_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                                bf16* __restrict__ dv, size_t n_elems, int n_groups, float scale) {
+  const size_t n4 = n_elems / 4;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float4 sk = reinterpret_cast<const float4*>(part)[i];
+    float4 sv = reinterpret_cast<const float4*>(part + n_elems)[i];
+    for (int gi = 1; gi < n_groups; ++gi) {
+      const float4 a = reinterpret_cast<const float4*>(part + (size_t)(2 * gi) * n_elems)[i];
+      const float4 c = reinterpret_cast<const float4*>(part + (size_t)(2 * gi + 1) * n_elems)[i];
+      sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+      sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+    }
+    uint2 ok, ov;
+    ok.x = pack_bf16(sk.x * scale, sk.y * scale);
+    ok.y = pack_bf16(sk.z * scale, sk.w * scale);
+    ov.x = pack_bf16(sv.x, sv.y);
+    ov.y = pack_bf16(sv.z, sv.w);
+    reinterpret_cast<uint2*>(dk)[i] = ok;
+    reinterpret_cast<uint2*>(dv)[i] = ov;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ at head dim 256: one block per (batch * head, query tile of 128), the
+// query tiles with the most key tiles first; warpgroup w owns rows
+// [64 w, 64 w + 64).  For each key tile of 32 (a ring of two stages) it
+// recomputes S = Q K^T and dP = dO V^T (m64n32), forms dS in registers and
+// accumulates dQ += dS K (m64n256, dS as the register A operand).  No
+// atomics: the result does not depend on the order blocks run in.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(w256::NTH, 1)
+dq_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+             const bf16* __restrict__ dout, const float* __restrict__ lse,
+             const float* __restrict__ delta, bf16* __restrict__ dq, Params p) {
+  using namespace w256;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* sQ = align_smem(smem_raw);   // [4][128][64]
+  bf16* sG = sQ + Q_BQ * D;          // dO
+  bf16* sK = sG + Q_BQ * D;          // [2][4][32][64]
+  bf16* sV = sK + 2 * Q_BK * D;      // [2][4][32][64]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wi = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = ((p.Sq + Q_BQ - 1) / Q_BQ - 1 - (int)blockIdx.y) * Q_BQ;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.Kv);
+  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
+  const size_t q_off = ((size_t)b * p.Sq * p.H + h) * D + (size_t)q0 * q_pitch;
+  const bf16* kb = k + ((size_t)b * p.Sk * p.Kv + kvh) * D;
+  const bf16* vb = v + ((size_t)b * p.Sk * p.Kv + kvh) * D;
+  const float sl2 = p.scale * LOG2E;
+
+  int kt0, kt1;
+  key_tiles<Q_BQ, Q_BK>(p, q0, &kt0, &kt1);
+  const int n = kt1 - kt0;
+  load_panels<Q_BQ>(sQ, q + q_off, q_pitch, p.Sq - q0);
+  load_panels<Q_BQ>(sG, dout + q_off, q_pitch, p.Sq - q0);
+  if (n > 0) {
+    load_panels<Q_BK>(sK, kb + (size_t)kt0 * Q_BK * k_pitch, k_pitch, p.Sk - kt0 * Q_BK);
+    load_panels<Q_BK>(sV, vb + (size_t)kt0 * Q_BK * k_pitch, k_pitch, p.Sk - kt0 * Q_BK);
+  }
+  cp_async_commit();
+
+  const int wq0 = q0 + 64 * wg;                  // this warpgroup's rows
+  const int row0 = wq0 + 16 * wi + g, row1 = row0 + 8;
+  const size_t r_off = ((size_t)b * p.H + h) * p.Sq;
+  const float lse0 = row0 < p.Sq ? lse[r_off + row0] * LOG2E : 0.f;
+  const float lse1 = row1 < p.Sq ? lse[r_off + row1] * LOG2E : 0.f;
+  const float dl0 = row0 < p.Sq ? delta[r_off + row0] : 0.f;
+  const float dl1 = row1 < p.Sq ? delta[r_off + row1] : 0.f;
+  const int qpos0 = p.q_offset + row0;
+
+  float gq[128];
+  zero_regs(gq);
+  for (int it = 0; it < n; ++it) {
+    const int k0 = (kt0 + it) * Q_BK;
+    const int st = it & 1;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();   // stage st is in; every warp is done with stage st ^ 1
+    if (it + 1 < n) {
+      const int k1 = k0 + Q_BK;
+      load_panels<Q_BK>(sK + (st ^ 1) * Q_BK * D, kb + (size_t)k1 * k_pitch, k_pitch, p.Sk - k1);
+      load_panels<Q_BK>(sV + (st ^ 1) * Q_BK * D, vb + (size_t)k1 * k_pitch, k_pitch, p.Sk - k1);
+    }
+    cp_async_commit();
+
+    const bf16* cK = sK + st * Q_BK * D;
+    const bf16* cV = sV + st * Q_BK * D;
+    float s[16], dp[16];
+    zero_regs(s);
+    zero_regs(dp);
+    fence_regs(s);
+    fence_regs(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_n32(s, kmajor<Q_BQ>(sQ, 64 * wg, kk), kmajor<Q_BK>(cK, 0, kk));
+      wgmma_ss_n32(dp, kmajor<Q_BQ>(sG, 64 * wg, kk), kmajor<Q_BK>(cV, 0, kk));
+    }
+    wg_commit();
+    wg_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool masked = needs_mask(p, wq0, 64, k0, Q_BK);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool hi = e >> 1;
+        float pe = fast_exp2(fmaf(s[4 * j + e], sl2, -(hi ? lse1 : lse0)));
+        if (masked && !live(p, qpos0 + hi * 8, k0 + j * 8 + 2 * t + (e & 1))) pe = 0.f;
+        dp[4 * j + e] = pe * (dp[4 * j + e] - (hi ? dl1 : dl0));
+      }
+    }
+    uint32_t a[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      a[kk][0] = pack_bf16(dp[8 * kk + 0], dp[8 * kk + 1]);
+      a[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
+      a[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
+      a[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < Q_BK / 16; ++kk) wgmma_rs_n256_tb(gq, a[kk], mnmajor<Q_BK>(cK, 0, kk));
+    wg_commit();
+    wg_wait0();
+  }
+  fence_regs(gq);
+
+  bf16* d0 = dq + q_off + (size_t)(64 * wg + 16 * wi + g) * q_pitch + 2 * t;
+  bf16* d1 = d0 + 8 * q_pitch;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (row0 < p.Sq)
+      *reinterpret_cast<uint32_t*>(d0 + j * 8) =
+          pack_bf16(gq[4 * j] * p.scale, gq[4 * j + 1] * p.scale);
+    if (row1 < p.Sq)
+      *reinterpret_cast<uint32_t*>(d1 + j * 8) =
+          pack_bf16(gq[4 * j + 2] * p.scale, gq[4 * j + 3] * p.scale);
+  }
+}
+
+// delta, dK/dV partials, their sum, dQ: four launches.  `sched` holds the
+// n_sched = ceil(Sk / 64) * n_groups (key tile, head group) entries
+// (kt * n_groups + group), heaviest first; `part` 2 * n_groups * B * Sk *
+// Kv * 256 floats.
+cudaError_t launch_bwd_256(const void* q, const void* k, const void* v, const void* o,
+                           const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                           void* dv, float* part, const int* sched, int n_sched, int n_groups,
+                           const Params& p, cudaStream_t stream) {
+  using namespace w256;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* gt = static_cast<const bf16*>(dout);
+  if (n_groups < 1 || n_sched != (p.Sk + KV_BK - 1) / KV_BK * n_groups)
+    return cudaErrorInvalidValue;
+  const size_t n_rows = (size_t)p.B * p.Sq * p.H;
+  delta_kernel<bf16><<<(unsigned)((n_rows * 32 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      static_cast<const bf16*>(o), gt, delta, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  if ((err = set_smem(dkdv_wg_kernel, DKDV_SMEM)) != cudaSuccess) return err;
+  if (n_sched > 0) {
+    dkdv_wg_kernel<<<dim3(n_sched, p.B * p.Kv), NTH, DKDV_SMEM, stream>>>(
+        qt, kt, vt, gt, lse, delta, part, sched, n_groups, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const size_t n_elems = (size_t)p.B * p.Sk * p.Kv * D;
+  const size_t sum_threads = (n_elems / 4 + 255) / 256;
+  const unsigned sum_blocks = (unsigned)(sum_threads < 132 * 16 ? sum_threads : 132 * 16);
+  if (sum_blocks > 0) {
+    dkdv_sum_kernel<<<sum_blocks, 256, 0, stream>>>(part, static_cast<bf16*>(dk),
+                                                    static_cast<bf16*>(dv), n_elems, n_groups,
+                                                    p.scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+
+  if ((err = set_smem(dq_wg_kernel, DQ_SMEM)) != cudaSuccess) return err;
+  dq_wg_kernel<<<dim3(p.B * p.H, (p.Sq + Q_BQ - 1) / Q_BQ), NTH, DQ_SMEM, stream>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dq), p);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 Params make_params(int B, int H, int Kv, int Sq, int Sk, int D, int causal, int window,
@@ -1601,7 +2127,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   return cudaErrorInvalidValue;
 }
 
-// The tensor-core kernels: bfloat16 only (dtype 1), D 64, 128 or 256.
+// The tensor-core kernels: bfloat16 only (dtype 1); the forward at D 64, 128 or
+// 256, the backward at 64 or 128 (256: flash_attention_bwd_d256).
 extern "C" int flash_attention_fwd_tc(const void* q, const void* k, const void* v, void* o,
                                       float* lse, int B, int H, int Kv, int Sq, int Sk, int D,
                                       int dtype, int causal, int window, int q_offset,
@@ -1625,7 +2152,19 @@ extern "C" int flash_attention_bwd_tc(const void* q, const void* k, const void* 
     return tc::launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   if (dtype == 1 && D == 128)
     return tc::launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
-  if (dtype == 1 && D == 256)
-    return tc::launch_bwd<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   return cudaErrorInvalidValue;
+}
+
+// The backward at head dim 256, bfloat16, on wgmma: `sched` (device int32,
+// n_sched entries) orders the (key tile, head group) blocks of dK/dV,
+// `part` takes the groups' float32 partial sums (kernel.py sizes both).
+extern "C" int flash_attention_bwd_d256(const void* q, const void* k, const void* v,
+                                        const void* o, const void* dout, const float* lse,
+                                        float* delta, void* dq, void* dk, void* dv, float* part,
+                                        const int* sched, int n_sched, int n_groups, int B,
+                                        int H, int Kv, int Sq, int Sk, int causal, int window,
+                                        int q_offset, int true_k, void* stream) {
+  const Params p = make_params(B, H, Kv, Sq, Sk, 256, causal, window, q_offset, true_k);
+  return tc::launch_bwd_256(q, k, v, o, dout, lse, delta, dq, dk, dv, part, sched, n_sched,
+                            n_groups, p, static_cast<cudaStream_t>(stream));
 }

@@ -20,9 +20,18 @@ never at import.
 
 Each wrapper carries ``launches``, a plain int that counts calls that
 launched its kernels (``flash_bwd`` launches three: the row sums of
-``dO * O``, dK/dV, dQ), and ``by_route``, the same split by route; head
-dim 256 counts apart, in ``launches_d256`` and its split
-``by_route_d256`` of each wrapper.
+``dO * O``, dK/dV, dQ; four in bf16 at head dim 256: the row sums, dK/dV
+partial sums per group of query heads on ``wgmma``, their sum, dQ on
+``wgmma``), and ``by_route``, the same split by route; head dim 256 counts
+apart, in ``launches_d256`` and its split ``by_route_d256`` of each
+wrapper.
+
+The bf16 backward at head dim 256 splits each kv head's G query heads into
+``min(D256_HEAD_GROUPS, G)`` groups, so that a train step's one kv head
+fills the card: one dK/dV block per (key tile of 64, group), ordered
+heaviest first by :func:`dkdv_schedule` (kept on the device per shape),
+each writing float32 partial sums that a second pass adds in the groups'
+order.
 Plain-version calls do not count.
 
 TPU kernel replaced: ``flash_attention_hm`` (``_attn_kernel``) of
@@ -52,8 +61,14 @@ TC_BWD_HEAD_DIMS = TC_HEAD_DIMS  # bfloat16 backward on the tensor-core kernels
 ROUTES = ("tc", "fma")
 # (query, key) tile of each route's forward (tc at head dim 256: 64 x 32, see
 # :func:`fwd_tile`); the backward's tiles are in the source (tc: dK/dV 64
-# queries x 128 keys, dQ 128 x 64; at head dim 256 32 x 64 and 128 x 32)
+# queries x 128 keys, dQ 128 x 64; at head dim 256 64 x 64 and 128 x 32)
 TILES = {"tc": (128, 64), "fma": (64, 64)}
+D256_KEY_TILE = D256_QUERY_TILE = 64   # the bf16 dK/dV blocks at head dim 256
+# query-head groups of the bf16 backward at head dim 256 (of 1, 2, 4, 8 and
+# 16 in trial builds, 8 was the fastest on the card: PERF.md, section 6)
+D256_HEAD_GROUPS = 8
+_SCHEDULES: dict = {}                  # dK/dV schedules on the device
+_SCHEDULES_KEPT = 64
 VEC_BYTES = 16                   # tiles are loaded as 16-byte vectors
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -72,6 +87,8 @@ def library() -> ctypes.CDLL:
             fwd.argtypes = [_P] * 5 + [_I] * 11 + [_P]
             bwd.argtypes = [_P] * 10 + [_I] * 11 + [_P]
             fwd.restype = bwd.restype = _I
+        lib.flash_attention_bwd_d256.argtypes = [_P] * 12 + [_I] * 11 + [_P]
+        lib.flash_attention_bwd_d256.restype = _I
     return lib
 
 
@@ -161,6 +178,69 @@ def launch_fwd(q, k, v, *, kernel: str, causal: bool = True,
     return o, lse
 
 
+def query_tile_range(Sq: int, k0: int, *, tq: int, tk: int, true_k: int,
+                     causal: bool, window: Optional[int], q_offset: int
+                     ) -> Tuple[int, int]:
+    """Query tiles [lo, hi) of ``tq`` rows that see the key tile of ``tk``
+    rows from ``k0``: the kernels' ``query_tiles``."""
+    nq = -(-Sq // tq)
+    k_last = min(k0 + tk, true_k) - 1
+    lo, hi = 0, nq
+    if causal and k0 - q_offset > 0:
+        lo = (k0 - q_offset) // tq
+    if window is not None:
+        last_q = k_last + window - 1 - q_offset
+        hi = 0 if last_q < 0 else min(nq, last_q // tq + 1)
+    return lo, hi
+
+
+def head_groups(G: int, n_groups: int = D256_HEAD_GROUPS) -> list:
+    """The query heads [lo, hi) of each of ``min(n_groups, G)`` groups of a
+    kv head's ``G`` heads, as the kernel splits them."""
+    n = min(n_groups, G)
+    if n < 1:
+        raise ValueError(f"head groups must be positive, got {n_groups}")
+    return [(i * G // n, (i + 1) * G // n) for i in range(n)]
+
+
+def dkdv_schedule(Sq: int, Sk: int, G: int, n_groups: int, *,
+                  causal: bool, window: Optional[int], q_offset: int) -> list:
+    """The dK/dV blocks of the bf16 backward at head dim 256, in launch
+    order: every (key tile of 64, head group) once, as ``kt * n_groups +
+    group``, the blocks with the most (head, query tile) pairs first, ties
+    by key tile and group.  ``n_groups`` is the number of groups (at most
+    G); key tiles that no query sees are kept (they write zeros)."""
+    groups = head_groups(G, n_groups)
+    work = []
+    for kt in range(-(-Sk // D256_KEY_TILE)):
+        k0 = kt * D256_KEY_TILE
+        lo, hi = query_tile_range(Sq, k0, tq=D256_QUERY_TILE,
+                                  tk=D256_KEY_TILE, true_k=Sk, causal=causal,
+                                  window=window, q_offset=q_offset)
+        tiles = max(hi - lo, 0)
+        for i, (h_lo, h_hi) in enumerate(groups):
+            work.append((-(h_hi - h_lo) * tiles, kt, i))
+    work.sort()
+    return [kt * len(groups) + i for _, kt, i in work]
+
+
+def _schedule(device: torch.device, *key) -> torch.Tensor:
+    """:func:`dkdv_schedule` of ``key`` as an int32 tensor on ``device``,
+    made once per shape and kept (at most ``_SCHEDULES_KEPT``)."""
+    full = (device.index,) + key
+    sched = _SCHEDULES.get(full)
+    if sched is None:
+        Sq, Sk, G, n_groups, causal, window, q_offset = key
+        if len(_SCHEDULES) >= _SCHEDULES_KEPT:
+            _SCHEDULES.clear()
+        sched = torch.tensor(
+            dkdv_schedule(Sq, Sk, G, n_groups, causal=causal, window=window,
+                          q_offset=q_offset), dtype=torch.int32,
+            device=device)
+        _SCHEDULES[full] = sched
+    return sched
+
+
 def launch_bwd(q, k, v, o, lse, do, *, kernel: str, causal: bool = True,
                window: Optional[int] = None, q_offset: int = 0):
     """Launch backward ``kernel`` (a route) on CUDA tensors, counting
@@ -175,10 +255,24 @@ def launch_bwd(q, k, v, o, lse, do, *, kernel: str, causal: bool = True,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    code = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), *ints, build.stream(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr())
+    if kernel == "tc" and q.shape[3] == 256:
+        name = "flash_attention_bwd_d256"
+        B, Sq, H, _ = q.shape
+        Sk, Kv = k.shape[1], k.shape[2]
+        G = H // Kv
+        n = len(head_groups(G))
+        sched = _schedule(q.device, Sq, Sk, G, n, bool(causal), window,
+                          int(q_offset))
+        part = torch.empty((2 * n,) + tuple(k.shape), dtype=torch.float32,
+                           device=q.device)
+        code = library().flash_attention_bwd_d256(
+            *ptrs, part.data_ptr(), sched.data_ptr(), sched.numel(), n,
+            *ints[:5], *ints[7:], build.stream(q.device))
+    else:
+        code = fn(*ptrs, *ints, build.stream(q.device))
     build.check(code, name)
     return dq, dk, dv
 

@@ -69,17 +69,34 @@
 // wrote: the forward saves each tile's incoming carry, and the backward
 // recomputes the tile's h from it with the forward's own FMAs, so its h is
 // the forward's float32 h bit for bit.  g is the same scan run backward in
-// time, with the forward's design mirrored: a block takes 32 channels and
-// the whole sequence, its warps take the tiles from the last one in turn,
-// each reduces its tile to the map x -> A x + B of the gradient arriving
-// from the right (A the product of the tile's decays, B = a_{t0} g_{t0}
-// from x = 0), and the carry a_{t0} g_{t0} passes from warp to warp
-// through shared memory in the order of the tiles.  Deterministic, no
-// atomics, one launch.  What bounds it: memory, 14 bytes an element for
-// bf16 u (a, u, dh read; du, da written) plus the carries: at L = 4096,
-// S = 4096 some 0.25 GB, 0.075 ms at 3.35 TB/s.  It keeps a tile's decays,
-// gradients and recomputed h in registers (48 a thread), so its blocks are
-// 16 warps, where the forward's 32 leave 64 registers a thread.
+// time.  What bounds it: memory, 14 bytes an element for bf16 u (a, u, dh
+// read; du, da written) plus the carries: at L = 4096, S = 4096 some
+// 0.25 GB, 0.0714 ms at 3.35 TB/s.  A block per channel group walking the
+// whole sequence (the forward's design) gives 128 blocks at L = 4096, each
+// warp holding one tile of loads at a time and waiting on a chain of 256
+// hand-overs: 0.122-0.124 ms on the card.  So the backward also cuts the
+// sequence into chunks of kBwdChunkTiles tiles across blocks (256 steps,
+// 16 chunks, 2,048 blocks at the train shape, two an SM), and runs each in
+// three phases: every warp issues the loads of all its kBwdTpw tiles at once
+// and reduces each tile to its map x -> A x + B of the gradient arriving
+// from the right (A the product of the decays, B = a_{t0} g_{t0} from
+// x = 0); warp 0 takes the chunk's incoming carry and composes it through
+// the maps in the order of the tiles (one FMA a tile, as the warps'
+// hand-over did), keeping each tile's incoming x; then every warp writes
+// its tiles' du and da.  The carry passes from a chunk to the one before
+// it through a 64-bit word in device memory, its float32 value tagged with
+// the call's epoch, so the words are never cleared; the blocks are
+// numbered in the chain's order, so a block waits only on blocks with a
+// lower index, dispatched before it.  Every carry is the same FMA of the
+// same operands in the same order as a tile-by-tile walk, so the outputs
+// do not depend on the chunk size, and two calls give the same bits; no
+// atomics, one launch.  On the card (H100, 700 W; flash_attention/
+// bwd_bench.py): 0.094-0.096 ms of device time at the train shape, 74-76%
+// of the bound (trial builds with chunks of 8 tiles: 0.094-0.095; of 32
+// tiles, one block an SM: 0.117-0.120).  The epoch comes from the host
+// with each launch, so a launch captured in a CUDA graph would replay one
+// epoch and could read a carry of the replay before: the wrapper refuses
+// to be captured.
 //
 // Every entry returns the `cudaError_t` of its launch.
 #include <cuda_bf16.h>
@@ -91,7 +108,9 @@ namespace {
 constexpr int kSteps = 16;     // steps a tile
 constexpr int kWarps = 32;     // tiles in flight a block
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBwdWarps = 16;  // backward: tiles in flight a block
+constexpr int kBwdWarps = 8;   // backward: warps a block
+constexpr int kBwdTpw = 2;     // tiles a warp
+constexpr int kBwdChunkTiles = kBwdWarps * kBwdTpw;   // tiles a block (a chunk)
 constexpr int kBwdThreads = 32 * kBwdWarps;
 
 __device__ __forceinline__ float load(const float* p) { return __ldcs(p); }
@@ -190,99 +209,195 @@ int launch(const float* a, const TB* b, const float* h0, TH* h,
 // whenever it is read).
 __device__ __forceinline__ constexpr int next(int t) { return t + 1 < kSteps ? t + 1 : t; }
 
-// grid (ceil(L / 32), B); block kBwdThreads.  u, dh and du in T; h0,
-// dh_last and dh0 may be null (no initial state, a zero cotangent, none
-// wanted); carries is the forward's.
+// A value as loaded, before its conversion to float32, so that a tile's
+// loads stay in flight until the tile's turn.
+template <typename T> struct Raw { using type = float; };
+template <> struct Raw<__nv_bfloat16> { using type = unsigned short; };
+
+__device__ __forceinline__ float load_raw(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ unsigned short load_raw(const __nv_bfloat16* p) {
+  return __ldcs(reinterpret_cast<const unsigned short*>(p));
+}
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(unsigned short x) {
+  return __bfloat162float(__ushort_as_bfloat16(x));
+}
+
+// One tile of the backward's inputs (a, u, dh and the forward's carry into
+// the tile), loaded before the tile's turn.
 template <typename T>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+struct BwdTile {
+  float a[kSteps];
+  typename Raw<T>::type u[kSteps], g[kSteps];
+  float carry;
+};
+
+template <typename T>
+__device__ __forceinline__ void load_bwd_tile(BwdTile<T>& x, const float* a, const T* u,
+                                              const T* dh, const float* carries, size_t base,
+                                              size_t carry_at, int n, bool live, bool has_carry,
+                                              int L) {
+#pragma unroll
+  for (int t = 0; t < kSteps; ++t) {
+    const bool in = live && t < n;
+    x.a[t] = in ? load_raw(a + base + (size_t)t * L) : 1.f;
+    x.u[t] = in ? load_raw(u + base + (size_t)t * L) : typename Raw<T>::type(0);
+    x.g[t] = in ? load_raw(dh + base + (size_t)t * L) : typename Raw<T>::type(0);
+  }
+  x.carry = has_carry && live ? __ldcs(carries + carry_at) : 0.f;
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" : : "l"(p), "l"(v) : "memory");
+}
+
+// grid (n_chunks * B * ceil(L / 32)), block kBwdThreads.  Block i takes
+// chunk n_chunks - 1 - i / (B * groups), of kBwdChunkTiles tiles, of
+// channel group i % (B * groups), so a block waits only on blocks with a
+// lower index.  u, dh and du in T; h0, dh_last and dh0 may be null (no
+// initial state, a zero cotangent, none wanted); carries is the forward's.
+// slots: [n_chunks, B * groups, 32] 64-bit words, a chunk's outgoing carry
+// tagged with `epoch` (this call's).
+//
+// Three phases: every warp loads its kBwdTpw tiles (all loads in flight at
+// once) and reduces each to its map x -> A x + B; warp 0 takes the carry
+// of the chunk to the right and runs it through the chunk's maps in the
+// order of the tiles (one FMA a tile, as the warps' hand-over did), keeping
+// each tile's incoming gradient and publishing the chunk's outgoing carry;
+// then every warp writes its tiles' du and da.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads, 2)
 rglru_bwd_kernel(const float* __restrict__ a, const T* __restrict__ u,
                  const float* __restrict__ h0, const T* __restrict__ dh,
                  const float* __restrict__ dh_last, const float* __restrict__ carries,
-                 T* __restrict__ du, float* __restrict__ da, float* __restrict__ dh0, int S,
-                 int L) {
-  __shared__ float carry_out[kBwdWarps][32];  // a_{t0} g_{t0} of each warp's last tile
-  __shared__ int published[kBwdWarps];        // the rank whose carry is there
+                 T* __restrict__ du, float* __restrict__ da, float* __restrict__ dh0,
+                 unsigned long long* __restrict__ slots, unsigned epoch, int S, int L,
+                 int n_chunks) {
+  constexpr int CT = kBwdChunkTiles;
+  __shared__ float map_a[CT][32], map_b[CT][32], x_in[CT][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int l = blockIdx.x * 32 + lane;
+  const int groups = (L + 31) / 32;
+  const int lanes = gridDim.x / n_chunks;     // B * groups
+  const int bg = blockIdx.x % lanes, chunk = n_chunks - 1 - (int)blockIdx.x / lanes;
+  const int batch = bg / groups;
+  const int l = (bg % groups) * 32 + lane;
   const bool live = l < L;
-  const size_t batch_rows = (size_t)blockIdx.y * S;
-  const size_t state = (size_t)blockIdx.y * L + l;
-  if (lane == 0) published[warp] = -1;
-  __syncthreads();
-  volatile int* pub = published;
-  volatile float* carries_sm = &carry_out[0][0];
-  const int prev = (warp + kBwdWarps - 1) % kBwdWarps;
+  const size_t batch_rows = (size_t)batch * S;
+  const size_t state = (size_t)batch * L + l;
   const int n_tiles = (S + kSteps - 1) / kSteps;
+  const int k_hi = min((chunk + 1) * CT, n_tiles);
+  const int nt = k_hi - chunk * CT;
 
-  // rank r: the r-th tile from the end, k = n_tiles - 1 - r
-  for (int r = warp; r < n_tiles; r += kBwdWarps) {
-    const int k = n_tiles - 1 - r;
-    const int n = min(kSteps, S - k * kSteps);
-    const size_t base = (batch_rows + (size_t)k * kSteps) * L + l;
-    float av[kSteps], gv[kSteps], hp[kSteps];
-    // the forward's h within the tile, from its saved carry: hp[t] = h_{t-1}
-    float hv = (k > 0 && live) ? carries[((size_t)blockIdx.y * n_tiles + k) * L + l] : 0.f;
+  // rank r: the r-th tile of the chunk from its end, k = k_hi - 1 - r;
+  // warp w takes ranks w, w + kBwdWarps, ...
+  BwdTile<T> tile[kBwdTpw];
 #pragma unroll
-    for (int t = 0; t < kSteps; ++t) {
-      const bool in = live && t < n;
-      av[t] = in ? load(a + base + (size_t)t * L) : 1.f;
-      float bv = in ? load(u + base + (size_t)t * L) : 0.f;
-      gv[t] = in ? load(dh + base + (size_t)t * L) : 0.f;
-      if (t == 0 && k == 0 && h0 != nullptr && live) {
-        bv = __fadd_rn(__fmul_rn(av[0], h0[state]), bv);
-        hp[0] = h0[state];
-      } else {
-        hp[t] = hv;
-      }
-      if (t < n) hv = __fmaf_rn(av[t], hv, bv);
-    }
-    // the tile as a map of the gradient x arriving from the right:
-    // a_{t0} g_{t0} = A x + B
+  for (int i = 0; i < kBwdTpw; ++i) {
+    const int r = warp + i * kBwdWarps, k = k_hi - 1 - r;
+    if (r < nt)
+      load_bwd_tile(tile[i], a, u, dh, carries, (batch_rows + (size_t)k * kSteps) * L + l,
+                    ((size_t)batch * n_tiles + k) * L + l, min(kSteps, S - k * kSteps), live,
+                    k > 0, L);
+  }
+  // each tile as a map of the gradient x arriving from the right:
+  // a_{t0} g_{t0} = A x + B
+#pragma unroll
+  for (int i = 0; i < kBwdTpw; ++i) {
+    const int r = warp + i * kBwdWarps, k = k_hi - 1 - r;
+    if (r >= nt) continue;
+    const int n = min(kSteps, S - k * kSteps);
     float A = 1.f, G = 0.f;
 #pragma unroll
     for (int t = kSteps - 1; t >= 0; --t) {
       if (t < n) {
-        A = __fmul_rn(A, av[t]);
-        G = t == n - 1 ? gv[t] : __fmaf_rn(av[next(t)], G, gv[t]);
+        A = __fmul_rn(A, tile[i].a[t]);
+        G = t == n - 1 ? to_f32(tile[i].g[t])
+                       : __fmaf_rn(tile[i].a[next(t)], G, to_f32(tile[i].g[t]));
       }
     }
-    const float B = __fmul_rn(av[0], G);
+    map_a[r][lane] = A;
+    map_b[r][lane] = __fmul_rn(tile[i].a[0], G);
+  }
+  __syncthreads();
+  if (warp == 0) {
     float x = 0.f;
-    if (r > 0) {
-      while (pub[prev] != r - 1) {
-      }
-      __threadfence_block();
-      x = carries_sm[prev * 32 + lane];
+    if (chunk < n_chunks - 1) {
+      // the carry of the chunk to the right, from a block before this one
+      const unsigned long long* slot = slots + ((size_t)(chunk + 1) * lanes + bg) * 32 + lane;
+      unsigned long long w;
+      do {
+        w = ld_relaxed(slot);
+      } while ((unsigned)(w >> 32) != epoch);
+      x = __uint_as_float((unsigned)w);
     } else if (dh_last != nullptr && live) {
       x = dh_last[state];
     }
-    carries_sm[warp * 32 + lane] = __fmaf_rn(A, x, B);
-    __threadfence_block();
-    __syncwarp();
-    if (lane == 0) pub[warp] = r;
+#pragma unroll
+    for (int r = 0; r < CT; ++r) {
+      if (r < nt) {
+        x_in[r][lane] = x;
+        x = __fmaf_rn(map_a[r][lane], x, map_b[r][lane]);
+      }
+    }
+    if (chunk > 0)
+      st_relaxed(slots + ((size_t)chunk * lanes + bg) * 32 + lane,
+                 ((unsigned long long)epoch << 32) | __float_as_uint(x));
+  }
+  __syncthreads();
 
+#pragma unroll
+  for (int i = 0; i < kBwdTpw; ++i) {
+    const int r = warp + i * kBwdWarps, k = k_hi - 1 - r;
+    if (r >= nt) continue;
+    const int n = min(kSteps, S - k * kSteps);
+    const size_t base = (batch_rows + (size_t)k * kSteps) * L + l;
+    const BwdTile<T>& c = tile[i];
+    // the forward's h within the tile, from its saved carry: hp[t] = h_{t-1}
+    float hp[kSteps];
+    float hv = c.carry;
+#pragma unroll
+    for (int t = 0; t < kSteps; ++t) {
+      float bv = to_f32(c.u[t]);
+      if (t == 0 && k == 0 && h0 != nullptr && live) {
+        bv = __fadd_rn(__fmul_rn(c.a[0], h0[state]), bv);
+        hp[0] = h0[state];
+      } else {
+        hp[t] = hv;
+      }
+      if (t < n) hv = __fmaf_rn(c.a[t], hv, bv);
+    }
+    const float x = x_in[r][lane];
     float g = x;
 #pragma unroll
     for (int t = kSteps - 1; t >= 0; --t) {
       if (t < n) {
-        g = t == n - 1 ? __fadd_rn(gv[t], x) : __fmaf_rn(av[next(t)], g, gv[t]);
+        const float gt = to_f32(c.g[t]);
+        g = t == n - 1 ? __fadd_rn(gt, x) : __fmaf_rn(c.a[next(t)], g, gt);
         if (live) {
           store(du + base + (size_t)t * L, g);
           store(da + base + (size_t)t * L, __fmul_rn(g, hp[t]));
         }
       }
     }
-    if (k == 0 && dh0 != nullptr && live) dh0[state] = __fmul_rn(av[0], g);
+    if (k == 0 && dh0 != nullptr && live) dh0[state] = __fmul_rn(c.a[0], g);
   }
 }
 
 template <typename T>
 int launch_bwd(const float* a, const T* u, const float* h0, const T* dh, const float* dh_last,
-               const float* carries, T* du, float* da, float* dh0, int B, int S, int L,
-               void* stream) {
-  const dim3 grid((L + 31) / 32, B);
-  rglru_bwd_kernel<T><<<grid, kBwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, u, h0, dh, dh_last, carries, du, da, dh0, S, L);
+               const float* carries, T* du, float* da, float* dh0, unsigned long long* slots,
+               unsigned epoch, int B, int S, int L, void* stream) {
+  const int n_tiles = (S + kSteps - 1) / kSteps;
+  const int n_chunks = (n_tiles + kBwdChunkTiles - 1) / kBwdChunkTiles;
+  const int blocks = n_chunks * B * ((L + 31) / 32);
+  if (blocks == 0) return 0;
+  rglru_bwd_kernel<T><<<blocks, kBwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, u, h0, dh, dh_last, carries, du, da, dh0, slots, epoch, S, L, n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -292,6 +407,9 @@ extern "C" {
 
 // Steps a tile, for the tests that cut sequences at the tile edges.
 int rglru_tile_steps() { return kSteps; }
+
+// Tiles a chunk of the backward, which sizes its carry words.
+int rglru_bwd_chunk_tiles() { return kBwdChunkTiles; }
 
 int rglru_fwd(const float* a, const float* b, float* h, float* h_last, int B,
               int S, int L, void* stream) {
@@ -313,15 +431,24 @@ int rglru_scan(const float* a, const void* u, const float* h0, void* h,
 
 // The gradient of `rglru_scan`: u, dh and du in u's type (`u_bf16` as
 // above); a, carries and da float32; h0, dh_last and dh0 float32 or null.
+// The sequence is cut into chunks of rglru_bwd_chunk_tiles() tiles, one
+// block each per channel group; `slots` holds n_chunks * B * ceil(L / 32)
+// * 32 64-bit words, which only words tagged with `epoch` are read from, so
+// they need no clearing between calls as long as each call takes a new
+// epoch.
 int rglru_scan_bwd(const float* a, const void* u, const float* h0, const void* dh,
                    const float* dh_last, const float* carries, void* du, float* da,
-                   float* dh0, int B, int S, int L, int u_bf16, void* stream) {
+                   float* dh0, void* slots, unsigned epoch, int B, int S, int L,
+                   int u_bf16, void* stream) {
   using bf16 = __nv_bfloat16;
+  auto* sl = static_cast<unsigned long long*>(slots);
   if (u_bf16)
     return launch_bwd<bf16>(a, static_cast<const bf16*>(u), h0, static_cast<const bf16*>(dh),
-                            dh_last, carries, static_cast<bf16*>(du), da, dh0, B, S, L, stream);
+                            dh_last, carries, static_cast<bf16*>(du), da, dh0, sl, epoch, B, S,
+                            L, stream);
   return launch_bwd<float>(a, static_cast<const float*>(u), h0, static_cast<const float*>(dh),
-                           dh_last, carries, static_cast<float*>(du), da, dh0, B, S, L, stream);
+                           dh_last, carries, static_cast<float*>(du), da, dh0, sl, epoch, B, S,
+                           L, stream);
 }
 
 }  // extern "C"

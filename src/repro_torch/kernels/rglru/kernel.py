@@ -14,7 +14,13 @@ backward kernel:
   ([B, ceil(S / 16), L], a sixteenth of h), which the backward needs.
 - ``rglru_scan_bwd`` is its gradient (``rglru_bwd_kernel``): du in u's
   type, da and dh0 in float32, from the saved carries and the cotangents
-  of h and h_last.
+  of h and h_last.  The sequence is cut into chunks of
+  ``BWD_CHUNK_TILES`` tiles (:func:`bwd_chunks`), one block each per group
+  of 32 channels; a chunk hands its carry to the one before it through a
+  64-bit word tagged with the call's epoch, in a buffer kept per stream
+  and zeroed once, when it is made.  The epoch is the host's, passed with
+  each launch, so the backward refuses to be captured in a CUDA graph:
+  every replay would reuse one epoch.
 
 Each takes the plain version in ``ref.py`` for CPU tensors (or under
 ``KernelMode.TORCH``) and launches the kernel for CUDA tensors; under
@@ -47,6 +53,9 @@ from repro_torch.kernels.rglru import ref
 
 SOURCES = (pathlib.Path(__file__).parent / "csrc" / "rglru.cu",)
 LIB_NAME = "rglru"
+TILE_STEPS = 16          # kSteps of csrc/rglru.cu
+BWD_CHUNK_TILES = 16     # kBwdChunkTiles: 8 warps a block, 2 tiles a warp
+_SLOTS: dict = {}        # (device, stream) -> [slots, calls]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,10 +68,12 @@ def library() -> ctypes.CDLL:
     if fresh:
         lib.rglru_fwd.argtypes = [_P] * 4 + [_I] * 3 + [_P]
         lib.rglru_scan.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-        lib.rglru_scan_bwd.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.rglru_scan_bwd.argtypes = ([_P] * 10 + [ctypes.c_uint]
+                                       + [_I] * 4 + [_P])
         lib.rglru_tile_steps.argtypes = []
+        lib.rglru_bwd_chunk_tiles.argtypes = []
         for fn in (lib.rglru_fwd, lib.rglru_scan, lib.rglru_scan_bwd,
-                   lib.rglru_tile_steps):
+                   lib.rglru_tile_steps, lib.rglru_bwd_chunk_tiles):
             fn.restype = _I
     return lib
 
@@ -70,6 +81,30 @@ def library() -> ctypes.CDLL:
 def tile_steps() -> int:
     """Steps a tile of the kernel (``kSteps`` of ``csrc/rglru.cu``)."""
     return library().rglru_tile_steps()
+
+
+def bwd_chunks(S: int) -> list:
+    """The backward's chunks as step ranges [lo, hi), from the last one,
+    the order in which the carry passes: each starts at a tile edge and
+    holds ``BWD_CHUNK_TILES`` tiles of ``TILE_STEPS`` steps (the one at the
+    end of the sequence, listed first, may hold fewer steps)."""
+    n_tiles = -(-S // TILE_STEPS)
+    step = BWD_CHUNK_TILES * TILE_STEPS
+    return [(lo, min(lo + step, S))
+            for lo in reversed(range(0, n_tiles * TILE_STEPS, step))]
+
+
+def _slots(dev: torch.device, n: int):
+    """The carry words of PyTorch's stream on ``dev`` (at least ``n``,
+    zeroed when made) and this call's epoch, never 0."""
+    key = (dev.index, build.stream(dev))
+    got = _SLOTS.get(key)
+    if got is None or got[0].numel() < n:
+        got = [torch.zeros((max(n, 1),), dtype=torch.int64, device=dev),
+               0 if got is None else got[1]]
+        _SLOTS[key] = got
+    got[1] += 1
+    return got[0], (got[1] - 1) % 0xFFFFFFFF + 1
 
 
 def rglru_call(a: torch.Tensor, b: torch.Tensor, *,
@@ -162,11 +197,16 @@ def rglru_scan_bwd(u: torch.Tensor, a: torch.Tensor,
     float32, dh0 float32 or None without ``h0``); see
     ``ref.rglru_bwd_ref``.  The kernel recomputes h within each tile from
     ``carries``, the forward's (``rglru_scan(..., save_carries=True)``),
-    so its h is the forward's float32 h."""
+    so its h is the forward's float32 h.  Not to be captured in a CUDA
+    graph (see above): it raises while the current stream captures."""
     tensors = (u, a, dh) + tuple(t for t in (h0, dh_last) if t is not None)
     if not use_kernel(mode, *tensors):
         return ref.rglru_bwd_ref(u, a, h0, dh, dh_last)
     _check_scan(u, a, h0)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("rglru_scan_bwd takes a new epoch from the host "
+                           "each call, so it cannot be captured in a CUDA "
+                           "graph")
     Bsz, S, L = u.shape
     lib = library()
     n_tiles = -(-S // lib.rglru_tile_steps())
@@ -188,10 +228,13 @@ def rglru_scan_bwd(u: torch.Tensor, a: torch.Tensor,
     du = torch.empty_like(u)
     da = torch.empty_like(a)
     dh0 = None if h0 is None else torch.empty_like(h0)
+    n_chunks = -(-n_tiles // lib.rglru_bwd_chunk_tiles())
+    slots, epoch = _slots(u.device, n_chunks * Bsz * -(-L // 32) * 32)
     code = lib.rglru_scan_bwd(
         a.data_ptr(), u.data_ptr(), _ptr(h0), dh.data_ptr(), _ptr(dh_last),
-        carries.data_ptr(), du.data_ptr(), da.data_ptr(), _ptr(dh0), Bsz, S,
-        L, int(u.dtype == torch.bfloat16), build.stream(u.device))
+        carries.data_ptr(), du.data_ptr(), da.data_ptr(), _ptr(dh0),
+        slots.data_ptr(), epoch, Bsz, S, L, int(u.dtype == torch.bfloat16),
+        build.stream(u.device))
     build.check(code, "rglru_scan_bwd")
     rglru_scan_bwd.launches += 1
     return du, da, dh0

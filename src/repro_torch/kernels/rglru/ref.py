@@ -14,6 +14,10 @@
 - :func:`rglru_bwd_ref` is the gradient of the model's entry (``h0``
   folded into the first step) in explicit formulas: the CPU path of
   ``kernel.rglru_scan_bwd`` and the yardstick of its CUDA kernel.
+- :func:`rglru_bwd_tiled_ref` computes the backward's gradient scan in the
+  CUDA kernel's order, tile by tile or cut into chunks as the kernel's
+  blocks take it; the tests use it to check that the chunks change no
+  bit.
 """
 from __future__ import annotations
 
@@ -136,3 +140,64 @@ def rglru_bwd_ref(u: torch.Tensor, a: torch.Tensor,
     g = torch.flip(g_rev, (1,))
     dh0 = None if h0 is None else af[:, 0] * g[:, 0]
     return g.to(u.dtype), g * h_prev, dh0
+
+
+def _bwd_map(ac: torch.Tensor, gc: torch.Tensor):
+    """A tile's map x -> A x + B of the gradient x arriving from its right
+    (B = a_{t0} g_{t0} from x = 0), as the kernel reduces it: ac, gc [B, n,
+    L] float32."""
+    n = ac.shape[1]
+    A, G = ac[:, n - 1].clone(), gc[:, n - 1]
+    for t in range(n - 2, -1, -1):
+        A = A * ac[:, t]
+        G = _fma(ac[:, t + 1], G, gc[:, t])
+    return A, ac[:, 0] * G
+
+
+def _bwd_tile_g(ac: torch.Tensor, gc: torch.Tensor, x: torch.Tensor):
+    """g over a tile from the gradient x arriving from its right."""
+    n = ac.shape[1]
+    g = gc[:, n - 1] + x
+    out = [g]
+    for t in range(n - 2, -1, -1):
+        g = _fma(ac[:, t + 1], g, gc[:, t])
+        out.append(g)
+    return torch.stack(out[::-1], dim=1)
+
+
+def rglru_bwd_tiled_ref(a: torch.Tensor, dh: torch.Tensor,
+                        dh_last: Optional[torch.Tensor] = None, *, steps: int,
+                        chunk_tiles: Optional[int] = None) -> torch.Tensor:
+    """g_t = dh_t + a_{t+1} g_{t+1} (g_{S-1} = dh_{S-1} + dh_last) in the
+    order of ``csrc/rglru.cu``'s backward, for tiles of ``steps`` steps:
+    each tile reduced to its map x -> A x + B, the gradient x into tile k
+    composed as x_k = A_{k+1} x_{k+1} + B_{k+1} from the last tile's
+    ``dh_last``, and g sequential within the tile from its x.  Without
+    ``chunk_tiles`` the tiles are walked one at a time from the end; with
+    it, as the kernel's blocks take them: every tile's map first, then each
+    chunk of ``chunk_tiles`` tiles, from the last, runs the carry of the
+    chunk to its right through its maps, then every tile's g.  The two
+    orders perform the same roundings, so they agree bit for bit.  a, dh:
+    [B, S, L]; returns g [B, S, L] float32."""
+    Bsz, S, L = a.shape
+    af, gf = a.float(), dh.float()
+    edges = list(range(0, S, steps))
+    tiles = [(t0, min(t0 + steps, S)) for t0 in edges]
+    x = (torch.zeros((Bsz, L), dtype=torch.float32, device=a.device)
+         if dh_last is None else dh_last.float())
+    g = torch.empty((Bsz, S, L), dtype=torch.float32, device=a.device)
+    if chunk_tiles is None:
+        for t0, t1 in reversed(tiles):
+            g[:, t0:t1] = _bwd_tile_g(af[:, t0:t1], gf[:, t0:t1], x)
+            A, B = _bwd_map(af[:, t0:t1], gf[:, t0:t1])
+            x = _fma(A, x, B)
+        return g
+    maps = [_bwd_map(af[:, t0:t1], gf[:, t0:t1]) for t0, t1 in tiles]
+    x_in = [None] * len(tiles)
+    for c0 in reversed(range(0, len(tiles), chunk_tiles)):
+        for k in reversed(range(c0, min(c0 + chunk_tiles, len(tiles)))):
+            x_in[k] = x
+            x = _fma(maps[k][0], x, maps[k][1])
+    for k, (t0, t1) in enumerate(tiles):
+        g[:, t0:t1] = _bwd_tile_g(af[:, t0:t1], gf[:, t0:t1], x_in[k])
+    return g

@@ -1,12 +1,13 @@
 """Timing of kernel calls on the card, shared by ``chip_smoke.py``, the card
 tests and the kernels' bench scripts (``crossbar_dispatch/row_bench.py``,
 ``crossbar_dispatch/plan_bench.py``, ``rglru/scan_bench.py``,
-``hamming/map_bench.py``).
+``hamming/map_bench.py``, ``flash_attention/bwd_bench.py``).
 
 * :func:`event_ms`: the median time of one call between two CUDA events,
   the card idle before each call, so the host's path to the launch counts.
 * :func:`device_profile`: the device time of what a call launches, with
   the kernels and memsets a call, from ``torch.profiler``.
+* :func:`kernel_split`: the same device time kernel by kernel.
 * :func:`host_us`: host microseconds a call, enqueued while the card is
   busy, so no call waits for the card.
 
@@ -15,6 +16,7 @@ another tree's package can load it from its own tree.
 """
 from __future__ import annotations
 
+import re
 import statistics
 import time
 from typing import Optional
@@ -25,6 +27,7 @@ HOST_CALLS, HOST_CHUNK = 1000, 100
 SLEEP_CYCLES = 20_000_000          # some 10 ms of a busy card per chunk
 PROFILE_TRIES = 5
 PROFILE_PAUSE_S = 0.5                # between windows that lost events
+SPLIT_SLEEP_CYCLES = 2_000_000       # about a millisecond of the card
 
 
 def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -59,23 +62,13 @@ def device_profile(fn, calls: int = 20, kernel: Optional[str] = None
     events is followed by a pause before the next: on the card, windows
     taken back to back could lose events three times in a row, where one
     taken after a pause did not."""
-    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     for attempt in range(PROFILE_TRIES):
         if attempt:
             time.sleep(PROFILE_PAUSE_S)
-        got = []
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                     on_trace_ready=lambda p: got.extend(p.events())) as prof:
-            for _ in range(2):
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
         # the step's own annotation shows on the device timeline too
-        events = [e for e in got
+        events = [e for e in _window(fn, calls, lambda p: p.events())
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and not e.name.startswith("ProfilerStep")]
         if kernel is not None:
@@ -98,6 +91,64 @@ def device_profile(fn, calls: int = 20, kernel: Optional[str] = None
             "kernels": (len(events) - len(memsets)) / per,
             "memsets": len(memsets) / per,
             "names": sorted({e.name[:100] for e in events})}
+
+
+def kernel_split(fn, calls: int = 5) -> list:
+    """Device ms a call of each kernel ``fn`` launches and its launches a
+    call (``name``, ``launches_per_call``, ``device_ms``), heaviest first,
+    from the kernel rows of the second of two windows of ``calls`` calls,
+    as :func:`device_profile` reads them.  Each window opens with a sleep
+    kernel of about a millisecond (not reported), since the profiler can
+    drop a window's first events; a window whose kernels do not come a
+    whole number of times a call is taken again after a pause, and after
+    ``PROFILE_TRIES`` windows it raises."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            time.sleep(PROFILE_PAUSE_S)
+        rows = [e for e in _window(fn, calls, lambda p: p.key_averages(),
+                                   SPLIT_SLEEP_CYCLES)
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0
+                and not e.key.startswith("ProfilerStep")
+                and "spin_kernel" not in e.key]   # the sleep kernel
+        if rows and all(e.count % calls == 0 for e in rows):
+            break
+    else:
+        raise RuntimeError(
+            f"torch.profiler gave kernels not a whole number of times in "
+            f"{calls} calls, {PROFILE_TRIES} times: "
+            f"{ {kernel_name(e.key): e.count for e in rows} }")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    return [{"name": kernel_name(e.key), "launches_per_call": e.count // calls,
+             "device_ms": e.self_device_time_total / calls / 1e3}
+            for e in rows]
+
+
+def kernel_name(key: str) -> str:
+    """A kernel's name as the profiler keys it, without its arguments."""
+    return re.split(r"\(", key.replace("(anonymous namespace)::", "")
+                    .removeprefix("void "))[0]
+
+
+def _window(fn, calls: int, read, sleep_cycles: int = 0) -> list:
+    """``read`` of a profile (its events or key averages) of the second of
+    two windows of ``calls`` calls each, the first a warm-up; each window
+    opens with a sleep kernel of ``sleep_cycles`` if there are any."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    got = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: got.extend(read(p))) as prof:
+        for _ in range(2):
+            if sleep_cycles:
+                torch.cuda._sleep(sleep_cycles)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return got
 
 
 def host_us(fn, calls: int = HOST_CALLS, chunk: int = HOST_CHUNK) -> float:

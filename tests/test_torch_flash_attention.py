@@ -257,3 +257,81 @@ def test_head_dim_256_backward_plain_version_matches_jax_vjp(case):
     for name, a, b in zip("qkv", got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_TOL,
                                    rtol=GRAD_TOL, err_msg=f"d{name}")
+
+
+SCHEDULE_CASES = [   # Sq, Sk, G, groups, causal, window, q_offset
+    (4096, 4096, 16, 8, True, 2048, 0),     # RecurrentGemma-9B's train shape
+    (4096, 4096, 16, 2, True, 2048, 0),
+    (300, 300, 2, 8, True, None, 0),        # more groups than heads
+    (130, 258, 16, 3, True, 100, 128),      # uneven groups, q_offset
+    (96, 64, 2, 2, True, 50, 100),          # rows with no live key
+    (333, 333, 4, 4, False, 48, 0),         # a window, not causal
+    (200, 200, 1, 1, False, None, 0),
+]
+
+
+def _live(Sq, Sk, causal, window, q_offset):
+    q = q_offset + np.arange(Sq)[:, None]
+    k = np.arange(Sk)[None, :]
+    live = np.ones((Sq, Sk), bool)
+    if causal:
+        live &= k <= q
+    if window is not None:
+        live &= k > q - window
+    return live
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_d256_dkdv_schedule_covers_every_block_once_heaviest_first(case):
+    """The bf16 backward at head dim 256 launches one dK/dV block per (key
+    tile of 64, head group): the schedule names each exactly once, the
+    groups split the G heads into contiguous runs, every query tile with a
+    live pair of a key tile lies in the range the block walks, and the
+    blocks come heaviest first (heads x query tiles)."""
+    Sq, Sk, G, groups, causal, window, q_offset = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    heads = K.head_groups(G, groups)
+    n = len(heads)
+    assert n == min(groups, G)
+    assert heads[0][0] == 0 and heads[-1][1] == G
+    assert all(lo < hi for lo, hi in heads)
+    assert all(a[1] == b[0] for a, b in zip(heads, heads[1:]))
+    sched = K.dkdv_schedule(Sq, Sk, G, n, **kw)
+    tk, tq = K.D256_KEY_TILE, K.D256_QUERY_TILE
+    n_kt = -(-Sk // tk)
+    assert sorted(sched) == list(range(n_kt * n))
+    live = _live(Sq, Sk, causal, window, q_offset)
+    work = []
+    for entry in sched:
+        kt, grp = divmod(entry, n)
+        lo, hi = K.query_tile_range(Sq, kt * tk, tq=tq, tk=tk, true_k=Sk,
+                                    **kw)
+        seen = {i // tq for i in np.nonzero(
+            live[:, kt * tk:(kt + 1) * tk].any(1))[0]}
+        assert seen <= set(range(lo, hi)), (kt, seen, lo, hi)
+        work.append((heads[grp][1] - heads[grp][0]) * max(hi - lo, 0))
+    assert work == sorted(work, reverse=True)
+
+
+def test_d256_backward_of_head_groups_adds_up_to_the_whole():
+    """The dK/dV partial sums of the bf16 backward at head dim 256, one per
+    head group (the group's query heads alone against the kv head), added
+    in the groups' order, equal the whole backward's dK and dV within 1e-5
+    (float32, the plain version)."""
+    B, S, H, Kv, D = 1, 96, 6, 1, 256
+    rng = np.random.default_rng(3)
+    q, do = (torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
+        np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, Kv, D)).astype(
+        np.float32)) for _ in range(2))
+    kw = dict(causal=True, window=40, q_offset=0)
+    _, dk, dv = ref.attention_bwd_ref(q, k, v, do, **kw)
+    parts = [ref.attention_bwd_ref(q[:, :, lo:hi], k, v, do[:, :, lo:hi],
+                                   **kw)[1:]
+             for lo, hi in K.head_groups(H, 4)]
+    sk, sv = parts[0]
+    for pk, pv in parts[1:]:
+        sk, sv = sk + pk, sv + pv
+    torch.testing.assert_close(sk, dk, atol=GRAD_TOL, rtol=GRAD_TOL)
+    torch.testing.assert_close(sv, dv, atol=GRAD_TOL, rtol=GRAD_TOL)

@@ -59,7 +59,10 @@ float32 kernel followed by the cast, two calls bit-equal, and a call to
 one kernel.  The word-stream kernels are held bit-equal around their
 launch's block.  A backward through SSD, RG-LRU or the head-dim-256 flash
 attention launches its backward kernel and no plain backward, gives the
-same bits twice, and matches the plain backward.
+same bits twice, and matches the plain backward.  The bf16 flash backward
+at head dim 256 (on wgmma) and the RG-LRU backward (in chunks across
+blocks) are also held at their edge shapes, and shown not to depend on the
+order of their blocks or the size of their chunks.
 """
 
 import numpy as np
@@ -1062,6 +1065,170 @@ def test_ssd_backward_kernel_matches_plain_on_card(case):
         assert torch.equal(a, again), name
         assert a.dtype == w.dtype and a.shape == w.shape, name
         assert _rel_l2(a, w) <= tol, (name, _rel_l2(a, w))
+
+
+D256_BWD_CASES = [   # B, Sq, Sk, H, Kv, causal, window, q_offset
+    (1, 300, 300, 2, 2, True, None, 0),      # G = 1, S not a multiple of 64
+    (1, 200, 200, 4, 2, True, 40, 0),        # G = 2, a window below a tile
+    (1, 130, 258, 16, 1, True, 100, 128),    # G = 16, q_offset > 0
+    (2, 200, 200, 4, 2, True, None, 0),      # B = 2, Kv = 2
+    (1, 96, 64, 2, 1, True, 50, 100),        # rows with no live key
+    (1, 333, 333, 4, 1, False, 48, 0),       # a window, not causal
+]
+
+
+def _d256_case(case, seed):
+    B, Sq, Sk, H, Kv, causal, window, q_offset = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").to(  # noqa
+        torch.bfloat16)
+    q, k, v, do = mk(B, Sq, H, 256), mk(B, Sk, Kv, 256), mk(B, Sk, Kv, 256), \
+        mk(B, Sq, H, 256)
+    return q, k, v, do, dict(causal=causal, window=window, q_offset=q_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", D256_BWD_CASES, ids=lambda c: "-".join(
+    map(str, c)))
+def test_flash_d256_wgmma_backward_matches_plain_on_card(case):
+    """The bf16 backward at head dim 256 (dK/dV partials per head group and
+    dQ on wgmma, then their sum) against ``attention_bwd_ref`` and autograd
+    through ``attention_ref``, every gradient within a relative L2 distance
+    of 1e-2; two calls bit-equal; one ``flash_bwd_d256`` launch a call on
+    route "tc".  Rows with no live key get zero gradients (the plain
+    version spreads them uniformly, so their cotangent is zeroed for the
+    comparison)."""
+    _card()
+    q, k, v, do, kw = _d256_case(case, seed=sum(case[:5]))
+    o, lse = FK.flash_fwd(q, k, v, **kw)
+    dead = torch.isinf(lse)                                   # [B, H, Sq]
+    got = []
+    for _ in range(2):
+        before = FK.launch_counts()
+        got.append(FK.flash_bwd(q, k, v, o, lse, do, **kw))
+        after = FK.launch_counts()
+        assert after["flash_bwd_d256_tc"] == before["flash_bwd_d256_tc"] + 1
+    torch.cuda.synchronize()
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+    dq = got[0][0].float().transpose(1, 2)                    # [B, H, Sq, D]
+    assert not dq[dead].any()
+    live_do = do.masked_fill(dead.transpose(1, 2)[..., None], 0)
+    want = fref.attention_bwd_ref(q, k, v, live_do, **kw)
+    want_ag = _autograd_grads(q, k, v, live_do, kw)
+    for name, a, b, c in zip("qkv", got[0], want, want_ag):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if name == "q":   # the plain version's dead rows are not zero
+            a = a.masked_fill(dead.transpose(1, 2)[..., None], 0)
+            b = b.masked_fill(dead.transpose(1, 2)[..., None], 0)
+            c = c.masked_fill(dead.transpose(1, 2)[..., None], 0)
+        assert _rel_l2(a, b) <= REL_L2[torch.bfloat16], (name, _rel_l2(a, b))
+        assert _rel_l2(a, c) <= REL_L2[torch.bfloat16], (name, _rel_l2(a, c))
+
+
+def _autograd_grads(q, k, v, do, kw):
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out = fref.attention_ref(*leaves, **kw)
+        return torch.autograd.grad(out, leaves, do.float())
+
+
+@pytest.mark.cuda
+def test_flash_d256_backward_does_not_depend_on_the_block_order_on_card():
+    """Each dK/dV block writes its head group's partial sums and the sum
+    pass adds the groups in the order 0, 1, ...: launching the blocks in the
+    reverse of the schedule gives the same bits."""
+    _card()
+    case = (1, 700, 700, 16, 1, True, 256, 0)
+    q, k, v, do, kw = _d256_case(case, seed=7)
+    o, lse = FK.flash_fwd(q, k, v, **kw)
+    want = FK.launch_bwd(q, k, v, o, lse, do, kernel="tc", **kw)
+    n = len(FK.head_groups(16))
+    key = (q.device.index, 700, 700, 16, n, True, 256, 0)
+    sched = FK._SCHEDULES[key]
+    assert sched.tolist() == FK.dkdv_schedule(700, 700, 16, n, **kw)
+    sched.copy_(sched.flip(0))
+    try:
+        got = FK.launch_bwd(q, k, v, o, lse, do, kernel="tc", **kw)
+    finally:
+        sched.copy_(sched.flip(0))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+RGLRU_BWD_CASES = [   # B, S, L, dtype, with h0
+    (1, 100, 64, torch.bfloat16, True),     # S below one chunk
+    (2, 1000, 100, torch.bfloat16, True),   # S ragged to tiles and chunks,
+    (1, 1000, 100, torch.float32, False),   # L not a multiple of 32
+    (1, 4096, 4096, torch.bfloat16, False),  # RecurrentGemma-9B's train shape
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RGLRU_BWD_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_rglru_backward_in_chunks_matches_plain_on_card(case):
+    """The RG-LRU backward, its sequence cut into chunks across blocks,
+    against ``rglru_bwd_ref`` and autograd through the plain forward within
+    a relative L2 distance of 1e-2 (bf16) or 1e-5 (float32); two calls
+    bit-equal, the second reading carry words that the first tagged with
+    its epoch."""
+    _card()
+    assert RK.tile_steps() == RK.TILE_STEPS
+    assert RK.library().rglru_bwd_chunk_tiles() == RK.BWD_CHUNK_TILES
+    B, S, L, dtype, with_h0 = case
+    gen = torch.Generator(device="cuda").manual_seed(S + L)
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa
+    a = torch.sigmoid(rn(B, S, L) + 2.0) * 0.98 + 0.01
+    u = (rn(B, S, L) * 0.5).to(dtype)
+    h0 = rn(B, L) * 0.3 if with_h0 else None
+    dh, dhl = rn(B, S, L).to(dtype), rn(B, L)
+    _, _, carries = RK.rglru_scan(u, a, h0, mode=KernelMode.CUDA,
+                                  save_carries=True)
+    got = [RK.rglru_scan_bwd(u, a, h0, dh, dhl, carries, mode=KernelMode.CUDA)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    for other in got[1:]:
+        for x, y in zip(got[0], other):
+            assert (x is None and y is None) or torch.equal(x, y)
+    want = rref.rglru_bwd_ref(u, a, h0, dh, dhl)
+    leaves = [t.detach().requires_grad_() for t in (u, a)] + (
+        [h0.detach().requires_grad_()] if with_h0 else [])
+    with torch.enable_grad():
+        h, h_last = rref.rglru_call_ref(leaves[1], leaves[0].float(),
+                                        leaves[2] if with_h0 else None)
+        ag = torch.autograd.grad((h.to(dtype), h_last), leaves, (dh, dhl))
+    tol = REL_L2[dtype]
+    for name, x, w, c in zip(("du", "da", "dh0"), got[0], want,
+                             (*ag, None)):
+        if name == "dh0" and not with_h0:
+            assert x is None
+            continue
+        assert x.dtype == w.dtype and x.shape == w.shape, name
+        assert _rel_l2(x, w) <= tol, (name, _rel_l2(x, w))
+        assert _rel_l2(x, c) <= tol, (name, _rel_l2(x, c))
+
+
+@pytest.mark.cuda
+def test_rglru_backward_refuses_cuda_graph_capture_on_card():
+    """The RG-LRU backward's carry words are tagged with an epoch the host
+    passes each launch, which a CUDA graph's replays would repeat: capturing
+    a call raises instead of recording it."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.sigmoid(torch.randn(1, 300, 64, generator=gen, device="cuda"))
+    u = torch.randn(1, 300, 64, generator=gen, device="cuda")
+    _, _, carries = RK.rglru_scan(u, a, None, mode=KernelMode.CUDA,
+                                  save_carries=True)
+    dh = torch.randn_like(u)
+    RK.rglru_scan_bwd(u, a, None, dh, None, carries, mode=KernelMode.CUDA)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        with torch.cuda.graph(graph):
+            RK.rglru_scan_bwd(u, a, None, dh, None, carries,
+                              mode=KernelMode.CUDA)
 
 
 # ----------------------------------------------------------------------

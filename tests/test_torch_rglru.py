@@ -26,7 +26,8 @@ from repro.models import rglru as jax_rglru
 from repro_torch.fabric.interface import KernelMode
 from repro_torch.kernels.rglru import kernel as K
 from repro_torch.kernels.rglru.ops import rglru_scan_kernel
-from repro_torch.kernels.rglru.ref import rglru_ref, rglru_tiled_ref
+from repro_torch.kernels.rglru.ref import (rglru_bwd_ref, rglru_bwd_tiled_ref,
+                                         rglru_ref, rglru_tiled_ref)
 from repro_torch.models import rglru as torch_rglru
 
 CASES = [                      # B, S, L, JAX kernel chunk, block_l
@@ -207,3 +208,42 @@ def test_rglru_backward_keeps_the_types():
     du, da, dh0 = K.rglru_scan_bwd(tu, ta, th0, h, h_last)
     assert (du.dtype, da.dtype, dh0.dtype) == (torch.bfloat16, torch.float32,
                                                torch.float32)
+
+
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 100, 128, 255, 256, 257, 511,
+                               512, 513, 1000, 4095, 4096, 4097, 32768])
+def test_rglru_backward_chunks_start_at_tile_edges(S):
+    """The backward's chunks, from the last: contiguous, covering [0, S),
+    each starting at a multiple of ``BWD_CHUNK_TILES`` tiles, only the one
+    at the end of the sequence shorter."""
+    chunks = K.bwd_chunks(S)
+    step = K.BWD_CHUNK_TILES * K.TILE_STEPS
+    assert chunks[0][1] == S and chunks[-1][0] == 0
+    assert all(b[1] == a[0] for a, b in zip(chunks, chunks[1:]))
+    assert all(lo % step == 0 and lo % K.TILE_STEPS == 0 for lo, _ in chunks)
+    assert all(hi - lo == step for lo, hi in chunks[1:])
+    assert 0 < chunks[0][1] - chunks[0][0] <= step
+
+
+@pytest.mark.parametrize("with_dh_last", [False, True])
+@pytest.mark.parametrize("B,S,L", [(1, 1, 3), (2, 100, 33), (1, 1000, 8),
+                                   (1, 2048, 4)])
+def test_rglru_backward_chunked_chain_equals_tile_by_tile(B, S, L,
+                                                          with_dh_last):
+    """The float32 CPU mirror of the backward's gradient scan cut into
+    chunks, as the kernel's blocks take it, equals the tile-by-tile walk
+    bit for bit for every chunk size, and the gradient of the plain
+    backward (``rglru_bwd_ref``'s du in float32) within 1e-5."""
+    a, _, _ = _inputs((B, S, L), seed=5)
+    rng = np.random.default_rng(6)
+    dh = torch.from_numpy(rng.standard_normal((B, S, L)).astype(np.float32))
+    dhl = (torch.from_numpy(rng.standard_normal((B, L)).astype(np.float32))
+           if with_dh_last else None)
+    a = torch.from_numpy(a)
+    tiled = rglru_bwd_tiled_ref(a, dh, dhl, steps=K.TILE_STEPS)
+    for chunk_tiles in (1, 3, 8, K.BWD_CHUNK_TILES, 32):
+        got = rglru_bwd_tiled_ref(a, dh, dhl, steps=K.TILE_STEPS,
+                                  chunk_tiles=chunk_tiles)
+        assert torch.equal(got, tiled), chunk_tiles
+    du, _, _ = rglru_bwd_ref(dh, a, None, dh, dhl)
+    _close(tiled, du.float(), tol=1e-5)
