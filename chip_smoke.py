@@ -39,11 +39,14 @@ Phases, each printing one JSON line with its seconds:
             relative L2, grant counts and drops equal; each impl's ms.
 4. flash    holds the flash-attention forward and backward kernels to
             their plain versions (autograd through ``attention_ref``) at
-            seven shapes (bfloat16 on the tensor-core kernels at head dims
-            128 and 64, a window of 48 keys; float32 on the FMA kernels),
-            and times kernel, plain version,
-            ``scaled_dot_product_attention`` and the FMA kernels on the
-            same bfloat16 inputs at the train shape.
+            ten shapes (bfloat16 on the tensor-core kernels at head dims
+            128 and 64, a window of 48 keys; Whisper-medium's encoder,
+            1,500 frames not causal, and its cross-attention, 4,096
+            queries against 1,500 keys; LLaVA-NeXT-34B's 56 query heads
+            over 8 at S=4096; float32 on the FMA kernels), and times
+            kernel, plain version, ``scaled_dot_product_attention`` and
+            the FMA kernels on the same bfloat16 inputs at the train shape
+            and at the three new ones (the kernels line's ``shapes``).
 5. serve    a full-width Mixtral-8x7B (2 of 32 layers, bf16, random weights
             from a seed) behind ``ElasticServer`` on the ``cuda`` fabric,
             MoE on ``cuda_kernel``: 4 requests, one ``Shell.post(Grow)``
@@ -145,6 +148,33 @@ Phases, each printing one JSON line with its seconds:
             to 2 layers (the hybrid to one group) at S=4096: loss and every
             gradient leaf on the kernels within 1e-4 of the leaf's largest
             value of the plain path.
+8c. serve_encdec, train_encdec, serve_vlm
+            Whisper-medium (24 + 24 layers, 16 heads of 64) whole and
+            LLaVA-NeXT-34B at all 60 layers (68.8 GB of bf16 weights; its
+            parameter count from ``n_params`` beside the bytes), bf16,
+            random weights from the seed, behind ``ElasticServer`` with
+            the serve phase's requests and ``Shell.post(Grow)``, then
+            ``prefill`` at S=4096, B=1 (Whisper against 1,500 frames,
+            LLaVA with 2,880 patches, both from N(0, 0.02)): launches
+            counted over exactly the serve and the prefill, the prefill's
+            flash launches by kind (causal, bidirectional, cross; all on
+            the tensor-core route); the same on the plain path (token
+            streams and port traffic equal, every block within 2e-2
+            relative L2, the last-token logits within 2e-2 or else 3x the
+            same run's one-ulp control, the line naming the limit that
+            held).  The decode state's cross-attention cache stays zero,
+            as in the JAX package, so served Whisper tokens do not depend
+            on the audio.  ``train_encdec``: 3 AdamW steps (lr 1e-3) of
+            the whole Whisper at S=4096 with 1,500 frames under remat
+            "dots", the 3rd loss below the 1st, exactly 72 flash backward
+            launches a step (24 encoder, 24 decoder, 24 cross), then a
+            float32 copy cut to 2 + 2 layers: loss and every gradient leaf
+            within 1e-4 of the leaf's largest value of the plain path.
+            ``serve_vlm.train``: LLaVA cut to 2 of 60 layers (AdamW's
+            moments of all 60 exceed the card), 3 steps at S=4096 with
+            patches at lr 2e-5 (LLaVA-NeXT's published rate; 1e-3
+            overshoots at this width on the plain path too), one flash
+            backward a layer a step (D=128, G=7).
 9. paper_usecase
             the paper's experiments on the port's copy of the hardware
             model (Fig 5, §V-D, §V-E, Fig 6, Table II; model milliseconds
@@ -195,7 +225,8 @@ Phases, each printing one JSON line with its seconds:
 ``--profile`` adds a phase after serving and one after the train steps:
 ``torch.profiler`` over 8 warm decode steps of the served engine and over
 one more train step, one over each recurrent model's S=32768 prefill and
-one over one more step of each recurrent train cell; device time by
+one over one more step of each recurrent train cell, one over each S=4096
+prefill and train step of phase 8c; device time by
 kernel, the device's idle share, and Chrome traces in ``build/profile/``.  ``--seed N`` (default 0) draws every input, weight
 and prompt from another seed.
 
@@ -205,6 +236,7 @@ exits non-zero before it.  Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -511,19 +543,20 @@ class FlashCase:
     def __init__(self, name, B, Sq, Sk, H, Kv, D, dtype, causal, window,
                  gen):
         self.name, self.dtype = name, dtype
-        self.kw = dict(causal=causal, window=window, q_offset=Sk - Sq)
+        q_offset = max(Sk - Sq, 0)   # more queries than keys: cross only
+        self.kw = dict(causal=causal, window=window, q_offset=q_offset)
         mk = lambda *shape: torch.randn(shape, generator=gen,
                                         device="cuda").to(dtype)
         self.q, self.k, self.v = mk(B, Sq, H, D), mk(B, Sk, Kv, D), \
             mk(B, Sk, Kv, D)
         self.do = mk(B, Sq, H, D)
         self.tiles = B * H * flash_live_tiles(Sq, Sk, causal, window,
-                                              Sk - Sq, dtype, D)
+                                              q_offset, dtype, D)
         self.pairs = B * H * flash_live_pairs(Sq, Sk, causal, window,
-                                              Sk - Sq)
+                                              q_offset)
         self.shape = dict(B=B, Sq=Sq, Sk=Sk, H=H, Kv=Kv, D=D,
                           dtype=str(dtype).replace("torch.", ""),
-                          causal=causal, window=window, q_offset=Sk - Sq)
+                          causal=causal, window=window, q_offset=q_offset)
 
     def plain(self):
         """The plain versions, a few kv heads per call (every head is
@@ -579,8 +612,9 @@ class FlashCase:
 
     def timings(self):
         """(kernel, plain, library, bound) ms for forward and backward; the
-        library call is ``scaled_dot_product_attention`` (causal, GQA) in
-        its head-major layout, the same function at the train shape.  For
+        library call is ``scaled_dot_product_attention`` (GQA, causal or
+        not as the case) in its head-major layout, the same function where
+        the window is no narrower than the keys.  For
         bfloat16 also ``fma_ms``: the float32 FMA kernels, which bfloat16
         took before the tensor-core kernels, on the same inputs."""
         from repro_torch.fabric.interface import KernelMode
@@ -600,7 +634,8 @@ class FlashCase:
         out = ref.attention_ref(*leaves, **self.kw)
         hm = [t.transpose(1, 2).contiguous().requires_grad_()
               for t in (q, k, v)]
-        lib_out = F.scaled_dot_product_attention(*hm, is_causal=True,
+        causal = self.kw["causal"]
+        lib_out = F.scaled_dot_product_attention(*hm, is_causal=causal,
                                                  enable_gqa=True)
         do_hm = do.transpose(1, 2).contiguous()
         out_f = {}
@@ -612,8 +647,8 @@ class FlashCase:
                                                            **self.kw),
                              reps=5),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                *[t.detach() for t in hm], is_causal=True, enable_gqa=True),
-                reps=10),
+                *[t.detach() for t in hm], is_causal=causal,
+                enable_gqa=True), reps=10),
             bound_ms=b, bound_by=by)
         if self.dtype == torch.bfloat16:
             out_f["flash_fwd"]["fma_ms"] = time_ms(
@@ -658,9 +693,18 @@ def flash_phase():
         FlashCase("d64", 1, 2048, 2048, 16, 4, 64, bf16, True, None, gen),
         FlashCase("small_window", 1, 2000, 2000, 32, 8, 128, bf16, True, 48,
                   gen),
+        # the encoder-decoder's and the vlm's prefill and train shapes
+        FlashCase("whisper_encoder", 1, 1500, 1500, 16, 16, 64, bf16, False,
+                  None, gen),
+        FlashCase("whisper_cross", 1, ENCDEC_SEQ, 1500, 16, 16, 64, bf16,
+                  False, None, gen),
+        FlashCase("llava_g7", 1, VLM_SEQ, VLM_SEQ, 56, 8, 128, bf16, True,
+                  None, gen),
     ]
     errs = [c.check() for c in cases]
     times = cases[0].timings()
+    times["shapes"] = {c.name: {**c.shape, **c.timings()}
+                       for c in cases[-3:]}
     err = {"flash_fwd": max(e[0] for e in errs),
            "flash_bwd": max(e[1] for e in errs)}
     return err, times
@@ -1903,7 +1947,8 @@ def flash_d256_phase():
     return err, t
 
 
-def recurrent_config(arch, **kw):
+def published_config(arch, **kw):
+    """``arch``'s published config in bf16, with ``kw`` replaced."""
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config(arch), **{"dtype": "bfloat16",
                                                      **kw})
@@ -1955,7 +2000,7 @@ def serve_recurrent_phase(arch, phase, smi):
     check.  Returns the launches."""
     from repro_torch.models.common import tree_leaves
     from repro_torch.shell.server import ModelEngine
-    cfg = recurrent_config(arch)
+    cfg = published_config(arch)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, PROMPT_LEN).astype(np.int32)
                for _ in range(4)]
@@ -2023,9 +2068,10 @@ def serve_recurrent_phase(arch, phase, smi):
         ref_logits = plain.model.prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         plain_prefill_s = time.perf_counter() - t1
-        control_name, control = rounding_controls(plain.model, params,
-                                                  tokens, ref_logits)
-        blocks = blockwise_rel_l2(model, plain.model, params, tokens)
+        control_name, control = rounding_controls(
+            plain.model, params, {"tokens": tokens}, ref_logits)
+        blocks = blockwise_rel_l2(model, plain.model, params,
+                                  {"tokens": tokens})
     rel = rel_l2(logits.float(), ref_logits.float())
     finite = bool(torch.isfinite(logits).all())
     ok = (same_tokens and same_traffic and finite
@@ -2052,32 +2098,59 @@ def serve_recurrent_phase(arch, phase, smi):
     return launches
 
 
-def blockwise_rel_l2(model, plain_model, params, tokens):
+def blockwise_rel_l2(model, plain, params, batch):
     """Every block of the backbone, on the kernel path and on the plain
-    path, fed the same input (the plain path's hidden state): the relative
-    L2 distance of the two blocks' contributions (output minus input), one
-    per block.  This holds every kernel call of the full-depth prefill at
-    its real shape without the divergence that the random model's depth
-    adds to the end-to-end logits (see ``rounding_controls``)."""
-    x = model._inputs_embed(params, {"tokens": tokens})
-    S = tokens.shape[1]
+    path, fed the same input (the plain path's hidden state; an
+    ``EncDecLM``'s decoder reads the plain path's encoder output): the
+    relative L2 distance of the two blocks' contributions (output minus
+    input), one per block, an encoder's first.  This holds every kernel
+    call of the full-depth prefill at its real shape without the divergence
+    that the random model's depth adds to the end-to-end logits (see
+    ``rounding_controls``)."""
+    from repro_torch.models.common import rms_norm
+    cfg = model.cfg
+    S = batch["tokens"].shape[1]
+    pos = torch.arange(S, device=model.device)[None, :]
     out = []
-    for blk, plain_blk in zip(model.blocks(params, S),
-                              plain_model.blocks(params, S)):
-        y, y_plain = blk(x), plain_blk(x)
-        out.append(rel_l2((y.float() - x.float()),
-                          (y_plain.float() - x.float())))
-        x = y_plain
+
+    def run(pairs, x):
+        for fn, plain_fn in pairs:
+            y, y_plain = fn(x), plain_fn(x)
+            out.append(rel_l2(y.float() - x.float(),
+                              y_plain.float() - x.float()))
+            x = y_plain
+        return x
+
+    if cfg.family == "encdec":
+        x = batch["frames"].to(model.dtype)
+        fpos = torch.arange(x.shape[1], device=model.device)[None, :]
+        x = run([(functools.partial(model._enc_block, lp, positions=fpos),
+                  functools.partial(plain._enc_block, lp, positions=fpos))
+                 for lp in params["enc_layers"]], x)
+        enc = rms_norm(x, params["enc_norm"], cfg.norm_eps)
+        run([(functools.partial(model._dec_block, lp, enc=enc,
+                                positions=pos),
+              functools.partial(plain._dec_block, lp, enc=enc,
+                                positions=pos))
+             for lp in params["dec_layers"]],
+            model._embed(params, batch["tokens"]))
+    elif hasattr(model, "blocks"):
+        run(zip(model.blocks(params, S), plain.blocks(params, S)),
+            model._inputs_embed(params, batch))
+    else:
+        dense = lambda m, lp: lambda x: m._block(lp, x, pos, 1024)[0]  # noqa: E731
+        run([(dense(model, lp), dense(plain, lp))
+             for lp in params["layers"]], model._inputs_embed(params, batch))
     return out
 
 
-def rounding_controls(plain_model, params, tokens, ref_logits):
+def rounding_controls(plain_model, params, batch, ref_logits):
     """How far the plain path's own last-token logits move under a
     difference of the size of bf16 rounding, the scale of divergence that
     the random model's depth gives any two computations that round
     differently.  Returns (name, relative L2): for the SSM ``other_chunk``,
     the plain SSD scan at chunk 128 instead of 256 (the same function
-    summed in another order, as the kernel sums it); for the hybrid
+    summed in another order, as the kernel sums it); for the other families
     ``one_ulp``, every element of the last token's embedding row moved by
     one bf16 ulp (restored after)."""
     cfg = plain_model.cfg
@@ -2086,12 +2159,11 @@ def rounding_controls(plain_model, params, tokens, ref_logits):
             cfg, ssm=dataclasses.replace(cfg.ssm, chunk=cfg.ssm.chunk // 2)),
             device=plain_model.device)
         return "other_chunk", rel_l2(
-            other.prefill(params, {"tokens": tokens}).float(),
-            ref_logits.float())
-    bits = params["embed"][int(tokens[0, -1])].view(torch.int16)
+            other.prefill(params, batch).float(), ref_logits.float())
+    bits = params["embed"][int(batch["tokens"][0, -1])].view(torch.int16)
     bits += 1
     try:
-        nudged = plain_model.prefill(params, {"tokens": tokens})
+        nudged = plain_model.prefill(params, batch)
     finally:
         bits -= 1
     return "one_ulp", rel_l2(nudged.float(), ref_logits.float())
@@ -2109,7 +2181,7 @@ def recurrent_f32_check(arch, phase):
     from repro_torch.shell.server import ModelEngine
     t0 = time.perf_counter()
     layers = 3 if arch == "recurrentgemma_9b" else 2
-    cfg = recurrent_config(arch, n_layers=layers, dtype="float32")
+    cfg = published_config(arch, n_layers=layers, dtype="float32")
     engine = ModelEngine(cfg, max_len=RECURRENT_F32_SEQ, seed=SEED + 1)
     model, params = engine.model, engine.params
     plain = type(model)(dataclasses.replace(cfg, kernel_mode="torch"))
@@ -2421,7 +2493,7 @@ def recurrent_train_phase(arch, phase, smi):
     from repro_torch.models.lm import build_model
     from repro_torch.optim.adamw import AdamW
     t0 = time.perf_counter()
-    cfg = recurrent_config(arch, n_layers=TRAIN_LAYERS[arch])
+    cfg = published_config(arch, n_layers=TRAIN_LAYERS[arch])
     if cfg.remat != "dots":
         raise AssertionError(f"{arch} does not default to remat dots")
     model = build_model(cfg)
@@ -2500,23 +2572,33 @@ def recurrent_train_phase(arch, phase, smi):
 
 def recurrent_train_f32_check(arch, phase):
     """A float32 copy cut to 2 layers (the hybrid to one group, 3 blocks)
-    at S=4096, TF32 off: the loss and every gradient leaf on the kernels
-    within ``F32_REL`` of the leaf's largest value of the plain path (the
-    same arithmetic summed in other orders), every leaf nonzero."""
+    at S=4096: ``train_f32_check``."""
     from repro_torch.data.pipeline import synthetic_batch
+    cfg = published_config(arch, n_layers=TRAIN_F32_LAYERS[arch],
+                           dtype="float32")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        SEED, 1, 0, 1, 1, TRAIN_SEQ, cfg.vocab).items()}
+    flash = ("flash_fwd_d256", "flash_bwd_d256") if cfg.family == "hybrid" \
+        else ()
+    train_f32_check(phase, cfg, batch, TRAIN_RECURRENT_KERNELS[arch], flash)
+
+
+def train_f32_check(phase, cfg, batch, path, flash=()):
+    """The float32 model ``cfg`` on ``batch``, TF32 off: the loss and every
+    gradient leaf on the kernels within ``F32_REL`` of the leaf's largest
+    value of the plain path (the same arithmetic summed in other orders),
+    every leaf nonzero, the kernels ``path`` launched on the kernel path
+    and none on the plain one, and the flash wrappers ``flash`` on the FMA
+    route only."""
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.lm import build_model
     t0 = time.perf_counter()
-    cfg = recurrent_config(arch, n_layers=TRAIN_F32_LAYERS[arch],
-                           dtype="float32")
     model = build_model(cfg)
     plain = type(model)(dataclasses.replace(cfg, kernel_mode="torch"))
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=model.device)
     gen.manual_seed(SEED + 1)
     params = model.init(gen)
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
-    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
-        SEED, 1, 0, 1, 1, TRAIN_SEQ, cfg.vocab).items()}
     out = {}
     for name, m in (("kernel", model), ("plain", plain)):
         _reset_counts()
@@ -2528,8 +2610,8 @@ def recurrent_train_f32_check(arch, phase):
     (lk, gk, ck), (lp, gp, cp) = out["kernel"], out["plain"]
     rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(gk, gp)]
     nonzero = all(float(a.abs().max()) > 0 for a in gk)
-    path = TRAIN_RECURRENT_KERNELS[arch]
-    emit(f"{phase}.f32_check", layers=cfg.n_layers, seq=TRAIN_SEQ,
+    emit(f"{phase}.f32_check", layers=cfg.n_layers,
+         encoder_layers=cfg.n_encoder_layers, seq=batch["tokens"].shape[1],
          params=sum(p.numel() for p in leaves), loss_kernel=lk,
          loss_plain=lp, grad_leaves=len(rel), grad_rel_max=max(rel),
          tol=F32_REL, grads_nonzero=nonzero, kernel_launches=ck,
@@ -2539,11 +2621,292 @@ def recurrent_train_f32_check(arch, phase):
             and not any(cp.values())):
         raise AssertionError(f"{phase}: float32 loss or gradients disagree "
                              f"with the plain path")
-    if cfg.family == "hybrid":
-        check_flash_route(ck, "float32", f"{phase}.f32_check",
-                          ("flash_fwd_d256", "flash_bwd_d256"))
+    if flash:
+        check_flash_route(ck, "float32", f"{phase}.f32_check", flash)
     del out, gk, gp, params, leaves, model, plain
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
+# the encoder-decoder (Whisper-medium) and the vision-language model
+# (LLaVA-NeXT-34B): serve, prefill and train
+# ----------------------------------------------------------------------
+# Whisper's config names no decoder length: its decoder takes train_4k's
+# 4,096 tokens against the 1,500 encoder frames
+ENCDEC_SEQ = TRAIN_SEQ
+VLM_SEQ = TRAIN_SEQ          # the first 2,880 positions are patches
+VLM_TRAIN_LAYERS = 2         # of 60: AdamW's float32 moments of all 60
+                             # would take 275 GB
+ENCDEC_F32_LAYERS = 2        # encoder and decoder layers of the f32 check
+INPUT_STD = 0.02             # frames and patches, as the JAX package's tests
+# LLaVA-NeXT's published learning rate for its LLM in fine-tuning: at
+# d = 7168 lr 1e-3 overshoots by the 3rd step on the plain path as well
+# (``repro_torch.launch.loss_seeds --arch llava_next_34b``; PERF.md)
+VLM_TRAIN_LR = 2e-5
+FAMILY_PHASE_KERNELS = ("flash_fwd", "flash_bwd")
+
+
+def family_input(cfg, rng):
+    """The encoder-decoder's frames [1, F, d] or the vlm's patches
+    [1, Pn, d], drawn from N(0, 0.02) with ``rng``, in the model's type on
+    the card."""
+    from repro_torch.models.common import dtype_of
+    name, rows = {"encdec": ("frames", cfg.encoder_len),
+                  "vlm": ("patches", cfg.n_vision_patches)}[cfg.family]
+    x = rng.normal(0, INPUT_STD, (1, rows, cfg.d_model)).astype(np.float32)
+    return {name: torch.from_numpy(x).cuda().to(dtype_of(cfg.dtype))}
+
+
+class AttentionKinds:
+    """While active, counts the flash forward launches of every
+    ``attention_prefill`` call by kind and route: ``causal``,
+    ``bidirectional`` (not causal, Sq = Sk: the encoder) and ``cross`` (not
+    causal, Sq != Sk).  The models reach ``attention_prefill`` through the
+    module, so the count wraps it there; the wrappers' own counts are
+    untouched."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import kernel as FK
+        from repro_torch.models import attention as A
+        self.calls = {k: {"calls": 0, "tc": 0, "fma": 0}
+                      for k in ("causal", "bidirectional", "cross")}
+        inner = self._inner = A.attention_prefill
+
+        def counted(q, k, v, *, causal=True, **kw):
+            before = FK.launch_counts()
+            out = inner(q, k, v, causal=causal, **kw)
+            after = FK.launch_counts()
+            kind = "causal" if causal else (
+                "bidirectional" if q.shape[1] == k.shape[1] else "cross")
+            c = self.calls[kind]
+            c["calls"] += 1
+            for r in ("tc", "fma"):
+                c[r] += after[f"flash_fwd_{r}"] - before[f"flash_fwd_{r}"]
+            return out
+
+        A.attention_prefill = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as A
+        A.attention_prefill = self._inner
+        return False
+
+
+def serve_family_phase(arch, phase, smi):
+    """A public model at its published widths (Whisper-medium whole,
+    LLaVA-NeXT-34B at all 60 layers), bf16, random weights from the seed,
+    behind ``ElasticServer`` on the ``cuda`` fabric with the serve phase's
+    requests and ``Shell.post(Grow)``; then ``prefill`` at S=4096, B=1 with
+    1,500 frames or 2,880 patches from N(0, 0.02).  Launches are counted
+    over exactly the serve and the prefill, and the prefill's flash
+    launches by kind (``AttentionKinds``).  Then the same on the plain
+    path: token streams and port traffic equal, every block within
+    ``PREFILL_REL`` (``blockwise_rel_l2``), and the last-token logits
+    within ``PREFILL_REL``, or else within ``PREFILL_CONTROL_FACTOR`` times
+    the same run's one-ulp control (``rounding_controls``); the line names
+    the limit that held.  Returns the launches."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.shell.server import ModelEngine
+    cfg = published_config(arch)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, PROMPT_LEN).astype(np.int32)
+               for _ in range(4)]
+    t0 = time.perf_counter()
+    engine = ModelEngine(cfg, max_len=PROMPT_LEN + MAX_NEW, seed=SEED)
+    torch.cuda.synchronize()
+    model, params = engine.model, engine.params
+    n_params = model.n_params()
+    held = sum(p.numel() for p in tree_leaves(params))
+    emit(f"{phase}.model", name=cfg.name, family=cfg.family,
+         layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.hd, n_params=n_params, params_held=held,
+         param_bytes=held * 2, param_gb=held * 2 / 1e9,
+         memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         init_seconds=time.perf_counter() - t0)
+    if n_params != held:
+        raise AssertionError(f"n_params {n_params} but {held} held")
+    seq = ENCDEC_SEQ if cfg.family == "encdec" else VLM_SEQ
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, seq)).astype(np.int32)).cuda(),
+        **family_input(cfg, rng)}
+    engine.prefill(prompts[0])               # warm-up (cuBLAS, allocator)
+    with torch.no_grad():
+        model.prefill(params, {k: v[:, :1024] if k == "tokens" else v
+                               for k, v in batch.items()})
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    server, shell, wall = serve(engine, "cuda", prompts)
+    serve_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with torch.no_grad(), AttentionKinds() as kinds:
+        logits = model.prefill(params, batch)
+        torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    prefill_peak = torch.cuda.max_memory_allocated()
+    launches = _counts()
+    comps = sorted(server.completions, key=lambda c: c.rid)
+    n_tok = sum(len(c.tokens) for c in comps)
+    emit(phase, smi=smi, model=cfg.name, requests=len(comps),
+         ticks=server.tick, wall_s=wall, tokens=n_tok,
+         tokens_per_s=n_tok / wall, serve_max_memory_allocated=serve_peak,
+         serve_max_memory_gb=serve_peak / 1e9, prefill_seq=seq,
+         prefill_inputs={k: list(v.shape) for k, v in batch.items()},
+         prefill_s=prefill_s, prefill_tokens_per_s=seq / prefill_s,
+         prefill_max_memory_allocated=prefill_peak,
+         prefill_max_memory_gb=prefill_peak / 1e9,
+         flash_by_kind=kinds.calls,
+         **({"cross_cache": "zero, as in the JAX package: served tokens "
+                            "do not depend on the frames"}
+            if cfg.family == "encdec" else {}),
+         completions=[{"rid": c.rid, "entry_port": c.entry_port,
+                       "tokens": c.tokens} for c in comps],
+         port_traffic=server.port_traffic.tolist(), kernels=launches,
+         seconds=time.perf_counter() - t0)
+    if len(comps) != 4 or any(len(c.tokens) != MAX_NEW for c in comps):
+        raise AssertionError("not every request completed")
+    if sorted({c.entry_port for c in comps}) != [0, 1]:
+        raise AssertionError("the Grow did not re-route new admissions")
+    want = {"causal": cfg.n_layers, "bidirectional": cfg.n_encoder_layers,
+            "cross": cfg.n_layers if cfg.family == "encdec" else 0}
+    got = {k: c["tc"] for k, c in kinds.calls.items()}
+    if got != want or any(c["fma"] for c in kinds.calls.values()):
+        raise AssertionError(f"{phase}: flash launches by kind {kinds.calls}"
+                             f", wanted {want} on the tc route")
+    if launches["flash_fwd"] != sum(want.values()):
+        raise AssertionError(f"{phase}: kernels {launches}")
+    check_flash_route(launches, cfg.dtype, phase, ("flash_fwd",))
+
+    # the same requests and the same prefill on the plain path
+    t0 = time.perf_counter()
+    plain = ModelEngine(dataclasses.replace(cfg, kernel_mode="torch"),
+                        max_len=PROMPT_LEN + MAX_NEW, params=params)
+    ref_server, _, ref_wall = serve(plain, "reference", prompts)
+    ref_comps = sorted(ref_server.completions, key=lambda c: c.rid)
+    same_tokens = [c.tokens for c in comps] == [c.tokens for c in ref_comps]
+    same_traffic = (server.port_traffic.tolist()
+                    == ref_server.port_traffic.tolist())
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        ref_logits = plain.model.prefill(params, batch)
+        torch.cuda.synchronize()
+        plain_prefill_s = time.perf_counter() - t1
+        control_name, control = rounding_controls(plain.model, params,
+                                                  batch, ref_logits)
+        blocks = blockwise_rel_l2(model, plain.model, params, batch)
+    rel = rel_l2(logits.float(), ref_logits.float())
+    finite = bool(torch.isfinite(logits).all())
+    limit = ("rel_l2" if rel <= PREFILL_REL else
+             "control" if rel <= PREFILL_CONTROL_FACTOR * control else None)
+    ok = (same_tokens and same_traffic and finite and limit is not None
+          and max(blocks) <= PREFILL_REL
+          and tuple(logits.shape) == (1, cfg.vocab_padded))
+    emit(f"{phase}.check", plain_wall_s=ref_wall, same_tokens=same_tokens,
+         same_port_traffic=same_traffic, prefill_finite=finite,
+         prefill_shape=list(logits.shape), prefill_rel_l2=rel,
+         prefill_tol=PREFILL_REL, control=control_name,
+         control_rel_l2=control,
+         control_tol=PREFILL_CONTROL_FACTOR * control, limit_held=limit,
+         block_rel_l2_max=max(blocks), block_rel_l2=blocks,
+         block_tol=PREFILL_REL, plain_prefill_s=plain_prefill_s,
+         seconds=time.perf_counter() - t0)
+    if not ok:
+        raise AssertionError(f"{phase} disagrees with the plain path")
+    if "--profile" in sys.argv[1:]:
+        with torch.no_grad():
+            profile(f"{phase}.prefill_profile",
+                    lambda: model.prefill(params, batch), 1)
+    del engine, plain, model, params, server, ref_server, logits, ref_logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_family_phase(arch, phase, smi, layers=None, lr=TRAIN_LR):
+    """``make_train_step`` with AdamW (lr 1e-3 unless ``lr`` says) on a
+    public model at its
+    published widths (``layers`` of them, all by default), bf16, remat
+    "dots", random weights from the seed: 3 steps on one batch of
+    ``train_4k`` cut to B=1 (S=4096) with 1,500 frames or 2,880 patches.
+    Losses finite and the 3rd below the 1st; exactly one flash backward a
+    step per attention call (Whisper: 24 encoder, 24 decoder and 24 cross;
+    LLaVA: one a layer), all on the tensor-core route.  Returns the steps'
+    launches."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adamw import AdamW
+    t0 = time.perf_counter()
+    cfg = published_config(arch, **({"n_layers": layers} if layers else {}))
+    if cfg.remat != "dots":
+        raise AssertionError(f"{arch} does not default to remat dots")
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = model.init(gen)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        SEED, 0, 0, 1, 1, TRAIN_SEQ, cfg.vocab).items()}
+    batch.update(family_input(cfg, np.random.default_rng(SEED)))
+    opt = AdamW(lr=lr)
+    step = make_train_step(model, opt)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss))
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    calls = cfg.n_encoder_layers + cfg.n_layers * (
+        2 if cfg.family == "encdec" else 1)
+    want = {"flash_bwd": calls * TRAIN_STEPS,
+            "flash_bwd_tc": calls * TRAIN_STEPS}
+    emit(phase, smi=smi, model=cfg.name, layers=cfg.n_layers,
+         encoder_layers=cfg.n_encoder_layers, d_model=cfg.d_model,
+         n_params=model.n_params(), batch=1, seq=TRAIN_SEQ,
+         inputs={k: list(v.shape) for k, v in batch.items()},
+         remat=cfg.remat, lr=lr, losses=losses, step_wall_ms=walls,
+         max_memory_allocated=peak, max_memory_gb=peak / 1e9,
+         kernels=launches, backward_launches_expected=want,
+         seconds=time.perf_counter() - t0)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{phase}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: the loss did not fall: {losses}")
+    if any(launches[k] != n for k, n in want.items()) \
+            or launches["flash_fwd"] <= 0:
+        raise AssertionError(f"{phase}: kernels {launches}, backward "
+                             f"launches wanted {want}")
+    check_flash_route(launches, cfg.dtype, phase)
+    if "--profile" in sys.argv[1:]:
+        profile(f"{phase}.profile", lambda: step(params, state, batch), 1)
+    del state, params, model, step, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def encdec_f32_check(phase):
+    """Whisper-medium in float32 cut to 2 encoder and 2 decoder layers at
+    S=4096 with 1,500 frames: ``train_f32_check``, the attention on the
+    FMA route."""
+    from repro_torch.data.pipeline import synthetic_batch
+    cfg = published_config("whisper_medium", n_layers=ENCDEC_F32_LAYERS,
+                           n_encoder_layers=ENCDEC_F32_LAYERS,
+                           dtype="float32")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        SEED, 1, 0, 1, 1, TRAIN_SEQ, cfg.vocab).items()}
+    batch.update(family_input(cfg, np.random.default_rng(SEED + 1)))
+    train_f32_check(phase, cfg, batch, FAMILY_PHASE_KERNELS,
+                    FAMILY_PHASE_KERNELS)
 
 
 # ----------------------------------------------------------------------
@@ -3062,6 +3425,17 @@ def main() -> int:
     hybrid_train_launches = recurrent_train_phase("recurrentgemma_9b",
                                                   "train_hybrid", smi)
 
+    # 8c. the encoder-decoder and the vision-language model -------------
+    encdec_launches = serve_family_phase("whisper_medium", "serve_encdec",
+                                         smi)
+    encdec_train_launches = train_family_phase("whisper_medium",
+                                               "train_encdec", smi)
+    encdec_f32_check("train_encdec")
+    vlm_launches = serve_family_phase("llava_next_34b", "serve_vlm", smi)
+    vlm_train_launches = train_family_phase(
+        "llava_next_34b", "serve_vlm.train", smi, layers=VLM_TRAIN_LAYERS,
+        lr=VLM_TRAIN_LR)
+
     # 9. the paper's use case and the single-source plan ---------------
     (usecase_launches, plan_launches, ham_err, ham_t, plan_err,
      plan_t) = paper_usecase_phase(smi)
@@ -3079,6 +3453,10 @@ def main() -> int:
              "serve_ssm": ssm_launches, "serve_hybrid": hybrid_launches,
              "train_ssm": ssm_train_launches,
              "train_hybrid": hybrid_train_launches,
+             "serve_encdec": encdec_launches,
+             "train_encdec": encdec_train_launches,
+             "serve_vlm": vlm_launches,
+             "serve_vlm.train": vlm_train_launches,
              "paper_usecase": usecase_launches, "plan_shims": plan_launches,
              "smoke_widths": smoke_launches,
              "manager_mixtral": mixtral_launches,
@@ -3139,7 +3517,16 @@ def main() -> int:
             **{k: t[k] for k in timing_keys}, "fma_ms": t["fma_ms"],
             "launches_by_route": {r: paths["train"][f"{name}_{r}"]
                                   for r in ("tc", "fma")},
+            "launches_by_route_by_path": {
+                p: {r: c.get(f"{name}_{r}", 0) for r in ("tc", "fma")}
+                for p, c in paths.items() if c.get(name, 0)},
             "shape": "B=1 S=4096 H=32 Kv=8 D=128 bf16 causal window=4096",
+            # the encoder-decoder's and the vlm's shapes, timed alike
+            "shapes": {case: {k: v for k, v in t_case.items()
+                              if k not in ("flash_fwd", "flash_bwd")}
+                       | {k: t_case[name][k] for k in timing_keys
+                          + ("fma_ms", "library_factor", "bound_share")}
+                       for case, t_case in flash_t["shapes"].items()},
         })
     rows.append({
         "name": "flash_fwd_d256", "route": "cuda", "source": src,

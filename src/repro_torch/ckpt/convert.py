@@ -4,7 +4,8 @@ numpy arrays, and the port's.
 The JAX package stacks every per-layer leaf along a leading layer axis
 (``params["layers"]`` [L, ...] in ``DenseLM`` and ``SSMLM``;
 ``params["groups"]``, ``["groups"]["rec"]`` and ``["trail"]`` in
-``HybridLM``, see :data:`STACKED`); the port keeps layers apart, so those
+``HybridLM``; ``params["enc_layers"]`` and ``["dec_layers"]`` in
+``EncDecLM``, see :data:`STACKED`); the port keeps layers apart, so those
 leaves are unstacked into lists of per-layer dicts (and stacked again on
 the way back).  Names and per-leaf layouts are the same in both packages, so both
 compute the same thing.  The AdamW moments have the parameters' layout
@@ -26,8 +27,10 @@ from repro_torch.optim.adamw import OptState
 # Keys whose leaves the JAX package stacks along a leading layer axis, and
 # within each such layer the keys stacked once more: DenseLM and SSMLM
 # stack ``layers`` [L, ...]; HybridLM stacks ``groups`` [n_groups, ...],
-# ``groups.rec`` [n_groups, pattern_rec, ...] and ``trail`` [n_trail, ...].
-STACKED = {"layers": {}, "groups": {"rec": {}}, "trail": {}}
+# ``groups.rec`` [n_groups, pattern_rec, ...] and ``trail`` [n_trail, ...];
+# EncDecLM stacks ``enc_layers`` and ``dec_layers``.
+STACKED = {"layers": {}, "groups": {"rec": {}}, "trail": {},
+           "enc_layers": {}, "dec_layers": {}}
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:

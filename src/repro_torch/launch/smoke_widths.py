@@ -3,8 +3,9 @@
     python -m repro_torch.launch.smoke_widths [--seed N]
 
 The smoke configs run the narrow widths: attention head dims 8 (granite,
-tinyllama), 12 (command-r-plus) and 16 (both Mixtrals, qwen2.5,
-recurrentgemma), and Mamba-2's SSD at (P, N, chunk) = (16, 16, 16).  Under
+tinyllama, llava-next), 12 (command-r-plus) and 16 (both Mixtrals,
+qwen2.5, recurrentgemma, whisper: its encoder's and cross-attention's
+non-causal calls too), and Mamba-2's SSD at (P, N, chunk) = (16, 16, 16).  Under
 the default ``kernel_mode="auto"`` CUDA tensors go to the kernels, so each
 config runs ``prefill`` and ``loss`` on the kernels and on the plain path
 (``kernel_mode="torch"``) with the same random weights and tokens:
@@ -17,7 +18,9 @@ config runs ``prefill`` and ``loss`` on the kernels and on the plain path
 - float32 ``prefill`` logits of the SSM and hybrid families within 1e-4
   relative.
 
-The MoE configs dispatch through the crossbar kernels (``cuda_kernel``).
+The MoE configs dispatch through the crossbar kernels (``cuda_kernel``);
+the vlm's batch carries patches and the encoder-decoder's frames, drawn
+from N(0, 0.02) as the tokens are drawn, from the seed.
 Each check counts the launches of the kernel path only and requires the
 family's kernels among them.  Prints one JSON line per config; exits 1 if
 any check fails.  Runs on the card (``chip_smoke.py`` runs it as its
@@ -43,7 +46,7 @@ from repro_torch.models.lm import build_model
 
 ARCHS = ("mixtral_8x7b", "mixtral_8x22b", "command_r_plus_104b",
          "granite_3_2b", "qwen2_5_3b", "tinyllama_1_1b", "mamba2_780m",
-         "recurrentgemma_9b")
+         "recurrentgemma_9b", "whisper_medium", "llava_next_34b")
 SEQ = 64             # a multiple of the SSM smoke chunk; past every window
 PREFILL_REL = 2e-2   # bf16 last-token logits, relative L2
 F32_REL = 1e-4       # float32 loss, gradient leaves, SSM/hybrid logits
@@ -53,6 +56,8 @@ FAMILY_KERNELS = {
     "moe": ("flash_fwd", "flash_bwd", "plan_multi", "scatter", "combine"),
     "ssm": ("ssd", "ssd_bwd"),
     "hybrid": ("rglru", "rglru_bwd", "flash_fwd", "flash_bwd"),
+    "encdec": ("flash_fwd", "flash_bwd"),
+    "vlm": ("flash_fwd", "flash_bwd"),
 }
 _MODULES = (FK, K, SK, RK)
 
@@ -81,16 +86,23 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def _pair(arch: str, dtype: str, seed: int):
     """The kernel-path and plain-path models of ``arch`` with one set of
-    random weights, and a batch of ``SEQ`` tokens."""
+    random weights, and a batch of ``SEQ`` tokens (with the vlm's patches
+    or the encoder-decoder's frames)."""
     kern = build_model(smoke_config(arch, dtype), device="cuda")
     plain = build_model(smoke_config(arch, dtype, "torch"), device="cuda")
     gen = torch.Generator(device=kern.device)
     gen.manual_seed(seed)
     params = kern.init(gen)
+    cfg = kern.cfg
     rng = np.random.default_rng(seed)
-    cu = lambda a: torch.from_numpy(a.astype(np.int32)[None]).to(kern.device)
-    batch = {"tokens": cu(rng.integers(0, kern.cfg.vocab, SEQ)),
-             "labels": cu(rng.integers(0, kern.cfg.vocab, SEQ))}
+    cu = lambda a: torch.from_numpy(a[None]).to(kern.device)
+    batch = {"tokens": cu(rng.integers(0, cfg.vocab, SEQ).astype(np.int32)),
+             "labels": cu(rng.integers(0, cfg.vocab, SEQ).astype(np.int32))}
+    rows = {"vlm": ("patches", cfg.n_vision_patches),
+            "encdec": ("frames", cfg.encoder_len)}.get(cfg.family)
+    if rows:
+        x = rng.normal(0, 0.02, (rows[1], cfg.d_model)).astype(np.float32)
+        batch[rows[0]] = cu(x).to(kern.dtype)
     return kern, plain, params, batch
 
 

@@ -1,9 +1,12 @@
-"""The LM families: ``DenseLM`` (``dense`` and ``moe``), ``SSMLM``
-(``ssm``, Mamba-2) and ``HybridLM`` (``hybrid``, RecurrentGemma).
+"""The LM families: ``DenseLM`` (``dense``, ``moe`` and ``vlm``), ``SSMLM``
+(``ssm``, Mamba-2), ``HybridLM`` (``hybrid``, RecurrentGemma) and
+``EncDecLM`` (``encdec``, Whisper).
 
 The contract of the JAX package's models:
 
 - ``init(gen)``                          parameters from a torch.Generator
+- ``n_params()``                         the parameter count, from
+                                         ``param_defs`` (nothing allocated)
 - ``loss(params, batch)``                training objective (chunked vocab
                                          xent, + 0.01 * MoE aux loss)
 - ``prefill(params, batch)``             full-sequence forward -> last-token
@@ -13,8 +16,9 @@ The contract of the JAX package's models:
 
 Layers are kept apart (``params["layers"]`` is a list of per-layer dicts;
 the hybrid's ``params["groups"]`` a list of groups, each with a list of
-recurrent blocks, and ``params["trail"]`` a list) and run in a Python
-loop; the JAX package stacks them and scans.  ``ckpt.convert`` moves
+recurrent blocks, and ``params["trail"]`` a list; the encoder-decoder's
+``params["enc_layers"]`` and ``params["dec_layers"]`` lists) and run in a
+Python loop; the JAX package stacks them and scans.  ``ckpt.convert`` moves
 parameters between the two layouts.
 
 ``cfg.remat`` (``remat_wrap``) applies on the training path (``loss``)
@@ -24,13 +28,24 @@ only, as in the JAX package: ``"nothing"`` keeps every activation,
 outputs of plain 2-D products and recomputes the rest, the hand-written
 kernels included.  Every ported family trains on the kernels: the SSD
 and RG-LRU scans and the attention at each head dim have backward
-kernels, and remat recomputes their forwards.  The encdec and vlm
-families are not ported.
+kernels, and remat recomputes their forwards.
+
+The ``vlm`` family is ``DenseLM`` whose batch may carry ``"patches"``
+[B, Pn, d]: they replace the first ``cfg.n_vision_patches`` token
+embeddings in ``loss`` and ``prefill`` (the vision tower is a stub, as in
+the JAX package); ``decode_step`` embeds tokens only.  ``EncDecLM`` encodes
+``batch["frames"]`` [B, F, d] (the audio front end is a stub) with
+bidirectional attention; each decoder layer then runs causal
+self-attention and cross-attention to the encoder output.  Its decode
+state carries a cross-attention cache per layer (``cross_k``/``cross_v``)
+that, as in the JAX package, nothing fills: ``init_decode_state`` leaves it
+zero, so decoded tokens do not depend on the audio.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -166,6 +181,8 @@ class DecodeState:
     conv_tail: Optional[List[torch.Tensor]] = None    # [B, W-1, conv_dim]
     rec_h: Optional[List[torch.Tensor]] = None        # [B, lru] float32
     rec_tail: Optional[List[torch.Tensor]] = None     # [B, 3, lru]
+    cross_k: Optional[List[torch.Tensor]] = None      # [B, F, Kv, hd]
+    cross_v: Optional[List[torch.Tensor]] = None
 
     def split(self) -> List["DecodeState"]:
         """One B=1 state per batch row (copies: each slot owns its state)."""
@@ -208,14 +225,22 @@ class LMBase:
     def init(self, gen: torch.Generator) -> Params:
         return init_params(self.param_defs(), gen, self.dtype, self.device)
 
+    def n_params(self) -> int:
+        """The number of parameters, counted from ``param_defs`` without
+        allocating them."""
+        return sum(math.prod(d.shape) for d in tree_leaves(self.param_defs()))
+
     def _head_weight(self, params):
         if self.cfg.tied_embeddings:
             return params["embed"].T
         return params["lm_head"]
 
-    def _inputs_embed(self, params, batch) -> torch.Tensor:
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+    def _embed(self, params, tokens) -> torch.Tensor:
+        tokens = torch.as_tensor(tokens, device=self.device)
         return params["embed"][tokens.long()]
+
+    def _inputs_embed(self, params, batch) -> torch.Tensor:
+        return self._embed(params, batch["tokens"])
 
     def _last_logits(self, params, h: torch.Tensor) -> torch.Tensor:
         """The final norm, then the head on the last position: [B, V]."""
@@ -253,6 +278,17 @@ class DenseLM(LMBase):
         return out
 
     # ---- forward ------------------------------------------------------
+    def _inputs_embed(self, params, batch) -> torch.Tensor:
+        """The token embeddings, the first ``cfg.n_vision_patches`` of them
+        replaced by ``batch["patches"]`` (cast to the model's type) when the
+        config has patches and the batch carries them."""
+        x = self._embed(params, batch["tokens"])
+        n = self.cfg.n_vision_patches
+        if n and "patches" in batch:
+            patches = torch.as_tensor(batch["patches"], device=self.device)
+            x = torch.cat([patches.to(x.dtype), x[:, n:]], dim=1)
+        return x
+
     def _block(self, lp, x: torch.Tensor, positions: torch.Tensor,
                moe_group: int):
         cfg = self.cfg
@@ -311,9 +347,10 @@ class DenseLM(LMBase):
     def decode_step(self, params, state: DecodeState, batch):
         """One token for every row: ``batch["tokens"]`` [B, 1] ->
         (logits [B, V_padded], next state).  The caches are written in
-        place (see ``attention.cache_write``)."""
+        place (see ``attention.cache_write``).  Tokens only: patches feed
+        ``loss`` and ``prefill``."""
         cfg = self.cfg
-        x = self._inputs_embed(params, batch)         # [B, 1, d]
+        x = self._embed(params, batch["tokens"])      # [B, 1, d]
         pos = state.pos
         positions = _decode_positions(x, pos)
         kv_pos = state.kv_pos
@@ -570,15 +607,172 @@ class HybridLM(LMBase):
             rec_tail=rec_tail)
 
 
-FAMILIES = {"dense": DenseLM, "moe": DenseLM, "ssm": SSMLM,
-            "hybrid": HybridLM}
+class EncDecLM(LMBase):
+    """Whisper: an encoder of bidirectional attention blocks over
+    ``batch["frames"]`` [B, F, d] (the audio front end is a stub), then
+    decoder blocks of causal self-attention, cross-attention to the
+    encoder output and an MLP.  The cross-attention's queries take RoPE at
+    position 0 and its keys at the encoder positions, as in the JAX
+    package."""
+
+    # ---- parameters ---------------------------------------------------
+    def _enc_layer_defs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        return {"norm1": ParamDef((cfg.d_model,), ones_init),
+                "attn": attn_defs(cfg),
+                "norm2": ParamDef((cfg.d_model,), ones_init),
+                "mlp": mlp_mod.mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_act)}
+
+    def _dec_layer_defs(self) -> Dict[str, Any]:
+        d = self._enc_layer_defs()
+        d["norm_x"] = ParamDef((self.cfg.d_model,), ones_init)
+        d["xattn"] = attn_defs(self.cfg)
+        return d
+
+    def param_defs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        out = self._embed_defs()
+        out["enc_layers"] = [self._enc_layer_defs()
+                             for _ in range(cfg.n_encoder_layers)]
+        out["enc_norm"] = ParamDef((cfg.d_model,), ones_init)
+        out["dec_layers"] = [self._dec_layer_defs()
+                             for _ in range(cfg.n_layers)]
+        return out
+
+    # ---- forward ------------------------------------------------------
+    def _mlp(self, lp, x: torch.Tensor) -> torch.Tensor:
+        h2 = rms_norm(x, lp["norm2"], self.cfg.norm_eps)
+        return x + mlp_mod.mlp_apply(lp["mlp"], h2, self.cfg.mlp_act)
+
+    def _enc_block(self, lp, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        q, k, v = qkv(lp["attn"], h, cfg, positions)
+        o = attn.attention_prefill(q, k, v, causal=False,
+                                   kernel_mode=cfg.kernel_mode)
+        x = x + o.reshape(o.shape[0], o.shape[1], -1) @ lp["attn"]["wo"]
+        return self._mlp(lp, x)
+
+    def _encode(self, params, frames, *, train: bool = False):
+        """The encoder output (after its final norm) [B, F, d]."""
+        x = torch.as_tensor(frames, device=self.device).to(self.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        block = remat_wrap(self._enc_block,
+                           self.cfg.remat if train else "nothing")
+        for lp in params["enc_layers"]:
+            x = block(lp, x, positions)
+        return rms_norm(x, params["enc_norm"], self.cfg.norm_eps)
+
+    def _cross_q(self, p, hx: torch.Tensor) -> torch.Tensor:
+        """The cross-attention's queries [B, S, H, hd]: ``qkv``'s q, with
+        RoPE at position 0 (the keys and values come from the encoder)."""
+        cfg = self.cfg
+        B, S, _ = hx.shape
+        q = hx @ p["wq"]
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        zeros = torch.zeros((B, S), dtype=torch.int32, device=hx.device)
+        return attn.apply_rope(q.reshape(B, S, cfg.n_heads, cfg.hd), zeros,
+                               cfg.rope_theta)
+
+    def _cross_kv(self, p, enc: torch.Tensor):
+        """The cross-attention's keys (RoPE at the encoder positions) and
+        values from the encoder output: [B, F, Kv, hd] each."""
+        cfg = self.cfg
+        B, F, _ = enc.shape
+        kx, vx = enc @ p["wk"], enc @ p["wv"]
+        if cfg.qkv_bias:
+            kx, vx = kx + p["bk"], vx + p["bv"]
+        enc_pos = torch.arange(F, device=enc.device)[None, :]
+        kx = attn.apply_rope(kx.reshape(B, F, cfg.n_kv_heads, cfg.hd),
+                             enc_pos, cfg.rope_theta)
+        return kx, vx.reshape(B, F, cfg.n_kv_heads, cfg.hd)
+
+    def _dec_block(self, lp, x: torch.Tensor, enc: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        q, k, v = qkv(lp["attn"], h, cfg, positions)
+        o = attn.attention_prefill(q, k, v, causal=True,
+                                   kernel_mode=cfg.kernel_mode)
+        x = x + o.reshape(o.shape[0], o.shape[1], -1) @ lp["attn"]["wo"]
+        hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
+        qx = self._cross_q(lp["xattn"], hx)
+        kx, vx = self._cross_kv(lp["xattn"], enc)
+        ox = attn.attention_prefill(qx, kx, vx, causal=False,
+                                    kernel_mode=cfg.kernel_mode)
+        x = x + ox.reshape(ox.shape[0], ox.shape[1], -1) @ lp["xattn"]["wo"]
+        return self._mlp(lp, x)
+
+    def _decode_stack(self, params, batch, *, train: bool = False):
+        """The encoder, then every decoder layer (both stacks under
+        ``cfg.remat`` when ``train``); h before the final norm."""
+        enc = self._encode(params, batch["frames"], train=train)
+        x = self._embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        block = remat_wrap(self._dec_block,
+                           self.cfg.remat if train else "nothing")
+        for lp in params["dec_layers"]:
+            x = block(lp, x, enc, positions)
+        return x
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """``batch["frames"]`` [B, F, d], ``["tokens"]``/``["labels"]``
+        [B, S] -> scalar float32."""
+        h = self._decode_stack(params, batch, train=True)
+        return self._lm_loss(params, h, batch)
+
+    def prefill(self, params, batch) -> torch.Tensor:
+        """-> last-token logits [B, V_padded]."""
+        return self._last_logits(params, self._decode_stack(params, batch))
+
+    # ---- decode -------------------------------------------------------
+    def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
+        """Self-attention caches of ``max_len`` slots, and cross-attention
+        caches of ``cfg.encoder_len`` left zero, as in the JAX package."""
+        cfg = self.cfg
+        shape = (batch, cfg.encoder_len, cfg.n_kv_heads, cfg.hd)
+        z = lambda: [torch.zeros(shape, dtype=self.dtype, device=self.device)
+                     for _ in range(cfg.n_layers)]
+        return _kv_state(batch, max_len, cfg.n_layers, cfg, self.dtype,
+                         self.device, cross_k=z(), cross_v=z())
+
+    def decode_step(self, params, state: DecodeState, batch):
+        """One token for every row: ``batch["tokens"]`` [B, 1] -> (logits
+        [B, V_padded], next state); the cross-attention reads every slot
+        of ``state.cross_k``/``cross_v`` (``batch["frames"]`` is not
+        read)."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        pos = state.pos
+        positions = _decode_positions(x, pos)
+        F = state.cross_k[0].shape[1]
+        xpos = torch.arange(F, dtype=torch.int32,
+                            device=x.device).expand(x.shape[0], F)
+        kv_pos = state.kv_pos
+        for lp, ck, cv, xk, xv in zip(params["dec_layers"], state.kv_k,
+                                      state.kv_v, state.cross_k,
+                                      state.cross_v):
+            x, kv_pos = _attn_decode(lp, x, ck, cv, state.kv_pos, positions,
+                                     pos, cfg, None)
+            hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
+            ox = attn.attention_decode(self._cross_q(lp["xattn"], hx), xk,
+                                       xv, xpos, F)
+            x = x + ox.reshape(ox.shape[0], 1, -1) @ lp["xattn"]["wo"]
+            x = self._mlp(lp, x)
+        return self._last_logits(params, x), dataclasses.replace(
+            state, pos=pos + 1, kv_pos=kv_pos)
+
+
+FAMILIES = {"dense": DenseLM, "moe": DenseLM, "vlm": DenseLM, "ssm": SSMLM,
+            "hybrid": HybridLM, "encdec": EncDecLM}
 
 
 def build_model(cfg: ModelConfig, device=None) -> LMBase:
     """The model for ``cfg`` on ``device`` (the card unless ``"cpu"`` is
     asked for)."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet "
-            f"({', '.join(sorted(FAMILIES))} are)")
+        raise ValueError(f"unknown model family {cfg.family!r} (one of "
+                         f"{', '.join(sorted(FAMILIES))})")
     return FAMILIES[cfg.family](cfg, device=device)

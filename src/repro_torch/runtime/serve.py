@@ -18,8 +18,9 @@ def greedy_tokens(logits: torch.Tensor, vocab: int) -> torch.Tensor:
 
 def extra_decode_inputs(cfg: ModelConfig, batch_size: int, dtype,
                         device="cpu") -> Dict[str, torch.Tensor]:
-    """Per-family auxiliary decode inputs (encoder frames for enc-dec; the
-    ported families need none)."""
+    """Per-family auxiliary decode inputs: zero encoder frames for enc-dec
+    (its ``decode_step`` does not read them, as in the JAX package); the
+    other families need none."""
     extras: Dict[str, torch.Tensor] = {}
     if cfg.family == "encdec":
         extras["frames"] = torch.zeros(

@@ -110,6 +110,7 @@ class ModelEngine:
     @torch.inference_mode()
     def prefill_batch(self, prompts) -> List[Tuple[int, Any]]:
         """Batched admission prefill for same-length prompts (one call)."""
+        from repro_torch.runtime.serve import extra_decode_inputs
         B = len(prompts)
         S = len(prompts[0])
         assert all(len(p) == S for p in prompts), \
@@ -117,10 +118,12 @@ class ModelEngine:
         tokens = torch.as_tensor(np.stack([np.asarray(p, np.int32)
                                            for p in prompts]),
                                  device=self.device)
+        extras = extra_decode_inputs(self.cfg, B, self.model.dtype,
+                                     self.device)
         state = self.model.init_decode_state(B, self.max_len)
         for s in range(S):
             logits, state = self.model.decode_step(
-                self.params, state, {"tokens": tokens[:, s:s + 1]})
+                self.params, state, {"tokens": tokens[:, s:s + 1], **extras})
         return list(zip(self._greedy(logits), state.split()))
 
     def prefill(self, prompt: np.ndarray) -> Tuple[int, Any]:

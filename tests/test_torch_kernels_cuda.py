@@ -31,7 +31,8 @@ dims 8, 12 and 16 on the FMA kernels, each call's route counted; the bf16
 forward at head dim 256 on the tensor-core kernel also against the FMA
 one), including shapes cut to the tensor-core tiles
 (ragged ends, a query tile shorter than one tile, windows narrower than a
-tile, one and eight query heads per kv head) and rows with no live key,
+tile, one, seven and eight query heads per kv head, non-causal with more
+or fewer queries than keys) and rows with no live key,
 with the JAX package's forward tolerances (2e-5 in float32, 3e-2 in
 bfloat16); the backward within 1e-4 in float32 (the same arithmetic
 summed in another order) and 5e-2 in bfloat16 (the kernel takes
@@ -428,6 +429,12 @@ FLASH_CASES = [   # B, Sq, Sk, H, Kv, D, causal, window, dtype
     (1, 200, 457, 6, 2, 16, True, None, torch.bfloat16),     # q_offset
     (1, 333, 333, 4, 4, 16, False, 48, torch.float32),       # non-causal
     (1, 128, 128, 4, 2, 8, True, None, torch.float32),
+    # the encoder-decoder's non-causal calls (Whisper: 1500 frames, 16 heads
+    # of 64; q_offset 0 where Sq > Sk) and LLaVA-NeXT's GQA group of 7:
+    (1, 448, 1500, 16, 16, 64, False, None, torch.bfloat16),  # cross
+    (1, 1500, 1500, 16, 16, 64, False, None, torch.bfloat16),  # encoder
+    (1, 1500, 448, 16, 16, 64, False, None, torch.bfloat16),  # Sq > Sk
+    (1, 300, 300, 56, 8, 128, True, None, torch.bfloat16),    # G = 7
 ]
 FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -451,7 +458,7 @@ def test_flash_attention_forward_and_backward_on_card(case):
                                     ).to(dtype)
     q, k, v, do = mk(B, Sq, H, D), mk(B, Sk, Kv, D), mk(B, Sk, Kv, D), \
         mk(B, Sq, H, D)
-    kw = dict(causal=causal, window=window, q_offset=Sk - Sq)
+    kw = dict(causal=causal, window=window, q_offset=max(Sk - Sq, 0))
     before = FK.launch_counts()
     o, lse = FK.flash_fwd(q, k, v, **kw)
     grads = FK.flash_bwd(q, k, v, o, lse, do, **kw)
@@ -916,10 +923,12 @@ def test_flash_d256_tensor_core_forward_on_card(B, Sq, Sk, H, Kv, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", [
     "mixtral_8x7b", "mixtral_8x22b", "command_r_plus_104b", "granite_3_2b",
-    "qwen2_5_3b", "tinyllama_1_1b", "mamba2_780m", "recurrentgemma_9b"])
+    "qwen2_5_3b", "tinyllama_1_1b", "mamba2_780m", "recurrentgemma_9b",
+    "whisper_medium", "llava_next_34b"])
 def test_smoke_config_runs_on_the_kernels_on_card(arch):
-    """The smoke config's narrow widths (head dims 8, 12, 16; SSD at
-    (16, 16), chunk 16) under ``kernel_mode="auto"``: bf16 prefill, float32
+    """The smoke config's narrow widths (head dims 8, 12, 16, non-causal
+    in the encoder-decoder; SSD at (16, 16), chunk 16) under
+    ``kernel_mode="auto"``: bf16 prefill, float32
     loss and every family's gradients on the kernels (the SSM's and the
     hybrid's through the SSD and RG-LRU backward kernels) within the limits
     of ``repro_torch.launch.smoke_widths`` of the plain path."""
