@@ -222,6 +222,28 @@ Phases, each printing one JSON line with its seconds:
             and replayed through ``RecordedWorkload`` to the same trace;
             plan launches > 0 and the crossbar library loaded once.
 
+12. sharded
+            mesh expert parallelism, last: the ``moe_impls`` layer (T=4096
+            as [4, 1024, d], capacity ``expert_capacity(4096)`` = 1280)
+            through ``moe_forward_sharded`` on 4 ranks spawned over gloo,
+            all on ``cuda:0`` (2 experts a rank; gloo stages each
+            collective through host memory), each rank's packets moved by
+            the scatter and combine kernels.  Rank 0 holds one forward and
+            backward against ``moe_apply_sharded_reference`` on the card:
+            integer stats (counts, drops, local and remote packets and
+            their per-port splits) and the gathered plans equal, y and the
+            gradients of x and of every parameter within 2e-2 relative L2;
+            every rank holds the same output and gradients and launches
+            its scatter and combine kernels (counted over that step).
+            Then 2 timed steps (wall ms, and the collectives' share of it:
+            four processes time-slice one card, so neither is a card
+            collective's speed), a ``FailRegion`` posted to every rank's
+            ``Shell`` (the next step re-routes as the oracle does, no new
+            signature, one library load a rank), and rank 0 runs the layer
+            over NCCL at world size 1 against the oracle at one shard.  A
+            rank that fails or hangs (600 s) fails the phase with every
+            failed rank's traceback.
+
 ``--profile`` adds a phase after serving and one after the train steps:
 ``torch.profiler`` over 8 warm decode steps of the served engine and over
 one more train step, one over each recurrent model's S=32768 prefill and
@@ -524,10 +546,21 @@ def within(a: torch.Tensor, b: torch.Tensor, tol: float) -> bool:
                               atol=tol).all())
 
 
+def _chunks(t: torch.Tensor):
+    """``t``'s elements 2^24 at a time: in float64 the sharded phase's
+    expert-weight gradients (939 M elements) would take 7.5 GB at once."""
+    return t.reshape(-1).split(1 << 24)
+
+
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
-    """||a - b|| / ||b||."""
-    a, b = a.double(), b.double()
-    return float((a - b).norm() / b.norm())
+    """||a - b|| / ||b||, summed in float64 chunk by chunk."""
+    num = den = 0.0
+    for x, y in zip(_chunks(a), _chunks(b)):
+        x, y = x.double(), y.double()
+        num += float(((x - y) ** 2).sum())
+        den += float((y ** 2).sum())
+    # as a tensor division: a zero ||b|| gives inf or nan, not an exception
+    return float(torch.tensor(num).sqrt() / torch.tensor(den).sqrt())
 
 
 def lse_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1090,6 +1123,334 @@ def moe_impls_phase():
     del params, x
     torch.cuda.empty_cache()
     _reset_counts()
+
+
+SHARDED_RANKS = 4          # gloo ranks sharing the card: 2 experts a rank
+SHARDED_BATCH = 4          # the T = 4096 tokens as [4, 1024, d]: a row a rank
+SHARDED_STEPS = 2          # timed forward + backward steps after the check
+SHARDED_TIMEOUT = 600.0    # seconds the ranks may take, start-up included
+SHARDED_REGIONS = 7        # + the host port = 8 crossbar ports, an expert each
+SHARDED_INTS = ("counts", "dropped", "iso_dropped", "offered_packets",
+                "granted_packets", "local_packets", "remote_packets",
+                "local_counts", "remote_counts")
+
+
+def _sharded_layer(seed, device):
+    """``moe_impls_phase``'s Mixtral-8x7B MoE layer (the same seed and
+    draws), its T=4096 tokens as [SHARDED_BATCH, T / SHARDED_BATCH, d],
+    and a cotangent of the output."""
+    from repro_torch.models.common import init_params
+    from repro_torch.models.moe import moe_defs
+    cfg = serving_config()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 8)
+    params = init_params(moe_defs(cfg.d_model, cfg.d_ff, cfg.moe,
+                                  cfg.mlp_act), gen, torch.bfloat16, device)
+    x = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    x = x.reshape(SHARDED_BATCH, TRAIN_SEQ // SHARDED_BATCH, cfg.d_model)
+    ct = torch.randn(x.shape, generator=gen, device=device).to(torch.bfloat16)
+    return cfg, params, x, ct
+
+
+def _sharded_shell(capacity: int):
+    """One tenant of SHARDED_REGIONS modules placed on as many regions, so
+    the register file has 8 ports (the host's and one a region), an
+    expert each."""
+    from repro_torch.core.elastic import Region
+    from repro_torch.core.module import ModuleFootprint
+    from repro_torch.shell import Shell, Submit
+    fp = ModuleFootprint(param_bytes=GB, flops_per_token=1e9,
+                         activation_bytes_per_token=4096)
+    shell = Shell([Region(rid=i, n_chips=1, hbm_bytes=80 * GB)
+                   for i in range(SHARDED_REGIONS)], capacity=capacity)
+    shell.post(Submit(tenant="moe", footprints=(fp,) * SHARDED_REGIONS,
+                      app_id=0))
+    return shell
+
+
+def _layer_step(fn, params, x, ct, **kw):
+    """Forward and backward of the MoE entry ``fn`` with the loss
+    ``sum(y * ct) + aux_loss``: (y, stats, the gradients of x and of every
+    parameter)."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    xg = x.detach().requires_grad_()
+    y, stats = fn(leaves, xg, **kw)
+    loss = (y.float() * ct.float()).sum() + stats["aux_loss"]
+    grads = torch.autograd.grad(loss, [xg, *leaves.values()])
+    return y.detach(), stats, dict(zip(["x", *leaves], grads))
+
+
+def _against(got, want):
+    """A sharded step (y, stats, grads) against the oracle's: integer stats
+    equal, y and every gradient as relative L2 distances."""
+    (y, st, g), (yo, so, go) = got, want
+    ints = {k: bool(torch.equal(st[k].cpu(), so[k].cpu()))
+            for k in SHARDED_INTS}
+    out = dict(ints_equal=all(ints.values()),
+               ints={k: st[k].tolist() for k in SHARDED_INTS},
+               oracle_ints={k: so[k].tolist() for k in SHARDED_INTS},
+               aux_loss=float(st["aux_loss"].detach()),
+               oracle_aux_loss=float(so["aux_loss"].detach()),
+               y_rel_l2=rel_l2(y, yo),
+               grad_rel_l2={k: rel_l2(g[k], go[k]) for k in go},
+               finite=bool(torch.isfinite(y).all()
+                           and all(torch.isfinite(v).all()
+                                   for v in g.values())))
+    out["ok"] = (out["ints_equal"] and out["finite"]
+                 and out["y_rel_l2"] <= MOE_IMPL_REL
+                 and max(out["grad_rel_l2"].values()) <= MOE_IMPL_REL)
+    return out
+
+
+def _digest(y, grads) -> list:
+    """Sums of a step's results in float64, chunk by chunk in a fixed
+    order, to show that every rank holds the same global output and
+    gradients."""
+    return [sum(float(c.double().sum()) for c in _chunks(t))
+            for t in (y, *grads.values())]
+
+
+def sharded_rank(rank: int, n: int, tmp: str, seed: int) -> None:
+    """One rank of the ``sharded`` phase (see ``sharded_phase``); writes
+    its results to ``tmp/rank<rank>.json``."""
+    import torch.distributed as dist
+    torch.set_num_threads(2)        # 4 ranks and the parent share 8 cores
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        tmp, "store"), rank=rank, world_size=n)
+    try:
+        out = _sharded_rank(rank, n, seed, dist, dev)
+    except BaseException:
+        # the peers of a failed rank fail too (their collectives lose it):
+        # keep this rank's own traceback for the phase's message
+        import traceback
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _sharded_rank(rank, n, seed, dist, dev):
+    from repro_torch.fabric import Fabric
+    from repro_torch.fabric import collectives as coll
+    from repro_torch.kernels import build
+    from repro_torch.kernels.crossbar_dispatch import kernel as K
+    from repro_torch.models.moe import (_moe_router, expert_capacity,
+                                        moe_apply_sharded_reference,
+                                        moe_fabric, moe_forward_sharded)
+    from repro_torch.shell import FailRegion
+    nccl = dist.new_group([0], backend="nccl")     # every rank takes part
+    K.library()                                    # built by the parent
+    cfg, params, x, ct = _sharded_layer(seed, dev)
+    E, act = cfg.moe.n_experts, cfg.mlp_act
+    cap = expert_capacity(TRAIN_SEQ, cfg.moe)
+    shell = _sharded_shell(cap)
+    out = {"rank": rank, "capacity": cap}
+
+    def sharded(regs, group=None):
+        return _layer_step(
+            lambda p, xx: moe_forward_sharded(p, xx, cfg.moe, act,
+                                              registers=regs, capacity=cap,
+                                              group=group),
+            params, x, ct)
+
+    def oracle(regs, n_shards):
+        return _layer_step(
+            lambda p, xx: moe_apply_sharded_reference(
+                p, xx, cfg.moe, act, n_shards=n_shards, registers=regs,
+                capacity=cap), params, x, ct)
+
+    # the main path: one forward and backward on every rank
+    regs = shell.registers
+    dist.barrier()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    got = sharded(regs)
+    torch.cuda.synchronize()
+    out["launches"] = K.launch_counts()
+    fabric = moe_fabric(E, cap, "sharded", device=dev)
+    out["trace_before"] = fabric.trace_count
+    out["digest"] = _digest(got[0], got[2])
+    counts0 = got[1]["counts"].tolist()
+
+    # this rank's plan, gathered: the reference plan of the same packets
+    xl = x[rank * (x.shape[0] // n):(rank + 1) * (x.shape[0] // n)]
+    dst, _, _ = _moe_router(params, xl.reshape(-1, cfg.d_model), cfg.moe,
+                            None)
+    zeros = torch.zeros_like(dst)
+    plan = Fabric(regs, backend="sharded", capacity=cap,
+                  device=dev).plan(dst, zeros)
+    gathered = {f: coll.all_gather(getattr(plan, f).to(torch.int32))
+                for f in ("keep", "slot", "error", "dst")}
+    if rank == 0:
+        want = oracle(regs, n)
+        out["check"] = _against(got, want)
+        full = torch.cat(gathered["dst"].unbind(0))
+        dst_all, _, _ = _moe_router(params, x.reshape(-1, cfg.d_model),
+                                    cfg.moe, None)
+        src = torch.arange(n, dtype=torch.int32,
+                           device=dev).repeat_interleave(dst.shape[0])
+        ref = Fabric(regs, backend="reference", capacity=cap,
+                     device=dev).plan(full, src)
+        out["check"]["router_equal"] = bool(torch.equal(full, dst_all))
+        out["check"]["plan_equal"] = all(
+            torch.equal(torch.cat(gathered[f].unbind(0)),
+                        getattr(ref, f).to(torch.int32))
+            for f in ("keep", "slot", "error")) and bool(
+            torch.equal(plan.counts, ref.counts)
+            and torch.equal(plan.drops, ref.drops))
+        out["check"]["ok"] &= out["check"]["plan_equal"]
+        del want
+    del got
+
+    # timed steps: wall ms a step and the collectives' share of it
+    coll.timing = True
+    walls, shares = [], []
+    for _ in range(SHARDED_STEPS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        coll.reset_stats()
+        t0 = time.perf_counter()
+        step = sharded(regs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        walls.append(wall * 1e3)
+        shares.append(coll.stats["seconds"] / wall)
+        out["collective_calls"] = coll.stats["calls"]
+        out["collective_bytes"] = coll.stats["bytes"]
+        del step
+    coll.timing = False
+    out["step_wall_ms"], out["collective_share"] = walls, shares
+
+    # reconfiguration: the same FailRegion on every rank's shell
+    shell.post(FailRegion(rid=1))
+    regs1 = shell.registers
+    got = sharded(regs1)
+    out["trace_after"] = fabric.trace_count
+    out["rerouted"] = got[1]["counts"].tolist() != counts0
+    if rank == 0:
+        out["reconf"] = _against(got, oracle(regs1, n))
+    del got
+
+    # NCCL at world size 1: the device-native transport on rank 0
+    if rank == 0:
+        K.reset_launch_counts()
+        got = sharded(regs, group=nccl)
+        torch.cuda.synchronize()
+        out["nccl"] = _against(got, oracle(regs, 1))
+        out["nccl"]["launches"] = K.launch_counts()
+        out["nccl"]["transport"] = coll.transport(nccl)
+        del got
+    out["library_loads"] = dict(build.load_count)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    dist.barrier()
+    return out
+
+
+def join_ranks(ctx, timeout: float, what: str, tmp: str) -> None:
+    """Wait for spawned ranks at most ``timeout`` seconds; a rank that
+    raises fails this with every failed rank's traceback (``tmp/rank<r>
+    .err``), one that hangs is killed with the others and fails it too."""
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"{what}: ranks still running after "
+                                     f"{timeout} s")
+    except Exception as e:
+        errs = sorted(f for f in os.listdir(tmp) if f.endswith(".err"))
+        texts = []
+        for name in errs:
+            with open(os.path.join(tmp, name)) as f:
+                texts.append(f"--- {name}\n{f.read()}")
+        raise AssertionError(f"{what}: {e}\n" + "\n".join(texts)) from e
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def sharded_phase(smi):
+    """Mesh expert parallelism on the card: one Mixtral-8x7B MoE layer at
+    its published widths (d=4096, d_ff=14336, E=8, top-2; bf16; T=4096 as
+    [4, 1024, d]; capacity ``expert_capacity(4096)``, the weights and
+    input of ``moe_impls_phase``) through ``moe_forward_sharded`` on
+    SHARDED_RANKS ranks spawned over gloo, all on ``cuda:0`` (2 experts a
+    rank, each rank's packets moved by the scatter and combine kernels).
+    Rank 0 holds the forward and backward against
+    ``moe_apply_sharded_reference`` on the card (the integer stats and the
+    gathered plans equal, y and every gradient within MOE_IMPL_REL
+    relative L2), every rank's output and gradients are the same, and
+    every rank launches its scatter and combine kernels.  Then a
+    ``FailRegion`` posted to every rank's ``Shell`` re-routes the next
+    step as the oracle does with no new signature and one library load,
+    and rank 0 runs the layer over NCCL at world size 1 against the
+    oracle at one shard.  Returns the ranks' launches, summed."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sharded_") as tmp:
+        ctx = mp.start_processes(sharded_rank,
+                                 args=(SHARDED_RANKS, tmp, SEED),
+                                 nprocs=SHARDED_RANKS, join=False,
+                                 start_method="spawn")
+        join_ranks(ctx, SHARDED_TIMEOUT, "sharded", tmp)
+        ranks = []
+        for r in range(SHARDED_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    r0 = ranks[0]
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    step_ms = [max(r["step_wall_ms"][i] for r in ranks)
+               for i in range(SHARDED_STEPS)]
+    emit("sharded", smi=smi, ranks=SHARDED_RANKS, device="cuda:0",
+         transport="gloo: host (each collective staged through host "
+                   "memory)", tokens=TRAIN_SEQ,
+         d=serving_config().d_model, d_ff=serving_config().d_ff,
+         experts=serving_config().moe.n_experts, capacity=r0["capacity"],
+         tol=MOE_IMPL_REL, check=r0["check"], reconf=r0["reconf"],
+         nccl=r0["nccl"], step_wall_ms=step_ms,
+         collective_share=[max(r["collective_share"][i] for r in ranks)
+                           for i in range(SHARDED_STEPS)],
+         collective_calls=r0["collective_calls"],
+         collective_bytes_per_rank=r0["collective_bytes"],
+         launches_by_rank=[r["launches"] for r in ranks],
+         library_loads_by_rank=[r["library_loads"] for r in ranks],
+         trace_count=[(r["trace_before"], r["trace_after"]) for r in ranks],
+         rerouted=[r["rerouted"] for r in ranks],
+         peak_gb_by_rank=[r["peak_gb"] for r in ranks],
+         seconds=time.perf_counter() - t0)
+    fails = []
+    if not (r0["check"]["ok"] and r0["check"]["router_equal"]):
+        fails.append("the sharded layer disagrees with the oracle")
+    if not r0["reconf"]["ok"]:
+        fails.append("the step after FailRegion disagrees with the oracle")
+    if not r0["nccl"]["ok"] or r0["nccl"]["transport"] != "device":
+        fails.append("the NCCL leg disagrees with the oracle")
+    if any(r["digest"] != r0["digest"] for r in ranks):
+        fails.append("the ranks hold different outputs or gradients")
+    for r in ranks:
+        if r["launches"]["scatter"] <= 0 or r["launches"]["combine"] <= 0:
+            fails.append(f"rank {r['rank']} launched no scatter or combine")
+        if r["trace_after"] != r["trace_before"] or not r["rerouted"]:
+            fails.append(f"rank {r['rank']}: FailRegion added a signature "
+                         f"or did not re-route")
+        if r["library_loads"] != {"crossbar_dispatch": 1}:
+            fails.append(f"rank {r['rank']} loads: {r['library_loads']}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return launches
 
 
 def train_loop_config():
@@ -3443,6 +3804,10 @@ def main() -> int:
     # 10. the seeded serve harness and the manager's scenarios ----------
     harness_launches = serve_harness_phase(smi)
     scenario_launches = manager_scenarios_phase(smi)
+
+    # 12. mesh expert parallelism: the sharded MoE on 4 ranks, last, so
+    # that no other phase's profiler windows follow its ranks ----------
+    sharded_launches = sharded_phase(smi)
     loads = dict(build.load_count)
     if any(n != 1 for n in loads.values()):
         raise AssertionError(f"a kernel library was loaded twice: {loads}")
@@ -3461,7 +3826,8 @@ def main() -> int:
              "smoke_widths": smoke_launches,
              "manager_mixtral": mixtral_launches,
              "serve_harness": harness_launches,
-             "manager_scenarios": scenario_launches}
+             "manager_scenarios": scenario_launches,
+             "sharded": sharded_launches}
 
     def launch_keys(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}

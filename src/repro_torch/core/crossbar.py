@@ -2,19 +2,20 @@
 
 This module predates the unified data-plane API.  New code constructs a
 :class:`repro_torch.fabric.Fabric` (``backend="reference" | "cuda" |
-"cuda_kernel"``) bound to a register file or a live ``Shell``; the
-functions here remain as thin wrappers for existing callers, as in the JAX
-package's ``repro/core/crossbar.py``:
+"cuda_kernel" | "sharded"``) bound to a register file or a live ``Shell``;
+the functions here remain as thin wrappers for existing callers, as in the
+JAX package's ``repro/core/crossbar.py``:
 
 - **local** (:func:`exchange_local` / :func:`combine_local`): one
   reference-backend dispatch round — identical to
   ``Fabric(regs, backend="reference").dispatch(...)``;
-- :func:`pairwise_dispatch_plan`: the legacy pair-owned-slot plan of one
-  source region, whose slot numbering differs from the fabric's shared
-  WRR interleave.
-
-The sharded shims (``exchange_sharded``/``combine_sharded``) wait for the
-port's sharded backend.
+- **distributed** (:func:`exchange_sharded` / :func:`combine_sharded`):
+  the legacy pair-owned-slot path over the ranks of a ``torch.distributed``
+  process group (``group``, where the JAX package names a mesh axis): each
+  (src, dst) pair owns its own ``capacity`` slots (:func:`
+  pairwise_dispatch_plan`), so its slot numbering differs from the
+  fabric's shared WRR interleave.  ``Fabric(regs, backend="sharded")``
+  is the plan-equivalent replacement.
 
 The register file gates everything: isolation masks, quotas and resets are
 *values*, so the Elastic Resource Manager re-routes traffic by rewriting
@@ -28,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.arbiter import DispatchPlan, _error_codes
+from repro_torch.core.arbiter import DispatchPlan, _error_codes, _one_hot
 from repro_torch.core.registers import CrossbarRegisters
 
 I32 = torch.int32
@@ -117,6 +118,49 @@ def pairwise_dispatch_plan(dst: torch.Tensor, src_index,
     keep = iso_ok & quota_ok & cap_ok
     return keep, torch.where(keep, rank, 0), _error_codes(iso_ok, quota_ok,
                                                           cap_ok)
+
+
+def exchange_sharded(x: torch.Tensor, dst: torch.Tensor,
+                     regs: CrossbarRegisters, capacity: int, group=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """On every rank of ``group``: send local packets to their destination
+    regions (the ranks).
+
+    ``x`` [T_local, D]; returns (recv [n, capacity, D], recv_mask
+    [n, capacity], keep [T_local], slot [T_local]) where recv[i] holds what
+    rank ``i`` sent here.  Reading recv as [capacity, n] (slot-major) is the
+    WRR service order."""
+    from repro_torch.fabric import collectives as coll
+    _warn_deprecated("core.crossbar.exchange_sharded",
+                     'Fabric(regs, backend="sharded", group=...).dispatch '
+                     "(oracle-identical slots)")
+    n = coll.axis_size(group)
+    me = coll.axis_index(group)
+    keep, slot, _err = pairwise_dispatch_plan(dst, me, regs, capacity)
+    sel = (_one_hot(dst, n, x.dtype)[:, :, None]
+           * _one_hot(slot, capacity, x.dtype)[:, None, :]
+           * keep[:, None, None].to(x.dtype))
+    send = torch.einsum("tsc,td->scd", sel, x)             # [n, cap, D]
+    mask = sel.sum(0)                                      # [n, cap]
+    return (coll.all_to_all(send, group), coll.all_to_all(mask, group),
+            keep, slot)
+
+
+def combine_sharded(y: torch.Tensor, dst: torch.Tensor, keep: torch.Tensor,
+                    slot: torch.Tensor, weights: torch.Tensor, capacity: int,
+                    group=None) -> torch.Tensor:
+    """Inverse of :func:`exchange_sharded`: bring results home and weight
+    them."""
+    from repro_torch.fabric import collectives as coll
+    _warn_deprecated("core.crossbar.combine_sharded",
+                     'Fabric(regs, backend="sharded", group=...).combine')
+    n = coll.axis_size(group)
+    back = coll.all_to_all(y, group)                       # [n, cap, D]
+    sel = (_one_hot(dst, n, y.dtype)[:, :, None]
+           * _one_hot(slot, capacity, y.dtype)[:, None, :]
+           * (keep.to(y.dtype) * weights)[:, None, None])
+    return torch.einsum("tsc,scd->td", sel, back)
 
 
 @dataclasses.dataclass

@@ -7,13 +7,19 @@ plan-equivalent dispatch backend on a device
     cuda         the fabric's plan kernel + shared scatter/gather
                  (alias ``pallas``)
     cuda_kernel  the plan, scatter and combine kernels
+    sharded      ``all_to_all`` over the ranks of a ``torch.distributed``
+                 process group (``group=``), packets moved by the scatter
+                 and combine kernels
 
 and exposes ``plan`` / ``dispatch`` / ``combine`` / ``transfer``, with the
 sanitizer (``debug=``, ``REPRO_FABRIC_DEBUG``) raising ``FabricCheckError``.
 """
 from repro_torch.core.arbiter import DispatchPlan                  # noqa: F401
-from repro_torch.fabric.backends import (CudaBackend,              # noqa: F401
+from repro_torch.fabric.backends import (CombineRoute,             # noqa: F401
+                                         CudaBackend,
                                          ReferenceBackend,
+                                         ShardedBackend,
+                                         backend_names,
                                          get_backend,
                                          register_fabric_backend)
 from repro_torch.fabric.cache import PlanCache, plan_key           # noqa: F401
@@ -26,6 +32,7 @@ from repro_torch.fabric.sanitize import FabricCheckError           # noqa: F401
 __all__ = [
     "Fabric", "fabric_for_shell", "DispatchPlan", "PlanCache", "plan_key",
     "KernelMode", "resolve_kernel_mode", "ReferenceBackend", "CudaBackend",
-    "get_backend", "register_fabric_backend", "DEBUG_ENV_VAR",
+    "ShardedBackend", "CombineRoute", "get_backend",
+    "register_fabric_backend", "backend_names", "DEBUG_ENV_VAR",
     "FabricCheckError",
 ]

@@ -36,6 +36,12 @@ each host-level call checks its plan, slabs and combine against the
 register file and raises ``FabricCheckError``.  A check reads its verdict
 back from the device, so it costs one host sync; with debug off no check
 runs and a call launches and syncs exactly what it would without them.
+
+Every entry point takes an optional ``registers=`` override: the bound
+file is the default, but a caller that holds the register file as a value
+of its own (the sharded MoE layer, which receives it from its caller)
+passes it there.  An override bypasses the plan cache (its epoch key
+speaks only for the bound file) and is a value, not a new signature.
 """
 from __future__ import annotations
 
@@ -143,8 +149,10 @@ class Fabric:
         shell's current file), or a zero-arg callable returning registers.
     backend:
         ``"reference"`` | ``"cuda"`` (alias ``"pallas"``) |
-        ``"cuda_kernel"`` | a backend instance; ``backend_kw`` feed the
-        named factory (e.g. ``data_plane=``).
+        ``"cuda_kernel"`` | ``"sharded"`` | a backend instance;
+        ``backend_kw`` feed the named factory (e.g. ``data_plane=``, or
+        ``group=`` for ``"sharded"``: the ``torch.distributed`` process
+        group whose ranks are the regions, ``None`` the default group).
     capacity:
         Receive-slab depth.  Grants use ``min(registers.capacity,
         capacity)``.  Defaults to the bound file's largest capacity.
@@ -312,15 +320,23 @@ class Fabric:
             else:
                 self.plan_cache.reset_stats()
 
-    def account(self, plan: DispatchPlan, src=None) -> None:
+    def account(self, plan: DispatchPlan, src=None, *,
+                src_shard: Optional[int] = None,
+                n_shards: Optional[int] = None) -> None:
         """Fold one ``DispatchPlan`` into the host-side traffic counters:
         per-destination grants, offered (``dst >= 0``) and granted packets,
         and, given the [T] ``src`` vector, per-source masked and dropped
-        offers.  Plans handed back by the plan cache replay the host values
-        memoized on their first accounting, with no device round-trip."""
+        offers.  Given ``src_shard`` and ``n_shards`` the grants also split
+        into ``local_packets`` (granted into the source shard's own
+        contiguous port block) and ``remote_packets`` (granted across the
+        group), each with a per-port vector (``local_port_traffic``,
+        ``remote_port_traffic``); the port space is the plan's.  Plans
+        handed back by the plan cache replay the host values memoized on
+        their first accounting, with no device round-trip (not with a
+        split, which always reads the plan)."""
         cache = self.plan_cache
         entry = (cache.entry_for_plan(self.epoch, plan)
-                 if cache is not None else None)
+                 if cache is not None and src_shard is None else None)
         if entry is not None and entry.acct is None:
             entry.acct = self._acct(plan, src if src is not None
                                     else entry.src)
@@ -337,6 +353,20 @@ class Fabric:
                                                 dropped.shape[0])
             self.masked_by_src[:masked.shape[0]] += masked
             self.dropped_by_src[:dropped.shape[0]] += dropped
+        if src_shard is not None and n_shards:
+            # the port space comes from the plan, not from the cumulative
+            # vectors, which may be longer
+            n = counts.shape[0]
+            dst, keep = _np(plan.dst), _np(plan.keep).astype(bool)
+            pps = max(1, n // n_shards)
+            is_local = keep & (dst // pps == src_shard)
+            local_counts = np.bincount(np.clip(dst, 0, n - 1),
+                                       weights=is_local.astype(np.int64),
+                                       minlength=n).astype(np.int64)[:n]
+            local = int(local_counts.sum())
+            self.local_packets += local
+            self.remote_packets += granted - local
+            self._add_split_counts(local_counts, counts - local_counts)
 
     def account_stats(self, stats) -> None:
         """Fold a sharded-MoE ``stats`` mapping (``counts``,
@@ -392,14 +422,22 @@ class Fabric:
         self.local_port_traffic[:local_counts.shape[0]] += local_counts
         self.remote_port_traffic[:remote_counts.shape[0]] += remote_counts
 
+    def _regs(self, registers) -> CrossbarRegisters:
+        """The register file a call runs on: the override, else the bound
+        file read now."""
+        return self.registers if registers is None else registers
+
     # ---- plan cache plumbing ------------------------------------------
-    def _cache_lookup(self, dst, src):
-        if self.plan_cache is None:
+    def _cache_lookup(self, dst, src, registers=None):
+        """The live entry for this offer, or None (cache off, or an
+        explicit ``registers=`` override: the epoch key speaks only for
+        the bound file)."""
+        if self.plan_cache is None or registers is not None:
             return None
         return self.plan_cache.lookup(self.epoch, plan_key(dst, src))
 
-    def _cache_store(self, dst, src, new_plan, src_t) -> None:
-        if self.plan_cache is None:
+    def _cache_store(self, dst, src, new_plan, src_t, registers=None) -> None:
+        if self.plan_cache is None or registers is not None:
             return
         self.plan_cache.store(self.epoch, plan_key(dst, src), new_plan, src_t)
 
@@ -414,27 +452,29 @@ class Fabric:
         return entry
 
     # ---- public API ---------------------------------------------------
-    def _plan(self, dst, src):
-        regs = self._on_device(self.registers)
+    def _plan(self, dst, src, registers=None):
+        regs = self._on_device(self.registers if registers is None
+                               else registers)
         dst_t, src_t = self._tensor(dst), self._tensor(src)
         return self.backend.plan(dst_t, src_t, regs), regs, src_t
 
-    def plan(self, dst, src) -> DispatchPlan:
+    def plan(self, dst, src, *,
+             registers: Optional[CrossbarRegisters] = None) -> DispatchPlan:
         """Grant decisions for packets ``src[t] -> dst[t]`` under the
-        current register values (``dst = -1`` marks padding): ``keep``,
-        ``slot`` (global WRR receive slot), ``error``, ``counts`` and
-        ``drops``."""
-        entry = self._cache_lookup(dst, src)
+        current register values, or ``registers`` (``dst = -1`` marks
+        padding): ``keep``, ``slot`` (global WRR receive slot), ``error``,
+        ``counts`` and ``drops``."""
+        entry = self._cache_lookup(dst, src, registers)
         if entry is not None:
             return entry.plan
-        self._run("plan", self.registers, dst, src)
-        plan, regs, src_t = self._plan(dst, src)
+        self._run("plan", self._regs(registers), dst, src)
+        plan, regs, src_t = self._plan(dst, src, registers)
         if self.debug:
             sanitize.check_plan(plan, regs, src_t, self.backend, self.debug)
-        self._cache_store(dst, src, plan, src_t)
+        self._cache_store(dst, src, plan, src_t, registers)
         return plan
 
-    def _dispatch(self, x: torch.Tensor, dst, src, entry
+    def _dispatch(self, x: torch.Tensor, dst, src, entry, registers=None
                   ) -> Tuple[torch.Tensor, DispatchPlan]:
         if entry is not None:
             plan = entry.plan
@@ -447,37 +487,40 @@ class Fabric:
                 slabs = self.backend.dispatch(
                     x, plan, self._on_device(self.registers), self.capacity)
             return slabs, plan
-        plan, regs, src_t = self._plan(dst, src)
+        plan, regs, src_t = self._plan(dst, src, registers)
         slabs = self.backend.dispatch(x, plan, regs, self.capacity)
-        self._cache_store(dst, src, plan, src_t)
+        self._cache_store(dst, src, plan, src_t, registers)
         return slabs, plan
 
-    def dispatch(self, x: torch.Tensor, dst, src
+    def dispatch(self, x: torch.Tensor, dst, src, *,
+                 registers: Optional[CrossbarRegisters] = None
                  ) -> Tuple[torch.Tensor, DispatchPlan]:
         """Plan + scatter packets ``x`` [T, D] into destination receive
-        slabs [n_ports, C, D]; dropped packets land nowhere."""
-        entry = self._cache_lookup(dst, src)
+        slabs: [n_ports, C, D], or this rank's [ports_per_shard, C, D]
+        block on the sharded backend; dropped packets land nowhere."""
+        regs = self._regs(registers)
+        entry = self._cache_lookup(dst, src, registers)
         if entry is not None:
             self._run("addrs", None, entry.plan)
-            self._run("dispatch_cached", self.registers, x, entry.plan, src)
+            self._run("dispatch_cached", regs, x, entry.plan, src)
         else:
-            self._run("dispatch", self.registers, x, dst, src)
-        slabs, plan = self._dispatch(x, dst, src, entry)
+            self._run("dispatch", regs, x, dst, src)
+        slabs, plan = self._dispatch(x, dst, src, entry, registers)
         if self.debug:
             self._check_dispatch(plan, src if entry is None else entry.src,
-                                 slabs)
+                                 slabs, regs)
         return slabs, plan
 
-    def _check_dispatch(self, plan: DispatchPlan, src,
-                        slabs: torch.Tensor) -> None:
-        sanitize.check_plan(plan, self._on_device(self.registers),
-                            self._tensor(src), self.backend, self.debug)
+    def _check_dispatch(self, plan: DispatchPlan, src, slabs: torch.Tensor,
+                        regs: CrossbarRegisters) -> None:
+        sanitize.check_plan(plan, self._on_device(regs), self._tensor(src),
+                            self.backend, self.debug)
         sanitize.check_slabs(slabs, self.debug)
 
     def _combine(self, y: torch.Tensor, plan: DispatchPlan,
-                 weights: torch.Tensor) -> torch.Tensor:
+                 weights: torch.Tensor, registers=None) -> torch.Tensor:
         entry = None
-        if self.plan_cache is not None:
+        if self.plan_cache is not None and registers is None:
             entry = self.plan_cache.entry_for_plan(self.epoch, plan)
         if (entry is not None and self._shared_scatter
                 and tuple(y.shape[:2]) == (plan.counts.shape[0],
@@ -487,25 +530,30 @@ class Fabric:
         return self.backend.combine(y, plan, weights)
 
     def combine(self, y: torch.Tensor, plan: DispatchPlan,
-                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                weights: Optional[torch.Tensor] = None, *,
+                registers: Optional[CrossbarRegisters] = None
+                ) -> torch.Tensor:
         """Gather result slabs back to packet order ([T, D]), scaled by
         ``weights``; dropped packets get zeros."""
         if weights is None:
             weights = torch.ones(plan.keep.shape, dtype=y.dtype,
                                  device=y.device)
-        if (self.plan_cache is not None and self.plan_cache.entry_for_plan(
-                self.epoch, plan) is not None):
+        regs = self._regs(registers)
+        if (self.plan_cache is not None and registers is None
+                and self.plan_cache.entry_for_plan(self.epoch, plan)
+                is not None):
             self._run("addrs", None, plan)
-            self._run("combine_cached", self.registers, y, plan, weights)
+            self._run("combine_cached", regs, y, plan, weights)
         else:
-            self._run("combine", self.registers, y, plan, weights)
+            self._run("combine", regs, y, plan, weights)
         if self.debug:
             sanitize.check_combine(plan, y.shape[-2], self.debug)
-        return self._combine(y, plan, weights)
+        return self._combine(y, plan, weights, registers)
 
     def transfer(self, x: torch.Tensor, dst, src,
                  apply_fn: Optional[ApplyFn] = None,
-                 weights: Optional[torch.Tensor] = None
+                 weights: Optional[torch.Tensor] = None, *,
+                 registers: Optional[CrossbarRegisters] = None
                  ) -> Tuple[torch.Tensor, DispatchPlan]:
         """Round-trip: plan -> dispatch -> ``apply_fn`` on the slabs ->
         combine.  Each new ``apply_fn`` object is a new signature (as a
@@ -513,22 +561,22 @@ class Fabric:
         if weights is None:
             weights = torch.ones(tuple(dst.shape), dtype=x.dtype,
                                  device=x.device)
-        entry = self._cache_lookup(dst, src)
+        regs = self._regs(registers)
+        entry = self._cache_lookup(dst, src, registers)
         if entry is not None:
             self._run("addrs", None, entry.plan)
-            self._run("transfer_cached", self.registers, x, entry.plan, src,
+            self._run("transfer_cached", regs, x, entry.plan, src,
                       weights, apply_fn)
         else:
-            self._run("transfer", self.registers, x, dst, src, weights,
-                      apply_fn)
-        slabs, plan = self._dispatch(x, dst, src, entry)
+            self._run("transfer", regs, x, dst, src, weights, apply_fn)
+        slabs, plan = self._dispatch(x, dst, src, entry, registers)
         if self.debug:
             self._check_dispatch(plan, src if entry is None else entry.src,
-                                 slabs)
+                                 slabs, regs)
         y = slabs if apply_fn is None else apply_fn(slabs)
         if self.debug:
             sanitize.check_slabs(y, self.debug)
-        return self._combine(y, plan, weights), plan
+        return self._combine(y, plan, weights, registers), plan
 
 
 def fabric_for_shell(shell, *, backend="reference", capacity=None,

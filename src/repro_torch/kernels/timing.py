@@ -25,7 +25,9 @@ import torch
 
 HOST_CALLS, HOST_CHUNK = 1000, 100
 SLEEP_CYCLES = 20_000_000          # some 10 ms of a busy card per chunk
-PROFILE_TRIES = 5
+# windows read before giving up: on one card host the profiler lost RG-LRU
+# backward events in 5 windows in a row, twice, where another host lost none
+PROFILE_TRIES = 10
 PROFILE_PAUSE_S = 0.5                # between windows that lost events
 SPLIT_SLEEP_CYCLES = 2_000_000       # about a millisecond of the card
 

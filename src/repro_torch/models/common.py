@@ -1,13 +1,20 @@
-"""Shared model primitives: norms, rope, and a ``ParamDef``-driven init.
+"""Shared model primitives: norms, rope, a ``ParamDef``-driven init and
+the partition specs.
 
 Parameters are plain nested dicts of tensors with the JAX package's names
 and layouts, so converted JAX parameters drop straight in
 (``repro_torch.ckpt.convert``).
+
+A partition spec is pure data here: a tuple of mesh-axis names (or None),
+one per tensor dim, equal to ``tuple()`` of the JAX package's
+``PartitionSpec`` for the same parameter.  What a production mesh is in
+the port (a ``DeviceMesh`` needs its ranks to exist) is left to the
+launch tools.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,10 +48,40 @@ def ones_init(gen, shape, dtype, scale=0.0, device="cpu") -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """Declarative parameter definition: shape + init."""
+    """Declarative parameter definition: shape + logical sharding + init."""
     shape: Tuple[int, ...]
+    spec: Tuple[Optional[str], ...]          # logical axes, see LOGICAL_RULES
     init: Callable = normal_init
     scale: float = 1.0
+
+
+# Logical-axis -> mesh-axis rules. ``fsdp`` shards the d_model/storage dim
+# over the data axis (ZeRO-3 style weight sharding); ``tp`` shards output
+# features over the model axis (Megatron style). Batch goes over (pod, data).
+LOGICAL_RULES: Dict[Optional[str], Optional[Any]] = {
+    "fsdp": "data",
+    "tp": "model",
+    "layers": None,
+    "experts": None,
+    "batch": ("pod", "data"),
+    "batch_1pod": "data",
+    None: None,
+}
+
+
+def logical_to_spec(axes: Sequence[Optional[str]], *, multi_pod: bool,
+                    rules: Optional[Dict[str, Any]] = None) -> Tuple:
+    """Logical axes -> a spec: one mesh axis (or None) per dim."""
+    rules = dict(LOGICAL_RULES if rules is None else rules)
+    if not multi_pod:
+        rules["batch"] = "data"
+    return tuple(rules.get(a, None) if a is not None else None for a in axes)
+
+
+def spec_tree(defs: Dict[str, Any], *, multi_pod: bool):
+    """The specs of a nested dict (and lists) of ParamDefs, same tree."""
+    return tree_map(lambda d: logical_to_spec(d.spec, multi_pod=multi_pod),
+                    defs)
 
 
 def init_params(defs: Dict[str, Any], gen: torch.Generator, dtype,

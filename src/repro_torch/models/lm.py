@@ -60,7 +60,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamDef, dtype_of, init_params,
-                                       ones_init, rms_norm, tree_leaves)
+                                       ones_init, rms_norm, spec_tree,
+                                       tree_leaves)
 from repro_torch.models.config import ModelConfig
 
 Params = Any
@@ -68,17 +69,18 @@ Params = Any
 
 def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kv_ax = "tp" if cfg.kv_shard == "tp" else None
     out = {
-        "wq": ParamDef((d, H * hd)),
-        "wk": ParamDef((d, Kv * hd)),
-        "wv": ParamDef((d, Kv * hd)),
-        "wo": ParamDef((H * hd, d)),
+        "wq": ParamDef((d, H * hd), ("fsdp", "tp")),
+        "wk": ParamDef((d, Kv * hd), ("fsdp", kv_ax)),
+        "wv": ParamDef((d, Kv * hd), ("fsdp", kv_ax)),
+        "wo": ParamDef((H * hd, d), ("tp", "fsdp")),
     }
     if cfg.qkv_bias:
         from repro_torch.models.common import zeros_init
-        out.update({"bq": ParamDef((H * hd,), zeros_init),
-                    "bk": ParamDef((Kv * hd,), zeros_init),
-                    "bv": ParamDef((Kv * hd,), zeros_init)})
+        out.update({"bq": ParamDef((H * hd,), ("tp",), zeros_init),
+                    "bk": ParamDef((Kv * hd,), (kv_ax,), zeros_init),
+                    "bv": ParamDef((Kv * hd,), (kv_ax,), zeros_init)})
     return out
 
 
@@ -159,6 +161,17 @@ def remat_wrap(fn, policy: str):
     return functools.partial(torch.utils.checkpoint.checkpoint, fn, **kw)
 
 
+def batch_axes(global_batch: int, multi_pod: bool) -> Optional[Any]:
+    """Batch sharding that respects divisibility (B=1 long-decode stays
+    replicated on the data axis)."""
+    need = 32 if multi_pod else 16
+    if global_batch % need == 0:
+        return ("pod", "data") if multi_pod else "data"
+    if global_batch % 16 == 0 and multi_pod:
+        return "data"
+    return None
+
+
 def _chain(fns):
     """The blocks ``fns`` run one after the other, as one x -> x."""
     def run(x):
@@ -213,14 +226,22 @@ class LMBase:
 
     def _embed_defs(self) -> Dict[str, Any]:
         cfg = self.cfg
-        out = {"embed": ParamDef((cfg.vocab_padded, cfg.d_model)),
-               "final_norm": ParamDef((cfg.d_model,), ones_init)}
+        out = {"embed": ParamDef((cfg.vocab_padded, cfg.d_model),
+                                 ("tp", "fsdp")),
+               "final_norm": ParamDef((cfg.d_model,), (None,), ones_init)}
         if not cfg.tied_embeddings:
-            out["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_padded))
+            out["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_padded),
+                                      ("fsdp", "tp"))
         return out
 
     def param_defs(self) -> Dict[str, Any]:
         raise NotImplementedError
+
+    def param_specs(self, multi_pod: bool):
+        """Each parameter's partition spec (a tuple of mesh-axis names per
+        dim), in the port's tree: a per-layer leaf's spec is the JAX
+        package's stacked one without its leading layer axis."""
+        return spec_tree(self.param_defs(), multi_pod=multi_pod)
 
     def init(self, gen: torch.Generator) -> Params:
         return init_params(self.param_defs(), gen, self.dtype, self.device)
@@ -262,9 +283,9 @@ class DenseLM(LMBase):
     # ---- parameters ---------------------------------------------------
     def _layer_defs(self) -> Dict[str, Any]:
         cfg = self.cfg
-        d = {"norm1": ParamDef((cfg.d_model,), ones_init),
+        d = {"norm1": ParamDef((cfg.d_model,), (None,), ones_init),
              "attn": attn_defs(cfg),
-             "norm2": ParamDef((cfg.d_model,), ones_init)}
+             "norm2": ParamDef((cfg.d_model,), (None,), ones_init)}
         if cfg.moe is not None:
             d["moe"] = moe_mod.moe_defs(cfg.d_model, cfg.d_ff, cfg.moe,
                                         cfg.mlp_act)
@@ -404,7 +425,8 @@ class SSMLM(LMBase):
 
     def param_defs(self) -> Dict[str, Any]:
         cfg = self.cfg
-        layer = lambda: {"norm": ParamDef((cfg.d_model,), ones_init),
+        layer = lambda: {"norm": ParamDef((cfg.d_model,), (None,),
+                                          ones_init),
                          "mixer": ssm_mod.ssm_defs(cfg.d_model, cfg.ssm)}
         out = self._embed_defs()
         out["layers"] = [layer() for _ in range(cfg.n_layers)]
@@ -482,16 +504,16 @@ class HybridLM(LMBase):
 
     def _rec_defs(self):
         cfg = self.cfg
-        return {"norm1": ParamDef((cfg.d_model,), ones_init),
+        return {"norm1": ParamDef((cfg.d_model,), (None,), ones_init),
                 "rec": rglru_mod.rglru_defs(cfg.d_model, self.lru),
-                "norm2": ParamDef((cfg.d_model,), ones_init),
+                "norm2": ParamDef((cfg.d_model,), (None,), ones_init),
                 "mlp": mlp_mod.mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_act)}
 
     def _attn_block_defs(self):
         cfg = self.cfg
-        return {"norm1": ParamDef((cfg.d_model,), ones_init),
+        return {"norm1": ParamDef((cfg.d_model,), (None,), ones_init),
                 "attn": attn_defs(cfg),
-                "norm2": ParamDef((cfg.d_model,), ones_init),
+                "norm2": ParamDef((cfg.d_model,), (None,), ones_init),
                 "mlp": mlp_mod.mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_act)}
 
     def param_defs(self) -> Dict[str, Any]:
@@ -618,14 +640,15 @@ class EncDecLM(LMBase):
     # ---- parameters ---------------------------------------------------
     def _enc_layer_defs(self) -> Dict[str, Any]:
         cfg = self.cfg
-        return {"norm1": ParamDef((cfg.d_model,), ones_init),
+        return {"norm1": ParamDef((cfg.d_model,), (None,), ones_init),
                 "attn": attn_defs(cfg),
-                "norm2": ParamDef((cfg.d_model,), ones_init),
+                "norm2": ParamDef((cfg.d_model,), (None,), ones_init),
                 "mlp": mlp_mod.mlp_defs(cfg.d_model, cfg.d_ff, cfg.mlp_act)}
 
     def _dec_layer_defs(self) -> Dict[str, Any]:
         d = self._enc_layer_defs()
-        d["norm_x"] = ParamDef((self.cfg.d_model,), ones_init)
+        d["norm_x"] = ParamDef((self.cfg.d_model,), (None,),
+                               ones_init)
         d["xattn"] = attn_defs(self.cfg)
         return d
 
@@ -634,7 +657,7 @@ class EncDecLM(LMBase):
         out = self._embed_defs()
         out["enc_layers"] = [self._enc_layer_defs()
                              for _ in range(cfg.n_encoder_layers)]
-        out["enc_norm"] = ParamDef((cfg.d_model,), ones_init)
+        out["enc_norm"] = ParamDef((cfg.d_model,), (None,), ones_init)
         out["dec_layers"] = [self._dec_layer_defs()
                              for _ in range(cfg.n_layers)]
         return out

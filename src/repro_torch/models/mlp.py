@@ -11,8 +11,8 @@ from repro_torch.models.common import ParamDef, gelu_f32, silu_f32
 def mlp_defs(d_model: int, d_ff: int, act: str) -> Dict[str, ParamDef]:
     """Gated variants fuse gate+up into one projection for a single GEMM."""
     f_in = 2 * d_ff if act in ("swiglu", "geglu") else d_ff
-    return {"w_in": ParamDef((d_model, f_in)),
-            "w_out": ParamDef((d_ff, d_model))}
+    return {"w_in": ParamDef((d_model, f_in), ("fsdp", "tp")),
+            "w_out": ParamDef((d_ff, d_model), ("tp", "fsdp"))}
 
 
 def gated_act(h: torch.Tensor, act: str, dtype) -> torch.Tensor:

@@ -14,14 +14,20 @@ the paper's error codes, which surface as the router's drop statistics.
   scatter and gather, no selection tensor;
 - any name registered as a fabric backend (``"reference"``, ``"cuda"``,
   ``"cuda_kernel"``): every group through one ``Fabric`` round-trip
-  (:func:`moe_apply_fabric`); ``cuda_kernel`` runs the crossbar kernels.
+  (:func:`moe_apply_fabric`); ``cuda_kernel`` runs the crossbar kernels;
+- ``"sharded"`` (:func:`moe_apply_sharded`): mesh expert parallelism over
+  the ranks of a ``torch.distributed`` process group (``group``, where the
+  JAX package names a mesh axis): experts are slave ports partitioned
+  across the ranks, tokens cross them through the sharded fabric
+  backend's global-WRR ``all_to_all``, packets move through the scatter
+  and combine kernels.  :func:`moe_forward_sharded` is the wrapper that
+  takes global tensors on every rank.
 
 All three give the fabric's packet semantics: a packet's slot is its rank
 among its group's packets to the same expert (the WRR package counter), it
 is dropped at rank >= capacity, and it is dropped when ``expert_mask``
 forbids its expert.  The stats carry the JAX package's keys plus
-``counts``, the grants per expert.  The JAX package's ``"sharded"`` impl
-(mesh expert parallelism) is not ported (ROADMAP A6).
+``counts``, the grants per expert.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.registers import ErrorCode
+from repro_torch.fabric import collectives as coll
 from repro_torch.models.common import ParamDef
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.mlp import gated_act
@@ -42,9 +49,11 @@ def moe_defs(d_model: int, d_ff: int, moe: MoEConfig,
              act: str) -> Dict[str, ParamDef]:
     f_in = 2 * d_ff if act in ("swiglu", "geglu") else d_ff
     return {
-        "w_router": ParamDef((d_model, moe.n_experts)),
-        "w_in": ParamDef((moe.n_experts, d_model, f_in)),
-        "w_out": ParamDef((moe.n_experts, d_ff, d_model)),
+        "w_router": ParamDef((d_model, moe.n_experts), ("fsdp", None)),
+        "w_in": ParamDef((moe.n_experts, d_model, f_in),
+                         (None, "fsdp", "tp")),
+        "w_out": ParamDef((moe.n_experts, d_ff, d_model),
+                          (None, "tp", "fsdp")),
     }
 
 
@@ -59,23 +68,28 @@ def moe_apply(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
               group_size: int = 1024,
               expert_mask: Optional[torch.Tensor] = None,
               dispatch_impl: str = "dense",
+              registers=None, group=None,
+              capacity: Optional[int] = None,
               kernel_mode: Optional[str] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B, S, d] -> (y [B, S, d], stats).
 
     ``expert_mask``: optional [E] bool, the tenant's allowed-destinations
     register; packets to a disallowed expert drop (``stats["iso_dropped"]``).
-    ``dispatch_impl``: ``"dense"``, ``"gather"`` or a fabric backend's name
-    (see the module docstring).  ``kernel_mode`` selects the fabric's
-    lowering; the dense and gather impls run no crossbar kernel and ignore
-    it."""
+    ``dispatch_impl``: ``"dense"``, ``"gather"``, ``"sharded"`` or a fabric
+    backend's name (see the module docstring).  ``"sharded"`` runs on every
+    rank of ``group`` with this rank's tokens and expert block and routes
+    through :func:`moe_apply_sharded` (``registers`` and ``capacity`` pass
+    through, ``group_size`` is ignored: the rank is the group).
+    ``kernel_mode`` selects the fabric's lowering; the dense and gather
+    impls run no crossbar kernel and ignore it."""
     if dispatch_impl == "gather":
         return moe_apply_gather(params, x, moe, act, group_size=group_size,
                                 expert_mask=expert_mask)
     if dispatch_impl == "sharded":
-        raise NotImplementedError(
-            "MoE dispatch 'sharded' (mesh expert parallelism) is not ported "
-            "(ROADMAP A6); use 'dense', 'gather' or a fabric backend")
+        return moe_apply_sharded(params, x, moe, act, registers=registers,
+                                 group=group, expert_mask=expert_mask,
+                                 capacity=capacity, kernel_mode=kernel_mode)
     if dispatch_impl != "dense":
         return moe_apply_fabric(params, x, moe, act, group_size=group_size,
                                 expert_mask=expert_mask,
@@ -179,8 +193,10 @@ def _stats(keep, dst, probs, n_experts: int, iso_dropped, cap: int):
 
 @functools.lru_cache(maxsize=None)
 def _group_fabric(n_experts: int, capacity: int, backend: str,
-                  kernel_mode: Optional[str], device: torch.device):
-    """One cached fabric per MoE geometry and device.
+                  kernel_mode: Optional[str], device: torch.device, group):
+    """One cached fabric per MoE geometry, device and (for the sharded
+    backend) process group, so that different groups never share WRR
+    geometry.
 
     The fabric reads its registers through a mutable cell so a call can
     swap in the tenant's isolation mask; the canonical file (all experts
@@ -190,21 +206,25 @@ def _group_fabric(n_experts: int, capacity: int, backend: str,
     from repro_torch.fabric import Fabric
     cell = {"regs": CrossbarRegisters.create(n_experts, capacity=capacity,
                                              device=device)}
+    kw = {"group": group} if backend == "sharded" else {}
     # debug off: the JAX package's MoE calls its fabric inside a trace,
     # where an environment-sourced sanitizer does not run
     fabric = Fabric(lambda: cell["regs"], backend=backend, capacity=capacity,
-                    kernel_mode=kernel_mode, device=device, debug=False)
+                    kernel_mode=kernel_mode, device=device, debug=False, **kw)
     return fabric, cell
 
 
 def moe_fabric(n_experts: int, capacity: int, backend: str,
-               kernel_mode: Optional[str] = None, device=None):
+               kernel_mode: Optional[str] = None, device=None, group=None):
     """The cached ``Fabric`` a given MoE geometry dispatches through on
-    ``device`` (the card unless ``"cpu"`` is asked for), so that tests and
-    telemetry can read its ``trace_count`` or attach its ``probe()``."""
+    ``device`` (the card unless ``"cpu"`` is asked for) and, for
+    ``"sharded"``, ``group``, so that tests and telemetry can read its
+    ``trace_count`` (the pin that a reconfiguration builds nothing) or
+    attach its ``probe()``."""
     from repro_torch.core.device import resolve_device
     return _group_fabric(n_experts, capacity, backend,
-                         _mode_key(kernel_mode), resolve_device(device))[0]
+                         _mode_key(kernel_mode), resolve_device(device),
+                         group)[0]
 
 
 def _mode_key(kernel_mode: Optional[str]) -> Optional[str]:
@@ -260,7 +280,7 @@ def moe_apply_fabric(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
     cap = expert_capacity(g, moe)
 
     fabric, cell = _group_fabric(E, cap, backend, _mode_key(kernel_mode),
-                                 x.device)
+                                 x.device, None)
     canonical = cell["regs"]
     if expert_mask is not None:
         cell["regs"] = dataclasses.replace(
@@ -293,3 +313,178 @@ def moe_apply_fabric(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
         "plans": plans,
     }
     return y, stats
+
+
+def _sharded_stats(plan, dst, probs, n_experts: int, E_loc: int, cap: int,
+                   offered: int, src, reduce=lambda t: t):
+    """The sharded impl's stats from its plan (``src`` is each packet's
+    owning shard, ``reduce`` sums a local count over the group): the JAX
+    package's keys, with the grants split into packets that stayed on
+    their source shard and packets that crossed to another."""
+    mine = (plan.keep & (dst // E_loc == src)).to(torch.int32)
+    local_counts = torch.zeros((n_experts,), dtype=torch.int32,
+                               device=dst.device).index_add_(
+        0, dst.long(), mine)
+    local_counts = reduce(local_counts)
+    local = local_counts.sum(dtype=torch.int32)
+    granted = plan.counts.sum(dtype=torch.int32)
+    offered_t = torch.tensor(offered, dtype=torch.int32, device=dst.device)
+    frac_tokens = (plan.counts / offered).float()
+    return {
+        "aux_loss": n_experts * torch.sum(frac_tokens * probs),
+        "dropped": offered_t - granted,
+        "iso_dropped": plan.drops[ErrorCode.INVALID_DEST],
+        "capacity": torch.tensor(cap),
+        "counts": plan.counts,
+        "offered_packets": offered_t,
+        "granted_packets": granted,
+        "local_packets": local,
+        "remote_packets": granted - local,
+        "local_counts": local_counts,
+        "remote_counts": plan.counts - local_counts,
+    }
+
+
+def moe_apply_sharded(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
+                      registers=None, group=None,
+                      expert_mask: Optional[torch.Tensor] = None,
+                      capacity: Optional[int] = None,
+                      kernel_mode: Optional[str] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mesh expert parallelism through the sharded fabric backend.
+
+    Runs on every rank of ``group`` (``None``: the default world group;
+    ``group`` stands where the JAX package's ``axis_name`` stands; use
+    :func:`moe_forward_sharded` for global tensors): ``x`` is this rank's
+    [B_loc, S, d] slice, ``params["w_in"]``/``["w_out"]`` are its
+    [E_loc, ...] expert block, ``params["w_router"]`` is replicated.
+    Tokens cross the ranks through the global-WRR ``all_to_all``
+    (``ShardedBackend``); on the card the packets move through the scatter
+    and combine kernels.
+
+    ``registers`` is the E-port register file, a value: a
+    ``Shell.post(Grow/Shrink/FailRegion)`` re-routes the next call with no
+    new signature (``moe_fabric(E, cap, "sharded", group=group)
+    .trace_count`` is the pin).  Defaults to a fully open file.
+    ``capacity`` defaults to ``expert_capacity(T_loc * n_shards)``.
+
+    Stats beyond the local impls', each summed over the group:
+    ``offered_packets``/``granted_packets``, ``counts`` (the global
+    per-expert grants), ``local_packets``/``remote_packets`` (grants that
+    stayed on their source rank or crossed to another) and their per-port
+    splits ``local_counts``/``remote_counts``; ``Fabric.account_stats``
+    folds them into the manager's telemetry.
+    """
+    from repro_torch.core.registers import CrossbarRegisters
+
+    E, k = moe.n_experts, moe.top_k
+    B_loc, S, d = x.shape
+    T_loc = B_loc * S
+    E_loc = params["w_in"].shape[0]
+    if E_loc == 0 or E % E_loc:
+        raise ValueError(
+            f"local expert block ({E_loc}) must divide n_experts ({E}); "
+            f"shard w_in/w_out over the group's ranks")
+    n_shards = E // E_loc
+    cap = (capacity if capacity is not None
+           else expert_capacity(T_loc * n_shards, moe))
+    if registers is None:
+        registers = CrossbarRegisters.create(E, capacity=cap,
+                                             device=x.device)
+    xf = x.reshape(T_loc, d)
+    dst, w, probs = _moe_router(params, xf, moe, expert_mask)
+
+    fabric, _ = _group_fabric(E, cap, "sharded", _mode_key(kernel_mode),
+                              x.device, group)
+    xk = xf.repeat_interleave(k, dim=0)                    # [T_loc*k, d]
+    src = torch.zeros((T_loc * k,), dtype=torch.int32, device=x.device)
+    # dispatch and combine apart (not ``transfer``, whose ``apply_fn`` is a
+    # signature): the experts' closure is new on every call
+    slabs, plan = fabric.dispatch(xk, dst, src, registers=registers)
+    ys = _expert_ffn(slabs, params["w_in"], params["w_out"], act)
+    y = fabric.combine(ys, plan, weights=w, registers=registers)
+    y = y.reshape(T_loc, k, d).sum(dim=1).reshape(B_loc, S, d)
+
+    me = coll.axis_index(group)
+    frac_probs = (coll.psum(probs.sum(0), group) / (T_loc * n_shards))
+    return y, _sharded_stats(plan, dst, frac_probs, E, E_loc, cap,
+                             T_loc * k * n_shards, me,
+                             lambda t: coll.psum(t, group))
+
+
+def moe_apply_sharded_reference(params, x: torch.Tensor, moe: MoEConfig,
+                                act: str, *, n_shards: int, registers=None,
+                                expert_mask: Optional[torch.Tensor] = None,
+                                capacity: Optional[int] = None
+                                ) -> Tuple[torch.Tensor,
+                                           Dict[str, torch.Tensor]]:
+    """Single-device oracle for :func:`moe_apply_sharded`.
+
+    Same router, register file and stats, but the whole batch on one device
+    through the *reference* backend, each token's source port set to the
+    shard that would own it (the batch laid out shard-major, as
+    :func:`moe_forward_sharded` splits it).  The sharded path matches it
+    bit for bit on plans and within float tolerance on outputs.
+    """
+    from repro_torch.core.registers import CrossbarRegisters
+
+    E, k = moe.n_experts, moe.top_k
+    B, S, d = x.shape
+    T = B * S
+    if B % n_shards or E % n_shards:
+        raise ValueError(f"batch {B} and n_experts {E} must both divide "
+                         f"into {n_shards} shards")
+    T_loc = T // n_shards
+    E_loc = E // n_shards
+    cap = capacity if capacity is not None else expert_capacity(T, moe)
+    if registers is None:
+        registers = CrossbarRegisters.create(E, capacity=cap,
+                                             device=x.device)
+    xf = x.reshape(T, d)
+    dst, w, probs = _moe_router(params, xf, moe, expert_mask)
+
+    fabric, _ = _group_fabric(E, cap, "reference", None, x.device, None)
+    xk = xf.repeat_interleave(k, dim=0)
+    src = torch.arange(n_shards, dtype=torch.int32,
+                       device=x.device).repeat_interleave(T_loc * k)
+    slabs, plan = fabric.dispatch(xk, dst, src, registers=registers)
+    ys = _expert_ffn(slabs, params["w_in"], params["w_out"], act)
+    y = fabric.combine(ys, plan, weights=w, registers=registers)
+    y = y.reshape(T, k, d).sum(dim=1).reshape(B, S, d)
+    return y, _sharded_stats(plan, dst, probs.mean(0), E, E_loc, cap,
+                             T * k, src)
+
+
+def moe_forward_sharded(params, x: torch.Tensor, moe: MoEConfig, act: str,
+                        *, group=None, registers=None,
+                        expert_mask: Optional[torch.Tensor] = None,
+                        capacity: Optional[int] = None,
+                        kernel_mode: Optional[str] = None
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The wrapper around :func:`moe_apply_sharded` with global tensors.
+
+    Every rank of ``group`` passes the global ``x`` [B, S, d] and the full
+    parameters; the wrapper takes this rank's batch slice and expert block
+    (both dims must divide by the group's size), and returns the global
+    ``y`` (gathered over the batch) and the stats, which are replicated,
+    as JAX's ``shard_map`` output is global.  Gradients: every rank gets
+    the whole gradient of ``x`` and of every parameter, the replicated
+    router's summed over the ranks and the sharded ones gathered, equal to
+    the single-device oracle's (:func:`moe_apply_sharded_reference`).
+    ``registers`` (replicated, a value) and ``capacity`` (default
+    ``expert_capacity(B * S)``) pass through."""
+    n = coll.axis_size(group)
+    B, S, _ = x.shape
+    E = moe.n_experts
+    if B % n or E % n:
+        raise ValueError(f"batch ({B}) and n_experts ({E}) must be "
+                         f"divisible by the group's size ({n})")
+    cap = capacity if capacity is not None else expert_capacity(B * S, moe)
+    local = {"w_router": coll.replicate(params["w_router"], group),
+             "w_in": coll.shard(params["w_in"], 0, group),
+             "w_out": coll.shard(params["w_out"], 0, group)}
+    y, stats = moe_apply_sharded(
+        local, coll.shard(x, 0, group), moe, act, registers=registers,
+        group=group, expert_mask=expert_mask, capacity=cap,
+        kernel_mode=kernel_mode)
+    return coll.gather(y, 0, group), stats

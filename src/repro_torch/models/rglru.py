@@ -34,16 +34,16 @@ N_GATE_BLOCKS = 16
 def rglru_defs(d_model: int, lru_width: int) -> Dict[str, ParamDef]:
     blk = lru_width // N_GATE_BLOCKS
     return {
-        "w_gate": ParamDef((d_model, lru_width)),
-        "w_branch": ParamDef((d_model, lru_width)),
-        "conv_w": ParamDef((4, lru_width)),
-        "conv_b": ParamDef((lru_width,), zeros_init),
-        "w_r": ParamDef((N_GATE_BLOCKS, blk, blk)),
-        "b_r": ParamDef((lru_width,), zeros_init),
-        "w_i": ParamDef((N_GATE_BLOCKS, blk, blk)),
-        "b_i": ParamDef((lru_width,), zeros_init),
-        "lam": ParamDef((lru_width,), ones_init),
-        "w_out": ParamDef((lru_width, d_model)),
+        "w_gate": ParamDef((d_model, lru_width), ("fsdp", "tp")),
+        "w_branch": ParamDef((d_model, lru_width), ("fsdp", "tp")),
+        "conv_w": ParamDef((4, lru_width), (None, "tp")),
+        "conv_b": ParamDef((lru_width,), ("tp",), zeros_init),
+        "w_r": ParamDef((N_GATE_BLOCKS, blk, blk), (None, None, "tp")),
+        "b_r": ParamDef((lru_width,), ("tp",), zeros_init),
+        "w_i": ParamDef((N_GATE_BLOCKS, blk, blk), (None, None, "tp")),
+        "b_i": ParamDef((lru_width,), ("tp",), zeros_init),
+        "lam": ParamDef((lru_width,), ("tp",), ones_init),
+        "w_out": ParamDef((lru_width, d_model), ("tp", "fsdp")),
     }
 
 

@@ -33,14 +33,14 @@ def ssm_defs(d_model: int, ssm: SSMConfig) -> Dict[str, ParamDef]:
     conv_dim = d_inner + 2 * N
     d_in = 2 * d_inner + 2 * N + H
     return {
-        "in_proj": ParamDef((d_model, d_in)),
-        "conv_w": ParamDef((ssm.conv_width, conv_dim)),
-        "conv_b": ParamDef((conv_dim,), zeros_init),
-        "a_log": ParamDef((H,), ones_init),
-        "dt_bias": ParamDef((H,), zeros_init),
-        "d_skip": ParamDef((H,), ones_init),
-        "norm_g": ParamDef((d_inner,), ones_init),
-        "out_proj": ParamDef((d_inner, d_model)),
+        "in_proj": ParamDef((d_model, d_in), ("fsdp", "tp")),
+        "conv_w": ParamDef((ssm.conv_width, conv_dim), (None, "tp")),
+        "conv_b": ParamDef((conv_dim,), ("tp",), zeros_init),
+        "a_log": ParamDef((H,), (None,), ones_init),
+        "dt_bias": ParamDef((H,), (None,), zeros_init),
+        "d_skip": ParamDef((H,), (None,), ones_init),
+        "norm_g": ParamDef((d_inner,), ("tp",), ones_init),
+        "out_proj": ParamDef((d_inner, d_model), ("tp", "fsdp")),
     }
 
 

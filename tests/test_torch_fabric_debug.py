@@ -16,8 +16,9 @@ The same traffic goes to both packages' fabrics:
 - with ``debug=False`` no check runs and each call dispatches exactly the
   operations it dispatches without the sanitizer.
 
-The JAX package's in-trace and sharded cases have no counterpart: the
-port has no traces and no sharded backend (ROADMAP A6).
+The JAX package's in-trace cases have no counterpart (the port has no
+traces); its sharded backend's sanitizer is held in
+``test_torch_fabric_sharded.py``.
 """
 import dataclasses
 

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card: the crossbar
 kernels, flash attention forward and backward (and the forward at head
 dim 256), the gradients of the MoE through the crossbar kernel data plane,
-and the recurrent families' SSD and RG-LRU scans.
+the sharded backend's data plane on two gloo ranks sharing the card, and
+the recurrent families' SSD and RG-LRU scans.
 
 Imports nothing of JAX, so it runs where only PyTorch and the CUDA toolkit
 are installed:
@@ -610,6 +611,40 @@ def test_moe_gradients_cross_the_kernel_data_plane_on_card(dtype):
         tol = GRAD_REL[dtype] * float(b.abs().max())
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0,
                                    msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_sharded_data_plane_on_the_kernels_on_card(tmp_path):
+    """Two gloo ranks on one card: the sharded backend's dispatch and
+    combine, forward and backward, through the scatter and combine
+    kernels, bit-equal in bfloat16 to the plain versions on the same ranks
+    and inputs (pure row moves, and one product rounded once); the weight
+    gradient in the weights' type, as the JAX package's."""
+    _card()
+    from _torch_sharded_worker import spawn
+    K.library()                     # built here; the ranks only load it
+    rng = np.random.default_rng(7)
+    n, S, T, D, cap = 2, 4, 300, 64, 64
+    dst = rng.integers(0, S, n * T).astype(np.int32)
+    dst[rng.random(n * T) < 0.1] = -1
+    regs = {"dest": np.arange(S, dtype=np.int32),
+            "allowed": rng.random((S, S)) > 0.2,
+            "quota": np.where(rng.random((S, S)) > 0.5,
+                              rng.integers(20, 200, (S, S)), 0
+                              ).astype(np.int32),
+            "capacity": rng.integers(cap // 2, cap + 1, S).astype(np.int32),
+            "reset": np.zeros(S, bool), "error": np.zeros(S, np.int32),
+            "version": np.int32(0)}
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    payload = {"regs": regs, "cap": cap, "dst": dst, "dtype": "bfloat16",
+               "x": f(n * T, D), "w": f(n * T), "ct": f(n * T, D),
+               "scale": f(S, cap, D)}
+    res = spawn("card_data_plane", n, tmp_path, payload, device="cuda:0")
+    for r, got in enumerate(res):
+        assert all(got["equal"]), (r, got["equal"])
+        assert got["d_w_dtype"] == "torch.bfloat16"     # the weights' type
+        assert got["launches"]["scatter"] > 0, (r, got["launches"])
+        assert got["launches"]["combine"] > 0, (r, got["launches"])
 
 
 # ----------------------------------------------------------------------

@@ -84,12 +84,15 @@ def test_moe_fabric_kernel_path_matches_jax(seed, mask):
 
 
 def test_moe_apply_names_fabric_backends_only():
-    """Besides the ported "dense" and "gather" impls, ``moe_apply`` routes
-    only through fabric backends: the unported "sharded" impl and unknown
-    names raise; the fabric backends are plan-equivalent."""
+    """Besides the "dense", "gather" and "sharded" impls, ``moe_apply``
+    routes only through fabric backends: the sharded impl refuses an
+    expert block that does not divide the experts, unknown names raise;
+    the fabric backends are plan-equivalent."""
     _, _, moe_t, params_t, x = _inputs(0)
-    with pytest.raises(NotImplementedError):
-        tmoe.moe_apply(params_t, torch.from_numpy(x), moe_t, "swiglu",
+    block = dict(params_t, w_in=params_t["w_in"][:3],
+                 w_out=params_t["w_out"][:3])
+    with pytest.raises(ValueError, match="divide"):
+        tmoe.moe_apply(block, torch.from_numpy(x), moe_t, "swiglu",
                        dispatch_impl="sharded")
     with pytest.raises(ValueError):
         tmoe.moe_apply(params_t, torch.from_numpy(x), moe_t, "swiglu",

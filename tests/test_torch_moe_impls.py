@@ -134,8 +134,10 @@ def test_dense_is_the_default_and_sharded_is_refused():
     y_dense, _ = tmoe.moe_apply(params_t, xt, moe_t, "swiglu",
                                 group_size=GROUP, dispatch_impl="dense")
     assert torch.equal(y_default, y_dense)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tmoe.moe_apply(params_t, xt, moe_t, "swiglu", dispatch_impl="sharded")
+    block = dict(params_t, w_in=params_t["w_in"][:3],
+                 w_out=params_t["w_out"][:3])
+    with pytest.raises(ValueError, match="must divide n_experts"):
+        tmoe.moe_apply(block, xt, moe_t, "swiglu", dispatch_impl="sharded")
     with pytest.raises(ValueError, match="unknown fabric backend"):
         tmoe.moe_apply(params_t, xt, moe_t, "swiglu", dispatch_impl="nope")
 
