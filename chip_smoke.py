@@ -65,7 +65,9 @@ Phases, each printing one JSON line with its seconds:
             and token streams, decisions and placements must equal the same
             loop on the plain path; the plan, scatter and combine kernels
             launch, the crossbar library loads once.
-6. train    3 AdamW steps of ``make_train_step`` on the served model's
+6. train    3 AdamW steps of ``build_step``'s train step (for
+            ``train_4k`` cut to B=1, on the card mesh: ``make_train_step``)
+            on the served model's
             parameters (B=1, S=4096), counting kernel launches on exactly
             these steps (bfloat16 flash only on the tensor-core route);
             then the prefill logits of the kernel path against
@@ -175,6 +177,30 @@ Phases, each printing one JSON line with its seconds:
             patches at lr 2e-5 (LLaVA-NeXT's published rate; 1e-3
             overshoots at this width on the plain path too), one flash
             backward a layer a step (D=128, G=7).
+8d. launch the launch tools (``repro_torch.launch``).  (a) ``dryrun.run_cell``
+            on the ``card`` mesh at microbatches 1, on the meta device
+            with no card, for the cells of phases 6, 8b and 8c: the
+            served Mixtral (2 layers) and the whole Mamba-2 780M trained
+            at S=4096, B=1, LLaVA-NeXT-34B (60 layers) and Whisper-medium
+            prefilled at S=4096; each record on its own line, then a
+            table beside what the phase measured in this run: parameter
+            and optimizer bytes equal to the bytes the phase allocated,
+            each cell predicted to fit, the prefill cells' measured peak
+            (``max_memory_allocated``) within 0.8-1.25 of the predicted,
+            the train cells' ratio printed; Mixtral-8x7B at 32 layers and
+            LLaVA-NeXT-34B at 60 trained at S=4096, B=1 predicted not to
+            fit.  (c) the deprecated fixed-wave ``ServeLoop`` on a rebuilt
+            served Mixtral (the same seed), 4 requests of 16 tokens,
+            ``max_new=8``: tokens equal to the same loop on the plain path
+            on the card, the crossbar kernels launched.  (d) one train
+            step of that model (forward and backward, the kernel path)
+            recorded by ``OpRecorder``: ``dense_routing_bytes`` 0 at the
+            dense formulation's geometry (2,048 packets a group, 4 groups
+            x 8 experts x 320 slots), the crossbar and flash kernels
+            launched; the ``dense`` impl's MoE layer at ``moe_impls``'s
+            shape, recorded alike, must show that tensor.  Launches are
+            counted over exactly (c) and (d) (``launches_by_path``:
+            ``launch``).
 9. paper_usecase
             the paper's experiments on the port's copy of the hardware
             model (Fig 5, §V-D, §V-E, Fig 6, Table II; model milliseconds
@@ -272,9 +298,6 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, data sheet
-F32_OPS_PER_S = 67e12              # H100 SXM, float32 outside tensor cores
-BF16_OPS_PER_S = 989e12            # H100 SXM, dense bf16 tensor cores
 SEED = 0
 GB = 1 << 30
 
@@ -300,10 +323,20 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / ops_per_s * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+def roofline():
+    """``repro_torch.launch.roofline``: the H100's peaks (``HBM_BW``,
+    ``PEAK_FLOPS`` for bf16 on the tensor cores, ``PEAK_FLOPS_F32``) and
+    ``bound``."""
+    from repro_torch.launch import roofline as r
+    return r
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s=None):
+    """``roofline().bound``: (ms, "bytes" or "operations"), the operations
+    at the float32 peak unless ``ops_per_s`` says."""
+    r = roofline()
+    return r.bound(n_bytes, n_ops,
+                   r.PEAK_FLOPS_F32 if ops_per_s is None else ops_per_s)
 
 
 # ----------------------------------------------------------------------
@@ -658,8 +691,8 @@ class FlashCase:
         q, k, v, do = self.q, self.k, self.v, self.do
         B, Sq, H, D = q.shape
         es = q.element_size()
-        rate = BF16_OPS_PER_S if self.dtype == torch.bfloat16 \
-            else F32_OPS_PER_S
+        rate = roofline().PEAK_FLOPS if self.dtype == torch.bfloat16 \
+            else roofline().PEAK_FLOPS_F32
         fwd_ops = 4 * D * self.pairs                 # QK^T and PV
         io = (2 * q.numel() + k.numel() + v.numel()) * es
         o, lse = FK.flash_fwd(q, k, v, mode=cuda, **self.kw)
@@ -839,20 +872,37 @@ def _reset_counts():
         m.reset_launch_counts()
 
 
+def train_shape():
+    """``train_4k`` cut to batch 1: the train phase's cell."""
+    from repro_torch.models.config import ShapeConfig
+    return ShapeConfig("train_4k_b1", TRAIN_SEQ, 1, "train")
+
+
+# what a phase measured that the launch phase's dry runs are held against:
+# phase -> {"max_memory_allocated", "param_bytes", "opt_state_bytes"}
+MEASURED = {}
+
+
 def train_phase(engine, smi):
-    """3 ``make_train_step`` steps on the served model's parameters (the
-    engine's own bf16 tensors, updated in place), then the prefill check.
-    Returns the launches of the steps and the step timings."""
+    """3 steps of ``build_step``'s train step (``make_train_step`` with
+    AdamW, built for ``train_shape()`` on the card mesh) on the served
+    model's parameters (the engine's own bf16 tensors, updated in place),
+    then the prefill check.  Returns the launches of the steps and the
+    step timings."""
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels import build
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.common import tree_nbytes
     from repro_torch.optim.adamw import AdamW
     model, params = engine.model, engine.params
     cfg = model.cfg
     batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
         SEED, 0, 0, 1, 1, TRAIN_SEQ, cfg.vocab).items()}
     opt = AdamW(lr=TRAIN_LR)
-    step = make_train_step(model, opt)
+    bundle = build_step(cfg, train_shape(), make_smoke_mesh(),
+                        multi_pod=False, opt=opt)
+    step = bundle.step
     t0 = time.perf_counter()
     state = opt.init(params)
     torch.cuda.synchronize()
@@ -868,10 +918,15 @@ def train_phase(engine, smi):
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     loads = dict(build.load_count)
+    MEASURED["train"] = {"max_memory_allocated": peak,
+                         "param_bytes": tree_nbytes(params),
+                         "opt_state_bytes": tree_nbytes([state.m, state.v])}
     emit("train", smi=smi, model=cfg.name, layers=cfg.n_layers,
-         batch=1, seq=TRAIN_SEQ, lr=TRAIN_LR, losses=losses,
-         step_wall_ms=walls, max_memory_allocated=peak,
-         max_memory_gb=peak / 1e9, kernels=launches, library_loads=loads,
+         batch=1, seq=TRAIN_SEQ, lr=TRAIN_LR, step="build_step",
+         losses=losses, step_wall_ms=walls, max_memory_allocated=peak,
+         max_memory_gb=peak / 1e9, param_bytes=MEASURED["train"][
+             "param_bytes"], opt_state_bytes=MEASURED["train"][
+             "opt_state_bytes"], kernels=launches, library_loads=loads,
          seconds=time.perf_counter() - t0)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"a training loss is not finite: {losses}")
@@ -2130,7 +2185,7 @@ def ssd_phase():
     n_ops = nc * (2 * tri * N                  # C.B^T, once per chunk
                   + H * (2 * tri * P           # G x
                          + 2 * 2 * Q * P * N))  # C.h and the state update
-    b, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    b, by = bound(n_bytes, n_ops, roofline().PEAK_FLOPS)
     t = dict(ms=time_ms(lambda: SK.ssd_call(xh, dAh, dth, Bm, Cm, chunk=Q,
                                             mode=KernelMode.CUDA), reps=10),
              plain_ms=time_ms(lambda: sref.ssd_call_ref(xh, dAh, dth, Bm, Cm,
@@ -2209,11 +2264,11 @@ def rglru_phase():
     if not all(res.values()):
         raise AssertionError(f"RG-LRU kernel disagrees: {res}")
     n_bytes = 3 * a.numel() * 4 + L * 4
-    bnd, by = bound(n_bytes, 2 * a.numel(), F32_OPS_PER_S)
+    bnd, by = bound(n_bytes, 2 * a.numel(), roofline().PEAK_FLOPS_F32)
     entry = lambda: rglru_scan_kernel(u, a, mode=cuda)  # noqa: E731
     # a, u and h once each (4 + 2 + 2 bytes an element) and h_last
     entry_bound, _ = bound(8 * a.numel() + L * 4, 2 * a.numel(),
-                           F32_OPS_PER_S)
+                           roofline().PEAK_FLOPS_F32)
     prof = device_profile(entry, calls=10, kernel="rglru_kernel")
     t = dict(ms=time_ms(lambda: RK.rglru_call(a, b, mode=cuda), reps=10),
              plain_ms=time_ms(lambda: rref.rglru_call_ref(a, b), reps=3),
@@ -2281,7 +2336,7 @@ def flash_d256_phase():
         raise AssertionError("flash forward at head dim 256 disagrees")
     del o_r, lse_r
     n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + H * S * 4
-    b, by = bound(n_bytes, 4 * D * pairs, BF16_OPS_PER_S)
+    b, by = bound(n_bytes, 4 * D * pairs, roofline().PEAK_FLOPS)
     hm = [t.transpose(1, 2).expand(1, H, S, D) if t.shape[2] == 1
           else t.transpose(1, 2) for t in (q, k, v)]
     hm = [t.contiguous() for t in hm]
@@ -2686,7 +2741,7 @@ def ssd_bwd_phase(gen):
                              + 4 * tri * N              # D C, D B
                              + 10 * Q * P * N))         # states, g B, x g,
         #                                                 dy h_in, dual states
-        b, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        b, by = bound(n_bytes, n_ops, roofline().PEAK_FLOPS)
         t = dict(ms=time_ms(kernel, reps=10),
                  plain_ms=time_ms(lambda: sref.ssd_bwd_ref(*args, Q, h0, dhl),
                                   reps=3),
@@ -2738,7 +2793,7 @@ def rglru_bwd_phase(gen):
         # a, u, dh read; du, da written; the carries; h0, dh_last, dh0
         n_bytes = (a.numel() * (4 + 2 + 2 + 2 + 4) + carries.numel() * 4
                    + 3 * L * 4)
-        b, by = bound(n_bytes, 4 * a.numel(), F32_OPS_PER_S)
+        b, by = bound(n_bytes, 4 * a.numel(), roofline().PEAK_FLOPS_F32)
         t = dict(ms=time_ms(kernel, reps=10),
                  plain_ms=time_ms(lambda: rref.rglru_bwd_ref(u, a, h0, dh,
                                                              dhl), reps=3),
@@ -2802,7 +2857,7 @@ def flash_d256_bwd_phase(gen):
         do_hm = do.transpose(1, 2).contiguous()
         io = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         b, by = bound(2 * io + H * S * 4, 2.5 * 4 * D * case.pairs,
-                      BF16_OPS_PER_S)
+                      roofline().PEAK_FLOPS)
         t = dict(ms=time_ms(kernel, reps=10),
                  plain_ms=time_ms(lambda: torch.autograd.grad(
                      out, leaves, do, retain_graph=True), reps=3),
@@ -2850,7 +2905,7 @@ def recurrent_train_phase(arch, phase, smi):
     the float32 check.  Returns the steps' launches."""
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.launch.steps import _value_and_grad, make_train_step
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import tree_leaves, tree_nbytes
     from repro_torch.models.lm import build_model
     from repro_torch.optim.adamw import AdamW
     t0 = time.perf_counter()
@@ -2898,6 +2953,9 @@ def recurrent_train_phase(arch, phase, smi):
         losses.append(float(loss))
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
+    MEASURED[phase] = {"max_memory_allocated": peak,
+                       "param_bytes": tree_nbytes(params),
+                       "opt_state_bytes": tree_nbytes([state.m, state.v])}
     if cfg.family == "ssm":
         want = {"ssd_bwd": blocks * TRAIN_STEPS}
     else:
@@ -3067,7 +3125,7 @@ def serve_family_phase(arch, phase, smi):
     within ``PREFILL_REL``, or else within ``PREFILL_CONTROL_FACTOR`` times
     the same run's one-ulp control (``rounding_controls``); the line names
     the limit that held.  Returns the launches."""
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import tree_leaves, tree_nbytes
     from repro_torch.shell.server import ModelEngine
     cfg = published_config(arch)
     rng = np.random.default_rng(SEED)
@@ -3111,6 +3169,8 @@ def serve_family_phase(arch, phase, smi):
     prefill_s = time.perf_counter() - t1
     prefill_peak = torch.cuda.max_memory_allocated()
     launches = _counts()
+    MEASURED[phase] = {"max_memory_allocated": prefill_peak,
+                       "param_bytes": tree_nbytes(params), "opt_state_bytes": 0}
     comps = sorted(server.completions, key=lambda c: c.rid)
     n_tok = sum(len(c.tokens) for c in comps)
     emit(phase, smi=smi, model=cfg.name, requests=len(comps),
@@ -3268,6 +3328,223 @@ def encdec_f32_check(phase):
     batch.update(family_input(cfg, np.random.default_rng(SEED + 1)))
     train_f32_check(phase, cfg, batch, FAMILY_PHASE_KERNELS,
                     FAMILY_PHASE_KERNELS)
+
+
+# ----------------------------------------------------------------------
+# the launch tools: dry runs on the meta device against what the card
+# measured, the fixed-wave ServeLoop, routing by address on the kernels
+# ----------------------------------------------------------------------
+PREFILL_PEAK_BAND = (0.8, 1.25)   # measured / predicted peak, prefill cells
+LAUNCH_KERNELS = SERVE_KERNELS + ("flash_fwd", "flash_bwd")
+
+
+def launch_cells():
+    """The dry-run cells: name -> (arch, shape, config overrides, the phase
+    that ran the cell on the card, or None where the card cannot hold the
+    cell and the dry run must say so).  Each is the config and shape its
+    phase ran: the served Mixtral cut to 2 layers (remat "nothing", the MoE
+    on the crossbar's kernel backend), the whole Mamba-2 780M (remat
+    "dots"), LLaVA-NeXT-34B at all 60 layers and the whole Whisper-medium
+    (bf16); and Mixtral-8x7B at its 32 layers and LLaVA-NeXT-34B at its 60
+    trained at ``train_shape()``, the two that section 4 of PERF.md says
+    exceed 80 GB."""
+    from repro_torch.models.config import ShapeConfig
+    served = serving_config()
+    mixtral = {"n_layers": served.n_layers, "dtype": served.dtype,
+               "remat": served.remat, "moe": served.moe}
+    prefill = ShapeConfig("prefill_4k_b1", ENCDEC_SEQ, 1, "prefill")
+    bf16 = {"dtype": "bfloat16"}
+    return {
+        "mixtral_train": ("mixtral_8x7b", train_shape(), mixtral, "train"),
+        "mamba_train": ("mamba2_780m", train_shape(),
+                        {**bf16, "n_layers": TRAIN_LAYERS["mamba2_780m"]},
+                        "train_ssm"),
+        "llava_prefill": ("llava_next_34b", prefill, bf16, "serve_vlm"),
+        "whisper_prefill": ("whisper_medium", prefill, bf16,
+                            "serve_encdec"),
+        "mixtral_32_train": ("mixtral_8x7b", train_shape(),
+                             {**mixtral, "n_layers": 32}, None),
+        "llava_60_train": ("llava_next_34b", train_shape(), bf16, None),
+    }
+
+
+def launch_dry_runs():
+    """(a): each cell through ``dryrun.run_cell`` on the ``card`` mesh at
+    microbatches 1, with no card (the meta device), held against what its
+    phase measured on the card in this run.  Parameter and optimizer bytes
+    must equal the bytes the phase allocated, as integers; the cells the
+    card ran must be predicted to fit and the two over-80-GB ones not to;
+    the prefill cells' measured peak over the predicted must lie in
+    ``PREFILL_PEAK_BAND`` (the train cells' ratio is printed only: the
+    plain path on meta keeps chunked-attention and SSD intermediates that
+    the kernels do not)."""
+    import pathlib
+    from repro_torch.launch.dryrun import HBM_BUDGET, run_cell
+    out_dir = pathlib.Path(HERE, "build", "dryrun")
+    table, failed = {}, []
+    for name, (arch, shape, overrides, phase) in launch_cells().items():
+        t0 = time.perf_counter()
+        rec = run_cell(arch, shape, "card", out_dir=out_dir,
+                       overrides=overrides, microbatches=1)
+        emit("launch.dryrun", cell=name, seconds=time.perf_counter() - t0,
+             record=rec)
+        row = {k: rec[k] for k in (
+            "param_bytes", "opt_state_bytes", "peak_memory_est", "fits_hbm",
+            "flops_per_device", "roofline_fraction", "holdout_rel_err")}
+        row["kind"] = shape.kind
+        if phase is None:
+            if rec["fits_hbm"]:
+                failed.append(f"{name} predicted to fit")
+        else:
+            got = MEASURED[phase]
+            ratio = got["max_memory_allocated"] / rec["peak_memory_est"]
+            row.update(phase=phase, measured_param_bytes=got["param_bytes"],
+                       measured_opt_state_bytes=got["opt_state_bytes"],
+                       max_memory_allocated=got["max_memory_allocated"],
+                       peak_ratio=ratio)
+            if (rec["param_bytes"], rec["opt_state_bytes"]) != (
+                    got["param_bytes"], got["opt_state_bytes"]):
+                failed.append(f"{name}: state bytes")
+            if not rec["fits_hbm"]:
+                failed.append(f"{name} predicted not to fit")
+            lo, hi = PREFILL_PEAK_BAND
+            if shape.kind == "prefill" and not lo <= ratio <= hi:
+                failed.append(f"{name}: peak ratio {ratio}")
+        table[name] = row
+    emit("launch.cells", hbm_budget=HBM_BUDGET, band=PREFILL_PEAK_BAND,
+         cells=table, failed=failed)
+    if failed:
+        raise AssertionError(f"launch dry runs: {failed}")
+    return table
+
+
+def launch_serve_loop(engine, prompts):
+    """(c): the deprecated fixed-wave ``ServeLoop`` on the served model's
+    parameters, MoE on the crossbar kernels, against the same loop on the
+    plain path on the card: equal tokens, the crossbar kernels launched."""
+    import warnings
+    from repro_torch.runtime.serve import Request, ServeLoop
+    cfg = engine.model.cfg
+    reqs = [Request(app_id=i, prompt=p, max_new=MAX_NEW)
+            for i, p in enumerate(prompts)]
+    out = {}
+    for name, c in (("kernel", cfg),
+                    ("plain", dataclasses.replace(cfg, kernel_mode="torch"))):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", DeprecationWarning)
+            loop = ServeLoop(c, batch=N_SLOTS, max_len=PROMPT_LEN + MAX_NEW,
+                             params=engine.params)
+        before = _counts()
+        comps = loop.serve(reqs)
+        torch.cuda.synchronize()
+        after = _counts()
+        out[name] = {"tokens": [c.tokens for c in comps],
+                     "launches": {k: after[k] - before[k]
+                                  for k in SERVE_KERNELS},
+                     "decode_s": comps[0].decode_s,
+                     "deprecated": any(issubclass(w.category,
+                                                  DeprecationWarning)
+                                       for w in caught)}
+    same = out["kernel"]["tokens"] == out["plain"]["tokens"]
+    emit("launch.serve_loop", model=cfg.name, layers=cfg.n_layers,
+         requests=len(reqs), prompt_len=PROMPT_LEN, max_new=MAX_NEW, **out,
+         same_tokens=same)
+    if not (same and all(out["kernel"]["launches"][k] > 0
+                         for k in SERVE_KERNELS)
+            and not any(out["plain"]["launches"].values())
+            and out["kernel"]["deprecated"]
+            and all(len(t) == MAX_NEW for t in out["kernel"]["tokens"])):
+        raise AssertionError("ServeLoop on the kernels disagrees with the "
+                             "plain path or launched no crossbar kernel")
+
+
+def launch_routing(engine):
+    """(d): the op shapes of one train step (forward and backward) of the
+    served model on the kernel path (``cuda_kernel``), recorded with
+    ``lower_step``'s ``OpRecorder``: no dense [g*k, G*E*C] selection
+    tensor (``dense_routing_bytes`` 0), the crossbar and flash kernels
+    launched.  The control: the ``dense`` impl's MoE layer at
+    ``moe_impls``'s shape (T=4096, groups of 1024) must show one."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch.roofline import dense_routing_bytes
+    from repro_torch.launch.steps import _value_and_grad, record_step
+    from repro_torch.models.common import init_params, tree_leaves
+    from repro_torch.models.moe import expert_capacity, moe_apply, moe_defs
+    model, cfg = engine.model, engine.model.cfg
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        SEED, 0, 0, 1, 1, TRAIN_SEQ, cfg.vocab).items()}
+    g = min(1024, TRAIN_SEQ)
+    G, cap = TRAIN_SEQ // g, expert_capacity(g, cfg.moe)
+    packets, pxc = g * cfg.moe.top_k, G * cfg.moe.n_experts * cap
+    before = _counts()
+    step = record_step(lambda p, b: _value_and_grad(model, p, b),
+                       (engine.params, batch))
+    torch.cuda.synchronize()
+    after = _counts()
+    for p in tree_leaves(engine.params):
+        p.requires_grad_(False)
+    launches = {k: after[k] - before[k] for k in LAUNCH_KERNELS}
+    kernel_bytes = dense_routing_bytes(step.as_text(), packets, pxc)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    params = init_params(moe_defs(cfg.d_model, cfg.d_ff, cfg.moe,
+                                  cfg.mlp_act), gen, torch.bfloat16, "cuda")
+    x = torch.randn((1, TRAIN_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+
+    def dense_layer(p, x):
+        leaves = [x.requires_grad_()] + [t.requires_grad_()
+                                         for t in tree_leaves(p)]
+        y, s = moe_apply(p, x, cfg.moe, cfg.mlp_act, group_size=g,
+                         dispatch_impl="dense")
+        loss = y.float().square().mean() + s["aux_loss"]
+        return torch.autograd.grad(loss, leaves)
+
+    control = record_step(dense_layer, (params, x))
+    dense_bytes = dense_routing_bytes(control.as_text(), packets, pxc)
+    emit("launch.routing", packets_a_group=packets, groups=G, capacity=cap,
+         ports_x_capacity=pxc, kernel_step_ops=len(
+             step.as_text().splitlines()), kernel_dense_routing_bytes=
+         kernel_bytes, kernel_launches=launches,
+         control="dense impl, one MoE layer, T=4096, groups of 1024",
+         control_ops=len(control.as_text().splitlines()),
+         control_dense_routing_bytes=dense_bytes)
+    del params, x, step, control
+    if kernel_bytes != 0 or dense_bytes <= 0:
+        raise AssertionError(f"routing by address: kernel path "
+                             f"{kernel_bytes} bytes, dense control "
+                             f"{dense_bytes}")
+    if any(n <= 0 for n in launches.values()):
+        raise AssertionError(f"the recorded step did not run on the "
+                             f"kernels: {launches}")
+
+
+def launch_phase(smi):
+    """The launch tools (``repro_torch.launch``): (a) the dry runs, (c)
+    ``ServeLoop`` and (d) routing by address on a rebuilt served Mixtral
+    ((b), ``build_step``, is the train phase's step).  Launches are counted
+    over exactly (c) and (d).  Returns them."""
+    from repro_torch.shell.server import ModelEngine
+    t0 = time.perf_counter()
+    cells = launch_dry_runs()
+    t1 = time.perf_counter()
+    cfg = serving_config()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, PROMPT_LEN).astype(np.int32)
+               for _ in range(4)]
+    engine = ModelEngine(cfg, max_len=PROMPT_LEN + MAX_NEW, seed=SEED)
+    torch.cuda.synchronize()
+    _reset_counts()
+    launch_serve_loop(engine, prompts)
+    launch_routing(engine)
+    launches = _counts()
+    emit("launch", smi=smi, cells=len(cells),
+         dry_run_seconds=t1 - t0, kernels=launches,
+         seconds=time.perf_counter() - t0)
+    del engine
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -3797,6 +4074,9 @@ def main() -> int:
         "llava_next_34b", "serve_vlm.train", smi, layers=VLM_TRAIN_LAYERS,
         lr=VLM_TRAIN_LR)
 
+    # 8d. the launch tools: dry runs against this run, ServeLoop, routing --
+    launch_launches = launch_phase(smi)
+
     # 9. the paper's use case and the single-source plan ---------------
     (usecase_launches, plan_launches, ham_err, ham_t, plan_err,
      plan_t) = paper_usecase_phase(smi)
@@ -3822,6 +4102,7 @@ def main() -> int:
              "train_encdec": encdec_train_launches,
              "serve_vlm": vlm_launches,
              "serve_vlm.train": vlm_train_launches,
+             "launch": launch_launches,
              "paper_usecase": usecase_launches, "plan_shims": plan_launches,
              "smoke_widths": smoke_launches,
              "manager_mixtral": mixtral_launches,

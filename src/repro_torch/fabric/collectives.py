@@ -29,6 +29,12 @@ so its backward is the same ``all_to_all``.
 before and after itself and add its host seconds, calls and bytes to
 ``stats``, so that a caller can read the collectives' share of a step;
 off, a collective enqueues what it must and nothing more.
+
+While a ``launch.steps.OpRecorder`` is active (it puts itself in
+``recorders``), every collective adds a line to its text under XLA's op
+name (``all-to-all``, ``all-gather``, ``all-reduce``), so that
+``launch.roofline.parse_collectives`` reads the port's steps as it reads
+XLA's.
 """
 from __future__ import annotations
 
@@ -40,6 +46,8 @@ import torch.distributed as dist
 #: Set ``timing = True`` to time every collective (see the module doc).
 timing = False
 stats = {"calls": 0, "seconds": 0.0, "bytes": 0}
+#: active ``OpRecorder``s (``launch/steps.py``)
+recorders: list = []
 
 
 def reset_stats() -> None:
@@ -61,9 +69,10 @@ def transport(group=None) -> str:
     return "host" if dist.get_backend(group) == "gloo" else "device"
 
 
-def _staged(fn, group, *tensors: torch.Tensor):
-    """Run the raw collective ``fn`` on ``tensors`` where the transport
-    takes them, and return its outputs on the tensors' device."""
+def _staged(fn, kind: str, group, *tensors: torch.Tensor):
+    """Run the raw collective ``fn`` (XLA's op ``kind``) on ``tensors``
+    where the transport takes them, and return its outputs on the
+    tensors' device."""
     dev = tensors[0].device
     host = transport(group) == "host" and dev.type != "cpu"
     if timing:
@@ -80,6 +89,8 @@ def _staged(fn, group, *tensors: torch.Tensor):
         stats["calls"] += 1
         stats["seconds"] += time.perf_counter() - t0
         stats["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+    for rec in recorders:
+        rec.collective(kind, out, tensors)
     return out
 
 
@@ -93,7 +104,7 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
         out = torch.empty_like(t)
         dist.all_to_all_single(out, t, group=group)
         return out
-    return _staged(run, group, x)
+    return _staged(run, "all-to-all", group, x)
 
 
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -103,7 +114,7 @@ def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
         parts = [torch.empty_like(t) for _ in range(axis_size(group))]
         dist.all_gather(parts, t, group=group)
         return torch.stack(parts)
-    return _staged(run, group, x)
+    return _staged(run, "all-gather", group, x)
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -111,7 +122,7 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
         out = t.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
         return out
-    return _staged(run, group, x)
+    return _staged(run, "all-reduce", group, x)
 
 
 class _AllToAll(torch.autograd.Function):

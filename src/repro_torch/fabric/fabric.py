@@ -91,6 +91,13 @@ def _resolve_debug(debug) -> Union[bool, str]:
         f"debug must be True/False, 'sanitize' or 'strict'; got {debug!r}")
 
 
+def _no_values(v) -> bool:
+    """Is ``v`` a tensor on the ``meta`` device (a dry run's step, which has
+    shapes and no values)?  Accounting counts traffic, not cost, so it
+    records nothing for such a plan or stats."""
+    return isinstance(v, torch.Tensor) and v.device.type == "meta"
+
+
 def _np(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
@@ -333,7 +340,10 @@ class Fabric:
         ``remote_port_traffic``); the port space is the plan's.  Plans
         handed back by the plan cache replay the host values memoized on
         their first accounting, with no device round-trip (not with a
-        split, which always reads the plan)."""
+        split, which always reads the plan).  A plan on the ``meta``
+        device records nothing."""
+        if _no_values(plan.counts):
+            return
         cache = self.plan_cache
         entry = (cache.entry_for_plan(self.epoch, plan)
                  if cache is not None and src_shard is None else None)
@@ -373,7 +383,10 @@ class Fabric:
         ``offered_packets``, ``granted_packets``, ``remote_packets``,
         ``local_packets`` and the per-port ``local_counts`` /
         ``remote_counts``; any may be missing) into the same cumulative
-        counters ``account`` maintains."""
+        counters ``account`` maintains.  Stats on the ``meta`` device record
+        nothing."""
+        if any(_no_values(v) for v in stats.values()):
+            return
         if "counts" in stats:
             self._add_counts(_np(stats["counts"]).astype(np.int64))
         self.offered_packets += int(stats.get("offered_packets", 0))

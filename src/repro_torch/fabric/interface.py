@@ -17,7 +17,9 @@ mode        meaning
 
 The JAX package's spellings still resolve, so configs carry across:
 ``"xla"``, ``"reference"``, ``"ref"``, ``"pallas_interpret"`` and
-``"interpret"`` give ``TORCH``; ``"pallas"`` and ``"mosaic"`` give ``CUDA``.
+``"interpret"`` give ``TORCH``; ``"pallas"`` and ``"mosaic"`` give ``CUDA``,
+and so does ``"cuda_kernel"``, the kernel backend's name (what
+``launch.roofline.kernel_mode_for_target("cuda")`` returns).
 
 >>> resolve_kernel_mode("pallas", "cpu")
 Traceback (most recent call last):
@@ -51,6 +53,7 @@ _ALIASES = {
     "ref": KernelMode.TORCH,
     "pallas": KernelMode.CUDA,
     "mosaic": KernelMode.CUDA,
+    "cuda_kernel": KernelMode.CUDA,
     "pallas_interpret": KernelMode.TORCH,
     "interpret": KernelMode.TORCH,
 }

@@ -9,7 +9,10 @@ A partition spec is pure data here: a tuple of mesh-axis names (or None),
 one per tensor dim, equal to ``tuple()`` of the JAX package's
 ``PartitionSpec`` for the same parameter.  What a production mesh is in
 the port (a ``DeviceMesh`` needs its ranks to exist) is left to the
-launch tools.
+launch tools: ``repro_torch.launch.mesh`` describes the production
+meshes and ``repro_torch.launch.steps.NamedSharding`` maps a spec onto
+one.  A shape without storage is a tensor on the ``meta`` device (JAX's
+``ShapeDtypeStruct``): :func:`shape_tree`.
 """
 from __future__ import annotations
 
@@ -82,6 +85,18 @@ def spec_tree(defs: Dict[str, Any], *, multi_pod: bool):
     """The specs of a nested dict (and lists) of ParamDefs, same tree."""
     return tree_map(lambda d: logical_to_spec(d.spec, multi_pod=multi_pod),
                     defs)
+
+
+def shape_tree(defs: Dict[str, Any], dtype) -> Params:
+    """The parameters a nested dict (and lists) of ParamDefs defines, as
+    tensors of ``dtype`` on the ``meta`` device: shapes, no storage."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=dtype,
+                                          device="meta"), defs)
+
+
+def tree_nbytes(tree) -> int:
+    """The bytes the tensors of a nested dict/list tree hold."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 def init_params(defs: Dict[str, Any], gen: torch.Generator, dtype,

@@ -13,6 +13,12 @@ The contract of the JAX package's models:
                                          logits
 - ``init_decode_state(batch, max_len)``  an empty decode state
 - ``decode_step(params, state, batch)``  one token with cached state
+- ``param_shapes()``, ``input_shapes(shape, multi_pod)``,
+  ``decode_state_shapes(shape, multi_pod)``
+                                         what the launch tools cost: tensors
+                                         on the ``meta`` device (JAX's
+                                         ``ShapeDtypeStruct``), with their
+                                         partition specs
 
 Layers are kept apart (``params["layers"]`` is a list of per-layer dicts;
 the hybrid's ``params["groups"]`` a list of groups, each with a list of
@@ -60,9 +66,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamDef, dtype_of, init_params,
-                                       ones_init, rms_norm, spec_tree,
-                                       tree_leaves)
-from repro_torch.models.config import ModelConfig
+                                       ones_init, rms_norm, shape_tree,
+                                       spec_tree, tree_leaves)
+from repro_torch.models.config import ModelConfig, ShapeConfig
 
 Params = Any
 
@@ -213,6 +219,36 @@ class DecodeState:
                             **{k: row(v, i) for k, v in batched.items()})
                 for i in range(B)]
 
+    def leaves(self) -> List[torch.Tensor]:
+        """The state's tensors, field by field (``pos`` only where it is
+        a tensor: the meta scalar of ``decode_state_shapes``)."""
+        return [t for f in dataclasses.fields(self)
+                for t in tree_leaves(getattr(self, f.name))
+                if torch.is_tensor(t)]
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _kv_shapes(batch: int, slots: int, n_layers: int, cfg: ModelConfig,
+               dtype, bspec, seq_axis, **more):
+    """``_kv_state``'s (meta tensors, specs) with ``n_layers`` caches of
+    ``slots``; ``more`` adds (structs, specs) pairs of other fields.  The
+    position is JAX's int32 scalar (a host int in a live state)."""
+    shape = (batch, slots, cfg.n_kv_heads, cfg.hd)
+    spec = (bspec, seq_axis, None, None)
+    structs = DecodeState(
+        pos=_meta((), torch.int32),
+        kv_k=[_meta(shape, dtype) for _ in range(n_layers)],
+        kv_v=[_meta(shape, dtype) for _ in range(n_layers)],
+        kv_pos=_meta((batch, slots), torch.int32),
+        **{k: v[0] for k, v in more.items()})
+    specs = DecodeState(pos=(), kv_k=[spec] * n_layers,
+                        kv_v=[spec] * n_layers, kv_pos=(bspec, seq_axis),
+                        **{k: v[1] for k, v in more.items()})
+    return structs, specs
+
 
 class LMBase:
     """What the families share: the config, the device, the embedding and
@@ -223,6 +259,28 @@ class LMBase:
         self.cfg = cfg
         self.dtype = dtype_of(cfg.dtype)
         self.device = resolve_device(device)
+        # The mesh axes the batch is sharded over, for ``constrain``; set by
+        # ``launch.steps.build_step``, None disables.
+        self.batch_axis: Optional[Any] = None
+
+    def constrain(self, x: torch.Tensor) -> torch.Tensor:
+        """Pin a [B, S, d] activation to batch sharding, as the JAX
+        package's ``with_sharding_constraint`` does.  With ``batch_axis``
+        None it returns ``x``.  Otherwise a plain tensor is returned as it
+        is: each rank of a torch program already holds only its own batch
+        rows.  A ``DTensor`` is redistributed to ``Shard(0)`` over the
+        batch axes of its mesh and ``Replicate()`` over the others."""
+        if self.batch_axis is None:
+            return x
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if not isinstance(x, DTensor):
+            return x
+        axes = (self.batch_axis if isinstance(self.batch_axis, tuple)
+                else (self.batch_axis,))
+        mesh = x.device_mesh
+        return x.redistribute(mesh, [Shard(0) if name in axes
+                                     else Replicate()
+                                     for name in mesh.mesh_dim_names])
 
     def _embed_defs(self) -> Dict[str, Any]:
         cfg = self.cfg
@@ -245,6 +303,50 @@ class LMBase:
 
     def init(self, gen: torch.Generator) -> Params:
         return init_params(self.param_defs(), gen, self.dtype, self.device)
+
+    def param_shapes(self) -> Params:
+        """Each parameter as a tensor on the ``meta`` device, in the port's
+        tree (per-layer lists where the JAX package stacks a layer axis,
+        as ``param_specs`` maps them)."""
+        return shape_tree(self.param_defs(), self.dtype)
+
+    def input_shapes(self, shape: ShapeConfig, multi_pod: bool):
+        """(meta tensors, specs) of the data batch of ``shape``, under the
+        JAX package's keys (``tokens``, ``labels``, ``patches``,
+        ``frames``)."""
+        B, S = shape.global_batch, shape.seq_len
+        bspec = batch_axes(B, multi_pod)
+        tokens = (B, 1) if shape.kind == "decode" else (B, S)
+        structs = {"tokens": _meta(tokens, torch.int32)}
+        specs = {"tokens": (bspec, None)}
+        if shape.kind == "train":
+            structs["labels"] = _meta((B, S), torch.int32)
+            specs["labels"] = (bspec, None)
+        if self.cfg.n_vision_patches:
+            structs["patches"] = _meta(
+                (B, self.cfg.n_vision_patches, self.cfg.d_model), self.dtype)
+            specs["patches"] = (bspec, None, None)
+        if self.cfg.family == "encdec":
+            structs["frames"] = _meta(
+                (B, self.cfg.encoder_len, self.cfg.d_model), self.dtype)
+            specs["frames"] = (bspec, None, None)
+        return structs, specs
+
+    def decode_state_shapes(self, shape: ShapeConfig, multi_pod: bool):
+        """(a ``DecodeState`` of meta tensors, one of specs) for decoding
+        ``shape``: the tensors ``init_decode_state(B, seq_len)`` allocates,
+        plus ``pos``, JAX's int32 scalar (a host int in a live state)."""
+        raise NotImplementedError
+
+    # the families implement
+    def loss(self, params, batch) -> torch.Tensor:
+        raise NotImplementedError
+
+    def prefill(self, params, batch) -> torch.Tensor:
+        raise NotImplementedError
+
+    def decode_step(self, params, state: DecodeState, batch):
+        raise NotImplementedError
 
     def n_params(self) -> int:
         """The number of parameters, counted from ``param_defs`` without
@@ -313,6 +415,7 @@ class DenseLM(LMBase):
     def _block(self, lp, x: torch.Tensor, positions: torch.Tensor,
                moe_group: int):
         cfg = self.cfg
+        x = self.constrain(x)
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         q, k, v = qkv(lp["attn"], h, cfg, positions)
         o = attn.attention_prefill(q, k, v, causal=True,
@@ -340,7 +443,7 @@ class DenseLM(LMBase):
         for lp in params["layers"]:
             x, a = block(lp, x, positions, moe_group)
             aux = aux + a
-        return x, aux
+        return self.constrain(x), aux
 
     def loss(self, params, batch) -> torch.Tensor:
         """``batch["tokens"]``/``["labels"]`` [B, S] -> scalar float32."""
@@ -359,6 +462,14 @@ class DenseLM(LMBase):
         return self._last_logits(params, h)
 
     # ---- decode -------------------------------------------------------
+    def decode_state_shapes(self, shape: ShapeConfig, multi_pod: bool):
+        cfg = self.cfg
+        slots = (min(cfg.attn_window, shape.seq_len) if cfg.attn_window
+                 else shape.seq_len)
+        return _kv_shapes(shape.global_batch, slots, cfg.n_layers, cfg,
+                          self.dtype, batch_axes(shape.global_batch,
+                                                 multi_pod), "model")
+
     def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
         cfg = self.cfg
         slots = min(cfg.attn_window, max_len) if cfg.attn_window else max_len
@@ -434,6 +545,7 @@ class SSMLM(LMBase):
 
     def _block(self, lp, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        x = self.constrain(x)
         h = rms_norm(x, lp["norm"], cfg.norm_eps)
         y, _, _ = ssm_mod.ssm_apply(lp["mixer"], h, cfg.ssm,
                                     kernel_mode=cfg.kernel_mode)
@@ -459,19 +571,37 @@ class SSMLM(LMBase):
         h = self._backbone(params, self._inputs_embed(params, batch))
         return self._last_logits(params, h)
 
-    def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
+    def _state_dims(self):
         cfg, ssm = self.cfg, self.cfg.ssm
-        H = ssm.n_heads(cfg.d_model)
         conv_dim = ssm.expand * cfg.d_model + 2 * ssm.d_state
-        dev = self.device
+        return (ssm.n_heads(cfg.d_model), ssm.head_dim, ssm.d_state,
+                conv_dim, ssm.conv_width)
+
+    def decode_state_shapes(self, shape: ShapeConfig, multi_pod: bool):
+        B, L = shape.global_batch, self.cfg.n_layers
+        H, Pd, N, conv_dim, W = self._state_dims()
+        bspec = batch_axes(B, multi_pod)
+        structs = DecodeState(
+            pos=_meta((), torch.int32),
+            ssm_state=[_meta((B, H, Pd, N), torch.float32)
+                       for _ in range(L)],
+            conv_tail=[_meta((B, W - 1, conv_dim), self.dtype)
+                       for _ in range(L)])
+        specs = DecodeState(pos=(),
+                            ssm_state=[(bspec, "model", None, None)] * L,
+                            conv_tail=[(bspec, None, "model")] * L)
+        return structs, specs
+
+    def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
+        H, Pd, N, conv_dim, W = self._state_dims()
+        L, dev = self.cfg.n_layers, self.device
         return DecodeState(
             pos=0,
-            ssm_state=[torch.zeros((batch, H, ssm.head_dim, ssm.d_state),
-                                   dtype=torch.float32, device=dev)
-                       for _ in range(cfg.n_layers)],
-            conv_tail=[torch.zeros((batch, ssm.conv_width - 1, conv_dim),
+            ssm_state=[torch.zeros((batch, H, Pd, N), dtype=torch.float32,
+                                   device=dev) for _ in range(L)],
+            conv_tail=[torch.zeros((batch, W - 1, conv_dim),
                                    dtype=self.dtype, device=dev)
-                       for _ in range(cfg.n_layers)])
+                       for _ in range(L)])
 
     def decode_step(self, params, state: DecodeState, batch):
         cfg = self.cfg
@@ -529,6 +659,8 @@ class HybridLM(LMBase):
     # ---- blocks -------------------------------------------------------
     def _rec_block(self, lp, x, h0=None, tail=None, decode=False):
         cfg = self.cfg
+        if not decode:
+            x = self.constrain(x)
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         y, h_last, tail = rglru_mod.rglru_block_apply(
             lp["rec"], h, h0=h0, conv_tail=tail, decode=decode,
@@ -539,6 +671,7 @@ class HybridLM(LMBase):
 
     def _attn_block(self, lp, x, positions):
         cfg = self.cfg
+        x = self.constrain(x)
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         q, k, v = qkv(lp["attn"], h, cfg, positions)
         o = attn.attention_prefill(q, k, v, causal=True,
@@ -583,6 +716,20 @@ class HybridLM(LMBase):
         return self._last_logits(params, h)
 
     # ---- decode -------------------------------------------------------
+    def decode_state_shapes(self, shape: ShapeConfig, multi_pod: bool):
+        cfg = self.cfg
+        B = shape.global_batch
+        n_rec = self.n_groups * cfg.hybrid.pattern_rec + self.n_trail
+        bspec = batch_axes(B, multi_pod)
+        return _kv_shapes(
+            B, min(cfg.hybrid.attn_window, shape.seq_len), self.n_groups,
+            cfg, self.dtype, bspec, "model" if cfg.n_kv_heads == 1 else None,
+            rec_h=([_meta((B, self.lru), torch.float32)
+                    for _ in range(n_rec)], [(bspec, "model")] * n_rec),
+            rec_tail=([_meta((B, 3, self.lru), self.dtype)
+                       for _ in range(n_rec)],
+                      [(bspec, None, "model")] * n_rec))
+
     def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
         cfg = self.cfg
         n_rec = self.n_groups * cfg.hybrid.pattern_rec + self.n_trail
@@ -751,6 +898,16 @@ class EncDecLM(LMBase):
         return self._last_logits(params, self._decode_stack(params, batch))
 
     # ---- decode -------------------------------------------------------
+    def decode_state_shapes(self, shape: ShapeConfig, multi_pod: bool):
+        cfg = self.cfg
+        B, L = shape.global_batch, cfg.n_layers
+        bspec = batch_axes(B, multi_pod)
+        xkv = (B, cfg.encoder_len, cfg.n_kv_heads, cfg.hd)
+        cross = lambda: ([_meta(xkv, self.dtype) for _ in range(L)],
+                         [(bspec, None, None, None)] * L)
+        return _kv_shapes(B, shape.seq_len, L, cfg, self.dtype, bspec,
+                          "model", cross_k=cross(), cross_v=cross())
+
     def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
         """Self-attention caches of ``max_len`` slots, and cross-attention
         caches of ``cfg.encoder_len`` left zero, as in the JAX package."""
