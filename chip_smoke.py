@@ -198,9 +198,11 @@ Phases, each printing one JSON line with its seconds:
             dense formulation's geometry (2,048 packets a group, 4 groups
             x 8 experts x 320 slots), the crossbar and flash kernels
             launched; the ``dense`` impl's MoE layer at ``moe_impls``'s
-            shape, recorded alike, must show that tensor.  Launches are
-            counted over exactly (c) and (d) (``launches_by_path``:
-            ``launch``).
+            shape, recorded alike, must show that tensor.  (e) ``train_4k``
+            of Mixtral-8x7B (32 layers) and TinyLlama-1.1B on the ``pod``
+            mesh: one device's FLOPs, bytes, collectives and peak (host
+            work, its seconds printed).  Launches are counted over
+            exactly (c) and (d) (``launches_by_path``: ``launch``).
 9. paper_usecase
             the paper's experiments on the port's copy of the hardware
             model (Fig 5, §V-D, §V-E, Fig 6, Table II; model milliseconds
@@ -269,6 +271,28 @@ Phases, each printing one JSON line with its seconds:
             over NCCL at world size 1 against the oracle at one shard.  A
             rank that fails or hangs (600 s) fails the phase with every
             failed rank's traceback.
+
+13. tensor_parallel
+            tensor parallelism and FSDP of ``DenseLM``
+            (``models/parallel.py``) on 4 gloo ranks sharing ``cuda:0``,
+            a (2, 2) ("data", "model") mesh: TinyLlama-1.1B whole (22
+            layers, bf16) prefilled at B=16, S=2048, served by
+            ``ServeLoop`` (16 slots x 8 tokens, every rank the same
+            tokens) and trained 3 AdamW steps at B=16, S=2048 (the batch
+            sharded over data; finite losses, the 3rd below the 1st);
+            Mixtral-8x7B cut to 1 layer, its loss, gradients and one step
+            at B=16, S=1024 with the crossbar plan, scatter and combine on
+            every rank; a float32 TinyLlama at 2 layers on the plain path.
+            Every rank launches the ``tc`` flash kernels and the crossbar
+            kernels and loads each library once.  The parent then holds
+            the unsharded results against the one-rank programs on the
+            card: bf16 prefill logits within 2e-2 relative L2, Mixtral's
+            loss and gradients within 2e-2, the float32 loss and
+            gradient leaves within 1e-4 of the leaf's largest value; and
+            the TinyLlama train step over NCCL on a (1, 1) mesh in this
+            process, its loss equal to the one-rank step's bit for bit.
+            Each rank prints step wall ms, the collectives' share, calls
+            and bytes (``collectives.timing``, steps 2 and 3) and its peak.
 
 ``--profile`` adds a phase after serving and one after the train steps:
 ``torch.profiler`` over 8 warm decode steps of the served engine and over
@@ -1506,6 +1530,488 @@ def sharded_phase(smi):
     if fails:
         raise AssertionError("; ".join(fails))
     return launches
+
+
+# ----------------------------------------------------------------------
+# tensor parallelism: DenseLM over a (data, model) mesh of 4 ranks
+# ----------------------------------------------------------------------
+TP_MESH = (2, 2)               # ("data", "model"); 4 gloo ranks on cuda:0
+TP_BATCH = 16                  # sharded over "data" (lm.batch_axes): 8 a rank
+TP_SEQ = 2048
+TP_STEPS = 3
+TP_LR = 1e-3
+TP_SLOTS = 16                  # ServeLoop slots, 8 a data rank
+TP_PROMPT = 8                  # replayed through decode_step, then 8 new
+TP_NEW = 8
+TP_MOE_SEQ = 1024              # the 1-layer Mixtral's train step: B=16, S=1024
+TP_MOE_GROUP = 1024            # the MoE layer's token groups (moe_impls')
+TP_F32_LAYERS = 2
+TP_F32_SEQ = 256
+TP_F32_REL = 1e-4              # float32 loss and leaves vs the one-rank program
+TP_TIMEOUT = 900.0
+TP_KERNELS = ("flash_fwd", "flash_bwd")
+TP_MOE_KERNELS = SERVE_KERNELS + TP_KERNELS
+
+
+def tp_configs():
+    """The phase's configs: TinyLlama-1.1B whole (22 layers, bf16, remat
+    "dots"), Mixtral-8x7B cut to 1 layer (bf16, the MoE on the crossbar
+    kernels) and the float32 control (TinyLlama at 2 layers on the plain
+    path)."""
+    from repro_torch.configs import get_config
+    tiny = dataclasses.replace(get_config("tinyllama_1_1b"),
+                               dtype="bfloat16")
+    mix = get_config("mixtral_8x7b")
+    mix = dataclasses.replace(mix, n_layers=1, dtype="bfloat16",
+                              moe=dataclasses.replace(
+                                  mix.moe, dispatch="cuda_kernel"))
+    f32 = dataclasses.replace(tiny, n_layers=TP_F32_LAYERS, dtype="float32",
+                              kernel_mode="torch")
+    return {"tiny": tiny, "mixtral": mix, "f32": f32}
+
+
+def tp_params(cfg, seed: int):
+    """``cfg``'s global parameters on the card from ``seed`` (the same in
+    every process)."""
+    from repro_torch.models.lm import build_model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return build_model(cfg, device="cuda").init(gen)
+
+
+def tp_batch(cfg, seq: int, seed: int):
+    from repro_torch.data.pipeline import synthetic_batch
+    return {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        seed, 0, 0, 1, TP_BATCH, seq, cfg.vocab).items()}
+
+
+def tp_prompts(cfg):
+    rng = np.random.default_rng(SEED + 20)
+    return [rng.integers(0, cfg.vocab, TP_PROMPT).astype(np.int32)
+            for _ in range(TP_SLOTS)]
+
+
+def _save(tmp: str, name: str, tree) -> None:
+    """A tree of card tensors to ``tmp/name``, on the host."""
+    from repro_torch.models.common import tree_map
+    torch.save(tree_map(lambda t: t.detach().cpu(), tree),
+               os.path.join(tmp, name))
+
+
+def tp_rank(rank: int, n: int, tmp: str, seed: int) -> None:
+    """One rank of the ``tensor_parallel`` phase; writes its readings to
+    ``tmp/rank<rank>.json`` and its shards to ``tmp/*_<rank>.pt``."""
+    import torch.distributed as dist
+    torch.set_num_threads(2)        # 4 ranks and the parent share 8 cores
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        tmp, "store"), rank=rank, world_size=n)
+    try:
+        out = _tp_rank(rank, tmp, seed)
+    except BaseException:
+        import traceback
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _tp_rank(rank, tmp, seed):
+    import warnings
+    import torch.distributed as dist
+    from repro_torch.fabric import collectives as coll
+    from repro_torch.kernels import build
+    from repro_torch.kernels.crossbar_dispatch import kernel as K
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import _value_and_grad, build_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.parallel import (ShardCtx, layout_specs,
+                                             shard_params)
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.serve import Request, ServeLoop
+    K.library()                                    # built by the parent
+    FK.library()
+    mesh = make_smoke_mesh(*TP_MESH)
+    ctx = ShardCtx.launched(mesh)
+    cfgs = tp_configs()
+    out = {"rank": rank, "coords": list(ctx.coords)}
+
+    def local_params(cfg, bundle, seed_):
+        full = tp_params(cfg, seed_)
+        local = shard_params(full, layout_specs(bundle.model), mesh,
+                             ctx.coords)
+        del full
+        torch.cuda.empty_cache()
+        return local
+
+    def synced():
+        dist.barrier()
+        torch.cuda.synchronize()
+
+    # --- TinyLlama-1.1B, 22 layers: prefill, ServeLoop, 3 AdamW steps ----
+    tiny = cfgs["tiny"]
+    shape = lambda kind, s=TP_SEQ: ShapeConfig(kind, s, TP_BATCH, kind)
+    pre = build_step(tiny, shape("prefill"), mesh, multi_pod=False,
+                     shard=ctx)
+    params = local_params(tiny, pre, seed + 20)
+    batch = tp_batch(tiny, TP_SEQ, seed)
+    rows = pre.model.shard.batch_rows(TP_BATCH)
+    mine = {k: v[rows] for k, v in batch.items()}
+    synced()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = pre.step(params, {"tokens": mine["tokens"]})
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill_launches"] = _counts()
+    _save(tmp, f"prefill_{rank}.pt", logits)
+    out["prefill_finite"] = bool(torch.isfinite(logits).all())
+    del logits
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        loop = ServeLoop(tiny, batch=TP_SLOTS, max_len=TP_PROMPT + TP_NEW,
+                         params=params, shard=ctx)
+    synced()
+    t0 = time.perf_counter()
+    comps = loop.serve([Request(app_id=i, prompt=p, max_new=TP_NEW)
+                        for i, p in enumerate(tp_prompts(tiny))])
+    out["serve_ms"] = (time.perf_counter() - t0) * 1e3
+    out["serve_tokens"] = [c.tokens for c in comps]
+    del loop
+
+    opt = AdamW(lr=TP_LR)
+    train = build_step(tiny, shape("train"), mesh, multi_pod=False, opt=opt,
+                       shard=ctx)
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, shares, calls, sent = [], [], [], [], []
+    for i in range(TP_STEPS):
+        coll.timing = i > 0            # step 1 untimed: its wall is clean
+        coll.reset_stats()
+        synced()
+        t0 = time.perf_counter()
+        params, state, loss = train.step(params, state, mine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses.append(float(loss))
+        walls.append(wall * 1e3)
+        shares.append(coll.stats["seconds"] / wall if i else None)
+        calls.append(coll.stats["calls"])
+        sent.append(coll.stats["bytes"])
+    coll.timing = False
+    out.update(losses=losses, step_wall_ms=walls, collective_share=shares,
+               collective_calls=calls[1:], collective_bytes=sent[1:],
+               train_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, state, train, pre, mine, batch
+    torch.cuda.empty_cache()
+
+    # --- Mixtral-8x7B: the MoE layer forward and backward, then one train
+    # step of the model cut to 1 layer ----------------------------------
+    mix = cfgs["mixtral"]
+    step = build_step(mix, shape("train", TP_MOE_SEQ), mesh, multi_pod=False,
+                      opt=opt, shard=ctx)
+    y, dx, grads = tp_moe_layer(step.model, seed)
+    _save(tmp, f"moe_{rank}.pt", {"y": y, "dx": dx, "grads": grads})
+    del y, dx, grads
+    params = local_params(mix, step, seed + 21)
+    mine = {k: v[rows] for k, v in tp_batch(mix, TP_MOE_SEQ, seed).items()}
+    state = opt.init(params)
+    synced()
+    t0 = time.perf_counter()
+    params, state, loss = step.step(params, state, mine)
+    torch.cuda.synchronize()
+    out["mixtral_step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["mixtral_loss"] = float(loss)
+    out["launches"] = _counts()         # prefill to here: the main path
+    out["mixtral_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, state, step, mine
+    torch.cuda.empty_cache()
+
+    # --- the float32 control: 2 layers on the plain path ----------------
+    f32 = cfgs["f32"]
+    ctl = build_step(f32, shape("train", TP_F32_SEQ), mesh, multi_pod=False,
+                     shard=ctx)
+    params = local_params(f32, ctl, seed + 22)
+    mine = {k: v[rows] for k, v in tp_batch(f32, TP_F32_SEQ, seed).items()}
+    before = _counts()
+    loss, grads = _value_and_grad(ctl.model, params, mine)
+    torch.cuda.synchronize()
+    out["f32_loss"] = float(loss)
+    out["f32_launches"] = {k: v - before[k] for k, v in _counts().items()}
+    _save(tmp, f"f32_{rank}.pt", grads)
+    out["library_loads"] = dict(build.load_count)
+    dist.barrier()
+    return out
+
+
+def tp_moe_layer(model, seed):
+    """``moe_impls_phase``'s Mixtral MoE layer (its weights, its T=4096
+    tokens as [4, 1024, d] and a cotangent: ``_sharded_layer``) on this
+    rank of ``model``'s mesh: its rows over ``data``, its shards of the
+    weights (gathered over ``data``, each expert's ``d_ff`` half over
+    ``model``), ``moe_apply`` on the crossbar kernels with ``shard``; the
+    loss ``sum(y * ct) + aux_loss``.  Returns (y, the gradient of x: the
+    rank's rows; the local gradient of every weight)."""
+    from repro_torch.models.moe import moe_apply
+    from repro_torch.models.parallel import layout_specs, shard_params
+    sh = model.shard.with_batch("data")
+    cfg, params, x, ct = _sharded_layer(seed, torch.device("cuda", 0))
+    specs = layout_specs(model)["layers"][0]["moe"]
+    local = {k: v.requires_grad_() for k, v in shard_params(
+        params, specs, sh.mesh, sh.coords).items()}
+    del params
+    rows = sh.batch_rows(x.shape[0])
+    xg = x[rows].clone().requires_grad_()
+    y, stats = moe_apply(sh.weights(local, specs), xg, cfg.moe, cfg.mlp_act,
+                         group_size=TP_MOE_GROUP, dispatch_impl="cuda_kernel",
+                         shard=sh)
+    loss = (y.float() * ct[rows].float()).sum() + stats["aux_loss"]
+    grads = torch.autograd.grad(loss, [xg, *local.values()])
+    return y.detach(), grads[0], dict(zip(local, grads[1:]))
+
+
+def tensor_parallel_phase(smi):
+    """Tensor parallelism and FSDP (``models/parallel.py``) on the card:
+    TP_RANKS ranks spawned over gloo, all on ``cuda:0``, a (2, 2)
+    ("data", "model") mesh (NCCL refuses two ranks on one card).  Each rank
+    holds its shards (``shard_params``) and runs the kernels on them:
+
+    - TinyLlama-1.1B whole (22 layers, bf16): a prefill at B=16, S=2048
+      (16 local q heads, 2 kv heads: the ``tc`` flash kernels at D=64,
+      G=8), ``ServeLoop`` with 16 slots x 8 new tokens (every rank the same
+      tokens), 3 AdamW steps at B=16, S=2048, lr 1e-3, remat "dots", the
+      batch sharded over ``data`` (steps 2 and 3 with
+      ``collectives.timing`` for the collectives' share, calls and bytes);
+    - Mixtral-8x7B: its MoE layer (``moe_impls``' weights and T=4096
+      tokens, 2 of the 4 rows a data rank, each expert's ``d_ff`` half a
+      model rank) forward and backward, then one train step of the model
+      cut to 1 layer (bf16, B=16, S=1024), with the crossbar plan, scatter
+      and combine on every rank's tokens (16 local q heads, 4 kv heads,
+      D=128);
+    - the float32 control: TinyLlama at 2 layers, full width, on the plain
+      path (B=16, S=256): the loss and its gradients.
+
+    Then the parent, alone on the card, holds them against the one-rank
+    programs on the same parameters: the bf16 prefill logits within
+    PREFILL_REL relative L2 of the kernel path, the MoE layer's output and
+    the gradients of its input and of every weight within MOE_IMPL_REL
+    relative L2 (the ``moe_impls`` limit), the 1-layer model's loss within
+    MOE_IMPL_REL, the float32 loss and leaves within TP_F32_REL of the
+    leaf's largest value; and runs the TinyLlama train
+    step over NCCL on a (1, 1) mesh, whose loss must equal the one-rank
+    step's bit for bit on the same kernels.  Launches are the ranks'
+    prefill, serve, train and Mixtral launches, summed."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    n = TP_MESH[0] * TP_MESH[1]
+    with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
+        ctx = mp.start_processes(tp_rank, args=(n, tmp, SEED), nprocs=n,
+                                 join=False, start_method="spawn")
+        join_ranks(ctx, TP_TIMEOUT, "tensor_parallel", tmp)
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        t1 = time.perf_counter()
+        checks = tp_checks(tmp, ranks)
+    r0 = ranks[0]
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    nccl = tp_nccl()
+    emit("tensor_parallel", smi=smi, mesh=list(TP_MESH), ranks=n,
+         device="cuda:0", transport="gloo: host (each collective staged "
+         "through host memory)", batch=TP_BATCH, seq=TP_SEQ,
+         tiny_losses=r0["losses"],
+         step_wall_ms=[r["step_wall_ms"] for r in ranks],
+         collective_share=[r["collective_share"] for r in ranks],
+         collective_calls=[r["collective_calls"] for r in ranks],
+         collective_bytes=[r["collective_bytes"] for r in ranks],
+         prefill_ms=[r["prefill_ms"] for r in ranks],
+         serve_ms=[r["serve_ms"] for r in ranks],
+         mixtral_step_ms=[r["mixtral_step_ms"] for r in ranks],
+         train_peak_gb=[r["train_peak_gb"] for r in ranks],
+         mixtral_peak_gb=[r["mixtral_peak_gb"] for r in ranks],
+         launches_by_rank=[r["launches"] for r in ranks],
+         library_loads_by_rank=[r["library_loads"] for r in ranks],
+         checks=checks, nccl=nccl, ranks_seconds=t1 - t0,
+         seconds=time.perf_counter() - t0)
+    fails = [k for k, v in checks.items() if isinstance(v, dict)
+             and not v["ok"]]
+    if not nccl["ok"]:
+        fails.append("nccl")
+    losses = r0["losses"]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fails.append(f"tinyllama losses {losses}")
+    if any(r["losses"] != losses for r in ranks):
+        fails.append("the ranks report different losses")
+    if any(r["serve_tokens"] != r0["serve_tokens"] for r in ranks) or any(
+            len(t) != TP_NEW for t in r0["serve_tokens"]):
+        fails.append("the ranks served different tokens")
+    for r in ranks:
+        lc = r["launches"]
+        if any(lc[f"{k}_tc"] <= 0 for k in TP_KERNELS) or any(
+                lc[f"{k}_fma"] for k in TP_KERNELS):
+            fails.append(f"rank {r['rank']}: not only tc flash: {lc}")
+        if any(lc[k] <= 0 for k in SERVE_KERNELS):
+            fails.append(f"rank {r['rank']}: no crossbar launch: {lc}")
+        if r["library_loads"].get("crossbar_dispatch") != 1 or any(
+                v != 1 for v in r["library_loads"].values()):
+            fails.append(f"rank {r['rank']} loads: {r['library_loads']}")
+        if any(r["f32_launches"].values()):
+            fails.append(f"rank {r['rank']}: the float32 control launched "
+                         f"a kernel")
+        if not r["prefill_finite"]:
+            fails.append(f"rank {r['rank']}: prefill logits not finite")
+    if fails:
+        raise AssertionError(f"tensor_parallel: {fails}")
+    return launches
+
+
+def _unshard(tmp: str, name: str, specs, mesh):
+    from repro_torch.models.parallel import unshard_params
+    n = mesh.size
+    return unshard_params([torch.load(os.path.join(tmp, f"{name}_{r}.pt"))
+                           for r in range(n)], specs, mesh)
+
+
+def tp_checks(tmp: str, ranks):
+    """The ranks' results unsharded on the host, against the one-rank
+    programs run here on the card on the same parameters and batches."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import _value_and_grad
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.lm import build_model
+    from repro_torch.models.parallel import layout_specs
+    mesh = make_smoke_mesh(*TP_MESH)
+    cfgs = tp_configs()
+    out = {}
+
+    # bf16 prefill logits against the one-rank kernel path
+    tiny = cfgs["tiny"]
+    model = build_model(tiny)
+    params = tp_params(tiny, SEED + 20)
+    tokens = tp_batch(tiny, TP_SEQ, SEED)["tokens"]
+    with torch.no_grad():
+        ref = model.prefill(params, {"tokens": tokens}).float().cpu()
+    got = _unshard(tmp, "prefill", ("data", "model"), mesh).float()
+    rel = float((got - ref).norm() / ref.norm())
+    out["prefill"] = {"rel_l2": rel, "tol": PREFILL_REL,
+                      "max_abs_err": float((got - ref).abs().max()),
+                      "ok": rel <= PREFILL_REL and got.shape == ref.shape}
+    del params, model
+    torch.cuda.empty_cache()
+
+    # the MoE layer: output and every gradient, relative L2
+    from repro_torch.models.moe import moe_apply
+    cfg, params, x, ct = _sharded_layer(SEED, torch.device("cuda", 0))
+    want = _layer_step(lambda p, xx: moe_apply(
+        p, xx, cfg.moe, cfg.mlp_act, group_size=TP_MOE_GROUP,
+        dispatch_impl="cuda_kernel"), params, x, ct)
+    specs = layout_specs(build_model(cfgs["mixtral"], device="meta"))
+    specs = specs["layers"][0]["moe"]
+    rows = ("data", None, None)
+    got = _unshard(tmp, "moe", {"y": rows, "dx": rows, "grads": specs}, mesh)
+    errs = {"y": rel_l2(got["y"].cuda(), want[0]),
+            "x": rel_l2(got["dx"].cuda(), want[2]["x"])}
+    errs.update({k: rel_l2(got["grads"][k].cuda(), want[2][k])
+                 for k in specs})
+    out["moe_layer"] = {"rel_l2": errs, "tol": MOE_IMPL_REL,
+                        "ok": max(errs.values()) <= MOE_IMPL_REL}
+    del params, x, ct, want, got
+    torch.cuda.empty_cache()
+
+    # the 1-layer Mixtral's loss (step 1 of its train step); the float32
+    # control's loss and every gradient leaf
+    for name, cfg, seq, seed, tol in (
+            ("mixtral", cfgs["mixtral"], TP_MOE_SEQ, SEED + 21,
+             MOE_IMPL_REL),
+            ("f32", cfgs["f32"], TP_F32_SEQ, SEED + 22, TP_F32_REL)):
+        model = build_model(cfg)
+        params = tp_params(cfg, seed)
+        batch = tp_batch(cfg, seq, SEED)
+        tp_loss = ranks[0][f"{name}_loss"]
+        if name == "mixtral":
+            with torch.no_grad():
+                loss = model.loss(params, batch)
+            errs = []
+        else:
+            loss, grads = _value_and_grad(model, params, batch)
+            got = _unshard(tmp, name, layout_specs(model), mesh)
+            errs = [float((g.cuda() - w).abs().max() / w.abs().max())
+                    for g, w in zip(tree_leaves(got), tree_leaves(grads))]
+            del grads, got
+        loss_err = abs(tp_loss - float(loss)) / abs(float(loss))
+        out[name] = {"loss": tp_loss, "one_rank_loss": float(loss),
+                     "loss_rel_err": loss_err, "tol": tol,
+                     "ok": loss_err <= tol and all(e <= tol for e in errs)}
+        if errs:
+            out[name].update(leaves=len(errs), grad_err_max=max(errs),
+                             measure="of the leaf's largest value")
+        del params, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_nccl():
+    """The TinyLlama train step (B=16, S=2048, bf16, on the kernels) over
+    NCCL on a (1, 1) mesh in this process, against the one-rank step
+    without a mesh: step 1's loss bit for bit."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.fabric import collectives as coll
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.parallel import ShardCtx
+    from repro_torch.optim.adamw import AdamW
+    t0 = time.perf_counter()
+    tiny = tp_configs()["tiny"]
+    shape = ShapeConfig("train", TP_SEQ, TP_BATCH, "train")
+    mesh = make_smoke_mesh(1, 1)
+    batch = tp_batch(tiny, TP_SEQ, SEED)
+    losses = {}
+    with tempfile.TemporaryDirectory(prefix="nccl_") as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            tmp, "store"), rank=0, world_size=1)
+        try:
+            for name in ("one_rank", "nccl"):
+                shard = ShardCtx.launched(mesh) if name == "nccl" else None
+                opt = AdamW(lr=TP_LR)
+                bundle = build_step(tiny, shape, mesh, multi_pod=False,
+                                    opt=opt, shard=shard)
+                params = tp_params(tiny, SEED + 20)
+                coll.reset_stats()
+                coll.timing = name == "nccl"
+                _reset_counts()
+                _, _, loss = bundle.step(params, opt.init(params), batch)
+                torch.cuda.synchronize()
+                coll.timing = False
+                losses[name] = {"loss": float(loss), "launches": _counts(),
+                                "collective_calls": coll.stats["calls"],
+                                "transport": (coll.transport(shard.world)
+                                              if shard else None)}
+                del params, bundle
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    a, b = losses["one_rank"], losses["nccl"]
+    return {**losses, "bit_equal": a["loss"] == b["loss"],
+            "ok": (a["loss"] == b["loss"] and b["transport"] == "device"
+                   and b["collective_calls"] > 0
+                   and a["launches"] == b["launches"]),
+            "seconds": time.perf_counter() - t0}
 
 
 def train_loop_config():
@@ -3418,6 +3924,38 @@ def launch_dry_runs():
     return table
 
 
+POD_CELLS = ("mixtral_8x7b", "tinyllama_1_1b")   # train_4k on the pod mesh
+
+
+def launch_pod_dry_runs():
+    """(e): ``train_4k`` of Mixtral-8x7B (32 layers) and TinyLlama-1.1B on
+    the ``pod`` mesh (16 x 16), one device's program on the meta device
+    (host work only): FLOPs, bytes and collectives a device, peak and
+    ``fits_hbm``, each with its seconds."""
+    import pathlib
+    from repro_torch.launch.dryrun import run_cell
+    out_dir = pathlib.Path(HERE, "build", "dryrun")
+    table = {}
+    for arch in POD_CELLS:
+        t0 = time.perf_counter()
+        rec = run_cell(arch, "train_4k", "pod", out_dir=out_dir)
+        keys = ("chips", "microbatches", "flops_per_device",
+                "bytes_per_device", "collective_bytes_per_device",
+                "collectives", "peak_memory_est", "fits_hbm", "bottleneck",
+                "roofline_fraction", "holdout_rel_err", "param_bytes",
+                "opt_state_bytes")
+        table[arch] = {"seconds": time.perf_counter() - t0,
+                       **{k: rec[k] for k in keys}}
+        emit("launch.pod", cell=arch, **table[arch])
+    bad = [a for a, r in table.items() if not (
+        r["flops_per_device"] > 0 and r["collectives"]
+        and r["collectives"]["all-reduce"]["moved"] > 0)]
+    if bad:
+        raise AssertionError(f"pod dry runs without FLOPs or collectives: "
+                             f"{bad}")
+    return table
+
+
 def launch_serve_loop(engine, prompts):
     """(c): the deprecated fixed-wave ``ServeLoop`` on the served model's
     parameters, MoE on the crossbar kernels, against the same loop on the
@@ -3529,6 +4067,9 @@ def launch_phase(smi):
     t0 = time.perf_counter()
     cells = launch_dry_runs()
     t1 = time.perf_counter()
+    pod = launch_pod_dry_runs()
+    t_pod = time.perf_counter() - t1
+    t1 = time.perf_counter()
     cfg = serving_config()
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, PROMPT_LEN).astype(np.int32)
@@ -3540,7 +4081,8 @@ def launch_phase(smi):
     launch_routing(engine)
     launches = _counts()
     emit("launch", smi=smi, cells=len(cells),
-         dry_run_seconds=t1 - t0, kernels=launches,
+         dry_run_seconds=t1 - t0 - t_pod, pod_dry_run_seconds=t_pod,
+         pod_cells=len(pod), kernels=launches,
          seconds=time.perf_counter() - t0)
     del engine
     torch.cuda.empty_cache()
@@ -3903,7 +4445,9 @@ def plan_path():
     dst, allowed, quota, cap = rounds[-1][1]
     cuda = KernelMode.CUDA
     call = lambda: K.plan(dst, allowed, quota, cap, mode=cuda)
-    prof = device_profile(call)
+    # counted per event of the plan kernel: a card host lost 5 of the 20
+    # calls' events in every window
+    prof = device_profile(call, kernel="plan_kernel")
     t = dict(ms=time_ms(call),
              plain_ms=time_ms(lambda: ref.plan_ref(dst, allowed, quota, cap),
                               reps=5),
@@ -4088,6 +4632,10 @@ def main() -> int:
     # 12. mesh expert parallelism: the sharded MoE on 4 ranks, last, so
     # that no other phase's profiler windows follow its ranks ----------
     sharded_launches = sharded_phase(smi)
+
+    # 13. tensor parallelism: DenseLM over a (2, 2) mesh of 4 ranks, and
+    # the train step over NCCL at world size 1 ---------------------------
+    tp_launches = tensor_parallel_phase(smi)
     loads = dict(build.load_count)
     if any(n != 1 for n in loads.values()):
         raise AssertionError(f"a kernel library was loaded twice: {loads}")
@@ -4108,7 +4656,8 @@ def main() -> int:
              "manager_mixtral": mixtral_launches,
              "serve_harness": harness_launches,
              "manager_scenarios": scenario_launches,
-             "sharded": sharded_launches}
+             "sharded": sharded_launches,
+             "tensor_parallel": tp_launches}
 
     def launch_keys(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}

@@ -35,6 +35,19 @@ While a ``launch.steps.OpRecorder`` is active (it puts itself in
 name (``all-to-all``, ``all-gather``, ``all-reduce``), so that
 ``launch.roofline.parse_collectives`` reads the port's steps as it reads
 XLA's.
+
+A group may also be a :class:`MetaGroup`: a description of a group (its
+size and this rank's index in it) with no live ranks.  On tensors on the
+``meta`` device a collective over it returns a result of the right shape
+and writes its line, so that ``launch.steps.lower_step`` costs one rank
+of a 256- or 512-device mesh in one process; on any other tensor it
+raises.
+
+Tensor parallelism (``models/parallel.py``) adds :func:`gather_shards`,
+the FSDP weight gather (``all_gather`` forward, ``reduce_scatter``
+backward: the ranks that gather a weight see different tokens, so their
+cotangents differ and are summed), and :func:`pmax`, a maximum with no
+gradient (the vocab-parallel cross-entropy's stabiliser).
 """
 from __future__ import annotations
 
@@ -50,29 +63,60 @@ stats = {"calls": 0, "seconds": 0.0, "bytes": 0}
 recorders: list = []
 
 
+class MetaGroup:
+    """A process group as a description: ``size`` ranks, this one at
+    ``rank``, none of them live.  Collectives over it run on ``meta``
+    tensors only (see the module doc)."""
+
+    def __init__(self, size: int, rank: int = 0):
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} outside a group of {size}")
+        self.size, self.rank = size, rank
+
+    def __repr__(self) -> str:
+        return f"MetaGroup(size={self.size}, rank={self.rank})"
+
+
 def reset_stats() -> None:
     stats.update(calls=0, seconds=0.0, bytes=0)
 
 
 def axis_index(group=None) -> int:
     """This rank's index along ``group`` (JAX: ``lax.axis_index``)."""
+    if isinstance(group, MetaGroup):
+        return group.rank
     return dist.get_rank(group)
 
 
 def axis_size(group=None) -> int:
     """The number of ranks in ``group`` (JAX: ``lax.axis_size``)."""
+    if isinstance(group, MetaGroup):
+        return group.size
     return dist.get_world_size(group)
 
 
 def transport(group=None) -> str:
-    """``"host"`` for gloo, which moves host tensors, else ``"device"``."""
+    """``"host"`` for gloo, which moves host tensors, ``"meta"`` for a
+    :class:`MetaGroup`, else ``"device"``."""
+    if isinstance(group, MetaGroup):
+        return "meta"
     return "host" if dist.get_backend(group) == "gloo" else "device"
 
 
-def _staged(fn, kind: str, group, *tensors: torch.Tensor):
+def _staged(fn, kind: str, group, *tensors: torch.Tensor, meta=None):
     """Run the raw collective ``fn`` (XLA's op ``kind``) on ``tensors``
     where the transport takes them, and return its outputs on the
-    tensors' device."""
+    tensors' device.  Over a :class:`MetaGroup`, ``meta(*tensors)`` gives
+    the result's shape instead (``None``: the first tensor's)."""
+    if isinstance(group, MetaGroup):
+        if any(t.device.type != "meta" for t in tensors):
+            raise RuntimeError(
+                f"{kind} over {group}: a described group has no live ranks "
+                f"and takes tensors on the meta device only")
+        out = (meta or torch.empty_like)(*tensors)
+        for rec in recorders:
+            rec.collective(kind, out, tensors)
+        return out
     dev = tensors[0].device
     host = transport(group) == "host" and dev.type != "cpu"
     if timing:
@@ -110,17 +154,39 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``x`` stacked along a new leading axis, in rank order
     (JAX: ``all_gather``).  For integers: it carries no gradient."""
+    n = axis_size(group)
+
     def run(t):
-        parts = [torch.empty_like(t) for _ in range(axis_size(group))]
+        parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t, group=group)
         return torch.stack(parts)
-    return _staged(run, "all-gather", group, x)
+    return _staged(run, "all-gather", group, x,
+                   meta=lambda t: t.new_empty((n, *t.shape)))
 
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``x`` over the group, cut into the group's size along
+    ``dim``: this rank's block."""
+    n = axis_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} is not divisible "
+                         f"by the group's {n} ranks")
+    shape = list(x.shape)
+    shape[dim] //= n
+
+    def run(t):
+        out = t.new_empty(shape)
+        dist.reduce_scatter(out, [c.contiguous() for c in t.chunk(n, dim)],
+                            op=dist.ReduceOp.SUM, group=group)
+        return out
+    return _staged(run, "reduce-scatter", group, x,
+                   meta=lambda t: t.new_empty(shape))
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     def run(t):
         out = t.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        dist.all_reduce(out, op=op, group=group)
         return out
     return _staged(run, "all-reduce", group, x)
 
@@ -173,6 +239,17 @@ class _Shard(torch.autograd.Function):
         return torch.cat(parts.unbind(0), ctx.dim), None, None
 
 
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return torch.cat(all_gather(x, group).unbind(0), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -216,3 +293,18 @@ def gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     backward keeps this rank's slice of the cotangent."""
     return _Gather.apply(x, dim, group)
 
+
+def gather_shards(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's block ``x`` concatenated along ``dim`` (a weight cut
+    over the group, gathered before use); the backward is a reduce-scatter:
+    each rank's cotangent of the whole is summed over the group and the
+    rank keeps its block.  Unlike :func:`gather`, it holds where the ranks
+    compute different things from the result (FSDP: each its own
+    tokens)."""
+    return _GatherShards.apply(x, dim, group)
+
+
+def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the group (``all_reduce(MAX)``),
+    detached: it carries no gradient."""
+    return _all_reduce(x.detach(), group, dist.ReduceOp.MAX)

@@ -29,7 +29,11 @@ SLEEP_CYCLES = 20_000_000          # some 10 ms of a busy card per chunk
 # backward events in 5 windows in a row, twice, where another host lost none
 PROFILE_TRIES = 10
 PROFILE_PAUSE_S = 0.5                # between windows that lost events
-SPLIT_SLEEP_CYCLES = 2_000_000       # about a millisecond of the card
+# each profiled window opens with short sleep kernels (not reported): the
+# profiler drops a window's first device events, on one card host one of
+# them in every window, on another five
+OPENING_SPINS = 16
+SPIN_CYCLES = 125_000                # the 16 about a millisecond of the card
 
 
 def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -57,7 +61,8 @@ def device_profile(fn, calls: int = 20, kernel: Optional[str] = None
     The profiler drops device events at the start of its window (on the
     card, all 10 calls of a 30 us kernel, or 4 of 20 calls of 0.07 ms), so
     a warm-up step of ``calls`` calls runs first and only the second step
-    is read.  With ``kernel`` (part of a kernel's name) every count is taken
+    is read, each opening with ``OPENING_SPINS`` sleep kernels (not
+    reported) for the profiler to drop.  With ``kernel`` (part of a kernel's name) every count is taken
     per event of that kernel, so a call that launches it once and nothing
     else gives 1 even if an event is lost; without, the window is taken
     again until its events are a whole number a call.  A window that lost
@@ -72,7 +77,8 @@ def device_profile(fn, calls: int = 20, kernel: Optional[str] = None
         # the step's own annotation shows on the device timeline too
         events = [e for e in _window(fn, calls, lambda p: p.events())
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.name.startswith("ProfilerStep")]
+                  and not e.name.startswith("ProfilerStep")
+                  and "spin_kernel" not in e.name]   # the opening sleeps
         if kernel is not None:
             per = sum(kernel in e.name for e in events)
             if per:
@@ -99,8 +105,8 @@ def kernel_split(fn, calls: int = 5) -> list:
     """Device ms a call of each kernel ``fn`` launches and its launches a
     call (``name``, ``launches_per_call``, ``device_ms``), heaviest first,
     from the kernel rows of the second of two windows of ``calls`` calls,
-    as :func:`device_profile` reads them.  Each window opens with a sleep
-    kernel of about a millisecond (not reported), since the profiler can
+    as :func:`device_profile` reads them, each opening with
+    ``OPENING_SPINS`` sleep kernels (not reported), since the profiler can
     drop a window's first events; a window whose kernels do not come a
     whole number of times a call is taken again after a pause, and after
     ``PROFILE_TRIES`` windows it raises."""
@@ -109,12 +115,11 @@ def kernel_split(fn, calls: int = 5) -> list:
     for attempt in range(PROFILE_TRIES):
         if attempt:
             time.sleep(PROFILE_PAUSE_S)
-        rows = [e for e in _window(fn, calls, lambda p: p.key_averages(),
-                                   SPLIT_SLEEP_CYCLES)
+        rows = [e for e in _window(fn, calls, lambda p: p.key_averages())
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0
                 and not e.key.startswith("ProfilerStep")
-                and "spin_kernel" not in e.key]   # the sleep kernel
+                and "spin_kernel" not in e.key]   # the opening sleeps
         if rows and all(e.count % calls == 0 for e in rows):
             break
     else:
@@ -134,18 +139,18 @@ def kernel_name(key: str) -> str:
                     .removeprefix("void "))[0]
 
 
-def _window(fn, calls: int, read, sleep_cycles: int = 0) -> list:
+def _window(fn, calls: int, read) -> list:
     """``read`` of a profile (its events or key averages) of the second of
     two windows of ``calls`` calls each, the first a warm-up; each window
-    opens with a sleep kernel of ``sleep_cycles`` if there are any."""
+    opens with ``OPENING_SPINS`` sleep kernels."""
     from torch.profiler import ProfilerActivity, profile, schedule
     got = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=lambda p: got.extend(read(p))) as prof:
         for _ in range(2):
-            if sleep_cycles:
-                torch.cuda._sleep(sleep_cycles)
+            for _ in range(OPENING_SPINS):
+                torch.cuda._sleep(SPIN_CYCLES)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()

@@ -10,11 +10,16 @@ Outputs one JSON per cell under ``build/dryrun/``.  On the ``card`` mesh
 (one H100) a cell's FLOPs and bytes come from ``costfit.fit_cell`` and its
 peak memory from the step run on ``meta`` at two depths
 (``extrapolated_costs``); ``fits_hbm`` holds it to :data:`HBM_BUDGET`.  On
-the production meshes (``pod``, ``multipod``) the record holds each
-device's parameter and optimizer bytes, from ``param_specs`` through
-``NamedSharding.shard_shape``, and the run raises: the port has no
-tensor-parallel dense layers whose FLOPs and collectives it could count
-(ROADMAP A9).
+the production meshes (``pod``, ``multipod``) the same numbers are one
+device's: ``lower_step`` records rank (0, ..., 0) of the mesh with
+described groups (``models/parallel.py``), so the record also carries
+its collectives.  Only ``DenseLM`` (dense, moe, vlm) is tensor-parallel:
+for the other families a production mesh records each device's parameter
+and optimizer bytes, from ``param_specs`` through
+``NamedSharding.shard_shape``, and raises (ROADMAP A11).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \
+        tinyllama_1_1b --shape train_4k --mesh pod
 """
 from __future__ import annotations
 
@@ -141,7 +146,7 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh: str = "card",
     from repro_torch.launch.roofline import (RooflineTerms, model_bytes_for,
                                              model_flops_for)
     from repro_torch.models.config import skipped_shapes_for
-    from repro_torch.models.lm import build_model
+    from repro_torch.models.lm import DenseLM, build_model
 
     cfg = get_config(arch, smoke=smoke)
     if overrides:
@@ -161,7 +166,7 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh: str = "card",
     chips = spec.size
     model = build_model(cfg, device="meta")
     param_bytes, opt_bytes = state_bytes(model, spec, multi_pod)
-    if mesh != "card":
+    if chips > 1 and not isinstance(model, DenseLM):
         rec = {"arch": arch, "shape": shape.name, "mesh": mesh,
                "chips": chips, "n_params": model.n_params(),
                "param_bytes": param_bytes, "opt_state_bytes": opt_bytes,
@@ -169,9 +174,8 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh: str = "card",
         _write(rec, out_dir, tag)
         raise NotImplementedError(
             f"{tag}: parameter and optimizer bytes a device are recorded; "
-            f"its FLOPs and collectives are not: the port has no "
-            f"tensor-parallel dense layers to count over the {mesh} mesh "
-            f"(ROADMAP A9)")
+            f"its FLOPs and collectives are not: tensor parallelism for "
+            f"the {cfg.family} family is not ported (ROADMAP A11)")
     t0 = time.time()
 
     # --- the gradient-accumulation factor (train only) -------------------

@@ -9,6 +9,12 @@ device and returns a :class:`Lowered`, the port's counterpart of a
 lowered XLA program: its FLOPs (``torch.utils.flop_counter``), bytes
 accessed, memory (argument, output and temp bytes) and the text of the
 ops it ran (:class:`OpRecorder`).
+
+Over a mesh of more than one device a step is one rank's program
+(``models/parallel.py``, ``DenseLM`` only): ``build_step(shard=ctx)``
+with a ``ShardCtx`` of launched ranks runs on the rank's local shards;
+``lower_step`` records rank (0, ..., 0) of any ``MeshSpec`` on the
+``meta`` device with described groups, its collectives among its ops.
 """
 from __future__ import annotations
 
@@ -152,21 +158,25 @@ def named(mesh: MeshSpec, tree):
 @dataclasses.dataclass
 class StepBundle:
     """One cell: callable + argument structs + shardings, and (the port's
-    addition) ``remake``: ``build_step`` with the same arguments, for
-    another ``device`` and ``kernel_mode``."""
+    additions) ``remake``: ``build_step`` with the same arguments, for
+    another ``device`` and ``kernel_mode``; ``model``, the model the step
+    runs."""
     step: Callable
     arg_structs: Tuple[Any, ...]
     in_shardings: Tuple[Any, ...]
     out_shardings: Any
     donate_argnums: Tuple[int, ...] = ()
     remake: Optional[Callable[..., "StepBundle"]] = None
+    model: Any = None
 
 
-def opt_state_structs(model) -> OptState:
+def opt_state_structs(model, pshapes=None) -> OptState:
     """AdamW's state as meta tensors: float32 moments shaped like the
-    parameters and the int32 step (a host int in a live state)."""
+    parameters (``pshapes``, default the model's) and the int32 step (a
+    host int in a live state)."""
+    pshapes = model.param_shapes() if pshapes is None else pshapes
     f32 = lambda: tree_map(lambda p: torch.empty(
-        p.shape, dtype=torch.float32, device="meta"), model.param_shapes())
+        p.shape, dtype=torch.float32, device="meta"), pshapes)
     return OptState(step=torch.empty((), dtype=torch.int32, device="meta"),
                     m=f32(), v=f32())
 
@@ -180,9 +190,18 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec,
                *, multi_pod: bool, opt: Optional[AdamW] = None,
                microbatches: int = 1, constrain_activations: bool = True,
                kernel_mode: Optional[str] = None,
-               device=None) -> StepBundle:
+               device=None, shard=None) -> StepBundle:
     """Build one (arch x shape) cell with the model on ``device`` (the card
     unless ``"cpu"`` or ``"meta"`` is asked for).
+
+    ``shard`` (a ``parallel.ShardCtx`` over ``mesh``: launched ranks, or
+    described ones on ``meta``) builds one rank's program: the model runs
+    on the rank's local shards (``parallel.shard_params`` of the global
+    parameters) and its rows of the batch under the batch spec, the
+    argument structs are those local shapes, and the train step's clip
+    takes the global norm (``ShardCtx.grad_sq``); the shardings stay the
+    global specs.  Only ``DenseLM`` shards; the other families raise on a
+    mesh of more than one device (ROADMAP A11).
 
     ``kernel_mode`` overrides ``cfg.kernel_mode`` (every kernel the model
     runs: flash attention, the recurrent scans, a fabric-backed MoE's
@@ -193,7 +212,7 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec,
     remake = functools.partial(
         build_step, cfg, shape, mesh, multi_pod=multi_pod, opt=opt,
         microbatches=microbatches,
-        constrain_activations=constrain_activations)
+        constrain_activations=constrain_activations, shard=shard)
     if kernel_mode is not None and kernel_mode != cfg.kernel_mode:
         cfg = dataclasses.replace(cfg, kernel_mode=kernel_mode)
     model = build_model(cfg, device=device)
@@ -203,24 +222,41 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec,
     pspecs = model.param_specs(multi_pod)
     bstructs, bspecs = model.input_shapes(shape, multi_pod)
     logits_sh = NamedSharding(mesh, (None, "model"))
+    opt = opt or AdamW()
+    if shard is not None:
+        from repro_torch.models.parallel import layout_specs, shard_params
+        shard = shard.with_batch(bspecs["tokens"][0])
+        model.shard_over(shard)
+        layout = layout_specs(model, multi_pod)
+        pshapes = shard_params(pshapes, layout, mesh, shard.coords)
+        rows = shard.batch_rows(shape.global_batch)
+        bstructs = {k: _meta_like(v[rows]) for k, v in bstructs.items()}
+        opt = dataclasses.replace(opt, grad_sq=shard.grad_sq(layout))
 
     if shape.kind == "train":
-        opt = opt or AdamW()
         step = make_train_step(model, opt, microbatches)
         ospecs = named(mesh, opt_state_specs(model, multi_pod))
-        args = (pshapes, opt_state_structs(model), bstructs)
+        args = (pshapes, opt_state_structs(model, pshapes), bstructs)
         in_sh = (named(mesh, pspecs), ospecs, named(mesh, bspecs))
         out_sh = (named(mesh, pspecs), ospecs, NamedSharding(mesh, ()))
-        return StepBundle(step, args, in_sh, out_sh, (0, 1), remake)
+        return StepBundle(step, args, in_sh, out_sh, (0, 1), remake, model)
 
     if shape.kind == "prefill":
         def serve_step(params, batch):
             return model.prefill(params, batch)
         return StepBundle(serve_step, (pshapes, bstructs),
                           (named(mesh, pspecs), named(mesh, bspecs)),
-                          logits_sh, (), remake)
+                          logits_sh, (), remake, model)
 
     sstructs, sspecs = model.decode_state_shapes(shape, multi_pod)
+    if shard is not None:
+        # the rank's state: its rows and its local kv heads (head-local
+        # caches, ``models/parallel.py``)
+        on_meta = build_model(cfg, device="meta")
+        on_meta.shard_over(shard)
+        local = on_meta.init_decode_state(bstructs["tokens"].shape[0],
+                                          shape.seq_len)
+        sstructs = dataclasses.replace(local, pos=sstructs.pos)
 
     def decode_step(params, state, batch):
         return model.decode_step(params, state, batch)
@@ -228,7 +264,12 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec,
     return StepBundle(decode_step, (pshapes, sstructs, bstructs),
                       (named(mesh, pspecs), named(mesh, sspecs),
                        named(mesh, bspecs)),
-                      (logits_sh, named(mesh, sspecs)), (1,), remake)
+                      (logits_sh, named(mesh, sspecs)), (1,), remake, model)
+
+
+def _meta_like(t: torch.Tensor) -> torch.Tensor:
+    """A meta tensor of ``t``'s shape and type with storage of its own."""
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
 
 # ----------------------------------------------------------------------
@@ -458,15 +499,15 @@ def record_step(step: Callable, args) -> Lowered:
 def lower_step(bundle: StepBundle, mesh: MeshSpec) -> Lowered:
     """Run the bundle's step once on its meta structs, the model on
     ``meta`` under ``kernel_mode_for_target("meta")`` (the plain data
-    plane), recorded.  One device only: the port's dense layers are not
-    tensor-parallel, so a program sharded over a production mesh cannot be
-    lowered (ROADMAP A9)."""
+    plane), recorded.  Over a mesh of more than one device it records rank
+    (0, ..., 0) of ``mesh`` (``ShardCtx.described``: no live ranks), its
+    arguments the rank's local shards and its collectives among its ops;
+    only ``DenseLM`` shards (the other families raise, ROADMAP A11)."""
     from repro_torch.launch.roofline import kernel_mode_for_target
+    kw = {}
     if mesh.size != 1:
-        raise NotImplementedError(
-            f"lower_step over a {mesh.size}-device mesh: the port has no "
-            f"tensor-parallel dense layers to lower (ROADMAP A9); use the "
-            f"card mesh")
+        from repro_torch.models.parallel import ShardCtx
+        kw["shard"] = ShardCtx.described(mesh)
     meta = bundle.remake(device="meta",
-                         kernel_mode=kernel_mode_for_target("meta"))
+                         kernel_mode=kernel_mode_for_target("meta"), **kw)
     return record_step(meta.step, _host_scalars(meta.arg_structs))

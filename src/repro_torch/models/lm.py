@@ -90,10 +90,14 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return out
 
 
-def qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    """Project + rope. Returns q [B,S,H,hd], k/v [B,S,Kv,hd] (k post-rope)."""
+def qkv(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+        heads=None):
+    """Project + rope. Returns q [B,S,H,hd], k/v [B,S,Kv,hd] (k post-rope);
+    ``heads`` = (H, Kv) where the weights hold other head counts than the
+    config's (a tensor-parallel rank's, ``parallel.HeadLayout``)."""
     B, S, _ = x.shape
-    H, Kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    H, Kv = heads or (cfg.n_heads, cfg.n_kv_heads)
+    hd = cfg.hd
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
@@ -111,17 +115,26 @@ def chunked_lm_loss(h: torch.Tensor, w_head: torch.Tensor,
     are recomputed in the backward (``torch.utils.checkpoint``), so the
     [B, S, V] logits never exist at once."""
     B, S, _ = h.shape
-    chunk = min(chunk, S)
+    return _chunked_xent_sum(
+        h, w_head, labels,
+        lambda logits, ll: _xent_per_token(logits, ll, true_vocab),
+        chunk) / (B * S)
+
+
+def _chunked_xent_sum(h, w_head, labels, xent, chunk: int = 512):
+    """The sum of ``xent(logits, labels)`` over every token, the logits
+    of each sequence chunk recomputed in the backward."""
+    chunk = min(chunk, h.shape[1])
 
     def body(hh, ll):
-        return _xent_per_token(hh @ w_head, ll, true_vocab).sum()
+        return xent(hh @ w_head, ll).sum()
 
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c0 in range(0, S, chunk):
+    for c0 in range(0, h.shape[1], chunk):
         tot = tot + torch.utils.checkpoint.checkpoint(
             body, h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
             use_reentrant=False)
-    return tot / (B * S)
+    return tot
 
 
 def _xent_per_token(logits: torch.Tensor, labels: torch.Tensor,
@@ -262,6 +275,19 @@ class LMBase:
         # The mesh axes the batch is sharded over, for ``constrain``; set by
         # ``launch.steps.build_step``, None disables.
         self.batch_axis: Optional[Any] = None
+        # This rank's view of a tensor-parallel mesh (``shard_over``).
+        self.shard = None
+
+    def shard_over(self, ctx) -> None:
+        """Run as one rank of ``ctx`` (a ``parallel.ShardCtx``): the
+        parameters are the rank's local shards.  Only ``DenseLM`` is
+        tensor-parallel; the other families raise on a mesh of more than
+        one device (on one, nothing is sharded and the model runs as
+        it is)."""
+        if ctx.mesh.size > 1:
+            raise NotImplementedError(
+                f"tensor parallelism for the {self.cfg.family} family over "
+                f"a {ctx.mesh.size}-device mesh is not ported (ROADMAP A11)")
 
     def constrain(self, x: torch.Tensor) -> torch.Tensor:
         """Pin a [B, S, d] activation to batch sharding, as the JAX
@@ -353,29 +379,54 @@ class LMBase:
         allocating them."""
         return sum(math.prod(d.shape) for d in tree_leaves(self.param_defs()))
 
+    def _leaf(self, params, name: str) -> torch.Tensor:
+        """A top-level leaf as the products take it (on a tensor-parallel
+        rank: whole along ``d_model``, ``ShardCtx.weight``)."""
+        if self.shard is None:
+            return params[name]
+        return self.shard.weight(params[name], self._specs[name])
+
     def _head_weight(self, params):
         if self.cfg.tied_embeddings:
-            return params["embed"].T
-        return params["lm_head"]
+            return self._leaf(params, "embed").T
+        return self._leaf(params, "lm_head")
 
     def _embed(self, params, tokens) -> torch.Tensor:
         tokens = torch.as_tensor(tokens, device=self.device)
+        if self.shard is not None:
+            from repro_torch.models.parallel import embed_vocab_parallel
+            return embed_vocab_parallel(self._leaf(params, "embed"), tokens,
+                                        self.shard)
         return params["embed"][tokens.long()]
 
     def _inputs_embed(self, params, batch) -> torch.Tensor:
         return self._embed(params, batch["tokens"])
 
     def _last_logits(self, params, h: torch.Tensor) -> torch.Tensor:
-        """The final norm, then the head on the last position: [B, V]."""
-        h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
-        return h[:, -1] @ self._head_weight(params)
+        """The final norm, then the head on the last position: [B, V]
+        (on a tensor-parallel rank: its vocab block [B, V/M])."""
+        h = rms_norm(h, self._leaf(params, "final_norm"),
+                     self.cfg.norm_eps)[:, -1]
+        if self.shard is not None:
+            h = self.shard.tp_in(h)
+        return h @ self._head_weight(params)
 
     def _lm_loss(self, params, h: torch.Tensor, batch) -> torch.Tensor:
-        """The final norm, then the chunked vocab xent."""
-        h = rms_norm(h, params["final_norm"], self.cfg.norm_eps)
+        """The final norm, then the chunked vocab xent (on a
+        tensor-parallel rank: vocab-parallel, the mean over the global
+        batch)."""
         labels = torch.as_tensor(batch["labels"], device=self.device)
-        return chunked_lm_loss(h, self._head_weight(params), labels,
-                               self.cfg.vocab)
+        h = rms_norm(h, self._leaf(params, "final_norm"), self.cfg.norm_eps)
+        sh = self.shard
+        if sh is None:
+            return chunked_lm_loss(h, self._head_weight(params), labels,
+                                   self.cfg.vocab)
+        from repro_torch.models.parallel import xent_vocab_parallel
+        tot = _chunked_xent_sum(
+            sh.tp_in(h), self._head_weight(params), labels,
+            lambda logits, ll: xent_vocab_parallel(logits, ll,
+                                                   self.cfg.vocab, sh))
+        return sh.batch_sum(tot) / (labels.numel() * sh.batch_shards)
 
 
 class DenseLM(LMBase):
@@ -400,6 +451,60 @@ class DenseLM(LMBase):
         out["layers"] = [self._layer_defs() for _ in range(self.cfg.n_layers)]
         return out
 
+    def shard_over(self, ctx, fsdp: bool = True) -> None:
+        """Run as one rank of ``ctx`` (a ``parallel.ShardCtx``, any mesh
+        size): the parameters are the rank's local shards
+        (``parallel.shard_params``), the batch its rows under the batch
+        spec of ``ctx``, and ``prefill``/``decode_step`` return its vocab
+        block of the logits.  ``fsdp=False``: the parameters are whole
+        along ``d_model`` already (``ShardCtx.whole_over_data``), as a
+        server holds them.  See ``models/parallel.py``."""
+        from repro_torch.models.parallel import (DATA, POD, layout_specs,
+                                                 without_axis)
+        self.shard = ctx
+        self._specs = layout_specs(self, POD in ctx.mesh.axis_names)
+        if not fsdp:
+            self._specs = without_axis(self._specs, DATA)
+        self._heads = ctx.heads(self.cfg)
+
+    # ---- tensor-parallel pieces (the plain products off a mesh) -------
+    def _layer(self, lp):
+        """A layer's leaves as the products take them: on a mesh, whole
+        along ``d_model`` (gathered over ``data``)."""
+        if self.shard is None:
+            return lp
+        return self.shard.weights(lp, self._specs["layers"][0])
+
+    def _qkv(self, p, h: torch.Tensor, positions: torch.Tensor):
+        if self.shard is None:
+            return qkv(p, h, self.cfg, positions)
+        hl = self._heads
+        return qkv(hl.project(self.shard, p), self.shard.tp_in(h), self.cfg,
+                   positions, heads=(hl.n_q, hl.n_kv))
+
+    def _attn_out(self, o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+        if self.shard is None:
+            return o.reshape(*o.shape[:2], -1) @ wo
+        return self._heads.out(self.shard, o, wo)
+
+    def _ffn(self, lp, h2: torch.Tensor, group_size: int):
+        """The MLP or the MoE on the normed residual: (y, aux loss);
+        ``group_size`` counts the MoE's token groups in the global
+        batch."""
+        cfg, sh = self.cfg, self.shard
+        if cfg.moe is not None:
+            y, stats = moe_mod.moe_apply(lp["moe"], h2, cfg.moe, cfg.mlp_act,
+                                         group_size=group_size,
+                                         dispatch_impl=cfg.moe.dispatch,
+                                         kernel_mode=cfg.kernel_mode,
+                                         shard=sh)
+            return y, stats["aux_loss"]
+        aux = torch.zeros((), dtype=torch.float32, device=h2.device)
+        if sh is None:
+            return mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act), aux
+        return sh.tp_out(mlp_mod.mlp_apply(lp["mlp"], sh.tp_in(h2),
+                                           cfg.mlp_act)), aux
+
     # ---- forward ------------------------------------------------------
     def _inputs_embed(self, params, batch) -> torch.Tensor:
         """The token embeddings, the first ``cfg.n_vision_patches`` of them
@@ -415,23 +520,16 @@ class DenseLM(LMBase):
     def _block(self, lp, x: torch.Tensor, positions: torch.Tensor,
                moe_group: int):
         cfg = self.cfg
+        lp = self._layer(lp)
         x = self.constrain(x)
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        q, k, v = qkv(lp["attn"], h, cfg, positions)
+        q, k, v = self._qkv(lp["attn"], h, positions)
         o = attn.attention_prefill(q, k, v, causal=True,
                                    window=cfg.attn_window,
                                    kernel_mode=cfg.kernel_mode)
-        x = x + o.reshape(o.shape[0], o.shape[1], -1) @ lp["attn"]["wo"]
+        x = x + self._attn_out(o, lp["attn"]["wo"])
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        if cfg.moe is not None:
-            y, stats = moe_mod.moe_apply(lp["moe"], h2, cfg.moe, cfg.mlp_act,
-                                         group_size=moe_group,
-                                         dispatch_impl=cfg.moe.dispatch,
-                                         kernel_mode=cfg.kernel_mode)
-            aux = stats["aux_loss"]
-        else:
-            y = mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        y, aux = self._ffn(lp, h2, moe_group)
         return x + y, aux
 
     def _backbone(self, params, x: torch.Tensor, positions: torch.Tensor,
@@ -446,13 +544,20 @@ class DenseLM(LMBase):
         return self.constrain(x), aux
 
     def loss(self, params, batch) -> torch.Tensor:
-        """``batch["tokens"]``/``["labels"]`` [B, S] -> scalar float32."""
+        """``batch["tokens"]``/``["labels"]`` [B, S] -> scalar float32 (on
+        a tensor-parallel rank: its rows, and the loss of the global
+        batch)."""
         x = self._inputs_embed(params, batch)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)[None, :]
+        n = 1 if self.shard is None else self.shard.batch_shards
         h, aux = self._backbone(params, x, positions,
-                                moe_group=min(1024, B * S), train=True)
-        return self._lm_loss(params, h, batch) + 0.01 * aux
+                                moe_group=min(1024, B * S * n), train=True)
+        loss = self._lm_loss(params, h, batch) + 0.01 * aux
+        if self.shard is not None:
+            from repro_torch.models.parallel import scale_grad
+            loss = scale_grad(loss, self.shard.loss_scale())
+        return loss
 
     def prefill(self, params, batch) -> torch.Tensor:
         """``batch["tokens"]`` [B, S] -> last-token logits [B, V_padded]."""
@@ -471,10 +576,13 @@ class DenseLM(LMBase):
                                                  multi_pod), "model")
 
     def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
+        """An empty state for ``batch`` rows (on a tensor-parallel rank:
+        its rows; the caches hold its local kv heads for every slot)."""
         cfg = self.cfg
         slots = min(cfg.attn_window, max_len) if cfg.attn_window else max_len
+        n_kv = None if self.shard is None else self._heads.n_kv
         return _kv_state(batch, slots, cfg.n_layers, cfg, self.dtype,
-                         self.device)
+                         self.device, n_kv=n_kv)
 
     def decode_step(self, params, state: DecodeState, batch):
         """One token for every row: ``batch["tokens"]`` [B, 1] ->
@@ -487,25 +595,23 @@ class DenseLM(LMBase):
         positions = _decode_positions(x, pos)
         kv_pos = state.kv_pos
         for lp, ck, cv in zip(params["layers"], state.kv_k, state.kv_v):
+            lp = self._layer(lp)
             x, kv_pos = _attn_decode(lp, x, ck, cv, state.kv_pos, positions,
-                                     pos, cfg, cfg.attn_window)
+                                     pos, cfg, cfg.attn_window, model=self)
             h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-            if cfg.moe is not None:
-                y, _ = moe_mod.moe_apply(lp["moe"], h2, cfg.moe, cfg.mlp_act,
-                                         group_size=h2.shape[0],
-                                         dispatch_impl=cfg.moe.dispatch,
-                                         kernel_mode=cfg.kernel_mode)
-            else:
-                y = mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act)
+            y, _ = self._ffn(lp, h2, h2.shape[0] * (
+                1 if self.shard is None else self.shard.batch_shards))
             x = x + y
         return self._last_logits(params, x), dataclasses.replace(
             state, pos=pos + 1, kv_pos=kv_pos)
 
 
 def _kv_state(batch: int, slots: int, n_layers: int, cfg: ModelConfig,
-              dtype, device, **more) -> DecodeState:
-    """An empty decode state with ``n_layers`` KV caches of ``slots``."""
-    shape = (batch, slots, cfg.n_kv_heads, cfg.hd)
+              dtype, device, n_kv: Optional[int] = None,
+              **more) -> DecodeState:
+    """An empty decode state with ``n_layers`` KV caches of ``slots``
+    (``n_kv`` kv heads: the config's unless given)."""
+    shape = (batch, slots, n_kv or cfg.n_kv_heads, cfg.hd)
     z = lambda: torch.zeros(shape, dtype=dtype, device=device)
     return DecodeState(
         pos=0, kv_k=[z() for _ in range(n_layers)],
@@ -520,14 +626,20 @@ def _decode_positions(x: torch.Tensor, pos: int) -> torch.Tensor:
 
 
 def _attn_decode(lp, x, ck, cv, kv_pos, positions, pos: int,
-                 cfg: ModelConfig, window):
+                 cfg: ModelConfig, window, model=None):
     """The attention half of a decode block: norm, q/k/v, the cache write
     (in place) and attention over the cache.  Returns (x + attention,
-    slot positions with this token)."""
+    slot positions with this token).  ``model``, a ``DenseLM``, projects
+    and sums its output (a tensor-parallel rank's heads)."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    q, k, v = qkv(lp["attn"], h, cfg, positions)
+    if model is None:
+        q, k, v = qkv(lp["attn"], h, cfg, positions)
+    else:
+        q, k, v = model._qkv(lp["attn"], h, positions)
     ck, cv, kv_pos = attn.cache_write(ck, cv, kv_pos, k, v, pos)
     o = attn.attention_decode(q, ck, cv, kv_pos, pos, window=window)
+    if model is not None:
+        return x + model._attn_out(o, lp["attn"]["wo"]), kv_pos
     return x + o.reshape(o.shape[0], 1, -1) @ lp["attn"]["wo"], kv_pos
 
 

@@ -23,6 +23,16 @@ the paper's error codes, which surface as the router's drop statistics.
   and combine kernels.  :func:`moe_forward_sharded` is the wrapper that
   takes global tensors on every rank.
 
+On a tensor-parallel rank (``shard``, a ``parallel.ShardCtx``; the dense,
+gather and fabric impls) the experts are replicated over the ``model``
+axis and each rank holds its block of every expert's ``d_ff``: the router
+runs on the rank's tokens (replicated over ``model``), the tokens entering
+the experts and the combine weights take ``shard.tp_in`` (their gradients
+are partial on each rank), the combined partial sums take ``shard.tp_out``
+and the load-balance loss is computed from grants and router
+probabilities summed over the batch axes (``shard.batch_sum``), so that it
+is the global batch's.
+
 All three give the fabric's packet semantics: a packet's slot is its rank
 among its group's packets to the same expert (the WRR package counter), it
 is dropped at rank >= capacity, and it is dropped when ``expert_mask``
@@ -70,7 +80,7 @@ def moe_apply(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
               dispatch_impl: str = "dense",
               registers=None, group=None,
               capacity: Optional[int] = None,
-              kernel_mode: Optional[str] = None
+              kernel_mode: Optional[str] = None, shard=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B, S, d] -> (y [B, S, d], stats).
 
@@ -82,11 +92,15 @@ def moe_apply(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
     through :func:`moe_apply_sharded` (``registers`` and ``capacity`` pass
     through, ``group_size`` is ignored: the rank is the group).
     ``kernel_mode`` selects the fabric's lowering; the dense and gather
-    impls run no crossbar kernel and ignore it."""
+    impls run no crossbar kernel and ignore it.  ``shard``: this rank's
+    view of a tensor-parallel mesh (see the module doc)."""
     if dispatch_impl == "gather":
         return moe_apply_gather(params, x, moe, act, group_size=group_size,
-                                expert_mask=expert_mask)
+                                expert_mask=expert_mask, shard=shard)
     if dispatch_impl == "sharded":
+        if shard is not None:
+            raise NotImplementedError(
+                "expert parallelism inside a tensor-parallel layer")
         return moe_apply_sharded(params, x, moe, act, registers=registers,
                                  group=group, expert_mask=expert_mask,
                                  capacity=capacity, kernel_mode=kernel_mode)
@@ -94,11 +108,12 @@ def moe_apply(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
         return moe_apply_fabric(params, x, moe, act, group_size=group_size,
                                 expert_mask=expert_mask,
                                 backend=dispatch_impl,
-                                kernel_mode=kernel_mode)
+                                kernel_mode=kernel_mode, shard=shard)
     B, S, d = x.shape
     E, k = moe.n_experts, moe.top_k
     G, g, dst, w, probs, cap, keep, rank, iso_dropped = _grouped_grants(
         params, x, moe, group_size, expert_mask)
+    x, w = _tp_in(shard, x), _tp_in(shard, w)
     sel = (torch.nn.functional.one_hot(dst.long(), E).to(x.dtype)
            * keep[..., None].to(x.dtype))                  # [G, gk, E]
     slot = torch.where(keep, rank, 0)
@@ -112,12 +127,34 @@ def moe_apply(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
     comb = disp * w[..., None, None]
     y = torch.einsum("gtec,gecd->gtd", comb, ye)           # [G, gk, d]
     y = y.reshape(G, g, k, d).sum(dim=2).reshape(B, S, d)
-    return y, _stats(keep, dst, probs, E, iso_dropped, cap)
+    return _tp_out(shard, y), _stats(keep, dst, probs, E, iso_dropped, cap,
+                                     shard)
+
+
+def _tp_in(shard, t: torch.Tensor) -> torch.Tensor:
+    return t if shard is None else shard.tp_in(t)
+
+
+def _tp_out(shard, t: torch.Tensor) -> torch.Tensor:
+    return t if shard is None else shard.tp_out(t)
+
+
+def _aux_loss(counts, n_packets: int, probs, n_experts: int, shard):
+    """The load-balance loss: granted fraction x mean router probability
+    per expert, over the global batch on a tensor-parallel rank."""
+    if shard is None or not shard.batch:
+        frac_tokens = (counts / n_packets).float()
+        return n_experts * torch.sum(frac_tokens * probs.mean(0))
+    n = shard.batch_shards
+    counts = shard.batch_sum(counts)
+    mean_p = shard.batch_sum(probs.sum(0)) / (probs.shape[0] * n)
+    frac_tokens = (counts / (n_packets * n)).float()
+    return n_experts * torch.sum(frac_tokens * mean_p)
 
 
 def moe_apply_gather(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
                      group_size: int = 1024,
-                     expert_mask: Optional[torch.Tensor] = None
+                     expert_mask: Optional[torch.Tensor] = None, shard=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Gather/scatter MoE dispatch: the dense impl's grants with no
     selection tensor.  Each packet goes to the flat slab address
@@ -129,6 +166,7 @@ def moe_apply_gather(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
     E, k = moe.n_experts, moe.top_k
     G, g, dst, w, probs, cap, keep, rank, iso_dropped = _grouped_grants(
         params, x, moe, group_size, expert_mask)
+    x, w = _tp_in(shard, x), _tp_in(shard, w)
     rows = E * cap + 1                                     # + the trash row
     slot_addr = torch.where(keep, dst * cap + torch.where(keep, rank, 0),
                             E * cap)                       # [G, gk]
@@ -144,7 +182,8 @@ def moe_apply_gather(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
     back = ye_flat.index_select(0, flat).reshape(G, g * k, d)
     back = back * (w * keep.to(w.dtype))[..., None]
     y = back.reshape(G, g, k, d).sum(dim=2).reshape(B, S, d)
-    return y, _stats(keep, dst, probs, E, iso_dropped, cap)
+    return _tp_out(shard, y), _stats(keep, dst, probs, E, iso_dropped, cap,
+                                     shard)
 
 
 def _grouped_grants(params, x: torch.Tensor, moe: MoEConfig,
@@ -178,15 +217,16 @@ def _grouped_grants(params, x: torch.Tensor, moe: MoEConfig,
     return G, g, dst, w, probs, cap, keep, rank, iso_dropped
 
 
-def _stats(keep, dst, probs, n_experts: int, iso_dropped, cap: int):
+def _stats(keep, dst, probs, n_experts: int, iso_dropped, cap: int,
+           shard=None):
     """The dense and gather impls' stats: grants per expert, the
     load-balance aux loss (granted fraction x mean router probability per
     expert, as the fabric impl computes it) and the drop read-back."""
     counts = torch.zeros((n_experts,), dtype=torch.int32, device=keep.device)
     counts.index_add_(0, dst.reshape(-1).long(),
                       keep.reshape(-1).to(torch.int32))
-    frac_tokens = (counts / keep.numel()).float()
-    return {"aux_loss": n_experts * torch.sum(frac_tokens * probs.mean(0)),
+    return {"aux_loss": _aux_loss(counts, keep.numel(), probs, n_experts,
+                                  shard),
             "dropped": (~keep).sum(), "iso_dropped": iso_dropped,
             "capacity": torch.tensor(cap), "counts": counts}
 
@@ -258,7 +298,7 @@ def moe_apply_fabric(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
                      group_size: int = 1024,
                      expert_mask: Optional[torch.Tensor] = None,
                      backend: str = "reference",
-                     kernel_mode: Optional[str] = None
+                     kernel_mode: Optional[str] = None, shard=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """MoE dispatch as a fabric transfer per token group.
 
@@ -273,10 +313,10 @@ def moe_apply_fabric(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
     g = min(group_size, T)
     G = T // g
     assert G * g == T, f"tokens {T} not divisible by group size {g}"
-    xf = x.reshape(G, g, d)
     dst, w, probs = _moe_router(params, x.reshape(T, d), moe, expert_mask)
+    xf = _tp_in(shard, x).reshape(G, g, d)
     dst = dst.reshape(G, g * k)
-    w = w.reshape(G, g * k)
+    w = _tp_in(shard, w).reshape(G, g * k)
     cap = expert_capacity(g, moe)
 
     fabric, cell = _group_fabric(E, cap, backend, _mode_key(kernel_mode),
@@ -302,8 +342,7 @@ def moe_apply_fabric(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
     y = torch.stack(ys).reshape(G, g, k, d).sum(dim=2).reshape(B, S, d)
 
     counts = torch.stack([p.counts for p in plans])
-    frac_tokens = (counts.sum(0) / (G * g * k)).float()
-    aux_loss = E * torch.sum(frac_tokens * probs.mean(0))
+    aux_loss = _aux_loss(counts.sum(0), G * g * k, probs, E, shard)
     stats = {
         "aux_loss": aux_loss,
         "dropped": sum((~p.keep).sum() for p in plans),
@@ -312,7 +351,7 @@ def moe_apply_fabric(params, x: torch.Tensor, moe: MoEConfig, act: str, *,
         "counts": counts.sum(0),
         "plans": plans,
     }
-    return y, stats
+    return _tp_out(shard, y), stats
 
 
 def _sharded_stats(plan, dst, probs, n_experts: int, E_loc: int, cap: int,

@@ -6,12 +6,16 @@ float32 and cast to each parameter's dtype.  To hold a full-width model's
 state on one card, ``update`` writes the new moments into the state's
 tensors in place and ``apply_updates`` adds the updates to the parameters
 in place (the JAX package returns new arrays; the values are the same).
+
+On a tensor-parallel rank the gradients are local shards: ``grad_sq``
+(``parallel.ShardCtx.grad_sq``) then gives the squared global norm over
+every rank, each replicated block counted once.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +47,8 @@ class AdamW:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+    # gradients -> their squared global norm (None: the sum over the leaves)
+    grad_sq: Optional[Callable[[Any], torch.Tensor]] = None
 
     def init(self, params) -> OptState:
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -56,7 +62,10 @@ class AdamW:
         moment tensors are updated in place."""
         step = state.step + 1
         # Global-norm clip (float32).
-        gsq = sum(g.float().square().sum() for g in tree_leaves(grads))
+        if self.grad_sq is not None:
+            gsq = self.grad_sq(grads)
+        else:
+            gsq = sum(g.float().square().sum() for g in tree_leaves(grads))
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)

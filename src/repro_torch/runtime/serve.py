@@ -74,11 +74,20 @@ class ServeLoop:
     converted by ``repro_torch.ckpt.convert``: the port does not
     reimplement JAX's PRNG); without them ``seed`` seeds the
     ``torch.Generator`` of ``model.init``.
+
+    ``shard`` (a ``models.parallel.ShardCtx`` of launched ranks) serves as
+    one rank of a tensor-parallel ``DenseLM``: ``params`` are the rank's
+    local shards, gathered once along their ``fsdp`` dim (a server keeps
+    no optimizer state, and would otherwise gather every weight again for
+    each token), the slots are split over the data axes as
+    ``lm.batch_axes`` says, and the vocab-sharded logits (and each rank's
+    rows of tokens) are gathered before a token is picked, so every rank
+    returns the same completions.
     """
 
     def __init__(self, cfg: ModelConfig, *, batch: int = 4,
                  max_len: int = 256, seed: int = 0, device=None,
-                 params=None):
+                 params=None, shard=None):
         warnings.warn(
             "DEPRECATED runtime.serve.ServeLoop — migrate to "
             "repro_torch.shell.server.ElasticServer (continuous batching, "
@@ -90,6 +99,18 @@ class ServeLoop:
         self.device = self.model.device
         self.batch = batch
         self.max_len = max_len
+        self.shard = None
+        if shard is not None:
+            from repro_torch.models.lm import batch_axes
+            if params is None:
+                raise ValueError("a tensor-parallel ServeLoop takes the "
+                                 "rank's local shards as params")
+            from repro_torch.models.parallel import layout_specs
+            self.shard = shard.with_batch(batch_axes(
+                batch, "pod" in shard.mesh.axis_names))
+            self.model.shard_over(self.shard, fsdp=False)
+            params = self.shard.whole_over_data(
+                params, layout_specs(self.model))
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
@@ -127,21 +148,25 @@ class ServeLoop:
         for i, r in enumerate(requests):
             prompts[i, S - len(r.prompt):] = r.prompt   # left-pad
 
+        sh = self.shard
+        rows = slice(None) if sh is None else sh.batch_rows(self.batch)
+        full = (lambda x: x) if sh is None else sh.gather_vocab
+        every = (lambda x: x) if sh is None else sh.gather_batch
         t0 = time.monotonic()
-        logits, state = self._warm_state(prompts)
+        logits, state = self._warm_state(prompts[rows])
         t1 = time.monotonic()
 
         max_new = max(r.max_new for r in requests)
         out_tokens = np.zeros((self.batch, max_new), np.int32)
         # the first token over the padded vocab, as the JAX package takes it
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        extras = extra_decode_inputs(self.cfg, self.batch, self.model.dtype,
-                                     self.device)
+        tok = torch.argmax(full(logits), dim=-1).to(torch.int32)
+        extras = extra_decode_inputs(self.cfg, tok.shape[0],
+                                     self.model.dtype, self.device)
         for j in range(max_new):
-            out_tokens[:, j] = tok.cpu().numpy()
+            out_tokens[:, j] = every(tok).cpu().numpy()
             batch = {"tokens": tok[:, None], **extras}
             logits, state = self.model.decode_step(self.params, state, batch)
-            tok = greedy_tokens(logits, self.cfg.vocab)
+            tok = greedy_tokens(full(logits), self.cfg.vocab)
         t2 = time.monotonic()
 
         return [Completion(app_id=r.app_id,

@@ -320,3 +320,76 @@ def card_data_plane(rank, n, payload, device):
     equal = [torch.equal(a, b) for a, b in zip(res["cuda"], res["torch"])]
     return {"equal": equal, "launches": launches,
             "d_w_dtype": str(res["cuda"][3].dtype)}
+
+
+# ----------------------------------------------------------------------
+# tensor parallelism: DenseLM over a (data, model) mesh
+# ----------------------------------------------------------------------
+def tp_cases(rank, n, payload, device):
+    """Per model case, this rank's local results on a (data, model) mesh
+    of ``payload["mesh"]``: the loss and every local gradient leaf, the
+    prefill logits (its rows, its vocab block), 4 teacher-forced
+    ``decode_step`` logits, the local parameters after one
+    ``build_step`` train step whose clip bites, and ``ServeLoop``'s tokens
+    (``case["serve"]``: slots, prompts, new tokens)."""
+    import warnings
+    import dataclasses
+    from repro_torch.ckpt.convert import params_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import _value_and_grad, build_step
+    from repro_torch.models.config import MoEConfig, ShapeConfig
+    from repro_torch.models.lm import DenseLM
+    from repro_torch.models.parallel import (ShardCtx, layout_specs,
+                                             shard_params)
+    from repro_torch.optim.adamw import AdamW
+    mesh = make_smoke_mesh(*payload["mesh"])
+    ctx = ShardCtx.launched(mesh)
+    out = []
+    for case in payload["cases"]:
+        cfg = get_config(case["arch"], smoke=True)
+        cfg = dataclasses.replace(cfg, dtype="float32", **(
+            {"moe": MoEConfig(**case["moe"])} if case.get("moe") else {}))
+        model = DenseLM(cfg, device=device)
+        layout = layout_specs(model)
+        full = params_from_numpy(case["params"], cfg, device=device)
+        local = shard_params(full, layout, mesh, ctx.coords)
+        batch = {k: torch.as_tensor(np.asarray(v), device=device)
+                 for k, v in case["batch"].items()}
+        B, S = batch["tokens"].shape
+        shape = ShapeConfig("tp", S, B, "train")
+        opt = AdamW(lr=case["lr"], grad_clip=case["grad_clip"])
+        bundle = build_step(cfg, shape, mesh, multi_pod=False, opt=opt,
+                            device=device, shard=ctx)
+        model = bundle.model
+        rows = model.shard.batch_rows(B)
+        mine = {k: v[rows] for k, v in batch.items()}
+        loss, grads = _value_and_grad(model, local, mine)
+        res = {"loss": loss, "grads": grads}
+        with torch.no_grad():
+            res["prefill"] = model.prefill(local, {"tokens": mine["tokens"]})
+            state = model.init_decode_state(mine["tokens"].shape[0], 16)
+            steps = []
+            for t in range(case["decode_steps"]):
+                logits, state = model.decode_step(
+                    local, state, {"tokens": mine["tokens"][:, t:t + 1]})
+                steps.append(logits)
+            res["decode"] = torch.stack(steps)
+        params = shard_params(full, layout, mesh, ctx.coords)
+        new, _, step_loss = bundle.step(params, opt.init(params), mine)
+        res["step_loss"] = step_loss
+        res["stepped"] = new
+        if case.get("serve"):
+            from repro_torch.runtime.serve import Request, ServeLoop
+            slots, prompts, new_tokens = case["serve"]
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                loop = ServeLoop(cfg, batch=slots, max_len=32, device=device,
+                                 params=shard_params(full, layout, mesh,
+                                                     ctx.coords), shard=ctx)
+            res["serve"] = [c.tokens for c in loop.serve(
+                [Request(app_id=i, prompt=np.asarray(p), max_new=new_tokens)
+                 for i, p in enumerate(prompts)])]
+        out.append(_np(res))
+    return {"coords": ctx.coords, "cases": out}
+

@@ -26,6 +26,10 @@ again), counted at one device kernel and no memset or fill a call up to
 ``PLAN_BLOCK_T`` packets, and rerouted by a ``Shell.post`` without a
 second library load.
 
+One tensor-parallel rank's heads (``parallel.HeadLayout`` on a (2, 2)
+mesh) on the flash kernels, forward and backward, are held against the
+same heads of the one-rank call.
+
 Flash attention is held against autograd through ``ref.attention_ref``
 (bfloat16 on the tensor-core kernels, float32 and the smoke configs' head
 dims 8, 12 and 16 on the FMA kernels, each call's route counted; the bf16
@@ -477,6 +481,55 @@ def test_flash_attention_forward_and_backward_on_card(case):
         assert a.dtype == dtype and a.shape == b.shape, name
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
                                    msg=lambda m: f"d{name}: {m}")
+        assert _rel_l2(a, b) <= REL_L2[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,m", [("tinyllama_1_1b", 0),
+                                    ("tinyllama_1_1b", 1),
+                                    ("mixtral_8x7b", 1)])
+def test_flash_on_one_tensor_parallel_rank_heads_on_card(arch, m):
+    """One model rank's attention shard of a (2, 2) mesh
+    (``parallel.HeadLayout``: TinyLlama's 16 of 32 q heads and 2 of 4 kv
+    heads at D=64, Mixtral's 16 and 4 at D=128) on the ``tc`` kernels,
+    forward and backward, against the same heads sliced from the one-rank
+    call, within the flash limits."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.parallel import ShardCtx
+    cfg = get_config(arch)
+    lay = ShardCtx.described(make_smoke_mesh(2, 2), (0, m)).heads(cfg)
+    H, Kv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    assert (lay.n_q, lay.n_kv, lay.kv_src) == (H // 2, Kv // 2, "local")
+    B, S, dtype = 2, 512, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(S + D + m)
+    mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda"
+                                    ).to(dtype)
+    q, k, v, do = mk(B, S, H, D), mk(B, S, Kv, D), mk(B, S, Kv, D), \
+        mk(B, S, H, D)
+    kw = dict(causal=True, window=cfg.attn_window, q_offset=0)
+    qs = slice(m * lay.n_q, (m + 1) * lay.n_q)
+    ks = slice(lay.kv0, lay.kv0 + lay.n_kv)
+    o, lse = FK.flash_fwd(q, k, v, **kw)
+    grads = FK.flash_bwd(q, k, v, o, lse, do, **kw)
+    local = [t[:, :, sl].contiguous() for t, sl in
+             ((q, qs), (k, ks), (v, ks), (do, qs))]
+    before = FK.launch_counts()
+    o_l, lse_l = FK.flash_fwd(*local[:3], **kw)
+    grads_l = FK.flash_bwd(*local[:3], o_l, lse_l, local[3], **kw)
+    torch.cuda.synchronize()
+    _assert_one_launch_each(before, "tc")
+    tol = FWD_TOL[dtype]
+    torch.testing.assert_close(o_l.float(), o[:, :, qs].float(), atol=tol,
+                               rtol=tol)
+    assert _rel_l2(o_l, o[:, :, qs]) <= REL_L2[dtype]
+    tol = BWD_TOL[dtype]
+    for name, a, b in zip("qkv", grads_l, (grads[0][:, :, qs],
+                                           grads[1][:, :, ks],
+                                           grads[2][:, :, ks])):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                   msg=lambda msg: f"d{name}: {msg}")
         assert _rel_l2(a, b) <= REL_L2[dtype], name
 
 

@@ -414,11 +414,13 @@ def test_routing_by_address_on_the_recorded_train_step():
 
 
 def test_lower_step_refuses_a_production_mesh():
-    cfg = get_config("tinyllama_1_1b", smoke=True)
+    """Only ``DenseLM`` is tensor-parallel: the SSM family's step over the
+    pod names ROADMAP A11."""
+    cfg = get_config("mamba2_780m", smoke=True)
     pod = make_production_mesh()
     bundle = build_step(cfg, SMOKE_SHAPE["prefill"], pod, multi_pod=False,
                         device="meta")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A11"):
         lower_step(bundle, pod)
 
 
@@ -477,13 +479,14 @@ def test_run_cell_card_record(tmp_path):
 
 
 def test_run_cell_production_mesh_records_bytes_then_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
-        dryrun.run_cell("tinyllama_1_1b", "train_4k", "pod", tmp_path,
-                        smoke=True)
-    rec = json.loads((tmp_path / "tinyllama_1_1b_train_4k_pod.json")
+    """The published Mamba-2 780M (the smoke config's widths do not divide
+    over 16 devices): its state bytes a device are recorded, then the run
+    names ROADMAP A11."""
+    with pytest.raises(NotImplementedError, match="A11"):
+        dryrun.run_cell("mamba2_780m", "train_4k", "pod", tmp_path)
+    rec = json.loads((tmp_path / "mamba2_780m_train_4k_pod.json")
                      .read_text())
-    model = build_model(get_config("tinyllama_1_1b", smoke=True),
-                        device="meta")
+    model = build_model(get_config("mamba2_780m"), device="meta")
     full = sum(t.numel() * 2 for t in tree_leaves(model.param_shapes()))
     assert rec["chips"] == 256 and rec["flops_per_device"] is None
     assert full / 256 <= rec["param_bytes"] < full
