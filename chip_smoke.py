@@ -293,6 +293,37 @@ Phases, each printing one JSON line with its seconds:
             process, its loss equal to the one-rank step's bit for bit.
             Each rank prints step wall ms, the collectives' share, calls
             and bytes (``collectives.timing``, steps 2 and 3) and its peak.
+14. tensor_parallel_families
+            the same mesh and ranks for the other families: Mamba-2 780M
+            whole (48 layers), RecurrentGemma-9B cut to 2 groups and
+            Whisper-medium whole, bf16, random weights from the seed, one
+            prefill and one AdamW step each at B=1, S=4096 on the SSD,
+            RG-LRU and flash kernels (the step under
+            ``collectives.timing``: wall, share, calls, bytes; each
+            rank's peak); then a short bf16 program of each (2 layers;
+            the hybrid 1 group; Whisper 2 + 2) on the kernels, its
+            prefill, loss and gradients, and its float32 control on the
+            plain path.  The parent holds them against the one-rank
+            programs: full-depth last-token logits within 2e-2 relative
+            L2 or 3x the same run's rounding control (as serve_ssm holds
+            them) and the loss within 1e-3; the short program's logits and
+            every gradient leaf within their limits (TPF_SHORT_*_REL,
+            relative L2) and its loss within 1e-3; the float32 loss and
+            gradient leaves within 1e-4 of the leaf's largest value, the
+            worst leaf named beside its one-ulp sensitivity; runs a
+            Mamba-2 step over NCCL at world size 1 (its loss bit-equal to
+            no mesh) and the three configs' ``train_4k`` dry runs on the
+            pod.  It fails if a rank launches none of a family's kernels
+            (full or short) or an FMA flash kernel in bf16, if a library
+            loads twice, or if the ranks' peaks sum over 76 GB.
+15. examples
+            ``python -m repro_torch.examples.<name>`` in processes of their
+            own, started together: quickstart, paper_usecase, elastic_serving (and
+            ``--steady-state``), moe_training at its defaults (300 steps,
+            its convergence asserted) and ``--sharded`` (4 gloo ranks on
+            ``cuda:0``): each exits 0, prints its checks' lines and loads
+            no library twice (``launches_by_path``: ``examples``, the
+            modules' own processes).
 
 ``--profile`` adds a phase after serving and one after the train steps:
 ``torch.profiler`` over 8 warm decode steps of the served engine and over
@@ -1598,8 +1629,11 @@ def _save(tmp: str, name: str, tree) -> None:
                os.path.join(tmp, name))
 
 
-def tp_rank(rank: int, n: int, tmp: str, seed: int) -> None:
-    """One rank of the ``tensor_parallel`` phase; writes its readings to
+def tp_rank(rank: int, n: int, tmp: str, seed: int, body) -> None:
+    """One rank of the ``tensor_parallel`` phase or of
+    ``tensor_parallel_families``: ``body``, the rank's program
+    (``_tp_rank`` or ``_tpf_rank``), called as ``body(rank, tmp, seed)``;
+    writes its readings to
     ``tmp/rank<rank>.json`` and its shards to ``tmp/*_<rank>.pt``."""
     import torch.distributed as dist
     torch.set_num_threads(2)        # 4 ranks and the parent share 8 cores
@@ -1610,7 +1644,7 @@ def tp_rank(rank: int, n: int, tmp: str, seed: int) -> None:
     dist.init_process_group("gloo", init_method="file://" + os.path.join(
         tmp, "store"), rank=rank, world_size=n)
     try:
-        out = _tp_rank(rank, tmp, seed)
+        out = body(rank, tmp, seed)
     except BaseException:
         import traceback
         with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
@@ -1815,8 +1849,8 @@ def tensor_parallel_phase(smi):
     t0 = time.perf_counter()
     n = TP_MESH[0] * TP_MESH[1]
     with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
-        ctx = mp.start_processes(tp_rank, args=(n, tmp, SEED), nprocs=n,
-                                 join=False, start_method="spawn")
+        ctx = mp.start_processes(tp_rank, args=(n, tmp, SEED, _tp_rank),
+                                 nprocs=n, join=False, start_method="spawn")
         join_ranks(ctx, TP_TIMEOUT, "tensor_parallel", tmp)
         ranks = []
         for r in range(n):
@@ -2012,6 +2046,648 @@ def tp_nccl():
                    and b["collective_calls"] > 0
                    and a["launches"] == b["launches"]),
             "seconds": time.perf_counter() - t0}
+
+
+# ----------------------------------------------------------------------
+# tensor parallelism of the SSM, hybrid and encoder-decoder families
+# ----------------------------------------------------------------------
+TPF_ARCHS = ("mamba2_780m", "recurrentgemma_9b", "whisper_medium")
+TPF_LAYERS = {"recurrentgemma_9b": 6}      # 2 groups, as train_hybrid
+# the depth of the short bf16 program and of the float32 control
+TPF_SHORT_LAYERS = {"mamba2_780m": 2, "recurrentgemma_9b": 3,
+                    "whisper_medium": 2}   # hybrid: 1 group; encdec: 2 + 2
+TPF_F32_SEQ = 256
+# The short bf16 program (TPF_SHORT_LAYERS, on the kernels, S=4096) on the
+# ranks against one rank, relative L2: last-token logits and each gradient
+# leaf, about twice the worst that the ranks read on the H100 (1.41e-2,
+# RecurrentGemma's logits; 5.42e-2, Whisper's enc_layers[0].norm2), where
+# the one-rank plain path reads up to 7.61e-2 on a leaf against the
+# one-rank kernels (Whisper's dec_layers[1].attn.wk; PERF.md)
+TPF_SHORT_LOGITS_REL = 3e-2
+TPF_SHORT_GRAD_REL = 1e-1
+# the bf16 loss, full depth and short, relative to the one-rank program's:
+# the ranks read 2.5e-5 at most on the H100 (PERF.md)
+TPF_LOSS_REL = 1e-3
+TPF_PEAK_GB = 76.0             # the ranks' peaks, summed, on the one card
+# the kernels each family's bf16 prefill and train step must launch
+TPF_KERNELS = {"mamba2_780m": ("ssd", "ssd_bwd"),
+               "recurrentgemma_9b": ("rglru", "rglru_bwd", "flash_fwd_d256",
+                                     "flash_bwd_d256"),
+               "whisper_medium": ("flash_fwd", "flash_bwd")}
+TPF_FMA = ("flash_fwd_fma", "flash_bwd_fma", "flash_fwd_d256_fma",
+           "flash_bwd_d256_fma")
+
+
+def tpf_config(arch, kind: str = "full"):
+    """The phase's config of ``arch`` at its published widths: ``"full"``,
+    bf16 (Mamba-2 780M and Whisper-medium whole, RecurrentGemma-9B cut to 2
+    groups); ``"short"``, bf16 at TPF_SHORT_LAYERS (2 layers; the hybrid 1
+    group; Whisper 2 encoder and 2 decoder layers); ``"f32"``, that depth
+    in float32 on the plain path."""
+    if kind == "full":
+        return published_config(arch, **({"n_layers": TPF_LAYERS[arch]}
+                                         if arch in TPF_LAYERS else {}))
+    n = TPF_SHORT_LAYERS[arch]
+    kw = {"n_encoder_layers": n} if arch == "whisper_medium" else {}
+    if kind == "f32":
+        kw.update(dtype="float32", kernel_mode="torch")
+    return published_config(arch, n_layers=n, **kw)
+
+
+def tpf_batch(cfg, seq: int, seed: int):
+    """One row of ``seq`` tokens and labels (and Whisper's 1,500 frames)
+    on the card, from ``seed``."""
+    from repro_torch.data.pipeline import synthetic_batch
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        seed, 0, 0, 1, 1, seq, cfg.vocab).items()}
+    if cfg.family == "encdec":
+        batch.update(family_input(cfg, np.random.default_rng(seed)))
+    return batch
+
+
+def _no_labels(batch):
+    return {k: v for k, v in batch.items() if k != "labels"}
+
+
+def _tpf_rank(rank, tmp, seed):
+    """A rank's program of ``tensor_parallel_families``: each family's
+    prefill and train step, its short bf16 program's prefill, loss and
+    gradients, and its float32 control, on its shards."""
+    import torch.distributed as dist
+    from repro_torch.fabric import collectives as coll
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import _value_and_grad, build_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.parallel import (ShardCtx, layout_specs,
+                                             shard_params)
+    from repro_torch.optim.adamw import AdamW
+    for mod in _kernel_modules():
+        mod.library()                              # built by the parent
+    mesh = make_smoke_mesh(*TP_MESH)
+    ctx = ShardCtx.launched(mesh)
+    out = {"rank": rank, "coords": list(ctx.coords), "families": {}}
+
+    def local_params(cfg, bundle, seed_):
+        full = tp_params(cfg, seed_)
+        local = shard_params(full, layout_specs(bundle.model), mesh,
+                             ctx.coords)
+        del full
+        torch.cuda.empty_cache()
+        return local
+
+    def synced():
+        dist.barrier()
+        torch.cuda.synchronize()
+
+    for i, arch in enumerate(TPF_ARCHS):
+        cfg = tpf_config(arch)
+        rec = {}
+        shape = lambda kind, s=TRAIN_SEQ: ShapeConfig(kind, s, 1, kind)  # noqa: E731
+        pre = build_step(cfg, shape("prefill"), mesh, multi_pod=False,
+                         shard=ctx)
+        params = local_params(cfg, pre, seed + 30 + i)
+        rows = pre.model.shard.batch_rows(1)
+        mine = {k: v[rows] for k, v in tpf_batch(cfg, TRAIN_SEQ,
+                                                 seed).items()}
+        torch.cuda.reset_peak_memory_stats()
+        synced()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = pre.step(params, _no_labels(mine))
+        torch.cuda.synchronize()
+        rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["prefill_finite"] = bool(torch.isfinite(logits).all())
+        _save(tmp, f"{arch}_prefill_{rank}.pt", logits)
+        del logits
+
+        opt = AdamW(lr=TRAIN_LR)
+        train = build_step(cfg, shape("train"), mesh, multi_pod=False,
+                           opt=opt, shard=ctx)
+        state = opt.init(params)
+        coll.reset_stats()
+        synced()
+        coll.timing = True
+        t0 = time.perf_counter()
+        params, state, loss = train.step(params, state, mine)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        coll.timing = False
+        rec.update(loss=float(loss), step_wall_ms=wall * 1e3,
+                   collective_share=coll.stats["seconds"] / wall,
+                   collective_calls=coll.stats["calls"],
+                   collective_bytes=coll.stats["bytes"],
+                   launches=_counts(),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del params, state, train, pre
+        torch.cuda.empty_cache()
+
+        # the short bf16 program on the kernels: logits, loss, gradients
+        short = tpf_config(arch, "short")
+        sb = build_step(short, shape("train"), mesh, multi_pod=False,
+                        shard=ctx)
+        params = local_params(short, sb, seed + 50 + i)
+        before = _counts()
+        with torch.no_grad():
+            _save(tmp, f"{arch}_short_prefill_{rank}.pt",
+                  sb.model.prefill(params, _no_labels(mine)))
+        loss, grads = _value_and_grad(sb.model, params, mine)
+        torch.cuda.synchronize()
+        rec["short_loss"] = float(loss)
+        rec["short_launches"] = {k: v - before[k]
+                                 for k, v in _counts().items()}
+        _save(tmp, f"{arch}_short_{rank}.pt", grads)
+        del params, grads, sb, mine
+        torch.cuda.empty_cache()
+
+        # the float32 control: the plain path, the loss and its gradients
+        f32 = tpf_config(arch, "f32")
+        ctl = build_step(f32, shape("train", TPF_F32_SEQ), mesh,
+                         multi_pod=False, shard=ctx)
+        params = local_params(f32, ctl, seed + 40 + i)
+        mine = {k: v[rows] for k, v in tpf_batch(f32, TPF_F32_SEQ,
+                                                 seed).items()}
+        before = _counts()
+        loss, grads = _value_and_grad(ctl.model, params, mine)
+        torch.cuda.synchronize()
+        rec["f32_loss"] = float(loss)
+        rec["f32_launches"] = {k: v - before[k] for k, v in _counts().items()}
+        _save(tmp, f"{arch}_f32_{rank}.pt", grads)
+        del params, grads, ctl, mine
+        torch.cuda.empty_cache()
+        out["families"][arch] = rec
+    out["library_loads"] = dict(build.load_count)
+    dist.barrier()
+    return out
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The paths of ``tree_leaves(tree)``, in its order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def _worst(names, errs):
+    i = int(np.argmax(errs))
+    return names[i], errs[i]
+
+
+def tpf_checks(tmp: str, ranks):
+    """The ranks' results unsharded on the host, against the one-rank
+    programs run here on the card on the same parameters and batches.
+
+    - Full depth, bf16, on the kernels: the last-token prefill logits
+      within PREFILL_REL relative L2, or else within
+      PREFILL_CONTROL_FACTOR times the plain path's ``rounding_controls``
+      of the same run, as the serve phases hold full-depth logits
+      (``prefill_limit`` names which held: Mamba-2's 48 random layers
+      carry any rounding-sized difference to some 0.26); the loss within
+      TPF_LOSS_REL.
+    - The short bf16 program (TPF_SHORT_LAYERS, on the kernels, where
+      rounding does not grow with depth): the last-token logits within
+      TPF_SHORT_LOGITS_REL and every gradient leaf within
+      TPF_SHORT_GRAD_REL relative L2, the loss within TPF_LOSS_REL.  The
+      one-rank plain path against the one-rank kernels is recorded beside
+      them (``short_control_*``): the distance between two right bf16
+      programs at that depth.
+    - The float32 control (plain path): the loss and every gradient leaf
+      within TP_F32_REL of the leaf's largest value, the worst leaf named,
+      and beside it how far one float32 ulp of every parameter moves that
+      leaf of the one-rank program (``f32_one_ulp``): the leaf's own
+      conditioning."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import _value_and_grad
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.lm import build_model
+    from repro_torch.models.parallel import layout_specs
+    mesh = make_smoke_mesh(*TP_MESH)
+    out = {}
+    for i, arch in enumerate(TPF_ARCHS):
+        fam = ranks[0]["families"][arch]
+        cfg = tpf_config(arch)
+        model = build_model(cfg)
+        params = tp_params(cfg, SEED + 30 + i)
+        batch = tpf_batch(cfg, TRAIN_SEQ, SEED)
+        plain = build_model(dataclasses.replace(cfg, kernel_mode="torch"))
+        with torch.no_grad():
+            ref = model.prefill(params, _no_labels(batch)).float().cpu()
+            loss = float(model.loss(params, batch))
+            plain_ref = plain.prefill(params, _no_labels(batch))
+            control_name, control = rounding_controls(
+                plain, params, _no_labels(batch), plain_ref)
+        got = _unshard(tmp, f"{arch}_prefill", (None, "model"), mesh).float()
+        rel = float((got - ref).norm() / ref.norm())
+        limit = ("rel_l2" if rel <= PREFILL_REL else "control"
+                 if rel <= PREFILL_CONTROL_FACTOR * control else None)
+        loss_err = abs(fam["loss"] - loss) / abs(loss)
+        rec = {"prefill_rel_l2": rel, "prefill_tol": PREFILL_REL,
+               "prefill_max_abs_err": float((got - ref).abs().max()),
+               "control": control_name, "control_rel_l2": control,
+               "control_tol": PREFILL_CONTROL_FACTOR * control,
+               "prefill_limit": limit,
+               "loss": fam["loss"], "one_rank_loss": loss,
+               "loss_rel_err": loss_err, "loss_tol": TPF_LOSS_REL}
+        del params, model, plain, plain_ref, ref, got
+        torch.cuda.empty_cache()
+
+        short = tpf_config(arch, "short")
+        model = build_model(short)
+        plain = build_model(dataclasses.replace(short, kernel_mode="torch"))
+        params = tp_params(short, SEED + 50 + i)
+        names = leaf_names(params)
+        with torch.no_grad():
+            ref = model.prefill(params, _no_labels(batch))
+            plain_ref = plain.prefill(params, _no_labels(batch))
+        loss, grads = _value_and_grad(model, params, batch)
+        plain_loss, plain_grads = _value_and_grad(plain, params, batch)
+        got = _unshard(tmp, f"{arch}_short_prefill", (None, "model"), mesh)
+        errs = [rel_l2(g.cuda(), w) for g, w in zip(
+            tree_leaves(_unshard(tmp, f"{arch}_short", layout_specs(model),
+                                 mesh)), tree_leaves(grads))]
+        ctl = [rel_l2(p, w) for p, w in
+               zip(tree_leaves(plain_grads), tree_leaves(grads))]
+        leaf, worst = _worst(names, errs)
+        ctl_leaf, ctl_worst = _worst(names, ctl)
+        short_rel = rel_l2(got.cuda().float(), ref.float())
+        short_loss_err = abs(fam["short_loss"] - float(loss)) / abs(
+            float(loss))
+        rec.update(short_layers=short.n_layers,
+                   short_logits_rel_l2=short_rel,
+                   short_logits_tol=TPF_SHORT_LOGITS_REL,
+                   short_loss_rel_err=short_loss_err,
+                   short_grad_leaves=len(errs), short_grad_rel_l2_max=worst,
+                   short_grad_worst_leaf=leaf,
+                   short_grad_tol=TPF_SHORT_GRAD_REL,
+                   short_control_logits_rel_l2=rel_l2(plain_ref.float(),
+                                                      ref.float()),
+                   short_control_loss_rel_err=abs(
+                       float(plain_loss) - float(loss)) / abs(float(loss)),
+                   short_control_grad_rel_l2_max=ctl_worst,
+                   short_control_worst_leaf=ctl_leaf)
+        short_ok = (short_rel <= TPF_SHORT_LOGITS_REL
+                    and worst <= TPF_SHORT_GRAD_REL
+                    and short_loss_err <= TPF_LOSS_REL)
+        del params, model, plain, plain_ref, ref, got, grads, plain_grads
+        torch.cuda.empty_cache()
+
+        f32 = tpf_config(arch, "f32")
+        model = build_model(f32)
+        params = tp_params(f32, SEED + 40 + i)
+        f32_batch = tpf_batch(f32, TPF_F32_SEQ, SEED)
+        loss, grads = _value_and_grad(model, params, f32_batch)
+        got = _unshard(tmp, f"{arch}_f32", layout_specs(model), mesh)
+        errs = [float((g.cuda() - w).abs().max() / w.abs().max())
+                for g, w in zip(tree_leaves(got), tree_leaves(grads))]
+        names = leaf_names(params)
+        leaf, worst = _worst(names, errs)
+        # one float32 ulp of every parameter, the leaves' own conditioning
+        bits = [p.data.view(torch.int32) for p in tree_leaves(params)]
+        for b in bits:
+            b.add_(1)
+        try:
+            _, nudged = _value_and_grad(model, params, f32_batch)
+        finally:
+            for b in bits:
+                b.sub_(1)
+        ulp = [float((n - w).abs().max() / w.abs().max())
+               for n, w in zip(tree_leaves(nudged), tree_leaves(grads))]
+        f32_err = abs(fam["f32_loss"] - float(loss)) / abs(float(loss))
+        rec.update(f32_loss=fam["f32_loss"], f32_one_rank_loss=float(loss),
+                   f32_loss_rel_err=f32_err, f32_leaves=len(errs),
+                   f32_grad_err_max=worst, f32_worst_leaf=leaf,
+                   f32_one_ulp=ulp[names.index(leaf)], f32_one_ulp_max=max(ulp),
+                   f32_tol=TP_F32_REL,
+                   f32_measure="of the leaf's largest value")
+        rec["ok"] = (limit is not None and loss_err <= TPF_LOSS_REL
+                     and short_ok and f32_err <= TP_F32_REL
+                     and worst <= TP_F32_REL)
+        out[arch] = rec
+        del params, model, grads, nudged, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def tpf_nccl():
+    """One Mamba-2 780M train step (bf16, S=4096, on the kernels) over NCCL
+    on a (1, 1) mesh in this process, against the step without a mesh:
+    the loss bit for bit, the same launches, the collectives on the
+    device."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.fabric import collectives as coll
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.parallel import ShardCtx
+    from repro_torch.optim.adamw import AdamW
+    t0 = time.perf_counter()
+    arch = TPF_ARCHS[0]
+    cfg = tpf_config(arch)
+    shape = ShapeConfig("train", TRAIN_SEQ, 1, "train")
+    mesh = make_smoke_mesh(1, 1)
+    batch = tpf_batch(cfg, TRAIN_SEQ, SEED)
+    losses = {}
+    with tempfile.TemporaryDirectory(prefix="nccl_") as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            tmp, "store"), rank=0, world_size=1)
+        try:
+            for name in ("one_rank", "nccl"):
+                shard = ShardCtx.launched(mesh) if name == "nccl" else None
+                opt = AdamW(lr=TRAIN_LR)
+                bundle = build_step(cfg, shape, mesh, multi_pod=False,
+                                    opt=opt, shard=shard)
+                params = tp_params(cfg, SEED + 30)
+                coll.reset_stats()
+                coll.timing = name == "nccl"
+                _reset_counts()
+                _, _, loss = bundle.step(params, opt.init(params), batch)
+                torch.cuda.synchronize()
+                coll.timing = False
+                losses[name] = {"loss": float(loss), "launches": _counts(),
+                                "collective_calls": coll.stats["calls"],
+                                "transport": (coll.transport(shard.world)
+                                              if shard else None)}
+                del params, bundle
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    a, b = losses["one_rank"], losses["nccl"]
+    return {"model": cfg.name, **losses, "bit_equal": a["loss"] == b["loss"],
+            "ok": (a["loss"] == b["loss"] and b["transport"] == "device"
+                   and b["collective_calls"] > 0
+                   and a["launches"] == b["launches"]),
+            "seconds": time.perf_counter() - t0}
+
+
+TPF_DRY_KEYS = ("flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device", "collectives",
+                "peak_memory_est", "fits_hbm", "microbatches", "param_bytes",
+                "opt_state_bytes", "bottleneck", "roofline_fraction",
+                "t_compute", "t_memory", "t_collective", "lower_s")
+
+
+def tpf_dry_runs():
+    """``dryrun.run_cell`` of the three published configs' ``train_4k`` on
+    the pod (16 x 16), rank 0's FLOPs, collectives and peak costed on the
+    meta device: host work, started in a process of its own so that it
+    runs while the ranks do.  Returns the process; ``tpf_dry_records``
+    reads its records."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(HERE, "src"),
+                    os.environ.get("PYTHONPATH")) if p),
+        OMP_NUM_THREADS="1")
+    code = ("import sys\n"
+            "from pathlib import Path\n"
+            "from repro_torch.launch import dryrun\n"
+            "for arch in sys.argv[2:]:\n"
+            "    dryrun.run_cell(arch, 'train_4k', 'pod', Path(sys.argv[1]))\n")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, os.path.join(HERE, "build", "dryrun"),
+         *TPF_ARCHS], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def tpf_dry_records(proc):
+    """The dry runs' records, once ``proc`` (``tpf_dry_runs``) ends."""
+    out, _ = proc.communicate(timeout=TP_TIMEOUT)
+    if proc.returncode:
+        raise AssertionError(f"the pod dry runs failed:\n{out[-3000:]}")
+    recs = {}
+    for arch in TPF_ARCHS:
+        with open(os.path.join(HERE, "build", "dryrun",
+                               f"{arch}_train_4k_pod.json")) as f:
+            rec = json.load(f)
+        recs[arch] = {k: rec[k] for k in TPF_DRY_KEYS}
+    return recs
+
+
+def tensor_parallel_families_phase(smi):
+    """Tensor parallelism and FSDP of the SSM, hybrid and encoder-decoder
+    families (``models/parallel.py``) on the card: TP_RANKS ranks spawned
+    over gloo, all on ``cuda:0``, a (2, 2) ("data", "model") mesh.  Each
+    rank holds its shards of Mamba-2 780M whole (48 layers: 24 SSD heads a
+    rank, B and C gathered over ``model``), RecurrentGemma-9B cut to 2
+    groups (2,048 RG-LRU channels, 8 q heads and the kv head a rank) and
+    Whisper-medium whole (8 heads a rank, its encoder output replicated
+    over ``model``), bf16, random weights from the seed, and runs on the
+    kernels one prefill and one AdamW step (lr 1e-3, remat "dots") at B=1,
+    S=4096 (the row replicated over ``data``; Whisper with 1,500 frames),
+    the step under ``collectives.timing`` for its share, calls and bytes;
+    then the short bf16 program of each (TPF_SHORT_LAYERS, on the kernels:
+    a prefill, the loss and its gradients at S=4096) and its float32
+    control (the plain path).
+
+    The parent, alone on the card, holds them against the one-rank
+    programs (``tpf_checks``), runs a Mamba-2 step over NCCL at world size
+    1 (``tpf_nccl``), and reads the three configs' ``train_4k`` dry runs
+    on the pod (``tpf_dry_runs``, a process of its own beside the ranks).
+    It fails if a rank launches no SSD, RG-LRU or flash kernel of a
+    family in the full or the short program (the SSD on its tensor-core
+    route at (64, 128)), any FMA flash kernel in bf16, or the float32
+    control any kernel; if a library loads more than once; or if the
+    ranks' peaks sum over TPF_PEAK_GB.  Launches are the ranks' bf16
+    prefill and train launches at full depth, summed."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.kernels.ssd import kernel as SK
+    t0 = time.perf_counter()
+    n = TP_MESH[0] * TP_MESH[1]
+    dry_proc = tpf_dry_runs()
+    with tempfile.TemporaryDirectory(prefix="tpf_") as tmp:
+        ctx = mp.start_processes(tp_rank, args=(n, tmp, SEED, _tpf_rank),
+                                 nprocs=n, join=False, start_method="spawn")
+        try:
+            join_ranks(ctx, TP_TIMEOUT, "tensor_parallel_families", tmp)
+        except BaseException:
+            dry_proc.kill()
+            dry_proc.wait()
+            raise
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        t1 = time.perf_counter()
+        checks = tpf_checks(tmp, ranks)
+    t2 = time.perf_counter()
+    nccl = tpf_nccl()
+    t3 = time.perf_counter()
+    dry = tpf_dry_records(dry_proc)
+    launches = {}
+    for r in ranks:
+        for fam in r["families"].values():
+            for k, v in fam["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    per = lambda key: {arch: [r["families"][arch][key] for r in ranks]  # noqa: E731
+                       for arch in TPF_ARCHS}
+    peaks = [max(f["peak_gb"] for f in r["families"].values())
+             for r in ranks]
+    emit("tensor_parallel_families", smi=smi, mesh=list(TP_MESH), ranks=n,
+         device="cuda:0", transport="gloo: host (each collective staged "
+         "through host memory)", batch=1, seq=TRAIN_SEQ,
+         layers={a: tpf_config(a).n_layers for a in TPF_ARCHS},
+         step_wall_ms=per("step_wall_ms"),
+         collective_share=per("collective_share"),
+         collective_calls=per("collective_calls"),
+         collective_bytes=per("collective_bytes"),
+         prefill_ms=per("prefill_ms"), peak_gb=per("peak_gb"),
+         losses={a: ranks[0]["families"][a]["loss"] for a in TPF_ARCHS},
+         launches_by_rank=[{a: r["families"][a]["launches"]
+                            for a in TPF_ARCHS} for r in ranks],
+         library_loads_by_rank=[r["library_loads"] for r in ranks],
+         checks=checks, nccl=nccl, dry_runs_pod=dry,
+         ranks_seconds=t1 - t0, checks_seconds=t2 - t1,
+         nccl_seconds=t3 - t2, dry_run_seconds=time.perf_counter() - t3,
+         seconds=time.perf_counter() - t0)
+    fails = [a for a, v in checks.items() if not v["ok"]]
+    if not nccl["ok"]:
+        fails.append("nccl")
+    if sum(peaks) > TPF_PEAK_GB:
+        fails.append(f"the ranks' peaks sum to {sum(peaks):.2f} GB")
+    if SK.bwd_route(torch.bfloat16, 64, 128) != "tc":
+        fails.append("the SSD backward is not on its tensor-core route")
+    for r in ranks:
+        for arch, fam in r["families"].items():
+            for lc in (fam["launches"], fam["short_launches"]):
+                if any(lc[k] <= 0 for k in TPF_KERNELS[arch]) or any(
+                        lc[k] for k in TPF_FMA):
+                    fails.append(f"rank {r['rank']} {arch}: kernels {lc}")
+            if any(fam["f32_launches"].values()):
+                fails.append(f"rank {r['rank']} {arch}: the float32 "
+                             f"control launched a kernel")
+            if not (fam["prefill_finite"] and np.isfinite(fam["loss"])):
+                fails.append(f"rank {r['rank']} {arch}: not finite")
+        if any(v != 1 for v in r["library_loads"].values()):
+            fails.append(f"rank {r['rank']} loads: {r['library_loads']}")
+    if any(r["families"][a][k] != ranks[0]["families"][a][k]
+           for r in ranks for a in TPF_ARCHS
+           for k in ("loss", "short_loss")):
+        fails.append("the ranks report different losses")
+    for arch, rec in dry.items():
+        if not (rec["flops_per_device"] > 0
+                and rec["collective_bytes_per_device"] > 0):
+            fails.append(f"{arch}: the pod dry run has no FLOPs or "
+                         f"collectives")
+    if fails:
+        raise AssertionError(f"tensor_parallel_families: {fails}")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# the examples as python -m modules
+# ----------------------------------------------------------------------
+# (module, arguments, lines its output must hold)
+EXAMPLES = (
+    ("quickstart", (), ("cuda backend plan-identical: True",
+                        "(transfer retraces during reconfig: 0)",
+                        "transfer round-trip exact: True",
+                        "bit-exact=True, spurious corrections=0")),
+    ("paper_usecase", (), ("identical output: True",
+                           "grants=[4, 16, 28] completions=[13, 25, 37]")),
+    ("elastic_serving", (), ("request(s) admitted while earlier",
+                             "-- A released")),
+    ("elastic_serving", ("--steady-state",),
+     ("1024 streams, 256 slots", "invalidation(s) from the")),
+    ("moe_training", (), ("shell log: 1 events (0 watchdog timeouts)",)),
+    ("moe_training", ("--sharded",), ("(zero per reconfiguration)",)),
+)
+EXAMPLE_TIMEOUT = {"moe_training": 600}
+# run the module as ``python -m`` does (``runpy.run_module`` with
+# ``alter_sys``), then write its kernel launches and library loads
+_EXAMPLE_RUNNER = """
+import json, runpy, sys
+out, name = sys.argv[1], sys.argv[2]
+sys.argv = [name, *sys.argv[3:]]
+code = 0
+try:
+    runpy.run_module(name, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code or 0
+from repro_torch.kernels import build
+from repro_torch.kernels.crossbar_dispatch import kernel as K
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.hamming import kernel as HK
+from repro_torch.kernels.rglru import kernel as RK
+from repro_torch.kernels.ssd import kernel as SK
+with open(out, "w") as f:
+    json.dump({"code": code, "loads": dict(build.load_count),
+               "launches": {k: v for m in (FK, K, SK, RK, HK)
+                            for k, v in m.launch_counts().items()}}, f)
+sys.exit(code)
+"""
+
+
+def examples_phase(smi):
+    """The four ``repro_torch.examples`` modules, each in a process of its
+    own on the card as ``python -m repro_torch.examples.<name>`` runs it,
+    all started together: quickstart, paper_usecase, elastic_serving (the
+    lifecycle, and ``--steady-state``), moe_training at its defaults (300
+    steps of the ~100M-parameter MoE, its convergence asserted;
+    checkpoints into a temporary directory) and ``--sharded`` (4 gloo
+    ranks on ``cuda:0``).  Each must exit 0, print the lines of
+    ``EXAMPLES``, and load no library twice.  Launches are the modules'
+    own processes' (the sharded demo's ranks are processes of their own:
+    theirs are not counted); the seconds of each overlap the others'."""
+    import tempfile
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(HERE, "src"),
+                    os.environ.get("PYTHONPATH")) if p))
+    launches, runs, fails = {}, [], []
+    with tempfile.TemporaryDirectory(prefix="examples_") as tmp:
+        procs = []
+        for i, (name, args, want) in enumerate(EXAMPLES):
+            training = name == "moe_training" and not args
+            args = ["--ckpt", os.path.join(tmp, "ckpt")] if training \
+                else list(args)
+            rec_path = os.path.join(tmp, f"run{i}.json")
+            procs.append((name, args, want, training, rec_path,
+                          subprocess.Popen(
+                              [sys.executable, "-c", _EXAMPLE_RUNNER,
+                               rec_path, f"repro_torch.examples.{name}",
+                               *args], cwd=HERE, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+        for name, args, want, training, rec_path, proc in procs:
+            try:
+                out, err = proc.communicate(
+                    timeout=max(1.0, EXAMPLE_TIMEOUT.get(name, 300)
+                                - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            lines = out.splitlines()
+            run = {"module": name, "args": args, "rc": proc.returncode,
+                   "read_at_s": time.perf_counter() - t0,
+                   "tail": lines[-4:]}
+            if proc.returncode == 0:
+                with open(rec_path) as f:
+                    rec = json.load(f)
+                run.update(launches={k: v for k, v in rec["launches"].items()
+                                     if v}, loads=rec["loads"])
+                for k, v in rec["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+                if any(v != 1 for v in rec["loads"].values()):
+                    fails.append(f"{name} {args}: loads {rec['loads']}")
+                missing = [w for w in want
+                           if not any(w in line for line in lines)]
+                if missing:
+                    fails.append(f"{name} {args}: no line with {missing}")
+            else:
+                fails.append(f"{name} {args}: exit {proc.returncode}: "
+                             f"{err[-2000:]}")
+            if training:
+                run["losses"] = [ln for ln in lines if ln.startswith("loss ")]
+            runs.append(run)
+    emit("examples", smi=smi, runs=runs, launches=launches,
+         seconds=time.perf_counter() - t0)
+    if fails:
+        raise AssertionError(f"examples: {fails}")
+    return launches
 
 
 def train_loop_config():
@@ -4103,80 +4779,32 @@ USECASE_KERNELS = ("mul_const", "hamming_encode", "hamming_decode")
 
 def paper_model_report():
     """The paper's experiments on the port's copy of the hardware model,
-    each number beside the paper's, as ``examples/paper_usecase.py`` prints
-    them.  Milliseconds here are the model's (the FPGA at 250 MHz and the
-    server, calibrated to the paper), not times of the card."""
-    from repro_torch.core.hw.area import AreaModel
-    from repro_torch.core.hw.crossbar import (CrossbarSim, MasterRequest,
-                                              best_case_time_to_grant,
-                                              request_completion_cc,
-                                              worst_case_completion_cc,
-                                              worst_case_time_to_grant)
-    from repro_torch.core.hw.system import (ElasticUseCase, PAPER_CASE1_MS,
-                                            PAPER_CASE3_MS)
-    print("== Fig 5: elasticity use case (16 KB, 3 modules; model ms, not "
-          "card time) ==")
-    uc = ElasticUseCase()
-    fig5 = uc.figure5()
-    print(f"   case 1 (mult on FPGA):        {fig5[1]:6.2f} ms   "
-          f"(paper: {PAPER_CASE1_MS})")
-    print(f"   case 2 (+encoder):            {fig5[2]:6.2f} ms   "
-          f"(paper: between)")
-    print(f"   case 3 (all three on FPGA):   {fig5[3]:6.2f} ms   "
-          f"(paper: {PAPER_CASE3_MS})")
-    print("== §V-D: dynamic bandwidth allocation (quota 16 -> 128) ==")
-    bw = uc.bandwidth_table()
-    print(f"   1 accelerator: {100*bw[1]:.2f}%  (paper: 5.24%)")
-    print(f"   3 accelerators: {100*bw[3]:.2f}%  (paper: 6%)")
-    print(f"   calibration residuals: "
-          f"{ {k: round(v, 4) for k, v in uc.calibration_residuals.items()} }")
-    print("== §V-E: communication overhead (FPGA cycles) ==")
-    print(f"   best-case time-to-grant:      {best_case_time_to_grant()} cc "
-          f"(paper: 4)")
-    print(f"   completion, 8 packages:       {request_completion_cc(8)} cc "
-          f"(paper: 13)")
-    print(f"   worst-case grant, 3 masters:  {worst_case_time_to_grant(3)} cc"
-          f" (paper: 28)")
-    print(f"   worst-case completion:        {worst_case_completion_cc(3)} cc"
-          f" (paper: 37)")
-    sim = CrossbarSim()
-    for m in (0, 1, 2):
-        sim.submit(MasterRequest(cycle=0, master=m, dst_onehot=0b1000,
-                                 n_words=8))
-    results = sim.run()
-    grants = sorted(r.time_to_grant for r in results)
-    completions = sorted(r.completion_latency for r in results)
-    print(f"   cycle-sim check: grants={grants} completions={completions}")
-    print("== Fig 6: worst-case latency vs contending PR regions ==")
-    curve = AreaModel.worst_case_latency_curve(8)
-    print("   " + "  ".join(f"{n}:{cc}cc" for n, cc in curve.items()))
-    print("== Table II claims ==")
-    m = AreaModel()
-    print(f"   LUT saving vs NoC:  {100*m.lut_saving_vs_noc():.1f}% "
-          f"(paper: 61%)")
-    print(f"   FF saving vs NoC:   {100*m.ff_saving_vs_noc():.1f}% "
-          f"(paper: 95%)")
-    print(f"   power vs NoC:       {m.power_ratio_vs_noc():.0f}x "
-          f"(paper: 80x)")
-    print(f"   completion saving vs NoC (4-router path): "
-          f"{100*m.latency_saving_vs_noc(4):.1f}% (paper headline: 69%)")
-    emit("paper_model", model_ms={"fig5": fig5, "paper_case1": PAPER_CASE1_MS,
-                                  "paper_case3": PAPER_CASE3_MS},
-         bandwidth=bw, calibration_residuals=uc.calibration_residuals,
-         cycles={"best_grant": best_case_time_to_grant(),
-                 "completion_8": request_completion_cc(8),
-                 "worst_grant_3": worst_case_time_to_grant(3),
-                 "worst_completion_3": worst_case_completion_cc(3),
-                 "sim_grants": grants, "sim_completions": completions},
-         fig6=curve, table2={"lut_saving": m.lut_saving_vs_noc(),
-                             "ff_saving": m.ff_saving_vs_noc(),
-                             "power_ratio": m.power_ratio_vs_noc()})
+    each number beside the paper's, and the data-path cross-check on the
+    Hamming kernels: ``repro_torch.examples.paper_usecase``, which prints
+    them as ``examples/paper_usecase.py`` does.  Milliseconds here are the
+    model's (the FPGA at 250 MHz and the server, calibrated to the paper),
+    not times of the card."""
+    from repro_torch.examples import paper_usecase
+    rec = paper_usecase.run()
+    fig5, cycles = rec["fig5"], rec["cycles"]
+    grants, completions = cycles["sim_grants"], cycles["sim_completions"]
+    emit("paper_model", model_ms={"fig5": fig5,
+                                  "paper_case1": rec["paper_case1"],
+                                  "paper_case3": rec["paper_case3"]},
+         bandwidth=rec["bandwidth"],
+         calibration_residuals=rec["calibration_residuals"],
+         cycles=cycles, fig6=rec["fig6"], table2=rec["table2"],
+         data_path_identical=rec["identical"])
     if (grants[0] != 4 or grants[-1] != 28 or completions[0] != 13
-            or completions[-1] != 37 or abs(fig5[1] - PAPER_CASE1_MS) > 1e-6
-            or abs(fig5[3] - PAPER_CASE3_MS) > 1e-6):
+            or completions[-1] != 37
+            or abs(fig5[1] - rec["paper_case1"]) > 1e-6
+            or abs(fig5[3] - rec["paper_case3"]) > 1e-6):
         raise AssertionError("the hardware model no longer reproduces the "
                              "paper's calibrated numbers")
-    return uc
+    if not rec["identical"]:
+        raise AssertionError("the Hamming kernels' data path disagrees with "
+                             "the cycle simulation's output")
+    return rec["use_case"]
 
 
 def usecase_path(uc):
@@ -4636,6 +5264,11 @@ def main() -> int:
     # 13. tensor parallelism: DenseLM over a (2, 2) mesh of 4 ranks, and
     # the train step over NCCL at world size 1 ---------------------------
     tp_launches = tensor_parallel_phase(smi)
+
+    # 14. tensor parallelism of the SSM, hybrid and encoder-decoder
+    # families over the same mesh, and the four examples as modules -----
+    tpf_launches = tensor_parallel_families_phase(smi)
+    example_launches = examples_phase(smi)
     loads = dict(build.load_count)
     if any(n != 1 for n in loads.values()):
         raise AssertionError(f"a kernel library was loaded twice: {loads}")
@@ -4657,7 +5290,9 @@ def main() -> int:
              "serve_harness": harness_launches,
              "manager_scenarios": scenario_launches,
              "sharded": sharded_launches,
-             "tensor_parallel": tp_launches}
+             "tensor_parallel": tp_launches,
+             "tensor_parallel_families": tpf_launches,
+             "examples": example_launches}
 
     def launch_keys(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}

@@ -13,10 +13,8 @@ peak memory from the step run on ``meta`` at two depths
 the production meshes (``pod``, ``multipod``) the same numbers are one
 device's: ``lower_step`` records rank (0, ..., 0) of the mesh with
 described groups (``models/parallel.py``), so the record also carries
-its collectives.  Only ``DenseLM`` (dense, moe, vlm) is tensor-parallel:
-for the other families a production mesh records each device's parameter
-and optimizer bytes, from ``param_specs`` through
-``NamedSharding.shard_shape``, and raises (ROADMAP A11).
+its collectives, for every family.  Each device's parameter and optimizer
+bytes come from ``param_specs`` through ``NamedSharding.shard_shape``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \
         tinyllama_1_1b --shape train_4k --mesh pod
@@ -146,7 +144,7 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh: str = "card",
     from repro_torch.launch.roofline import (RooflineTerms, model_bytes_for,
                                              model_flops_for)
     from repro_torch.models.config import skipped_shapes_for
-    from repro_torch.models.lm import DenseLM, build_model
+    from repro_torch.models.lm import build_model
 
     cfg = get_config(arch, smoke=smoke)
     if overrides:
@@ -166,16 +164,6 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], mesh: str = "card",
     chips = spec.size
     model = build_model(cfg, device="meta")
     param_bytes, opt_bytes = state_bytes(model, spec, multi_pod)
-    if chips > 1 and not isinstance(model, DenseLM):
-        rec = {"arch": arch, "shape": shape.name, "mesh": mesh,
-               "chips": chips, "n_params": model.n_params(),
-               "param_bytes": param_bytes, "opt_state_bytes": opt_bytes,
-               "flops_per_device": None, "collectives": None}
-        _write(rec, out_dir, tag)
-        raise NotImplementedError(
-            f"{tag}: parameter and optimizer bytes a device are recorded; "
-            f"its FLOPs and collectives are not: tensor parallelism for "
-            f"the {cfg.family} family is not ported (ROADMAP A11)")
     t0 = time.time()
 
     # --- the gradient-accumulation factor (train only) -------------------

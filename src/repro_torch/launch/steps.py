@@ -11,7 +11,7 @@ accessed, memory (argument, output and temp bytes) and the text of the
 ops it ran (:class:`OpRecorder`).
 
 Over a mesh of more than one device a step is one rank's program
-(``models/parallel.py``, ``DenseLM`` only): ``build_step(shard=ctx)``
+(``models/parallel.py``, every family): ``build_step(shard=ctx)``
 with a ``ShardCtx`` of launched ranks runs on the rank's local shards;
 ``lower_step`` records rank (0, ..., 0) of any ``MeshSpec`` on the
 ``meta`` device with described groups, its collectives among its ops.
@@ -200,8 +200,8 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec,
     parameters) and its rows of the batch under the batch spec, the
     argument structs are those local shapes, and the train step's clip
     takes the global norm (``ShardCtx.grad_sq``); the shardings stay the
-    global specs.  Only ``DenseLM`` shards; the other families raise on a
-    mesh of more than one device (ROADMAP A11).
+    global specs.  Every family shards (``models/parallel.py``); a width
+    the model axis does not divide raises, naming it.
 
     ``kernel_mode`` overrides ``cfg.kernel_mode`` (every kernel the model
     runs: flash attention, the recurrent scans, a fabric-backed MoE's
@@ -250,8 +250,8 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshSpec,
 
     sstructs, sspecs = model.decode_state_shapes(shape, multi_pod)
     if shard is not None:
-        # the rank's state: its rows and its local kv heads (head-local
-        # caches, ``models/parallel.py``)
+        # the rank's state: its rows, its local kv heads (head-local
+        # caches, ``models/parallel.py``), SSM heads and RG-LRU channels
         on_meta = build_model(cfg, device="meta")
         on_meta.shard_over(shard)
         local = on_meta.init_decode_state(bstructs["tokens"].shape[0],
@@ -501,8 +501,7 @@ def lower_step(bundle: StepBundle, mesh: MeshSpec) -> Lowered:
     ``meta`` under ``kernel_mode_for_target("meta")`` (the plain data
     plane), recorded.  Over a mesh of more than one device it records rank
     (0, ..., 0) of ``mesh`` (``ShardCtx.described``: no live ranks), its
-    arguments the rank's local shards and its collectives among its ops;
-    only ``DenseLM`` shards (the other families raise, ROADMAP A11)."""
+    arguments the rank's local shards and its collectives among its ops."""
     from repro_torch.launch.roofline import kernel_mode_for_target
     kw = {}
     if mesh.size != 1:

@@ -132,11 +132,16 @@ def tree_map(fn: Callable, tree, *rest):
 # ----------------------------------------------------------------------
 # Norms and rotary position embeddings
 # ----------------------------------------------------------------------
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5, *,
+             reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+             ) -> torch.Tensor:
+    """RMSNorm over the last dim.  ``reduce`` maps the mean of squares of
+    ``x``'s block to the whole dim's, where the dim is cut over ranks."""
     xf = x.float()
-    scale = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (xf * scale).to(x.dtype) * gamma
+    ms = (xf * xf).mean(-1, keepdim=True)
+    if reduce is not None:
+        ms = reduce(ms)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype) * gamma
 
 
 def rope_frequencies(head_dim: int, theta: float,

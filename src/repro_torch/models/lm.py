@@ -278,16 +278,77 @@ class LMBase:
         # This rank's view of a tensor-parallel mesh (``shard_over``).
         self.shard = None
 
-    def shard_over(self, ctx) -> None:
-        """Run as one rank of ``ctx`` (a ``parallel.ShardCtx``): the
-        parameters are the rank's local shards.  Only ``DenseLM`` is
-        tensor-parallel; the other families raise on a mesh of more than
-        one device (on one, nothing is sharded and the model runs as
-        it is)."""
-        if ctx.mesh.size > 1:
-            raise NotImplementedError(
-                f"tensor parallelism for the {self.cfg.family} family over "
-                f"a {ctx.mesh.size}-device mesh is not ported (ROADMAP A11)")
+    def shard_over(self, ctx, fsdp: bool = True) -> None:
+        """Run as one rank of ``ctx`` (a ``parallel.ShardCtx``, any mesh
+        size): the parameters are the rank's local shards
+        (``parallel.shard_params``), the batch its rows under the batch
+        spec of ``ctx``, and ``prefill``/``decode_step`` return its vocab
+        block of the logits.  ``fsdp=False``: the parameters are whole
+        along ``d_model`` already (``ShardCtx.whole_over_data``), as a
+        server holds them.  Raises ``ValueError`` naming the widths the
+        model axis does not divide.  See ``models/parallel.py``."""
+        from repro_torch.models.parallel import (DATA, MODEL, POD,
+                                                 layout_specs, without_axis)
+        self._check_model_axis(ctx.size(MODEL))
+        self.shard = ctx
+        self._specs = layout_specs(self, POD in ctx.mesh.axis_names)
+        if not fsdp:
+            self._specs = without_axis(self._specs, DATA)
+        self._heads = ctx.heads(self.cfg) if self.cfg.n_heads else None
+
+    def _check_model_axis(self, M: int) -> None:
+        """Raise where a model axis of ``M`` cuts inside a unit the
+        family's layers keep whole (the families add theirs)."""
+
+    # ---- tensor-parallel pieces (the plain products off a mesh) -------
+    def _layer(self, lp, *path):
+        """A layer's leaves as the products take them: on a mesh, whole
+        along ``d_model`` (gathered over ``data``); ``path`` leads from the
+        spec tree's root to one layer's specs (``"layers", 0``)."""
+        if self.shard is None:
+            return lp
+        specs = self._specs
+        for k in path:
+            specs = specs[k]
+        return self.shard.weights(lp, specs)
+
+    def _qkv(self, p, h: torch.Tensor, positions: torch.Tensor):
+        if self.shard is None:
+            return qkv(p, h, self.cfg, positions)
+        hl = self._heads
+        return qkv(hl.project(self.shard, p), self.shard.tp_in(h), self.cfg,
+                   positions, heads=(hl.n_q, hl.n_kv))
+
+    def _attn_out(self, o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+        if self.shard is None:
+            return o.reshape(*o.shape[:2], -1) @ wo
+        return self._heads.out(self.shard, o, wo)
+
+    def _mlp(self, p, h2: torch.Tensor) -> torch.Tensor:
+        """The MLP on the normed residual (on a mesh: column-parallel
+        ``w_in``, row-parallel ``w_out``)."""
+        act, sh = self.cfg.mlp_act, self.shard
+        if sh is None:
+            return mlp_mod.mlp_apply(p, h2, act)
+        return sh.tp_out(mlp_mod.mlp_apply(p, sh.tp_in(h2), act))
+
+    def _model_ranks(self) -> int:
+        return 1 if self.shard is None else self.shard.size("model")
+
+    def _scaled(self, loss: torch.Tensor) -> torch.Tensor:
+        """The loss, its backward seed scaled on a mesh
+        (``ShardCtx.loss_scale``)."""
+        if self.shard is None:
+            return loss
+        from repro_torch.models.parallel import scale_grad
+        return scale_grad(loss, self.shard.loss_scale())
+
+    def _heads_of(self):
+        """(q heads, kv heads) this rank computes: the config's off a
+        mesh."""
+        if self.shard is None:
+            return self.cfg.n_heads, self.cfg.n_kv_heads
+        return self._heads.n_q, self._heads.n_kv
 
     def constrain(self, x: torch.Tensor) -> torch.Tensor:
         """Pin a [B, S, d] activation to batch sharding, as the JAX
@@ -451,42 +512,6 @@ class DenseLM(LMBase):
         out["layers"] = [self._layer_defs() for _ in range(self.cfg.n_layers)]
         return out
 
-    def shard_over(self, ctx, fsdp: bool = True) -> None:
-        """Run as one rank of ``ctx`` (a ``parallel.ShardCtx``, any mesh
-        size): the parameters are the rank's local shards
-        (``parallel.shard_params``), the batch its rows under the batch
-        spec of ``ctx``, and ``prefill``/``decode_step`` return its vocab
-        block of the logits.  ``fsdp=False``: the parameters are whole
-        along ``d_model`` already (``ShardCtx.whole_over_data``), as a
-        server holds them.  See ``models/parallel.py``."""
-        from repro_torch.models.parallel import (DATA, POD, layout_specs,
-                                                 without_axis)
-        self.shard = ctx
-        self._specs = layout_specs(self, POD in ctx.mesh.axis_names)
-        if not fsdp:
-            self._specs = without_axis(self._specs, DATA)
-        self._heads = ctx.heads(self.cfg)
-
-    # ---- tensor-parallel pieces (the plain products off a mesh) -------
-    def _layer(self, lp):
-        """A layer's leaves as the products take them: on a mesh, whole
-        along ``d_model`` (gathered over ``data``)."""
-        if self.shard is None:
-            return lp
-        return self.shard.weights(lp, self._specs["layers"][0])
-
-    def _qkv(self, p, h: torch.Tensor, positions: torch.Tensor):
-        if self.shard is None:
-            return qkv(p, h, self.cfg, positions)
-        hl = self._heads
-        return qkv(hl.project(self.shard, p), self.shard.tp_in(h), self.cfg,
-                   positions, heads=(hl.n_q, hl.n_kv))
-
-    def _attn_out(self, o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-        if self.shard is None:
-            return o.reshape(*o.shape[:2], -1) @ wo
-        return self._heads.out(self.shard, o, wo)
-
     def _ffn(self, lp, h2: torch.Tensor, group_size: int):
         """The MLP or the MoE on the normed residual: (y, aux loss);
         ``group_size`` counts the MoE's token groups in the global
@@ -500,10 +525,7 @@ class DenseLM(LMBase):
                                          shard=sh)
             return y, stats["aux_loss"]
         aux = torch.zeros((), dtype=torch.float32, device=h2.device)
-        if sh is None:
-            return mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act), aux
-        return sh.tp_out(mlp_mod.mlp_apply(lp["mlp"], sh.tp_in(h2),
-                                           cfg.mlp_act)), aux
+        return self._mlp(lp["mlp"], h2), aux
 
     # ---- forward ------------------------------------------------------
     def _inputs_embed(self, params, batch) -> torch.Tensor:
@@ -520,7 +542,7 @@ class DenseLM(LMBase):
     def _block(self, lp, x: torch.Tensor, positions: torch.Tensor,
                moe_group: int):
         cfg = self.cfg
-        lp = self._layer(lp)
+        lp = self._layer(lp, "layers", 0)
         x = self.constrain(x)
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         q, k, v = self._qkv(lp["attn"], h, positions)
@@ -553,11 +575,7 @@ class DenseLM(LMBase):
         n = 1 if self.shard is None else self.shard.batch_shards
         h, aux = self._backbone(params, x, positions,
                                 moe_group=min(1024, B * S * n), train=True)
-        loss = self._lm_loss(params, h, batch) + 0.01 * aux
-        if self.shard is not None:
-            from repro_torch.models.parallel import scale_grad
-            loss = scale_grad(loss, self.shard.loss_scale())
-        return loss
+        return self._scaled(self._lm_loss(params, h, batch) + 0.01 * aux)
 
     def prefill(self, params, batch) -> torch.Tensor:
         """``batch["tokens"]`` [B, S] -> last-token logits [B, V_padded]."""
@@ -580,9 +598,8 @@ class DenseLM(LMBase):
         its rows; the caches hold its local kv heads for every slot)."""
         cfg = self.cfg
         slots = min(cfg.attn_window, max_len) if cfg.attn_window else max_len
-        n_kv = None if self.shard is None else self._heads.n_kv
         return _kv_state(batch, slots, cfg.n_layers, cfg, self.dtype,
-                         self.device, n_kv=n_kv)
+                         self.device, n_kv=self._heads_of()[1])
 
     def decode_step(self, params, state: DecodeState, batch):
         """One token for every row: ``batch["tokens"]`` [B, 1] ->
@@ -595,9 +612,9 @@ class DenseLM(LMBase):
         positions = _decode_positions(x, pos)
         kv_pos = state.kv_pos
         for lp, ck, cv in zip(params["layers"], state.kv_k, state.kv_v):
-            lp = self._layer(lp)
-            x, kv_pos = _attn_decode(lp, x, ck, cv, state.kv_pos, positions,
-                                     pos, cfg, cfg.attn_window, model=self)
+            lp = self._layer(lp, "layers", 0)
+            x, kv_pos = _attn_decode(self, lp, x, ck, cv, state.kv_pos,
+                                     positions, pos, cfg.attn_window)
             h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
             y, _ = self._ffn(lp, h2, h2.shape[0] * (
                 1 if self.shard is None else self.shard.batch_shards))
@@ -625,22 +642,17 @@ def _decode_positions(x: torch.Tensor, pos: int) -> torch.Tensor:
                       device=x.device)
 
 
-def _attn_decode(lp, x, ck, cv, kv_pos, positions, pos: int,
-                 cfg: ModelConfig, window, model=None):
+def _attn_decode(model: LMBase, lp, x, ck, cv, kv_pos, positions, pos: int,
+                 window):
     """The attention half of a decode block: norm, q/k/v, the cache write
     (in place) and attention over the cache.  Returns (x + attention,
-    slot positions with this token).  ``model``, a ``DenseLM``, projects
-    and sums its output (a tensor-parallel rank's heads)."""
-    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    if model is None:
-        q, k, v = qkv(lp["attn"], h, cfg, positions)
-    else:
-        q, k, v = model._qkv(lp["attn"], h, positions)
+    slot positions with this token).  ``model`` projects and sums its
+    output (on a mesh, a tensor-parallel rank's heads)."""
+    h = rms_norm(x, lp["norm1"], model.cfg.norm_eps)
+    q, k, v = model._qkv(lp["attn"], h, positions)
     ck, cv, kv_pos = attn.cache_write(ck, cv, kv_pos, k, v, pos)
     o = attn.attention_decode(q, ck, cv, kv_pos, pos, window=window)
-    if model is not None:
-        return x + model._attn_out(o, lp["attn"]["wo"]), kv_pos
-    return x + o.reshape(o.shape[0], 1, -1) @ lp["attn"]["wo"], kv_pos
+    return x + model._attn_out(o, lp["attn"]["wo"]), kv_pos
 
 
 class SSMLM(LMBase):
@@ -655,12 +667,22 @@ class SSMLM(LMBase):
         out["layers"] = [layer() for _ in range(cfg.n_layers)]
         return out
 
+    def _check_model_axis(self, M: int) -> None:
+        ssm, d = self.cfg.ssm, self.cfg.d_model
+        H, N = ssm.n_heads(d), ssm.d_state
+        if H % M or N % M:
+            raise ValueError(
+                f"{self.cfg.name}: a model axis of {M} does not divide its "
+                f"{H} SSM heads and state width {N}")
+
     def _block(self, lp, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        lp = self._layer(lp, "layers", 0)
         x = self.constrain(x)
         h = rms_norm(x, lp["norm"], cfg.norm_eps)
         y, _, _ = ssm_mod.ssm_apply(lp["mixer"], h, cfg.ssm,
-                                    kernel_mode=cfg.kernel_mode)
+                                    kernel_mode=cfg.kernel_mode,
+                                    shard=self.shard)
         return x + y
 
     def blocks(self, params, seq_len: int) -> list:
@@ -677,17 +699,20 @@ class SSMLM(LMBase):
     def loss(self, params, batch) -> torch.Tensor:
         h = self._backbone(params, self._inputs_embed(params, batch),
                            train=True)
-        return self._lm_loss(params, h, batch)
+        return self._scaled(self._lm_loss(params, h, batch))
 
     def prefill(self, params, batch) -> torch.Tensor:
         h = self._backbone(params, self._inputs_embed(params, batch))
         return self._last_logits(params, h)
 
-    def _state_dims(self):
+    def _state_dims(self, M: int = 1):
+        """(heads, head dim, state width, conv channels, conv width) of a
+        decode state; with ``M`` model ranks, one rank's heads and
+        channels."""
         cfg, ssm = self.cfg, self.cfg.ssm
         conv_dim = ssm.expand * cfg.d_model + 2 * ssm.d_state
-        return (ssm.n_heads(cfg.d_model), ssm.head_dim, ssm.d_state,
-                conv_dim, ssm.conv_width)
+        return (ssm.n_heads(cfg.d_model) // M, ssm.head_dim, ssm.d_state,
+                conv_dim // M, ssm.conv_width)
 
     def decode_state_shapes(self, shape: ShapeConfig, multi_pod: bool):
         B, L = shape.global_batch, self.cfg.n_layers
@@ -705,7 +730,9 @@ class SSMLM(LMBase):
         return structs, specs
 
     def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
-        H, Pd, N, conv_dim, W = self._state_dims()
+        """An empty state for ``batch`` rows (on a tensor-parallel rank:
+        its rows, heads and conv channels)."""
+        H, Pd, N, conv_dim, W = self._state_dims(self._model_ranks())
         L, dev = self.cfg.n_layers, self.device
         return DecodeState(
             pos=0,
@@ -721,10 +748,11 @@ class SSMLM(LMBase):
         states, tails = [], []
         for lp, st, tail in zip(params["layers"], state.ssm_state,
                                 state.conv_tail):
+            lp = self._layer(lp, "layers", 0)
             h = rms_norm(x, lp["norm"], cfg.norm_eps)
             y, st, tail = ssm_mod.ssm_apply(lp["mixer"], h, cfg.ssm,
                                             state=st, conv_tail=tail,
-                                            decode=True)
+                                            decode=True, shard=self.shard)
             x = x + y
             states.append(st)
             tails.append(tail)
@@ -768,30 +796,45 @@ class HybridLM(LMBase):
             out["trail"] = [self._rec_defs() for _ in range(self.n_trail)]
         return out
 
+    def _check_model_axis(self, M: int) -> None:
+        nb = rglru_mod.N_GATE_BLOCKS
+        if nb % M:
+            raise ValueError(
+                f"{self.cfg.name}: a model axis of {M} does not divide the "
+                f"RG-LRU's {nb} gate blocks of {self.lru // nb} channels "
+                f"(lru width {self.lru}); a block is not cut")
+
+    @property
+    def _rec_path(self):
+        """The spec path of a recurrent block (all have the same specs)."""
+        return ("groups", 0, "rec", 0) if self.n_groups else ("trail", 0)
+
     # ---- blocks -------------------------------------------------------
     def _rec_block(self, lp, x, h0=None, tail=None, decode=False):
         cfg = self.cfg
+        lp = self._layer(lp, *self._rec_path)
         if not decode:
             x = self.constrain(x)
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         y, h_last, tail = rglru_mod.rglru_block_apply(
             lp["rec"], h, h0=h0, conv_tail=tail, decode=decode,
-            kernel_mode=cfg.kernel_mode)
+            kernel_mode=cfg.kernel_mode, shard=self.shard)
         x = x + y
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        return x + mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act), h_last, tail
+        return x + self._mlp(lp["mlp"], h2), h_last, tail
 
     def _attn_block(self, lp, x, positions):
         cfg = self.cfg
+        lp = self._layer(lp, "groups", 0, "attn_blk")
         x = self.constrain(x)
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        q, k, v = qkv(lp["attn"], h, cfg, positions)
+        q, k, v = self._qkv(lp["attn"], h, positions)
         o = attn.attention_prefill(q, k, v, causal=True,
                                    window=cfg.hybrid.attn_window,
                                    kernel_mode=cfg.kernel_mode)
-        x = x + o.reshape(o.shape[0], o.shape[1], -1) @ lp["attn"]["wo"]
+        x = x + self._attn_out(o, lp["attn"]["wo"])
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        return x + mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act)
+        return x + self._mlp(lp["mlp"], h2)
 
     def blocks(self, params, seq_len: int) -> list:
         """The backbone's full-sequence blocks in order, each x -> x."""
@@ -821,7 +864,7 @@ class HybridLM(LMBase):
     def loss(self, params, batch) -> torch.Tensor:
         h = self._backbone(params, self._inputs_embed(params, batch),
                            train=True)
-        return self._lm_loss(params, h, batch)
+        return self._scaled(self._lm_loss(params, h, batch))
 
     def prefill(self, params, batch) -> torch.Tensor:
         h = self._backbone(params, self._inputs_embed(params, batch))
@@ -843,15 +886,17 @@ class HybridLM(LMBase):
                       [(bspec, None, "model")] * n_rec))
 
     def init_decode_state(self, batch: int, max_len: int) -> DecodeState:
+        """An empty state for ``batch`` rows (on a tensor-parallel rank:
+        its rows, kv heads and RG-LRU channels)."""
         cfg = self.cfg
         n_rec = self.n_groups * cfg.hybrid.pattern_rec + self.n_trail
-        dev = self.device
+        dev, lru = self.device, self.lru // self._model_ranks()
         return _kv_state(
             batch, min(cfg.hybrid.attn_window, max_len), self.n_groups, cfg,
-            self.dtype, dev,
-            rec_h=[torch.zeros((batch, self.lru), dtype=torch.float32,
+            self.dtype, dev, n_kv=self._heads_of()[1],
+            rec_h=[torch.zeros((batch, lru), dtype=torch.float32,
                                device=dev) for _ in range(n_rec)],
-            rec_tail=[torch.zeros((batch, 3, self.lru), dtype=self.dtype,
+            rec_tail=[torch.zeros((batch, 3, lru), dtype=self.dtype,
                                   device=dev) for _ in range(n_rec)])
 
     def decode_step(self, params, state: DecodeState, batch):
@@ -873,11 +918,11 @@ class HybridLM(LMBase):
         for g, ck, cv in zip(params["groups"], state.kv_k, state.kv_v):
             for lp in g["rec"]:
                 x = rec(lp, x)
-            lp = g["attn_blk"]
-            x, kv_pos = _attn_decode(lp, x, ck, cv, state.kv_pos, positions,
-                                     pos, cfg, cfg.hybrid.attn_window)
+            lp = self._layer(g["attn_blk"], "groups", 0, "attn_blk")
+            x, kv_pos = _attn_decode(self, lp, x, ck, cv, state.kv_pos,
+                                     positions, pos, cfg.hybrid.attn_window)
             h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-            x = x + mlp_mod.mlp_apply(lp["mlp"], h2, cfg.mlp_act)
+            x = x + self._mlp(lp["mlp"], h2)
         for lp in params.get("trail", []):
             x = rec(lp, x)
         if not state.kv_k:              # no attention block: no cache write
@@ -922,70 +967,88 @@ class EncDecLM(LMBase):
         return out
 
     # ---- forward ------------------------------------------------------
-    def _mlp(self, lp, x: torch.Tensor) -> torch.Tensor:
+    def _mlp_block(self, lp, x: torch.Tensor) -> torch.Tensor:
         h2 = rms_norm(x, lp["norm2"], self.cfg.norm_eps)
-        return x + mlp_mod.mlp_apply(lp["mlp"], h2, self.cfg.mlp_act)
+        return x + self._mlp(lp["mlp"], h2)
 
     def _enc_block(self, lp, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        lp = self._layer(lp, "enc_layers", 0)
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        q, k, v = qkv(lp["attn"], h, cfg, positions)
+        q, k, v = self._qkv(lp["attn"], h, positions)
         o = attn.attention_prefill(q, k, v, causal=False,
                                    kernel_mode=cfg.kernel_mode)
-        x = x + o.reshape(o.shape[0], o.shape[1], -1) @ lp["attn"]["wo"]
-        return self._mlp(lp, x)
+        x = x + self._attn_out(o, lp["attn"]["wo"])
+        return self._mlp_block(lp, x)
 
     def _encode(self, params, frames, *, train: bool = False):
-        """The encoder output (after its final norm) [B, F, d]."""
+        """The encoder output (after its final norm) [B, F, d]; on a mesh
+        replicated over ``model`` (each block's row-parallel outputs end in
+        a sum over it)."""
         x = torch.as_tensor(frames, device=self.device).to(self.dtype)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         block = remat_wrap(self._enc_block,
                            self.cfg.remat if train else "nothing")
         for lp in params["enc_layers"]:
             x = block(lp, x, positions)
-        return rms_norm(x, params["enc_norm"], self.cfg.norm_eps)
+        return rms_norm(x, self._leaf(params, "enc_norm"), self.cfg.norm_eps)
+
+    def _project(self, p, names):
+        """The leaves ``names`` of a cross-attention dict that exist, on a
+        mesh the rank's heads' (``HeadLayout.project``)."""
+        p = {k: p[k] for k in names if k in p}
+        return p if self.shard is None else self._heads.project(self.shard, p)
 
     def _cross_q(self, p, hx: torch.Tensor) -> torch.Tensor:
         """The cross-attention's queries [B, S, H, hd]: ``qkv``'s q, with
         RoPE at position 0 (the keys and values come from the encoder)."""
         cfg = self.cfg
         B, S, _ = hx.shape
+        p = self._project(p, ("wq", "bq"))
+        if self.shard is not None:
+            hx = self.shard.tp_in(hx)
         q = hx @ p["wq"]
         if cfg.qkv_bias:
             q = q + p["bq"]
         zeros = torch.zeros((B, S), dtype=torch.int32, device=hx.device)
-        return attn.apply_rope(q.reshape(B, S, cfg.n_heads, cfg.hd), zeros,
-                               cfg.rope_theta)
+        return attn.apply_rope(q.reshape(B, S, self._heads_of()[0], cfg.hd),
+                               zeros, cfg.rope_theta)
 
     def _cross_kv(self, p, enc: torch.Tensor):
         """The cross-attention's keys (RoPE at the encoder positions) and
-        values from the encoder output: [B, F, Kv, hd] each."""
+        values from the encoder output: [B, F, Kv, hd] each (on a mesh the
+        rank's kv heads, from the replicated encoder output)."""
         cfg = self.cfg
         B, F, _ = enc.shape
+        p = self._project(p, ("wk", "wv", "bk", "bv"))
+        if self.shard is not None:
+            enc = self.shard.tp_in(enc)
         kx, vx = enc @ p["wk"], enc @ p["wv"]
         if cfg.qkv_bias:
             kx, vx = kx + p["bk"], vx + p["bv"]
         enc_pos = torch.arange(F, device=enc.device)[None, :]
-        kx = attn.apply_rope(kx.reshape(B, F, cfg.n_kv_heads, cfg.hd),
-                             enc_pos, cfg.rope_theta)
-        return kx, vx.reshape(B, F, cfg.n_kv_heads, cfg.hd)
+        Kv = self._heads_of()[1]
+        kx = attn.apply_rope(kx.reshape(B, F, Kv, cfg.hd), enc_pos,
+                             cfg.rope_theta)
+        return kx, vx.reshape(B, F, Kv, cfg.hd)
 
     def _dec_block(self, lp, x: torch.Tensor, enc: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        lp = self._layer(lp, "dec_layers", 0)
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        q, k, v = qkv(lp["attn"], h, cfg, positions)
+        q, k, v = self._qkv(lp["attn"], h, positions)
         o = attn.attention_prefill(q, k, v, causal=True,
                                    kernel_mode=cfg.kernel_mode)
-        x = x + o.reshape(o.shape[0], o.shape[1], -1) @ lp["attn"]["wo"]
+        x = x + self._attn_out(o, lp["attn"]["wo"])
         hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
         qx = self._cross_q(lp["xattn"], hx)
         kx, vx = self._cross_kv(lp["xattn"], enc)
         ox = attn.attention_prefill(qx, kx, vx, causal=False,
                                     kernel_mode=cfg.kernel_mode)
-        x = x + ox.reshape(ox.shape[0], ox.shape[1], -1) @ lp["xattn"]["wo"]
-        return self._mlp(lp, x)
+        x = x + self._attn_out(ox, lp["xattn"]["wo"])
+        return self._mlp_block(lp, x)
 
     def _decode_stack(self, params, batch, *, train: bool = False):
         """The encoder, then every decoder layer (both stacks under
@@ -1003,7 +1066,7 @@ class EncDecLM(LMBase):
         """``batch["frames"]`` [B, F, d], ``["tokens"]``/``["labels"]``
         [B, S] -> scalar float32."""
         h = self._decode_stack(params, batch, train=True)
-        return self._lm_loss(params, h, batch)
+        return self._scaled(self._lm_loss(params, h, batch))
 
     def prefill(self, params, batch) -> torch.Tensor:
         """-> last-token logits [B, V_padded]."""
@@ -1024,11 +1087,12 @@ class EncDecLM(LMBase):
         """Self-attention caches of ``max_len`` slots, and cross-attention
         caches of ``cfg.encoder_len`` left zero, as in the JAX package."""
         cfg = self.cfg
-        shape = (batch, cfg.encoder_len, cfg.n_kv_heads, cfg.hd)
+        shape = (batch, cfg.encoder_len, self._heads_of()[1], cfg.hd)
         z = lambda: [torch.zeros(shape, dtype=self.dtype, device=self.device)
                      for _ in range(cfg.n_layers)]
         return _kv_state(batch, max_len, cfg.n_layers, cfg, self.dtype,
-                         self.device, cross_k=z(), cross_v=z())
+                         self.device, n_kv=self._heads_of()[1], cross_k=z(),
+                         cross_v=z())
 
     def decode_step(self, params, state: DecodeState, batch):
         """One token for every row: ``batch["tokens"]`` [B, 1] -> (logits
@@ -1046,13 +1110,14 @@ class EncDecLM(LMBase):
         for lp, ck, cv, xk, xv in zip(params["dec_layers"], state.kv_k,
                                       state.kv_v, state.cross_k,
                                       state.cross_v):
-            x, kv_pos = _attn_decode(lp, x, ck, cv, state.kv_pos, positions,
-                                     pos, cfg, None)
+            lp = self._layer(lp, "dec_layers", 0)
+            x, kv_pos = _attn_decode(self, lp, x, ck, cv, state.kv_pos,
+                                     positions, pos, None)
             hx = rms_norm(x, lp["norm_x"], cfg.norm_eps)
             ox = attn.attention_decode(self._cross_q(lp["xattn"], hx), xk,
                                        xv, xpos, F)
-            x = x + ox.reshape(ox.shape[0], 1, -1) @ lp["xattn"]["wo"]
-            x = self._mlp(lp, x)
+            x = x + self._attn_out(ox, lp["xattn"]["wo"])
+            x = self._mlp_block(lp, x)
         return self._last_logits(params, x), dataclasses.replace(
             state, pos=pos + 1, kv_pos=kv_pos)
 

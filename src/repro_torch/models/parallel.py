@@ -1,4 +1,5 @@
-"""Tensor parallelism and FSDP for ``DenseLM`` over a (data, model) mesh.
+"""Tensor parallelism and FSDP for every LM family over a (data, model)
+mesh.
 
 The JAX package has no counterpart: there ``jit``'s SPMD partitioner
 applies ``param_specs`` and inserts the collectives.  The port shards by
@@ -25,14 +26,37 @@ partial results with the differentiable collectives of
   is divided by their number (:meth:`ShardCtx.loss_scale`), so that the
   gradient sums above count each token once.
 
-Where trouble is (each covered by ``tests/test_torch_tensor_parallel.py``):
+Where trouble is (each covered by ``tests/test_torch_tensor_parallel.py``
+and ``tests/test_torch_tensor_parallel_families.py``):
 
-- **Fused gate|up projections.**  ``mlp.py`` and ``moe.py`` fuse gate and
+- **Concatenated projections.**  ``mlp.py`` and ``moe.py`` fuse gate and
   up into one ``w_in`` of width ``2*d_ff`` sharded over ``tp``; a
   contiguous cut would give rank 0 gate columns only and ``gated_act``
-  would chunk the wrong halves.  :class:`Halves` marks such a spec and
-  :func:`shard_params` cuts each half by itself, so rank r holds
-  ``gate[r] | up[r]``; :func:`unshard_params` is its exact inverse.
+  would chunk the wrong halves.  The SSM's ``in_proj`` concatenates
+  z | x | B | C | dt and its conv x | B | C.  :class:`Pieces` marks such a
+  spec (two equal pieces by default) and :func:`shard_params` cuts
+  each piece by itself, so rank r holds ``gate[r] | up[r]`` and
+  ``z[r] | x[r] | B[r] | C[r] | dt[r]``, of the shape JAX's contiguous
+  cut gives; :func:`unshard_params` is its exact inverse.
+- **The SSM** (``ssm.py``): a rank runs the SSD scan on its heads; B and C
+  are gathered over ``model`` after the conv (every head reads the whole
+  state width; backward: reduce-scatter), the per-head ``[H]`` leaves are
+  sliced after ``replicate`` (:meth:`ShardCtx.tp_slice`), and the gated
+  norm over ``d_inner`` sums its mean of squares over ``model`` forward
+  and backward (:meth:`ShardCtx.tp_stat`: ``psum``'s backward alone is
+  the identity, right for a row-parallel output, wrong for a statistic
+  every rank consumes).  The decode state is the rank's heads and conv
+  channels.
+- **The RG-LRU** (``rglru.py``): a rank holds a contiguous block of the
+  channels in every leaf; the block-diagonal gates ``w_r``/``w_i`` are cut
+  on their block axis (:data:`BLOCK_AXIS`), not on each block's last dim
+  as JAX's spec is, so that a rank's gate columns are its channels (the
+  same bytes, another shape; ROADMAP C).  A block is never cut: the model
+  axis must divide the 16 blocks.
+- **The encoder-decoder**: the encoder output is replicated over
+  ``model`` (its blocks' row-parallel outputs end in ``psum``); each rank
+  projects its own cross-attention K/V heads from it, and the
+  cross-attention cache holds the rank's heads.
 - **Heads.**  Local head counts come from :class:`HeadLayout`, never from
   ``cfg.n_heads``/``cfg.n_kv_heads``.  Where the model axis does not
   divide the q heads (8 heads over 16, LLaVA-NeXT's 56 over 16), the heads
@@ -80,10 +104,31 @@ if TYPE_CHECKING:
     from repro_torch.launch.mesh import MeshSpec
 
 
-class Halves(tuple):
-    """The spec of a fused gate|up weight: its ``model`` dim holds two
-    halves, each cut over the axis by itself.  Equal to the plain spec (a
-    tuple) everywhere else."""
+class Pieces(tuple):
+    """The spec of a leaf whose ``model`` dim concatenates pieces (a fused
+    gate|up, the SSM's z | x | B | C | dt): each piece is cut over the axis
+    by itself, so that rank r holds piece[r] of each, side by side.
+    ``widths`` are the pieces' widths, or numbers in their proportion.
+    Equal to the plain spec (a tuple) everywhere else."""
+
+    def __new__(cls, spec, widths: Sequence[int] = (1, 1)):
+        self = super().__new__(cls, spec)
+        self.widths = tuple(widths)
+        return self
+
+    def with_entries(self, entries) -> "Pieces":
+        """The same pieces under other mesh-axis entries."""
+        out = tuple.__new__(type(self), entries)
+        out.widths = self.widths
+        return out
+
+    def sizes(self, total: int) -> List[int]:
+        """The pieces' sizes in a dim of ``total``."""
+        unit, rem = divmod(total, sum(self.widths))
+        if rem:
+            raise ValueError(f"a dim of {total} does not split into pieces "
+                             f"of widths {self.widths}")
+        return [w * unit for w in self.widths]
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -93,11 +138,27 @@ def _axes(entry) -> Tuple[str, ...]:
 
 
 def layout_specs(model, multi_pod: bool = False):
-    """``model.param_specs(multi_pod)`` with the fused gate|up ``w_in``
-    leaves marked :class:`Halves` (the MLP's and the experts')."""
+    """``model.param_specs(multi_pod)`` as the ranks hold the leaves:
+
+    - the fused gate|up ``w_in`` (the MLP's and the experts') marked
+      :class:`Pieces` of two equal widths;
+    - the SSM's ``in_proj`` marked :class:`Pieces` (z | x | B | C | dt) and
+      its ``conv_w``/``conv_b`` (x | B | C), so that a rank holds its heads'
+      z, x and dt, and its block of B and C;
+    - the RG-LRU's block-diagonal ``w_r``/``w_i`` cut on the block axis
+      (dim 0) where JAX's spec cuts each block's last dim: a rank holds the
+      whole blocks of its own channels, as ``w_gate``, ``b_r`` and ``lam``
+      are cut (the same bytes as JAX's block, another shape; ROADMAP C).
+    """
+    cfg = model.cfg
     specs = model.param_specs(multi_pod)
-    if model.cfg.mlp_act not in GATED:
-        return specs
+    gated = cfg.mlp_act in GATED
+    ssm = {}
+    if cfg.family == "ssm":
+        d_inner = cfg.ssm.expand * cfg.d_model
+        N, H = cfg.ssm.d_state, cfg.ssm.n_heads(cfg.d_model)
+        ssm = {"in_proj": (d_inner, d_inner, N, N, H),
+               "conv_w": (d_inner, N, N), "conv_b": (d_inner, N, N)}
 
     def walk(tree):
         if isinstance(tree, list):
@@ -106,18 +167,29 @@ def layout_specs(model, multi_pod: bool = False):
             return tree
         out = {}
         for k, v in tree.items():
-            if k in ("mlp", "moe") and isinstance(v, dict) and "w_in" in v:
-                v = {**v, "w_in": Halves(v["w_in"])}
+            if k in ("mlp", "moe") and isinstance(v, dict) and "w_in" in v \
+                    and gated:
+                v = {**v, "w_in": Pieces(v["w_in"])}
+            elif k == "mixer" and ssm:
+                v = {**v, **{n: Pieces(v[n], w) for n, w in ssm.items()}}
+            elif k == "rec" and isinstance(v, dict) and "w_r" in v:
+                v = {**v, **{n: BLOCK_AXIS for n in ("w_r", "w_i")}}
             out[k] = walk(v)
         return out
     return walk(specs)
 
 
+#: the RG-LRU gates' layout: whole blocks over ``model`` (``layout_specs``)
+BLOCK_AXIS = (MODEL, None, None)
+
+
 def without_axis(specs, axis: str):
     """``specs`` with the mesh axis ``axis`` taken out of every entry
-    (:class:`Halves` kept)."""
-    return tree_map(lambda s: type(s)(None if e == axis else e for e in s),
-                    specs)
+    (:class:`Pieces` kept)."""
+    def one(s):
+        entries = tuple(None if e == axis else e for e in s)
+        return s.with_entries(entries) if isinstance(s, Pieces) else entries
+    return tree_map(one, specs)
 
 
 def mesh_coords(mesh: MeshSpec, rank: int) -> Tuple[int, ...]:
@@ -153,9 +225,15 @@ def _cut(x: torch.Tensor, spec, mesh: MeshSpec, coords) -> torch.Tensor:
         if not names:
             continue
         idx, n = _block(mesh, coords, names)
-        if isinstance(spec, Halves) and MODEL in names:
-            halves = x.chunk(2, dim)
-            x = torch.cat([h.chunk(n, dim)[idx] for h in halves], dim)
+        if isinstance(spec, Pieces) and MODEL in names:
+            pieces = x.split(spec.sizes(x.shape[dim]), dim)
+            for p in pieces:
+                if p.shape[dim] % n:
+                    raise ValueError(
+                        f"a piece of {p.shape[dim]} of dim {dim} of "
+                        f"{tuple(x.shape)} (widths {spec.widths}) is not "
+                        f"divisible by {n} ({names})")
+            x = torch.cat([p.chunk(n, dim)[idx] for p in pieces], dim)
         else:
             if x.shape[dim] % n:
                 raise ValueError(f"dim {dim} of {tuple(x.shape)} is not "
@@ -167,9 +245,9 @@ def _cut(x: torch.Tensor, spec, mesh: MeshSpec, coords) -> torch.Tensor:
 def shard_params(tree, specs, mesh: MeshSpec, coords):
     """The block of every leaf of the global tree ``tree`` that the rank at
     ``coords`` holds under ``specs`` (:func:`layout_specs`): each leaf's
-    shape is ``NamedSharding(mesh, spec).shard_shape``, a :class:`Halves`
-    leaf holds its two halves' blocks side by side.  Works on any device,
-    ``meta`` included."""
+    shape is ``NamedSharding(mesh, spec).shard_shape`` (the RG-LRU's
+    block-axis gates excepted), a :class:`Pieces` leaf holds its pieces'
+    blocks side by side.  Works on any device, ``meta`` included."""
     return tree_map(lambda x, s: _cut(x, s, mesh, coords), tree, specs)
 
 
@@ -183,14 +261,16 @@ def _place(shards: List[torch.Tensor], spec, mesh: MeshSpec):
         coords = mesh_coords(mesh, rank)
         per_dim = []                   # (slice of x, slice of out) pairs
         for dim, entry in enumerate(spec):
-            idx, _ = _block(mesh, coords, _axes(entry))
+            idx, n = _block(mesh, coords, _axes(entry))
             size = x.shape[dim]
-            if isinstance(spec, Halves) and MODEL in _axes(entry):
-                c, half = size // 2, shape[dim] // 2
-                per_dim.append([(slice(h * c, (h + 1) * c),
-                                 slice(h * half + idx * c,
-                                       h * half + (idx + 1) * c))
-                                for h in range(2)])
+            if isinstance(spec, Pieces) and MODEL in _axes(entry):
+                pairs, lo, glo = [], 0, 0
+                for whole in spec.sizes(shape[dim]):
+                    c = whole // n
+                    pairs.append((slice(lo, lo + c),
+                                  slice(glo + idx * c, glo + (idx + 1) * c)))
+                    lo, glo = lo + c, glo + whole
+                per_dim.append(pairs)
             else:
                 per_dim.append([(slice(None),
                                  slice(idx * size, (idx + 1) * size))])
@@ -347,6 +427,28 @@ class ShardCtx:
     def tp_out(self, y: torch.Tensor) -> torch.Tensor:
         """Row-parallel partial sums, summed over ``model``."""
         return coll.psum(y, self.group(MODEL))
+
+    def tp_stat(self, x: torch.Tensor) -> torch.Tensor:
+        """A statistic every model rank consumes (a norm's sum of squares
+        over a dim cut over ``model``): summed over ``model`` forward, and
+        its cotangent summed over ``model`` backward, since each rank
+        scales its own channels by it."""
+        g = self.group(MODEL)
+        return coll.replicate(coll.psum(x, g), g)
+
+    def tp_slice(self, w: torch.Tensor) -> torch.Tensor:
+        """This model rank's contiguous block of a leaf replicated over
+        ``model`` (the SSM's per-head ``[H]`` leaves), its gradient summed
+        over ``model`` so that every rank holds the whole leaf's."""
+        n = w.shape[0] // self.size(MODEL)
+        return coll.replicate(w, self.group(MODEL)).narrow(
+            0, self.index(MODEL) * n, n)
+
+    def tp_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every model rank's block of an activation, concatenated along
+        ``dim`` (the SSM's B and C); backward: each rank's cotangent
+        summed, its block kept."""
+        return coll.gather_shards(x, dim, self.group(MODEL))
 
     def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
         """A sum over local tokens, summed over the batch axes."""

@@ -68,8 +68,16 @@ def rglru_scan(u: torch.Tensor, a: torch.Tensor, h0: Optional[torch.Tensor]
 def rglru_block_apply(params, x: torch.Tensor,
                       h0: Optional[torch.Tensor] = None,
                       conv_tail: Optional[torch.Tensor] = None, *,
-                      decode: bool = False, kernel_mode=None):
-    """The Griffin recurrent block.  Returns (y, h_last, new_conv_tail)."""
+                      decode: bool = False, kernel_mode=None, shard=None):
+    """The Griffin recurrent block.  Returns (y, h_last, new_conv_tail).
+
+    ``shard`` (a ``parallel.ShardCtx``) runs it as one model rank on its
+    channels: ``w_gate``/``w_branch`` column-parallel, the conv, the gates'
+    whole blocks (``w_r``/``w_i`` cut on the block axis,
+    ``parallel.layout_specs``), the scan and ``h0``/``conv_tail`` on the
+    rank's channels, and ``w_out``'s partial sums summed over ``model``."""
+    if shard is not None:
+        x = shard.tp_in(x)
     gate = gelu_f32(x @ params["w_gate"]).to(x.dtype)
     u_in = x @ params["w_branch"]
     new_tail = None
@@ -93,5 +101,5 @@ def rglru_block_apply(params, x: torch.Tensor,
     else:
         h, h_last = rglru_scan_kernel(gated, a, h0, mode=kernel_mode)
 
-    y = h * gate
-    return y @ params["w_out"], h_last, new_tail
+    y = (h * gate) @ params["w_out"]
+    return (y if shard is None else shard.tp_out(y)), h_last, new_tail

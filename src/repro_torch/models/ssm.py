@@ -86,14 +86,27 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def ssm_apply(params, x: torch.Tensor, ssm: SSMConfig,
               state: Optional[torch.Tensor] = None,
               conv_tail: Optional[torch.Tensor] = None, *,
-              decode: bool = False, kernel_mode=None):
-    """The Mamba-2 mixer.  Returns (y, new_state, new_conv_tail)."""
+              decode: bool = False, kernel_mode=None, shard=None):
+    """The Mamba-2 mixer.  Returns (y, new_state, new_conv_tail).
+
+    ``shard`` (a ``parallel.ShardCtx``) runs it as one model rank: the
+    leaves are the rank's (``parallel.layout_specs``: its heads' z, x and
+    dt, its block of B and C), B and C are gathered over ``model`` after
+    the conv (every head reads the whole state width), the gated norm's
+    sum of squares is summed over ``model``, and ``out_proj``'s partial
+    sums end in a sum over ``model``.  ``state`` and ``conv_tail`` hold
+    the rank's heads and channels."""
     B, S, d_model = x.shape
     d_inner = ssm.expand * d_model
     H, N, P = ssm.n_heads(d_model), ssm.d_state, ssm.head_dim
+    M = 1 if shard is None else shard.size("model")
+    d_loc, N_loc, H_loc = d_inner // M, N // M, H // M
+    per_head = ((lambda w: w) if shard is None else shard.tp_slice)
 
+    if shard is not None:
+        x = shard.tp_in(x)
     h = x @ params["in_proj"]
-    z, xBC, dt_raw = _split_proj(h, d_inner, N, H)
+    z, xBC, dt_raw = _split_proj(h, d_loc, N_loc, H_loc)
     new_tail = None
     if decode:
         new_tail = torch.cat([conv_tail, xBC], dim=1)[:, 1:]
@@ -101,10 +114,12 @@ def ssm_apply(params, x: torch.Tensor, ssm: SSMConfig,
                            conv_tail)
     else:
         xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
-    xs, Bm, Cm = torch.split(xBC, [d_inner, N, N], dim=-1)
-    xs = xs.reshape(B, S, H, P)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
-    A = -torch.exp(params["a_log"].float())
+    xs, Bm, Cm = torch.split(xBC, [d_loc, N_loc, N_loc], dim=-1)
+    if shard is not None:
+        Bm, Cm = shard.tp_gather(Bm, -1), shard.tp_gather(Cm, -1)
+    xs = xs.reshape(B, S, H_loc, P)
+    dt = F.softplus(dt_raw.float() + per_head(params["dt_bias"]).float())
+    A = -torch.exp(per_head(params["a_log"]).float())
 
     if decode:
         # O(1) state update: h' = exp(dt A) h + dt x B^T ; y = h' C + D x
@@ -119,8 +134,9 @@ def ssm_apply(params, x: torch.Tensor, ssm: SSMConfig,
         y, new_state = ssd_scan(xs, dt, A, Bm, Cm, chunk=ssm.chunk, h0=state,
                                 mode=kernel_mode)
 
-    y = y + params["d_skip"].float()[:, None] * xs.float()
-    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = y + per_head(params["d_skip"]).float()[:, None] * xs.float()
+    y = y.reshape(B, S, d_loc).to(x.dtype)
     y = y * F.silu(z.float()).to(x.dtype)
-    y = rms_norm(y, params["norm_g"])
-    return y @ params["out_proj"], new_state, new_tail
+    stat = None if M == 1 else (lambda ms: shard.tp_stat(ms / M))
+    y = rms_norm(y, params["norm_g"], reduce=stat) @ params["out_proj"]
+    return (y if shard is None else shard.tp_out(y)), new_state, new_tail

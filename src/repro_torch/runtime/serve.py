@@ -76,7 +76,7 @@ class ServeLoop:
     ``torch.Generator`` of ``model.init``.
 
     ``shard`` (a ``models.parallel.ShardCtx`` of launched ranks) serves as
-    one rank of a tensor-parallel ``DenseLM``: ``params`` are the rank's
+    one rank of a tensor-parallel model (any family): ``params`` are the rank's
     local shards, gathered once along their ``fsdp`` dim (a server keeps
     no optimizer state, and would otherwise gather every weight again for
     each token), the slots are split over the data axes as

@@ -323,15 +323,17 @@ def card_data_plane(rank, n, payload, device):
 
 
 # ----------------------------------------------------------------------
-# tensor parallelism: DenseLM over a (data, model) mesh
+# tensor parallelism: every family over a (data, model) mesh
 # ----------------------------------------------------------------------
 def tp_cases(rank, n, payload, device):
     """Per model case, this rank's local results on a (data, model) mesh
     of ``payload["mesh"]``: the loss and every local gradient leaf, the
     prefill logits (its rows, its vocab block), 4 teacher-forced
-    ``decode_step`` logits, the local parameters after one
-    ``build_step`` train step whose clip bites, and ``ServeLoop``'s tokens
-    (``case["serve"]``: slots, prompts, new tokens)."""
+    ``decode_step`` logits (the encoder-decoder's with ``case["cross"]``,
+    a global cross-attention cache, of which the rank keeps its rows and
+    kv heads), the local parameters after one ``build_step`` train step
+    whose clip bites, and ``ServeLoop``'s tokens (``case["serve"]``:
+    slots, prompts, new tokens)."""
     import warnings
     import dataclasses
     from repro_torch.ckpt.convert import params_from_numpy
@@ -339,7 +341,7 @@ def tp_cases(rank, n, payload, device):
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.launch.steps import _value_and_grad, build_step
     from repro_torch.models.config import MoEConfig, ShapeConfig
-    from repro_torch.models.lm import DenseLM
+    from repro_torch.models.lm import build_model
     from repro_torch.models.parallel import (ShardCtx, layout_specs,
                                              shard_params)
     from repro_torch.optim.adamw import AdamW
@@ -350,8 +352,7 @@ def tp_cases(rank, n, payload, device):
         cfg = get_config(case["arch"], smoke=True)
         cfg = dataclasses.replace(cfg, dtype="float32", **(
             {"moe": MoEConfig(**case["moe"])} if case.get("moe") else {}))
-        model = DenseLM(cfg, device=device)
-        layout = layout_specs(model)
+        layout = layout_specs(build_model(cfg, device=device))
         full = params_from_numpy(case["params"], cfg, device=device)
         local = shard_params(full, layout, mesh, ctx.coords)
         batch = {k: torch.as_tensor(np.asarray(v), device=device)
@@ -367,8 +368,17 @@ def tp_cases(rank, n, payload, device):
         loss, grads = _value_and_grad(model, local, mine)
         res = {"loss": loss, "grads": grads}
         with torch.no_grad():
-            res["prefill"] = model.prefill(local, {"tokens": mine["tokens"]})
+            res["prefill"] = model.prefill(
+                local, {k: v for k, v in mine.items() if k != "labels"})
             state = model.init_decode_state(mine["tokens"].shape[0], 16)
+            if case.get("cross") is not None:
+                hl = model._heads
+                kv = slice(hl.kv0, hl.kv0 + hl.n_kv)
+                state = dataclasses.replace(state, **{
+                    f: [torch.as_tensor(np.ascontiguousarray(
+                        c[rows, :, kv]), device=device)
+                        for c in case["cross"][f]]
+                    for f in ("cross_k", "cross_v")})
             steps = []
             for t in range(case["decode_steps"]):
                 logits, state = model.decode_step(
@@ -392,4 +402,3 @@ def tp_cases(rank, n, payload, device):
                  for i, p in enumerate(prompts)])]
         out.append(_np(res))
     return {"coords": ctx.coords, "cases": out}
-

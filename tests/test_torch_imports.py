@@ -313,3 +313,35 @@ def test_kernel_mode_aliases(alias, mode):
         assert resolve_kernel_mode(alias, "cpu") is KernelMode.TORCH
     assert resolve_kernel_mode(alias, "cuda") is (
         KernelMode.TORCH if mode == "TORCH" else KernelMode.CUDA)
+
+
+EXAMPLE_MODULES = ["examples/__init__.py", "examples/quickstart.py",
+                   "examples/paper_usecase.py", "examples/elastic_serving.py",
+                   "examples/moe_training.py"]
+
+
+def test_static_check_covers_the_examples():
+    port = ROOT / "src" / "repro_torch"
+    assert {port / m for m in EXAMPLE_MODULES} <= set(PORT_FILES)
+
+
+def test_examples_run_with_jax_blocked():
+    """``python -m repro_torch.examples.<name> --device cpu`` with JAX and
+    the JAX package unimportable: the package is seen, and two of its
+    modules run to their end."""
+    code = (
+        "import pkgutil, runpy, sys, repro_torch.examples as ex\n"
+        "names = sorted(m.name for m in pkgutil.iter_modules(ex.__path__))\n"
+        "for name in ('quickstart', 'paper_usecase'):\n"
+        "    sys.argv = [name, '--device', 'cpu']\n"
+        "    try:\n"
+        "        runpy.run_module('repro_torch.examples.' + name,\n"
+        "                         run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
+        "print(names)\n")
+    out = _run_blocked(code).splitlines()
+    assert out[-1] == str(["elastic_serving", "moe_training",
+                           "paper_usecase", "quickstart"])
+    assert any("bit-exact=True" in line for line in out)
+    assert any("identical output: True" in line for line in out)

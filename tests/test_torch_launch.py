@@ -47,6 +47,7 @@ from repro_torch.models.common import tree_leaves
 from repro_torch.models.config import ShapeConfig, shapes_for
 from repro_torch.models.lm import build_model
 from repro_torch.models.moe import expert_capacity
+from repro_torch.models.parallel import layout_specs, shard_params
 from repro_torch.optim.adamw import AdamW
 
 from _torch_port import smoke_mixtral
@@ -414,14 +415,23 @@ def test_routing_by_address_on_the_recorded_train_step():
 
 
 def test_lower_step_refuses_a_production_mesh():
-    """Only ``DenseLM`` is tensor-parallel: the SSM family's step over the
-    pod names ROADMAP A11."""
-    cfg = get_config("mamba2_780m", smoke=True)
+    """Every family is tensor-parallel now: the SSM family's prefill step
+    lowers on the pod (rank 0 of 16 x 16, described), on its rank's
+    shards, with its collectives among its ops.  (Until every family
+    sharded, this step raised naming ROADMAP A11; the name is kept.)  The
+    published Mamba-2 780M, cut to 2 layers: the smoke config's 8 heads do
+    not divide over 16 devices."""
+    cfg = dataclasses.replace(get_config("mamba2_780m"), n_layers=2)
     pod = make_production_mesh()
     bundle = build_step(cfg, SMOKE_SHAPE["prefill"], pod, multi_pod=False,
                         device="meta")
-    with pytest.raises(NotImplementedError, match="A11"):
-        lower_step(bundle, pod)
+    low = lower_step(bundle, pod)
+    flops, _, colls, _ = roofline.extract(low)
+    one = lower_step(build_step(cfg, SMOKE_SHAPE["prefill"], CARD,
+                                multi_pod=False, device="meta"), CARD)
+    assert 0 < flops < one.cost_analysis()["flops"]
+    assert colls["all-reduce"]["count"] > 0
+    assert colls["all-gather"]["count"] > 0
 
 
 def test_lower_step_on_meta_every_kind():
@@ -479,18 +489,28 @@ def test_run_cell_card_record(tmp_path):
 
 
 def test_run_cell_production_mesh_records_bytes_then_raises(tmp_path):
-    """The published Mamba-2 780M (the smoke config's widths do not divide
-    over 16 devices): its state bytes a device are recorded, then the run
-    names ROADMAP A11."""
-    with pytest.raises(NotImplementedError, match="A11"):
-        dryrun.run_cell("mamba2_780m", "train_4k", "pod", tmp_path)
-    rec = json.loads((tmp_path / "mamba2_780m_train_4k_pod.json")
-                     .read_text())
+    """The published Mamba-2 780M on the pod: the record carries its FLOPs
+    and collectives a device, and the same state bytes as before every
+    family sharded (the name is kept from then, when the run raised naming
+    ROADMAP A11 after writing them): a device's parameter bytes are those
+    of JAX's specs through ``shard_shape``, which are the bytes of the
+    rank's own shards."""
+    rec = dryrun.run_cell("mamba2_780m", "train_4k", "pod", tmp_path)
+    assert rec == json.loads((tmp_path / "mamba2_780m_train_4k_pod.json")
+                             .read_text())
     model = build_model(get_config("mamba2_780m"), device="meta")
     full = sum(t.numel() * 2 for t in tree_leaves(model.param_shapes()))
-    assert rec["chips"] == 256 and rec["flops_per_device"] is None
+    assert rec["chips"] == 256 and rec["flops_per_device"] > 0
     assert full / 256 <= rec["param_bytes"] < full
     assert rec["opt_state_bytes"] == 4 * rec["param_bytes"]
+    pod = make_production_mesh()
+    local = shard_params(model.param_shapes(), layout_specs(model), pod,
+                         (0, 0))
+    assert rec["param_bytes"] == sum(t.numel() * t.element_size()
+                                     for t in tree_leaves(local))
+    for kind in ("all-reduce", "all-gather", "reduce-scatter"):
+        assert rec["collectives"][kind]["moved"] > 0, kind
+    assert rec["collective_bytes_per_device"] > 0 and rec["fits_hbm"]
 
 
 # ----------------------------------------------------------------------

@@ -45,8 +45,9 @@
   is the only difference.  The recorded text has all-gather and
   all-reduce lines.  The (16, 16) and (2, 16, 16) meshes lower for every
   kind, their argument bytes those of the rank's shards.  The other
-  families raise naming ROADMAP A11, and ``run_cell`` on ``pod`` writes
-  FLOPs and collectives.
+  families lower and shard on (2, 2) too (held against JAX in
+  ``tests/test_torch_tensor_parallel_families.py``), and ``run_cell`` on
+  ``pod`` writes FLOPs and collectives.
 """
 import dataclasses
 import json
@@ -74,7 +75,7 @@ from repro_torch.launch.steps import build_step, lower_step
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.config import ShapeConfig
 from repro_torch.models.lm import build_model
-from repro_torch.models.parallel import (Halves, ShardCtx, layout_specs,
+from repro_torch.models.parallel import (Pieces, ShardCtx, layout_specs,
                                          mesh_coords, shard_params,
                                          unshard_params)
 
@@ -154,7 +155,8 @@ def test_shard_params_round_trips_with_jax_shard_shapes(arch, shape):
     # the gated halves: rank r of the model axis holds gate[r] | up[r]
     M = mesh.axis_size("model")
     key = "moe" if model.cfg.moe is not None else "mlp"
-    assert isinstance(layout["layers"][0][key]["w_in"], Halves)
+    assert isinstance(layout["layers"][0][key]["w_in"], Pieces)
+    assert layout["layers"][0][key]["w_in"].widths == (1, 1)
     w = full["layers"][0][key]["w_in"]
     gate, up = w.chunk(2, -1)
     for r, local in enumerate(shards):
@@ -478,16 +480,28 @@ def test_lower_step_on_production_meshes(arch, mesh, kind):
 @pytest.mark.parametrize("arch", ["mamba2_780m", "recurrentgemma_9b",
                                   "whisper_medium"])
 def test_other_families_refuse_a_mesh_naming_a11(arch):
+    """Each of the other families lowers and shards on (2, 2): the train
+    step's rank 0 runs on its local shards with the model axis's
+    collectives, and a prefill bundle built for a described rank holds
+    its shards.  (They raised naming ROADMAP A11 until they sharded; the
+    name is kept.  ``tests/test_torch_tensor_parallel_families.py`` holds
+    them against JAX on live ranks.)"""
     cfg = get_config(arch, smoke=True)
     mesh = make_smoke_mesh(2, 2)
     bundle = build_step(cfg, ShapeConfig("t", 32, 4, "train"), mesh,
                         multi_pod=False, device="meta")
-    with pytest.raises(NotImplementedError, match="A11"):
-        lower_step(bundle, mesh)
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_step(cfg, ShapeConfig("t", 32, 4, "prefill"), mesh,
-                   multi_pod=False, device="meta",
-                   shard=ShardCtx.described(mesh))
+    low = lower_step(bundle, mesh)
+    colls = roofline.parse_collectives(low.as_text())
+    assert low.cost_analysis()["flops"] > 0
+    assert {"all-reduce", "all-gather", "reduce-scatter"} <= set(colls)
+    pre = build_step(cfg, ShapeConfig("t", 32, 4, "prefill"), mesh,
+                     multi_pod=False, device="meta",
+                     shard=ShardCtx.described(mesh))
+    model = pre.model
+    local = shard_params(model.param_shapes(), layout_specs(model), mesh,
+                         (0, 0))
+    assert [tuple(t.shape) for t in tree_leaves(pre.arg_structs[0])] == \
+        [tuple(t.shape) for t in tree_leaves(local)]
 
 
 def test_run_cell_on_pod_writes_flops_and_collectives(tmp_path):
