@@ -22,39 +22,44 @@
 // dim, and neither gives way to the other.
 //
 // 1. bfloat16 at head dims 64, 128 and 256, namespace `tc` (the train
-// step, the bf16 prefill and RecurrentGemma's local attention).  What bounds it: at the train shape (S = 4096, D = 128,
-// causal) the forward does about 1,650 operations per byte of q, k, v and
-// o, far above the card's balance point of about 295, so the bf16
-// tensor-core rate bounds it, and the backward (2.5x the products) too; at
-// RecurrentGemma's (S = 32768, D = 256, a window of 2048) the forward does
-// some 4,000 per byte, bound by the tensor cores as well.
-// What the design does about it:
-// - tiles stay bf16 in shared memory, their 16-byte chunks swizzled so the
-//   tensor-core loads (`ldmatrix`) are free of bank conflicts; no float32
-//   staging;
-// - a ring of two stages fed by `cp.async` loads the next key tile (forward,
-//   dQ) or query tile (dK/dV) while the current one is multiplied;
-// - every product runs on the tensor cores (`mma.sync.m16n8k16`, float32
-//   accumulators); each warp owns whole rows of the product (32 query rows
-//   a warp in the forward, where each K or V fragment then serves two
-//   16-row groups; 16 rows in the backward, whose two accumulators leave no
-//   registers for more), so scores, probabilities and score gradients stay
-//   in registers, are rounded to bf16 there and feed the next product as
-//   its A operand (P V, P^T dO, dS^T Q, dS K); at head dim 256 the forward
-//   gives each warp 16 rows and takes 32-key tiles (see `Fwd`), and a
-//   sliding window of 2048 visits about 66 key tiles a query tile, masked
-//   only at the window's two edges;
+// step, the bf16 prefill and RecurrentGemma's local attention).  What
+// bounds it: at the train shape (S = 4096, D = 128, causal) the forward
+// does about 1,650 operations per byte of q, k, v and o, far above the
+// card's balance point of about 295, so the bf16 tensor-core rate bounds
+// it, and the backward (2.5x the products) too; at RecurrentGemma's (S =
+// 32768, D = 256, a window of 2048) the forward does some 4,000 per byte,
+// bound by the tensor cores as well.  Hopper's tensor cores reach that rate
+// only through `wgmma`, an asynchronous warpgroup product that reads its
+// operands from shared memory in the layout of a 128-byte swizzle (or A
+// from registers), so the design at head dims 64 and 128 (see "the
+// warp-specialised kernels" below) is built around keeping them fed:
+// - every product is a `wgmma` with float32 accumulators, in blocks of
+//   three warpgroups: a producer that brings every tile in by TMA (its map
+//   swizzles the tile into the panel layout `wgmma` reads, and zero-fills
+//   rows past Sq or Sk) through a ring of three stages under `mbarrier`s, and
+//   hands its registers to two consumer warpgroups of 64 rows each;
+// - within a consumer the next product is issued before the current tile's
+//   probabilities or score gradients are formed, so that arithmetic runs
+//   while the tensor cores work (forward: S of key tile j + 1 and P V of
+//   tile j; dQ: S and dP of tile j + 1 and dS K of tile j; dK/dV: S^T and
+//   dP^T together, then dV while dS^T is formed);
+// - scores, probabilities and score gradients stay in registers, are
+//   rounded to bf16 there and feed the next product as its A operand (P V,
+//   P^T dO, dS^T Q, dS K);
 // - the online softmax runs in exp2 with the scale folded into log2(e); the
 //   mask is applied only to tiles that hold a masked pair (the diagonal, the
 //   window's edge, the `true_k` edge); fully live tiles skip it;
 // - the query tiles with the most key tiles are scheduled first, which evens
 //   out the causal imbalance across the card;
-// - the backward at head dims 64 and 128 keeps three launches: delta =
-//   rowsum(dO * O); dK/dV, one block per key tile, each warp computing
-//   S^T = K Q^T and dP^T = V dO^T for its 16 keys so that P^T and dS^T are
-//   already A operands; and dQ, which recomputes S and dP (two products
+// - the backward keeps three launches: delta = rowsum(dO * O); dK/dV, one
+//   block per key tile of 128, S^T = K Q^T and dP^T = V dO^T once a (head,
+//   query tile of 64), so P^T and dS^T are already A operands; and dQ, one
+//   block per query tile of 128, which recomputes S and dP (two products
 //   more than accumulating dQ with atomics, but deterministic: two runs
 //   give the same gradients).
+// The forward at head dim 256 is `fwd_kernel<256>` on `mma.sync` (16 rows
+// a warp, 32-key tiles in a `cp.async` ring, see `Fwd`); its redesign can
+// take the warp-specialised forward's structure.
 // The backward at head dim 256 (RecurrentGemma's train step: 16 query heads
 // on one kv head, a window of 2048) runs on wgmma in four launches (see
 // "the backward on wgmma" below): delta; dK/dV, one block per (key tile of
@@ -74,10 +79,15 @@
 // (bwd_bench.py, H100, 700 W): 1.10-1.23 ms a call at the train shape, of
 // which 1.03-1.05 on the device, against a 0.261 ms bound and 2.66-2.79 ms
 // for the mma.sync kernels.
-// Why mma.sync at head dims 64 and 128: `wgmma` needs 64-row warpgroup
-// tiles, shared-memory descriptors that match the 128-byte swizzle and
-// warpgroup-wide synchronisation; a `wgmma` version at head dim 128 was
-// not kept, for its seed-0 train loss (ROADMAP B12).
+// Why `mma.sync` is gone at head dims 64 and 128: an earlier `wgmma`
+// version was set aside because the train cell's loss rose at seed 0.
+// Measured against float32 (PERF.md, section 6), the cell's step-1
+// gradients lie as far from the exact ones on the `mma.sync` kernels as on
+// the plain path (about 95% of their signs agreeing on either, 99.95% of
+// the large ones), and AdamW's first step follows every sign: the loss at
+// seed 0 moves by more than 1 with rounding alone, so the cell cannot tell
+// two right kernels apart.  The `wgmma` kernels read the same distances
+// from float32 as `mma.sync`'s at the flash level, in less time.
 
 // 2. float32 at head dims 64, 128 and 256, and both types at the smoke
 // configs' head dims 8, 12 and 16: float32 FMA on the CUDA cores, 64 x 64 tiles widened to float32 in shared memory, 256 threads each
@@ -95,6 +105,7 @@
 // "fma")`, `launch_bwd`).
 //
 // Every `flash_*` function returns the `cudaError_t` of its launches.
+#include <cuda.h>   // CUtensorMap and its enums; the entry point comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -911,10 +922,12 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 }
 
 // ===========================================================================
-// bfloat16 at head dims 64 and 128: tensor-core kernels (mma.sync m16n8k16)
+// bfloat16: the tensor-core kernels.  First the forward at head dim 256 on
+// mma.sync m16n8k16, then the wgmma helpers, the backward at 256 and the
+// warp-specialised kernels at 64 and 128
 // ===========================================================================
 //
-// Tiles are bf16 in shared memory, rows of D values with their 16-byte
+// mma.sync: tiles are bf16 in shared memory, rows of D values with their 16-byte
 // chunks swizzled (chunk c of row r sits at c ^ (r & 7)), so the eight rows
 // an `ldmatrix` reads fall in eight distinct bank groups.  `cp.async` with a
 // zero-filled tail brings them in; a ragged row past Sq or Sk reads zeros.
@@ -1109,49 +1122,24 @@ __device__ __forceinline__ void zero(float (&c)[MI][NTILES][4]) {
       for (int e = 0; e < 4; ++e) c[m][j][e] = 0.f;
 }
 
-// Forward: 4 warps, each owning 16 MI query rows; K and V in a ring of two.
-// At head dims 64 and 128, MI = 2 (query tile 128), so one K or V fragment
-// serves two row groups, and the key tile is 64.  At 256, MI = 1 (query
-// tile 64): 32 rows a warp would take 256 float32 output accumulators a
-// thread, more than the 255 registers it may have; 16 rows take 128.  Its
-// key tile is 32: Q (32 KB) and the ring (64 KB) take 96 KB of shared
-// memory, so two blocks share an SM, and nothing spills; 64-key tiles took
-// 160 KB, one block per SM, spilled 152 bytes and ran 1.4x as long
-// (PERF.md, section 6).
+// Forward at head dim 256 (64 and 128 run `fwd_ws_kernel`): 4 warps, each
+// owning 16 MI query rows; K and V in a ring of two.  MI = 1 (query tile
+// 64): 32 rows a warp would take 256 float32 output accumulators a thread,
+// more than the 255 registers it may have; 16 rows take 128.  Its key tile
+// is 32: Q (32 KB) and the ring (64 KB) take 96 KB of shared memory, so two
+// blocks share an SM, and nothing spills; 64-key tiles took 160 KB, one
+// block per SM, spilled 152 bytes and ran 1.4x as long (PERF.md, section
+// 6).
 template <int D>
 struct Fwd {
-  static constexpr int MI = D >= 256 ? 1 : 2;
-  static constexpr int BK = D >= 256 ? 32 : 64;
+  static_assert(D == 256, "head dims 64 and 128 run fwd_ws_kernel");
+  static constexpr int MI = 1;
+  static constexpr int BK = 32;
   static constexpr int THREADS = 128;
   static constexpr int BQ = THREADS / 32 * 16 * MI;
 };
-// dK/dV (head dims 64 and 128): 16 keys a warp, 8 warps (key tile 128), a
-// ring of two query tiles of 64, every output column a block.
-template <int D>
-struct Dkdv {
-  static constexpr int THREADS = NT;
-  static constexpr int BK = THREADS / 32 * 16;
-  static constexpr int BQ = 64;
-  static constexpr int DO = D;   // output columns a block
-};
-// dQ (head dims 64 and 128): query tile 128 (16 a warp), a ring of two key
-// tiles of 64.
-template <int D>
-struct Dq {
-  static constexpr int BQ = 128;
-  static constexpr int BK = 64;
-};
-
 template <int D>
 constexpr size_t fwd_smem() { return (size_t)(Fwd<D>::BQ + 4 * Fwd<D>::BK) * D * sizeof(bf16); }
-template <int D>
-constexpr size_t dkdv_smem() {
-  return (size_t)(2 * Dkdv<D>::BK + 4 * Dkdv<D>::BQ) * D * sizeof(bf16) +
-         4 * Dkdv<D>::BQ * sizeof(float);
-}
-template <int D>
-constexpr size_t dq_smem() { return (size_t)(2 * Dq<D>::BQ + 4 * Dq<D>::BK) * D * sizeof(bf16); }
-
 // ---------------------------------------------------------------------------
 // forward: one block per (batch * head, query tile), the query tiles with the
 // most key tiles first
@@ -1285,223 +1273,6 @@ fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward, dK and dV: one block per (batch * kv head, key tile of 128 rows),
-// looping over the G query heads and the query tiles that see the key tile;
-// each warp owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T, so P^T
-// and dS^T are already the A operands of dV += P^T dO and dK += dS^T Q
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(Dkdv<D>::THREADS, 1)
-dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            const bf16* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-            Params p) {
-  constexpr int BQ_ = Dkdv<D>::BQ, BK_ = Dkdv<D>::BK, NTH = Dkdv<D>::THREADS;
-  constexpr int NS = BQ_ / 8;           // score n-tiles (queries)
-  constexpr int NO = Dkdv<D>::DO / 8;   // output n-tiles of this block's columns
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BK_ * D;
-  bf16* sQ = sV + BK_ * D;        // [2][BQ_][D]
-  bf16* sG = sQ + 2 * BQ_ * D;    // dO, [2][BQ_][D]
-  float* sL = reinterpret_cast<float*>(sG + 2 * BQ_ * D);  // lse, [2][BQ_]
-  float* sDl = sL + 2 * BQ_;                               // delta, [2][BQ_]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.y * BK_;
-  const int b = blockIdx.x / p.Kv, kvh = blockIdx.x % p.Kv;
-  const int col0 = blockIdx.z * Dkdv<D>::DO;   // this block's columns of dK and dV
-  const int G = p.H / p.Kv;
-  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
-  const size_t k_off = ((size_t)b * p.Sk * p.Kv + kvh) * D + (size_t)k0 * k_pitch;
-  const float sl2 = p.scale * LOG2E;
-
-  int qt0 = 0, qt1 = 0;
-  if (k0 < p.true_k) query_tiles<BQ_, BK_>(p, k0, &qt0, &qt1);
-  const int nqt = max(qt1 - qt0, 0);
-  const int n = G * nqt;
-
-  // stage `st` <- query tile `i` of the flattened (head, query tile) loop
-  auto load_q = [&](int i, int st) {
-    const int h = kvh * G + i / nqt, q1 = (qt0 + i % nqt) * BQ_;
-    const size_t off = ((size_t)b * p.Sq * p.H + h) * D + (size_t)q1 * q_pitch;
-    load_tile<BQ_, D, NTH>(sQ + st * BQ_ * D, q + off, q_pitch, p.Sq - q1);
-    load_tile<BQ_, D, NTH>(sG + st * BQ_ * D, dout + off, q_pitch, p.Sq - q1);
-    const size_t r_off = ((size_t)b * p.H + h) * p.Sq + q1;
-    const int i_row = threadIdx.x & (BQ_ - 1);
-    const bool ok = q1 + i_row < p.Sq;
-    if (threadIdx.x < BQ_)
-      cp_async4(smem_u32(sL + st * BQ_ + i_row), ok ? lse + r_off + i_row : lse, ok);
-    else if (threadIdx.x < 2 * BQ_)
-      cp_async4(smem_u32(sDl + st * BQ_ + i_row), ok ? delta + r_off + i_row : delta, ok);
-  };
-
-  load_tile<BK_, D, NTH>(sK, k + k_off, k_pitch, p.Sk - k0);
-  load_tile<BK_, D, NTH>(sV, v + k_off, k_pitch, p.Sk - k0);
-  if (n > 0) load_q(0, 0);
-  cp_async_commit();
-
-  float gk[1][NO][4], gv[1][NO][4];
-  zero(gk);
-  zero(gv);
-  const int r0 = warp * 16;
-  const int key0 = k0 + r0 + g;  // this thread's keys: key0 and key0 + 8
-
-  for (int it = 0; it < n; ++it) {
-    const int st = it & 1;
-    const int q1 = (qt0 + it % nqt) * BQ_;
-    if (it + 1 < n) load_q(it + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const bf16* cQ = sQ + st * BQ_ * D;
-    const bf16* cG = sG + st * BQ_ * D;
-    float s[1][NS][4], dp[1][NS][4];
-    zero(s);
-    zero(dp);
-    tile_times_tile_t<D, 1, NS>(s, sK, r0, cQ, lane);
-    tile_times_tile_t<D, 1, NS>(dp, sV, r0, cG, lane);
-
-    const bool masked = needs_mask(p, q1, BQ_, k0, BK_);
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);  // query row of the tile
-        float pe = fast_exp2(fmaf(s[0][j][e], sl2, -sL[st * BQ_ + col] * LOG2E));
-        if (masked && !live(p, p.q_offset + q1 + col, key0 + (e >> 1) * 8)) pe = 0.f;
-        s[0][j][e] = pe;
-        dp[0][j][e] = pe * (dp[0][j][e] - sDl[st * BQ_ + col]);
-      }
-    }
-    acc_times_tile<D, 1, BQ_ / 16, NO>(gv, s, cG, lane, col0);
-    acc_times_tile<D, 1, BQ_ / 16, NO>(gk, dp, cQ, lane, col0);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-  const int row0 = key0, row1 = key0 + 8;
-  const size_t base = ((size_t)b * p.Sk * p.Kv + kvh) * D + col0 + 2 * t;
-#pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    if (row0 < p.Sk) {
-      const size_t off = base + (size_t)row0 * k_pitch + j * 8;
-      *reinterpret_cast<uint32_t*>(dk + off) =
-          pack_bf16(gk[0][j][0] * p.scale, gk[0][j][1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(gv[0][j][0], gv[0][j][1]);
-    }
-    if (row1 < p.Sk) {
-      const size_t off = base + (size_t)row1 * k_pitch + j * 8;
-      *reinterpret_cast<uint32_t*>(dk + off) =
-          pack_bf16(gk[0][j][2] * p.scale, gk[0][j][3] * p.scale);
-      *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(gv[0][j][2], gv[0][j][3]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward, dQ: one block per (batch * head, query tile of 128 rows), the
-// query tiles with the most key tiles first; recomputes S and dP, so no
-// atomics and the result does not depend on the order blocks run in
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NT, 1)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-          const bf16* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, bf16* __restrict__ dq, Params p) {
-  constexpr int BQ_ = Dq<D>::BQ, BK_ = Dq<D>::BK;
-  constexpr int NS = BK_ / 8;
-  constexpr int NO = D / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sG = sQ + BQ_ * D;
-  bf16* sK = sG + BQ_ * D;       // [2][BK_][D]
-  bf16* sV = sK + 2 * BK_ * D;   // [2][BK_][D]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = ((p.Sq + BQ_ - 1) / BQ_ - 1 - (int)blockIdx.y) * BQ_;
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int kvh = h / (p.H / p.Kv);
-  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
-  const size_t q_off = ((size_t)b * p.Sq * p.H + h) * D + (size_t)q0 * q_pitch;
-  const bf16* kb = k + ((size_t)b * p.Sk * p.Kv + kvh) * D;
-  const bf16* vb = v + ((size_t)b * p.Sk * p.Kv + kvh) * D;
-  const float sl2 = p.scale * LOG2E;
-
-  int kt0, kt1;
-  key_tiles<BQ_, BK_>(p, q0, &kt0, &kt1);
-  const int n = kt1 - kt0;
-  load_tile<BQ_, D>(sQ, q + q_off, q_pitch, p.Sq - q0);
-  load_tile<BQ_, D>(sG, dout + q_off, q_pitch, p.Sq - q0);
-  if (n > 0) {
-    load_tile<BK_, D>(sK, kb + (size_t)kt0 * BK_ * k_pitch, k_pitch, p.Sk - kt0 * BK_);
-    load_tile<BK_, D>(sV, vb + (size_t)kt0 * BK_ * k_pitch, k_pitch, p.Sk - kt0 * BK_);
-  }
-  cp_async_commit();
-
-  const int r0 = warp * 16;
-  const int row0 = q0 + r0 + g, row1 = row0 + 8;
-  const size_t r_off = ((size_t)b * p.H + h) * p.Sq;
-  const float lse0 = row0 < p.Sq ? lse[r_off + row0] * LOG2E : 0.f;
-  const float lse1 = row1 < p.Sq ? lse[r_off + row1] * LOG2E : 0.f;
-  const float dl0 = row0 < p.Sq ? delta[r_off + row0] : 0.f;
-  const float dl1 = row1 < p.Sq ? delta[r_off + row1] : 0.f;
-  const int qpos0 = p.q_offset + row0;
-
-  float gq[1][NO][4];
-  zero(gq);
-  for (int it = 0; it < n; ++it) {
-    const int k0 = (kt0 + it) * BK_;
-    const int st = it & 1;
-    if (it + 1 < n) {
-      const int k1 = k0 + BK_;
-      load_tile<BK_, D>(sK + (st ^ 1) * BK_ * D, kb + (size_t)k1 * k_pitch, k_pitch, p.Sk - k1);
-      load_tile<BK_, D>(sV + (st ^ 1) * BK_ * D, vb + (size_t)k1 * k_pitch, k_pitch, p.Sk - k1);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const bf16* cK = sK + st * BK_ * D;
-    float s[1][NS][4], dp[1][NS][4];
-    zero(s);
-    zero(dp);
-    tile_times_tile_t<D, 1, NS>(s, sQ, r0, cK, lane);
-    tile_times_tile_t<D, 1, NS>(dp, sG, r0, sV + st * BK_ * D, lane);
-
-    const bool masked = needs_mask(p, q0, BQ_, k0, BK_);
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool hi = e >> 1;
-        float pe = fast_exp2(fmaf(s[0][j][e], sl2, -(hi ? lse1 : lse0)));
-        if (masked && !live(p, qpos0 + hi * 8, k0 + j * 8 + 2 * t + (e & 1))) pe = 0.f;
-        dp[0][j][e] = pe * (dp[0][j][e] - (hi ? dl1 : dl0));
-      }
-    }
-    acc_times_tile<D, 1, BK_ / 16, NO>(gq, dp, cK, lane);
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-  bf16* d0 = dq + q_off + ((size_t)(r0 + g)) * q_pitch + 2 * t;
-  bf16* d1 = d0 + 8 * q_pitch;
-#pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    if (row0 < p.Sq)
-      *reinterpret_cast<uint32_t*>(d0 + j * 8) =
-          pack_bf16(gq[0][j][0] * p.scale, gq[0][j][1] * p.scale);
-    if (row1 < p.Sq)
-      *reinterpret_cast<uint32_t*>(d1 + j * 8) =
-          pack_bf16(gq[0][j][2] * p.scale, gq[0][j][3] * p.scale);
-  }
-}
-
 template <typename K>
 cudaError_t set_smem(K kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1516,36 +1287,6 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, flo
   fwd_kernel<D><<<grid, Fwd<D>::THREADS, fwd_smem<D>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), lse, p);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* o,
-                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, const Params& p, cudaStream_t stream) {
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* gt = static_cast<const bf16*>(dout);
-  const size_t n_rows = (size_t)p.B * p.Sq * p.H;
-  delta_kernel<bf16><<<(unsigned)((n_rows * 32 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      static_cast<const bf16*>(o), gt, delta, p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  using KV = Dkdv<D>;
-  err = set_smem(dkdv_kernel<D>, dkdv_smem<D>());
-  if (err != cudaSuccess) return err;
-  dkdv_kernel<D><<<dim3(p.B * p.Kv, (p.Sk + KV::BK - 1) / KV::BK, D / KV::DO), KV::THREADS,
-                   dkdv_smem<D>(), stream>>>(qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dk),
-                                             static_cast<bf16*>(dv), p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  err = set_smem(dq_kernel<D>, dq_smem<D>());
-  if (err != cudaSuccess) return err;
-  dq_kernel<D><<<dim3(p.B * p.H, (p.Sq + Dq<D>::BQ - 1) / Dq<D>::BQ), NT, dq_smem<D>(), stream>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<bf16*>(dq), p);
   return cudaGetLastError();
 }
 
@@ -1571,6 +1312,14 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 // warp of the warpgroup, the m16n8 layout of its 16 rows, which is also the
 // A fragment a register-sourced wgmma takes, so dS feeds dQ += dS K from
 // registers.
+//
+// The helpers below are shared with the warp-specialised kernels at head
+// dims 64 and 128: `wg_desc`, `kmajor` and `mnmajor` take any tile of D / 64
+// panels (the panel of a K-major step kk is kk / 4; an MN-major B of N > 64
+// columns spans N / 64 panels, LBO apart), the TMA boxes land in the same
+// panels, and the wgmma wrappers come in the shapes each kernel needs
+// (m64n32, m64n64 and m64n128 from shared memory; m64n64, m64n128 and
+// m64n256 with A from registers).
 
 __device__ __forceinline__ uint64_t wg_desc(const void* ptr, uint32_t lbo, uint32_t sbo) {
   const uint32_t a = smem_u32(ptr);
@@ -1583,6 +1332,9 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -1665,6 +1417,79 @@ __device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[128], const uint32_t
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[32] = A (shared, K-major) * B (shared, K-major) + (acc ? d : 0): m64n64k16
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[64] = A (shared, K-major) * B (shared, K-major) + (acc ? d : 0): m64n128k16
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[32] = A (registers, the m16n8k16 A fragment of each warp's 16 rows) *
+// B (shared, MN-major) + (acc ? d : 0): m64n64k16
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// d[64] = A (registers) * B (shared, MN-major) + (acc ? d : 0): m64n128k16
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
 namespace w256 {
@@ -2068,6 +1893,771 @@ cudaError_t launch_bwd_256(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+// ===========================================================================
+// bfloat16 at head dims 64 and 128: the warp-specialised kernels, forward,
+// dK/dV and dQ on wgmma, fed by a producer warp through TMA
+// ===========================================================================
+//
+// Three warpgroups a block (384 threads).  Warpgroup 0 is the producer: it
+// gives up its registers (`setmaxnreg.dec` to 24) and one thread of it
+// issues every load as a TMA copy (`cp.async.bulk.tensor`) of a box of 64
+// rows x 64 columns of one head, through a `CUtensorMap` over the [B, S,
+// heads, D] tensor: the map's 128-byte swizzle writes the box in the panel
+// layout `pswz` describes (16-byte chunk c of row r at c ^ (r & 7)), rows
+// past S arrive as zeros, and the copy reports its bytes to an `mbarrier`.
+// Warpgroups 1 and 2 are the consumers (`setmaxnreg.inc` to 240), 64 rows
+// of the product each: they wait on a stage's "full" barrier, run their
+// products on wgmma with float32 accumulators, and arrive on its "empty"
+// barrier (all 256 consumer threads), which lets the producer refill it.
+// The ring holds STAGES (3) tiles, so the next tiles' copies run while the
+// current ones are multiplied; neither side stalls the other but on an
+// empty or a full ring (with two, the forward and dK/dV took 6-9% longer
+// on the card).  Scores, probabilities and score gradients stay in the
+// consumers' registers: an m64nN accumulator is, in each warp, the m16n8
+// layout of its 16 rows, which is the register A fragment of the next
+// product (P V, P^T dO, dS^T Q, dS K).  Nothing is staged through shared
+// memory but the tiles the producer brings in, and no `__syncthreads`
+// follows the barriers' set-up.
+//
+// A consumer issues its next product before it forms the current tile's
+// probabilities or score gradients, and waits (`wgmma.wait_group 1`) only
+// for the product whose result it reads.  ptxas serialises every wgmma of
+// a kernel (warnings C7513-C7515) if a register that a running wgmma reads
+// or writes is touched, so the accumulators are zeroed by the first step's
+// scale-d = 0 rather than by stores, and a product's register A fragments
+// alternate between two arrays instead of being copied.  In the forward
+// the two consumers also take turns to issue (named barriers), so one's
+// softmax runs while the other's products hold the tensor cores.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// The producer's arrival on a "full" barrier, with the bytes its copies bring.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred P;\nmbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+// One box of 64 rows x 64 columns: columns [c, c + 64) of head h, rows
+// [s, s + 64) of batch b, into the 8 KB at `dst` (1024-byte aligned).
+__device__ __forceinline__ void tma_box(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c,
+                                        int h, int s, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(h), "r"(s), "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+// Rows [s0, s0 + ROWS) of head h of batch b, all D columns, into the panel
+// tile `dst` ([D / 64][ROWS][64]); ROWS * D * 2 bytes onto `bar`.
+template <int ROWS, int D>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar, int h,
+                                         int s0, int b) {
+#pragma unroll
+  for (int pnl = 0; pnl < D / 64; ++pnl)
+#pragma unroll
+    for (int r = 0; r < ROWS; r += 64) tma_box(dst + pnl * ROWS * 64 + r * 64, map, bar, 64 * pnl, h, s0 + r, b);
+}
+// Named barrier `id` of `n` threads: wait for it, or arrive without waiting.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// P (or dS) of a warpgroup's m64nK accumulator as the A fragments of K / 16
+// 16-deep steps, rounded to bf16.
+template <int K>
+__device__ __forceinline__ void acc_to_a(const float (&x)[K / 2], uint32_t (&a)[K / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+namespace ws {
+constexpr int NTH = 384;          // producer warpgroup + two consumer warpgroups
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int STAGES = 3;
+constexpr int FWD_BQ = 128, FWD_BK = 128;   // forward: query tile, key tile a stage
+constexpr int KV_BK = 128, KV_BQ = 64;      // dK/dV: key tile, query tile a stage
+constexpr int Q_BQ = 128, Q_BK = 64;        // dQ: query tile, key tile a stage
+constexpr size_t ALIGN = 1024;
+constexpr size_t BARS = 64 * sizeof(uint64_t);
+template <int D>
+constexpr size_t fwd_smem() { return (size_t)(FWD_BQ + 2 * STAGES * FWD_BK) * D * 2 + ALIGN + BARS; }
+template <int D>
+constexpr size_t dkdv_smem() {
+  return (size_t)(2 * KV_BK + 2 * STAGES * KV_BQ) * D * 2 + 2 * STAGES * KV_BQ * sizeof(float) +
+         ALIGN + BARS;
+}
+template <int D>
+constexpr size_t dq_smem() { return (size_t)(2 * Q_BQ + 2 * STAGES * Q_BK) * D * 2 + ALIGN + BARS; }
+}  // namespace ws
+
+// ---------------------------------------------------------------------------
+// forward: one block per (batch * head, query tile of 128), the query tiles
+// with the most key tiles first.  The producer brings Q once and K, V a key
+// tile of 128 a stage (K and V on barriers of their own, so S = Q K^T starts
+// before V has landed); consumer warpgroup w owns query rows [64 w, 64 w +
+// 64): S = Q K^T (m64n128, both K-major), the online softmax in exp2 on the
+// accumulator, P rounded to bf16 in registers, O += P V (m64nD, V
+// MN-major).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(ws::NTH, 1)
+fwd_ws_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+              const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+              float* __restrict__ lse, Params p) {
+  using namespace ws;
+  constexpr int BQ = FWD_BQ, BK = FWD_BK;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* sQ = align_smem(smem_raw);   // [D / 64][BQ][64]
+  bf16* sK = sQ + BQ * D;            // [STAGES][D / 64][BK][64]
+  bf16* sV = sK + STAGES * BK * D;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * BK * D);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty = full_v + STAGES;
+
+  const int wg = threadIdx.x >> 7;
+  const int q0 = ((p.Sq + BQ - 1) / BQ - 1 - (int)blockIdx.y) * BQ;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.Kv);
+  int kt0, kt1;
+  key_tiles<BQ, BK>(p, q0, &kt0, &kt1);
+  const int n = max(kt1 - kt0, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full_k + st, 1);
+      mbar_init(full_v + st, 1);
+      mbar_init(empty + st, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, BQ * D * 2);
+      tma_tile<BQ, D>(sQ, &mq, bar_q, h, q0, b);
+      for (int it = 0; it < n; ++it) {
+        const int st = it % STAGES;
+        if (it >= STAGES) mbar_wait(empty + st, (it / STAGES - 1) & 1);
+        const int k0 = (kt0 + it) * BK;
+        mbar_expect_tx(full_k + st, BK * D * 2);
+        tma_tile<BK, D>(sK + st * BK * D, &mk, full_k + st, kvh, k0, b);
+        mbar_expect_tx(full_v + st, BK * D * 2);
+        tma_tile<BK, D>(sV + st * BK * D, &mv, full_v + st, kvh, k0, b);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1;   // this warpgroup's rows [64 cw, 64 cw + 64) of the tile
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wq0 = q0 + 64 * cw;
+  const int qpos0 = p.q_offset + wq0 + 16 * warp + g;
+  const float sl2 = p.scale * LOG2E;
+
+  float acc[D / 2];
+  zero_regs(acc);
+  // running max (log2 units) and this thread's share of the row sum, rows g
+  // and g + 8 of its warp's 16
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+  // S = Q K^T of key tile `it` into s (its first step overwrites s):
+  // issued and committed, not waited for.
+  auto issue_scores = [&](float (&s)[BK / 2], int it) {
+    const int st = it % STAGES;
+    mbar_wait(full_k + st, (it / STAGES) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, kmajor<BQ>(sQ, 64 * cw, kk), kmajor<BK>(sK + st * BK * D, 0, kk), kk > 0);
+    wg_commit();
+  };
+  // O += P V of key tile `it`, P in a: issued and committed.
+  auto issue_pv = [&](const uint32_t (&a)[BK / 16][4], int it) {
+    const int st = it % STAGES;
+    mbar_wait(full_v + st, (it / STAGES) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_tb(acc, a[kk], mnmajor<BK>(sV + st * BK * D, 0, kk));
+    wg_commit();
+  };
+  // Key tile `it`'s scores in s, masked on an edge tile, into probabilities
+  // against the new running max; alpha: each row's factor for the output.
+  auto softmax = [&](float (&s)[BK / 2], int it, float (&alpha)[2]) {
+    const int k0 = (kt0 + it) * BK;
+    if (needs_mask(p, wq0, 64, k0, BK)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!live(p, qpos0 + (e >> 1) * 8, k0 + j * 8 + 2 * t + (e & 1))) s[4 * j + e] = -INFINITY;
+    }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hi], s[4 * j + 2 * hi + 1]));
+      const float mn = fmaxf(mrow[hi], quad_max(mx) * sl2);
+      const float base = mn == -INFINITY ? 0.f : mn;
+      alpha[hi] = fast_exp2(mrow[hi] - base);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 2 * hi; e < 2 * hi + 2; ++e) {
+          s[4 * j + e] = fast_exp2(fmaf(s[4 * j + e], sl2, -base));
+          rs += s[4 * j + e];
+        }
+      }
+      lrow[hi] = alpha[hi] * lrow[hi] + rs;   // summed over the quad at the end
+      mrow[hi] = mn;
+    }
+  };
+
+  // Each step issues S of key tile `it` and then O += P V of tile it - 1,
+  // and forms tile it's probabilities while that product runs; the last
+  // P V follows the loop.
+  // The two consumers take turns to issue their products (named barriers
+  // 1 and 2, each waited on by its consumer and arrived at by the other),
+  // so one's softmax runs while the other's products hold the tensor
+  // cores; consumer 0 goes first, and each issues n + 1 times.
+  const int bar_own = 1 + cw, bar_other = 2 - cw;
+  auto take_turn = [&]() { named_sync(bar_own, 256); };
+  auto pass_turn = [&](bool last) {
+    if (!(last && cw == 1)) named_arrive(bar_other, 256);
+  };
+  mbar_wait(bar_q, 0);
+  if (cw == 1 && n > 0) named_arrive(bar_other, 256);
+  uint32_t a[BK / 16][4];   // P of the tile whose P V comes next
+  float s[BK / 2], alpha[2];
+  if (n > 0) {
+    take_turn();
+    issue_scores(s, 0);
+    pass_turn(false);
+    wg_wait0();
+    fence_regs(s);
+    softmax(s, 0, alpha);   // the output is still zero
+    acc_to_a<BK>(s, a);
+  }
+  for (int it = 1; it < n; ++it) {
+    take_turn();
+    issue_scores(s, it);
+    fence_regs(acc);
+    issue_pv(a, it - 1);
+    pass_turn(false);
+    wg_wait1();   // S is in; P V may still run
+    fence_regs(s);
+    softmax(s, it, alpha);
+    wg_wait0();
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+    acc_to_a<BK>(s, a);
+    mbar_arrive(empty + (it - 1) % STAGES);   // K and V of tile it - 1 are read
+  }
+  if (n > 0) {
+    take_turn();
+    fence_regs(acc);
+    issue_pv(a, n - 1);
+    pass_turn(true);
+    wg_wait0();
+    fence_regs(acc);
+    mbar_arrive(empty + (n - 1) % STAGES);
+  }
+
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const float l = quad_sum(lrow[hi]);
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    const int row = wq0 + 16 * warp + 8 * hi + g;
+    if (row >= p.Sq) continue;
+    bf16* orow = o + ((size_t)b * p.Sq * p.H + (size_t)row * p.H + h) * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + j * 8) =
+          pack_bf16(acc[4 * j + 2 * hi] * inv, acc[4 * j + 2 * hi + 1] * inv);
+    if (t == 0)
+      lse[((size_t)b * p.H + h) * p.Sq + row] = l > 0.f ? (mrow[hi] + log2f(l)) * LN2 : -INFINITY;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK and dV: one block per (batch * kv head, key tile of 128), looping over
+// the G query heads of the kv head and the query tiles of 64 that see the
+// key tile.  The producer brings K and V once and (Q, dO) a query tile a
+// stage; its warp also copies the tile's lse and delta into the stage
+// (zero past Sq, where Q and dO are zero too, so those rows add nothing),
+// every lane arriving on the stage's "full" barrier after its stores.
+// Consumer warpgroup w owns keys [64 w, 64 w + 64): S^T = K Q^T and dP^T =
+// V dO^T (m64n64, both K-major) once a (head, query tile), P^T and dS^T in
+// float32, then dV += P^T dO and dK += dS^T Q (m64nD, P^T and dS^T as
+// register A fragments, Q and dO MN-major).  At D = 128 that is 64 + 64
+// accumulators for dK and dV, 32 + 32 for S^T and dP^T and 16 + 16 for the
+// fragments a thread, within the consumers' 240 registers: nothing spills
+// and nothing goes through shared memory.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(ws::NTH, 1)
+dkdv_ws_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+               const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, Params p) {
+  using namespace ws;
+  constexpr int BK = KV_BK, BQ = KV_BQ;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* sK = align_smem(smem_raw);   // [D / 64][BK][64]
+  bf16* sV = sK + BK * D;
+  bf16* sQ = sV + BK * D;            // [STAGES][D / 64][BQ][64]
+  bf16* sG = sQ + STAGES * BQ * D;   // dO
+  float* sL = reinterpret_cast<float*>(sG + STAGES * BQ * D);   // lse, [STAGES][BQ]
+  float* sDl = sL + STAGES * BQ;                                // delta
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sDl + STAGES * BQ);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int wg = threadIdx.x >> 7;
+  const int k0 = blockIdx.y * BK;
+  const int b = blockIdx.x / p.Kv, kvh = blockIdx.x % p.Kv;
+  const int G = p.H / p.Kv;
+  int qt0 = 0, qt1 = 0;
+  if (k0 < p.true_k) query_tiles<BQ, BK>(p, k0, &qt0, &qt1);
+  const int nqt = max(qt1 - qt0, 0);
+  const int n = G * nqt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + st, 32);
+      mbar_init(empty + st, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // producer: warp 0, one thread for the copies
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * BK * D * 2);
+      tma_tile<BK, D>(sK, &mk, bar_kv, kvh, k0, b);
+      tma_tile<BK, D>(sV, &mv, bar_kv, kvh, k0, b);
+    }
+    for (int it = 0; it < n; ++it) {
+      const int st = it % STAGES;
+      const int h = kvh * G + it / nqt, q1 = (qt0 + it % nqt) * BQ;
+      if (it >= STAGES) mbar_wait(empty + st, (it / STAGES - 1) & 1);
+      const size_t r_off = ((size_t)b * p.H + h) * p.Sq;
+#pragma unroll
+      for (int r = lane; r < BQ; r += 32) {
+        const bool ok = q1 + r < p.Sq;
+        sL[st * BQ + r] = ok ? lse[r_off + q1 + r] : 0.f;
+        sDl[st * BQ + r] = ok ? delta[r_off + q1 + r] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(full + st, 2 * BQ * D * 2);
+        tma_tile<BQ, D>(sQ + st * BQ * D, &mq, full + st, h, q1, b);
+        tma_tile<BQ, D>(sG + st * BQ * D, &mdo, full + st, h, q1, b);
+      } else {
+        mbar_arrive(full + st);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1;   // this warpgroup's keys [64 cw, 64 cw + 64) of the tile
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk0 = k0 + 64 * cw;
+  const int key0 = wk0 + 16 * warp + g;   // this thread's keys key0 and key0 + 8
+  const float sl2 = p.scale * LOG2E;
+
+  float gk[D / 2], gv[D / 2];
+  zero_regs(gk);
+  zero_regs(gv);
+  mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n; ++it) {
+    const int st = it % STAGES, ph = (it / STAGES) & 1;
+    const int q1 = (qt0 + it % nqt) * BQ;
+    const bf16* cQ = sQ + st * BQ * D;
+    const bf16* cG = sG + st * BQ * D;
+    const float* cL = sL + st * BQ;
+    const float* cDl = sDl + st * BQ;
+    // S^T and dP^T issued together; P^T is formed while dP^T runs, dS^T
+    // while dV += P^T dO runs
+    float s[BQ / 2], dp[BQ / 2];   // the first step of each product overwrites it
+    mbar_wait(full + st, ph);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, kmajor<BK>(sK, 64 * cw, kk), kmajor<BQ>(cQ, 0, kk), kk > 0);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, kmajor<BK>(sV, 64 * cw, kk), kmajor<BQ>(cG, 0, kk), kk > 0);
+    wg_commit();
+    wg_wait1();
+    fence_regs(s);
+
+    // P^T: s[4 j + e] is key key0 + 8 (e >> 1), query q1 + 8 j + 2 t + (e & 1)
+    const bool masked = needs_mask(p, q1, BQ, wk0, 64);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * t + (e & 1);
+        float pe = fast_exp2(fmaf(s[4 * j + e], sl2, -cL[col] * LOG2E));
+        if (masked && !live(p, p.q_offset + q1 + col, key0 + (e >> 1) * 8)) pe = 0.f;
+        s[4 * j + e] = pe;
+      }
+    }
+    uint32_t a[BQ / 16][4], a2[BQ / 16][4];
+    acc_to_a<BQ>(s, a);
+    fence_regs(gv);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs_tb(gv, a[kk], mnmajor<BQ>(cG, 0, kk));
+    wg_commit();
+    wg_wait1();
+    fence_regs(dp);
+
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + 2 * t + (e & 1);
+        dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - cDl[col]);
+      }
+    acc_to_a<BQ>(dp, a2);
+    fence_regs(gk);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs_tb(gk, a2[kk], mnmajor<BQ>(cQ, 0, kk));
+    wg_commit();
+    wg_wait0();
+    fence_regs(gv);
+    fence_regs(gk);
+    mbar_arrive(empty + st);
+  }
+
+  const size_t k_pitch = (size_t)p.Kv * D;
+  const size_t base = ((size_t)b * p.Sk * p.Kv + kvh) * D + 2 * t;
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const int row = key0 + 8 * hi;
+    if (row >= p.Sk) continue;
+    const size_t off = base + (size_t)row * k_pitch;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + j * 8) =
+          pack_bf16(gk[4 * j + 2 * hi] * p.scale, gk[4 * j + 2 * hi + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dv + off + j * 8) = pack_bf16(gv[4 * j + 2 * hi], gv[4 * j + 2 * hi + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ: one block per (batch * head, query tile of 128), the query tiles with
+// the most key tiles first.  The producer brings Q and dO once and K, V a
+// key tile of 64 a stage; consumer warpgroup w owns query rows [64 w, 64 w
+// + 64): S = Q K^T and dP = dO V^T (m64n64) again, dS in registers, dQ +=
+// dS K (m64nD, K MN-major).  No atomics: the result does not depend on the
+// order blocks run in.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(ws::NTH, 1)
+dq_ws_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+             const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             bf16* __restrict__ dq, Params p) {
+  using namespace ws;
+  constexpr int BQ = Q_BQ, BK = Q_BK;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* sQ = align_smem(smem_raw);   // [D / 64][BQ][64]
+  bf16* sG = sQ + BQ * D;            // dO
+  bf16* sK = sG + BQ * D;            // [STAGES][D / 64][BK][64]
+  bf16* sV = sK + STAGES * BK * D;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * BK * D);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int wg = threadIdx.x >> 7;
+  const int q0 = ((p.Sq + BQ - 1) / BQ - 1 - (int)blockIdx.y) * BQ;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.Kv);
+  int kt0, kt1;
+  key_tiles<BQ, BK>(p, q0, &kt0, &kt1);
+  const int n = max(kt1 - kt0, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, 2 * BQ * D * 2);
+      tma_tile<BQ, D>(sQ, &mq, bar_q, h, q0, b);
+      tma_tile<BQ, D>(sG, &mdo, bar_q, h, q0, b);
+      for (int it = 0; it < n; ++it) {
+        const int st = it % STAGES;
+        if (it >= STAGES) mbar_wait(empty + st, (it / STAGES - 1) & 1);
+        const int k0 = (kt0 + it) * BK;
+        mbar_expect_tx(full + st, 2 * BK * D * 2);
+        tma_tile<BK, D>(sK + st * BK * D, &mk, full + st, kvh, k0, b);
+        tma_tile<BK, D>(sV + st * BK * D, &mv, full + st, kvh, k0, b);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wq0 = q0 + 64 * cw;
+  const int row0 = wq0 + 16 * warp + g, row1 = row0 + 8;
+  const size_t r_off = ((size_t)b * p.H + h) * p.Sq;
+  const float lse0 = row0 < p.Sq ? lse[r_off + row0] * LOG2E : 0.f;
+  const float lse1 = row1 < p.Sq ? lse[r_off + row1] * LOG2E : 0.f;
+  const float dl0 = row0 < p.Sq ? delta[r_off + row0] : 0.f;
+  const float dl1 = row1 < p.Sq ? delta[r_off + row1] : 0.f;
+  const int qpos0 = p.q_offset + row0;
+  const float sl2 = p.scale * LOG2E;
+
+  float gq[D / 2];
+  zero_regs(gq);
+  float s[BK / 2], dp[BK / 2];
+  // S = Q K^T and dP = dO V^T of key tile `it` into s and dp (their first
+  // step overwrites them): issued and committed as one group, not waited
+  // for.
+  auto issue_scores = [&](int it) {
+    const int st = it % STAGES;
+    mbar_wait(full + st, (it / STAGES) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(s, kmajor<BQ>(sQ, 64 * cw, kk), kmajor<BK>(sK + st * BK * D, 0, kk), kk > 0);
+      wgmma_ss(dp, kmajor<BQ>(sG, 64 * cw, kk), kmajor<BK>(sV + st * BK * D, 0, kk), kk > 0);
+    }
+    wg_commit();
+  };
+  // dQ += dS K of key tile `it`, dS in a: issued and committed.
+  auto issue_dq = [&](const uint32_t (&a)[BK / 16][4], int it) {
+    fence_regs(gq);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs_tb(gq, a[kk], mnmajor<BK>(sK + (it % STAGES) * BK * D, 0, kk));
+    wg_commit();
+  };
+  // dS of key tile `it` from s and dp, rounded to bf16 as the A fragments
+  // of dQ += dS K.
+  auto dscores = [&](int it, uint32_t (&a)[BK / 16][4]) {
+    const int k0 = (kt0 + it) * BK;
+    const bool masked = needs_mask(p, wq0, 64, k0, BK);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool hi = e >> 1;
+        float pe = fast_exp2(fmaf(s[4 * j + e], sl2, -(hi ? lse1 : lse0)));
+        if (masked && !live(p, qpos0 + hi * 8, k0 + j * 8 + 2 * t + (e & 1))) pe = 0.f;
+        dp[4 * j + e] = pe * (dp[4 * j + e] - (hi ? dl1 : dl0));
+      }
+    }
+    acc_to_a<BK>(dp, a);
+  };
+
+  // Each step issues S and dP of key tile it + 1 and then dQ += dS K of
+  // tile it, and forms tile it + 1's dS while that product runs.  The dS
+  // fragments alternate between a0 and a1 (the loop takes two steps a
+  // turn), so no register that a running product reads is written.
+  uint32_t a0[BK / 16][4], a1[BK / 16][4];
+  auto step = [&](const uint32_t (&cur)[BK / 16][4], uint32_t (&nxt)[BK / 16][4], int it) {
+    issue_scores(it + 1);
+    issue_dq(cur, it);
+    wg_wait1();   // S and dP of tile it + 1 are in; dQ may still run
+    fence_regs(s);
+    fence_regs(dp);
+    dscores(it + 1, nxt);
+    wg_wait0();
+    fence_regs(gq);
+    mbar_arrive(empty + it % STAGES);   // K and V of tile it are read
+  };
+  auto last = [&](const uint32_t (&cur)[BK / 16][4], int it) {
+    issue_dq(cur, it);
+    wg_wait0();
+    fence_regs(gq);
+    mbar_arrive(empty + it % STAGES);
+  };
+  mbar_wait(bar_q, 0);
+  if (n > 0) {
+    issue_scores(0);
+    wg_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+    dscores(0, a0);
+  }
+  int it = 0;
+  for (; it + 2 < n; it += 2) {
+    step(a0, a1, it);
+    step(a1, a0, it + 1);
+  }
+  if (it + 1 < n) {
+    step(a0, a1, it);
+    last(a1, it + 1);
+  } else if (n > 0) {
+    last(a0, it);
+  }
+
+  const size_t q_pitch = (size_t)p.H * D;
+  bf16* d0 = dq + ((size_t)b * p.Sq * p.H + h) * D + (size_t)row0 * q_pitch + 2 * t;
+  bf16* d1 = d0 + 8 * q_pitch;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (row0 < p.Sq)
+      *reinterpret_cast<uint32_t*>(d0 + j * 8) = pack_bf16(gq[4 * j] * p.scale, gq[4 * j + 1] * p.scale);
+    if (row1 < p.Sq)
+      *reinterpret_cast<uint32_t*>(d1 + j * 8) =
+          pack_bf16(gq[4 * j + 2] * p.scale, gq[4 * j + 3] * p.scale);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
+// library links no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                            cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A map over the bf16 tensor [B, S, heads, D] at `ptr` (contiguous) whose
+// box is 64 rows x 64 columns of one head, swizzled by 128 bytes; rows
+// outside [0, S) read as zero.
+cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_fwd_ws(const void* q, const void* k, const void* v, void* o, float* lse,
+                          const Params& p, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t err;
+  if ((err = head_map(&mq, q, p.B, p.Sq, p.H, D)) != cudaSuccess) return err;
+  if ((err = head_map(&mk, k, p.B, p.Sk, p.Kv, D)) != cudaSuccess) return err;
+  if ((err = head_map(&mv, v, p.B, p.Sk, p.Kv, D)) != cudaSuccess) return err;
+  if ((err = set_smem(fwd_ws_kernel<D>, ws::fwd_smem<D>())) != cudaSuccess) return err;
+  const dim3 grid(p.B * p.H, (p.Sq + ws::FWD_BQ - 1) / ws::FWD_BQ);
+  fwd_ws_kernel<D><<<grid, ws::NTH, ws::fwd_smem<D>(), stream>>>(mq, mk, mv, static_cast<bf16*>(o),
+                                                                  lse, p);
+  return cudaGetLastError();
+}
+
+// delta, dK/dV, dQ: three launches.
+template <int D>
+cudaError_t launch_bwd_ws(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                          void* dv, const Params& p, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err;
+  if ((err = head_map(&mq, q, p.B, p.Sq, p.H, D)) != cudaSuccess) return err;
+  if ((err = head_map(&mdo, dout, p.B, p.Sq, p.H, D)) != cudaSuccess) return err;
+  if ((err = head_map(&mk, k, p.B, p.Sk, p.Kv, D)) != cudaSuccess) return err;
+  if ((err = head_map(&mv, v, p.B, p.Sk, p.Kv, D)) != cudaSuccess) return err;
+  const size_t n_rows = (size_t)p.B * p.Sq * p.H;
+  delta_kernel<bf16><<<(unsigned)((n_rows * 32 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  if ((err = set_smem(dkdv_ws_kernel<D>, ws::dkdv_smem<D>())) != cudaSuccess) return err;
+  dkdv_ws_kernel<D><<<dim3(p.B * p.Kv, (p.Sk + ws::KV_BK - 1) / ws::KV_BK), ws::NTH,
+                      ws::dkdv_smem<D>(), stream>>>(mq, mk, mv, mdo, lse, delta,
+                                                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  if ((err = set_smem(dq_ws_kernel<D>, ws::dq_smem<D>())) != cudaSuccess) return err;
+  dq_ws_kernel<D><<<dim3(p.B * p.H, (p.Sq + ws::Q_BQ - 1) / ws::Q_BQ), ws::NTH, ws::dq_smem<D>(),
+                    stream>>>(mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dq), p);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 Params make_params(int B, int H, int Kv, int Sq, int Sk, int D, int causal, int window,
@@ -2135,8 +2725,8 @@ extern "C" int flash_attention_fwd_tc(const void* q, const void* k, const void* 
                                       int true_k, void* stream) {
   const Params p = make_params(B, H, Kv, Sq, Sk, D, causal, window, q_offset, true_k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64) return tc::launch_fwd<64>(q, k, v, o, lse, p, s);
-  if (dtype == 1 && D == 128) return tc::launch_fwd<128>(q, k, v, o, lse, p, s);
+  if (dtype == 1 && D == 64) return tc::launch_fwd_ws<64>(q, k, v, o, lse, p, s);
+  if (dtype == 1 && D == 128) return tc::launch_fwd_ws<128>(q, k, v, o, lse, p, s);
   if (dtype == 1 && D == 256) return tc::launch_fwd<256>(q, k, v, o, lse, p, s);
   return cudaErrorInvalidValue;
 }
@@ -2149,9 +2739,9 @@ extern "C" int flash_attention_bwd_tc(const void* q, const void* k, const void* 
   const Params p = make_params(B, H, Kv, Sq, Sk, D, causal, window, q_offset, true_k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 64)
-    return tc::launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
+    return tc::launch_bwd_ws<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   if (dtype == 1 && D == 128)
-    return tc::launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
+    return tc::launch_bwd_ws<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, p, s);
   return cudaErrorInvalidValue;
 }
 

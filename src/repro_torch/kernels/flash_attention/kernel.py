@@ -6,7 +6,14 @@ CUDA tensors; under ``KernelMode.CUDA`` a CPU tensor raises.  :func:`route`
 picks the kernel by type and head dim:
 
 - bfloat16 at head dims 64, 128 and 256: the tensor-core kernels
-  (``"tc"``);
+  (``"tc"``).  At 64 and 128 every product runs on ``wgmma`` in blocks of
+  a producer warpgroup, which brings the tiles in by TMA through a ring of
+  three stages under ``mbarrier``s, and two consumer warpgroups of 64 rows:
+  the forward ``fwd_ws_kernel`` (128 queries x 128-key stages), and the
+  backward's ``delta_kernel``, ``dkdv_ws_kernel`` (128 keys x 64-query
+  stages) and ``dq_ws_kernel`` (128 queries x 64-key stages).  At 256 the
+  forward is ``fwd_kernel<256>`` on ``mma.sync`` and the backward four
+  launches on ``wgmma`` (below);
 - float32 at head dims 64, 128 and 256, and both types at the smoke
   configs' head dims 8, 12 and 16: the float32 FMA kernels (``"fma"``;
   the narrow dims on a tile 16 wide, zero-padded; the backward at 256 on
@@ -42,6 +49,7 @@ it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
 from typing import Optional, Tuple
 
@@ -62,7 +70,7 @@ ROUTES = ("tc", "fma")
 # (query, key) tile of each route's forward (tc at head dim 256: 64 x 32, see
 # :func:`fwd_tile`); the backward's tiles are in the source (tc: dK/dV 64
 # queries x 128 keys, dQ 128 x 64; at head dim 256 64 x 64 and 128 x 32)
-TILES = {"tc": (128, 64), "fma": (64, 64)}
+TILES = {"tc": (128, 128), "fma": (64, 64)}
 D256_KEY_TILE = D256_QUERY_TILE = 64   # the bf16 dK/dV blocks at head dim 256
 # query-head groups of the bf16 backward at head dim 256 (of 1, 2, 4, 8 and
 # 16 in trial builds, 8 was the fastest on the card: PERF.md, section 6)
@@ -70,6 +78,12 @@ D256_HEAD_GROUPS = 8
 _SCHEDULES: dict = {}                  # dK/dV schedules on the device
 _SCHEDULES_KEPT = 64
 VEC_BYTES = 16                   # tiles are loaded as 16-byte vectors
+# the TMA copies of the tc kernels at head dims 64 and 128: a box of
+# (columns, heads, rows, batches), 64 x 64 bf16 values of one head
+WS_HEAD_DIMS = (64, 128)
+TMA_BOX = (64, 1, 64, 1)
+TMA_MAX_STRIDE = 1 << 40         # bytes; strides are multiples of 16 below it
+TMA_MAX_DIM = 1 << 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -136,6 +150,28 @@ def _inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more,
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def tma_geometry(shape: Tuple[int, int, int, int], itemsize: int = 2
+                 ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The tensor map that the tc kernels at head dims 64 and 128 build
+    over a contiguous [B, S, heads, D] tensor of ``shape`` whose elements
+    take ``itemsize`` bytes (``head_map`` in the source): its dims
+    innermost first, (D, heads, S, B), and the byte strides of dims 1 to 3.
+    Raises ``ValueError`` where TMA cannot take them: a stride that is not
+    a multiple of 16 bytes or is 2^40 or more, a dim of 2^32 or more, or a
+    head dim narrower than the box.  Kept per shape, since every launch
+    asks."""
+    B, S, heads, D = shape
+    dims = (D, heads, S, B)
+    strides = (D * itemsize, heads * D * itemsize, S * heads * D * itemsize)
+    if D < TMA_BOX[0] or any(d >= TMA_MAX_DIM for d in dims) or any(
+            st % 16 or st >= TMA_MAX_STRIDE for st in strides):
+        raise ValueError(f"TMA cannot take a {tuple(shape)} tensor of "
+                         f"{itemsize}-byte elements: dims {dims}, strides "
+                         f"{strides}")
+    return dims, strides
+
+
 def _ints(q, k, *, causal: bool, window: Optional[int], q_offset: int):
     """The launchers' integer arguments; the kernels mask keys at or beyond
     their ``true_k`` argument, which is ``Sk`` since nothing is padded."""
@@ -168,6 +204,9 @@ def launch_fwd(q, k, v, *, kernel: str, causal: bool = True,
     kernel on bfloat16 through this beside the tensor-core one."""
     q, k, v = _inputs(q, k, v)
     name, fn = _entry("fwd", kernel, q)
+    if kernel == "tc" and q.shape[3] in WS_HEAD_DIMS:
+        for t in (q, k, v):
+            tma_geometry(tuple(t.shape), t.element_size())
     ints = _ints(q, k, causal=causal, window=window, q_offset=q_offset)
     B, Sq, H, _ = q.shape
     o = torch.empty_like(q)
@@ -247,6 +286,9 @@ def launch_bwd(q, k, v, o, lse, do, *, kernel: str, causal: bool = True,
     nothing (see :func:`launch_fwd`)."""
     q, k, v, o, do = _inputs(q, k, v, o, do, backward=True)
     name, fn = _entry("bwd", kernel, q)
+    if kernel == "tc" and q.shape[3] in WS_HEAD_DIMS:
+        for t in (q, k, v, do):
+            tma_geometry(tuple(t.shape), t.element_size())
     ints = _ints(q, k, causal=causal, window=window, q_offset=q_offset)
     if lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
         raise ValueError(f"lse must be [B,H,Sq], got {tuple(lse.shape)}")

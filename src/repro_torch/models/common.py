@@ -118,6 +118,17 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def leaf_names(tree, prefix: str = "") -> list:
+    """The paths of ``tree_leaves(tree)``, in its order (``layers[0].w``)."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of trees of one structure."""
     if isinstance(tree, dict):

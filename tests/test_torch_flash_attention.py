@@ -189,14 +189,37 @@ def test_launch_counts_split_the_totals_by_route():
 
 
 @pytest.mark.parametrize("dtype,D,want", [
-    (torch.bfloat16, 64, (128, 64)), (torch.bfloat16, 128, (128, 64)),
+    (torch.bfloat16, 64, (128, 128)), (torch.bfloat16, 128, (128, 128)),
     (torch.bfloat16, 256, (64, 32)), (torch.float32, 256, (64, 64)),
     (torch.float32, 128, (64, 64)), (torch.bfloat16, 12, (64, 64)),
 ])
 def test_forward_tile_follows_the_route(dtype, D, want):
-    """The tensor-core forward takes 128 x 64 tiles, 64 x 32 at head dim
-    256 (16 rows a warp); the FMA forward 64 x 64 at every head dim."""
+    """The tensor-core forward takes 128 x 128 tiles (two consumer
+    warpgroups of 64 rows, 128-key stages), 64 x 32 at head dim 256 (16
+    rows a warp); the FMA forward 64 x 64 at every head dim."""
     assert K.fwd_tile(dtype, D) == want
+
+
+@pytest.mark.parametrize("shape,dims,strides", [
+    ((1, 4096, 32, 128), (128, 32, 4096, 1), (256, 8192, 33554432)),
+    ((2, 1500, 16, 64), (64, 16, 1500, 2), (128, 2048, 3072000)),
+    ((1, 127, 7, 64), (64, 7, 127, 1), (128, 896, 113792)),
+])
+def test_tma_geometry_of_the_model_layout(shape, dims, strides):
+    """The tensor map over [B, S, heads, D] bf16: dims innermost first and
+    the byte strides of the three outer dims, as the kernels' ``head_map``
+    encodes them."""
+    assert K.tma_geometry(shape) == (dims, strides)
+    t = torch.zeros(shape, dtype=torch.bfloat16)
+    assert K.tma_geometry(tuple(t.shape), t.element_size()) == (dims, strides)
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 2, 16), (1, 1 << 19, 1 << 13, 128)])
+def test_tma_geometry_refuses_what_tma_cannot_take(shape):
+    """A head dim narrower than the 64-column box, or a batch stride of
+    2^40 bytes or more, raises before any launch."""
+    with pytest.raises(ValueError, match="TMA"):
+        K.tma_geometry(shape, 2)
 
 
 def _config_head_dims():

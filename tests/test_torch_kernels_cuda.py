@@ -418,8 +418,8 @@ FLASH_CASES = [   # B, Sq, Sk, H, Kv, D, causal, window, dtype
     (1, 512, 512, 4, 1, 64, True, 128, torch.float32),       # window
     (1, 1000, 1000, 4, 2, 128, True, 256, torch.bfloat16),   # window, ragged
     (1, 200, 200, 4, 4, 64, False, None, torch.float32),     # non-causal
-    # the tensor-core kernels' tiles (forward and dQ 128 queries x 64 keys,
-    # dK/dV 128 keys x 32 or 64 queries):
+    # the tensor-core kernels' tiles (forward 128 queries x 128 keys, dQ
+    # 128 x 64, dK/dV 128 keys x 64 queries; consumer warpgroups of 64):
     (1, 512, 512, 4, 2, 64, True, None, torch.bfloat16),     # head dim 64
     (1, 384, 384, 4, 4, 128, True, None, torch.bfloat16),    # G = 1
     (1, 256, 256, 16, 2, 128, True, None, torch.bfloat16),   # G = 8
@@ -440,6 +440,15 @@ FLASH_CASES = [   # B, Sq, Sk, H, Kv, D, causal, window, dtype
     (1, 1500, 1500, 16, 16, 64, False, None, torch.bfloat16),  # encoder
     (1, 1500, 448, 16, 16, 64, False, None, torch.bfloat16),  # Sq > Sk
     (1, 300, 300, 56, 8, 128, True, None, torch.bfloat16),    # G = 7
+    # one row short of and past a 128-row tile, at both head dims:
+    (1, 127, 127, 4, 2, 64, True, None, torch.bfloat16),
+    (1, 129, 129, 4, 2, 64, True, None, torch.bfloat16),
+    (1, 127, 127, 4, 2, 128, True, None, torch.bfloat16),
+    (1, 129, 129, 4, 2, 128, True, None, torch.bfloat16),
+    (1, 200, 500, 8, 2, 128, True, 48, torch.bfloat16),     # window crosses
+    #   the 128-key tile edge at 384, q_offset 300
+    (1, 201, 201, 14, 2, 128, True, None, torch.bfloat16),  # G = 7, ragged
+    (1, 700, 300, 8, 8, 128, False, None, torch.bfloat16),  # Sq > Sk
 ]
 FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -544,9 +553,11 @@ def _assert_one_launch_each(before, route):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 64),
+                                     (torch.float32, 128)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_rows_with_no_live_key_on_card(dtype, causal):
+def test_flash_rows_with_no_live_key_on_card(dtype, D, causal):
     """Query rows past the keys' reach (q_offset + a window of 48): rows
     whose keys are all masked get o == 0 and lse == -inf, as the TPU kernel
     gives them; the other rows, and every gradient, equal the plain version
@@ -554,7 +565,7 @@ def test_flash_rows_with_no_live_key_on_card(dtype, causal):
     softmax evenly over its masked keys, and the dead rows' o is constant
     zero, so they add nothing to any gradient)."""
     _card()
-    B, Sq, Sk, H, Kv, D, W, qo = 1, 96, 64, 4, 2, 128, 48, 40
+    B, Sq, Sk, H, Kv, W, qo = 1, 96, 64, 4, 2, 48, 40
     gen = torch.Generator(device="cuda").manual_seed(96)
     mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda"
                                     ).to(dtype)
@@ -589,17 +600,20 @@ def test_flash_rows_with_no_live_key_on_card(dtype, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_tensor_core_backward_is_deterministic_on_card(D):
-    """dQ has its own kernel instead of atomics, so two backward runs on
-    the same inputs give the same bits."""
+    """dQ has its own kernel instead of atomics and every dK/dV block owns
+    its keys, so two backward runs on the same inputs (a ragged length
+    that ends inside a tile) give the same bits, on the ``tc`` route."""
     _card()
     gen = torch.Generator(device="cuda").manual_seed(D)
     mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda"
                                     ).bfloat16()
-    q, k, v, do = mk(1, 1024, 8, D), mk(1, 1024, 2, D), mk(1, 1024, 2, D), \
-        mk(1, 1024, 8, D)
+    q, k, v, do = mk(1, 1000, 8, D), mk(1, 1000, 2, D), mk(1, 1000, 2, D), \
+        mk(1, 1000, 8, D)
     o, lse = FK.flash_fwd(q, k, v)
+    before = FK.launch_counts()
     first = FK.flash_bwd(q, k, v, o, lse, do)
     second = FK.flash_bwd(q, k, v, o, lse, do)
+    assert FK.launch_counts()["flash_bwd_tc"] == before["flash_bwd_tc"] + 2
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
