@@ -90,7 +90,10 @@ Phases, each printing one JSON line with its seconds:
             the recurrent families' kernels (built in phase 2 with the
             others) against their plain versions: SSD at Mamba-2 780M's
             widths (bf16 at S=4096 and 32768, float32 at S=1024 also
-            against the sequential oracle, S=200 below the chunk), RG-LRU
+            against the sequential oracle, S=200 below the chunk; the bf16
+            forward's passes' device ms at S=32768, ``ssd.passes``, which
+            must be ``state_wg_kernel``, ``pass_kernel`` and
+            ``out_wg_kernel`` once each and nothing else), RG-LRU
             at RecurrentGemma-9B's width (S=32768, and float32 with an
             initial state; the model's entry on bf16 u and float32 a, with
             and without an initial state, bit-equal to the float32 kernel
@@ -121,7 +124,7 @@ Phases, each printing one JSON line with its seconds:
             ms and kernels a call from one profiled window
             (``ssd_bwd.passes``, ``rglru_bwd.passes``,
             ``flash_d256_bwd.passes``; bf16 at Mamba-2's widths runs the
-            SSD tensor-core route, ``bwd_route``; the bf16 flash backward
+            SSD tensor-core route, ``route``; the bf16 flash backward
             at 256 four passes: delta, the dK/dV partials and dQ on wgmma,
             the partials' sum; the RG-LRU backward one kernel).
 8. serve_ssm, serve_hybrid
@@ -2587,7 +2590,7 @@ def tensor_parallel_families_phase(smi):
         fails.append("nccl")
     if sum(peaks) > TPF_PEAK_GB:
         fails.append(f"the ranks' peaks sum to {sum(peaks):.2f} GB")
-    if SK.bwd_route(torch.bfloat16, 64, 128) != "tc":
+    if SK.route(torch.bfloat16, 64, 128) != "tc":
         fails.append("the SSD backward is not on its tensor-core route")
     for r in ranks:
         for arch, fam in r["families"].items():
@@ -3309,6 +3312,10 @@ def manager_mixtral_phase(engine, smi):
 # rounded once, in both).  The final state within 5e-4 absolute and 5e-3
 # relative in both types.
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+# the bf16 forward at Mamba-2 780M's widths, one launch each a call: the
+# chunk states and the outputs on wgmma, the carry between them
+SSD_FWD_TC_KERNELS = ("state_wg_kernel", "pass_kernel<__nv_bfloat16>",
+                      "out_wg_kernel")
 SSD_ORACLE_TOL = 5e-4
 SSD_REL_L2 = 1e-2
 # RG-LRU sums sequentially within tiles and composes the tiles in order:
@@ -3406,13 +3413,23 @@ def ssd_phase():
                   + H * (2 * tri * P           # G x
                          + 2 * 2 * Q * P * N))  # C.h and the state update
     b, by = bound(n_bytes, n_ops, roofline().PEAK_FLOPS)
-    t = dict(ms=time_ms(lambda: SK.ssd_call(xh, dAh, dth, Bm, Cm, chunk=Q,
-                                            mode=KernelMode.CUDA), reps=10),
+    def kernel():
+        return SK.ssd_call(xh, dAh, dth, Bm, Cm, chunk=Q, mode=KernelMode.CUDA)
+
+    t = dict(ms=time_ms(kernel, reps=10),
              plain_ms=time_ms(lambda: sref.ssd_call_ref(xh, dAh, dth, Bm, Cm,
                                                         Q), reps=3),
              library_ms=None, bound_ms=b, bound_by=by, bytes=n_bytes,
              ops=n_ops)
-    emit("ssd.time", B=1, S=S, H=H, P=P, N=N, chunk=Q, dtype="bfloat16", **t)
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    route = SK.route(torch.bfloat16, P, N)
+    _passes("ssd", t, kernel, route=route)
+    emit("ssd.time", B=1, S=S, H=H, P=P, N=N, chunk=Q, dtype="bfloat16",
+         route=route, **{k: v for k, v in t.items() if k != "passes"})
+    names = sorted(p["name"] for p in t["passes"])
+    if route != "tc" or names != sorted(SSD_FWD_TC_KERNELS):
+        raise AssertionError(f"the bf16 SSD forward at (64, 128) launched "
+                             f"{names}, not {sorted(SSD_FWD_TC_KERNELS)}")
     return err, t
 
 
@@ -3968,9 +3985,9 @@ def ssd_bwd_phase(gen):
                  library_ms=None, bound_ms=b, bound_by=by, bytes=n_bytes,
                  ops=n_ops)
         t["bound_share"] = t["bound_ms"] / t["ms"]
-        _passes("ssd_bwd", t, kernel, route=SK.bwd_route(dtype, P, N))
+        _passes("ssd_bwd", t, kernel, route=SK.route(dtype, P, N))
         emit("ssd_bwd.time", B=1, S=S, H=H, P=P, N=N, chunk=Q,
-             dtype="bfloat16", route=SK.bwd_route(dtype, P, N),
+             dtype="bfloat16", route=SK.route(dtype, P, N),
              **{k: v for k, v in t.items() if k != "passes"})
     return err, t
 
@@ -5445,7 +5462,7 @@ def main() -> int:
             "max_abs_err": err, **{k: t[k] for k in timing_keys},
             "shape": shape,
         })
-        if name in ("ssd_bwd", "rglru_bwd"):
+        if name in ("ssd", "ssd_bwd", "rglru_bwd"):
             rows[-1].update({k: t[k] for k in (
                 "device_ms", "kernels_per_call", "passes")})
         if name == "rglru":

@@ -31,12 +31,14 @@
 // bound by the tensor cores as well.  Hopper's tensor cores reach that rate
 // only through `wgmma`, an asynchronous warpgroup product that reads its
 // operands from shared memory in the layout of a 128-byte swizzle (or A
-// from registers), so the design at head dims 64 and 128 (see "the
-// warp-specialised kernels" below) is built around keeping them fed:
+// from registers), so the design (see "the warp-specialised kernels"
+// below; the forward at every tc head dim, the backward at 64 and 128) is
+// built around keeping them fed:
 // - every product is a `wgmma` with float32 accumulators, in blocks of
 //   three warpgroups: a producer that brings every tile in by TMA (its map
 //   swizzles the tile into the panel layout `wgmma` reads, and zero-fills
-//   rows past Sq or Sk) through a ring of three stages under `mbarrier`s, and
+//   rows past Sq or Sk) through a ring of three stages (two in the forward
+//   at head dim 256) under `mbarrier`s, and
 //   hands its registers to two consumer warpgroups of 64 rows each;
 // - within a consumer the next product is issued before the current tile's
 //   probabilities or score gradients are formed, so that arithmetic runs
@@ -57,9 +59,12 @@
 //   block per query tile of 128, which recomputes S and dP (two products
 //   more than accumulating dQ with atomics, but deterministic: two runs
 //   give the same gradients).
-// The forward at head dim 256 is `fwd_kernel<256>` on `mma.sync` (16 rows
-// a warp, 32-key tiles in a `cp.async` ring, see `Fwd`); its redesign can
-// take the warp-specialised forward's structure.
+// The forward at head dim 256 (RecurrentGemma's local attention) is the
+// same warp-specialised kernel with 64-key stages in a ring of two (see
+// `ws::FwdTile`): a 128-row Q tile takes 64 KB of shared memory and each
+// stage of K and V 64 KB more, and a consumer's 64 x 256 float32 output
+// takes 128 registers a thread, which leaves room for a 64-key score tile
+// but not a 128-key one.
 // The backward at head dim 256 (RecurrentGemma's train step: 16 query heads
 // on one kv head, a window of 2048) runs on wgmma in four launches (see
 // "the backward on wgmma" below): delta; dK/dV, one block per (key tile of
@@ -922,24 +927,13 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 }
 
 // ===========================================================================
-// bfloat16: the tensor-core kernels.  First the forward at head dim 256 on
-// mma.sync m16n8k16, then the wgmma helpers, the backward at 256 and the
-// warp-specialised kernels at 64 and 128
+// bfloat16: the tensor-core kernels, all on wgmma.  First the helpers and
+// the backward at head dim 256, then the warp-specialised kernels (the
+// forward at 64, 128 and 256, the backward at 64 and 128)
 // ===========================================================================
-//
-// mma.sync: tiles are bf16 in shared memory, rows of D values with their 16-byte
-// chunks swizzled (chunk c of row r sits at c ^ (r & 7)), so the eight rows
-// an `ldmatrix` reads fall in eight distinct bank groups.  `cp.async` with a
-// zero-filled tail brings them in; a ragged row past Sq or Sk reads zeros.
-// Every product is `mma.sync.m16n8k16` with float32 accumulators; each warp
-// owns 16 * MI rows of the product, so scores, probabilities and score
-// gradients stay in its registers and are fed back as the A operand of the
-// next product (the accumulator layout of m16n8 pairs is the A layout of
-// m16k16).
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int NT = 256;                 // 8 warps
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -962,27 +956,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c += a * b for one 16 x 8 x 16 product (a: 4 registers, b: 2).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -1003,105 +976,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Element offset of 16-byte chunk `c` of row `r` in a swizzled [rows][D] tile.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
-}
-
-// Rows [0, ROWS) of a tile, rows `pitch` elements apart from `g`, into the
-// swizzled tile `s`; rows at or beyond `n_valid` are zero.  Asynchronous:
-// the caller commits and waits.
-template <int ROWS, int D, int THREADS_ = NT>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, size_t pitch, int n_valid) {
-  constexpr int CH = D / 8;
-  static_assert(ROWS * CH % THREADS_ == 0, "a tile is whole 16-byte chunks a thread");
-#pragma unroll
-  for (int i = 0; i < ROWS * CH / THREADS_; ++i) {
-    const int idx = threadIdx.x + i * THREADS_;
-    const int r = idx / CH, c = idx % CH;
-    const bool ok = r < n_valid;
-    cp_async16(smem_u32(s + swz<D>(r, c)), ok ? g + r * pitch + c * 8 : g, ok);
-  }
-}
-
-// Operand fragments of one 16-deep step `kk` from a swizzled tile `s`
-// (`lane` is the thread's lane):
-// - a_frag: A rows [r0, r0 + 16), the product's depth along the tile's row;
-// - b_frag: B of two n-tiles [n0, n0 + 16), the tile's rows being n and its
-//   row the depth (K for Q K^T): b[0], b[1] for n0 and b[2], b[3] for n0 + 8;
-// - bt_frag: B of two n-tiles [n0, n0 + 16) of the tile's columns, its rows
-//   being the depth (V for P V).
-template <int D>
-__device__ __forceinline__ void a_frag(const bf16* s, int r0, int kk, int lane, uint32_t (&a)[4]) {
-  ldsm_x4(smem_u32(s + swz<D>(r0 + (lane & 15), 2 * kk + (lane >> 4))), a);
-}
-template <int D>
-__device__ __forceinline__ void b_frag(const bf16* s, int n0, int kk, int lane, uint32_t (&b)[4]) {
-  ldsm_x4(smem_u32(s + swz<D>(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1))),
-          b);
-}
-template <int D>
-__device__ __forceinline__ void bt_frag(const bf16* s, int n0, int kk, int lane,
-                                        uint32_t (&b)[4]) {
-  ldsm_x4_t(smem_u32(s + swz<D>(16 * kk + (lane & 15), (n0 >> 3) + (lane >> 4))), b);
-}
-
-// c[m][j] += A * B for the MI x 16 rows m of a warp and the n-tiles j: A
-// from registers (m16n8 accumulators x[m][2kk], x[m][2kk + 1] rounded to
-// bf16), B from a tile read with bt_frag, its columns from `col0`; c:
-// [MI][N / 8][4] of the warp's (MI x 16) x N product.  Each B fragment
-// serves the MI row groups.
-template <int D, int MI, int KSTEPS, int NTILES>
-__device__ __forceinline__ void acc_times_tile(float (&c)[MI][NTILES][4],
-                                               const float (&x)[MI][2 * KSTEPS][4],
-                                               const bf16* s, int lane, int col0 = 0) {
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    uint32_t a[MI][4];
-#pragma unroll
-    for (int m = 0; m < MI; ++m) {
-      a[m][0] = pack_bf16(x[m][2 * kk][0], x[m][2 * kk][1]);
-      a[m][1] = pack_bf16(x[m][2 * kk][2], x[m][2 * kk][3]);
-      a[m][2] = pack_bf16(x[m][2 * kk + 1][0], x[m][2 * kk + 1][1]);
-      a[m][3] = pack_bf16(x[m][2 * kk + 1][2], x[m][2 * kk + 1][3]);
-    }
-#pragma unroll
-    for (int n = 0; n < NTILES; n += 2) {
-      uint32_t b[4];
-      bt_frag<D>(s, col0 + n * 8, kk, lane, b);
-#pragma unroll
-      for (int m = 0; m < MI; ++m) {
-        mma(c[m][n], a[m], b[0], b[1]);
-        mma(c[m][n + 1], a[m], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// c[m][j] += A * B^T over the depth D: A rows [r0, r0 + 16 MI) of tile `sa`,
-// B rows [0, 8 * NTILES) of tile `sb` (both [rows][D]).
-template <int D, int MI, int NTILES>
-__device__ __forceinline__ void tile_times_tile_t(float (&c)[MI][NTILES][4], const bf16* sa,
-                                                  int r0, const bf16* sb, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[MI][4];
-#pragma unroll
-    for (int m = 0; m < MI; ++m) a_frag<D>(sa, r0 + 16 * m, kk, lane, a[m]);
-#pragma unroll
-    for (int n = 0; n < NTILES; n += 2) {
-      uint32_t b[4];
-      b_frag<D>(sb, n * 8, kk, lane, b);
-#pragma unroll
-      for (int m = 0; m < MI; ++m) {
-        mma(c[m][n], a[m], b[0], b[1]);
-        mma(c[m][n + 1], a[m], b[2], b[3]);
-      }
-    }
-  }
-}
-
 // Does the (query tile [q0, q0 + tq), key tile [k0, k0 + tk)) pair hold a
 // masked pair?  Fully live tiles skip the mask.
 __device__ __forceinline__ bool needs_mask(const Params& p, int q0, int tq, int k0, int tk) {
@@ -1112,182 +986,9 @@ __device__ __forceinline__ bool needs_mask(const Params& p, int q0, int tq, int 
   return false;
 }
 
-template <int MI, int NTILES>
-__device__ __forceinline__ void zero(float (&c)[MI][NTILES][4]) {
-#pragma unroll
-  for (int m = 0; m < MI; ++m)
-#pragma unroll
-    for (int j = 0; j < NTILES; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) c[m][j][e] = 0.f;
-}
-
-// Forward at head dim 256 (64 and 128 run `fwd_ws_kernel`): 4 warps, each
-// owning 16 MI query rows; K and V in a ring of two.  MI = 1 (query tile
-// 64): 32 rows a warp would take 256 float32 output accumulators a thread,
-// more than the 255 registers it may have; 16 rows take 128.  Its key tile
-// is 32: Q (32 KB) and the ring (64 KB) take 96 KB of shared memory, so two
-// blocks share an SM, and nothing spills; 64-key tiles took 160 KB, one
-// block per SM, spilled 152 bytes and ran 1.4x as long (PERF.md, section
-// 6).
-template <int D>
-struct Fwd {
-  static_assert(D == 256, "head dims 64 and 128 run fwd_ws_kernel");
-  static constexpr int MI = 1;
-  static constexpr int BK = 32;
-  static constexpr int THREADS = 128;
-  static constexpr int BQ = THREADS / 32 * 16 * MI;
-};
-template <int D>
-constexpr size_t fwd_smem() { return (size_t)(Fwd<D>::BQ + 4 * Fwd<D>::BK) * D * sizeof(bf16); }
-// ---------------------------------------------------------------------------
-// forward: one block per (batch * head, query tile), the query tiles with the
-// most key tiles first
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(Fwd<D>::THREADS, 1)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-           bf16* __restrict__ o, float* __restrict__ lse, Params p) {
-  constexpr int BQ_ = Fwd<D>::BQ, BK_ = Fwd<D>::BK, MI = Fwd<D>::MI, NTH = Fwd<D>::THREADS;
-  constexpr int NS = BK_ / 8;  // score n-tiles
-  constexpr int NO = D / 8;    // output n-tiles
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BQ_ * D;       // [2][BK_][D]
-  bf16* sV = sK + 2 * BK_ * D;   // [2][BK_][D]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = ((p.Sq + BQ_ - 1) / BQ_ - 1 - (int)blockIdx.y) * BQ_;
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int kvh = h / (p.H / p.Kv);
-  const size_t q_pitch = (size_t)p.H * D, k_pitch = (size_t)p.Kv * D;
-  const bf16* kb = k + ((size_t)b * p.Sk * p.Kv + kvh) * D;
-  const bf16* vb = v + ((size_t)b * p.Sk * p.Kv + kvh) * D;
-  const float sl2 = p.scale * LOG2E;
-
-  int kt0, kt1;
-  key_tiles<BQ_, BK_>(p, q0, &kt0, &kt1);
-  const int n = kt1 - kt0;
-  load_tile<BQ_, D, NTH>(sQ, q + ((size_t)b * p.Sq * p.H + h) * D + q0 * q_pitch, q_pitch,
-                         p.Sq - q0);
-  if (n > 0) {
-    load_tile<BK_, D, NTH>(sK, kb + (size_t)kt0 * BK_ * k_pitch, k_pitch, p.Sk - kt0 * BK_);
-    load_tile<BK_, D, NTH>(sV, vb + (size_t)kt0 * BK_ * k_pitch, k_pitch, p.Sk - kt0 * BK_);
-  }
-  cp_async_commit();
-
-  float acc[MI][NO][4];
-  zero(acc);
-  // running max (log2 units) and this thread's share of the row sum, for
-  // rows r0 + 16 m + g (index 2 m) and r0 + 16 m + g + 8 (2 m + 1)
-  float mrow[2 * MI], lrow[2 * MI];
-#pragma unroll
-  for (int i = 0; i < 2 * MI; ++i) {
-    mrow[i] = -INFINITY;
-    lrow[i] = 0.f;
-  }
-  const int r0 = warp * 16 * MI;
-  const int qpos0 = p.q_offset + q0 + r0 + g;
-
-  for (int it = 0; it < n; ++it) {
-    const int k0 = (kt0 + it) * BK_;
-    const int st = it & 1;
-    if (it + 1 < n) {
-      const int k1 = k0 + BK_;
-      load_tile<BK_, D, NTH>(sK + (st ^ 1) * BK_ * D, kb + (size_t)k1 * k_pitch, k_pitch,
-                             p.Sk - k1);
-      load_tile<BK_, D, NTH>(sV + (st ^ 1) * BK_ * D, vb + (size_t)k1 * k_pitch, k_pitch,
-                             p.Sk - k1);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float s[MI][NS][4];
-    zero(s);
-    tile_times_tile_t<D, MI, NS>(s, sQ, r0, sK + st * BK_ * D, lane);
-
-    if (needs_mask(p, q0, BQ_, k0, BK_)) {
-#pragma unroll
-      for (int m = 0; m < MI; ++m)
-#pragma unroll
-        for (int j = 0; j < NS; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (!live(p, qpos0 + 16 * m + (e >> 1) * 8, k0 + j * 8 + 2 * t + (e & 1)))
-              s[m][j][e] = -INFINITY;
-    }
-#pragma unroll
-    for (int m = 0; m < MI; ++m) {
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int i = 2 * m + hi;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(s[m][j][2 * hi], s[m][j][2 * hi + 1]));
-        const float mn = fmaxf(mrow[i], quad_max(mx) * sl2);
-        const float base = mn == -INFINITY ? 0.f : mn;
-        const float alpha = fast_exp2(mrow[i] - base);
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < NS; ++j) {
-#pragma unroll
-          for (int e = 2 * hi; e < 2 * hi + 2; ++e) {
-            s[m][j][e] = fast_exp2(fmaf(s[m][j][e], sl2, -base));
-            rs += s[m][j][e];
-          }
-        }
-        lrow[i] = alpha * lrow[i] + rs;  // summed over the quad at the end
-        mrow[i] = mn;
-#pragma unroll
-        for (int j = 0; j < NO; ++j) {
-          acc[m][j][2 * hi] *= alpha;
-          acc[m][j][2 * hi + 1] *= alpha;
-        }
-      }
-    }
-    acc_times_tile<D, MI, BK_ / 16, NO>(acc, s, sV + st * BK_ * D, lane);
-    __syncthreads();  // every warp is done with stage st before it is refilled
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int m = 0; m < MI; ++m) {
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int i = 2 * m + hi;
-      const float l = quad_sum(lrow[i]);
-      const float inv = l > 0.f ? 1.f / l : 0.f;
-      const int row = q0 + r0 + 16 * m + 8 * hi + g;
-      if (row >= p.Sq) continue;
-      bf16* orow = o + ((size_t)b * p.Sq * p.H + (size_t)row * p.H + h) * D + 2 * t;
-#pragma unroll
-      for (int j = 0; j < NO; ++j)
-        *reinterpret_cast<uint32_t*>(orow + j * 8) =
-            pack_bf16(acc[m][j][2 * hi] * inv, acc[m][j][2 * hi + 1] * inv);
-      if (t == 0)
-        lse[((size_t)b * p.H + h) * p.Sq + row] =
-            l > 0.f ? (mrow[i] + log2f(l)) * LN2 : -INFINITY;
-    }
-  }
-}
-
 template <typename K>
 cudaError_t set_smem(K kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                       const Params& p, cudaStream_t stream) {
-  cudaError_t err = set_smem(fwd_kernel<D>, fwd_smem<D>());
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.B * p.H, (p.Sq + Fwd<D>::BQ - 1) / Fwd<D>::BQ);
-  fwd_kernel<D><<<grid, Fwd<D>::THREADS, fwd_smem<D>(), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, p);
-  return cudaGetLastError();
 }
 
 // ===========================================================================
@@ -1490,6 +1191,11 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// d[128] += A (registers) * B (shared, MN-major): m64n256k16
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n256_tb(d, a, db);
 }
 
 namespace w256 {
@@ -1909,7 +1615,8 @@ cudaError_t launch_bwd_256(const void* q, const void* k, const void* v, const vo
 // of the product each: they wait on a stage's "full" barrier, run their
 // products on wgmma with float32 accumulators, and arrive on its "empty"
 // barrier (all 256 consumer threads), which lets the producer refill it.
-// The ring holds STAGES (3) tiles, so the next tiles' copies run while the
+// The ring holds STAGES (3) tiles (the forward at head dim 256 two, see
+// `FwdTile`), so the next tiles' copies run while the
 // current ones are multiplied; neither side stalls the other but on an
 // empty or a full ring (with two, the forward and dK/dV took 6-9% longer
 // on the card).  Scores, probabilities and score gradients stay in the
@@ -2009,13 +1716,23 @@ constexpr int NTH = 384;          // producer warpgroup + two consumer warpgroup
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr int STAGES = 3;
-constexpr int FWD_BQ = 128, FWD_BK = 128;   // forward: query tile, key tile a stage
+constexpr int FWD_BQ = 128;                 // forward: query tile
 constexpr int KV_BK = 128, KV_BQ = 64;      // dK/dV: key tile, query tile a stage
 constexpr int Q_BQ = 128, Q_BK = 64;        // dQ: query tile, key tile a stage
 constexpr size_t ALIGN = 1024;
 constexpr size_t BARS = 64 * sizeof(uint64_t);
+// The forward's key tile a stage and its stages: 128 keys in three at head
+// dims 64 and 128; 64 keys in two at 256, where Q and two stages take 192
+// KB of shared memory and the output 128 registers a consumer thread.
 template <int D>
-constexpr size_t fwd_smem() { return (size_t)(FWD_BQ + 2 * STAGES * FWD_BK) * D * 2 + ALIGN + BARS; }
+struct FwdTile {
+  static constexpr int BK = D == 256 ? 64 : 128;
+  static constexpr int STAGES = D == 256 ? 2 : 3;
+};
+template <int D>
+constexpr size_t fwd_smem() {
+  return (size_t)(FWD_BQ + 2 * FwdTile<D>::STAGES * FwdTile<D>::BK) * D * 2 + ALIGN + BARS;
+}
 template <int D>
 constexpr size_t dkdv_smem() {
   return (size_t)(2 * KV_BK + 2 * STAGES * KV_BQ) * D * 2 + 2 * STAGES * KV_BQ * sizeof(float) +
@@ -2028,11 +1745,11 @@ constexpr size_t dq_smem() { return (size_t)(2 * Q_BQ + 2 * STAGES * Q_BK) * D *
 // ---------------------------------------------------------------------------
 // forward: one block per (batch * head, query tile of 128), the query tiles
 // with the most key tiles first.  The producer brings Q once and K, V a key
-// tile of 128 a stage (K and V on barriers of their own, so S = Q K^T starts
-// before V has landed); consumer warpgroup w owns query rows [64 w, 64 w +
-// 64): S = Q K^T (m64n128, both K-major), the online softmax in exp2 on the
-// accumulator, P rounded to bf16 in registers, O += P V (m64nD, V
-// MN-major).
+// tile of BK (128; 64 at D = 256) a stage (K and V on barriers of their
+// own, so S = Q K^T starts before V has landed); consumer warpgroup w owns
+// query rows [64 w, 64 w + 64): S = Q K^T (m64nBK, both K-major), the
+// online softmax in exp2 on the accumulator, P rounded to bf16 in
+// registers, O += P V (m64nD, V MN-major).
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(ws::NTH, 1)
@@ -2040,7 +1757,7 @@ fwd_ws_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CU
               const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
               float* __restrict__ lse, Params p) {
   using namespace ws;
-  constexpr int BQ = FWD_BQ, BK = FWD_BK;
+  constexpr int BQ = FWD_BQ, BK = FwdTile<D>::BK, STAGES = FwdTile<D>::STAGES;
   extern __shared__ unsigned char smem_raw[];
   bf16* sQ = align_smem(smem_raw);   // [D / 64][BQ][64]
   bf16* sK = sQ + BQ * D;            // [STAGES][D / 64][BK][64]
@@ -2727,7 +2444,7 @@ extern "C" int flash_attention_fwd_tc(const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 64) return tc::launch_fwd_ws<64>(q, k, v, o, lse, p, s);
   if (dtype == 1 && D == 128) return tc::launch_fwd_ws<128>(q, k, v, o, lse, p, s);
-  if (dtype == 1 && D == 256) return tc::launch_fwd<256>(q, k, v, o, lse, p, s);
+  if (dtype == 1 && D == 256) return tc::launch_fwd_ws<256>(q, k, v, o, lse, p, s);
   return cudaErrorInvalidValue;
 }
 

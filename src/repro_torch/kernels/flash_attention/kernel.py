@@ -9,11 +9,11 @@ picks the kernel by type and head dim:
   (``"tc"``).  At 64 and 128 every product runs on ``wgmma`` in blocks of
   a producer warpgroup, which brings the tiles in by TMA through a ring of
   three stages under ``mbarrier``s, and two consumer warpgroups of 64 rows:
-  the forward ``fwd_ws_kernel`` (128 queries x 128-key stages), and the
-  backward's ``delta_kernel``, ``dkdv_ws_kernel`` (128 keys x 64-query
-  stages) and ``dq_ws_kernel`` (128 queries x 64-key stages).  At 256 the
-  forward is ``fwd_kernel<256>`` on ``mma.sync`` and the backward four
-  launches on ``wgmma`` (below);
+  the forward ``fwd_ws_kernel`` (128 queries x 128-key stages; at 256,
+  128 queries x 64-key stages in a ring of two), and the backward's
+  ``delta_kernel``, ``dkdv_ws_kernel`` (128 keys x 64-query stages) and
+  ``dq_ws_kernel`` (128 queries x 64-key stages).  At 256 the backward is
+  four launches on ``wgmma`` (below);
 - float32 at head dims 64, 128 and 256, and both types at the smoke
   configs' head dims 8, 12 and 16: the float32 FMA kernels (``"fma"``;
   the narrow dims on a tile 16 wide, zero-padded; the backward at 256 on
@@ -67,9 +67,9 @@ BWD_HEAD_DIMS = HEAD_DIMS                       # backward
 TC_HEAD_DIMS = (64, 128, 256)    # bfloat16 forward on the tensor-core kernels
 TC_BWD_HEAD_DIMS = TC_HEAD_DIMS  # bfloat16 backward on the tensor-core kernels
 ROUTES = ("tc", "fma")
-# (query, key) tile of each route's forward (tc at head dim 256: 64 x 32, see
-# :func:`fwd_tile`); the backward's tiles are in the source (tc: dK/dV 64
-# queries x 128 keys, dQ 128 x 64; at head dim 256 64 x 64 and 128 x 32)
+# (query, key) tile of each route's forward (tc at head dim 256: 128 x 64,
+# see :func:`fwd_tile`); the backward's tiles are in the source (tc: dK/dV
+# 64 queries x 128 keys, dQ 128 x 64; at head dim 256 64 x 64 and 128 x 32)
 TILES = {"tc": (128, 128), "fma": (64, 64)}
 D256_KEY_TILE = D256_QUERY_TILE = 64   # the bf16 dK/dV blocks at head dim 256
 # query-head groups of the bf16 backward at head dim 256 (of 1, 2, 4, 8 and
@@ -78,9 +78,11 @@ D256_HEAD_GROUPS = 8
 _SCHEDULES: dict = {}                  # dK/dV schedules on the device
 _SCHEDULES_KEPT = 64
 VEC_BYTES = 16                   # tiles are loaded as 16-byte vectors
-# the TMA copies of the tc kernels at head dims 64 and 128: a box of
-# (columns, heads, rows, batches), 64 x 64 bf16 values of one head
-WS_HEAD_DIMS = (64, 128)
+# the TMA copies of the warp-specialised tc kernels (the forward at every
+# tc head dim, the backward at 64 and 128): a box of (columns, heads, rows,
+# batches), 64 x 64 bf16 values of one head
+WS_HEAD_DIMS = (64, 128, 256)
+WS_BWD_HEAD_DIMS = (64, 128)
 TMA_BOX = (64, 1, 64, 1)
 TMA_MAX_STRIDE = 1 << 40         # bytes; strides are multiples of 16 below it
 TMA_MAX_DIM = 1 << 32
@@ -123,7 +125,7 @@ def route(dtype: torch.dtype, D: int, backward: bool = False) -> str:
 def fwd_tile(dtype: torch.dtype, D: int) -> Tuple[int, int]:
     """(query, key) tile of the forward kernel that takes (dtype, D)."""
     kernel = route(dtype, D)
-    return (64, 32) if kernel == "tc" and D == 256 else TILES[kernel]
+    return (128, 64) if kernel == "tc" and D == 256 else TILES[kernel]
 
 
 def _inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *more,
@@ -286,7 +288,7 @@ def launch_bwd(q, k, v, o, lse, do, *, kernel: str, causal: bool = True,
     nothing (see :func:`launch_fwd`)."""
     q, k, v, o, do = _inputs(q, k, v, o, do, backward=True)
     name, fn = _entry("bwd", kernel, q)
-    if kernel == "tc" and q.shape[3] in WS_HEAD_DIMS:
+    if kernel == "tc" and q.shape[3] in WS_BWD_HEAD_DIMS:
         for t in (q, k, v, do):
             tma_geometry(tuple(t.shape), t.element_size())
     ints = _ints(q, k, causal=causal, window=window, q_offset=q_offset)

@@ -1,10 +1,10 @@
-"""Time the bf16 flash kernels at head dims 64 and 128 on the card, forward
-and backward, at the four shapes ``chip_smoke.py`` times, and compare two
-trees in alternating rounds.
+"""Time the bf16 flash kernels on the tensor-core route on the card,
+forward and backward, at the shapes ``chip_smoke.py`` times, and compare
+two trees in alternating rounds.
 
     PYTHONPATH=src python -m repro_torch.kernels.flash_attention.tc_bench
     PYTHONPATH=src python -m repro_torch.kernels.flash_attention.tc_bench \\
-        --against build/parent/src --rounds 10
+        --against build/parent/src --rounds 10 --shapes rgemma_prefill
 
 Alone it prints the card's name and power limit, then one JSON line:
 for each shape, ``fwd_ms`` and ``bwd_ms`` (``flash_fwd`` and
@@ -16,35 +16,38 @@ bytes; ``fwd_passes`` and ``bwd_passes``, the device ms of each kernel a
 call launches (``torch.profiler``).  The
 shapes: ``train`` (B=1, S=4096, 32 heads on 8 kv heads, head dim 128,
 causal), ``llava_g7`` (56 heads on 8), ``whisper_encoder`` (1,500
-frames, 16 heads of 64, non-causal) and ``whisper_cross`` (4,096 queries
-on 1,500 keys).
+frames, 16 heads of 64, non-causal), ``whisper_cross`` (4,096 queries
+on 1,500 keys), and RecurrentGemma-9B's local attention at head dim 256
+(16 heads on one kv head, causal, a window of 2,048): ``rgemma_prefill``
+(S=32768) and ``rgemma_train`` (S=4096).  ``--shapes`` takes some of
+them (all by default).
 
-With ``--against DIR`` it runs itself as a file once a tree per round,
-with ``DIR`` (another tree's ``src``, for example a parent commit unpacked
-into ``build/parent``) or this tree's ``src`` on ``PYTHONPATH``, in the
-order other, this, this, other, ... for ``--rounds`` rounds, then prints
-each shape's readings of both trees, their medians and the rounds in
-which this tree's reading was the lower.  Each tree builds its own
-library on its first round.  Compare trees only within one call.
+With ``--against DIR`` it runs itself as a file once a tree per round
+(``kernels/timing.py``'s ``tree_rounds``: ``DIR`` is another tree's
+``src``, for example a parent commit unpacked into ``build/parent``), in
+the order other, this, this, other, ... for ``--rounds`` rounds, then
+prints each shape's readings of both trees, their medians and the rounds
+in which this tree's reading was the lower.  Compare trees only within
+one call.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
 import json
-import os
 import pathlib
-import statistics
 import subprocess
 import sys
 
 import torch
 
-SHAPES = {   # B, Sq, Sk, H, Kv, D, causal
-    "train": (1, 4096, 4096, 32, 8, 128, True),
-    "llava_g7": (1, 4096, 4096, 56, 8, 128, True),
-    "whisper_encoder": (1, 1500, 1500, 16, 16, 64, False),
-    "whisper_cross": (1, 4096, 1500, 16, 16, 64, False),
+SHAPES = {   # B, Sq, Sk, H, Kv, D, causal, window
+    "train": (1, 4096, 4096, 32, 8, 128, True, None),
+    "llava_g7": (1, 4096, 4096, 56, 8, 128, True, None),
+    "whisper_encoder": (1, 1500, 1500, 16, 16, 64, False, None),
+    "whisper_cross": (1, 4096, 1500, 16, 16, 64, False, None),
+    "rgemma_prefill": (1, 32768, 32768, 16, 1, 256, True, 2048),
+    "rgemma_train": (1, 4096, 4096, 16, 1, 256, True, 2048),
 }
 READINGS = ("fwd_ms", "bwd_ms", "fwd_host_us", "bwd_host_us")
 
@@ -60,12 +63,12 @@ def shape_reading(name: str, gen) -> dict:
     from repro_torch.fabric.interface import KernelMode
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.timing import event_ms, host_us, kernel_split
-    B, Sq, Sk, H, Kv, D, causal = SHAPES[name]
+    B, Sq, Sk, H, Kv, D, causal, window = SHAPES[name]
     mk = lambda *s: torch.randn(s, generator=gen, device="cuda"  # noqa: E731
                                 ).bfloat16()
     q, k, v, do = mk(B, Sq, H, D), mk(B, Sk, Kv, D), mk(B, Sk, Kv, D), \
         mk(B, Sq, H, D)
-    kw = dict(causal=causal, window=None, q_offset=0, mode=KernelMode.CUDA)
+    kw = dict(causal=causal, window=window, q_offset=0, mode=KernelMode.CUDA)
     fwd = lambda: FK.flash_fwd(q, k, v, **kw)  # noqa: E731
     o, lse = fwd()
     bwd = lambda: FK.flash_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
@@ -76,45 +79,36 @@ def shape_reading(name: str, gen) -> dict:
             "fwd_passes": kernel_split(fwd), "bwd_passes": kernel_split(bwd)}
 
 
-def one_tree() -> dict:
+def one_tree(shapes) -> dict:
     from repro_torch.kernels.flash_attention import kernel as FK
     gen = torch.Generator(device="cuda").manual_seed(30)
     return {"source": str(pathlib.Path(FK.__file__).parents[2]),
-            **{name: shape_reading(name, gen) for name in SHAPES}}
+            **{name: shape_reading(name, gen) for name in shapes}}
 
 
-def rounds(other: str, n: int) -> dict:
-    """``n`` rounds of this file as a process, ``other`` and this tree's
-    ``src`` on ``PYTHONPATH`` in the order other, this, this, other, ..."""
-    here = str(pathlib.Path(__file__).resolve().parents[3])
-    trees = {"other": str(pathlib.Path(other).resolve()), "this": here}
-    got = {"other": [], "this": []}
-    for r in range(n):
-        for tree in (("other", "this") if r % 2 == 0 else ("this", "other")):
-            env = {**os.environ, "PYTHONPATH": trees[tree]}
-            out = subprocess.run([sys.executable, __file__], env=env,
-                                 capture_output=True, text=True, check=True)
-            got[tree].append(json.loads(out.stdout.strip().splitlines()[-1]))
+def rounds(other: str, n: int, shapes) -> dict:
+    """``n`` rounds of this file against the tree ``other``: each shape's
+    readings of both trees compared (``timing.compare``) and their
+    outputs' digests."""
+    from repro_torch.kernels.timing import compare, tree_rounds
+    got = tree_rounds(__file__, other, n, ["--shapes", *shapes])
     summary = {}
-    for name in SHAPES:
-        summary[name] = {}
-        for key in READINGS:
-            a = [x[name][key] for x in got["other"]]
-            b = [x[name][key] for x in got["this"]]
-            summary[name][key] = {
-                "other": a, "this": b, "other_median": statistics.median(a),
-                "this_median": statistics.median(b),
-                "this_less_rounds": sum(y < x for x, y in zip(a, b))}
+    for name in shapes:
+        summary[name] = {key: compare([x[name][key] for x in got["other"]],
+                                      [x[name][key] for x in got["this"]])
+                         for key in READINGS}
         summary[name]["digests"] = {t: sorted({x[name]["digest"]
                                                for x in got[t]})
-                                    for t in got}
-    return {"trees": trees, "rounds": n, "shapes": summary}
+                                    for t in ("other", "this")}
+    return {"trees": got["trees"], "rounds": n, "shapes": summary}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", default=None)
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--shapes", nargs="+", choices=tuple(SHAPES),
+                    default=list(SHAPES))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tc_bench runs on a CUDA device")
@@ -122,7 +116,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    out = rounds(args.against, args.rounds) if args.against else one_tree()
+    out = (rounds(args.against, args.rounds, args.shapes) if args.against
+           else one_tree(args.shapes))
     print(json.dumps(out), flush=True)
     return 0
 

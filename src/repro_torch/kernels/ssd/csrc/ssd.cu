@@ -23,42 +23,47 @@
 // bounds it on this card: 0.13 ms at 3.35 TB/s.  The TPU kernel walked the
 // chunks of a head in order ("arbitrary" grid axis) and carried h in VMEM;
 // on Hopper that is one block per head, 48 blocks on 132 SMs.  Here the
-// chunks run in parallel, in four passes (Mamba-2's own chunked
-// decomposition):
+// chunks run in parallel, in Mamba-2's own chunked decomposition:
 //
 // 1. cb:    C.B^T of each (batch, chunk), once for all heads, into a float32
 //           scratch [B, nc, QP, QP] (QP: Q rounded up to 64); only the
-//           64 x 64 tiles on or below the diagonal are formed.
-// 2. state: one block per (batch, chunk, head): the chunk's own state
-//           s_c = sum_j exp(cum_Q - cum_j) dt_j x_j B_j^T, a [P x Q].[Q x N]
-//           product, into a float32 scratch [B, H, nc, P, N], and cum_Q.
+//           64 x 64 tiles on or below the diagonal are formed.  (The FMA
+//           route; the tensor-core route forms C.B^T in pass 4.)
+// 2. state: the chunk's own state s_c = sum_j exp(cum_Q - cum_j) dt_j x_j
+//           B_j^T, a [P x Q].[Q x N] product, into a float32 scratch [B, H,
+//           nc, P, N], and cum_Q.
 // 3. pass:  the carry across chunks, h_c = exp(cum_Q,c) h_{c-1} + s_c,
 //           sequential over the chunks and parallel over B.H.P.N; it writes
 //           each chunk's incoming state (float32, or hi and lo bf16 planes
 //           for bf16 inputs) and h_last.  Memory bound: it reads and writes
 //           the scratch once.
-// 4. out:   one block per (batch, chunk, head, 64-row tile I):
-//           y_I = exp(cum_I) C_I . h_in^T + sum_{J <= I} G_IJ x_J with
-//           G_IJ = CB_IJ exp(cum_i - cum_j) dt_j on j <= i, read from pass 1.
+// 4. out:   y_I = exp(cum_I) C_I . h_in^T + sum_{J <= I} G_IJ x_J for each
+//           64-row tile I, with G_IJ = CB_IJ exp(cum_i - cum_j) dt_j on
+//           j <= i.
 //
-// bfloat16 inputs run every product on the tensor cores
-// (`mma.sync.m16n8k16`, float32 accumulators) from bf16 tiles in swizzled
-// shared memory fed by `cp.async`; cumsum, decays and the carried state stay
-// float32, and only the operands fed to the tensor cores are bf16.  x, B
-// and C enter as they are; the operands formed in float32 (x.w with w the
-// decay times dt, G, and the incoming state) enter as the sum of two bf16
-// values, hi + lo, in two products.  So the passes keep the float32
-// algebra's accuracy (about 2^-17 relative a term) and y differs from the
-// plain version only where the two round it to bf16.  Rounding G and the
-// incoming state once instead moved y by 2.7e-3 relative L2 at S=32768 (50
-// times the float32 FMA kernel's 5.3e-5), and rounding x.w once put h_last
-// outside its limit in a CPU emulation.  The products are cheap beside the
-// loads, so the second one costs little.  float32
-// inputs run the same passes with float32 FMA on the CUDA cores (IEEE, no
-// TF32).  Masked before exp: above the diagonal cum_i - cum_j > 0 may
-// overflow, and inf * 0 is NaN, so those entries are selected to 0.
+// bfloat16 at Mamba-2 780M's widths, (P, N) = (64, 128), runs every product
+// on `wgmma` ("the forward on wgmma" below: `state_wg_kernel`,
+// `pass_kernel<bf16>`, `out_wg_kernel`): a TMA producer warp feeds a
+// consumer warpgroup, and each block takes a group of FWD_HEAD_GROUP heads,
+// so the output pass forms C.B^T from the bf16 C and B tiles once for the
+// group instead of reading a float32 scratch once a head (at S = 32768 that
+// read was about 1 GB, against the function's 432 MB).  cumsum, decays and
+// the carried state stay float32, and only the operands fed to the tensor
+// cores are bf16.  x, B and C enter as they are; the operands formed in
+// float32 (x.w with w the decay times dt, G, and the incoming state) enter
+// as the sum of two bf16 values, hi + lo, in two products.  So the passes
+// keep the float32 algebra's accuracy (about 2^-17 relative a term) and y
+// differs from the plain version only where the two round it to bf16.
+// Rounding G and the incoming state once instead moved y by 2.7e-3 relative
+// L2 at S=32768 (50 times the float32 FMA kernel's 5.3e-5), and rounding x.w
+// once put h_last outside its limit in a CPU emulation.  float32 inputs,
+// and bf16 at the smoke widths (16, 16), run the four passes with float32
+// FMA on the CUDA cores (IEEE, no TF32; bf16 values widened as they load).
+// Masked before exp: above the diagonal cum_i - cum_j > 0 may overflow, and
+// inf * 0 is NaN, so those entries are selected to 0.
 //
 // `ssd_fwd` and `ssd_bwd` return the `cudaError_t` of their launches.
+#include <cuda.h>   // CUtensorMap and its enums; the entry point comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -72,6 +77,12 @@ constexpr int F32_THREADS = 256;  // float32 passes: 16 x 16 threads
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T to_t(float v);
+template <>
+__device__ __forceinline__ float to_t<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 to_t<bf16>(float v) { return __float2bfloat16(v); }
 
 // Inclusive prefix sum of a[0, n) in place, by one warp (lane = 0..31).
 __device__ __forceinline__ void warp_cumsum(float* a, int n, int lane) {
@@ -107,8 +118,8 @@ __device__ __forceinline__ void chunk_cum(float* sCum, float* sDt, const float* 
 }
 
 // ===========================================================================
-// bfloat16: tensor-core helpers (mma.sync m16n8k16, ldmatrix, cp.async), as
-// in flash_attention.cu's `tc` namespace
+// bfloat16: the backward's tensor-core helpers (mma.sync m16n8k16,
+// ldmatrix, cp.async)
 // ===========================================================================
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
@@ -276,15 +287,16 @@ __device__ __forceinline__ void store_acc(float* o, size_t ld, const float (&s)[
 }
 
 // ---------------------------------------------------------------------------
-// pass 1 (bf16): C.B^T of a (batch, chunk) for row tile I and every column
-// tile J <= I; 4 warps of 16 rows, B_J in a ring of two.  FULL (the
-// backward) also forms B_J.C_I^T into the tile (J, I), so that the whole
-// [QP][QP] block holds C_max(a,b) . B_min(a,b) at (a, b): the tiles t <= s
-// read by rows s and the tiles s >= t read by rows t are both row-major
-// (on the diagonal tile, C.B^T fills column <= row and B.C^T the rest).
+// the backward's pass 1 (bf16): C.B^T of a (batch, chunk) in full, for row
+// tile I and every column tile J <= I; 4 warps of 16 rows, B_J in a ring of
+// two.  It forms C_I.B_J^T into the tile (I, J) and B_J.C_I^T into the
+// tile (J, I), so that the whole [QP][QP] block holds C_max(a,b) .
+// B_min(a,b) at (a, b): the tiles t <= s read by rows s and the tiles s >= t
+// read by rows t are both row-major (on the diagonal tile, C.B^T fills
+// column <= row and B.C^T the rest).
 // grid (nI * nc, B); block x = c * nI + I.
 // ---------------------------------------------------------------------------
-template <int N, bool FULL>
+template <int N>
 __global__ void __launch_bounds__(128)
 cb_tc_kernel(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, float* __restrict__ cb,
              int S, int Q, int nI) {
@@ -312,21 +324,20 @@ cb_tc_kernel(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, float* __
     float s[QT / 8][4];
     zero(s);
     rows_times_rows_t<N, QT / 8>(s, sC, r0, sB + st * QT * N, lane);
-    const bool diag = FULL && J == I;
+    const bool diag = J == I;
     store_acc(out + (size_t)i0 * QP + J * QT, QP, s, r0, lane, diag ? 1 : 0);
-    if (FULL) {
-      zero(s);
-      rows_times_rows_t<N, QT / 8>(s, sB + st * QT * N, r0, sC, lane);
-      store_acc(out + (size_t)J * QT * QP + i0, QP, s, r0, lane, diag ? 2 : 0);
-    }
+    zero(s);
+    rows_times_rows_t<N, QT / 8>(s, sB + st * QT * N, r0, sC, lane);
+    store_acc(out + (size_t)J * QT * QP + i0, QP, s, r0, lane, diag ? 2 : 0);
     __syncthreads();  // every warp is done with stage st before it is refilled
   }
   cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
-// pass 2 (bf16): the chunk's own state s[P][N] = sum_j (x_j w_j)^T B_j with
-// w_j = exp(cum_Q - cum_j) dt_j; x w enters as hi + lo, both bf16.  Warps
+// the backward's passes 2 and 4 (bf16 at (64, 128), on mma.sync): the
+// chunk's own state s[P][N] = sum_j (x_j w_j)^T B_j with w_j = exp(cum_Q -
+// cum_j) dt_j; x w enters as hi + lo, both bf16.  Warps
 // split P into 16-row groups and N into groups of WN columns.  DUAL (the
 // backward): the chunk's dual state sum_i exp(cum_i) dy_i^T C_i, called with
 // dy for x and C for B; it writes no dAc.
@@ -412,105 +423,6 @@ state_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
   if (!DUAL && threadIdx.x == 0) dAc[bh * nc + c] = cum_last;
 }
 
-// ---------------------------------------------------------------------------
-// pass 4 (bf16): y of 64 rows of a chunk for one head; 4 warps of 16 rows.
-// y_I = exp(cum_i) C_I . h_in^T + sum_{J <= I} G_IJ x_J.
-// grid (nc * H * nI, B); block x = (c * H + h) * nI + (nI - 1 - I): the
-// heads of a chunk run together (they read the same C.B^T), longest first.
-// ---------------------------------------------------------------------------
-template <int P, int N>
-__global__ void __launch_bounds__(128)
-out_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
-              const float* __restrict__ dt, const bf16* __restrict__ Cm,
-              const float* __restrict__ cb, const bf16* __restrict__ hin, size_t lo_plane,
-              bf16* __restrict__ y, int H, int S, int Q, int nI) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sC = reinterpret_cast<bf16*>(smem_raw);   // [QT][N]
-  bf16* sHh = sC + QT * N;                        // [P][N], h_in hi
-  bf16* sHl = sHh + P * N;                        // [P][N], h_in lo
-  bf16* sX = sHl + P * N;                         // [2][QT][P]
-  float* sCum = reinterpret_cast<float*>(sX + 2 * QT * P);  // [Q]
-  float* sDt = sCum + Q;                          // [Q]
-
-  const int nc = S / Q, QP = nI * QT;
-  const int I = nI - 1 - (int)(blockIdx.x % nI);
-  const int h = (blockIdx.x / nI) % H, c = blockIdx.x / (nI * H), b = blockIdx.y;
-  const size_t bh = (size_t)b * H + h;
-  const size_t t0 = (size_t)c * Q;
-  const int i0 = I * QT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  const bf16* xb = x + (bh * S + t0) * P;
-  const float* cbb = cb + ((size_t)b * nc + c) * QP * QP;
-
-  load_tile<QT, N>(sC, Cm + ((size_t)b * S + t0 + i0) * N, N, Q - i0);
-  load_tile<P, N>(sHh, hin + (bh * nc + c) * P * N, N, P);
-  load_tile<P, N>(sHl, hin + lo_plane + (bh * nc + c) * P * N, N, P);
-  load_tile<QT, P>(sX, xb, P, Q);
-  cp_async_commit();
-  chunk_cum(sCum, sDt, dA + bh * S + t0, dt + bh * S + t0, Q);
-
-  const int row0 = i0 + r0 + g, row1 = row0 + 8;  // this thread's two rows
-  const float cum0 = sCum[min(row0, Q - 1)], cum1 = sCum[min(row1, Q - 1)];
-  float acc[P / 8][4];
-  zero(acc);
-  const float* c0 = cbb + (size_t)row0 * QP + 2 * t;
-  const float* c1 = c0 + 8 * QP;
-  for (int J = 0; J <= I; ++J) {
-    const int st = J & 1, j0 = J * QT;
-    // this tile's C.B^T, loaded before the wait so the two overlap
-    float2 cv[QT / 8][2];
-#pragma unroll
-    for (int n = 0; n < QT / 8; ++n) {
-      cv[n][0] = *reinterpret_cast<const float2*>(c0 + j0 + 8 * n);
-      cv[n][1] = *reinterpret_cast<const float2*>(c1 + j0 + 8 * n);
-    }
-    if (J < I)
-      load_tile<QT, P>(sX + (st ^ 1) * QT * P, xb + (size_t)(j0 + QT) * P, P, Q - j0 - QT);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (J == 0) {
-      // the carried state: exp(cum_i) C_i . h_in, h_in as hi + lo
-      rows_times_rows_t<N, P / 8>(acc, sC, r0, sHh, lane);
-      rows_times_rows_t<N, P / 8>(acc, sC, r0, sHl, lane);
-      const float e0 = row0 < Q ? expf(cum0) : 0.f, e1 = row1 < Q ? expf(cum1) : 0.f;
-#pragma unroll
-      for (int n = 0; n < P / 8; ++n) {
-        acc[n][0] *= e0;
-        acc[n][1] *= e0;
-        acc[n][2] *= e1;
-        acc[n][3] *= e1;
-      }
-    }
-    // G = CB exp(cum_i - cum_j) dt_j on j <= i < Q, else 0
-    float gm[QT / 8][4];
-#pragma unroll
-    for (int n = 0; n < QT / 8; ++n) {
-      const float v[4] = {cv[n][0].x, cv[n][0].y, cv[n][1].x, cv[n][1].y};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = (e >> 1) ? row1 : row0;
-        const int j = j0 + 8 * n + 2 * t + (e & 1);
-        const bool ok = j <= i && i < Q;
-        const int jj = ok ? j : 0;
-        gm[n][e] = ok ? v[e] * expf(((e >> 1) ? cum1 : cum0) - sCum[jj]) * sDt[jj] : 0.f;
-      }
-    }
-    regs_times_tile<P, QT / 16, P / 8>(acc, gm, sX + st * QT * P, lane);
-    __syncthreads();  // every warp is done with stage st before it is refilled
-  }
-  cp_async_wait<0>();
-
-  bf16* y0 = y + (bh * S + t0 + row0) * P + 2 * t;
-  bf16* y1 = y0 + 8 * P;
-#pragma unroll
-  for (int n = 0; n < P / 8; ++n) {
-    if (row0 < Q) *reinterpret_cast<uint32_t*>(y0 + 8 * n) = pack_bf16(acc[n][0], acc[n][1]);
-    if (row1 < Q) *reinterpret_cast<uint32_t*>(y1 + 8 * n) = pack_bf16(acc[n][2], acc[n][3]);
-  }
-}
-
 // ===========================================================================
 // float32: the same passes with float32 FMA; 16 x 16 threads, each owning
 // 4 rows of a 64-row tile and every 16th column
@@ -527,8 +439,8 @@ __device__ __forceinline__ void load_rows(float* s, const T* g, int n_valid,
   }
 }
 
-// pass 1 (float32 FMA on inputs of type T: the float32 forward, and the
-// backward's recompute for both types); grid (nI * nc, B) as cb_tc_kernel.
+// pass 1 (float32 FMA on inputs of type T: the FMA route's forward, and the
+// backward's recompute on it); grid (nI * nc, B) as cb_tc_kernel.
 template <typename T, int N>
 __global__ void __launch_bounds__(F32_THREADS)
 cb_f32_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ cb,
@@ -632,14 +544,18 @@ state_f32_kernel(const T* __restrict__ x, const float* __restrict__ dA,
   if (!DUAL && threadIdx.x == 0) dAc[bh * nc + c] = cum_last;
 }
 
-// pass 4 (float32); grid (nc * H * nI, B) as out_tc_kernel.  Thread (ty, tx)
+// pass 4 (float32 FMA on inputs of type T): y of 64 rows of a chunk for
+// one head, y_I = exp(cum_i) C_I . h_in^T + sum_{J <= I} G_IJ x_J with G_IJ =
+// CB_IJ exp(cum_i - cum_j) dt_j on j <= i, read from pass 1.  grid (nc * H *
+// nI, B); block x = (c * H + h) * nI + (nI - 1 - I): the heads of a chunk
+// run together (they read the same C.B^T), longest first.  Thread (ty, tx)
 // owns rows ty * 4 + i of the tile and columns tx + 16 m of P.
-template <int P, int N>
+template <typename T, int P, int N>
 __global__ void __launch_bounds__(F32_THREADS)
-out_f32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
-               const float* __restrict__ dt, const float* __restrict__ Cm,
+out_f32_kernel(const T* __restrict__ x, const float* __restrict__ dA,
+               const float* __restrict__ dt, const T* __restrict__ Cm,
                const float* __restrict__ cb, const float* __restrict__ hin,
-               float* __restrict__ y, int H, int S, int Q, int nI) {
+               T* __restrict__ y, int H, int S, int Q, int nI) {
   constexpr int LDN = N + 1, LDX = P + 1, LDG = QT + 1, PR = P / 16;
   extern __shared__ float smem[];
   float* sC = smem;             // [QT][LDN]
@@ -655,11 +571,11 @@ out_f32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
   const size_t t0 = (size_t)c * Q;
   const int i0 = I * QT;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* xb = x + (bh * S + t0) * P;
+  const T* xb = x + (bh * S + t0) * P;
   const float* cbb = cb + ((size_t)b * nc + c) * QP * QP;
 
   chunk_cum(sCum, sDt, dA + bh * S + t0, dt + bh * S + t0, Q);
-  load_rows<float, N>(sC, Cm + ((size_t)b * S + t0 + i0) * N, Q - i0);
+  load_rows<T, N>(sC, Cm + ((size_t)b * S + t0 + i0) * N, Q - i0);
   const float* hb = hin + (bh * nc + c) * P * N;
   for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x)
     sH[(idx / N) * LDN + idx % N] = hb[idx];
@@ -694,7 +610,7 @@ out_f32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
   for (int J = 0; J <= I; ++J) {
     const int j0 = J * QT;
     __syncthreads();  // readers of the previous sX / sG are done
-    load_rows<float, P>(sX, xb + (size_t)j0 * P, Q - j0);
+    load_rows<T, P>(sX, xb + (size_t)j0 * P, Q - j0);
     for (int idx = threadIdx.x; idx < QT * QT; idx += blockDim.x) {
       const int r = idx / QT, jj = idx % QT;
       const int i = i0 + r, j = j0 + jj;
@@ -719,9 +635,9 @@ out_f32_kernel(const float* __restrict__ x, const float* __restrict__ dA,
   for (int i = 0; i < 4; ++i) {
     const int row = i0 + ty * 4 + i;
     if (row >= Q) continue;
-    float* yrow = y + (bh * S + t0 + row) * P;
+    T* yrow = y + (bh * S + t0 + row) * P;
 #pragma unroll
-    for (int m = 0; m < PR; ++m) yrow[tx + 16 * m] = acc[i][m];
+    for (int m = 0; m < PR; ++m) yrow[tx + 16 * m] = to_t<T>(acc[i][m]);
   }
 }
 
@@ -768,57 +684,637 @@ pass_kernel(const float* __restrict__ states, const float* __restrict__ dAc,
   *reinterpret_cast<float4*>(h_last + bh * PN + e) = h;
 }
 
+// ===========================================================================
+// bfloat16 at (P, N) = (64, 128): the forward on wgmma, fed by TMA
+// ===========================================================================
+//
+// Three launches: `state_wg_kernel` (pass 2), `pass_kernel<bf16>` (pass 3,
+// the carry, no product) and `out_wg_kernel` (pass 4).  There is no pass 1:
+// the output blocks form C.B^T themselves, once for a group of
+// FWD_HEAD_GROUP heads, instead of reading a float32 [QP][QP] scratch once
+// a head.  A block is a consumer warpgroup (128 threads) and a producer
+// warp: one thread of the producer brings every tile in by TMA (boxes of 64
+// rows x 64 bf16 columns, swizzled by 128 bytes into the panel layout
+// `wgmma` reads, rows past S zero) through a ring of two 32 KB slots under
+// `mbarrier`s; the consumers wait on a slot's "full" barrier, run their
+// products on `wgmma` with float32 accumulators and arrive on its "empty"
+// barrier.  About 86 KB of shared memory a block, so two blocks share an
+// SM and one's arithmetic runs while the other's products hold the tensor
+// cores; their ten warps put three on some of the SM's four register
+// files, which caps a thread at 168 registers (one block an SM, at up to
+// 255, made the output pass 1.5x as long).  The tile rows past a ragged
+// chunk's end (Q not a multiple of 64) are the next chunk's: every product
+// that reads them is masked by row < Q, as the mma.sync passes were.
+
+constexpr int FWD_HEAD_GROUP = 2;   // heads a forward block (state and output passes)
+
+
+namespace wg {
+constexpr int P = 64, N = 128;
+constexpr int HG = FWD_HEAD_GROUP;
+constexpr int NTH = 160;            // a consumer warpgroup and a producer warp
+constexpr int BOX = 64 * 64;        // elements of a TMA box, 64 rows x 64 bf16 (8 KB)
+constexpr int SLOT = 4 * BOX;       // a ring slot: B and HG x tiles, or h_in hi and lo
+constexpr int SLOTS = 2;
+constexpr size_t ALIGN = 1024;      // the 128-byte swizzle's alignment
+constexpr size_t BARS = 8 * sizeof(uint64_t);
+constexpr int CONSUMERS = 1;        // named barrier of the consumer warpgroup
+static_assert(HG <= SLOTS, "the carried-state products of a group are in flight together");
+// dynamic shared memory: the ring (and C_I for the output pass), cum and dt
+// (or w) of the group's heads over QP = Q rounded up to 64, the barriers
+constexpr size_t state_smem(int QP) {
+  return ALIGN + (size_t)SLOTS * SLOT * 2 + 2 * (size_t)HG * QP * 4 + BARS;
+}
+constexpr size_t out_smem(int QP) { return state_smem(QP) + 2 * BOX * 2; }
+}  // namespace wg
+
+__device__ __forceinline__ bf16* align_1024(unsigned char* raw) {
+  return reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(raw) + wg::ALIGN - 1) &
+                                 ~(uintptr_t)(wg::ALIGN - 1));
+}
+
+// wgmma (warpgroup products) and the helpers around it, as in
+// flash_attention.cu.  A shared-memory operand is described by its address,
+// the byte offsets LBO and SBO and the 128-byte swizzle (layout type 1).
+__device__ __forceinline__ uint64_t wg_desc(const void* ptr, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = smem_u32(ptr);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+// A K-major operand of a [2 panels][64 rows][64] tile, depth 128: 16-deep
+// step kk (of 8) is 32 bytes into panel kk / 4.
+__device__ __forceinline__ uint64_t kdesc(const bf16* s, int kk) {
+  return wg_desc(s + (kk >> 2) * wg::BOX + (kk & 3) * 16, 16, 1024);
+}
+// An MN-major B of a [panels][64 rows][64] tile, its rows [16 kk, 16 kk +
+// 16) the depth and its columns across the panels, a panel (8 KB) apart.
+__device__ __forceinline__ uint64_t mdesc(const bf16* s, int kk) {
+  return wg_desc(s + kk * 16 * 64, wg::BOX * 2, 1024);
+}
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the wgmma that owns it.
+template <int K>
+__device__ __forceinline__ void fence_regs(float (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d[32] = A (shared, K-major) * B (shared, K-major) + (acc ? d : 0): m64n64k16
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[32] += A (registers, the m16n8k16 A fragment of each warp's 16 rows) *
+// B (shared, MN-major): m64n64k16
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64] += A (registers) * B (shared, MN-major): m64n128k16
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// The producer's arrival on a "full" barrier, with the bytes its copies bring.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred P;\nmbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// One box (64 x 64 values at the given coordinates, innermost first) of the
+// map's tensor into the 8 KB at `dst` (1024-byte aligned), onto `bar`.
+__device__ __forceinline__ void tma2(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                     int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma3(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                     int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma4(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                     int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The barriers of a forward block: `n_full` "full" (one producer arrival
+// each) and as many "empty" (the 128 consumers) from `bars`; then the whole
+// block meets once.
+__device__ __forceinline__ void init_ring(uint64_t* bars, int n_full) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < n_full; ++i) {
+      mbar_init(bars + i, 1);
+      mbar_init(bars + n_full + i, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The chunk's cum (inclusive cumsum of dA) and dt of the group's `hv` heads
+// over [0, Q), `stride` floats apart in dA and dt, into sCum[g QP + i] and
+// sDt[g QP + i], zero on [Q, QP) and for absent heads; warp g takes head g's
+// cumsum as `chunk_cum` does, so every pass agrees on it bit for bit.  The
+// consumer warpgroup alone; ends with its barrier.
+template <int HG>
+__device__ __forceinline__ void group_cum_wg(float* sCum, float* sDt, const float* dA,
+                                             const float* dt, size_t stride, int Q, int QP,
+                                             int hv) {
+  for (int idx = threadIdx.x; idx < HG * QP; idx += 128) {
+    const int g = idx / QP, i = idx % QP;
+    const bool ok = g < hv && i < Q;
+    sCum[idx] = ok ? dA[g * stride + i] : 0.f;
+    sDt[idx] = ok ? dt[g * stride + i] : 0.f;
+  }
+  named_sync(wg::CONSUMERS, 128);
+  const int warp = threadIdx.x >> 5;
+  if (warp < hv) warp_cumsum(sCum + warp * QP, Q, threadIdx.x & 31);
+  named_sync(wg::CONSUMERS, 128);
+}
+
+// ---------------------------------------------------------------------------
+// pass 2 (bf16 at (64, 128)): the chunk states of a group of FWD_HEAD_GROUP
+// heads, s[P][N] = sum_j (x_j w_j)^T B_j with w_j = exp(cum_Q - cum_j) dt_j.
+// The producer brings each 64-row tile of B (once for the group) and of the
+// heads' x; the consumers read (x w)^T's A fragments straight from the x
+// tile (`ldmatrix.trans`: the tile's rows are the product's depth), scale
+// them by w in float32, split them into hi + lo bf16 and accumulate s as two
+// m64n128k16 products a 16-deep step, B MN-major.  Writes the states and
+// each chunk's cum_Q (dAc).  The two heads' accumulators take 128 registers
+// a thread, so at the 168 of two blocks an SM ptxas spills 152 bytes and
+// serialises the wgmmas; one head a block (nothing serialised) was slower
+// all the same, 0.213 ms a call at S = 32768 against 0.195.
+// grid (nc * NG, B), NG = ceil(H / FWD_HEAD_GROUP); block x = c * NG + group.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(wg::NTH, 2)
+state_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mb,
+                const float* __restrict__ dA, const float* __restrict__ dt,
+                float* __restrict__ states, float* __restrict__ dAc, int H, int S, int Q) {
+  using namespace wg;
+  extern __shared__ unsigned char smem_raw[];
+  const int nT = (Q + 63) / 64, QP = nT * 64;
+  bf16* ring = align_1024(smem_raw);                            // [SLOTS][SLOT]
+  float* sCum = reinterpret_cast<float*>(ring + SLOTS * SLOT);  // [HG][QP]
+  float* sW = sCum + HG * QP;                                   // [HG][QP]: dt, then w
+  uint64_t* full = reinterpret_cast<uint64_t*>(sW + HG * QP);
+  uint64_t* empty = full + SLOTS;
+  const int NG = (H + HG - 1) / HG, nc = S / Q;
+  const int grp = blockIdx.x % NG, c = blockIdx.x / NG, b = blockIdx.y;
+  const int h0 = grp * HG, hv = min(HG, H - h0);
+  const int t0 = c * Q;
+  init_ring(full, SLOTS);
+
+  if (threadIdx.x >= 128) {   // the producer warp
+    if (threadIdx.x == 128) {
+      for (int jt = 0; jt < nT; ++jt) {
+        const int st = jt % SLOTS;
+        if (jt >= SLOTS) mbar_wait(empty + st, (jt / SLOTS - 1) & 1);
+        bf16* slot = ring + st * SLOT;
+        const int s0 = t0 + jt * 64;
+        mbar_expect_tx(full + st, (2 + hv) * BOX * 2);
+        tma3(slot, &mb, full + st, 0, s0, b);
+        tma3(slot + BOX, &mb, full + st, 64, s0, b);
+        for (int g = 0; g < hv; ++g) tma4(slot + (2 + g) * BOX, &mx, full + st, 0, s0, h0 + g, b);
+      }
+    }
+    return;
+  }
+
+  const size_t bh0 = (size_t)b * H + h0;
+  group_cum_wg<HG>(sCum, sW, dA + bh0 * S + t0, dt + bh0 * S + t0, S, Q, QP, hv);
+  for (int idx = threadIdx.x; idx < HG * QP; idx += 128) {
+    const int g = idx / QP, j = idx % QP;
+    sW[idx] = j < Q ? expf(sCum[g * QP + Q - 1] - sCum[idx]) * sW[idx] : 0.f;
+  }
+  named_sync(CONSUMERS, 128);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  // this lane's ldmatrix row: matrix m = lane / 8 holds the fragment's rows
+  // (p) [8 (m & 1), +8) and depth (j) [8 (m >> 1), +8), stored as x[j][p]
+  const int lm = lane >> 3, lr = lane & 7, chunk = 2 * warp + (lm & 1);
+  float acc[HG][64];
+#pragma unroll
+  for (int g = 0; g < HG; ++g)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[g][i] = 0.f;
+  for (int jt = 0; jt < nT; ++jt) {
+    const int st = jt % SLOTS;
+    mbar_wait(full + st, (jt / SLOTS) & 1);
+    const bf16* slot = ring + st * SLOT;
+#pragma unroll
+    for (int g = 0; g < HG; ++g) {
+      if (g >= hv) continue;
+      const bf16* sx = slot + (2 + g) * BOX;
+      const float* w = sW + g * QP + jt * 64;
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int j = 16 * kk + 8 * (lm >> 1) + lr;
+        uint32_t r[4];
+        ldsm_x4_t(smem_u32(sx + j * 64 + ((chunk ^ (j & 7)) << 3)), r);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int jj = 16 * kk + 8 * (i >> 1) + 2 * t;   // depth of this pair
+          const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r[i]));
+          const float2 wv = *reinterpret_cast<const float2*>(w + jj);
+          const int jq = jt * 64 + jj;
+          split_bf16(jq < Q ? xv.x * wv.x : 0.f, jq + 1 < Q ? xv.y * wv.y : 0.f, ah[kk][i],
+                     al[kk][i]);
+        }
+      }
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_tb(acc[g], ah[kk], mdesc(slot, kk));
+        wgmma_rs_tb(acc[g], al[kk], mdesc(slot, kk));
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(acc[g]);
+    }
+    mbar_arrive(empty + st);
+  }
+
+  const int gq = lane >> 2;
+#pragma unroll
+  for (int g = 0; g < HG; ++g) {
+    if (g >= hv) continue;
+    float* out = states + ((bh0 + g) * nc + c) * P * N;
+    float* o0 = out + (size_t)(16 * warp + gq) * N + 2 * t;
+    float* o1 = o0 + 8 * N;
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[g][4 * n], acc[g][4 * n + 1]);
+      *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[g][4 * n + 2], acc[g][4 * n + 3]);
+    }
+    if (threadIdx.x == 0) dAc[(bh0 + g) * nc + c] = sCum[g * QP + Q - 1];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// pass 4 (bf16 at (64, 128)): y of 64 rows I of a chunk for a group of
+// FWD_HEAD_GROUP heads.  For each tile J <= I, CB = C_I . B_J^T once for
+// the group (m64n64k16 from the bf16 C and B tiles, exact inputs, both
+// K-major), and for each head G = CB exp(cum_i - cum_j) dt_j on j <= i < Q
+// formed in the accumulator, split into hi + lo in registers and fed as
+// the A operand of y += G x_J (x_J MN-major); then each head's carried
+// state exp(cum_i) C_I . h_in^T (h_in as its hi and lo planes, two
+// products a step) is added.  The producer brings C_I, then B_J with the
+// heads' x_J a slot, then each head's h_in, which so loads while the last
+// tiles J are multiplied (carried first, the first tile's load waited
+// behind h_in's: 0.626 ms a call at S = 32768 against 0.604).
+// grid (nI * nc * NG, B); block x = (c * NG + group) * nI + (nI - 1 - I): a
+// group's row tiles run together, so h_in and the x tiles they share come
+// from L2 (with the row tiles of a chunk launched far apart the pass took
+// 0.694 ms a call at S = 32768 against 0.626), the most column tiles first.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(wg::NTH, 2)
+out_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mb,
+              const __grid_constant__ CUtensorMap mc, const __grid_constant__ CUtensorMap mh,
+              const float* __restrict__ dA, const float* __restrict__ dt, bf16* __restrict__ y,
+              int H, int S, int Q, int lo_rows) {
+  using namespace wg;
+  extern __shared__ unsigned char smem_raw[];
+  const int nI = (Q + 63) / 64, QP = nI * 64;
+  bf16* sC = align_1024(smem_raw);                              // [2][64][64]: C_I
+  bf16* ring = sC + 2 * BOX;                                    // [SLOTS][SLOT]
+  float* sCum = reinterpret_cast<float*>(ring + SLOTS * SLOT);  // [HG][QP]
+  float* sDt = sCum + HG * QP;                                  // [HG][QP]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sDt + HG * QP);  // [SLOTS], then C_I's
+  uint64_t* empty = full + SLOTS + 1;
+  uint64_t* bar_c = full + SLOTS;
+  const int NG = (H + HG - 1) / HG, nc = S / Q;
+  const int I = nI - 1 - (int)(blockIdx.x % nI), grp = (blockIdx.x / nI) % NG;
+  const int c = blockIdx.x / (nI * NG), b = blockIdx.y;
+  const int h0 = grp * HG, hv = min(HG, H - h0);
+  const int t0 = c * Q, i0 = I * 64;
+  init_ring(full, SLOTS + 1);   // C_I's "full" barrier; its "empty" one goes unused
+
+  if (threadIdx.x >= 128) {   // the producer warp
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(bar_c, 2 * BOX * 2);
+      tma3(sC, &mc, bar_c, 0, t0 + i0, b);
+      tma3(sC + BOX, &mc, bar_c, 64, t0 + i0, b);
+      int it = 0;
+      auto next = [&]() {
+        const int st = it % SLOTS;
+        if (it >= SLOTS) mbar_wait(empty + st, (it / SLOTS - 1) & 1);
+        ++it;
+        return st;
+      };
+      for (int J = 0; J <= I; ++J) {
+        const int st = next();
+        bf16* slot = ring + st * SLOT;
+        const int s0 = t0 + J * 64;
+        mbar_expect_tx(full + st, (2 + hv) * BOX * 2);
+        tma3(slot, &mb, full + st, 0, s0, b);
+        tma3(slot + BOX, &mb, full + st, 64, s0, b);
+        for (int g = 0; g < hv; ++g) tma4(slot + (2 + g) * BOX, &mx, full + st, 0, s0, h0 + g, b);
+      }
+      for (int g = 0; g < hv; ++g) {
+        const int st = next();
+        bf16* slot = ring + st * SLOT;
+        const int row = (((b * H + h0 + g) * nc) + c) * P;
+        mbar_expect_tx(full + st, 4 * BOX * 2);
+        tma2(slot, &mh, full + st, 0, row);
+        tma2(slot + BOX, &mh, full + st, 64, row);
+        tma2(slot + 2 * BOX, &mh, full + st, 0, row + lo_rows);
+        tma2(slot + 3 * BOX, &mh, full + st, 64, row + lo_rows);
+      }
+    }
+    return;
+  }
+
+  const size_t bh0 = (size_t)b * H + h0;
+  group_cum_wg<HG>(sCum, sDt, dA + bh0 * S + t0, dt + bh0 * S + t0, S, Q, QP, hv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int row0 = i0 + 16 * warp + gq, row1 = row0 + 8;   // this thread's rows of the chunk
+  float acc[HG][32];
+#pragma unroll
+  for (int g = 0; g < HG; ++g)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[g][e] = 0.f;
+  mbar_wait(bar_c, 0);
+
+  int it = 0;
+  for (int J = 0; J <= I; ++J) {
+    const int st = it % SLOTS;
+    mbar_wait(full + st, (it / SLOTS) & 1);
+    ++it;
+    const bf16* slot = ring + st * SLOT;
+    float cb[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_ss(cb, kdesc(sC, kk), kdesc(slot, kk), kk > 0);
+    wg_commit();
+    wg_wait0();
+    fence_regs(cb);
+    // G of each head as hi + lo A fragments; one array pair, so a head's
+    // products end before the next head's G is formed (a pair a head, to
+    // form one head's G while the other's products run, took more
+    // registers than two blocks an SM leave: ptxas serialised every wgmma
+    // and the pass took 0.702 ms a call at S = 32768 against 0.604)
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int g = 0; g < HG; ++g) {
+      if (g >= hv) continue;
+      const float* cum = sCum + g * QP;
+      const float* dtg = sDt + g * QP;
+      const float c0 = cum[min(row0, Q - 1)], c1 = cum[min(row1, Q - 1)];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          // A register q of step kk: row (q & 1 ? row1 : row0), columns
+          // 16 kk + 8 (q >> 1) + 2 t and the next: cb[8 kk + 2 q], +1
+          const int i = (q & 1) ? row1 : row0;
+          const float ci = (q & 1) ? c1 : c0;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = J * 64 + 16 * kk + 8 * (q >> 1) + 2 * t + e;
+            const bool ok = j <= i && i < Q;
+            const int jj = ok ? j : 0;
+            v[e] = ok ? cb[8 * kk + 2 * q + e] * expf(ci - cum[jj]) * dtg[jj] : 0.f;
+          }
+          split_bf16(v[0], v[1], ah[kk][q], al[kk][q]);
+        }
+      const bf16* sx = slot + (2 + g) * BOX;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_tb(acc[g], ah[kk], mdesc(sx, kk));
+        wgmma_rs_tb(acc[g], al[kk], mdesc(sx, kk));
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(acc[g]);
+    }
+    mbar_arrive(empty + st);
+  }
+
+  // the carried state of each head, exp(cum_i) C_I . h_in^T (h_in as hi +
+  // lo), added last: its h_in comes in while the tiles J are multiplied
+#pragma unroll
+  for (int g = 0; g < HG; ++g) {
+    if (g >= hv) continue;
+    const int st = it % SLOTS;
+    mbar_wait(full + st, (it / SLOTS) & 1);
+    ++it;
+    const bf16* slot = ring + st * SLOT;
+    float ch[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_ss(ch, kdesc(sC, kk), kdesc(slot, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_ss(ch, kdesc(sC, kk), kdesc(slot + 2 * BOX, kk));
+    wg_commit();
+    wg_wait0();
+    fence_regs(ch);
+    mbar_arrive(empty + st);
+    const float* cum = sCum + g * QP;
+    const float e0 = row0 < Q ? expf(cum[row0]) : 0.f, e1 = row1 < Q ? expf(cum[row1]) : 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      acc[g][4 * n] = fmaf(e0, ch[4 * n], acc[g][4 * n]);
+      acc[g][4 * n + 1] = fmaf(e0, ch[4 * n + 1], acc[g][4 * n + 1]);
+      acc[g][4 * n + 2] = fmaf(e1, ch[4 * n + 2], acc[g][4 * n + 2]);
+      acc[g][4 * n + 3] = fmaf(e1, ch[4 * n + 3], acc[g][4 * n + 3]);
+    }
+  }
+
+#pragma unroll
+  for (int g = 0; g < HG; ++g) {
+    if (g >= hv) continue;
+    bf16* y0 = y + ((bh0 + g) * S + t0 + row0) * P + 2 * t;
+    bf16* y1 = y0 + 8 * P;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (row0 < Q) *reinterpret_cast<uint32_t*>(y0 + 8 * n) = pack_bf16(acc[g][4 * n], acc[g][4 * n + 1]);
+      if (row1 < Q) *reinterpret_cast<uint32_t*>(y1 + 8 * n) = pack_bf16(acc[g][4 * n + 2], acc[g][4 * n + 3]);
+    }
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int P, int N>
-cudaError_t launch_tc(const bf16* x, const float* dA, const float* dt, const bf16* Bm,
-                      const bf16* Cm, const float* h0, bf16* y, float* h_last, float* cb,
-                      float* states, bf16* hin, float* dAc, int B, int H, int S, int Q,
-                      cudaStream_t stream) {
-  const int nc = S / Q, nI = (Q + QT - 1) / QT;
-  size_t smem = (size_t)3 * QT * N * sizeof(bf16);
-  cudaError_t err = set_smem(cb_tc_kernel<N, false>, smem);
-  if (err != cudaSuccess) return err;
-  cb_tc_kernel<N, false><<<dim3(nI * nc, B), 128, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
+// library links no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-  smem = (size_t)(2 * P * QT + QT * N) * sizeof(bf16) + 2 * (size_t)Q * sizeof(float);
-  if ((err = set_smem(state_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
-  state_tc_kernel<P, N><<<dim3(nc * H, B), StateShape<P, N>::THREADS, smem, stream>>>(
-      x, dA, dt, Bm, states, dAc, H, S, Q);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                            cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A map over the contiguous bf16 tensor at `ptr` with `rank` dims `dims`
+// (innermost first) whose box is 64 x 64 values of its two innermost dims,
+// swizzled by 128 bytes; values outside the dims read as zero.
+cudaError_t tile_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  cuuint64_t strides[3];
+  cuuint64_t pitch = 2;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = pitch *= dims[i];
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor-core route: bf16 at (64, 128).  hin holds two bf16 planes (hi,
+// then lo), states float32; no C.B^T scratch.
+cudaError_t launch_wg(const bf16* x, const float* dA, const float* dt, const bf16* Bm,
+                      const bf16* Cm, const float* h0, bf16* y, float* h_last, float* states,
+                      bf16* hin, float* dAc, int B, int H, int S, int Q, cudaStream_t stream) {
+  using namespace wg;
+  const int nc = S / Q, nI = (Q + 63) / 64, QP = nI * 64, NG = (H + HG - 1) / HG;
+  const int lo_rows = B * H * nc * P;
+  CUtensorMap mx, mb, mc, mh;
+  const cuuint64_t dx[4] = {(cuuint64_t)P, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t dbc[3] = {(cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t dh[2] = {(cuuint64_t)N, 2 * (cuuint64_t)lo_rows};
+  cudaError_t err;
+  if ((err = tile_map(&mx, x, 4, dx)) != cudaSuccess) return err;
+  if ((err = tile_map(&mb, Bm, 3, dbc)) != cudaSuccess) return err;
+  if ((err = tile_map(&mc, Cm, 3, dbc)) != cudaSuccess) return err;
+  if ((err = tile_map(&mh, hin, 2, dh)) != cudaSuccess) return err;
+
+  if ((err = set_smem(state_wg_kernel, state_smem(QP))) != cudaSuccess) return err;
+  state_wg_kernel<<<dim3(nc * NG, B), NTH, state_smem(QP), stream>>>(mx, mb, dA, dt, states, dAc,
+                                                                     H, S, Q);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const int per = B * H * (P * N / 4);
-  const size_t lo_plane = (size_t)B * H * nc * P * N;
-  pass_kernel<bf16><<<(per + 255) / 256, 256, 0, stream>>>(states, dAc, h0, hin, lo_plane, h_last,
-                                                           B * H, nc, P * N);
+  pass_kernel<bf16><<<(per + 255) / 256, 256, 0, stream>>>(states, dAc, h0, hin,
+                                                           (size_t)lo_rows * N, h_last, B * H, nc,
+                                                           P * N);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  smem = (size_t)(QT * N + 2 * P * N + 2 * QT * P) * sizeof(bf16) + 2 * (size_t)Q * sizeof(float);
-  if ((err = set_smem(out_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
-  out_tc_kernel<P, N><<<dim3(nc * H * nI, B), 128, smem, stream>>>(x, dA, dt, Cm, cb, hin, lo_plane,
-                                                                   y, H, S, Q, nI);
+  if ((err = set_smem(out_wg_kernel, out_smem(QP))) != cudaSuccess) return err;
+  out_wg_kernel<<<dim3(nI * nc * NG, B), NTH, out_smem(QP), stream>>>(mx, mb, mc, mh, dA, dt, y,
+                                                                      H, S, Q, lo_rows);
   return cudaGetLastError();
 }
 
-template <int P, int N>
-cudaError_t launch_f32(const float* x, const float* dA, const float* dt, const float* Bm,
-                       const float* Cm, const float* h0, float* y, float* h_last, float* cb,
-                       float* states, float* hin, float* dAc, int B, int H, int S, int Q,
-                       cudaStream_t stream) {
+// The FMA route: float32, and bf16 at the smoke widths (16, 16); cb, states
+// and hin float32.
+template <typename T, int P, int N>
+cudaError_t launch_fma(const T* x, const float* dA, const float* dt, const T* Bm, const T* Cm,
+                       const float* h0, T* y, float* h_last, float* cb, float* states,
+                       float* hin, float* dAc, int B, int H, int S, int Q, cudaStream_t stream) {
   const int nc = S / Q, nI = (Q + QT - 1) / QT;
   size_t smem = (size_t)2 * QT * (N + 1) * sizeof(float);
-  cudaError_t err = set_smem(cb_f32_kernel<float, N>, smem);
+  cudaError_t err = set_smem(cb_f32_kernel<T, N>, smem);
   if (err != cudaSuccess) return err;
-  cb_f32_kernel<float, N><<<dim3(nI * nc, B), F32_THREADS, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
+  cb_f32_kernel<T, N><<<dim3(nI * nc, B), F32_THREADS, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   smem = ((size_t)QT * (P + 1) + (size_t)QT * (N + 1) + QT + 2 * (size_t)Q) * sizeof(float);
-  if ((err = set_smem(state_f32_kernel<float, P, N>, smem)) != cudaSuccess) return err;
-  state_f32_kernel<float, P, N><<<dim3(nc * H, B), F32_THREADS, smem, stream>>>(
+  if ((err = set_smem(state_f32_kernel<T, P, N>, smem)) != cudaSuccess) return err;
+  state_f32_kernel<T, P, N><<<dim3(nc * H, B), F32_THREADS, smem, stream>>>(
       x, dA, dt, Bm, states, dAc, H, S, Q);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
@@ -829,9 +1325,9 @@ cudaError_t launch_f32(const float* x, const float* dA, const float* dt, const f
 
   smem = ((size_t)QT * (N + 1) + (size_t)P * (N + 1) + (size_t)QT * (P + 1) +
           (size_t)QT * (QT + 1) + 2 * (size_t)Q) * sizeof(float);
-  if ((err = set_smem(out_f32_kernel<P, N>, smem)) != cudaSuccess) return err;
-  out_f32_kernel<P, N><<<dim3(nc * H * nI, B), F32_THREADS, smem, stream>>>(x, dA, dt, Cm, cb,
-                                                                          hin, y, H, S, Q, nI);
+  if ((err = set_smem(out_f32_kernel<T, P, N>, smem)) != cudaSuccess) return err;
+  out_f32_kernel<T, P, N><<<dim3(nc * H * nI, B), F32_THREADS, smem, stream>>>(
+      x, dA, dt, Cm, cb, hin, y, H, S, Q, nI);
   return cudaGetLastError();
 }
 
@@ -841,14 +1337,20 @@ cudaError_t launch(const void* x, const float* dA, const float* dt, const void* 
                    float* states, void* hin, float* dAc, int B, int H, int S, int Q, int dtype,
                    cudaStream_t s) {
   if (dtype == 0)
-    return launch_f32<P, N>(static_cast<const float*>(x), dA, dt, static_cast<const float*>(Bm),
-                            static_cast<const float*>(Cm), h0, static_cast<float*>(y), h_last,
-                            cb, states, static_cast<float*>(hin), dAc, B, H, S, Q, s);
-  if (dtype == 1)
-    return launch_tc<P, N>(static_cast<const bf16*>(x), dA, dt, static_cast<const bf16*>(Bm),
-                           static_cast<const bf16*>(Cm), h0, static_cast<bf16*>(y), h_last, cb,
-                           states, static_cast<bf16*>(hin), dAc, B, H, S, Q, s);
-  return cudaErrorInvalidValue;
+    return launch_fma<float, P, N>(static_cast<const float*>(x), dA, dt,
+                                   static_cast<const float*>(Bm), static_cast<const float*>(Cm),
+                                   h0, static_cast<float*>(y), h_last, cb, states,
+                                   static_cast<float*>(hin), dAc, B, H, S, Q, s);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if constexpr (P == 64 && N == 128)
+    return launch_wg(static_cast<const bf16*>(x), dA, dt, static_cast<const bf16*>(Bm),
+                     static_cast<const bf16*>(Cm), h0, static_cast<bf16*>(y), h_last, states,
+                     static_cast<bf16*>(hin), dAc, B, H, S, Q, s);
+  else
+    return launch_fma<bf16, P, N>(static_cast<const bf16*>(x), dA, dt,
+                                  static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), h0,
+                                  static_cast<bf16*>(y), h_last, cb, states,
+                                  static_cast<float*>(hin), dAc, B, H, S, Q, s);
 }
 
 // ===========================================================================
@@ -879,7 +1381,7 @@ cudaError_t launch(const void* x, const float* dA, const float* dt, const void* 
 //
 // bf16 at (64, 128), the tensor-core route (`launch_bwd_tc`), ten launches:
 //
-// 1-3. C.B^T of each chunk in full (`cb_tc_kernel<N, true>`: the tiles
+// 1-3. C.B^T of each chunk in full (`cb_tc_kernel<N>`: the tiles
 //      t <= s that rows s read and the tiles s >= t that rows t read, both
 //      row-major), the chunk states (`state_tc_kernel`) and the carry
 //      (`pass_kernel<bf16>`): h_in as hi and lo bf16 planes, as the
@@ -944,13 +1446,6 @@ cudaError_t launch(const void* x, const float* dA, const float* dt, const void* 
 // shared memory for the tile loop (`TileSmem`).
 
 constexpr int HEAD_GROUP = 4;   // heads a tensor-core row-tile block sums dB, dC over
-
-template <typename T>
-__device__ __forceinline__ T to_t(float v);
-template <>
-__device__ __forceinline__ float to_t<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 to_t<bf16>(float v) { return __float2bfloat16(v); }
 
 __device__ __forceinline__ float half_warp_sum(float v) {
 #pragma unroll
@@ -1996,9 +2491,9 @@ cudaError_t launch_bwd_tc(const bf16* x, const float* dA, const float* dt, const
   const size_t lo_plane = (size_t)B * H * nc * P * N;
   // 1-3: C.B^T in full, the chunk states and the carry, h_in as hi + lo
   size_t smem = (size_t)3 * QT * N * sizeof(bf16);
-  cudaError_t err = set_smem(cb_tc_kernel<N, true>, smem);
+  cudaError_t err = set_smem(cb_tc_kernel<N>, smem);
   if (err != cudaSuccess) return err;
-  cb_tc_kernel<N, true><<<dim3(nI * nc, B), 128, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
+  cb_tc_kernel<N><<<dim3(nI * nc, B), 128, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   smem = (size_t)(2 * P * QT + QT * N) * sizeof(bf16) + 2 * (size_t)Q * sizeof(float);
   if ((err = set_smem(state_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
@@ -2075,10 +2570,11 @@ cudaError_t launch_bwd_any(const void* x, const float* dA, const float* dt, cons
 
 // dtype: 0 float32, 1 bfloat16 (x, B, C and y); (P, N) = (64, 128) or
 // (16, 16); S a multiple of Q, Q at most 1024; h0 may be null (zeros).
-// Scratch, allocated by the caller: cb float32 [B, S / Q, QP, QP] with QP =
-// Q rounded up to 64; states float32 [B, H, S / Q, P, N]; hin the same,
-// float32 for float32 inputs and two bf16 planes (hi, lo) for bf16 inputs;
-// dAc float32 [B, H, S / Q].  The wrapper checks all of it.
+// Scratch, allocated by the caller: states float32 [B, H, S / Q, P, N];
+// hin the same shape, two bf16 planes (hi, lo) on the tensor-core route
+// (bf16 at (64, 128)) and float32 on the FMA route; there cb float32 [B,
+// S / Q, QP, QP] with QP = Q rounded up to 64 (null on the tensor-core
+// route); dAc float32 [B, H, S / Q].  The wrapper checks all of it.
 extern "C" int ssd_fwd(const void* x, const float* dA, const float* dt, const void* Bm,
                        const void* Cm, const float* h0, void* y, float* h_last, float* cb,
                        float* states, void* hin, float* dAc, int B, int H, int S, int P, int N,

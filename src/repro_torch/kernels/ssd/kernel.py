@@ -10,20 +10,25 @@ not launch raises.  The library is built on first launch
 (``kernels/build.py``), never at import.
 
 ``ssd_call.launches`` counts calls that launched the kernels (one a call,
-though a call launches the four passes of ``csrc/ssd.cu``); plain-version
-calls do not count.  The wrapper allocates the passes' scratch: C.B^T per
-chunk, each chunk's own state and its incoming state.
+though a call launches the passes of ``csrc/ssd.cu``); plain-version calls
+do not count.  :func:`route` says which passes take a call: bf16 at Mamba-2
+780M's widths runs three launches on ``wgmma`` (the chunk states, the carry,
+the outputs, each block taking ``FWD_HEAD_GROUP`` heads and forming C.B^T
+itself); float32, and bf16 at the smoke widths, four float32 FMA passes
+(C.B^T per chunk first).  The wrapper allocates the passes' scratch: each
+chunk's own state and its incoming state (two bf16 planes on the
+tensor-core route, float32 on the FMA route), and C.B^T per chunk on the
+FMA route.
 
 ``ssd_call_bwd`` is the gradient of ``ssd_call`` (``ref.ssd_bwd_ref`` on
 the CPU): one call launches the backward's passes of ``csrc/ssd.cu`` and
 counts once in ``ssd_call_bwd.launches``; it allocates their float32
 scratch (the recomputed chunk states, the gradients reaching each chunk's
 end, the partial dB and dC before their sum over heads in a fixed order).
-``bwd_route`` says which passes take a call: bf16 at Mamba-2 780M's widths
-runs the tensor-core passes, which sum dB and dC over ``HEAD_GROUP`` heads
-in registers and leave ``ceil(H / HEAD_GROUP)`` partials; float32, and
-bf16 at the smoke widths, the float32 FMA passes, which leave one partial
-a head (``bwd_partials``).
+On :func:`route` "tc" the backward runs tensor-core passes on
+``mma.sync``, which sum dB and dC over ``HEAD_GROUP`` heads in registers
+and leave ``ceil(H / HEAD_GROUP)`` partials; on "fma" the float32 FMA
+passes, which leave one partial a head (``bwd_partials``).
 
 TPU kernel replaced: ``ssd_call`` (``_ssd_kernel``) of
 ``repro/kernels/ssd/kernel.py``.  The source note of the ``.cu`` file
@@ -48,6 +53,7 @@ WIDTHS = ((64, 128), (16, 16))
 MAX_CHUNK = 1024                              # the chunk's cum/dt in smem
 TILE = 64                                     # rows of a chunk tile
 HEAD_GROUP = 4          # heads a backward row-tile block sums dB, dC over
+FWD_HEAD_GROUP = 2      # heads a forward block of the tensor-core route
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -94,10 +100,11 @@ def _check(x, dA, dt, Bm, Cm, chunk, h0):
                          f"{tuple(h0.shape)} {h0.dtype}")
 
 
-def bwd_route(dtype: torch.dtype, P: int, N: int) -> str:
-    """The backward's passes for x of ``dtype`` at widths (P, N): "tc"
-    (bf16 on the tensor cores, at Mamba-2 780M's widths) or "fma" (float32
-    FMA on the CUDA cores: float32 inputs, and bf16 at the smoke widths)."""
+def route(dtype: torch.dtype, P: int, N: int) -> str:
+    """The passes that take x of ``dtype`` at widths (P, N), forward and
+    backward: "tc" (bf16 on the tensor cores, at Mamba-2 780M's widths) or
+    "fma" (float32 FMA on the CUDA cores: float32 inputs, and bf16 at the
+    smoke widths)."""
     return "tc" if dtype == torch.bfloat16 and (P, N) == (64, 128) else "fma"
 
 
@@ -105,7 +112,7 @@ def bwd_partials(H: int, dtype: torch.dtype, P: int, N: int) -> int:
     """The planes of the backward's partial dB and dC: one for each group
     of ``HEAD_GROUP`` heads on the tensor-core route, one a head on the
     FMA route."""
-    return -(-H // HEAD_GROUP) if bwd_route(dtype, P, N) == "tc" else H
+    return -(-H // HEAD_GROUP) if route(dtype, P, N) == "tc" else H
 
 
 def ssd_call(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
@@ -129,19 +136,22 @@ def ssd_call(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=x.device)
     h_last = torch.empty((Bsz, H, P, N), **f32)
     nc, QP = S // chunk, -(-chunk // TILE) * TILE
-    cb = torch.empty((Bsz, nc, QP, QP), **f32)       # C.B^T of each chunk
     states = torch.empty((Bsz, H, nc, P, N), **f32)  # each chunk's own state
-    # each chunk's incoming state: float32, or bf16 hi and lo planes
-    planes = 2 if x.dtype == torch.bfloat16 else 1
-    hin = torch.empty((planes, Bsz, H, nc, P, N), dtype=x.dtype,
-                      device=x.device)
     dAc = torch.empty((Bsz, H, nc), **f32)           # each chunk's cum_Q
+    if route(x.dtype, P, N) == "tc":
+        cb = None           # formed in the output pass
+        # each chunk's incoming state as bf16 hi and lo planes, read by TMA
+        hin = torch.empty((2, Bsz, H, nc, P, N), dtype=x.dtype,
+                          device=x.device)
+    else:
+        cb = torch.empty((Bsz, nc, QP, QP), **f32)   # C.B^T of each chunk
+        hin = torch.empty((Bsz, H, nc, P, N), **f32)
     code = library().ssd_fwd(
         x.data_ptr(), dA.data_ptr(), dt.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-        h_last.data_ptr(), cb.data_ptr(), states.data_ptr(), hin.data_ptr(),
-        dAc.data_ptr(), Bsz, H, S, P, N, chunk, _DTYPE_CODE[x.dtype],
-        build.stream(x.device))
+        h_last.data_ptr(), None if cb is None else cb.data_ptr(),
+        states.data_ptr(), hin.data_ptr(), dAc.data_ptr(), Bsz, H, S, P, N,
+        chunk, _DTYPE_CODE[x.dtype], build.stream(x.device))
     build.check(code, "ssd_fwd")
     ssd_call.launches += 1
     return y, h_last

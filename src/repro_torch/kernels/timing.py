@@ -10,16 +10,24 @@ tests and the kernels' bench scripts (``crossbar_dispatch/row_bench.py``,
 * :func:`kernel_split`: the same device time kernel by kernel.
 * :func:`host_us`: host microseconds a call, enqueued while the card is
   busy, so no call waits for the card.
+* :func:`tree_rounds` and :func:`compare`: a bench file run against
+  another tree in alternating rounds (``flash_attention/tc_bench.py``,
+  ``ssd/fwd_bench.py``).
 
 It imports nothing of ``repro_torch``, so a bench run as a file against
 another tree's package can load it from its own tree.
 """
 from __future__ import annotations
 
+import json
+import os
+import pathlib
 import re
 import statistics
+import subprocess
+import sys
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -171,3 +179,34 @@ def host_us(fn, calls: int = HOST_CALLS, chunk: int = HOST_CHUNK) -> float:
         total += time.perf_counter() - t0
         torch.cuda.synchronize()
     return total / calls * 1e6
+
+
+def tree_rounds(script: str, other: str, n: int,
+                args: Sequence[str] = ()) -> dict:
+    """``n`` rounds of the bench file ``script`` run as a process with
+    ``args``, another tree's ``src`` (``other``, for example a parent
+    commit unpacked into ``build/parent``) or this tree's on
+    ``PYTHONPATH``, in the order other, this, this, other, ...: the
+    readings each run prints as JSON on its last line, by tree
+    (``{"trees": ..., "other": [...], "this": [...]}``).  Each tree builds
+    its own libraries on its first round.  Compare trees only within one
+    call."""
+    trees = {"other": str(pathlib.Path(other).resolve()),
+             "this": str(pathlib.Path(__file__).resolve().parents[2])}
+    got = {"other": [], "this": []}
+    for r in range(n):
+        for tree in (("other", "this") if r % 2 == 0 else ("this", "other")):
+            env = {**os.environ, "PYTHONPATH": trees[tree]}
+            out = subprocess.run([sys.executable, script, *args], env=env,
+                                 capture_output=True, text=True, check=True)
+            got[tree].append(json.loads(out.stdout.strip().splitlines()[-1]))
+    return {"trees": trees, **got}
+
+
+def compare(other: Sequence[float], this: Sequence[float]) -> dict:
+    """Two trees' readings of one quantity from :func:`tree_rounds`: both
+    lists, their medians, and the rounds in which this tree's was lower."""
+    return {"other": list(other), "this": list(this),
+            "other_median": statistics.median(other),
+            "this_median": statistics.median(this),
+            "this_less_rounds": sum(y < x for x, y in zip(other, this))}

@@ -190,13 +190,14 @@ def test_launch_counts_split_the_totals_by_route():
 
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.bfloat16, 64, (128, 128)), (torch.bfloat16, 128, (128, 128)),
-    (torch.bfloat16, 256, (64, 32)), (torch.float32, 256, (64, 64)),
+    (torch.bfloat16, 256, (128, 64)), (torch.float32, 256, (64, 64)),
     (torch.float32, 128, (64, 64)), (torch.bfloat16, 12, (64, 64)),
 ])
 def test_forward_tile_follows_the_route(dtype, D, want):
     """The tensor-core forward takes 128 x 128 tiles (two consumer
-    warpgroups of 64 rows, 128-key stages), 64 x 32 at head dim 256 (16
-    rows a warp); the FMA forward 64 x 64 at every head dim."""
+    warpgroups of 64 rows, 128-key stages), 128 x 64 at head dim 256
+    (64-key stages: a consumer's 64 x 256 output fills half its
+    registers); the FMA forward 64 x 64 at every head dim."""
     assert K.fwd_tile(dtype, D) == want
 
 

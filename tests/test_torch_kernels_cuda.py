@@ -740,6 +740,10 @@ SSD_CASES = [                     # B, S, H, P, N, chunk, dtype, with h0
     (2, 96, 3, 16, 16, 16, torch.bfloat16, False),
     (1, 600, 3, 16, 16, 200, torch.bfloat16, True),      # smoke, ragged
     (1, 600, 3, 16, 16, 200, torch.float32, False),
+    (1, 384, 6, 64, 128, 128, torch.bfloat16, True),     # 3 head groups
+    (1, 384, 5, 64, 128, 128, torch.bfloat16, False),    # a last group of 1
+    (1, 48, 3, 64, 128, 48, torch.bfloat16, False),      # below one tile
+    (2, 2048, 4, 64, 128, 1024, torch.bfloat16, True),   # the largest chunk
 ]
 
 
@@ -783,6 +787,52 @@ def test_ssd_kernel_matches_plain_on_card(case):
                                    rtol=5e-2)
         assert _rel_l2(y, yp) <= 1e-2
         torch.testing.assert_close(h, hp, atol=5e-4, rtol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,chunk,with_h0", [
+    (1, 2048, 48, 256, False), (1, 1000, 5, 200, True)])
+def test_ssd_tensor_core_forward_is_deterministic_on_card(B, S, H, chunk,
+                                                          with_h0):
+    """The bf16 forward at Mamba-2 780M's widths gives the same bits on two
+    calls (no atomics; each block owns its outputs)."""
+    _card()
+    x, dA, dt, Bm, Cm, h0 = _ssd_inputs(B, S, H, 64, 128, torch.bfloat16,
+                                        with_h0, seed=4)
+    y, h = SK.ssd_call(x, dA, dt, Bm, Cm, chunk=chunk, h0=h0,
+                       mode=KernelMode.CUDA)
+    y2, h2 = SK.ssd_call(x, dA, dt, Bm, Cm, chunk=chunk, h0=h0,
+                         mode=KernelMode.CUDA)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+SSD_FWD_KERNELS = {   # route -> the kernels a forward call launches, once each
+    "tc": ["out_wg_kernel", "pass_kernel<__nv_bfloat16>", "state_wg_kernel"],
+    "fma": ["cb_f32_kernel", "out_f32_kernel", "pass_kernel<float>",
+            "state_f32_kernel"],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,P,N", [(torch.bfloat16, 64, 128),
+                                       (torch.float32, 64, 128),
+                                       (torch.bfloat16, 16, 16)])
+def test_ssd_forward_launches_its_route_kernels_on_card(dtype, P, N):
+    """A forward call launches its route's kernels once each and nothing
+    else (``torch.profiler``): bf16 at (64, 128) the two wgmma passes and
+    the carry, with no C.B^T pass; float32 and the smoke widths the four
+    FMA passes."""
+    from repro_torch.kernels.timing import kernel_split
+    _card()
+    x, dA, dt, Bm, Cm, _ = _ssd_inputs(1, 512, 4, P, N, dtype, False)
+    split = kernel_split(lambda: SK.ssd_call(x, dA, dt, Bm, Cm, chunk=256,
+                                             mode=KernelMode.CUDA))
+    names = sorted(r["name"].split("<")[0] + (
+        "<" + r["name"].split("<")[1] if r["name"].startswith("pass_kernel")
+        else "") for r in split)
+    assert names == SSD_FWD_KERNELS[SK.route(dtype, P, N)]
+    assert all(r["launches_per_call"] == 1 for r in split)
 
 
 @pytest.mark.cuda
@@ -998,6 +1048,8 @@ def test_flash_forward_at_head_dim_256_on_card(dtype):
     (1, 1000, 1000, 16, 1, True, 2048),     # RecurrentGemma: MQA, a window
     (2, 100, 700, 4, 2, True, 64),          # q_offset, a ragged query tile
     (1, 300, 300, 4, 4, False, None),       # non-causal, every key live
+    (1, 333, 333, 8, 2, True, None),        # Sq not a multiple of 128
+    (1, 1000, 3000, 16, 1, True, 2048),     # q_offset 2000, under the window
 ])
 def test_flash_d256_tensor_core_forward_on_card(B, Sq, Sk, H, Kv, causal,
                                                 window):
@@ -1020,6 +1072,22 @@ def test_flash_d256_tensor_core_forward_on_card(B, Sq, Sk, H, Kv, causal,
         assert _rel_l2(a, o_ref) <= REL_L2[dt], name
         torch.testing.assert_close(la, lse_ref, atol=LSE_ABS[dt], rtol=0)
     assert _rel_l2(o, o_f) <= REL_L2[dt]
+
+
+@pytest.mark.cuda
+def test_flash_d256_tensor_core_forward_is_deterministic_on_card():
+    """The bf16 forward at head dim 256 gives the same bits on two calls, at
+    RecurrentGemma's attention (16 heads on one kv head, a window) with a
+    ragged last query tile."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    mk = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+    q, k, v = mk(1, 2100, 16, 256), mk(1, 2100, 1, 256), mk(1, 2100, 1, 256)
+    kw = dict(causal=True, window=2048, q_offset=0)
+    o, lse = FK.launch_fwd(q, k, v, kernel="tc", **kw)
+    o2, lse2 = FK.launch_fwd(q, k, v, kernel="tc", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda
@@ -1144,7 +1212,7 @@ SPLIT_REL_L2 = 1e-3
 @pytest.mark.parametrize("case", SSD_BWD_CASES, ids=lambda c: "-".join(
     str(x).replace("torch.", "") for x in c))
 def test_ssd_backward_kernel_matches_plain_on_card(case):
-    """The SSD backward kernel on its route (``bwd_route``: bf16 at Mamba-2
+    """The SSD backward kernel on its route (``route``: bf16 at Mamba-2
     780M's widths on the tensor cores, with the heads in groups of
     ``HEAD_GROUP``, a last group cut short among them) against
     ``ssd_bwd_ref``: every gradient within 1e-2 relative L2 in bf16 (and
@@ -1166,7 +1234,7 @@ def test_ssd_backward_kernel_matches_plain_on_card(case):
     torch.cuda.synchronize()
     want = sref.ssd_bwd_ref(x, dA, dt, Bm, Cm, dy, chunk, h0, dhl)
     tol = REL_L2[dtype]
-    if SK.bwd_route(dtype, P, N) == "tc":
+    if SK.route(dtype, P, N) == "tc":
         tol = min(tol, SPLIT_REL_L2)
     names = ("dx", "ddA", "ddt", "dB", "dC", "dh0")
     for name, a, again, w in zip(names, got[0], got[1], want):

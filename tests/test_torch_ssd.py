@@ -13,10 +13,12 @@ another order than the recurrence) and 2e-4 against the chunked path
 (``test_kernels.py``'s); bfloat16 5e-2 (x, B and C rounded to bfloat16,
 y rounded once).  The final state is held within 5e-4 in every case.
 
-``ssd_passes`` mirrors the CUDA kernel's four passes (``csrc/ssd.cu``: C.B^T
-once per chunk on 64-row tiles, each chunk's own state, the carry across
-chunks, the outputs tile by tile) in plain PyTorch, float64, so its algebra
-is held against JAX's kernel and oracle here; nothing on the card runs it.
+``ssd_passes`` mirrors the CUDA kernel's forward on its tensor-core route
+(``csrc/ssd.cu``: each chunk's own state, the carry across chunks, then
+the outputs of each group of heads tile by tile, C.B^T formed once for the
+group) in plain PyTorch, float64, with and without an emulation of the
+kernel's bf16 hi + lo operands, so its algebra is held against JAX's
+kernel and oracle here; nothing on the card runs it.
 ``ssd_bwd_passes`` does the same for the backward's tensor-core passes
 (bf16 at Mamba-2 780M's widths), with and without an emulation of the
 kernel's bf16 hi + lo operands, against ``jax.vjp`` of JAX's
@@ -125,32 +127,43 @@ def test_ssd_chunked_matches_jax_chunked(case):
 TILE = 64     # rows of a chunk tile in csrc/ssd.cu
 
 
-def ssd_passes(x, dA, dt, Bm, Cm, chunk, h0=None):
-    """The kernel's passes on head-major inputs (x [B, H, S, P]; dA, dt
-    [B, H, S]; Bm, Cm [B, S, N]; h0 [B, H, P, N] or None), in float64:
-    returns (y [B, H, S, P], h_last [B, H, P, N])."""
+def _split(v, bf16):
+    """An operand formed in float32 as the tensor cores take it: hi + lo,
+    each a bf16 value (with ``bf16``), else as it is."""
+    if not bf16:
+        return v
+    v32 = v.float()
+    hi = v32.bfloat16().float()
+    return hi.double() + (v32 - hi).bfloat16().double()
+
+
+def ssd_passes(x, dA, dt, Bm, Cm, chunk, h0=None, *, bf16=False,
+               group=K.FWD_HEAD_GROUP):
+    """The forward's passes on head-major inputs (x [B, H, S, P]; dA, dt
+    [B, H, S]; Bm, Cm [B, S, N]; h0 [B, H, P, N] or None), in float64, as
+    the tensor-core route runs them: returns (y [B, H, S, P], h_last [B, H,
+    P, N]).  2: each chunk's own state, (x w)^T B; 3: the carry across
+    chunks, each chunk's incoming state h_in; 4: for each group of
+    ``group`` heads and 64-row tile I, each head's carried state exp(cum_i)
+    C_I . h_in^T, then for each tile J <= I the block's C_I . B_J^T, formed
+    once for the group, and each head's G = CB exp(cum_i - cum_j) dt_j on
+    j <= i times x_J.  With ``bf16`` every operand the kernel forms in
+    float32 (x w, h_in, G) is rounded to float32 and split into hi + lo
+    bf16 values (``_split``); x, B and C are taken as they are.  Without
+    it, this is also the FMA route's algebra (C.B^T per chunk in its pass
+    1 holds the same values)."""
     Bsz, H, S, P = x.shape
     N, Q = Bm.shape[-1], chunk
     nc, nI = S // Q, -(-Q // TILE)
-    QP = nI * TILE
+    sp = lambda v: _split(v, bf16)                       # noqa: E731
     x, dA, dt, Bm, Cm = (t.double() for t in (x, dA, dt, Bm, Cm))
     cum = dA.reshape(Bsz, H, nc, Q).cumsum(-1)
     dtc = dt.reshape(Bsz, H, nc, Q)
     xc = x.reshape(Bsz, H, nc, Q, P)
-    rows = lambda t: torch.nn.functional.pad(
-        t.reshape(Bsz, nc, Q, N), (0, 0, 0, QP - Q))    # zero rows to QP
-    Cc, Bc = rows(Cm), rows(Bm)
-    tile = lambda i: slice(i * TILE, (i + 1) * TILE)
-    # 1. C.B^T of each (batch, chunk), tiles on or below the diagonal only
-    cb = torch.zeros((Bsz, nc, QP, QP), dtype=torch.float64)
-    for I in range(nI):
-        for J in range(I + 1):
-            cb[:, :, tile(I), tile(J)] = Cc[:, :, tile(I)] @ \
-                Bc[:, :, tile(J)].transpose(-1, -2)
+    Cc, Bc = (t.reshape(Bsz, nc, Q, N) for t in (Cm, Bm))
     # 2. each chunk's own state, sum_j exp(cum_Q - cum_j) dt_j x_j B_j^T
     w = torch.exp(cum[..., -1:] - cum) * dtc
-    states = torch.einsum("bhcjp,bcjn->bhcpn", xc * w[..., None],
-                          Bm.reshape(Bsz, nc, Q, N))
+    states = torch.einsum("bhcjp,bcjn->bhcpn", sp(xc * w[..., None]), Bc)
     # 3. the carry across chunks: each chunk's incoming state, and h_last
     h = (torch.zeros((Bsz, H, P, N), dtype=torch.float64) if h0 is None
          else h0.double())
@@ -158,24 +171,28 @@ def ssd_passes(x, dA, dt, Bm, Cm, chunk, h0=None):
     for c in range(nc):
         h_in.append(h)
         h = torch.exp(cum[:, :, c, -1])[..., None, None] * h + states[:, :, c]
-    h_in = torch.stack(h_in, dim=2)
-    # 4. the outputs of each 64-row tile I: the carried state, then G x_J
+    h_in = sp(torch.stack(h_in, dim=2))
+    # 4. the outputs of each (group, 64-row tile I): the carried state, then
+    # G x_J with C_I . B_J^T formed once for the group
     y = torch.empty((Bsz, H, nc, Q, P), dtype=torch.float64)
     for I in range(nI):
         r = slice(I * TILE, min((I + 1) * TILE, Q))
         i = torch.arange(Q)[r]
-        acc = torch.exp(cum[..., r])[..., None] * torch.einsum(
-            "bcin,bhcpn->bhcip", Cc[:, :, r], h_in)
-        for J in range(I + 1):
-            cols = slice(J * TILE, min((J + 1) * TILE, Q))
-            live = torch.arange(Q)[cols][None, :] <= i[:, None]
-            li = cum[..., r, None] - cum[..., None, cols]
-            # masked before exp: above the diagonal li > 0 may overflow
-            decay = torch.where(live, torch.exp(torch.where(live, li, 0.0)),
-                                0.0)
-            G = cb[:, None, :, r, cols] * decay * dtc[..., None, cols]
-            acc = acc + G @ xc[:, :, :, cols]
-        y[:, :, :, r] = acc
+        for g0 in range(0, H, group):
+            hs = slice(g0, min(g0 + group, H))
+            acc = torch.exp(cum[:, hs, :, r])[..., None] * torch.einsum(
+                "bcin,bhcpn->bhcip", Cc[:, :, r], h_in[:, hs])
+            for J in range(I + 1):
+                cols = slice(J * TILE, min((J + 1) * TILE, Q))
+                cb = Cc[:, :, r] @ Bc[:, :, cols].transpose(-1, -2)
+                live = torch.arange(Q)[cols][None, :] <= i[:, None]
+                li = cum[:, hs, :, r, None] - cum[:, hs, :, None, cols]
+                # masked before exp: above the diagonal li > 0 may overflow
+                decay = torch.where(live, torch.exp(torch.where(live, li,
+                                                                0.0)), 0.0)
+                G = sp(cb[:, None] * decay * dtc[:, hs, :, None, cols])
+                acc = acc + G @ xc[:, hs, :, cols]
+            y[:, hs, :, r] = acc
     return y.reshape(Bsz, H, S, P), h
 
 
@@ -220,6 +237,79 @@ def test_kernel_passes_match_jax_kernel_and_oracle(case):
     y_o, h_o = jax_ssd_ref(*map(jnp.asarray, (xh, dA, dth, Bm, Cm)))
     _close(y, y_o, ORACLE_TOL["float32"])
     _close(h, h_o, STATE_TOL)
+
+
+@pytest.mark.parametrize("case", PASS_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_kernel_passes_with_bf16_splits_match_jax_kernel_and_oracle(case):
+    """The mirror with the tensor-core route's hi + lo operands (x w, h_in
+    and G split into two bf16 values each) on inputs that are bf16 values:
+    within the float32 tolerances of JAX's Pallas ``ssd_call`` (interpret)
+    and ``ssd_ref`` without an initial state, JAX's ``ssd_chunked`` with
+    one, and the port's plain version always.  Each split carries its
+    operand to about 2^-17 of itself, far inside those limits."""
+    B, S, H, P, N, chunk, with_h0 = case
+    x, dt, A, Bm, Cm = _inputs(case[:6], seed=6)
+    x, Bm, Cm = (_bf16_values(a) for a in (x, Bm, Cm))
+    xh, dth = np.moveaxis(x, 2, 1), np.moveaxis(dt, 2, 1)
+    dA = dth * A[None, :, None]
+    h0 = (np.random.default_rng(7).standard_normal((B, H, P, N)) * 0.1
+          ).astype(np.float32) if with_h0 else None
+    t = lambda a: None if a is None else torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a))
+    y, h = ssd_passes(t(xh), t(dA), t(dth), t(Bm), t(Cm), chunk, t(h0),
+                      bf16=True)
+    yp, hp = K.ref.ssd_call_ref(t(xh), t(dA), t(dth), t(Bm), t(Cm), chunk,
+                                t(h0))
+    _close(y, yp, CHUNKED_TOL)
+    _close(h, hp, CHUNKED_TOL)
+    if with_h0:
+        y_j, h_j = jax_ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)),
+                                   chunk, jnp.asarray(h0))
+        _close(y, jnp.moveaxis(y_j, 2, 1), CHUNKED_TOL)
+        _close(h, h_j, CHUNKED_TOL)
+        return
+    y_k, h_k = jax_ssd_call(*map(jnp.asarray, (xh, dA, dth, Bm, Cm)),
+                            chunk=chunk, interpret=True)
+    _close(y, y_k, CHUNKED_TOL)
+    _close(h, h_k, CHUNKED_TOL)
+    y_o, h_o = jax_ssd_ref(*map(jnp.asarray, (xh, dA, dth, Bm, Cm)))
+    _close(y, y_o, ORACLE_TOL["float32"])
+    _close(h, h_o, STATE_TOL)
+
+
+@pytest.mark.parametrize("group", [1, 2, 3])
+def test_forward_passes_give_one_output_whatever_the_head_group(group):
+    """The mirror with head groups of 1, 2 and 3 heads at 5 heads (a last
+    group cut short) against JAX's Pallas ``ssd_call`` (interpret) and the
+    port's plain version, and bit for bit against one head a group: a
+    block's C.B^T is shared by its heads, and nothing else crosses them."""
+    case = (1, 384, 5, 64, 128, 128)
+    x, dt, A, Bm, Cm = _inputs(case, seed=8)
+    xh, dth = np.moveaxis(x, 2, 1), np.moveaxis(dt, 2, 1)
+    dA = dth * A[None, :, None]
+    args = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (xh, dA, dth, Bm, Cm)]
+    y, h = ssd_passes(*args, 128, group=group)
+    y1, h1 = ssd_passes(*args, 128, group=1)
+    assert torch.equal(y, y1) and torch.equal(h, h1)
+    yp, hp = K.ref.ssd_call_ref(*args, 128)
+    _close(y, yp, CHUNKED_TOL)
+    _close(h, hp, CHUNKED_TOL)
+    y_k, h_k = jax_ssd_call(*map(jnp.asarray, (xh, dA, dth, Bm, Cm)),
+                            chunk=128, interpret=True)
+    _close(y, y_k, CHUNKED_TOL)
+    _close(h, h_k, CHUNKED_TOL)
+
+
+def test_forward_head_group_agrees_with_the_kernel_source():
+    """The wrapper's forward head group is the one the kernel's source
+    names, and it leaves a last group cut short at 5 heads."""
+    import re
+    src = K.SOURCES[0].read_text()
+    found = re.findall(r"constexpr int FWD_HEAD_GROUP = (\d+);", src)
+    assert found == [str(K.FWD_HEAD_GROUP)]
+    assert 5 % K.FWD_HEAD_GROUP
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -390,16 +480,6 @@ def test_ssd_backward_plain_version_keeps_the_types():
 # as the bf16 values they are; the outputs are left unrounded (the kernel
 # rounds dx, dB and dC once, as the plain version does).
 # ----------------------------------------------------------------------
-def _split(v, bf16):
-    """An operand formed in float32 as the tensor cores take it: hi + lo,
-    each a bf16 value (with ``bf16``), else as it is."""
-    if not bf16:
-        return v
-    v32 = v.float()
-    hi = v32.bfloat16().float()
-    return hi.double() + (v32 - hi).bfloat16().double()
-
-
 def ssd_bwd_passes(x, dA, dt, Bm, Cm, dy, chunk, h0=None, dh_last=None, *,
                    bf16=False, group=K.HEAD_GROUP):
     """The tensor-core backward's passes on head-major inputs (as
@@ -621,7 +701,7 @@ def test_backward_route_and_partials(dtype, P, N, route, planes):
     leave one partial dB and dC for each group of heads (48 heads: 12);
     float32 and the smoke widths take the FMA passes, one partial a
     head."""
-    assert K.bwd_route(dtype, P, N) == route
+    assert K.route(dtype, P, N) == route
     assert K.bwd_partials(48, dtype, P, N) == planes
     if route == "tc":
         assert K.bwd_partials(6, dtype, P, N) == 2     # a last group of 2
