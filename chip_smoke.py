@@ -124,7 +124,11 @@ Phases, each printing one JSON line with its seconds:
             ms and kernels a call from one profiled window
             (``ssd_bwd.passes``, ``rglru_bwd.passes``,
             ``flash_d256_bwd.passes``; bf16 at Mamba-2's widths runs the
-            SSD tensor-core route, ``route``; the bf16 flash backward
+            SSD tensor-core route, ``route``, which must be the
+            ``SSD_BWD_TC_KERNELS`` once each and nothing else: the
+            forward's state pass (the chunk states and the dual states in
+            one launch), the two carries, the three wgmma row-tile passes,
+            ddA and the head sum; the bf16 flash backward
             at 256 four passes: delta, the dK/dV partials and dQ on wgmma,
             the partials' sum; the RG-LRU backward one kernel).
 8. serve_ssm, serve_hybrid
@@ -3316,6 +3320,15 @@ SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 # chunk states and the outputs on wgmma, the carry between them
 SSD_FWD_TC_KERNELS = ("state_wg_kernel", "pass_kernel<__nv_bfloat16>",
                       "out_wg_kernel")
+# the bf16 backward at Mamba-2 780M's widths, one launch each a call: the
+# forward's state pass (on x and B, and on dy and C for the dual states, in
+# one launch), its carry and the carry of the gradient, the three row-tile
+# passes on wgmma, then ddA and the sum over the head groups
+SSD_BWD_TC_KERNELS = ("state_wg_kernel", "pass_kernel<__nv_bfloat16>",
+                      "rpass_kernel<__nv_bfloat16>",
+                      "dx_wg_kernel", "db_wg_kernel", "dc_wg_kernel",
+                      "dda_kernel<64, 128, __nv_bfloat16>",
+                      "head_sum_kernel<__nv_bfloat16>")
 SSD_ORACLE_TOL = 5e-4
 SSD_REL_L2 = 1e-2
 # RG-LRU sums sequentially within tiles and composes the tiles in order:
@@ -3985,10 +3998,18 @@ def ssd_bwd_phase(gen):
                  library_ms=None, bound_ms=b, bound_by=by, bytes=n_bytes,
                  ops=n_ops)
         t["bound_share"] = t["bound_ms"] / t["ms"]
-        _passes("ssd_bwd", t, kernel, route=SK.route(dtype, P, N))
+        route = SK.route(dtype, P, N)
+        _passes("ssd_bwd", t, kernel, route=route)
         emit("ssd_bwd.time", B=1, S=S, H=H, P=P, N=N, chunk=Q,
-             dtype="bfloat16", route=SK.route(dtype, P, N),
+             dtype="bfloat16", route=route,
              **{k: v for k, v in t.items() if k != "passes"})
+        launched = sorted(p["name"] for p in t["passes"])
+        if (route != "tc" or launched != sorted(SSD_BWD_TC_KERNELS)
+                or t["kernels_per_call"] != len(SSD_BWD_TC_KERNELS)):
+            raise AssertionError(
+                f"the bf16 SSD backward at (64, 128) launched {launched} "
+                f"({t['kernels_per_call']} a call), not "
+                f"{sorted(SSD_BWD_TC_KERNELS)} once each")
     return err, t
 
 

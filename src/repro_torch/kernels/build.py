@@ -2,8 +2,9 @@
 with a plain C interface, loaded with ``ctypes``.
 
 Each library is built at first use into ``build/repro_torch/`` at the root
-of the checkout, under a name keyed by a hash of its sources and flags, so
-a changed source builds anew and an unchanged one is loaded as it is.  A
+of the checkout, under a name keyed by a hash of its sources, the shared
+header ``hopper.cuh`` they include and the flags, so a changed source or
+header builds anew and an unchanged one is loaded as it is.  A
 missing ``nvcc`` or a failed build raises.  ``load_count`` counts library
 loads per name: serving across register rewrites must keep it at 1, since
 registers are kernel arguments, never compile-time constants.
@@ -26,6 +27,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "repro_torch"
+# headers the sources include (hashed with every library's sources)
+HEADERS = (pathlib.Path(__file__).parent / "hopper.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,7 +49,7 @@ def find_nvcc() -> str:
 
 def library_path(name: str, sources: Sequence[pathlib.Path]) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *HEADERS):
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

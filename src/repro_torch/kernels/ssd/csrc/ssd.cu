@@ -63,15 +63,10 @@
 // inf * 0 is NaN, so those entries are selected to 0.
 //
 // `ssd_fwd` and `ssd_bwd` return the `cudaError_t` of their launches.
-#include <cuda.h>   // CUtensorMap and its enums; the entry point comes through the runtime
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "../../hopper.cuh"   // wgmma, mbarriers, TMA; includes the CUDA headers
 
 namespace {
 
-using bf16 = __nv_bfloat16;
 constexpr int QT = 64;          // rows of a chunk tile
 constexpr int F32_THREADS = 256;  // float32 passes: 16 x 16 threads
 
@@ -118,41 +113,12 @@ __device__ __forceinline__ void chunk_cum(float* sCum, float* sDt, const float* 
 }
 
 // ===========================================================================
-// bfloat16: the backward's tensor-core helpers (mma.sync m16n8k16,
-// ldmatrix, cp.async)
+// bfloat16: register helpers of the tensor-core passes
 // ===========================================================================
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-// c += a * b for one 16 x 8 x 16 product (a: 4 registers, b: 2).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -165,262 +131,6 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
   hi = *reinterpret_cast<uint32_t*>(&h);
   lo = *reinterpret_cast<uint32_t*>(&l);
-}
-
-// Element offset of 16-byte chunk `c` of row `r` in a [rows][W] bf16 tile.
-// Rows of at least eight chunks are swizzled (chunk c at c ^ (r & 7)) so the
-// eight rows an `ldmatrix` reads fall in eight bank groups; narrower rows
-// (W = 16, the smoke widths) are left in place.
-template <int W>
-__device__ __forceinline__ int swz(int r, int c) {
-  constexpr int CH = W / 8;
-  return r * W + ((CH >= 8 ? (c ^ (r & 7)) : c) << 3);
-}
-
-// Rows [0, ROWS) of a [rows][W] bf16 block, rows `pitch` elements apart from
-// `g`, into the tile `s`; rows at or beyond `n_valid` read zeros.
-// Asynchronous: the caller commits and waits.
-template <int ROWS, int W>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, size_t pitch, int n_valid) {
-  constexpr int CH = W / 8;
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += blockDim.x) {
-    const int r = idx / CH, c = idx % CH;
-    const bool ok = r < n_valid;
-    cp_async16(smem_u32(s + swz<W>(r, c)), ok ? g + r * pitch + c * 8 : g, ok);
-  }
-}
-
-// Fragments of one 16-deep step `kk` of a [rows][W] tile: a_frag, A rows
-// [r0, r0 + 16) with the depth along the row; b_frag, B of two n-tiles
-// [n0, n0 + 16) with the tile's rows being n (b[0], b[1] for n0; b[2], b[3]
-// for n0 + 8); bt_frag, B of two n-tiles [n0, n0 + 16) of the tile's
-// columns, its rows being the depth.
-template <int W>
-__device__ __forceinline__ void a_frag(const bf16* s, int r0, int kk, int lane, uint32_t (&a)[4]) {
-  ldsm_x4(smem_u32(s + swz<W>(r0 + (lane & 15), 2 * kk + (lane >> 4))), a);
-}
-template <int W>
-__device__ __forceinline__ void b_frag(const bf16* s, int n0, int kk, int lane, uint32_t (&b)[4]) {
-  ldsm_x4(smem_u32(s + swz<W>(n0 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1))),
-          b);
-}
-template <int W>
-__device__ __forceinline__ void bt_frag(const bf16* s, int n0, int kk, int lane,
-                                        uint32_t (&b)[4]) {
-  ldsm_x4_t(smem_u32(s + swz<W>(16 * kk + (lane & 15), (n0 >> 3) + (lane >> 4))), b);
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&c)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-}
-
-// c += A B^T for a warp's 16 rows: A rows [r0, r0 + 16) of `sa`, B rows
-// [0, 8 NT) of `sb`, both [rows][W] with the depth W along the row.
-template <int W, int NT>
-__device__ __forceinline__ void rows_times_rows_t(float (&c)[NT][4], const bf16* sa, int r0,
-                                                  const bf16* sb, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < W / 16; ++kk) {
-    uint32_t a[4];
-    a_frag<W>(sa, r0, kk, lane, a);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t b[4];
-      b_frag<W>(sb, n * 8, kk, lane, b);
-      mma(c[n], a, b[0], b[1]);
-      mma(c[n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// c += A B for a warp's 16 rows: A in registers as m16n8 accumulators
-// x[2 kk], x[2 kk + 1], entering as hi + lo bf16 (two products), B the
-// [KSTEPS * 16][W] tile `s`.
-template <int W, int KSTEPS, int NT>
-__device__ __forceinline__ void regs_times_tile(float (&c)[NT][4], const float (&x)[2 * KSTEPS][4],
-                                                const bf16* s, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    uint32_t ah[4], al[4];
-    split_bf16(x[2 * kk][0], x[2 * kk][1], ah[0], al[0]);
-    split_bf16(x[2 * kk][2], x[2 * kk][3], ah[1], al[1]);
-    split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], ah[2], al[2]);
-    split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], ah[3], al[3]);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t b[4];
-      bt_frag<W>(s, n * 8, kk, lane, b);
-      mma(c[n], ah, b[0], b[1]);
-      mma(c[n + 1], ah, b[2], b[3]);
-      mma(c[n], al, b[0], b[1]);
-      mma(c[n + 1], al, b[2], b[3]);
-    }
-  }
-}
-
-// A warp's 16 x 8 NT accumulators to rows r0 + g and r0 + g + 8 of the
-// row-major float32 block `o` (rows `ld` apart); `keep` 0 stores them all,
-// 1 only column <= row, 2 only column > row (rows and columns of the tile).
-template <int NT>
-__device__ __forceinline__ void store_acc(float* o, size_t ld, const float (&s)[NT][4], int r0,
-                                          int lane, int keep) {
-  const int g = lane >> 2, t = lane & 3;
-  float* o0 = o + (size_t)(r0 + g) * ld + 2 * t;
-  float* o1 = o0 + 8 * ld;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    if (keep == 0) {
-      *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(s[n][0], s[n][1]);
-      *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(s[n][2], s[n][3]);
-      continue;
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = r0 + g + 8 * (e >> 1), col = 8 * n + 2 * t + (e & 1);
-      if (keep == 1 ? col <= row : col > row) ((e >> 1) ? o1 : o0)[8 * n + (e & 1)] = s[n][e];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the backward's pass 1 (bf16): C.B^T of a (batch, chunk) in full, for row
-// tile I and every column tile J <= I; 4 warps of 16 rows, B_J in a ring of
-// two.  It forms C_I.B_J^T into the tile (I, J) and B_J.C_I^T into the
-// tile (J, I), so that the whole [QP][QP] block holds C_max(a,b) .
-// B_min(a,b) at (a, b): the tiles t <= s read by rows s and the tiles s >= t
-// read by rows t are both row-major (on the diagonal tile, C.B^T fills
-// column <= row and B.C^T the rest).
-// grid (nI * nc, B); block x = c * nI + I.
-// ---------------------------------------------------------------------------
-template <int N>
-__global__ void __launch_bounds__(128)
-cb_tc_kernel(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm, float* __restrict__ cb,
-             int S, int Q, int nI) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sC = reinterpret_cast<bf16*>(smem_raw);  // [QT][N]
-  bf16* sB = sC + QT * N;                        // [2][QT][N]
-  const int I = blockIdx.x % nI, c = blockIdx.x / nI, b = blockIdx.y;
-  const int nc = S / Q, QP = nI * QT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, r0 = warp * 16;
-  const size_t t0 = (size_t)b * S + (size_t)c * Q;
-  const int i0 = I * QT;
-  float* out = cb + ((size_t)b * nc + c) * QP * QP;
-
-  load_tile<QT, N>(sC, Cm + (t0 + i0) * N, N, Q - i0);
-  load_tile<QT, N>(sB, Bm + t0 * N, N, Q);
-  cp_async_commit();
-  for (int J = 0; J <= I; ++J) {
-    const int st = J & 1;
-    if (J < I)
-      load_tile<QT, N>(sB + (st ^ 1) * QT * N, Bm + (t0 + (J + 1) * QT) * N, N,
-                       Q - (J + 1) * QT);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    float s[QT / 8][4];
-    zero(s);
-    rows_times_rows_t<N, QT / 8>(s, sC, r0, sB + st * QT * N, lane);
-    const bool diag = J == I;
-    store_acc(out + (size_t)i0 * QP + J * QT, QP, s, r0, lane, diag ? 1 : 0);
-    zero(s);
-    rows_times_rows_t<N, QT / 8>(s, sB + st * QT * N, r0, sC, lane);
-    store_acc(out + (size_t)J * QT * QP + i0, QP, s, r0, lane, diag ? 2 : 0);
-    __syncthreads();  // every warp is done with stage st before it is refilled
-  }
-  cp_async_wait<0>();
-}
-
-// ---------------------------------------------------------------------------
-// the backward's passes 2 and 4 (bf16 at (64, 128), on mma.sync): the
-// chunk's own state s[P][N] = sum_j (x_j w_j)^T B_j with w_j = exp(cum_Q -
-// cum_j) dt_j; x w enters as hi + lo, both bf16.  Warps
-// split P into 16-row groups and N into groups of WN columns.  DUAL (the
-// backward): the chunk's dual state sum_i exp(cum_i) dy_i^T C_i, called with
-// dy for x and C for B; it writes no dAc.
-// grid (nc * H, B); block x = c * H + h.
-// ---------------------------------------------------------------------------
-template <int P, int N>
-struct StateShape {
-  static constexpr int WN = N < 64 ? N : 64;          // columns a warp
-  static constexpr int WARPS = (P / 16) * (N / WN);
-  static constexpr int THREADS = 32 * WARPS;
-};
-
-template <int P, int N, bool DUAL = false>
-__global__ void __launch_bounds__(StateShape<P, N>::THREADS)
-state_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
-                const float* __restrict__ dt, const bf16* __restrict__ Bm,
-                float* __restrict__ states, float* __restrict__ dAc, int H, int S, int Q) {
-  constexpr int WN = StateShape<P, N>::WN;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sXh = reinterpret_cast<bf16*>(smem_raw);  // [P][QT]: (x w)^T, hi
-  bf16* sXl = sXh + P * QT;                       // [P][QT]: (x w)^T, lo
-  bf16* sB = sXl + P * QT;                        // [QT][N]
-  float* sCum = reinterpret_cast<float*>(sB + QT * N);  // [Q]
-  float* sDt = sCum + Q;                          // [Q]
-
-  const int nc = S / Q;
-  const int h = blockIdx.x % H, c = blockIdx.x / H, b = blockIdx.y;
-  const size_t bh = (size_t)b * H + h;
-  const size_t t0 = (size_t)c * Q;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int pr0 = (warp % (P / 16)) * 16, nc0 = (warp / (P / 16)) * WN;
-  const bf16* xb = x + (bh * S + t0) * P;
-  const bf16* Bb = Bm + ((size_t)b * S + t0) * N;
-
-  chunk_cum(sCum, sDt, dA + bh * S + t0, dt + bh * S + t0, Q);
-  const float cum_last = sCum[Q - 1];
-
-  float acc[WN / 8][4];
-  zero(acc);
-  for (int j0 = 0; j0 < Q; j0 += QT) {
-    const int nj = min(QT, Q - j0);
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<QT, N>(sB, Bb + (size_t)j0 * N, N, nj);
-    cp_async_commit();
-    // (x w)^T as hi + lo, w_j = exp(cum_Q - cum_j) dt_j
-    for (int idx = threadIdx.x; idx < QT * P; idx += blockDim.x) {
-      const int j = idx / P, p = idx % P;
-      const float v = j < nj ? to_f(xb[(size_t)(j0 + j) * P + p]) *
-                                   (DUAL ? expf(sCum[j0 + j])
-                                         : expf(cum_last - sCum[j0 + j]) * sDt[j0 + j])
-                             : 0.f;
-      const bf16 hi = __float2bfloat16(v);
-      const int at = swz<QT>(p, j >> 3) + (j & 7);
-      sXh[at] = hi;
-      sXl[at] = __float2bfloat16(v - __bfloat162float(hi));
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < QT / 16; ++kk) {
-      uint32_t ah[4], al[4];
-      a_frag<QT>(sXh, pr0, kk, lane, ah);
-      a_frag<QT>(sXl, pr0, kk, lane, al);
-#pragma unroll
-      for (int n = 0; n < WN / 8; n += 2) {
-        uint32_t bq[4];
-        bt_frag<N>(sB, nc0 + n * 8, kk, lane, bq);
-        mma(acc[n], ah, bq[0], bq[1]);
-        mma(acc[n + 1], ah, bq[2], bq[3]);
-        mma(acc[n], al, bq[0], bq[1]);
-        mma(acc[n + 1], al, bq[2], bq[3]);
-      }
-    }
-  }
-  float* o0 = states + (bh * nc + c) * P * N + (size_t)(pr0 + g) * N + nc0 + 2 * t;
-  float* o1 = o0 + 8 * N;
-#pragma unroll
-  for (int n = 0; n < WN / 8; ++n) {
-    *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[n][0], acc[n][1]);
-    *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[n][2], acc[n][3]);
-  }
-  if (!DUAL && threadIdx.x == 0) dAc[bh * nc + c] = cum_last;
 }
 
 // ===========================================================================
@@ -440,7 +150,7 @@ __device__ __forceinline__ void load_rows(float* s, const T* g, int n_valid,
 }
 
 // pass 1 (float32 FMA on inputs of type T: the FMA route's forward, and the
-// backward's recompute on it); grid (nI * nc, B) as cb_tc_kernel.
+// backward's recompute on it); grid (nI * nc, B); block x = c * nI + I.
 template <typename T, int N>
 __global__ void __launch_bounds__(F32_THREADS)
 cb_f32_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ cb,
@@ -483,8 +193,8 @@ cb_f32_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restr
   }
 }
 
-// pass 2 (float32 FMA on inputs of type T); grid (nc * H, B) as
-// state_tc_kernel.  Thread (ty, tx) owns rows ty * PR + a of P and columns
+// pass 2 (float32 FMA on inputs of type T); grid (nc * H, B); block x =
+// c * H + h.  Thread (ty, tx) owns rows ty * PR + a of P and columns
 // tx + 16 m of N.  DUAL (the backward): the chunk's dual state
 // sum_i exp(cum_i) dy_i^T C_i, called with dy for x and C for B; it writes
 // no dAc.
@@ -704,10 +414,11 @@ pass_kernel(const float* __restrict__ states, const float* __restrict__ dAc,
 // files, which caps a thread at 168 registers (one block an SM, at up to
 // 255, made the output pass 1.5x as long).  The tile rows past a ragged
 // chunk's end (Q not a multiple of 64) are the next chunk's: every product
-// that reads them is masked by row < Q, as the mma.sync passes were.
+// that reads them is masked by row < Q.  The backward's wgmma passes
+// (below) are blocks of the same shape.
 
 constexpr int FWD_HEAD_GROUP = 2;   // heads a forward block (state and output passes)
-
+constexpr int HEAD_GROUP = 4;       // heads a backward dB or dC block sums into one partial
 
 namespace wg {
 constexpr int P = 64, N = 128;
@@ -726,6 +437,16 @@ constexpr size_t state_smem(int QP) {
   return ALIGN + (size_t)SLOTS * SLOT * 2 + 2 * (size_t)HG * QP * 4 + BARS;
 }
 constexpr size_t out_smem(int QP) { return state_smem(QP) + 2 * BOX * 2; }
+// the backward's row tiles: a dx block takes HG heads; a dB or dC block
+// BG heads, HG at a time; a block's `fixed` boxes, the ring, cum and dt of
+// its `heads` heads, the barriers
+constexpr int BG = HEAD_GROUP;
+static_assert(2 + HG <= 4, "a slot holds B or C and HG heads' x or dy tiles");
+static_assert(BG % HG == 0 && BG <= 4, "a warp takes each head's cumsum");
+constexpr size_t bwd_smem(int QP, int fixed, int heads) {
+  return ALIGN + (size_t)fixed * BOX * 2 + (size_t)SLOTS * SLOT * 2 + 2 * (size_t)heads * QP * 4 +
+         BARS;
+}
 }  // namespace wg
 
 __device__ __forceinline__ bf16* align_1024(unsigned char* raw) {
@@ -733,16 +454,10 @@ __device__ __forceinline__ bf16* align_1024(unsigned char* raw) {
                                  ~(uintptr_t)(wg::ALIGN - 1));
 }
 
-// wgmma (warpgroup products) and the helpers around it, as in
-// flash_attention.cu.  A shared-memory operand is described by its address,
-// the byte offsets LBO and SBO and the 128-byte swizzle (layout type 1).
-__device__ __forceinline__ uint64_t wg_desc(const void* ptr, uint32_t lbo, uint32_t sbo) {
-  const uint32_t a = smem_u32(ptr);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-// A K-major operand of a [2 panels][64 rows][64] tile, depth 128: 16-deep
-// step kk (of 8) is 32 bytes into panel kk / 4.
+// The operand descriptors of ../../hopper.cuh's `wgmma` wrappers over the
+// 64 x 64 boxes the TMA maps write (128-byte swizzle).  A K-major operand
+// of a [2 panels][64 rows][64] tile, depth 128: 16-deep step kk (of 8) is
+// 32 bytes into panel kk / 4 (a box alone, depth 64: steps 0-3).
 __device__ __forceinline__ uint64_t kdesc(const bf16* s, int kk) {
   return wg_desc(s + (kk >> 2) * wg::BOX + (kk & 3) * 16, 16, 1024);
 }
@@ -751,131 +466,8 @@ __device__ __forceinline__ uint64_t kdesc(const bf16* s, int kk) {
 __device__ __forceinline__ uint64_t mdesc(const bf16* s, int kk) {
   return wg_desc(s + kk * 16 * 64, wg::BOX * 2, 1024);
 }
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the wgmma that owns it.
-template <int K>
-__device__ __forceinline__ void fence_regs(float (&r)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
-// d[32] = A (shared, K-major) * B (shared, K-major) + (acc ? d : 0): m64n64k16
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc = 1) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// d[32] += A (registers, the m16n8k16 A fragment of each warp's 16 rows) *
-// B (shared, MN-major): m64n64k16
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64] += A (registers) * B (shared, MN-major): m64n128k16
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{ %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-// The producer's arrival on a "full" barrier, with the bytes its copies bring.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Waits until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred P;\nmbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-// One box (64 x 64 values at the given coordinates, innermost first) of the
-// map's tensor into the 8 KB at `dst` (1024-byte aligned), onto `bar`.
-__device__ __forceinline__ void tma2(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                     int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void tma3(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                     int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void tma4(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                     int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// The barriers of a forward block: `n_full` "full" (one producer arrival
+// The barriers of a wgmma block: `n_full` "full" (one producer arrival
 // each) and as many "empty" (the 128 consumers) from `bars`; then the whole
 // block meets once.
 __device__ __forceinline__ void init_ring(uint64_t* bars, int n_full) {
@@ -910,6 +502,45 @@ __device__ __forceinline__ void group_cum_wg(float* sCum, float* sDt, const floa
   named_sync(wg::CONSUMERS, 128);
 }
 
+// The ring's next slot in the producer: waits until the consumers have
+// emptied it, then counts it.
+__device__ __forceinline__ int next_slot(uint64_t* empty, int& it) {
+  const int st = it % wg::SLOTS;
+  if (it >= wg::SLOTS) mbar_wait(empty + st, (it / wg::SLOTS - 1) & 1);
+  ++it;
+  return st;
+}
+// The ring's next slot in the consumers: waits until it is full, then counts it.
+__device__ __forceinline__ int take_slot(uint64_t* full, int& it) {
+  const int st = it % wg::SLOTS;
+  mbar_wait(full + st, (it / wg::SLOTS) & 1);
+  ++it;
+  return st;
+}
+
+// The producer's load of a state (h_in or g) of head `bh` of chunk c, its
+// hi and lo planes `lo_rows` rows apart in the map, into a ring slot.
+__device__ __forceinline__ void load_state_planes(bf16* slot, const CUtensorMap* m, uint64_t* bar,
+                                                  size_t bh, int nc, int c, int lo_rows) {
+  const int row = (int)((bh * nc + c) * wg::P);
+  mbar_expect_tx(bar, 4 * wg::BOX * 2);
+  tma2(slot, m, bar, 0, row);
+  tma2(slot + wg::BOX, m, bar, 64, row);
+  tma2(slot + 2 * wg::BOX, m, bar, 0, row + lo_rows);
+  tma2(slot + 3 * wg::BOX, m, bar, 64, row + lo_rows);
+}
+
+// The producer's load of the rows [s0, s0 + 64) of the shared tile `mbc` (B
+// or C, two boxes) and of the heads' `mh` (x or dy, a box each) into a slot.
+__device__ __forceinline__ void load_row_tiles(bf16* slot, const CUtensorMap* mbc,
+                                               const CUtensorMap* mh, uint64_t* bar, int s0, int h0,
+                                               int hv, int b) {
+  mbar_expect_tx(bar, (2 + hv) * wg::BOX * 2);
+  tma3(slot, mbc, bar, 0, s0, b);
+  tma3(slot + wg::BOX, mbc, bar, 64, s0, b);
+  for (int g = 0; g < hv; ++g) tma4(slot + (2 + g) * wg::BOX, mh, bar, 0, s0, h0 + g, b);
+}
+
 // ---------------------------------------------------------------------------
 // pass 2 (bf16 at (64, 128)): the chunk states of a group of FWD_HEAD_GROUP
 // heads, s[P][N] = sum_j (x_j w_j)^T B_j with w_j = exp(cum_Q - cum_j) dt_j.
@@ -921,14 +552,21 @@ __device__ __forceinline__ void group_cum_wg(float* sCum, float* sDt, const floa
 // each chunk's cum_Q (dAc).  The two heads' accumulators take 128 registers
 // a thread, so at the 168 of two blocks an SM ptxas spills 152 bytes and
 // serialises the wgmmas; one head a block (nothing serialised) was slower
-// all the same, 0.213 ms a call at S = 32768 against 0.195.
-// grid (nc * NG, B), NG = ceil(H / FWD_HEAD_GROUP); block x = c * NG + group.
+// all the same, 0.213 ms a call at S = 32768 against 0.195.  The blocks
+// of blockIdx.z = 1 (the backward's, in the same launch) take each chunk's
+// dual state sum_i exp(cum_i) dy_i^T C_i into `dual`: the same product with
+// dy (`mdy`) for x, C (`mc`) for B and w_i = exp(cum_i); they write no dAc.
+// grid (nc * NG, B, 1 or 2), NG = ceil(H / FWD_HEAD_GROUP); block x = c * NG
+// + group.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(wg::NTH, 2)
 state_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mb,
+                const __grid_constant__ CUtensorMap mdy, const __grid_constant__ CUtensorMap mc,
                 const float* __restrict__ dA, const float* __restrict__ dt,
-                float* __restrict__ states, float* __restrict__ dAc, int H, int S, int Q) {
+                float* __restrict__ states, float* __restrict__ dual, float* __restrict__ dAc,
+                int H, int S, int Q) {
   using namespace wg;
+  const bool is_dual = blockIdx.z != 0;
   extern __shared__ unsigned char smem_raw[];
   const int nT = (Q + 63) / 64, QP = nT * 64;
   bf16* ring = align_1024(smem_raw);                            // [SLOTS][SLOT]
@@ -944,15 +582,11 @@ state_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ 
 
   if (threadIdx.x >= 128) {   // the producer warp
     if (threadIdx.x == 128) {
+      int it = 0;
       for (int jt = 0; jt < nT; ++jt) {
-        const int st = jt % SLOTS;
-        if (jt >= SLOTS) mbar_wait(empty + st, (jt / SLOTS - 1) & 1);
-        bf16* slot = ring + st * SLOT;
-        const int s0 = t0 + jt * 64;
-        mbar_expect_tx(full + st, (2 + hv) * BOX * 2);
-        tma3(slot, &mb, full + st, 0, s0, b);
-        tma3(slot + BOX, &mb, full + st, 64, s0, b);
-        for (int g = 0; g < hv; ++g) tma4(slot + (2 + g) * BOX, &mx, full + st, 0, s0, h0 + g, b);
+        const int st = next_slot(empty, it);
+        load_row_tiles(ring + st * SLOT, is_dual ? &mc : &mb, is_dual ? &mdy : &mx, full + st,
+                       t0 + jt * 64, h0, hv, b);
       }
     }
     return;
@@ -962,7 +596,9 @@ state_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ 
   group_cum_wg<HG>(sCum, sW, dA + bh0 * S + t0, dt + bh0 * S + t0, S, Q, QP, hv);
   for (int idx = threadIdx.x; idx < HG * QP; idx += 128) {
     const int g = idx / QP, j = idx % QP;
-    sW[idx] = j < Q ? expf(sCum[g * QP + Q - 1] - sCum[idx]) * sW[idx] : 0.f;
+    sW[idx] = j >= Q    ? 0.f
+              : is_dual ? expf(sCum[idx])
+                        : expf(sCum[g * QP + Q - 1] - sCum[idx]) * sW[idx];
   }
   named_sync(CONSUMERS, 128);
 
@@ -976,9 +612,9 @@ state_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ 
   for (int g = 0; g < HG; ++g)
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[g][i] = 0.f;
+  int it = 0;
   for (int jt = 0; jt < nT; ++jt) {
-    const int st = jt % SLOTS;
-    mbar_wait(full + st, (jt / SLOTS) & 1);
+    const int st = take_slot(full, it);
     const bf16* slot = ring + st * SLOT;
 #pragma unroll
     for (int g = 0; g < HG; ++g) {
@@ -1018,7 +654,7 @@ state_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ 
 #pragma unroll
   for (int g = 0; g < HG; ++g) {
     if (g >= hv) continue;
-    float* out = states + ((bh0 + g) * nc + c) * P * N;
+    float* out = (is_dual ? dual : states) + ((bh0 + g) * nc + c) * P * N;
     float* o0 = out + (size_t)(16 * warp + gq) * N + 2 * t;
     float* o1 = o0 + 8 * N;
 #pragma unroll
@@ -1026,7 +662,7 @@ state_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ 
       *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[g][4 * n], acc[g][4 * n + 1]);
       *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[g][4 * n + 2], acc[g][4 * n + 3]);
     }
-    if (threadIdx.x == 0) dAc[(bh0 + g) * nc + c] = sCum[g * QP + Q - 1];
+    if (!is_dual && threadIdx.x == 0) dAc[(bh0 + g) * nc + c] = sCum[g * QP + Q - 1];
   }
 }
 
@@ -1075,30 +711,14 @@ out_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CU
       tma3(sC, &mc, bar_c, 0, t0 + i0, b);
       tma3(sC + BOX, &mc, bar_c, 64, t0 + i0, b);
       int it = 0;
-      auto next = [&]() {
-        const int st = it % SLOTS;
-        if (it >= SLOTS) mbar_wait(empty + st, (it / SLOTS - 1) & 1);
-        ++it;
-        return st;
-      };
       for (int J = 0; J <= I; ++J) {
-        const int st = next();
-        bf16* slot = ring + st * SLOT;
-        const int s0 = t0 + J * 64;
-        mbar_expect_tx(full + st, (2 + hv) * BOX * 2);
-        tma3(slot, &mb, full + st, 0, s0, b);
-        tma3(slot + BOX, &mb, full + st, 64, s0, b);
-        for (int g = 0; g < hv; ++g) tma4(slot + (2 + g) * BOX, &mx, full + st, 0, s0, h0 + g, b);
+        const int st = next_slot(empty, it);
+        load_row_tiles(ring + st * SLOT, &mb, &mx, full + st, t0 + J * 64, h0, hv, b);
       }
       for (int g = 0; g < hv; ++g) {
-        const int st = next();
-        bf16* slot = ring + st * SLOT;
-        const int row = (((b * H + h0 + g) * nc) + c) * P;
-        mbar_expect_tx(full + st, 4 * BOX * 2);
-        tma2(slot, &mh, full + st, 0, row);
-        tma2(slot + BOX, &mh, full + st, 64, row);
-        tma2(slot + 2 * BOX, &mh, full + st, 0, row + lo_rows);
-        tma2(slot + 3 * BOX, &mh, full + st, 64, row + lo_rows);
+        const int st = next_slot(empty, it);
+        load_state_planes(ring + st * SLOT, &mh, full + st, (size_t)b * H + h0 + g, nc, c,
+                          lo_rows);
       }
     }
     return;
@@ -1118,9 +738,7 @@ out_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CU
 
   int it = 0;
   for (int J = 0; J <= I; ++J) {
-    const int st = it % SLOTS;
-    mbar_wait(full + st, (it / SLOTS) & 1);
-    ++it;
+    const int st = take_slot(full, it);
     const bf16* slot = ring + st * SLOT;
     float cb[32];
     wg_fence();
@@ -1178,9 +796,7 @@ out_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CU
 #pragma unroll
   for (int g = 0; g < HG; ++g) {
     if (g >= hv) continue;
-    const int st = it % SLOTS;
-    mbar_wait(full + st, (it / SLOTS) & 1);
-    ++it;
+    const int st = take_slot(full, it);
     const bf16* slot = ring + st * SLOT;
     float ch[32];
     wg_fence();
@@ -1214,36 +830,6 @@ out_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CU
       if (row1 < Q) *reinterpret_cast<uint32_t*>(y1 + 8 * n) = pack_bf16(acc[g][4 * n + 2], acc[g][4 * n + 3]);
     }
   }
-}
-
-template <typename K>
-cudaError_t set_smem(K kern, size_t bytes) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
-// library links no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                            cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // A map over the contiguous bf16 tensor at `ptr` with `rank` dims `dims`
@@ -1283,8 +869,8 @@ cudaError_t launch_wg(const bf16* x, const float* dA, const float* dt, const bf1
   if ((err = tile_map(&mh, hin, 2, dh)) != cudaSuccess) return err;
 
   if ((err = set_smem(state_wg_kernel, state_smem(QP))) != cudaSuccess) return err;
-  state_wg_kernel<<<dim3(nc * NG, B), NTH, state_smem(QP), stream>>>(mx, mb, dA, dt, states, dAc,
-                                                                     H, S, Q);
+  state_wg_kernel<<<dim3(nc * NG, B), NTH, state_smem(QP), stream>>>(mx, mb, mx, mb, dA, dt, states,
+                                                                     nullptr, dAc, H, S, Q);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const int per = B * H * (P * N / 4);
@@ -1354,8 +940,8 @@ cudaError_t launch(const void* x, const float* dA, const float* dt, const void* 
 }
 
 // ===========================================================================
-// backward: the tensor cores for bf16 at (P, N) = (64, 128), float32 FMA
-// for float32 and for bf16 at the smoke widths (16, 16)
+// backward: wgmma for bf16 at (P, N) = (64, 128), float32 FMA for float32
+// and for bf16 at the smoke widths (16, 16)
 // ===========================================================================
 //
 // For the cotangents dy (and dh_last), per head, with cum the chunk's
@@ -1372,64 +958,73 @@ cudaError_t launch(const void* x, const float* dA, const float* dt, const void* 
 // with M = D (C.B^T), m1_s = exp(cum_s) dy_s . (h_in C_s), m2_t = dt_t x_t
 // . (exp(cum_Q - cum_t) g B_t) and m3 = exp(cum_Q) <g, h_in> (ref.py's
 // `ssd_bwd_ref` states the same terms).  dx is itself an SSD scan run
-// backward in time with B and C exchanged.
+// backward in time with B and C exchanged.  M's row and column sums are
+// sums of the same terms that ddA takes the difference of, so both are
+// summed in float32 from the products' float32 values, never from an
+// operand rounded for the tensor cores: rounded once (hi + lo, about
+// 2^-17), they moved ddA by 2e-4 of its largest value in the CPU mirror,
+// against 3e-5 for the other gradients.
 //
 // What bounds it: at Mamba-2 780M's widths (H = 48, chunk 256) and S = 4096
 // the function reads x, dy (bf16), B, C, dA, dt and writes dx, dB, dC, ddA,
 // ddt, some 88 MB, and needs some 36 GFLOP: 0.036 ms at the bf16
 // tensor-core rate against 0.026 ms for the bytes, so operations bound it.
 //
-// bf16 at (64, 128), the tensor-core route (`launch_bwd_tc`), ten launches:
+// bf16 at (64, 128), the wgmma route (`launch_bwd_wg`), eight launches, all
+// products on `wgmma` with float32 accumulators, every tile brought by TMA
+// as the forward's are (`wg` above: a consumer warpgroup and a producer
+// warp, 64 x 64 boxes swizzled by 128 bytes, rows past S zero, a ring of
+// two 32 KB slots under full/empty `mbarrier`s), two blocks an SM:
 //
-// 1-3. C.B^T of each chunk in full (`cb_tc_kernel<N>`: the tiles
-//      t <= s that rows s read and the tiles s >= t that rows t read, both
-//      row-major), the chunk states (`state_tc_kernel`) and the carry
-//      (`pass_kernel<bf16>`): h_in as hi and lo bf16 planes, as the
-//      forward leaves it;
-// 4-5. each chunk's dual state sum_i exp(cum_i) dy_i^T C_i
-//      (`state_tc_kernel<DUAL>`: dy for x, C for B), and `rpass_kernel`,
-//      g carried backward across the chunks, stored as hi and lo planes;
-//      dh0;
-// 6.   `dx_tc_kernel`, one block per (batch, chunk, head, 64-row tile t),
-//      the forward's output pass run backward: z from g B_t, then T dy_J
-//      over the tiles J >= t; dx, ddt, m2;
-// 7.   `db_tc_kernel`, one block per (batch, chunk, group of HEAD_GROUP
-//      heads, tile t): x_t^T g of each head, then for each tile J >= t the
-//      group's D^T summed over its heads in order, in registers, before
-//      one product with C_J; colsum M of each head; the group's dB;
-// 8.   `dc_tc_kernel`, the same for the rows s over the tiles J <= s: dy_s^T
-//      h_in of each head, the group's D summed before one product with B_J;
+// 1.   the forward's `state_wg_kernel`, in one launch twice over: the
+//      chunk states, and each chunk's dual state sum_i exp(cum_i) dy_i^T
+//      C_i (the same product with dy for x and C for B, blockIdx.z = 1).
+//      No C.B^T pass: each row-tile block forms the C.B^T tiles it needs
+//      from the bf16 B and C tiles;
+// 2-3. the forward's `pass_kernel<bf16>`, h_in as hi and lo bf16 planes
+//      as the forward leaves it, and `rpass_kernel`, g carried backward
+//      across the chunks, stored as hi and lo planes; dh0;
+// 4.   `dx_wg_kernel`, one block per (batch, chunk, pair of heads, 64-row
+//      tile t), the forward's output pass run backward: for each tile J >=
+//      t, BC = B_t . C_J^T once for the pair, then each head's T = BC
+//      exp(cum_s - cum_t) (s >= t) times dy_J, and colsum M from T and x_t
+//      . dy_s; then the carried exp(cum_Q - cum_t) B_t . g^T; dx, ddt, m2;
+// 5.   `db_wg_kernel`, per (batch, chunk, group of HEAD_GROUP heads, tile
+//      t), a pair of heads at a time: each head's x_t^T g, scaled by dt_t
+//      exp(cum_Q - cum_t), then for each tile J >= t the pair's D^T summed
+//      over its heads in order before one product with C_J; the group's dB;
+// 6.   `dc_wg_kernel`, per (batch, chunk, group, tile s), a pair at a time:
+//      each head's exp(cum_s) dy_s^T h_in and m1, then for each tile J <= s,
+//      CB = C_s . B_J^T once for the pair and each head's D times B_J;
 //      rowsum M + m1 of each head; the group's dC;
-// 9.   `dda_kernel`: m3 and the two scans of ddA;
-// 10.  `head_sum_kernel`: the groups' dB and dC summed in order.
+// 7.   `dda_kernel`: m3 and the two scans of ddA;
+// 8.   `head_sum_kernel`: the groups' dB and dC summed in order.
 //
-// Every product runs on `mma.sync.m16n8k16` (float32 accumulators) from the
-// forward's swizzled bf16 tiles, fed by `cp.async` with the next tile in
-// flight.  x, dy, B and C enter as the bf16 they are; the operands formed
-// in float32 (T = C.B^T exp(cum_s - cum_t), the summed D, x w and dy
-// exp(cum) of the states, g and h_in) enter as hi + lo bf16 in two
-// products, so the gradients keep the float32 algebra's accuracy (about
-// 2^-17 relative a term).  Masked before exp, as the forward.  The row sums
-// ddA needs (colsum, rowsum, m1, m2) stay float32: each thread sums its
+// x, dy, B and C enter the products as the bf16 they are, read straight
+// from their tiles in either orientation: the transposed products the
+// backward needs (B_t . C_J^T, x_t . dy_s^T, D^T C) take K-major or MN-major
+// descriptors of the same boxes, never a copy.  The operands formed in
+// float32 (T, the summed D^T, each head's D, x w and dy exp(cum) of the
+// states, g and h_in) enter as hi + lo bf16 in two products, formed in
+// registers as the A operand or read as the two planes the carries store,
+// so the gradients keep the float32 algebra's accuracy (about 2^-17
+// relative a term).  Masked before exp, as the forward.  The row sums ddA
+// needs (colsum, rowsum, m1, m2) stay float32: each thread sums its
 // columns in order, then its quad in a fixed order.  No atomics: every
 // block owns its outputs and the groups are summed in a fixed order, so
 // two calls give the same bits.
 //
-// Summing D over a group before the product with C or B cuts that product,
-// the largest, by the group's size, and loads the group's B and C tiles
-// once; each group block writes one float32 partial [B, H / G, S, N] of dB
-// and of dC instead of one a head.  HEAD_GROUP = 4: at H = 48, chunk 256
-// and S = 4096 it leaves 768 group blocks (12 groups x 16 chunks x 4 tiles)
-// for 132 SMs at two blocks an SM (88 and 104 KB of shared memory), some
-// three waves, where 8 would leave under one and a half with an uneven
-// tail; and four heads are the block's four warps when the block takes
-// their cumsums, one a warp.  dx keeps one head a block (3,072 blocks),
-// since its z is a head's own.
-//
-// What it still leaves: hi + lo doubles the tensor-core work of every
-// product with an operand formed in float32; the products are `mma.sync`
-// from shared memory through `ldmatrix`, not `wgmma`; the blocks of a group
-// are 4 warps of 16 rows, two to an SM, with no warp specialisation.
+// Groups: a slot holds C_J (or B_J) and the tiles of HG = 2 heads (the
+// forward's group, FWD_HEAD_GROUP), so a block's fixed tiles, the ring, cum and dt take
+// 85-109 KB of shared memory at chunk 256 and two blocks share an SM (at
+// 168 registers a thread, two blocks of five warps).  dx takes a pair of
+// heads a block (z is a head's own): 1,536 blocks at H = 48, chunk 256 and
+// S = 4096.  dB and dC take HEAD_GROUP = 4 heads a block, a pair at a time
+// into one accumulator, so they leave 12 partial planes of dB and of dC
+// for the head sum to read, not 24 (768 blocks each).  dC adds each head's
+// D B_J to the accumulator rather than D summed over the pair first: C.B^T,
+// a head's D and their sum would hold 96 registers a thread beside the
+// accumulator's 64, 160 of the 168 before any address.
 //
 // float32 inputs, and bf16 at (16, 16), run the float32 FMA route
 // (`launch_bwd`), nine launches, inputs read in their own type:
@@ -1445,8 +1040,6 @@ cudaError_t launch(const void* x, const float* dA, const float* dt, const void* 
 // It keeps two row-tile blocks on an SM by reusing their first phase's
 // shared memory for the tile loop (`TileSmem`).
 
-constexpr int HEAD_GROUP = 4;   // heads a tensor-core row-tile block sums dB, dC over
-
 __device__ __forceinline__ float half_warp_sum(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -1459,10 +1052,37 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// A stored state: float32 as it is; bf16 as hi at p and lo at p + lo_plane.
-__device__ __forceinline__ float load_h(const float* p, size_t, size_t i) { return p[i]; }
-__device__ __forceinline__ float load_h(const bf16* p, size_t lo_plane, size_t i) {
-  return __bfloat162float(p[i]) + __bfloat162float(p[i + lo_plane]);
+// This thread's part of <g, h> over the n values at `ofs` of two stored
+// states: float32 one value at a time; bf16 (hi at p, lo at p + lo_plane)
+// eight at a time, 16-byte loads of each plane.
+__device__ __forceinline__ float state_dot(const float* g, const float* h, size_t, size_t ofs,
+                                           int n) {
+  float part = 0.f;
+  for (int idx = threadIdx.x; idx < n; idx += blockDim.x)
+    part = fmaf(g[ofs + idx], h[ofs + idx], part);
+  return part;
+}
+__device__ __forceinline__ float state_dot(const bf16* g, const bf16* h, size_t lo_plane,
+                                           size_t ofs, int n) {
+  float part = 0.f;
+  for (int idx = 8 * threadIdx.x; idx < n; idx += 8 * blockDim.x) {
+    const uint4 v[4] = {*reinterpret_cast<const uint4*>(g + ofs + idx),
+                        *reinterpret_cast<const uint4*>(g + lo_plane + ofs + idx),
+                        *reinterpret_cast<const uint4*>(h + ofs + idx),
+                        *reinterpret_cast<const uint4*>(h + lo_plane + ofs + idx)};
+    const __nv_bfloat162* gh = reinterpret_cast<const __nv_bfloat162*>(&v[0]);
+    const __nv_bfloat162* gl = reinterpret_cast<const __nv_bfloat162*>(&v[1]);
+    const __nv_bfloat162* hh = reinterpret_cast<const __nv_bfloat162*>(&v[2]);
+    const __nv_bfloat162* hl = reinterpret_cast<const __nv_bfloat162*>(&v[3]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 a = __bfloat1622float2(gh[k]), a2 = __bfloat1622float2(gl[k]);
+      const float2 c = __bfloat1622float2(hh[k]), c2 = __bfloat1622float2(hl[k]);
+      part = fmaf(a.x + a2.x, c.x + c2.x, part);
+      part = fmaf(a.y + a2.y, c.y + c2.y, part);
+    }
+  }
+  return part;
 }
 
 // pass 5: g_c (the gradient reaching the end of chunk c) for every chunk,
@@ -1836,535 +1456,583 @@ dc_kernel(const T* __restrict__ x, const float* __restrict__ dA, const float* __
 }
 
 // ---------------------------------------------------------------------------
-// the tensor-core route's row tiles (bf16, passes 6-8): 4 warps of 16 rows
-// of a 64-row tile, each thread holding rows r0 + g and r0 + g + 8 of its
-// warp's m16n8 accumulators.
+// the wgmma route's row tiles (bf16 at (64, 128), passes 4-6): blocks of
+// the forward's shape (`wg`), each taking one 64-row tile I of a chunk and
+// a group of heads, whose tiles come HG heads a slot.  Thread rows: warp w
+// of the consumer warpgroup holds rows 16 w + lane / 4 and 8 more of every
+// accumulator.
 // ---------------------------------------------------------------------------
 
-// Elements (col, col + 1) of row r of a [rows][W] bf16 tile, col even.
-template <int W>
-__device__ __forceinline__ float2 tile_pair(const bf16* s, int r, int col) {
-  return __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(s + swz<W>(r, col >> 3) + (col & 7)));
+// Elements (col, col + 1) of row r (col even) of a [panels][64][64] tile as
+// the 128-byte swizzle lays it out (16-byte chunk c of a row at c ^ (r & 7)).
+__device__ __forceinline__ float2 box_pair(const bf16* s, int r, int col) {
+  const bf16* p = s + (col >> 6) * wg::BOX + r * 64 + ((((col & 63) >> 3) ^ (r & 7)) << 3) +
+                  (col & 7);
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// This thread's part of row r of the [rows][W] tile `s` dotted with its
-// accumulators a[n][2 half], a[n][2 half + 1] (the tile's columns 8 n + 2 t
-// and the next); the quad's four parts make the whole dot.
-template <int W, int NT>
-__device__ __forceinline__ float row_dot(const bf16* s, int r, const float (&a)[NT][4], int half,
-                                         int t) {
-  float part = 0.f;
+// This thread's parts of rows r0 and r1 of the tile `s` dotted with an
+// m64nW accumulator `a` (W / 8 columns blocks): p0 for r0, p1 for r1; the
+// quad's four parts make the whole dot.
+template <int K>
+__device__ __forceinline__ void acc_dots(const bf16* s, const float (&a)[K], int r0, int r1, int t,
+                                         float& p0, float& p1) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const float2 v = tile_pair<W>(s, r, 8 * n + 2 * t);
-    part = fmaf(v.x, a[n][2 * half], part);
-    part = fmaf(v.y, a[n][2 * half + 1], part);
+  for (int n = 0; n < K / 4; ++n) {
+    const float2 v0 = box_pair(s, r0, 8 * n + 2 * t), v1 = box_pair(s, r1, 8 * n + 2 * t);
+    p0 = fmaf(v0.y, a[4 * n + 1], fmaf(v0.x, a[4 * n], p0));
+    p1 = fmaf(v1.y, a[4 * n + 3], fmaf(v1.x, a[4 * n + 2], p1));
   }
-  return part;
 }
 
-// The chunk's cum and dt of `ng` heads, `stride` floats apart in dA and dt,
-// into sCum[k Q + i] and sDt[k Q + i]; one warp takes a head's cumsum, as
-// `chunk_cum` does, so every pass agrees on it bit for bit.  Ends with a
-// barrier.
-__device__ __forceinline__ void group_cum(float* sCum, float* sDt, const float* dA,
-                                          const float* dt, size_t stride, int Q, int ng) {
-  for (int idx = threadIdx.x; idx < ng * Q; idx += blockDim.x) {
-    const int k = idx / Q, i = idx % Q;
-    sCum[idx] = dA[k * stride + i];
-    sDt[idx] = dt[k * stride + i];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  if (warp < ng) warp_cumsum(sCum + warp * Q, Q, threadIdx.x & 31);
-  __syncthreads();
-}
-
-// c = A S for a warp's 16 rows and the 32 columns [n0, n0 + 32) of a [P][N]
-// float32 state S given as its hi and lo bf16 tiles (two products), A in
-// the fragments a[kk] of its depth steps.
-template <int P, int N>
-__device__ __forceinline__ void frags_times_state(float (&c)[4][4], const uint32_t (&a)[P / 16][4],
-                                                  const bf16* sh, const bf16* sl, int n0,
-                                                  int lane) {
-  zero(c);
+// An m64n64 accumulator `v`, formed in float32 with the thread's rows and
+// columns, as the hi and lo A fragments of four 16-deep steps: register q
+// of step kk holds row (q & 1 ? r1 : r0), columns 16 kk + 8 (q >> 1) + 2 t
+// and the next, which are v[8 kk + 2 q] and v[8 kk + 2 q + 1].
+__device__ __forceinline__ void split_frags(const float (&v)[32], uint32_t (&ah)[4][4],
+                                            uint32_t (&al)[4][4]) {
 #pragma unroll
-  for (int kk = 0; kk < P / 16; ++kk)
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int n = 0; n < 4; n += 2) {
-      uint32_t bq[4];
-      bt_frag<N>(sh, n0 + n * 8, kk, lane, bq);
-      mma(c[n], a[kk], bq[0], bq[1]);
-      mma(c[n + 1], a[kk], bq[2], bq[3]);
-      bt_frag<N>(sl, n0 + n * 8, kk, lane, bq);
-      mma(c[n], a[kk], bq[0], bq[1]);
-      mma(c[n + 1], a[kk], bq[2], bq[3]);
-    }
+    for (int q = 0; q < 4; ++q) split_bf16(v[8 * kk + 2 * q], v[8 * kk + 2 * q + 1], ah[kk][q], al[kk][q]);
 }
 
-// Shared memory of the three kernels (bf16 tiles, then float32 cum and dt).
-// A group block's first phase (a head's g or h_in, hi and lo [P][N]) and its
-// tile loop (rings of two [QT][N] and two [QT][P] tiles) share one region.
-template <int P, int N>
-struct BwdSmem {
-  static constexpr int G = HEAD_GROUP;
-  static constexpr int REGION = 2 * P * N > 2 * QT * (N + P) ? 2 * P * N : 2 * QT * (N + P);
-  static constexpr size_t dx(int Q) {
-    return (size_t)(QT * N + 2 * P * N + 3 * QT * P) * sizeof(bf16) + 2 * (size_t)Q * sizeof(float);
+// acc += (hi + lo) B for an MN-major B tile `sb`: two products a 16-deep step.
+template <int K>
+__device__ __forceinline__ void frags_times(float (&acc)[K], const uint32_t (&ah)[4][4],
+                                            const uint32_t (&al)[4][4], const bf16* sb) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs_tb(acc, ah[kk], mdesc(sb, kk));
+    wgmma_rs_tb(acc, al[kk], mdesc(sb, kk));
   }
-  static constexpr size_t db(int Q) {
-    return (size_t)(G * QT * P + REGION) * sizeof(bf16) + 2 * (size_t)G * Q * sizeof(float);
-  }
-  static constexpr size_t dc(int Q) {
-    return (size_t)(G * QT * P + QT * N + REGION) * sizeof(bf16) +
-           2 * (size_t)G * Q * sizeof(float);
+  wg_commit();
+  wg_wait0();
+  fence_regs(acc);
+}
+
+// d = A . B^T for A and B K-major over KK 16-deep steps (a box of 64
+// columns: 4; two panels: 8), m64n64.
+template <int KK>
+__device__ __forceinline__ void tiles_times_t(float (&d)[32], const bf16* sa, const bf16* sb) {
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) wgmma_ss(d, kdesc(sa, kk), kdesc(sb, kk), kk > 0);
+  wg_commit();
+  wg_wait0();
+  fence_regs(d);
+}
+
+// d = A . (S_hi + S_lo) for A K-major (a box, depth 64) and the [64][128]
+// state S as its two planes `sh`, `sh + 2 BOX`, MN-major: m64n128.
+__device__ __forceinline__ void tile_times_state(float (&d)[64], const bf16* sa, const bf16* sh) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128_tb(d, kdesc(sa, kk), mdesc(sh, kk));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss_n128_tb(d, kdesc(sa, kk), mdesc(sh + 2 * wg::BOX, kk));
+  wg_commit();
+  wg_wait0();
+  fence_regs(d);
+}
+
+
+// The shared memory of a backward row-tile block: its fixed tiles (`fixed`
+// boxes), the ring, then cum and dt of its `heads` heads over QP floats
+// each, then the barriers (SLOTS + 1 "full", as many "empty"): the fixed
+// tiles' "full" barrier `bar_fix` and "empty" barrier `empty_fix`, which
+// the consumers arrive on when they are done with a sub-group's tiles.
+struct BwdBlock {
+  bf16* fix;
+  bf16* ring;
+  float* cum;
+  float* dt;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* bar_fix;
+  uint64_t* empty_fix;
+  __device__ BwdBlock(unsigned char* raw, int fixed, int QP, int heads) {
+    using namespace wg;
+    fix = align_1024(raw);
+    ring = fix + fixed * BOX;
+    cum = reinterpret_cast<float*>(ring + SLOTS * SLOT);
+    dt = cum + heads * QP;
+    full = reinterpret_cast<uint64_t*>(dt + heads * QP);
+    empty = full + SLOTS + 1;
+    bar_fix = full + SLOTS;
+    empty_fix = empty + SLOTS;
   }
 };
 
-// pass 6 (bf16): dx, ddt and m2 of the rows t of tile I of a (batch, chunk,
-// head): z = exp(cum_Q - cum_t) g B_t (g as hi + lo), then z += T_IJ dy_J
-// for J >= I with T[t, s] = (C_s . B_t) exp(cum_s - cum_t) on s >= t, from
-// pass 1's tiles s >= t, entering as hi + lo; dy_J in a ring of two.
-// grid (nc * H * nI, B); block x = (c * H + h) * nI + I (the most tiles first).
-template <int P, int N>
-__global__ void __launch_bounds__(128)
-dx_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
-             const float* __restrict__ dt, const bf16* __restrict__ Bm,
-             const bf16* __restrict__ dy, const float* __restrict__ cb,
-             const bf16* __restrict__ gend, size_t lo_plane, bf16* __restrict__ dx,
-             float* __restrict__ ddt, float* __restrict__ m2, int H, int S, int Q, int nI) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sB = reinterpret_cast<bf16*>(smem_raw);   // [QT][N]: B of the rows t
-  bf16* sGh = sB + QT * N;                        // [P][N]: g, hi
-  bf16* sGl = sGh + P * N;                        // [P][N]: g, lo
-  bf16* sX = sGl + P * N;                         // [QT][P]: x of the rows t
-  bf16* sDy = sX + QT * P;                        // [2][QT][P]: dy of the rows s
-  float* sCum = reinterpret_cast<float*>(sDy + 2 * QT * P);  // [Q]
-  float* sDt = sCum + Q;                          // [Q]
 
-  const int nc = S / Q, QP = nI * QT;
-  const int I = blockIdx.x % nI;
-  const int h = (blockIdx.x / nI) % H, c = blockIdx.x / (nI * H), b = blockIdx.y;
-  const size_t bh = (size_t)b * H + h;
-  const size_t t0 = (size_t)c * Q;
-  const int i0 = I * QT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  const bf16* dyb = dy + (bh * S + t0) * P;
-  const size_t gofs = (bh * nc + c) * P * N;
+// ---------------------------------------------------------------------------
+// pass 4 (bf16): dx, ddt, colsum M and m2 of the rows t of tile I of a
+// (batch, chunk, group of HG heads), the forward's output pass run
+// backward with B and C exchanged.  For each tile J >= I, BC = B_I . C_J^T
+// once for the group (m64n64k16, both K-major), then for each head T = BC
+// exp(cum_s - cum_t) on t <= s < Q formed in the accumulator, split into hi
+// + lo and fed as the A operand of z += T dy_J (dy_J MN-major); colsum_t =
+// dt_t sum_s T[t, s] (x_t . dy_s) from T before its split (x_I and dy_J
+// both K-major).  Then each head's carried gradient exp(cum_Q - cum_t) B_I
+// . g^T (g as its hi and lo planes) is added, with m2_t = dt_t x_t . that.
+// The producer brings B_I and the heads' x_I once, then C_J with the
+// heads' dy_J a slot, then each head's g, which so loads while the last
+// tiles J are multiplied.
+// grid (nI * nc * NG, B), NG = ceil(H / HG); block x = (c * NG + group) *
+// nI + I: the most tiles J first.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(wg::NTH, 2)
+dx_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mdy,
+             const __grid_constant__ CUtensorMap mb, const __grid_constant__ CUtensorMap mc,
+             const __grid_constant__ CUtensorMap mg, const float* __restrict__ dA,
+             const float* __restrict__ dt, bf16* __restrict__ dx, float* __restrict__ ddt,
+             float* __restrict__ colsum, float* __restrict__ m2, int H, int S, int Q,
+             int lo_rows) {
+  using namespace wg;
+  extern __shared__ unsigned char smem_raw[];
+  const int nI = (Q + 63) / 64, QP = nI * 64;
+  const BwdBlock L(smem_raw, 2 + HG, QP, HG);
+  const bf16* sB = L.fix;                 // [2][64][64]: B_I
+  const bf16* sX = L.fix + 2 * BOX;       // [HG][64][64]: x_I of each head
+  const int NG = (H + HG - 1) / HG, nc = S / Q;
+  const int I = blockIdx.x % nI, grp = (blockIdx.x / nI) % NG;
+  const int c = blockIdx.x / (nI * NG), b = blockIdx.y;
+  const int h0 = grp * HG, hv = min(HG, H - h0);
+  const int t0 = c * Q, i0 = I * 64;
+  const size_t bh0 = (size_t)b * H + h0;
+  init_ring(L.full, SLOTS + 1);   // the fixed tiles' "full" barrier; its "empty" one goes unused
 
-  load_tile<QT, N>(sB, Bm + ((size_t)b * S + t0 + i0) * N, N, Q - i0);
-  load_tile<P, N>(sGh, gend + gofs, N, P);
-  load_tile<P, N>(sGl, gend + lo_plane + gofs, N, P);
-  load_tile<QT, P>(sX, x + (bh * S + t0 + i0) * P, P, Q - i0);
-  load_tile<QT, P>(sDy, dyb + (size_t)i0 * P, P, Q - i0);
-  cp_async_commit();
-  chunk_cum(sCum, sDt, dA + bh * S + t0, dt + bh * S + t0, Q);
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int row0 = r0 + g, row1 = row0 + 8;           // in the tile
-  const int ta = i0 + row0, tb = i0 + row1;           // in the chunk
-  const float cum0 = sCum[min(ta, Q - 1)], cum1 = sCum[min(tb, Q - 1)];
-  const float dt0 = ta < Q ? sDt[ta] : 0.f, dt1 = tb < Q ? sDt[tb] : 0.f;
-  const float cum_last = sCum[Q - 1];
-  float z[P / 8][4];
-  zero(z);
-  rows_times_rows_t<N, P / 8>(z, sB, r0, sGh, lane);
-  rows_times_rows_t<N, P / 8>(z, sB, r0, sGl, lane);
-  const float e0 = ta < Q ? expf(cum_last - cum0) : 0.f, e1 = tb < Q ? expf(cum_last - cum1) : 0.f;
-#pragma unroll
-  for (int n = 0; n < P / 8; ++n) {
-    z[n][0] *= e0;
-    z[n][1] *= e0;
-    z[n][2] *= e1;
-    z[n][3] *= e1;
-  }
-  const float m2a = dt0 * quad_sum(row_dot<P>(sX, row0, z, 0, t));
-  const float m2b = dt1 * quad_sum(row_dot<P>(sX, row1, z, 1, t));
-
-  const float* cr0 = cb + ((size_t)b * nc + c) * QP * QP + (size_t)ta * QP + 2 * t;
-  const float* cr1 = cr0 + 8 * QP;
-  for (int J = I; J < nI; ++J) {
-    const int st = (J - I) & 1, j0 = J * QT;
-    // this tile's C.B^T, loaded before the wait so the two overlap
-    float2 cv[QT / 8][2];
-#pragma unroll
-    for (int n = 0; n < QT / 8; ++n) {
-      cv[n][0] = *reinterpret_cast<const float2*>(cr0 + j0 + 8 * n);
-      cv[n][1] = *reinterpret_cast<const float2*>(cr1 + j0 + 8 * n);
-    }
-    if (J + 1 < nI)
-      load_tile<QT, P>(sDy + (st ^ 1) * QT * P, dyb + (size_t)(j0 + QT) * P, P, Q - j0 - QT);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    // T = C.B^T exp(cum_s - cum_t) on t <= s < Q, else 0
-    float tm[QT / 8][4];
-#pragma unroll
-    for (int n = 0; n < QT / 8; ++n) {
-      const float v[4] = {cv[n][0].x, cv[n][0].y, cv[n][1].x, cv[n][1].y};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = (e >> 1) ? tb : ta;
-        const int j = j0 + 8 * n + 2 * t + (e & 1);
-        const bool ok = j >= i && j < Q;
-        tm[n][e] = ok ? v[e] * expf(sCum[ok ? j : 0] - ((e >> 1) ? cum1 : cum0)) : 0.f;
+  if (threadIdx.x >= 128) {   // the producer warp
+    if (threadIdx.x == 128) {
+      load_row_tiles(L.fix, &mb, &mx, L.bar_fix, t0 + i0, h0, hv, b);
+      int it = 0;
+      for (int J = I; J < nI; ++J) {
+        const int st = next_slot(L.empty, it);
+        load_row_tiles(L.ring + st * SLOT, &mc, &mdy, L.full + st, t0 + J * 64, h0, hv, b);
+      }
+      for (int g = 0; g < hv; ++g) {
+        const int st = next_slot(L.empty, it);
+        load_state_planes(L.ring + st * SLOT, &mg, L.full + st, bh0 + g, nc, c, lo_rows);
       }
     }
-    regs_times_tile<P, QT / 16, P / 8>(z, tm, sDy + st * QT * P, lane);
-    __syncthreads();  // every warp is done with stage st before it is refilled
+    return;
   }
-  cp_async_wait<0>();
 
-  const float dda = quad_sum(row_dot<P>(sX, row0, z, 0, t));
-  const float ddb = quad_sum(row_dot<P>(sX, row1, z, 1, t));
-  bf16* d0 = dx + (bh * S + t0 + ta) * P + 2 * t;
-  bf16* d1 = d0 + 8 * P;
+  group_cum_wg<HG>(L.cum, L.dt, dA + bh0 * S + t0, dt + bh0 * S + t0, S, Q, QP, hv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + gq, r1 = r0 + 8;      // this thread's rows of the tile
+  const int row0 = i0 + r0, row1 = i0 + r1;        // and of the chunk
+  float z[HG][32];
+  float cs[HG][2];                                 // colsum M / dt_t, this thread's part
 #pragma unroll
-  for (int n = 0; n < P / 8; ++n) {
-    if (ta < Q) *reinterpret_cast<uint32_t*>(d0 + 8 * n) = pack_bf16(dt0 * z[n][0], dt0 * z[n][1]);
-    if (tb < Q) *reinterpret_cast<uint32_t*>(d1 + 8 * n) = pack_bf16(dt1 * z[n][2], dt1 * z[n][3]);
+  for (int g = 0; g < HG; ++g) {
+    cs[g][0] = cs[g][1] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) z[g][e] = 0.f;
   }
-  if (t == 0) {
-    if (ta < Q) {
-      ddt[bh * S + t0 + ta] = dda;
-      m2[bh * S + t0 + ta] = m2a;
+  mbar_wait(L.bar_fix, 0);
+
+  int it = 0;
+  for (int J = I; J < nI; ++J) {
+    const int st = take_slot(L.full, it);
+    const bf16* slot = L.ring + st * SLOT;
+    float bc[32];
+    tiles_times_t<8>(bc, sB, slot);
+#pragma unroll
+    for (int g = 0; g < HG; ++g) {
+      if (g >= hv) continue;
+      // x_t . dy_s, for colsum M = sum_s T (x_t . dy_s) dt_t from T as it
+      // is: rowsum M in the dC pass sums the same terms, and ddA takes
+      // their difference
+      float raw[32];
+      tiles_times_t<4>(raw, sX + g * BOX, slot + (2 + g) * BOX);
+      const float* cum = L.cum + g * QP;
+      const float c0 = cum[min(row0, Q - 1)], c1 = cum[min(row1, Q - 1)];
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = (q & 1) ? row1 : row0;
+          const float ci = (q & 1) ? c1 : c0;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = J * 64 + 16 * kk + 8 * (q >> 1) + 2 * t + e;
+            const bool ok = j >= i && j < Q;
+            const int k = 8 * kk + 2 * q + e;
+            v[e] = ok ? bc[k] * expf(cum[ok ? j : 0] - ci) : 0.f;
+            cs[g][q & 1] = fmaf(v[e], raw[k], cs[g][q & 1]);
+          }
+          split_bf16(v[0], v[1], ah[kk][q], al[kk][q]);
+        }
+      frags_times(z[g], ah, al, slot + (2 + g) * BOX);
     }
-    if (tb < Q) {
-      ddt[bh * S + t0 + tb] = ddb;
-      m2[bh * S + t0 + tb] = m2b;
+    mbar_arrive(L.empty + st);
+  }
+
+  // x_t . z_t before the carry is added, for ddt
+  float xz[HG][2];
+#pragma unroll
+  for (int g = 0; g < HG; ++g) {
+    xz[g][0] = xz[g][1] = 0.f;
+    if (g >= hv) continue;
+    acc_dots(sX + g * BOX, z[g], r0, r1, t, xz[g][0], xz[g][1]);
+    xz[g][0] = quad_sum(xz[g][0]);
+    xz[g][1] = quad_sum(xz[g][1]);
+  }
+
+#pragma unroll
+  for (int g = 0; g < HG; ++g) {
+    if (g >= hv) continue;
+    const int st = take_slot(L.full, it);
+    const bf16* slot = L.ring + st * SLOT;
+    float ch[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_ss(ch, kdesc(sB, kk), kdesc(slot, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_ss(ch, kdesc(sB, kk), kdesc(slot + 2 * BOX, kk));
+    wg_commit();
+    wg_wait0();
+    fence_regs(ch);
+    mbar_arrive(L.empty + st);
+    const float* cum = L.cum + g * QP;
+    const float* dtg = L.dt + g * QP;
+    const float last = cum[Q - 1];
+    const float e0 = row0 < Q ? expf(last - cum[row0]) : 0.f;
+    const float e1 = row1 < Q ? expf(last - cum[row1]) : 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      ch[4 * n] *= e0;
+      ch[4 * n + 1] *= e0;
+      ch[4 * n + 2] *= e1;
+      ch[4 * n + 3] *= e1;
+    }
+    float xc0 = 0.f, xc1 = 0.f;
+    acc_dots(sX + g * BOX, ch, r0, r1, t, xc0, xc1);
+    xc0 = quad_sum(xc0);
+    xc1 = quad_sum(xc1);
+    const float cs0 = quad_sum(cs[g][0]), cs1 = quad_sum(cs[g][1]);
+    const float dt0 = row0 < Q ? dtg[row0] : 0.f, dt1 = row1 < Q ? dtg[row1] : 0.f;
+    bf16* d0 = dx + ((bh0 + g) * S + t0 + row0) * P + 2 * t;
+    bf16* d1 = d0 + 8 * P;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float a0 = z[g][4 * n] + ch[4 * n], a1 = z[g][4 * n + 1] + ch[4 * n + 1];
+      const float b0 = z[g][4 * n + 2] + ch[4 * n + 2], b1 = z[g][4 * n + 3] + ch[4 * n + 3];
+      if (row0 < Q) *reinterpret_cast<uint32_t*>(d0 + 8 * n) = pack_bf16(dt0 * a0, dt0 * a1);
+      if (row1 < Q) *reinterpret_cast<uint32_t*>(d1 + 8 * n) = pack_bf16(dt1 * b0, dt1 * b1);
+    }
+    if (t == 0) {
+      const size_t o = (bh0 + g) * S + t0;
+      if (row0 < Q) {
+        ddt[o + row0] = xz[g][0] + xc0;
+        colsum[o + row0] = dt0 * cs0;
+        m2[o + row0] = dt0 * xc0;
+      }
+      if (row1 < Q) {
+        ddt[o + row1] = xz[g][1] + xc1;
+        colsum[o + row1] = dt1 * cs1;
+        m2[o + row1] = dt1 * xc1;
+      }
     }
   }
 }
 
-// pass 7 (bf16): the group's dB and each head's colsum M for the rows t of
-// tile I of a (batch, chunk, group of HEAD_GROUP heads).  First each head's
-// dt_t exp(cum_Q - cum_t) x_t^T g (g as hi + lo), then for each tile J >= I
-// and each head in order D^T[t, s] = (x_t . dy_s) exp(cum_s - cum_t) dt_t,
-// summed over the heads in float32 before one product with C_J (hi + lo).
-// dy of each (J, head) in a ring of two, C_J in another.
-// grid (nc * HG * nI, B), HG = ceil(H / HEAD_GROUP); block x = (c * HG +
-// group) * nI + I (the most tiles first).
-template <int P, int N>
-__global__ void __launch_bounds__(128)
-db_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
-             const float* __restrict__ dt, const bf16* __restrict__ Cm,
-             const bf16* __restrict__ dy, const float* __restrict__ cb,
-             const bf16* __restrict__ gend, size_t lo_plane, float* __restrict__ dBp,
-             float* __restrict__ colsum, int H, int S, int Q, int nI) {
-  constexpr int G = HEAD_GROUP;
-  using L = BwdSmem<P, N>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sX = reinterpret_cast<bf16*>(smem_raw);   // [G][QT][P]: x of the rows t, each head
-  bf16* sR = sX + G * QT * P;
-  bf16* sGh = sR;                                 // first phase: [P][N], g hi
-  bf16* sGl = sR + P * N;                         //              [P][N], g lo
-  bf16* sC = sR;                                  // tile loop: [2][QT][N], C of the rows s
-  bf16* sDy = sR + 2 * QT * N;                    //            [2][QT][P], dy of the rows s
-  float* sCum = reinterpret_cast<float*>(sR + L::REGION);  // [G][Q]
-  float* sDt = sCum + G * Q;                      // [G][Q]
+// ---------------------------------------------------------------------------
+// pass 5 (bf16): the group's dB for the rows t of tile I of a (batch,
+// chunk, group of HEAD_GROUP heads), its heads HG at a time.  For each
+// sub-group, first each head's x_t^T g (x_I K-major times g's hi and lo
+// planes, MN-major, m64n128), scaled by dt_t exp(cum_Q - cum_t) into the
+// accumulator; then for each tile J >= I and each head in order D^T[t, s]
+// = (x_t . dy_s) exp(cum_s - cum_t) dt_t (x_I and dy_J both K-major),
+// summed over the sub-group's heads in float32 before one product with C_J
+// (hi + lo A fragments, C_J MN-major).  The producer brings a sub-group's
+// x_I (once its consumers are done with the last sub-group's), then each
+// of its heads' g, then C_J with its heads' dy_J a slot.
+// grid (nI * nc * NG, B), NG = ceil(H / HEAD_GROUP); block x = (c * NG +
+// group) * nI + I: the most tiles J first.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(wg::NTH, 2)
+db_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mdy,
+             const __grid_constant__ CUtensorMap mc, const __grid_constant__ CUtensorMap mg,
+             const float* __restrict__ dA, const float* __restrict__ dt, float* __restrict__ dBp,
+             int H, int S, int Q, int lo_rows) {
+  using namespace wg;
+  extern __shared__ unsigned char smem_raw[];
+  const int nI = (Q + 63) / 64, QP = nI * 64;
+  const BwdBlock L(smem_raw, HG, QP, BG);
+  const bf16* sX = L.fix;                 // [HG][64][64]: x_I of the sub-group's heads
+  const int NG = (H + BG - 1) / BG, nc = S / Q;
+  const int I = blockIdx.x % nI, grp = (blockIdx.x / nI) % NG;
+  const int c = blockIdx.x / (nI * NG), b = blockIdx.y;
+  const int h0 = grp * BG, hv = min(BG, H - h0), nsg = (hv + HG - 1) / HG;
+  const int t0 = c * Q, i0 = I * 64;
+  const size_t bh0 = (size_t)b * H + h0;
+  init_ring(L.full, SLOTS + 1);
 
-  const int nc = S / Q, QP = nI * QT, HG = (H + G - 1) / G;
-  const int I = blockIdx.x % nI;
-  const int hg = (blockIdx.x / nI) % HG, c = blockIdx.x / (nI * HG), b = blockIdx.y;
-  const int ng = min(G, H - hg * G);
-  const size_t bh0 = (size_t)b * H + hg * G;
-  const size_t t0 = (size_t)c * Q;
-  const int i0 = I * QT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  const int ta = i0 + r0 + g, tb = ta + 8;         // this thread's rows in the chunk
-
-#pragma unroll
-  for (int k = 0; k < G; ++k)
-    if (k < ng) load_tile<QT, P>(sX + k * QT * P, x + ((bh0 + k) * S + t0 + i0) * P, P, Q - i0);
-  cp_async_commit();
-  group_cum(sCum, sDt, dA + bh0 * S + t0, dt + bh0 * S + t0, S, Q, ng);
-
-  float acc[N / 8][4];
-  zero(acc);
-  // dt_t exp(cum_Q - cum_t) x_t^T g of each head, 32 columns at a time
-#pragma unroll
-  for (int k = 0; k < G; ++k) {
-    if (k >= ng) continue;
-    __syncthreads();  // the previous head's readers of g are done
-    const size_t gofs = ((bh0 + k) * nc + c) * P * N;
-    load_tile<P, N>(sGh, gend + gofs, N, P);
-    load_tile<P, N>(sGl, gend + lo_plane + gofs, N, P);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    const float* cum = sCum + k * Q;
-    const float* dtk = sDt + k * Q;
-    const float wa = ta < Q ? dtk[ta] * expf(cum[Q - 1] - cum[ta]) : 0.f;
-    const float wb = tb < Q ? dtk[tb] * expf(cum[Q - 1] - cum[tb]) : 0.f;
-    uint32_t ax[P / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < P / 16; ++kk) a_frag<P>(sX + k * QT * P, r0, kk, lane, ax[kk]);
-#pragma unroll
-    for (int nb = 0; nb < N / 32; ++nb) {
-      float tmp[4][4];
-      frags_times_state<P, N>(tmp, ax, sGh, sGl, nb * 32, lane);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        acc[nb * 4 + n][0] = fmaf(wa, tmp[n][0], acc[nb * 4 + n][0]);
-        acc[nb * 4 + n][1] = fmaf(wa, tmp[n][1], acc[nb * 4 + n][1]);
-        acc[nb * 4 + n][2] = fmaf(wb, tmp[n][2], acc[nb * 4 + n][2]);
-        acc[nb * 4 + n][3] = fmaf(wb, tmp[n][3], acc[nb * 4 + n][3]);
+  if (threadIdx.x >= 128) {   // the producer warp
+    if (threadIdx.x == 128) {
+      int it = 0;
+      for (int sg = 0; sg < nsg; ++sg) {
+        const int hs = h0 + sg * HG, sv = min(HG, hv - sg * HG);
+        if (sg) mbar_wait(L.empty_fix, (sg - 1) & 1);
+        mbar_expect_tx(L.bar_fix, sv * BOX * 2);
+        for (int g = 0; g < sv; ++g) tma4(L.fix + g * BOX, &mx, L.bar_fix, 0, t0 + i0, hs + g, b);
+        for (int g = 0; g < sv; ++g) {
+          const int st = next_slot(L.empty, it);
+          load_state_planes(L.ring + st * SLOT, &mg, L.full + st, (size_t)b * H + hs + g, nc, c,
+                            lo_rows);
+        }
+        for (int J = I; J < nI; ++J) {
+          const int st = next_slot(L.empty, it);
+          load_row_tiles(L.ring + st * SLOT, &mc, &mdy, L.full + st, t0 + J * 64, hs, sv, b);
+        }
       }
     }
+    return;
   }
 
-  __syncthreads();  // the readers of g are done: the rings take its region
-  load_tile<QT, N>(sC, Cm + ((size_t)b * S + t0 + i0) * N, N, Q - i0);
-  load_tile<QT, P>(sDy, dy + (bh0 * S + t0 + i0) * P, P, Q - i0);
-  cp_async_commit();
-  float cs[G][2];
+  group_cum_wg<BG>(L.cum, L.dt, dA + bh0 * S + t0, dt + bh0 * S + t0, S, Q, QP, hv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int row0 = i0 + 16 * warp + gq, row1 = row0 + 8;   // this thread's rows of the chunk
+  float acc[64];
 #pragma unroll
-  for (int k = 0; k < G; ++k) cs[k][0] = cs[k][1] = 0.f;
-  const float* cr0 = cb + ((size_t)b * nc + c) * QP * QP + (size_t)ta * QP + 2 * t;
-  const float* cr1 = cr0 + 8 * QP;
-  int step = 0;
-  for (int J = I; J < nI; ++J) {
-    const int j0 = J * QT, cst = (J - I) & 1;
-    float2 cv[QT / 8][2];
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+
+  int it = 0;
+  for (int sg = 0; sg < nsg; ++sg) {
+    const int sv = min(HG, hv - sg * HG);
+    mbar_wait(L.bar_fix, sg & 1);
+    // dt_t exp(cum_Q - cum_t) x_t^T g of each head
 #pragma unroll
-    for (int n = 0; n < QT / 8; ++n) {
-      cv[n][0] = *reinterpret_cast<const float2*>(cr0 + j0 + 8 * n);
-      cv[n][1] = *reinterpret_cast<const float2*>(cr1 + j0 + 8 * n);
-    }
-    float ub[QT / 8][4];
-    zero(ub);
+    for (int g = 0; g < HG; ++g) {
+      if (g >= sv) continue;
+      const int st = take_slot(L.full, it);
+      float tmp[64];
+      tile_times_state(tmp, sX + g * BOX, L.ring + st * SLOT);
+      mbar_arrive(L.empty + st);
+      const float* cum = L.cum + (sg * HG + g) * QP;
+      const float* dtg = L.dt + (sg * HG + g) * QP;
+      const float last = cum[Q - 1];
+      const float w0 = row0 < Q ? dtg[row0] * expf(last - cum[row0]) : 0.f;
+      const float w1 = row1 < Q ? dtg[row1] * expf(last - cum[row1]) : 0.f;
 #pragma unroll
-    for (int k = 0; k < G; ++k) {
-      if (k >= ng) continue;
-      const int st = step & 1;
-      if (k + 1 < ng) {
-        load_tile<QT, P>(sDy + (st ^ 1) * QT * P, dy + ((bh0 + k + 1) * S + t0 + j0) * P, P,
-                         Q - j0);
-      } else if (J + 1 < nI) {
-        load_tile<QT, P>(sDy + (st ^ 1) * QT * P, dy + (bh0 * S + t0 + j0 + QT) * P, P,
-                         Q - j0 - QT);
-        load_tile<QT, N>(sC + (cst ^ 1) * QT * N, Cm + ((size_t)b * S + t0 + j0 + QT) * N, N,
-                         Q - j0 - QT);
+      for (int n = 0; n < 16; ++n) {
+        acc[4 * n] = fmaf(w0, tmp[4 * n], acc[4 * n]);
+        acc[4 * n + 1] = fmaf(w0, tmp[4 * n + 1], acc[4 * n + 1]);
+        acc[4 * n + 2] = fmaf(w1, tmp[4 * n + 2], acc[4 * n + 2]);
+        acc[4 * n + 3] = fmaf(w1, tmp[4 * n + 3], acc[4 * n + 3]);
       }
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      float raw[QT / 8][4];
-      zero(raw);
-      rows_times_rows_t<P, QT / 8>(raw, sX + k * QT * P, r0, sDy + st * QT * P, lane);
-      const float* cum = sCum + k * Q;
-      const float* dtk = sDt + k * Q;
-      const float ca = cum[min(ta, Q - 1)], cbv = cum[min(tb, Q - 1)];
-      const float da = ta < Q ? dtk[ta] : 0.f, db = tb < Q ? dtk[tb] : 0.f;
+    }
+
+    for (int J = I; J < nI; ++J) {
+      const int st = take_slot(L.full, it);
+      const bf16* slot = L.ring + st * SLOT;
+      float ub[32];   // the sub-group's D^T, summed over its heads in order
 #pragma unroll
-      for (int n = 0; n < QT / 8; ++n) {
-        const float v[4] = {cv[n][0].x, cv[n][0].y, cv[n][1].x, cv[n][1].y};
+      for (int e = 0; e < 32; ++e) ub[e] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = (e >> 1) ? tb : ta;
-          const int j = j0 + 8 * n + 2 * t + (e & 1);
+      for (int g = 0; g < HG; ++g) {
+        if (g >= sv) continue;
+        float raw[32];
+        tiles_times_t<4>(raw, sX + g * BOX, slot + (2 + g) * BOX);
+        const float* cum = L.cum + (sg * HG + g) * QP;
+        const float* dtg = L.dt + (sg * HG + g) * QP;
+        const float c0 = cum[min(row0, Q - 1)], c1 = cum[min(row1, Q - 1)];
+        const float d0 = row0 < Q ? dtg[row0] : 0.f, d1 = row1 < Q ? dtg[row1] : 0.f;
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const bool second = (e >> 1) & 1;
+          const int i = second ? row1 : row0;
+          const int j = J * 64 + 8 * (e >> 2) + 2 * t + (e & 1);
           const bool ok = j >= i && j < Q;
-          const float u = ok ? raw[n][e] * expf(cum[ok ? j : 0] - ((e >> 1) ? cbv : ca)) *
-                                   ((e >> 1) ? db : da)
-                             : 0.f;
-          cs[k][e >> 1] = fmaf(u, v[e], cs[k][e >> 1]);
-          ub[n][e] += u;
+          ub[e] += ok ? raw[e] * expf(cum[ok ? j : 0] - (second ? c1 : c0)) * (second ? d1 : d0)
+                      : 0.f;
         }
       }
-      __syncthreads();  // every warp is done with dy stage st before it is refilled
-      ++step;
+      uint32_t ah[4][4], al[4][4];
+      split_frags(ub, ah, al);
+      frags_times(acc, ah, al, slot);
+      mbar_arrive(L.empty + st);
     }
-    regs_times_tile<N, QT / 16, N / 8>(acc, ub, sC + cst * QT * N, lane);
-    __syncthreads();  // every warp is done with C stage cst before it is refilled
+    mbar_arrive(L.empty_fix);   // done with the sub-group's x_I
   }
-  cp_async_wait<0>();
 
-#pragma unroll
-  for (int k = 0; k < G; ++k) {
-    const float a = quad_sum(cs[k][0]), bsum = quad_sum(cs[k][1]);
-    if (k < ng && t == 0) {
-      if (ta < Q) colsum[(bh0 + k) * S + t0 + ta] = a;
-      if (tb < Q) colsum[(bh0 + k) * S + t0 + tb] = bsum;
-    }
-  }
-  float* o0 = dBp + (((size_t)b * HG + hg) * S + t0 + ta) * N + 2 * t;
+  float* o0 = dBp + (((size_t)b * NG + grp) * S + t0 + row0) * N + 2 * t;
   float* o1 = o0 + 8 * N;
 #pragma unroll
   for (int n = 0; n < N / 8; ++n) {
-    if (ta < Q) *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[n][0], acc[n][1]);
-    if (tb < Q) *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[n][2], acc[n][3]);
+    if (row0 < Q) *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[4 * n], acc[4 * n + 1]);
+    if (row1 < Q) *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[4 * n + 2], acc[4 * n + 3]);
   }
 }
 
-// pass 8 (bf16): the group's dC and each head's rowsum M + m1 for the rows
-// s of tile I of a (batch, chunk, group of heads).  First each head's
-// exp(cum_s) dy_s^T h_in (h_in as hi + lo) and m1_s = C_s . that, then for
-// each tile J <= I and each head in order D[s, t] = (dy_s . x_t) exp(cum_s -
-// cum_t) dt_t, summed over the heads in float32 before one product with B_J
-// (hi + lo).  x of each (J, head) in a ring of two, B_J in another.
-// grid (nc * HG * nI, B); block x = (c * HG + group) * nI + (nI - 1 - I)
-// (the most tiles first).
-template <int P, int N>
-__global__ void __launch_bounds__(128)
-dc_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dA,
-             const float* __restrict__ dt, const bf16* __restrict__ Bm,
-             const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
-             const float* __restrict__ cb, const bf16* __restrict__ hin, size_t lo_plane,
-             float* __restrict__ dCp, float* __restrict__ rowm1, int H, int S, int Q, int nI) {
-  constexpr int G = HEAD_GROUP;
-  using L = BwdSmem<P, N>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sDy = reinterpret_cast<bf16*>(smem_raw);  // [G][QT][P]: dy of the rows s, each head
-  bf16* sC = sDy + G * QT * P;                    // [QT][N]: C of the rows s
-  bf16* sR = sC + QT * N;
-  bf16* sHh = sR;                                 // first phase: [P][N], h_in hi
-  bf16* sHl = sR + P * N;                         //              [P][N], h_in lo
-  bf16* sB = sR;                                  // tile loop: [2][QT][N], B of the rows t
-  bf16* sX = sR + 2 * QT * N;                     //            [2][QT][P], x of the rows t
-  float* sCum = reinterpret_cast<float*>(sR + L::REGION);  // [G][Q]
-  float* sDt = sCum + G * Q;                      // [G][Q]
+// ---------------------------------------------------------------------------
+// pass 6 (bf16): the group's dC and each head's rowsum M + m1 for the rows
+// s of tile I of a (batch, chunk, group of HEAD_GROUP heads), its heads HG
+// at a time.  For each sub-group, first each head's exp(cum_s) dy_s^T h_in
+// (dy_I K-major times h_in's hi and lo planes, MN-major, m64n128) into the
+// accumulator, and m1_s = C_s . that; then for each tile J <= I, CB = C_I
+// . B_J^T (both K-major), and for each head in order D[s, t] = (dy_s .
+// x_t) exp(cum_s - cum_t) dt_t (dy_I and x_J both K-major), rowsum M += D
+// CB, and D as hi + lo A fragments times B_J (MN-major) into the
+// accumulator.  The producer brings C_I with the first sub-group's dy_I
+// (a later sub-group's dy_I once its consumers are done with the last
+// one's), then each of its heads' h_in, then B_J with its heads' x_J a
+// slot.
+// grid (nI * nc * NG, B); block x = (c * NG + group) * nI + (nI - 1 - I):
+// the most tiles J first.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(wg::NTH, 2)
+dc_wg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mdy,
+             const __grid_constant__ CUtensorMap mb, const __grid_constant__ CUtensorMap mc,
+             const __grid_constant__ CUtensorMap mh, const float* __restrict__ dA,
+             const float* __restrict__ dt, float* __restrict__ dCp, float* __restrict__ rowm1,
+             int H, int S, int Q, int lo_rows) {
+  using namespace wg;
+  extern __shared__ unsigned char smem_raw[];
+  const int nI = (Q + 63) / 64, QP = nI * 64;
+  const BwdBlock L(smem_raw, 2 + HG, QP, BG);
+  const bf16* sC = L.fix;                 // [2][64][64]: C_I
+  const bf16* sDy = L.fix + 2 * BOX;      // [HG][64][64]: dy_I of the sub-group's heads
+  const int NG = (H + BG - 1) / BG, nc = S / Q;
+  const int I = nI - 1 - (int)(blockIdx.x % nI), grp = (blockIdx.x / nI) % NG;
+  const int c = blockIdx.x / (nI * NG), b = blockIdx.y;
+  const int h0 = grp * BG, hv = min(BG, H - h0), nsg = (hv + HG - 1) / HG;
+  const int t0 = c * Q, i0 = I * 64;
+  const size_t bh0 = (size_t)b * H + h0;
+  init_ring(L.full, SLOTS + 1);
 
-  const int nc = S / Q, QP = nI * QT, HG = (H + G - 1) / G;
-  const int I = nI - 1 - (int)(blockIdx.x % nI);
-  const int hg = (blockIdx.x / nI) % HG, c = blockIdx.x / (nI * HG), b = blockIdx.y;
-  const int ng = min(G, H - hg * G);
-  const size_t bh0 = (size_t)b * H + hg * G;
-  const size_t t0 = (size_t)c * Q;
-  const int i0 = I * QT;
+  if (threadIdx.x >= 128) {   // the producer warp
+    if (threadIdx.x == 128) {
+      int it = 0;
+      for (int sg = 0; sg < nsg; ++sg) {
+        const int hs = h0 + sg * HG, sv = min(HG, hv - sg * HG);
+        if (sg == 0) {
+          load_row_tiles(L.fix, &mc, &mdy, L.bar_fix, t0 + i0, hs, sv, b);
+        } else {
+          mbar_wait(L.empty_fix, (sg - 1) & 1);
+          mbar_expect_tx(L.bar_fix, sv * BOX * 2);
+          for (int g = 0; g < sv; ++g)
+            tma4(L.fix + (2 + g) * BOX, &mdy, L.bar_fix, 0, t0 + i0, hs + g, b);
+        }
+        for (int g = 0; g < sv; ++g) {
+          const int st = next_slot(L.empty, it);
+          load_state_planes(L.ring + st * SLOT, &mh, L.full + st, (size_t)b * H + hs + g, nc, c,
+                            lo_rows);
+        }
+        for (int J = 0; J <= I; ++J) {
+          const int st = next_slot(L.empty, it);
+          load_row_tiles(L.ring + st * SLOT, &mb, &mx, L.full + st, t0 + J * 64, hs, sv, b);
+        }
+      }
+    }
+    return;
+  }
+
+  group_cum_wg<BG>(L.cum, L.dt, dA + bh0 * S + t0, dt + bh0 * S + t0, S, Q, QP, hv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  const int row0 = r0 + g, row1 = row0 + 8;         // in the tile
-  const int sa = i0 + row0, sb = i0 + row1;         // in the chunk
+  const int gq = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + gq, r1 = r0 + 8;      // this thread's rows of the tile
+  const int row0 = i0 + r0, row1 = i0 + r1;        // and of the chunk
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+
+  int it = 0;
+  for (int sg = 0; sg < nsg; ++sg) {
+    const int sv = min(HG, hv - sg * HG);
+    float rs[HG][2];                              // rowsum M + m1, this thread's part
+    mbar_wait(L.bar_fix, sg & 1);
+    // exp(cum_s) dy_s^T h_in of each head, and m1_s = C_s . that
+#pragma unroll
+    for (int g = 0; g < HG; ++g) {
+      rs[g][0] = rs[g][1] = 0.f;
+      if (g >= sv) continue;
+      const int st = take_slot(L.full, it);
+      float tmp[64];
+      tile_times_state(tmp, sDy + g * BOX, L.ring + st * SLOT);
+      mbar_arrive(L.empty + st);
+      const float* cum = L.cum + (sg * HG + g) * QP;
+      const float e0 = row0 < Q ? expf(cum[row0]) : 0.f, e1 = row1 < Q ? expf(cum[row1]) : 0.f;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        tmp[4 * n] *= e0;
+        tmp[4 * n + 1] *= e0;
+        tmp[4 * n + 2] *= e1;
+        tmp[4 * n + 3] *= e1;
+      }
+      acc_dots(sC, tmp, r0, r1, t, rs[g][0], rs[g][1]);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] += tmp[e];
+    }
+
+    for (int J = 0; J <= I; ++J) {
+      const int st = take_slot(L.full, it);
+      const bf16* slot = L.ring + st * SLOT;
+      float cb[32];
+      tiles_times_t<8>(cb, sC, slot);
+#pragma unroll
+      for (int g = 0; g < HG; ++g) {
+        if (g >= sv) continue;
+        float raw[32];
+        tiles_times_t<4>(raw, sDy + g * BOX, slot + (2 + g) * BOX);
+        const float* cum = L.cum + (sg * HG + g) * QP;
+        const float* dtg = L.dt + (sg * HG + g) * QP;
+        const float c0 = cum[min(row0, Q - 1)], c1 = cum[min(row1, Q - 1)];
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int i = (q & 1) ? row1 : row0;
+            const float ci = (q & 1) ? c1 : c0;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = J * 64 + 16 * kk + 8 * (q >> 1) + 2 * t + e;
+              const bool ok = j <= i && i < Q;
+              const int jj = ok ? j : 0;
+              const int k = 8 * kk + 2 * q + e;
+              v[e] = ok ? raw[k] * expf(ci - cum[jj]) * dtg[jj] : 0.f;
+              rs[g][q & 1] = fmaf(v[e], cb[k], rs[g][q & 1]);
+            }
+            split_bf16(v[0], v[1], ah[kk][q], al[kk][q]);
+          }
+        frags_times(acc, ah, al, slot);
+      }
+      mbar_arrive(L.empty + st);
+    }
+    mbar_arrive(L.empty_fix);   // done with the sub-group's dy_I
 
 #pragma unroll
-  for (int k = 0; k < G; ++k)
-    if (k < ng) load_tile<QT, P>(sDy + k * QT * P, dy + ((bh0 + k) * S + t0 + i0) * P, P, Q - i0);
-  load_tile<QT, N>(sC, Cm + ((size_t)b * S + t0 + i0) * N, N, Q - i0);
-  cp_async_commit();
-  group_cum(sCum, sDt, dA + bh0 * S + t0, dt + bh0 * S + t0, S, Q, ng);
-
-  float acc[N / 8][4];
-  zero(acc);
-  float rs[G][2], m1[G][2];
-#pragma unroll
-  for (int k = 0; k < G; ++k) rs[k][0] = rs[k][1] = m1[k][0] = m1[k][1] = 0.f;
-  // exp(cum_s) dy_s^T h_in of each head and m1_s, 32 columns at a time
-#pragma unroll
-  for (int k = 0; k < G; ++k) {
-    if (k >= ng) continue;
-    __syncthreads();  // the previous head's readers of h_in are done
-    const size_t hofs = ((bh0 + k) * nc + c) * P * N;
-    load_tile<P, N>(sHh, hin + hofs, N, P);
-    load_tile<P, N>(sHl, hin + lo_plane + hofs, N, P);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    const float* cum = sCum + k * Q;
-    const float ea = sa < Q ? expf(cum[sa]) : 0.f, eb = sb < Q ? expf(cum[sb]) : 0.f;
-    uint32_t ay[P / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < P / 16; ++kk) a_frag<P>(sDy + k * QT * P, r0, kk, lane, ay[kk]);
-#pragma unroll
-    for (int nb = 0; nb < N / 32; ++nb) {
-      float tmp[4][4];
-      frags_times_state<P, N>(tmp, ay, sHh, sHl, nb * 32, lane);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int col = nb * 32 + n * 8 + 2 * t;
-        const float2 ca = tile_pair<N>(sC, row0, col), cbb = tile_pair<N>(sC, row1, col);
-        const float v[4] = {ea * tmp[n][0], ea * tmp[n][1], eb * tmp[n][2], eb * tmp[n][3]};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nb * 4 + n][e] += v[e];
-        m1[k][0] = fmaf(v[1], ca.y, fmaf(v[0], ca.x, m1[k][0]));
-        m1[k][1] = fmaf(v[3], cbb.y, fmaf(v[2], cbb.x, m1[k][1]));
+    for (int g = 0; g < HG; ++g) {
+      const float a = quad_sum(rs[g][0]), bsum = quad_sum(rs[g][1]);
+      if (g < sv && t == 0) {
+        const size_t o = (bh0 + sg * HG + g) * S + t0;
+        if (row0 < Q) rowm1[o + row0] = a;
+        if (row1 < Q) rowm1[o + row1] = bsum;
       }
     }
   }
 
-  __syncthreads();  // the readers of h_in are done: the rings take its region
-  load_tile<QT, N>(sB, Bm + ((size_t)b * S + t0) * N, N, Q);
-  load_tile<QT, P>(sX, x + (bh0 * S + t0) * P, P, Q);
-  cp_async_commit();
-  const float* cr0 = cb + ((size_t)b * nc + c) * QP * QP + (size_t)sa * QP + 2 * t;
-  const float* cr1 = cr0 + 8 * QP;
-  int step = 0;
-  for (int J = 0; J <= I; ++J) {
-    const int j0 = J * QT, cst = J & 1;
-    float2 cv[QT / 8][2];
-#pragma unroll
-    for (int n = 0; n < QT / 8; ++n) {
-      cv[n][0] = *reinterpret_cast<const float2*>(cr0 + j0 + 8 * n);
-      cv[n][1] = *reinterpret_cast<const float2*>(cr1 + j0 + 8 * n);
-    }
-    float dbar[QT / 8][4];
-    zero(dbar);
-#pragma unroll
-    for (int k = 0; k < G; ++k) {
-      if (k >= ng) continue;
-      const int st = step & 1;
-      if (k + 1 < ng) {
-        load_tile<QT, P>(sX + (st ^ 1) * QT * P, x + ((bh0 + k + 1) * S + t0 + j0) * P, P,
-                         Q - j0);
-      } else if (J < I) {
-        load_tile<QT, P>(sX + (st ^ 1) * QT * P, x + (bh0 * S + t0 + j0 + QT) * P, P,
-                         Q - j0 - QT);
-        load_tile<QT, N>(sB + (cst ^ 1) * QT * N, Bm + ((size_t)b * S + t0 + j0 + QT) * N, N,
-                         Q - j0 - QT);
-      }
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      float raw[QT / 8][4];
-      zero(raw);
-      rows_times_rows_t<P, QT / 8>(raw, sDy + k * QT * P, r0, sX + st * QT * P, lane);
-      const float* cum = sCum + k * Q;
-      const float* dtk = sDt + k * Q;
-      const float ca = cum[min(sa, Q - 1)], cbv = cum[min(sb, Q - 1)];
-#pragma unroll
-      for (int n = 0; n < QT / 8; ++n) {
-        const float v[4] = {cv[n][0].x, cv[n][0].y, cv[n][1].x, cv[n][1].y};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = (e >> 1) ? sb : sa;
-          const int j = j0 + 8 * n + 2 * t + (e & 1);
-          const bool ok = j <= i && i < Q;
-          const int jj = ok ? j : 0;
-          const float d = ok ? raw[n][e] * expf(((e >> 1) ? cbv : ca) - cum[jj]) * dtk[jj] : 0.f;
-          rs[k][e >> 1] = fmaf(d, v[e], rs[k][e >> 1]);
-          dbar[n][e] += d;
-        }
-      }
-      __syncthreads();  // every warp is done with x stage st before it is refilled
-      ++step;
-    }
-    regs_times_tile<N, QT / 16, N / 8>(acc, dbar, sB + cst * QT * N, lane);
-    __syncthreads();  // every warp is done with B stage cst before it is refilled
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int k = 0; k < G; ++k) {
-    const float a = quad_sum(rs[k][0]) + quad_sum(m1[k][0]);
-    const float bsum = quad_sum(rs[k][1]) + quad_sum(m1[k][1]);
-    if (k < ng && t == 0) {
-      if (sa < Q) rowm1[(bh0 + k) * S + t0 + sa] = a;
-      if (sb < Q) rowm1[(bh0 + k) * S + t0 + sb] = bsum;
-    }
-  }
-  float* o0 = dCp + (((size_t)b * HG + hg) * S + t0 + sa) * N + 2 * t;
+  float* o0 = dCp + (((size_t)b * NG + grp) * S + t0 + row0) * N + 2 * t;
   float* o1 = o0 + 8 * N;
 #pragma unroll
   for (int n = 0; n < N / 8; ++n) {
-    if (sa < Q) *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[n][0], acc[n][1]);
-    if (sb < Q) *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[n][2], acc[n][3]);
+    if (row0 < Q) *reinterpret_cast<float2*>(o0 + 8 * n) = make_float2(acc[4 * n], acc[4 * n + 1]);
+    if (row1 < Q) *reinterpret_cast<float2*>(o1 + 8 * n) = make_float2(acc[4 * n + 2], acc[4 * n + 3]);
   }
 }
 
-// pass 8 of the FMA route, 9 of the tensor-core route: ddA of a (batch,
+// pass 8 of the FMA route, 7 of the wgmma route: ddA of a (batch,
 // head, chunk): m3 = exp(cum_Q) <g, h_in>, then ddA_u = sum_{t>=u} (rowm1 -
 // colsum)_t + sum_{r<u} m2_r + m3, the suffix and prefix sums in order; g
 // and h_in stored as T (float32, or bf16 hi and lo planes); grid (nc * H,
@@ -2381,9 +2049,7 @@ dda_kernel(const T* __restrict__ gend, const T* __restrict__ hin, size_t lo_plan
   const size_t bh = (size_t)b * H + h;
   const size_t t0 = (size_t)c * Q;
   const size_t ofs = (bh * nc + c) * P * N;
-  float part = 0.f;
-  for (int idx = threadIdx.x; idx < P * N; idx += blockDim.x)
-    part = fmaf(load_h(gend, lo_plane, ofs + idx), load_h(hin, lo_plane, ofs + idx), part);
+  float part = state_dot(gend, hin, lo_plane, ofs, P * N);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
   if ((threadIdx.x & 31) == 0) sW[threadIdx.x >> 5] = part;
@@ -2474,66 +2140,69 @@ cudaError_t launch_bwd(const T* x, const float* dA, const float* dt, const T* Bm
   return cudaGetLastError();
 }
 
-// The tensor-core route: bf16 at (P, N) = (64, 128).  hin and gend hold two
-// bf16 planes each (hi, then lo `lo_plane` elements on) in the float32
-// scratch the caller sizes for one float32 plane; dBp and dCp hold
-// ceil(H / HEAD_GROUP) partials.
-template <int P, int N>
-cudaError_t launch_bwd_tc(const bf16* x, const float* dA, const float* dt, const bf16* Bm,
+// The wgmma route: bf16 at (P, N) = (64, 128).  hin and gend hold two bf16
+// planes each (hi, then lo), states two float32 planes (the chunk states,
+// then the dual states); dBp and dCp hold ceil(H / HEAD_GROUP) partials; no
+// C.B^T scratch.
+cudaError_t launch_bwd_wg(const bf16* x, const float* dA, const float* dt, const bf16* Bm,
                           const bf16* Cm, const float* h0, const bf16* dy, const float* dh_last,
                           bf16* dx, float* ddA, float* ddt, bf16* dB, bf16* dC, float* dh0,
-                          float* cb, float* states, bf16* hin, bf16* gend, float* dAc,
-                          float* h_last, float* dBp, float* dCp, float* colsum, float* rowm1,
-                          float* m2, int B, int H, int S, int Q, cudaStream_t stream) {
-  using L = BwdSmem<P, N>;
-  const int nc = S / Q, nI = (Q + QT - 1) / QT, HG = (H + HEAD_GROUP - 1) / HEAD_GROUP;
+                          float* states, bf16* hin, bf16* gend, float* dAc, float* h_last,
+                          float* dBp, float* dCp, float* colsum, float* rowm1, float* m2, int B,
+                          int H, int S, int Q, cudaStream_t stream) {
+  using namespace wg;
+  const int nc = S / Q, nI = (Q + 63) / 64, QP = nI * 64;
+  const int NG = (H + HG - 1) / HG, NGB = (H + BG - 1) / BG;
+  const int lo_rows = B * H * nc * P;
+  const size_t lo_plane = (size_t)lo_rows * N;
   const int per = B * H * (P * N / 4);
-  const size_t lo_plane = (size_t)B * H * nc * P * N;
-  // 1-3: C.B^T in full, the chunk states and the carry, h_in as hi + lo
-  size_t smem = (size_t)3 * QT * N * sizeof(bf16);
-  cudaError_t err = set_smem(cb_tc_kernel<N>, smem);
-  if (err != cudaSuccess) return err;
-  cb_tc_kernel<N><<<dim3(nI * nc, B), 128, smem, stream>>>(Bm, Cm, cb, S, Q, nI);
+  CUtensorMap mx, mdy, mb, mc, mh, mg;
+  const cuuint64_t dx4[4] = {(cuuint64_t)P, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t dbc[3] = {(cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t dh[2] = {(cuuint64_t)N, 2 * (cuuint64_t)lo_rows};
+  cudaError_t err;
+  if ((err = tile_map(&mx, x, 4, dx4)) != cudaSuccess) return err;
+  if ((err = tile_map(&mdy, dy, 4, dx4)) != cudaSuccess) return err;
+  if ((err = tile_map(&mb, Bm, 3, dbc)) != cudaSuccess) return err;
+  if ((err = tile_map(&mc, Cm, 3, dbc)) != cudaSuccess) return err;
+  if ((err = tile_map(&mh, hin, 2, dh)) != cudaSuccess) return err;
+  if ((err = tile_map(&mg, gend, 2, dh)) != cudaSuccess) return err;
+
+  // 1: the chunk states and the dual states, in one launch
+  float* sdy = states + (size_t)B * H * nc * P * N;
+  if ((err = set_smem(state_wg_kernel, state_smem(QP))) != cudaSuccess) return err;
+  state_wg_kernel<<<dim3(nc * NG, B, 2), NTH, state_smem(QP), stream>>>(mx, mb, mdy, mc, dA, dt,
+                                                                        states, sdy, dAc, H, S, Q);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = (size_t)(2 * P * QT + QT * N) * sizeof(bf16) + 2 * (size_t)Q * sizeof(float);
-  if ((err = set_smem(state_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
-  state_tc_kernel<P, N><<<dim3(nc * H, B), StateShape<P, N>::THREADS, smem, stream>>>(
-      x, dA, dt, Bm, states, dAc, H, S, Q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // 2-3: the carry, h_in as hi + lo; g carried backward, as hi + lo
   pass_kernel<bf16><<<(per + 255) / 256, 256, 0, stream>>>(states, dAc, h0, hin, lo_plane, h_last,
                                                            B * H, nc, P * N);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // 4-5: the dual states (into `states`, no longer needed) and g as hi + lo
-  if ((err = set_smem(state_tc_kernel<P, N, true>, smem)) != cudaSuccess) return err;
-  state_tc_kernel<P, N, true><<<dim3(nc * H, B), StateShape<P, N>::THREADS, smem, stream>>>(
-      dy, dA, dt, Cm, states, nullptr, H, S, Q);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  rpass_kernel<bf16><<<(per + 255) / 256, 256, 0, stream>>>(states, dAc, dh_last, gend, lo_plane,
+  rpass_kernel<bf16><<<(per + 255) / 256, 256, 0, stream>>>(sdy, dAc, dh_last, gend, lo_plane,
                                                             dh0, B * H, nc, P * N);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // 6-8: the row tiles
-  smem = L::dx(Q);
-  if ((err = set_smem(dx_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
-  dx_tc_kernel<P, N><<<dim3(nc * H * nI, B), 128, smem, stream>>>(
-      x, dA, dt, Bm, dy, cb, gend, lo_plane, dx, ddt, m2, H, S, Q, nI);
+  // 4-6: the row tiles: dx in blocks of HG heads, dB and dC of BG
+  const dim3 gx(nI * nc * ((H + HG - 1) / HG), B), grid(nI * nc * NGB, B);
+  const size_t sx = bwd_smem(QP, 2 + HG, HG), sb = bwd_smem(QP, HG, BG),
+               sc = bwd_smem(QP, 2 + HG, BG);
+  if ((err = set_smem(dx_wg_kernel, sx)) != cudaSuccess) return err;
+  dx_wg_kernel<<<gx, NTH, sx, stream>>>(mx, mdy, mb, mc, mg, dA, dt, dx, ddt, colsum, m2, H, S, Q,
+                                        lo_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = L::db(Q);
-  if ((err = set_smem(db_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
-  db_tc_kernel<P, N><<<dim3(nc * HG * nI, B), 128, smem, stream>>>(
-      x, dA, dt, Cm, dy, cb, gend, lo_plane, dBp, colsum, H, S, Q, nI);
+  if ((err = set_smem(db_wg_kernel, sb)) != cudaSuccess) return err;
+  db_wg_kernel<<<grid, NTH, sb, stream>>>(mx, mdy, mc, mg, dA, dt, dBp, H, S, Q, lo_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  smem = L::dc(Q);
-  if ((err = set_smem(dc_tc_kernel<P, N>, smem)) != cudaSuccess) return err;
-  dc_tc_kernel<P, N><<<dim3(nc * HG * nI, B), 128, smem, stream>>>(
-      x, dA, dt, Bm, Cm, dy, cb, hin, lo_plane, dCp, rowm1, H, S, Q, nI);
+  if ((err = set_smem(dc_wg_kernel, sc)) != cudaSuccess) return err;
+  dc_wg_kernel<<<grid, NTH, sc, stream>>>(mx, mdy, mb, mc, mh, dA, dt, dCp, rowm1, H, S, Q,
+                                          lo_rows);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // 9-10: ddA; dB and dC over the groups
+  // 7-8: ddA; dB and dC over the groups
   dda_kernel<P, N, bf16><<<dim3(nc * H, B), 256, 0, stream>>>(gend, hin, lo_plane, dAc, rowm1,
                                                               colsum, m2, ddA, H, S, Q);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t SN = (size_t)S * N, total = (size_t)B * SN;
   head_sum_kernel<bf16><<<dim3((unsigned)((total + 255) / 256), 2), 256, 0, stream>>>(
-      dBp, dCp, dB, dC, HG, SN, total);
+      dBp, dCp, dB, dC, NGB, SN, total);
   return cudaGetLastError();
 }
 
@@ -2552,12 +2221,12 @@ cudaError_t launch_bwd_any(const void* x, const float* dA, const float* dt, cons
         cb, states, hin, gend, dAc, h_last, dBp, dCp, colsum, rowm1, m2, B, H, S, Q, s);
   if (dtype != 1) return cudaErrorInvalidValue;
   if constexpr (P == 64 && N == 128)
-    return launch_bwd_tc<P, N>(
-        static_cast<const bf16*>(x), dA, dt, static_cast<const bf16*>(Bm),
-        static_cast<const bf16*>(Cm), h0, static_cast<const bf16*>(dy), dh_last,
-        static_cast<bf16*>(dx), ddA, ddt, static_cast<bf16*>(dB), static_cast<bf16*>(dC), dh0,
-        cb, states, reinterpret_cast<bf16*>(hin), reinterpret_cast<bf16*>(gend), dAc, h_last,
-        dBp, dCp, colsum, rowm1, m2, B, H, S, Q, s);
+    return launch_bwd_wg(static_cast<const bf16*>(x), dA, dt, static_cast<const bf16*>(Bm),
+                         static_cast<const bf16*>(Cm), h0, static_cast<const bf16*>(dy), dh_last,
+                         static_cast<bf16*>(dx), ddA, ddt, static_cast<bf16*>(dB),
+                         static_cast<bf16*>(dC), dh0, states, reinterpret_cast<bf16*>(hin),
+                         reinterpret_cast<bf16*>(gend), dAc, h_last, dBp, dCp, colsum, rowm1, m2,
+                         B, H, S, Q, s);
   else
     return launch_bwd<bf16, P, N>(
         static_cast<const bf16*>(x), dA, dt, static_cast<const bf16*>(Bm),
@@ -2571,10 +2240,10 @@ cudaError_t launch_bwd_any(const void* x, const float* dA, const float* dt, cons
 // dtype: 0 float32, 1 bfloat16 (x, B, C and y); (P, N) = (64, 128) or
 // (16, 16); S a multiple of Q, Q at most 1024; h0 may be null (zeros).
 // Scratch, allocated by the caller: states float32 [B, H, S / Q, P, N];
-// hin the same shape, two bf16 planes (hi, lo) on the tensor-core route
-// (bf16 at (64, 128)) and float32 on the FMA route; there cb float32 [B,
-// S / Q, QP, QP] with QP = Q rounded up to 64 (null on the tensor-core
-// route); dAc float32 [B, H, S / Q].  The wrapper checks all of it.
+// hin the same shape, two bf16 planes (hi, lo) on the wgmma route (bf16
+// at (64, 128)) and float32 on the FMA route; there cb float32 [B, S / Q,
+// QP, QP] with QP = Q rounded up to 64 (null on the wgmma route); dAc
+// float32 [B, H, S / Q].  The wrapper checks all of it.
 extern "C" int ssd_fwd(const void* x, const float* dA, const float* dt, const void* Bm,
                        const void* Cm, const float* h0, void* y, float* h_last, float* cb,
                        float* states, void* hin, float* dAc, int B, int H, int S, int P, int N,
@@ -2593,12 +2262,13 @@ extern "C" int ssd_fwd(const void* x, const float* dA, const float* dt, const vo
 // The gradient of `ssd_fwd` for dy (x's type) and dh_last (float32 [B, H,
 // P, N], or null): dx (x's type), ddA and ddt (float32 [B, H, S]), dB and
 // dC (B's type [B, S, N]), dh0 (float32 [B, H, P, N]).  h0 may be null.
-// Scratch, float32, allocated by the caller: cb [B, S / Q, QP, QP]; states,
-// hin and gend [B, H, S / Q, P, N] (on the tensor-core route, bf16 at (64,
-// 128), hin and gend each hold two bf16 planes there); dAc [B, H, S / Q];
-// h_last [B, H, P, N]; dBp and dCp [B, planes, S, N] with planes = ceil(H /
-// HEAD_GROUP) on the tensor-core route and H on the FMA route; colsum,
-// rowm1 and m2 [B, H, S].
+// Scratch, allocated by the caller, by route.  The wgmma route (bf16 at
+// (64, 128)): cb null; states float32 [2, B, H, S / Q, P, N] (the chunk
+// states, then the dual states); hin and gend bf16 [2, B, H, S / Q, P, N]
+// (hi, then lo planes); dBp and dCp [B, ceil(H / HEAD_GROUP), S, N].  The
+// FMA route: cb [B, S / Q, QP, QP]; states, hin and gend float32 [B, H,
+// S / Q, P, N]; dBp and dCp [B, H, S, N].  Both, float32: dAc [B, H, S /
+// Q]; h_last [B, H, P, N]; colsum, rowm1 and m2 [B, H, S].
 extern "C" int ssd_bwd(const void* x, const float* dA, const float* dt, const void* Bm,
                        const void* Cm, const float* h0, const void* dy, const float* dh_last,
                        void* dx, float* ddA, float* ddt, void* dB, void* dC, float* dh0,

@@ -22,13 +22,19 @@ FMA route.
 
 ``ssd_call_bwd`` is the gradient of ``ssd_call`` (``ref.ssd_bwd_ref`` on
 the CPU): one call launches the backward's passes of ``csrc/ssd.cu`` and
-counts once in ``ssd_call_bwd.launches``; it allocates their float32
-scratch (the recomputed chunk states, the gradients reaching each chunk's
-end, the partial dB and dC before their sum over heads in a fixed order).
-On :func:`route` "tc" the backward runs tensor-core passes on
-``mma.sync``, which sum dB and dC over ``HEAD_GROUP`` heads in registers
-and leave ``ceil(H / HEAD_GROUP)`` partials; on "fma" the float32 FMA
-passes, which leave one partial a head (``bwd_partials``).
+counts once in ``ssd_call_bwd.launches``; it allocates their scratch by
+route (the recomputed chunk states, the incoming states and the gradients
+reaching each chunk's end, the partial dB and dC before their sum over
+heads in a fixed order).  On :func:`route` "tc" the backward runs eight
+launches, every product on ``wgmma`` fed by TMA: the forward's state pass
+for the chunk states and the dual states in one launch, the forward's
+carry and the carry of the gradient, then row-tile passes for dx (``FWD_HEAD_GROUP`` heads a
+block), dB and dC (``HEAD_GROUP`` heads a block, ``FWD_HEAD_GROUP`` at a
+time), each block forming the C.B^T tiles it needs itself, so there is no
+C.B^T scratch; the incoming states and gradients are bf16 hi and lo
+planes, read by TMA, and dB and dC leave ``ceil(H / HEAD_GROUP)``
+partials.  On "fma" the nine float32 FMA passes, with C.B^T per chunk,
+float32 states and one partial a head (``bwd_partials``).
 
 TPU kernel replaced: ``ssd_call`` (``_ssd_kernel``) of
 ``repro/kernels/ssd/kernel.py``.  The source note of the ``.cu`` file
@@ -52,7 +58,7 @@ LIB_NAME = "ssd"
 WIDTHS = ((64, 128), (16, 16))
 MAX_CHUNK = 1024                              # the chunk's cum/dt in smem
 TILE = 64                                     # rows of a chunk tile
-HEAD_GROUP = 4          # heads a backward row-tile block sums dB, dC over
+HEAD_GROUP = 4          # heads whose dB, dC a backward block sums (tc route)
 FWD_HEAD_GROUP = 2      # heads a forward block of the tensor-core route
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -192,10 +198,19 @@ def ssd_call_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
     dC = torch.empty_like(Cm)
     dh0 = torch.empty((Bsz, H, P, N), **f32)
     nc, QP = S // chunk, -(-chunk // TILE) * TILE
-    # hin and gend: float32, or (route "tc") two bf16 planes, hi and lo
-    state = lambda: torch.empty((Bsz, H, nc, P, N), **f32)  # noqa: E731
-    cb = torch.empty((Bsz, nc, QP, QP), **f32)
-    states, hin, gend = state(), state(), state()
+    if route(x.dtype, P, N) == "tc":
+        # the chunk states and the dual states, one launch
+        states = torch.empty((2, Bsz, H, nc, P, N), **f32)
+        cb = None           # formed in the row-tile passes
+        # the incoming states and the gradients reaching each chunk's end
+        # as bf16 hi and lo planes, read by TMA
+        hin, gend = (torch.empty((2, Bsz, H, nc, P, N), dtype=x.dtype,
+                                 device=x.device) for _ in range(2))
+    else:
+        # the chunk states, then the dual states
+        states = torch.empty((Bsz, H, nc, P, N), **f32)
+        cb = torch.empty((Bsz, nc, QP, QP), **f32)   # C.B^T of each chunk
+        hin, gend = (torch.empty((Bsz, H, nc, P, N), **f32) for _ in range(2))
     dAc = torch.empty((Bsz, H, nc), **f32)
     h_last = torch.empty((Bsz, H, P, N), **f32)
     planes = bwd_partials(H, x.dtype, P, N)      # summed over heads after
@@ -207,7 +222,8 @@ def ssd_call_bwd(x: torch.Tensor, dA: torch.Tensor, dt: torch.Tensor,
         Cm.data_ptr(), None if h0 is None else h0.data_ptr(), dy.data_ptr(),
         None if dh_last is None else dh_last.data_ptr(), dx.data_ptr(),
         ddA.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        dh0.data_ptr(), cb.data_ptr(), states.data_ptr(), hin.data_ptr(),
+        dh0.data_ptr(), None if cb is None else cb.data_ptr(),
+        states.data_ptr(), hin.data_ptr(),
         gend.data_ptr(), dAc.data_ptr(), h_last.data_ptr(), dBp.data_ptr(),
         dCp.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
         rows[2].data_ptr(), Bsz, H, S, P, N, chunk, _DTYPE_CODE[x.dtype],

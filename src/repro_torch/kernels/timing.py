@@ -12,7 +12,7 @@ tests and the kernels' bench scripts (``crossbar_dispatch/row_bench.py``,
   busy, so no call waits for the card.
 * :func:`tree_rounds` and :func:`compare`: a bench file run against
   another tree in alternating rounds (``flash_attention/tc_bench.py``,
-  ``ssd/fwd_bench.py``).
+  ``ssd/fwd_bench.py``, ``ssd/bwd_bench.py``).
 
 It imports nothing of ``repro_torch``, so a bench run as a file against
 another tree's package can load it from its own tree.

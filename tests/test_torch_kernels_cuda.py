@@ -1195,6 +1195,9 @@ SSD_BWD_CASES = [                 # B, S, H, P, N, chunk, dtype, with h0
     (1, 600, 6, 64, 128, 200, torch.bfloat16, True),   # ragged; groups 4 + 2
     (2, 512, 48, 64, 128, 256, torch.bfloat16, False),  # Mamba-2's 48 heads
     (1, 256, 3, 64, 128, 32, torch.bfloat16, True),    # a chunk below a tile
+    (1, 512, 5, 64, 128, 256, torch.bfloat16, True),   # a last group of 1
+    (1, 256, 4, 64, 128, 256, torch.bfloat16, False),  # S = chunk
+    (2, 2048, 4, 64, 128, 1024, torch.bfloat16, True), # the largest chunk
     (1, 600, 6, 64, 128, 200, torch.float32, True),    # the FMA route
     (1, 96, 3, 16, 16, 16, torch.bfloat16, True),      # smoke widths (FMA)
     (1, 600, 3, 16, 16, 200, torch.bfloat16, False),   # smoke, ragged
@@ -1244,6 +1247,40 @@ def test_ssd_backward_kernel_matches_plain_on_card(case):
         assert torch.equal(a, again), name
         assert a.dtype == w.dtype and a.shape == w.shape, name
         assert _rel_l2(a, w) <= tol, (name, _rel_l2(a, w))
+
+
+SSD_BWD_KERNELS = {   # route -> the kernels a backward call launches, once each
+    "tc": ["db_wg_kernel", "dc_wg_kernel", "dda_kernel<64, 128, __nv_bfloat16>",
+           "dx_wg_kernel", "head_sum_kernel<__nv_bfloat16>",
+           "pass_kernel<__nv_bfloat16>", "rpass_kernel<__nv_bfloat16>",
+           "state_wg_kernel"],
+    "fma": ["cb_f32_kernel", "dc_kernel", "dda_kernel", "dxdb_kernel",
+            "head_sum_kernel", "pass_kernel", "rpass_kernel",
+            "state_f32_kernel", "state_f32_kernel"],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,P,N", [(torch.bfloat16, 64, 128),
+                                       (torch.float32, 64, 128),
+                                       (torch.bfloat16, 16, 16)])
+def test_ssd_backward_launches_its_route_kernels_on_card(dtype, P, N):
+    """A backward call launches its route's kernels and nothing else
+    (``torch.profiler``): bf16 at (64, 128) the forward's state pass (the
+    chunk states and the dual states in one launch), the two carries, the
+    three wgmma row-tile passes, ddA and the head sum, by their exact names,
+    with no C.B^T pass; float32 and the smoke widths the nine FMA passes."""
+    from repro_torch.kernels.timing import kernel_split
+    _card()
+    x, dA, dt, Bm, Cm, h0 = _ssd_inputs(1, 512, 4, P, N, dtype, True)
+    dy = torch.randn_like(x.float()).to(dtype)
+    split = kernel_split(lambda: SK.ssd_call_bwd(
+        x, dA, dt, Bm, Cm, dy, chunk=256, h0=h0, mode=KernelMode.CUDA))
+    assert all(r["launches_per_call"] == 1 for r in split)
+    route = SK.route(dtype, P, N)
+    names = sorted(r["name"] if route == "tc" else r["name"].split("<")[0]
+                   for r in split)
+    assert names == SSD_BWD_KERNELS[route]
 
 
 D256_BWD_CASES = [   # B, Sq, Sk, H, Kv, causal, window, q_offset

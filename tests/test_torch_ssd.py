@@ -481,16 +481,21 @@ def test_ssd_backward_plain_version_keeps_the_types():
 # rounds dx, dB and dC once, as the plain version does).
 # ----------------------------------------------------------------------
 def ssd_bwd_passes(x, dA, dt, Bm, Cm, dy, chunk, h0=None, dh_last=None, *,
-                   bf16=False, group=K.HEAD_GROUP):
+                   bf16=False, group=K.HEAD_GROUP, sub=K.FWD_HEAD_GROUP):
     """The tensor-core backward's passes on head-major inputs (as
     ``ssd_bwd_ref`` takes them), in float64: returns (dx, ddA, ddt, dB, dC,
-    dh0).  1: C.B^T in full (C_s . B_t at (s, t) and (t, s), s >= t);
-    2-3: the chunk states and the carry, h_in as hi + lo planes; 4-5: the
-    dual states and g carried backward, g as hi + lo planes; 6: dx, ddt and
-    m2 of each head's 64-row tiles t; 7: dB and colsum of a group of
-    ``group`` heads, the tiles s >= t in turn, the group's D^T summed over
-    its heads (in order) before one product with C; 8: dC and rowsum + m1
-    likewise over the tiles t <= s; 9: ddA's scans; 10: the groups' dB and
+    dh0).  1: the chunk states and the dual states through the forward's
+    state form (the latter with dy for x, C for B, w = exp(cum)); 2-3: the
+    carry, h_in as hi + lo planes, and g carried backward, g as hi + lo
+    planes; then for each 64-row tile, with no C.B^T scratch: 4: dx, ddt,
+    colsum and m2 of the rows t, B_t . C_J^T formed once for
+    a tile J >= t, colsum = sum_s T (x_t . dy_s) dt_t from T before its
+    split; for each group of ``group`` heads, ``sub`` at a time into one
+    partial: 5: dB of the rows t, each head's x_t^T g scaled, then the
+    tiles s >= t in turn, the sub-group's D^T summed over its heads (in
+    order) before one product with C; 6: dC and rowsum + m1 of the rows s,
+    each head's dy_s^T h_in, then the tiles t <= s in turn, C_s . B_J^T,
+    each head's D times B in order; 7: ddA's scans; 8: the groups' dB and
     dC summed in order."""
     Bsz, H, S, P = x.shape
     N, Q = Bm.shape[-1], chunk
@@ -509,14 +514,18 @@ def ssd_bwd_passes(x, dA, dt, Bm, Cm, dy, chunk, h0=None, dh_last=None, *,
     valid = pos < Q
     e_end = torch.where(valid, torch.exp(cum[..., -1:] - cum_p), 0.0)
     e_cum = torch.where(valid, torch.exp(cum_p), 0.0)
-    # 1. C.B^T in full
-    CB = Cc @ Bc.transpose(-1, -2)                   # [a, b] = C_a . B_b
-    full = torch.tril(CB) + torch.triu(CB.transpose(-1, -2), 1)
-    # 2-3. the chunk states (x w as hi + lo) and the carry
-    w = torch.exp(cum[..., -1:] - cum) * dtc
-    states = torch.einsum("bhcjp,bcjn->bhcpn",
-                          sp(x.reshape(Bsz, H, nc, Q, P) * w[..., None]),
-                          Bm.reshape(Bsz, nc, Q, N))
+
+    def state_form(v, w, W):
+        """The state pass: sum_j (v_j w_j)^T W_j of each (head, chunk), v w
+        as hi + lo, W as it is."""
+        return torch.einsum("bhcjp,bcjn->bhcpn",
+                            sp(v.reshape(Bsz, H, nc, Q, -1) * w[..., None]),
+                            W.reshape(Bsz, nc, Q, N))
+
+    # 1. the chunk states and the dual states (one launch)
+    states = state_form(x, torch.exp(cum[..., -1:] - cum) * dtc, Bm)
+    sdy = state_form(dy, torch.exp(cum), Cm)
+    # 2. the carry
     h = (torch.zeros((Bsz, H, P, N), dtype=torch.float64) if h0 is None
          else h0.double())
     h_in = []
@@ -524,11 +533,7 @@ def ssd_bwd_passes(x, dA, dt, Bm, Cm, dy, chunk, h0=None, dh_last=None, *,
         h_in.append(h)
         h = torch.exp(cum[:, :, c, -1])[..., None, None] * h + states[:, :, c]
     h_in = sp(torch.stack(h_in, dim=2))
-    # 4-5. the dual states (dy exp(cum) as hi + lo) and g carried backward
-    sdy = torch.einsum("bhcip,bcin->bhcpn",
-                       sp(dy.reshape(Bsz, H, nc, Q, P)
-                          * torch.exp(cum)[..., None]),
-                       Cm.reshape(Bsz, nc, Q, N))
+    # 3. g carried backward
     g = (torch.zeros((Bsz, H, P, N), dtype=torch.float64) if dh_last is None
          else dh_last.double())
     g_end = [None] * nc
@@ -561,56 +566,67 @@ def ssd_bwd_passes(x, dA, dt, Bm, Cm, dy, chunk, h0=None, dh_last=None, *,
                             dtype=torch.float64) for _ in range(2))
     for I in range(nI):
         r = tile(I)
-        # 6. dx, ddt and m2 of the rows t, one head at a time
-        z = e_end[..., r, None] * torch.einsum("bcin,bhcpn->bhcip",
-                                               Bc[:, :, r], g_end)
-        m2[..., r] = dt_p[..., r] * (xc[..., r, :] * z).sum(-1)
-        for J in range(I, nI):
-            s = tile(J)
-            T = full[:, None, :, r, s] * decay(slice(None), r, s, True)
-            z = z + sp(T) @ dyc[..., s, :]
-        dx[..., r, :] = dt_p[..., r, None] * z
-        ddt[..., r] = (xc[..., r, :] * z).sum(-1)
         for gi, hs in enumerate(groups):
-            # 7. dB and colsum of the rows t for the group's heads
-            acc = 0.0
-            for h in hs:
-                acc = acc + (xc[:, h, :, r] @ g_end[:, h]) * (
-                    dt_p[:, h, :, r] * e_end[:, h, :, r])[..., None]
+            hs_ = slice(hs[0], hs[-1] + 1)
+            # 4. dx, ddt, colsum and m2 of the rows t, B_t . C_J^T formed
+            # once a tile J >= t (a head's values do not depend on its group)
+            z = 0.0
             for J in range(I, nI):
                 s = tile(J)
-                ubar = 0.0
-                for h in hs:
-                    raw = xc[:, h, :, r] @ dyc[:, h, :, s].transpose(-1, -2)
-                    u = raw * decay(h, r, s, True) * dt_p[:, h, :, r, None]
-                    colsum[:, h, :, r] += (u * full[:, :, r, s]).sum(-1)
-                    ubar = ubar + u
-                acc = acc + sp(ubar) @ Cc[:, :, s]
-            dBp[:, gi, :, r] = acc
-            # 8. dC and rowsum + m1 of the rows s for the group's heads
+                BC = Bc[:, :, r] @ Cc[:, :, s].transpose(-1, -2)
+                T = BC[:, None] * decay(hs_, r, s, True)
+                raw = xc[:, hs_, :, r] @ dyc[:, hs_, :, s].transpose(-1, -2)
+                colsum[:, hs_, :, r] += dt_p[:, hs_, :, r] * (T * raw).sum(-1)
+                z = z + sp(T) @ dyc[:, hs_, :, s]
+            xz = (xc[:, hs_, :, r] * z).sum(-1)
+            carry = e_end[:, hs_, :, r, None] * torch.einsum(
+                "bcin,bhcpn->bhcip", Bc[:, :, r], g_end[:, hs_])
+            xc_carry = (xc[:, hs_, :, r] * carry).sum(-1)
+            m2[:, hs_, :, r] = dt_p[:, hs_, :, r] * xc_carry
+            ddt[:, hs_, :, r] = xz + xc_carry
+            dx[:, hs_, :, r] = dt_p[:, hs_, :, r, None] * (z + carry)
+            subs = [hs[i:i + sub] for i in range(0, len(hs), sub)]
+            # 5. dB of the rows t for the group's heads, a sub-group at a time
             acc = 0.0
-            for h in hs:
-                part = e_cum[:, h, :, r, None] * (dyc[:, h, :, r] @ h_in[:, h])
-                acc = acc + part
-                rowm1[:, h, :, r] += (part * Cc[:, :, r]).sum(-1)
-            for J in range(I + 1):
-                t = tile(J)
-                dbar = 0.0
-                for h in hs:
-                    raw = dyc[:, h, :, r] @ xc[:, h, :, t].transpose(-1, -2)
-                    d = raw * decay(h, r, t, False) * dt_p[:, h, :, None, t]
-                    rowm1[:, h, :, r] += (d * full[:, :, r, t]).sum(-1)
-                    dbar = dbar + d
-                acc = acc + sp(dbar) @ Bc[:, :, t]
+            for ss in subs:
+                for h in ss:
+                    acc = acc + (xc[:, h, :, r] @ g_end[:, h]) * (
+                        dt_p[:, h, :, r] * e_end[:, h, :, r])[..., None]
+                for J in range(I, nI):
+                    s = tile(J)
+                    ubar = 0.0
+                    for h in ss:
+                        raw = xc[:, h, :, r] @ dyc[:, h, :, s].transpose(-1, -2)
+                        ubar = ubar + (raw * decay(h, r, s, True)
+                                       * dt_p[:, h, :, r, None])
+                    acc = acc + sp(ubar) @ Cc[:, :, s]
+            dBp[:, gi, :, r] = acc
+            # 6. dC and rowsum + m1 of the rows s for the group's heads, a
+            # sub-group at a time
+            acc = 0.0
+            for ss in subs:
+                for h in ss:
+                    part = e_cum[:, h, :, r, None] * (dyc[:, h, :, r]
+                                                      @ h_in[:, h])
+                    acc = acc + part
+                    rowm1[:, h, :, r] += (part * Cc[:, :, r]).sum(-1)
+                for J in range(I + 1):
+                    t = tile(J)
+                    CB = Cc[:, :, r] @ Bc[:, :, t].transpose(-1, -2)
+                    for h in ss:
+                        raw = dyc[:, h, :, r] @ xc[:, h, :, t].transpose(-1, -2)
+                        d = raw * decay(h, r, t, False) * dt_p[:, h, :, None, t]
+                        rowm1[:, h, :, r] += (d * CB).sum(-1)
+                        acc = acc + sp(d) @ Bc[:, :, t]
             dCp[:, gi, :, r] = acc
-    # 9. ddA: the suffix sums of rowsum + m1 - colsum, the exclusive prefix
+    # 7. ddA: the suffix sums of rowsum + m1 - colsum, the exclusive prefix
     # sums of m2 and m3 = exp(cum_Q) <g, h_in>
     inner = (rowm1 - colsum)[..., :Q]
     suffix = torch.flip(torch.cumsum(torch.flip(inner, (-1,)), -1), (-1,))
     before = torch.cumsum(m2[..., :Q], -1) - m2[..., :Q]
     m3 = torch.exp(cum[..., -1]) * (g_end * h_in).sum((-1, -2))
     ddA = suffix + before + m3[..., None]
-    # 10. the groups' partials summed in order
+    # 8. the groups' partials summed in order
     dB, dC = dBp[:, 0], dCp[:, 0]
     for gi in range(1, len(groups)):
         dB, dC = dB + dBp[:, gi], dC + dCp[:, gi]
