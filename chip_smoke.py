@@ -46,7 +46,11 @@ Phases, each printing one JSON line with its seconds:
             over 8 at S=4096; float32 on the FMA kernels), and times
             kernel, plain version, ``scaled_dot_product_attention`` and
             the FMA kernels on the same bfloat16 inputs at the train shape
-            and at the three new ones (the kernels line's ``shapes``).
+            and at the three new ones (the kernels line's ``shapes``);
+            at each of these four the bf16 backward's kernels' device ms
+            (``flash_bwd.passes``), failing unless a call launches
+            ``delta_kernel``, ``tc::dkdv_ws_kernel`` and
+            ``tc::dq_ws_kernel`` once each and nothing else.
 5. serve    a full-width Mixtral-8x7B (2 of 32 layers, bf16, random weights
             from a seed) behind ``ElasticServer`` on the ``cuda`` fabric,
             MoE on ``cuda_kernel``: 4 requests, one ``Shell.post(Grow)``
@@ -637,6 +641,13 @@ FLASH_F32_LIMIT = {case: {q: FLASH_F32_FACTOR * r for q, r in row.items()}
                    for case, row in FLASH_F32_MMA_SYNC.items()}
 
 
+def flash_bwd_tc_kernels(D: int) -> tuple:
+    """The kernels of one bf16 flash backward at head dim 64 or 128, once
+    each: the row sums of dO * O, the dK/dV pass and the dQ pass."""
+    return ("delta_kernel<__nv_bfloat16>", f"tc::dkdv_ws_kernel<{D}>",
+            f"tc::dq_ws_kernel<{D}>")
+
+
 def flash_live_tiles(Sq, Sk, causal, window, q_offset, dtype, D) -> int:
     """(q tile, k tile) pairs the forward kernel of the route that takes
     (dtype, D) visits per (batch, head): the kernels' own tile skip (none
@@ -849,6 +860,17 @@ class FlashCase:
         for t in out_f.values():
             t["library_factor"] = t["ms"] / t["library_ms"]
             t["bound_share"] = t["bound_ms"] / t["ms"]
+        if self.dtype == torch.bfloat16 and D in FK.WS_BWD_HEAD_DIMS:
+            t = out_f["flash_bwd"]
+            _passes("flash_bwd", t, lambda: FK.flash_bwd(
+                q, k, v, o, lse, do, mode=cuda, **self.kw), case=self.name)
+            launched = sorted(r["name"] for r in t.pop("passes"))
+            want = sorted(flash_bwd_tc_kernels(D))
+            if launched != want or t["kernels_per_call"] != len(want):
+                raise AssertionError(
+                    f"the bf16 flash backward at {self.name} launched "
+                    f"{launched} ({t['kernels_per_call']} a call), not {want} "
+                    f"once each")
         emit("flash.time", case=self.name, **self.shape, **out_f)
         return out_f
 

@@ -27,8 +27,10 @@ With ``--against DIR`` it runs itself as a file once a tree per round
 ``src``, for example a parent commit unpacked into ``build/parent``), in
 the order other, this, this, other, ... for ``--rounds`` rounds, then
 prints each shape's readings of both trees, their medians and the rounds
-in which this tree's reading was the lower.  Compare trees only within
-one call.
+in which this tree's reading was the lower, the same for the backward's
+device ms (``bwd_device_ms``, the sum of ``bwd_passes``), and each
+backward kernel's median device ms over the rounds of each tree
+(``bwd_passes``).  Compare trees only within one call.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ import argparse
 import hashlib
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 
@@ -86,6 +89,16 @@ def one_tree(shapes) -> dict:
             **{name: shape_reading(name, gen) for name in shapes}}
 
 
+def pass_medians(readings) -> dict:
+    """Each kernel's median device ms a call over rounds of
+    ``kernel_split`` readings."""
+    ms = {}
+    for split in readings:
+        for r in split:
+            ms.setdefault(r["name"], []).append(r["device_ms"])
+    return {name: statistics.median(v) for name, v in ms.items()}
+
+
 def rounds(other: str, n: int, shapes) -> dict:
     """``n`` rounds of this file against the tree ``other``: each shape's
     readings of both trees compared (``timing.compare``) and their
@@ -97,6 +110,13 @@ def rounds(other: str, n: int, shapes) -> dict:
         summary[name] = {key: compare([x[name][key] for x in got["other"]],
                                       [x[name][key] for x in got["this"]])
                          for key in READINGS}
+        device = {t: [sum(r["device_ms"] for r in x[name]["bwd_passes"])
+                      for x in got[t]] for t in ("other", "this")}
+        summary[name]["bwd_device_ms"] = compare(device["other"],
+                                                 device["this"])
+        summary[name]["bwd_passes"] = {t: pass_medians(
+            [x[name]["bwd_passes"] for x in got[t]])
+            for t in ("other", "this")}
         summary[name]["digests"] = {t: sorted({x[name]["digest"]
                                                for x in got[t]})
                                     for t in ("other", "this")}

@@ -359,3 +359,30 @@ def test_d256_backward_of_head_groups_adds_up_to_the_whole():
         sk, sv = sk + pk, sv + pv
     torch.testing.assert_close(sk, dk, atol=GRAD_TOL, rtol=GRAD_TOL)
     torch.testing.assert_close(sv, dv, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", [
+    (1, 200, 200, 14, 2, 128, True, None),   # G = 7 (LLaVA-NeXT), ragged
+    (1, 200, 200, 7, 1, 64, True, None),     # G = 7 at head dim 64
+    (1, 150, 70, 2, 2, 64, False, None),     # non-causal, Sq > Sk
+    (1, 70, 150, 4, 1, 128, False, None),    # non-causal, Sq < Sk
+    (2, 96, 160, 8, 2, 128, True, None),     # causal, q_offset, GQA
+], ids=lambda c: "-".join(map(str, c)))
+def test_backward_plain_version_matches_jax_vjp_at_the_card_shapes(case):
+    """``flash_bwd`` on the CPU (its kernels' plain version) at the kinds
+    of shape the card's determinism test takes on the ``tc`` route (seven
+    query heads a kv head; non-causal with more or fewer queries than keys)
+    against ``jax.vjp`` of JAX's ``attention_ref``, within 1e-5
+    (GRAD_TOL)."""
+    from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+    _, Sq, Sk, _, _, _, causal, window = case
+    kw = dict(causal=causal, window=window, q_offset=max(Sk - Sq, 0))
+    q, k, v, g = _inputs(case, seed=3)
+    _, vjp = jax.vjp(lambda a, b, c: jax_ref(a, b, c, **kw), q, k, v)
+    want = vjp(jnp.asarray(g))
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    o, lse = K.flash_fwd(tq, tk, tv, **kw)
+    got = K.flash_bwd(tq, tk, tv, o, lse, tg, **kw)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL, err_msg=f"d{name}")

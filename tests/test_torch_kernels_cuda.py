@@ -597,25 +597,58 @@ def test_flash_rows_with_no_live_key_on_card(dtype, D, causal):
         assert _rel_l2(a, b) <= REL_L2[dtype], name
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
-def test_flash_tensor_core_backward_is_deterministic_on_card(D):
-    """dQ has its own kernel instead of atomics and every dK/dV block owns
-    its keys, so two backward runs on the same inputs (a ragged length
-    that ends inside a tile) give the same bits, on the ``tc`` route."""
-    _card()
-    gen = torch.Generator(device="cuda").manual_seed(D)
+DETERMINISM_CASES = [   # D, Sq, Sk, H, Kv, causal
+    (64, 1000, 1000, 8, 2, True),
+    (128, 1000, 1000, 8, 2, True),
+    (128, 1000, 1000, 56, 8, True),      # G = 7
+    (64, 700, 300, 8, 8, False),        # non-causal, Sq > Sk
+    (128, 300, 700, 8, 2, False),       # non-causal, Sq < Sk
+]
+
+
+def _bf16_case(D, Sq, Sk, H, Kv, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda"
                                     ).bfloat16()
-    q, k, v, do = mk(1, 1000, 8, D), mk(1, 1000, 2, D), mk(1, 1000, 2, D), \
-        mk(1, 1000, 8, D)
-    o, lse = FK.flash_fwd(q, k, v)
+    return mk(1, Sq, H, D), mk(1, Sk, Kv, D), mk(1, Sk, Kv, D), \
+        mk(1, Sq, H, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DETERMINISM_CASES, ids=lambda c: "-".join(
+    map(str, c)))
+def test_flash_tensor_core_backward_is_deterministic_on_card(case):
+    """dQ has its own kernel instead of atomics and every dK/dV block owns
+    its keys, so two backward runs on the same inputs (a ragged length that
+    ends inside a tile; seven query heads a kv head; non-causal with more or
+    fewer queries than keys) give the same bits, on the ``tc`` route."""
+    _card()
+    D, Sq, Sk, H, Kv, causal = case
+    q, k, v, do = _bf16_case(D, Sq, Sk, H, Kv, seed=D + H)
+    kw = dict(causal=causal, q_offset=max(Sk - Sq, 0))
+    o, lse = FK.flash_fwd(q, k, v, **kw)
     before = FK.launch_counts()
-    first = FK.flash_bwd(q, k, v, o, lse, do)
-    second = FK.flash_bwd(q, k, v, o, lse, do)
+    first = FK.flash_bwd(q, k, v, o, lse, do, **kw)
+    second = FK.flash_bwd(q, k, v, o, lse, do, **kw)
     assert FK.launch_counts()["flash_bwd_tc"] == before["flash_bwd_tc"] + 2
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_launches_its_route_kernels_on_card(D):
+    """The bf16 backward at head dims 64 and 128 is three launches a call,
+    ``delta_kernel``, ``dkdv_ws_kernel`` and ``dq_ws_kernel``, and no
+    memset, as ``torch.profiler`` counts them."""
+    _card()
+    from repro_torch.kernels.timing import kernel_split
+    q, k, v, do = _bf16_case(D, 1024, 1024, 32, 8, seed=D)
+    o, lse = FK.flash_fwd(q, k, v)
+    split = kernel_split(lambda: FK.flash_bwd(q, k, v, o, lse, do))
+    assert sorted((r["name"], r["launches_per_call"]) for r in split) == [
+        ("delta_kernel<__nv_bfloat16>", 1), (f"tc::dkdv_ws_kernel<{D}>", 1),
+        (f"tc::dq_ws_kernel<{D}>", 1)], split
 
 
 @pytest.mark.cuda
