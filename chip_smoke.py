@@ -39,15 +39,19 @@ Phases, each printing one JSON line with its seconds:
             relative L2, grant counts and drops equal; each impl's ms.
 4. flash    holds the flash-attention forward and backward kernels to
             their plain versions (autograd through ``attention_ref``) at
-            ten shapes (bfloat16 on the tensor-core kernels at head dims
+            twelve shapes (bfloat16 on the tensor-core kernels at head dims
             128 and 64, a window of 48 keys; Whisper-medium's encoder,
             1,500 frames not causal, and its cross-attention, 4,096
             queries against 1,500 keys; LLaVA-NeXT-34B's 56 query heads
-            over 8 at S=4096; float32 on the FMA kernels), and times
-            kernel, plain version, ``scaled_dot_product_attention`` and
+            over 8 at S=4096; Command R+'s 96 over 8 at S=4096;
+            Mixtral-8x22B's 48 over 8 at S=8192 under its window of 4096;
+            float32 on the FMA kernels), and times
+            kernel, plain version, ``scaled_dot_product_attention`` (where
+            the window cuts keys, its memory-efficient backend with the
+            window as a boolean mask) and
             the FMA kernels on the same bfloat16 inputs at the train shape
-            and at the three new ones (the kernels line's ``shapes``);
-            at each of these four the bf16 backward's kernels' device ms
+            and at the five model shapes (the kernels line's ``shapes``);
+            at each of these six the bf16 backward's kernels' device ms
             (``flash_bwd.passes``), failing unless a call launches
             ``delta_kernel``, ``tc::dkdv_ws_kernel`` and
             ``tc::dq_ws_kernel`` once each and nothing else.
@@ -188,9 +192,36 @@ Phases, each printing one JSON line with its seconds:
             patches at lr 2e-5 (LLaVA-NeXT's published rate; 1e-3
             overshoots at this width on the plain path too), one flash
             backward a layer a step (D=128, G=7).
+8c2. serve_dense.<arch>, train_dense.<arch>
+            the dense family's other published configs at their widths,
+            bf16, random weights from the seed: Qwen2.5-3B (36 layers, its
+            QKV biases drawn from N(0, 0.02), both inits leaving them zero;
+            tied head over 151,936 rows) and Granite-3-2B (40 layers, head
+            dim 64) whole; Mixtral-8x22B cut to 8 of 56 layers (41 GB),
+            its MoE on the crossbar kernels, prefilled at S=8192 so that
+            its window of 4096 cuts half of the keys (the line prints the
+            live (query, key) pairs beside the causal count); Command R+
+            cut to 8 of 64 layers (G = 12; 31.5 GB with the tied 256000 x
+            12288 embedding).  Each is served and prefilled as in 8c
+            (prefill S=4096 but Mixtral-8x22B's; the same checks: tokens
+            and port traffic, every block, the logits, causal flash
+            launches one a layer, all ``tc``; the MoE's crossbar kernels
+            launched; a MoE block is held by its halves, the attention
+            half and the MoE half each on the same input within 2e-2, and
+            as a whole within 2e-2 or else 3x the plain block's reading
+            on its input moved by one bf16 ulp, since the top-2 routing
+            flips some tokens' experts under any rounding difference) and
+            trained as in 8c (3 AdamW steps at S=4096, lr
+            1e-3, remat "dots"; one ``tc`` flash backward a layer a step;
+            Mixtral-8x22B at 1 layer, its crossbar kernels launched).
+            Command R+'s train cell (1 layer: 4.72 B parameters) runs only
+            if ``dryrun.run_cell`` predicts that it fits; else its line
+            says that it was not run.
 8d. launch the launch tools (``repro_torch.launch``).  (a) ``dryrun.run_cell``
             on the ``card`` mesh at microbatches 1, on the meta device
-            with no card, for the cells of phases 6, 8b and 8c: the
+            with no card (in three processes of their own started after
+            the build, so that this host work runs beside the card
+            phases; (e) too), for the cells of phases 6, 8b and 8c: the
             served Mixtral (2 layers) and the whole Mamba-2 780M trained
             at S=4096, B=1, LLaVA-NeXT-34B (60 layers) and Whisper-medium
             prefilled at S=4096; each record on its own line, then a
@@ -200,8 +231,11 @@ Phases, each printing one JSON line with its seconds:
             (``max_memory_allocated``) within 0.8-1.25 of the predicted,
             the train cells' ratio printed; Mixtral-8x7B at 32 layers and
             LLaVA-NeXT-34B at 60 trained at S=4096, B=1 predicted not to
-            fit.  (c) the deprecated fixed-wave ``ServeLoop`` on a rebuilt
-            served Mixtral (the same seed), 4 requests of 16 tokens,
+            fit; the 8c2 cells too: each train cell (Command R+'s, if not
+            run, predicted not to fit) and Command R+'s 8-layer prefill at
+            S=4096, whose peak is held to the same band.  (c) the
+            deprecated fixed-wave ``ServeLoop`` on a rebuilt served
+            Mixtral (the same seed), 4 requests of 16 tokens,
             ``max_new=8``: tokens equal to the same loop on the plain path
             on the card, the crossbar kernels launched.  (d) one train
             step of that model (forward and backward, the kernel path)
@@ -340,7 +374,7 @@ Phases, each printing one JSON line with its seconds:
 ``torch.profiler`` over 8 warm decode steps of the served engine and over
 one more train step, one over each recurrent model's S=32768 prefill and
 one over one more step of each recurrent train cell, one over each S=4096
-prefill and train step of phase 8c; device time by
+prefill and train step of phases 8c and 8c2; device time by
 kernel, the device's idle share, and Chrome traces in ``build/profile/``.  ``--seed N`` (default 0) draws every input, weight
 and prompt from another seed.
 
@@ -349,6 +383,7 @@ exits non-zero before it.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import functools
 import gc
@@ -802,7 +837,10 @@ class FlashCase:
         """(kernel, plain, library, bound) ms for forward and backward; the
         library call is ``scaled_dot_product_attention`` (GQA, causal or
         not as the case) in its head-major layout, the same function where
-        the window is no narrower than the keys.  For
+        the window is no narrower than the keys; where the window cuts
+        keys, the memory-efficient backend with the window as a boolean
+        mask and the kv heads repeated, as ``flash_d256_phase`` times it.
+        For
         bfloat16 also ``fma_ms``: the float32 FMA kernels, which bfloat16
         took before the tensor-core kernels, on the same inputs."""
         from repro_torch.fabric.interface import KernelMode
@@ -820,11 +858,29 @@ class FlashCase:
         o, lse = FK.flash_fwd(q, k, v, mode=cuda, **self.kw)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = ref.attention_ref(*leaves, **self.kw)
-        hm = [t.transpose(1, 2).contiguous().requires_grad_()
+        causal, window = self.kw["causal"], self.kw["window"]
+        cuts = window is not None and window < Sq + self.kw["q_offset"]
+        G = H // k.shape[2]
+        hm = [(t.repeat_interleave(G, dim=2) if cuts and t is not q else t)
+              .transpose(1, 2).contiguous().requires_grad_()
               for t in (q, k, v)]
-        causal = self.kw["causal"]
-        lib_out = F.scaled_dot_product_attention(*hm, is_causal=causal,
-                                                 enable_gqa=True)
+        if cuts:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            q_pos = self.kw["q_offset"] + torch.arange(Sq, device="cuda")
+            k_pos = torch.arange(k.shape[1], device="cuda")
+            mask = k_pos[None, :] > q_pos[:, None] - window
+            if causal:
+                mask &= k_pos[None, :] <= q_pos[:, None]
+
+            def sdpa(*ts):
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return F.scaled_dot_product_attention(*ts,
+                                                          attn_mask=mask)
+        else:
+            def sdpa(*ts):
+                return F.scaled_dot_product_attention(*ts, is_causal=causal,
+                                                      enable_gqa=True)
+        lib_out = sdpa(*hm)
         do_hm = do.transpose(1, 2).contiguous()
         out_f = {}
         b, by = bound(io + B * H * Sq * 4, fwd_ops, rate)
@@ -834,9 +890,8 @@ class FlashCase:
             plain_ms=time_ms(lambda: ref.attention_fwd_ref(q, k, v,
                                                            **self.kw),
                              reps=5),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                *[t.detach() for t in hm], is_causal=causal,
-                enable_gqa=True), reps=10),
+            library_ms=time_ms(lambda: sdpa(*[t.detach() for t in hm]),
+                               reps=10),
             bound_ms=b, bound_by=by)
         if self.dtype == torch.bfloat16:
             out_f["flash_fwd"]["fma_ms"] = time_ms(
@@ -860,6 +915,8 @@ class FlashCase:
         for t in out_f.values():
             t["library_factor"] = t["ms"] / t["library_ms"]
             t["bound_share"] = t["bound_ms"] / t["ms"]
+            t["library"] = ("efficient backend, boolean window mask" if cuts
+                            else "flash-capable, enable_gqa")
         if self.dtype == torch.bfloat16 and D in FK.WS_BWD_HEAD_DIMS:
             t = out_f["flash_bwd"]
             _passes("flash_bwd", t, lambda: FK.flash_bwd(
@@ -873,6 +930,11 @@ class FlashCase:
                     f"once each")
         emit("flash.time", case=self.name, **self.shape, **out_f)
         return out_f
+
+
+# the shapes timed beside the train shape (the kernels line's ``shapes``)
+FLASH_TIMED_SHAPES = ("whisper_encoder", "whisper_cross", "llava_g7",
+                      "command_r_g12", "mixtral22_g6")
 
 
 def flash_phase():
@@ -899,11 +961,17 @@ def flash_phase():
                   False, None, gen),
         FlashCase("llava_g7", 1, VLM_SEQ, VLM_SEQ, 56, 8, 128, bf16, True,
                   None, gen),
+        # Command R+'s prefill (G = 12) and Mixtral-8x22B's at S=8192, whose
+        # window of 4096 cuts half of the keys (G = 6)
+        FlashCase("command_r_g12", 1, TRAIN_SEQ, TRAIN_SEQ, 96, 8, 128, bf16,
+                  True, None, gen),
+        FlashCase("mixtral22_g6", 1, 2 * TRAIN_SEQ, 2 * TRAIN_SEQ, 48, 8,
+                  128, bf16, True, TRAIN_SEQ, gen),
     ]
     errs = [c.check() for c in cases]
     times = cases[0].timings()
     times["shapes"] = {c.name: {**c.shape, **c.timings()}
-                       for c in cases[-3:]}
+                       for c in cases if c.name in FLASH_TIMED_SHAPES}
     err = {"flash_fwd": max(e[0] for e in errs),
            "flash_bwd": max(e[1] for e in errs)}
     return err, times
@@ -3832,6 +3900,58 @@ def blockwise_rel_l2(model, plain, params, batch):
     return out
 
 
+@torch.no_grad()
+def moe_block_halves(model, plain, params, batch, moe_group: int = 1024):
+    """Each block of a MoE ``DenseLM`` fed the plain path's hidden state x,
+    split at its two halves: (a) the attention half's contribution, kernel
+    vs plain path on x; (b) the MoE half's output, kernel vs plain path,
+    fed the same normed residual (the plain path's); (c) the share of
+    tokens whose top-k expert set differs between the router on the two
+    paths' own residuals; (d) the whole block's contribution, kernel vs
+    plain (``blockwise_rel_l2``'s reading), and its control: the plain
+    block fed x moved by one bf16 ulp, against the plain block on x.
+    Returns one dict a block."""
+    from repro_torch.models import attention as A
+    from repro_torch.models.common import rms_norm
+    cfg = model.cfg
+    S = batch["tokens"].shape[1]
+    pos = torch.arange(S, device=model.device)[None, :]
+    x = model._inputs_embed(params, batch)
+    out = []
+    for lp in params["layers"]:
+        def attention(m):
+            h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+            q, k, v = m._qkv(lp["attn"], h, pos)
+            o = A.attention_prefill(q, k, v, causal=True,
+                                    window=cfg.attn_window,
+                                    kernel_mode=m.cfg.kernel_mode)
+            return x + m._attn_out(o, lp["attn"]["wo"])
+
+        a_k, a_p = attention(model), attention(plain)
+        h_k = rms_norm(a_k, lp["norm2"], cfg.norm_eps)
+        h_p = rms_norm(a_p, lp["norm2"], cfg.norm_eps)
+        m_k, m_p = model._ffn(lp, h_p, moe_group)[0], \
+            plain._ffn(lp, h_p, moe_group)[0]
+        experts = [(h @ lp["moe"]["w_router"]).float().topk(
+            cfg.moe.top_k, dim=-1).indices.sort(dim=-1).values
+            for h in (h_k, h_p)]
+        flips = float((experts[0] != experts[1]).any(-1).float().mean())
+        y_k = model._block(lp, x, pos, moe_group)[0]
+        y_p = plain._block(lp, x, pos, moe_group)[0]
+        x_n = (x.view(torch.int16) + 1).view(x.dtype)
+        y_n = plain._block(lp, x_n, pos, moe_group)[0]
+        out.append({"attention": rel_l2(a_k.float() - x.float(),
+                                        a_p.float() - x.float()),
+                    "moe_same_input": rel_l2(m_k.float(), m_p.float()),
+                    "expert_set_flips": flips,
+                    "block": rel_l2(y_k.float() - x.float(),
+                                    y_p.float() - x.float()),
+                    "control_block": rel_l2(y_n.float() - x_n.float(),
+                                            y_p.float() - x.float())})
+        x = y_p
+    return out
+
+
 def rounding_controls(plain_model, params, batch, ref_logits):
     """How far the plain path's own last-token logits move under a
     difference of the size of bf16 rounding, the scale of divergence that
@@ -4348,8 +4468,10 @@ FAMILY_PHASE_KERNELS = ("flash_fwd", "flash_bwd")
 def family_input(cfg, rng):
     """The encoder-decoder's frames [1, F, d] or the vlm's patches
     [1, Pn, d], drawn from N(0, 0.02) with ``rng``, in the model's type on
-    the card."""
+    the card; nothing for the dense and moe families."""
     from repro_torch.models.common import dtype_of
+    if cfg.family in ("dense", "moe"):
+        return {}
     name, rows = {"encdec": ("frames", cfg.encoder_len),
                   "vlm": ("patches", cfg.n_vision_patches)}[cfg.family]
     x = rng.normal(0, INPUT_STD, (1, rows, cfg.d_model)).astype(np.float32)
@@ -4392,41 +4514,123 @@ class AttentionKinds:
         return False
 
 
-def serve_family_phase(arch, phase, smi):
+@dataclasses.dataclass(frozen=True)
+class DenseCell:
+    """One of the dense family's published configs on the card at its
+    widths: the name of its cells in ``launch_cells``, the layers its
+    serve and prefill cell runs (``None``: all of them), the prefill
+    length, the layers its train cell runs (``None``: all), whether the
+    dry run decides that cell first (``train_if_fits``: run only if
+    ``dryrun.run_cell`` predicts a fit, else recorded as predicted not
+    to) and the MoE's dispatch.  Widths are never cut."""
+    arch: str
+    short: str
+    serve_layers: int | None = None
+    prefill_seq: int = TRAIN_SEQ
+    train_layers: int | None = None
+    train_if_fits: bool = False
+    dispatch: str | None = None
+
+    def overrides(self, layers) -> dict:
+        """``published_config``'s overrides for a cell of ``layers``."""
+        from repro_torch.configs import get_config
+        out = {} if layers is None else {"n_layers": layers}
+        if self.dispatch is not None:
+            moe = get_config(self.arch).moe
+            out["moe"] = dataclasses.replace(moe, dispatch=self.dispatch)
+        return out
+
+    def config(self, layers):
+        return published_config(self.arch, **self.overrides(layers))
+
+
+# ROADMAP B20: the four published dense-family configs that ran on the card
+# only at smoke widths.  Mixtral-8x22B's 56 layers and Command R+'s 64 are
+# cut to 8 for serve and prefill (41 and 31.5 GB of bf16); Mixtral-8x22B
+# prefills at S=8192, so that its window of 4096 cuts half of the keys, and
+# its MoE runs on the crossbar kernels as the served Mixtral-8x7B's does.
+# One layer of Command R+ holds 4.72 B parameters (the tied 256000 x 12288
+# embedding is 3.15 B): its AdamW state alone is 56.6 GB, so the dry run
+# decides whether its train cell runs.
+DENSE_CELLS = (
+    DenseCell("qwen2_5_3b", "qwen"),
+    DenseCell("granite_3_2b", "granite"),
+    DenseCell("mixtral_8x22b", "mixtral22", serve_layers=8,
+              prefill_seq=2 * TRAIN_SEQ, train_layers=1,
+              dispatch="cuda_kernel"),
+    DenseCell("command_r_plus_104b", "command_r", serve_layers=8,
+              train_layers=1, train_if_fits=True),
+)
+QKV_BIAS_STD = INPUT_STD
+
+
+@torch.no_grad()
+def draw_qkv_biases(params, seed: int) -> None:
+    """Qwen's ``bq``/``bk``/``bv``, which both inits leave at zero, drawn
+    in place from N(0, 0.02) with ``seed``: the kernel path and the plain
+    path share the tensors, so both carry them."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for lp in params["layers"]:
+        for name in ("bq", "bk", "bv"):
+            b = lp["attn"][name]
+            b.copy_(QKV_BIAS_STD * torch.randn(b.shape, generator=gen,
+                                               device="cuda"))
+
+
+def serve_family_phase(arch, phase, smi, cell=None):
     """A public model at its published widths (Whisper-medium whole,
-    LLaVA-NeXT-34B at all 60 layers), bf16, random weights from the seed,
+    LLaVA-NeXT-34B at all 60 layers; a ``DenseCell``'s config cut to its
+    serve layers), bf16, random weights from the seed (Qwen's QKV biases
+    drawn, ``draw_qkv_biases``),
     behind ``ElasticServer`` on the ``cuda`` fabric with the serve phase's
     requests and ``Shell.post(Grow)``; then ``prefill`` at S=4096, B=1 with
-    1,500 frames or 2,880 patches from N(0, 0.02).  Launches are counted
+    1,500 frames or 2,880 patches from N(0, 0.02) (a dense cell: tokens
+    only, at its prefill length).  Launches are counted
     over exactly the serve and the prefill, and the prefill's flash
-    launches by kind (``AttentionKinds``).  Then the same on the plain
+    launches by kind (``AttentionKinds``); a MoE cell must also launch
+    the crossbar kernels.  Then the same on the plain
     path: token streams and port traffic equal, every block within
-    ``PREFILL_REL`` (``blockwise_rel_l2``), and the last-token logits
+    ``PREFILL_REL`` (``blockwise_rel_l2``; a MoE model's blocks by
+    ``moe_block_halves``: each half on the same input within
+    ``PREFILL_REL``, each whole block within it or else within
+    ``PREFILL_CONTROL_FACTOR`` times its one-ulp control), and the
+    last-token logits
     within ``PREFILL_REL``, or else within ``PREFILL_CONTROL_FACTOR`` times
     the same run's one-ulp control (``rounding_controls``); the line names
     the limit that held.  Returns the launches."""
+    from repro_torch.configs import get_config
     from repro_torch.models.common import tree_leaves, tree_nbytes
     from repro_torch.shell.server import ModelEngine
-    cfg = published_config(arch)
+    cfg = published_config(arch) if cell is None else cell.config(
+        cell.serve_layers)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, PROMPT_LEN).astype(np.int32)
                for _ in range(4)]
     t0 = time.perf_counter()
     engine = ModelEngine(cfg, max_len=PROMPT_LEN + MAX_NEW, seed=SEED)
-    torch.cuda.synchronize()
     model, params = engine.model, engine.params
+    if cfg.qkv_bias:
+        draw_qkv_biases(params, SEED)
+    torch.cuda.synchronize()
     n_params = model.n_params()
     held = sum(p.numel() for p in tree_leaves(params))
     emit(f"{phase}.model", name=cfg.name, family=cfg.family,
-         layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers,
+         layers=cfg.n_layers, published_layers=get_config(arch).n_layers,
+         encoder_layers=cfg.n_encoder_layers,
          d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
-         head_dim=cfg.hd, n_params=n_params, params_held=held,
+         head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab,
+         window=cfg.attn_window, qkv_bias=cfg.qkv_bias,
+         tied_embeddings=cfg.tied_embeddings,
+         moe_dispatch=cfg.moe.dispatch if cfg.moe else None,
+         n_params=n_params, params_held=held,
          param_bytes=held * 2, param_gb=held * 2 / 1e9,
          memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
          init_seconds=time.perf_counter() - t0)
     if n_params != held:
         raise AssertionError(f"n_params {n_params} but {held} held")
-    seq = ENCDEC_SEQ if cfg.family == "encdec" else VLM_SEQ
+    seq = (cell.prefill_seq if cell is not None else
+           ENCDEC_SEQ if cfg.family == "encdec" else VLM_SEQ)
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab, (1, seq)).astype(np.int32)).cuda(),
         **family_input(cfg, rng)}
@@ -4453,7 +4657,12 @@ def serve_family_phase(arch, phase, smi):
                        "param_bytes": tree_nbytes(params), "opt_state_bytes": 0}
     comps = sorted(server.completions, key=lambda c: c.rid)
     n_tok = sum(len(c.tokens) for c in comps)
-    emit(phase, smi=smi, model=cfg.name, requests=len(comps),
+    # (query, key) pairs a head that the prefill's attention needs: the
+    # window cuts keys where it is shorter than the sequence
+    pairs = {"live": flash_live_pairs(seq, seq, True, cfg.attn_window, 0),
+             "causal": seq * (seq + 1) // 2}
+    emit(phase, smi=smi, model=cfg.name, layers=cfg.n_layers,
+         published_layers=get_config(arch).n_layers, requests=len(comps),
          ticks=server.tick, wall_s=wall, tokens=n_tok,
          tokens_per_s=n_tok / wall, serve_max_memory_allocated=serve_peak,
          serve_max_memory_gb=serve_peak / 1e9, prefill_seq=seq,
@@ -4461,7 +4670,8 @@ def serve_family_phase(arch, phase, smi):
          prefill_s=prefill_s, prefill_tokens_per_s=seq / prefill_s,
          prefill_max_memory_allocated=prefill_peak,
          prefill_max_memory_gb=prefill_peak / 1e9,
-         flash_by_kind=kinds.calls,
+         flash_by_kind=kinds.calls, window=cfg.attn_window,
+         flash_live_pairs=pairs,
          **({"cross_cache": "zero, as in the JAX package: served tokens "
                             "do not depend on the frames"}
             if cfg.family == "encdec" else {}),
@@ -4482,6 +4692,9 @@ def serve_family_phase(arch, phase, smi):
     if launches["flash_fwd"] != sum(want.values()):
         raise AssertionError(f"{phase}: kernels {launches}")
     check_flash_route(launches, cfg.dtype, phase, ("flash_fwd",))
+    if cfg.moe is not None and any(launches[k] <= 0 for k in SERVE_KERNELS):
+        raise AssertionError(f"{phase}: the MoE launched no crossbar "
+                             f"kernel: {launches}")
 
     # the same requests and the same prefill on the plain path
     t0 = time.perf_counter()
@@ -4499,14 +4712,33 @@ def serve_family_phase(arch, phase, smi):
         plain_prefill_s = time.perf_counter() - t1
         control_name, control = rounding_controls(plain.model, params,
                                                   batch, ref_logits)
-        blocks = blockwise_rel_l2(model, plain.model, params, batch)
+        if cfg.moe is None:
+            blocks = blockwise_rel_l2(model, plain.model, params, batch)
+            halves = None
+        else:
+            halves = moe_block_halves(model, plain.model, params, batch)
+            blocks = [h["block"] for h in halves]
     rel = rel_l2(logits.float(), ref_logits.float())
     finite = bool(torch.isfinite(logits).all())
     limit = ("rel_l2" if rel <= PREFILL_REL else
              "control" if rel <= PREFILL_CONTROL_FACTOR * control else None)
+    if halves is None:
+        blocks_ok, moe_blocks = max(blocks) <= PREFILL_REL, {}
+    else:
+        # top-k routing is discontinuous: a rounding-sized difference
+        # flips some tokens' experts, so a MoE block is held by its halves
+        # on the same input, and as a whole by its own one-ulp control
+        # (moe_block_halves; ROADMAP C)
+        held = ["rel_l2" if h["block"] <= PREFILL_REL else
+                "control" if h["block"] <= PREFILL_CONTROL_FACTOR
+                * h["control_block"] else None for h in halves]
+        half_max = max(max(h["attention"], h["moe_same_input"])
+                       for h in halves)
+        blocks_ok = half_max <= PREFILL_REL and None not in held
+        moe_blocks = {"block_halves": halves, "block_half_max": half_max,
+                      "block_limit_held": held}
     ok = (same_tokens and same_traffic and finite and limit is not None
-          and max(blocks) <= PREFILL_REL
-          and tuple(logits.shape) == (1, cfg.vocab_padded))
+          and blocks_ok and tuple(logits.shape) == (1, cfg.vocab_padded))
     emit(f"{phase}.check", plain_wall_s=ref_wall, same_tokens=same_tokens,
          same_port_traffic=same_traffic, prefill_finite=finite,
          prefill_shape=list(logits.shape), prefill_rel_l2=rel,
@@ -4514,8 +4746,8 @@ def serve_family_phase(arch, phase, smi):
          control_rel_l2=control,
          control_tol=PREFILL_CONTROL_FACTOR * control, limit_held=limit,
          block_rel_l2_max=max(blocks), block_rel_l2=blocks,
-         block_tol=PREFILL_REL, plain_prefill_s=plain_prefill_s,
-         seconds=time.perf_counter() - t0)
+         block_tol=PREFILL_REL, **moe_blocks,
+         plain_prefill_s=plain_prefill_s, seconds=time.perf_counter() - t0)
     if not ok:
         raise AssertionError(f"{phase} disagrees with the plain path")
     if "--profile" in sys.argv[1:]:
@@ -4527,28 +4759,40 @@ def serve_family_phase(arch, phase, smi):
     return launches
 
 
-def train_family_phase(arch, phase, smi, layers=None, lr=TRAIN_LR):
+def train_family_phase(arch, phase, smi, layers=None, lr=TRAIN_LR,
+                       cell=None):
     """``make_train_step`` with AdamW (lr 1e-3 unless ``lr`` says) on a
     public model at its
-    published widths (``layers`` of them, all by default), bf16, remat
-    "dots", random weights from the seed: 3 steps on one batch of
+    published widths (``layers`` of them, all by default; a ``DenseCell``'s
+    train layers and dispatch), bf16, remat
+    "dots", random weights from the seed (Qwen's QKV biases drawn): 3 steps
+    on one batch of
     ``train_4k`` cut to B=1 (S=4096) with 1,500 frames or 2,880 patches.
     Losses finite and the 3rd below the 1st; exactly one flash backward a
     step per attention call (Whisper: 24 encoder, 24 decoder and 24 cross;
-    LLaVA: one a layer), all on the tensor-core route.  Returns the steps'
+    LLaVA and the dense cells: one a layer), all on the tensor-core route;
+    a MoE cell also launches the crossbar kernels.  Returns the steps'
     launches."""
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_nbytes
     from repro_torch.models.lm import build_model
     from repro_torch.optim.adamw import AdamW
     t0 = time.perf_counter()
-    cfg = published_config(arch, **({"n_layers": layers} if layers else {}))
+    if cell is not None:
+        cfg = cell.config(cell.train_layers)
+    else:
+        cfg = published_config(arch,
+                               **({"n_layers": layers} if layers else {}))
     if cfg.remat != "dots":
         raise AssertionError(f"{arch} does not default to remat dots")
     model = build_model(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     params = model.init(gen)
+    if cfg.qkv_bias:
+        draw_qkv_biases(params, SEED)
     batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
         SEED, 0, 0, 1, 1, TRAIN_SEQ, cfg.vocab).items()}
     batch.update(family_input(cfg, np.random.default_rng(SEED)))
@@ -4567,16 +4811,23 @@ def train_family_phase(arch, phase, smi, layers=None, lr=TRAIN_LR):
         losses.append(float(loss))
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
+    MEASURED[phase] = {"max_memory_allocated": peak,
+                       "param_bytes": tree_nbytes(params),
+                       "opt_state_bytes": tree_nbytes([state.m, state.v])}
     calls = cfg.n_encoder_layers + cfg.n_layers * (
         2 if cfg.family == "encdec" else 1)
     want = {"flash_bwd": calls * TRAIN_STEPS,
             "flash_bwd_tc": calls * TRAIN_STEPS}
+    want_more = SERVE_KERNELS if cfg.moe is not None else ()
     emit(phase, smi=smi, model=cfg.name, layers=cfg.n_layers,
+         published_layers=get_config(arch).n_layers,
          encoder_layers=cfg.n_encoder_layers, d_model=cfg.d_model,
          n_params=model.n_params(), batch=1, seq=TRAIN_SEQ,
          inputs={k: list(v.shape) for k, v in batch.items()},
          remat=cfg.remat, lr=lr, losses=losses, step_wall_ms=walls,
          max_memory_allocated=peak, max_memory_gb=peak / 1e9,
+         param_bytes=MEASURED[phase]["param_bytes"],
+         opt_state_bytes=MEASURED[phase]["opt_state_bytes"],
          kernels=launches, backward_launches_expected=want,
          seconds=time.perf_counter() - t0)
     if not all(np.isfinite(losses)):
@@ -4584,9 +4835,10 @@ def train_family_phase(arch, phase, smi, layers=None, lr=TRAIN_LR):
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{phase}: the loss did not fall: {losses}")
     if any(launches[k] != n for k, n in want.items()) \
-            or launches["flash_fwd"] <= 0:
+            or launches["flash_fwd"] <= 0 \
+            or any(launches[k] <= 0 for k in want_more):
         raise AssertionError(f"{phase}: kernels {launches}, backward "
-                             f"launches wanted {want}")
+                             f"launches wanted {want} and {want_more}")
     check_flash_route(launches, cfg.dtype, phase)
     if "--profile" in sys.argv[1:]:
         profile(f"{phase}.profile", lambda: step(params, state, batch), 1)
@@ -4610,10 +4862,128 @@ def encdec_f32_check(phase):
                     FAMILY_PHASE_KERNELS)
 
 
+def dense_train_cell(cell):
+    """(name, arch, shape, overrides) of a ``DenseCell``'s train cell as
+    ``launch_cells`` names it."""
+    return (f"{cell.short}_train", cell.arch, train_shape(),
+            {"dtype": "bfloat16", **cell.overrides(cell.train_layers)})
+
+
+def dense_phases(smi):
+    """Each of ``DENSE_CELLS``: ``serve_dense.<arch>`` (serve and prefill,
+    ``serve_family_phase``) and ``train_dense.<arch>``
+    (``train_family_phase``).  A cell with ``train_if_fits`` first runs its
+    dry run (``dryrun.run_cell`` on the ``card`` mesh at microbatches 1,
+    ``dry_run``): predicted not to fit, the train phase's line says so
+    and the step is not run.  Returns {phase: launches}."""
+    from repro_torch.launch.dryrun import HBM_BUDGET
+    paths = {}
+    for cell in DENSE_CELLS:
+        phase = f"serve_dense.{cell.arch}"
+        paths[phase] = serve_family_phase(cell.arch, phase, smi, cell=cell)
+        phase = f"train_dense.{cell.arch}"
+        if cell.train_if_fits:
+            t0 = time.perf_counter()
+            name = dense_train_cell(cell)[0]
+            rec, dry_s = dry_run(name)
+            if not rec["fits_hbm"]:
+                emit(phase, smi=smi, run=False, layers=cell.train_layers,
+                     reason="the dry run predicts that the step does not "
+                            "fit the card", cell=name,
+                     hbm_budget=HBM_BUDGET, **{k: rec[k] for k in (
+                         "param_bytes", "opt_state_bytes",
+                         "peak_memory_est", "fits_hbm")},
+                     dry_run_seconds=dry_s, seconds=time.perf_counter() - t0)
+                continue
+        paths[phase] = train_family_phase(cell.arch, phase, smi, cell=cell)
+    return paths
+
+
 # ----------------------------------------------------------------------
 # the launch tools: dry runs on the meta device against what the card
 # measured, the fixed-wave ServeLoop, routing by address on the kernels
 # ----------------------------------------------------------------------
+POD_CELLS = ("mixtral_8x7b", "tinyllama_1_1b")   # train_4k on the pod mesh
+# the dry runs are host work on the meta device that no card phase waits
+# on: ``start_dry_runs`` runs them in processes of their own while the
+# card phases run, each process taking one list (the pod cells first: the
+# longest); ``dry_run`` reads their records
+DRY_RUN_LISTS = (
+    ("pod:mixtral_8x7b", "mixtral_train", "mamba_train", "llava_prefill",
+     "whisper_prefill"),
+    ("pod:tinyllama_1_1b", "mixtral_32_train", "llava_60_train",
+     "command_r_prefill"),
+    ("command_r_train", "qwen_train", "granite_train", "mixtral22_train"),
+)
+# cell -> (record, seconds): the dry runs done, here or in the processes
+DRY_RUNS = {}
+DRY_PROCS = []
+_DRY_CHILD = """
+import json, sys, time
+from pathlib import Path
+sys.path[:0] = [sys.argv[1], str(Path(sys.argv[1], "src"))]
+import chip_smoke
+from repro_torch.launch.dryrun import run_cell
+cells = chip_smoke.launch_cells()
+for name in sys.argv[2:]:
+    t0 = time.perf_counter()
+    if name.startswith("pod:"):
+        rec = run_cell(name[4:], "train_4k", "pod",
+                       out_dir=Path(sys.argv[1], "build", "dryrun"))
+    else:
+        arch, shape, overrides, _ = cells[name]
+        rec = run_cell(arch, shape, "card", overrides=overrides,
+                       microbatches=1,
+                       out_dir=Path(sys.argv[1], "build", "dryrun"))
+    print(json.dumps({"cell": name, "seconds": time.perf_counter() - t0,
+                      "record": rec}), flush=True)
+"""
+
+
+def start_dry_runs() -> None:
+    """Start one process a list of ``DRY_RUN_LISTS`` (one thread each,
+    ``OMP_NUM_THREADS=1``); ``stop_dry_runs`` ends any still running."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    for cells in DRY_RUN_LISTS:
+        DRY_PROCS.append(subprocess.Popen(
+            [sys.executable, "-c", _DRY_CHILD, HERE, *cells], cwd=HERE,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+
+
+def stop_dry_runs() -> None:
+    for proc in DRY_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def dry_run(name):
+    """(record, seconds) of launch cell ``name`` (``"pod:<arch>"``: that
+    arch's ``train_4k`` on the pod mesh): from the processes of
+    ``start_dry_runs``, waiting for them; else run here."""
+    import pathlib
+    from repro_torch.launch.dryrun import run_cell
+    while name not in DRY_RUNS and DRY_PROCS:
+        proc = DRY_PROCS.pop(0)
+        out, _ = proc.communicate(timeout=TP_TIMEOUT)
+        if proc.returncode:
+            raise AssertionError(f"a dry-run process failed:\n{out[-3000:]}")
+        for line in out.splitlines():
+            if line.startswith('{"cell"'):
+                got = json.loads(line)
+                DRY_RUNS[got["cell"]] = (got["record"], got["seconds"])
+    if name not in DRY_RUNS:
+        t0 = time.perf_counter()
+        out_dir = pathlib.Path(HERE, "build", "dryrun")
+        if name.startswith("pod:"):
+            rec = run_cell(name[4:], "train_4k", "pod", out_dir=out_dir)
+        else:
+            arch, shape, overrides, _ = launch_cells()[name]
+            rec = run_cell(arch, shape, "card", out_dir=out_dir,
+                           overrides=overrides, microbatches=1)
+        DRY_RUNS[name] = (rec, time.perf_counter() - t0)
+    return DRY_RUNS[name]
 PREFILL_PEAK_BAND = (0.8, 1.25)   # measured / predicted peak, prefill cells
 LAUNCH_KERNELS = SERVE_KERNELS + ("flash_fwd", "flash_bwd")
 
@@ -4627,14 +4997,16 @@ def launch_cells():
     "dots"), LLaVA-NeXT-34B at all 60 layers and the whole Whisper-medium
     (bf16); and Mixtral-8x7B at its 32 layers and LLaVA-NeXT-34B at its 60
     trained at ``train_shape()``, the two that section 4 of PERF.md says
-    exceed 80 GB."""
+    exceed 80 GB; and the ``DENSE_CELLS``: each train cell (Command R+'s
+    only where the dry run predicted a fit; else it must be predicted not
+    to fit) and Command R+'s 8-layer prefill at S=4096."""
     from repro_torch.models.config import ShapeConfig
     served = serving_config()
     mixtral = {"n_layers": served.n_layers, "dtype": served.dtype,
                "remat": served.remat, "moe": served.moe}
     prefill = ShapeConfig("prefill_4k_b1", ENCDEC_SEQ, 1, "prefill")
     bf16 = {"dtype": "bfloat16"}
-    return {
+    cells = {
         "mixtral_train": ("mixtral_8x7b", train_shape(), mixtral, "train"),
         "mamba_train": ("mamba2_780m", train_shape(),
                         {**bf16, "n_layers": TRAIN_LAYERS["mamba2_780m"]},
@@ -4646,6 +5018,16 @@ def launch_cells():
                              {**mixtral, "n_layers": 32}, None),
         "llava_60_train": ("llava_next_34b", train_shape(), bf16, None),
     }
+    for cell in DENSE_CELLS:
+        name, arch, shape, overrides = dense_train_cell(cell)
+        phase = f"train_dense.{arch}"
+        cells[name] = (arch, shape, overrides,
+                       phase if phase in MEASURED else None)
+        if cell.short == "command_r":
+            cells["command_r_prefill"] = (
+                arch, prefill, {**bf16, **cell.overrides(cell.serve_layers)},
+                f"serve_dense.{arch}")
+    return cells
 
 
 def launch_dry_runs():
@@ -4653,21 +5035,21 @@ def launch_dry_runs():
     microbatches 1, with no card (the meta device), held against what its
     phase measured on the card in this run.  Parameter and optimizer bytes
     must equal the bytes the phase allocated, as integers; the cells the
-    card ran must be predicted to fit and the two over-80-GB ones not to;
+    card ran must be predicted to fit and those it did not run (Mixtral-8x7B
+    at 32 layers and LLaVA-NeXT-34B at 60 trained; Command R+'s train cell
+    where its dry run said so) not to;
     the prefill cells' measured peak over the predicted must lie in
-    ``PREFILL_PEAK_BAND`` (the train cells' ratio is printed only: the
+    ``PREFILL_PEAK_BAND`` (the records come from ``dry_run``; the train
+    cells' ratio is printed only: the
     plain path on meta keeps chunked-attention and SSD intermediates that
     the kernels do not)."""
-    import pathlib
-    from repro_torch.launch.dryrun import HBM_BUDGET, run_cell
-    out_dir = pathlib.Path(HERE, "build", "dryrun")
+    from repro_torch.launch.dryrun import HBM_BUDGET
     table, failed = {}, []
     for name, (arch, shape, overrides, phase) in launch_cells().items():
         t0 = time.perf_counter()
-        rec = run_cell(arch, shape, "card", out_dir=out_dir,
-                       overrides=overrides, microbatches=1)
-        emit("launch.dryrun", cell=name, seconds=time.perf_counter() - t0,
-             record=rec)
+        rec, dry_s = dry_run(name)
+        emit("launch.dryrun", cell=name, seconds=dry_s,
+             waited_seconds=time.perf_counter() - t0, record=rec)
         row = {k: rec[k] for k in (
             "param_bytes", "opt_state_bytes", "peak_memory_est", "fits_hbm",
             "flops_per_device", "roofline_fraction", "holdout_rel_err")}
@@ -4698,28 +5080,20 @@ def launch_dry_runs():
     return table
 
 
-POD_CELLS = ("mixtral_8x7b", "tinyllama_1_1b")   # train_4k on the pod mesh
-
-
 def launch_pod_dry_runs():
     """(e): ``train_4k`` of Mixtral-8x7B (32 layers) and TinyLlama-1.1B on
     the ``pod`` mesh (16 x 16), one device's program on the meta device
     (host work only): FLOPs, bytes and collectives a device, peak and
-    ``fits_hbm``, each with its seconds."""
-    import pathlib
-    from repro_torch.launch.dryrun import run_cell
-    out_dir = pathlib.Path(HERE, "build", "dryrun")
+    ``fits_hbm``, each with its seconds (``dry_run``)."""
     table = {}
     for arch in POD_CELLS:
-        t0 = time.perf_counter()
-        rec = run_cell(arch, "train_4k", "pod", out_dir=out_dir)
+        rec, dry_s = dry_run(f"pod:{arch}")
         keys = ("chips", "microbatches", "flops_per_device",
                 "bytes_per_device", "collective_bytes_per_device",
                 "collectives", "peak_memory_est", "fits_hbm", "bottleneck",
                 "roofline_fraction", "holdout_rel_err", "param_bytes",
                 "opt_state_bytes")
-        table[arch] = {"seconds": time.perf_counter() - t0,
-                       **{k: rec[k] for k in keys}}
+        table[arch] = {"seconds": dry_s, **{k: rec[k] for k in keys}}
         emit("launch.pod", cell=arch, **table[arch])
     bad = [a for a, r in table.items() if not (
         r["flops_per_device"] > 0 and r["collectives"]
@@ -4833,7 +5207,9 @@ def launch_routing(engine):
 
 
 def launch_phase(smi):
-    """The launch tools (``repro_torch.launch``): (a) the dry runs, (c)
+    """The launch tools (``repro_torch.launch``): (a) the dry runs (done
+    beside the card phases, ``start_dry_runs``: the line's dry-run seconds
+    are the waits for them), (c)
     ``ServeLoop`` and (d) routing by address on a rebuilt served Mixtral
     ((b), ``build_step``, is the train phase's step).  Launches are counted
     over exactly (c) and (d).  Returns them."""
@@ -5241,6 +5617,10 @@ def main() -> int:
          nvcc_seconds=dict(build.build_seconds),
          libraries=[build.library_path(n, srcs).name
                     for n, srcs in libs.items()])
+    # the launch phase's dry runs, host work on the meta device, run
+    # beside the card phases from here on
+    start_dry_runs()
+    atexit.register(stop_dry_runs)
 
     # 3. crossbar kernels ---------------------------------------------
     from repro_torch.models.moe import expert_capacity
@@ -5344,6 +5724,9 @@ def main() -> int:
         "llava_next_34b", "serve_vlm.train", smi, layers=VLM_TRAIN_LAYERS,
         lr=VLM_TRAIN_LR)
 
+    # 8c2. the dense family's other published configs at their widths ----
+    dense_launches = dense_phases(smi)
+
     # 8d. the launch tools: dry runs against this run, ServeLoop, routing --
     launch_launches = launch_phase(smi)
 
@@ -5381,6 +5764,7 @@ def main() -> int:
              "train_encdec": encdec_train_launches,
              "serve_vlm": vlm_launches,
              "serve_vlm.train": vlm_train_launches,
+             **dense_launches,
              "launch": launch_launches,
              "paper_usecase": usecase_launches, "plan_shims": plan_launches,
              "smoke_widths": smoke_launches,
@@ -5450,11 +5834,12 @@ def main() -> int:
                 p: {r: c.get(f"{name}_{r}", 0) for r in ("tc", "fma")}
                 for p, c in paths.items() if c.get(name, 0)},
             "shape": "B=1 S=4096 H=32 Kv=8 D=128 bf16 causal window=4096",
-            # the encoder-decoder's and the vlm's shapes, timed alike
+            # the encoder-decoder's, the vlm's and the dense cells' shapes
             "shapes": {case: {k: v for k, v in t_case.items()
                               if k not in ("flash_fwd", "flash_bwd")}
                        | {k: t_case[name][k] for k in timing_keys
-                          + ("fma_ms", "library_factor", "bound_share")}
+                          + ("fma_ms", "library_factor", "bound_share",
+                             "library")}
                        for case, t_case in flash_t["shapes"].items()},
         })
     rows.append({

@@ -449,6 +449,10 @@ FLASH_CASES = [   # B, Sq, Sk, H, Kv, D, causal, window, dtype
     #   the 128-key tile edge at 384, q_offset 300
     (1, 201, 201, 14, 2, 128, True, None, torch.bfloat16),  # G = 7, ragged
     (1, 700, 300, 8, 8, 128, False, None, torch.bfloat16),  # Sq > Sk
+    # Command R+'s GQA group of 12 and Mixtral-8x22B's of 6 with a window
+    # that cuts keys:
+    (1, 1000, 1000, 24, 2, 128, True, None, torch.bfloat16),  # G = 12
+    (1, 1000, 1000, 12, 2, 128, True, 256, torch.bfloat16),   # G = 6, window
 ]
 FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -597,12 +601,14 @@ def test_flash_rows_with_no_live_key_on_card(dtype, D, causal):
         assert _rel_l2(a, b) <= REL_L2[dtype], name
 
 
-DETERMINISM_CASES = [   # D, Sq, Sk, H, Kv, causal
+DETERMINISM_CASES = [   # D, Sq, Sk, H, Kv, causal[, window]
     (64, 1000, 1000, 8, 2, True),
     (128, 1000, 1000, 8, 2, True),
     (128, 1000, 1000, 56, 8, True),      # G = 7
     (64, 700, 300, 8, 8, False),        # non-causal, Sq > Sk
     (128, 300, 700, 8, 2, False),       # non-causal, Sq < Sk
+    (128, 1000, 1000, 24, 2, True),     # G = 12
+    (128, 1000, 1000, 12, 2, True, 256),    # G = 6, a window that cuts
 ]
 
 
@@ -621,11 +627,13 @@ def test_flash_tensor_core_backward_is_deterministic_on_card(case):
     """dQ has its own kernel instead of atomics and every dK/dV block owns
     its keys, so two backward runs on the same inputs (a ragged length that
     ends inside a tile; seven query heads a kv head; non-causal with more or
-    fewer queries than keys) give the same bits, on the ``tc`` route."""
+    fewer queries than keys; twelve, and six under a window that cuts)
+    give the same bits, on the ``tc`` route."""
     _card()
-    D, Sq, Sk, H, Kv, causal = case
+    D, Sq, Sk, H, Kv, causal, *window = case
     q, k, v, do = _bf16_case(D, Sq, Sk, H, Kv, seed=D + H)
-    kw = dict(causal=causal, q_offset=max(Sk - Sq, 0))
+    kw = dict(causal=causal, q_offset=max(Sk - Sq, 0),
+              window=window[0] if window else None)
     o, lse = FK.flash_fwd(q, k, v, **kw)
     before = FK.launch_counts()
     first = FK.flash_bwd(q, k, v, o, lse, do, **kw)
